@@ -1,0 +1,83 @@
+'''
+First-use build of the CUDA kernels: `nvcc` compiles csrc/*.cu for sm_90a
+into a shared library with a plain C interface under `_build/<digest>/`
+(git-ignored), loaded with ctypes. The digest covers the sources and the
+compiler flags, so editing a kernel rolls the build over. No PyTorch headers
+are included by the kernels, which keeps a build at a few seconds.
+'''
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+from . import _KERNEL_SOURCES, kernelSourceDigest
+
+# -fmad=false: the kernel rounds every multiply and add separately, exactly
+# like the plain PyTorch version it is held against (eager tensor ops never
+# contract a*b+c). With contraction on, a hit one ulp from a trim edge or a
+# bin edge lands differently in the two versions.
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-fmad=false', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_loaded = {}
+
+
+def _findNvcc():
+  nvcc = shutil.which('nvcc')
+  if nvcc is None:
+    for cand in (os.path.join(os.environ.get('CUDA_HOME', ''), 'bin', 'nvcc'),
+                 '/usr/local/cuda/bin/nvcc'):
+      if os.path.isfile(cand):
+        nvcc = cand
+        break
+  if nvcc is None:
+    raise RuntimeError('nvcc not found: the CUDA kernels build at first use '
+                       'and need the CUDA toolkit (nvcc on PATH, or CUDA_HOME)')
+  return nvcc
+
+
+def buildDir(flags):
+  base = os.path.dirname(__file__)
+  key = hashlib.sha1((kernelSourceDigest() + ' '.join(flags)).encode())
+  return os.path.join(base, '_build', key.hexdigest()[:12])
+
+
+def buildKernels(flags=None):
+  '''Compile (once per source digest) and load the kernel library. Returns
+  (ctypes library, info) with info = dict(path, seconds, log, cached).
+  One nvcc process per source, all started together; a failed build raises
+  with nvcc's output. `flags` defaults to NVCC_FLAGS (read at call time).'''
+  flags = tuple(NVCC_FLAGS if flags is None else flags)
+  if flags in _loaded:
+    return _loaded[flags]
+  base = os.path.dirname(__file__)
+  out = buildDir(flags)
+  os.makedirs(out, exist_ok=True)
+  t0 = time.time()
+  jobs, logs, cached = [], [], True
+  for rel in _KERNEL_SOURCES:
+    src = os.path.join(base, rel)
+    lib = os.path.join(out, 'lib' + os.path.splitext(
+        os.path.basename(rel))[0] + '.so')
+    if not os.path.isfile(lib):
+      cached = False
+      tmp = lib + f'.tmp{os.getpid()}'
+      cmd = [_findNvcc(), *flags, '-o', tmp, src]
+      jobs.append((cmd, tmp, lib, subprocess.Popen(
+          cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+  for cmd, tmp, lib, proc in jobs:
+    log, _ = proc.communicate()
+    logs.append(log)
+    if proc.returncode != 0:
+      raise RuntimeError(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n'
+                         f'{log}')
+    os.replace(tmp, lib)            # atomic: concurrent builds never race
+  libs = [ctypes.CDLL(os.path.join(out, 'lib' + os.path.splitext(
+      os.path.basename(rel))[0] + '.so')) for rel in _KERNEL_SOURCES]
+  info = dict(path=out, seconds=time.time() - t0, log='\n'.join(logs),
+              cached=cached)
+  _loaded[flags] = (libs[0], info)
+  return _loaded[flags]

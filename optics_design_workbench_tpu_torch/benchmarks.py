@@ -1,0 +1,101 @@
+'''
+Benchmark scenes and the step factory of the main path (counterpart of the
+JAX package's benchmarks.py): the headline scene mirrors
+examples/2-lens-and-mirror — Gaussian point source -> plano-convex lens ->
+45deg fold mirror -> absorbing detector — so every ray traces ~4 segments
+with refraction, reflection and medium tracking on the path, plus the
+simpler examples/1 source->detector scene.
+'''
+
+import numpy as np
+
+from . import resolveDevice
+from .models import Scene, PointSource, OpticalGroup
+from .geometry import surfaces as S
+from .geometry import transforms as T
+from .tracing import fused
+from .ops import cuda_trace
+
+
+def buildSourceDetectorScene(tmpdir=None):
+  '''examples/1-source-and-detector analog.'''
+  scene = Scene(label='bench1', path=tmpdir and f'{tmpdir}/bench1')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(60., 60.))],
+      placements=[T.translation(0, 0, 100)]))
+  scene.addSource(PointSource(
+      Label='Source', PowerDensity='exp(-theta^2/0.01)',
+      ThetaDomain='0, pi/4', Wavelength=532.,
+      ThetaResolutionNumericMode='2e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=2)
+  return scene
+
+
+def buildLensMirrorScene(tmpdir=None):
+  '''examples/2-lens-and-mirror analog: lens at z=50 focuses the beam, a
+  45 deg fold mirror at z=150 bends it to +x, detector plane at x=100.'''
+  scene = Scene(label='bench2', path=tmpdir and f'{tmpdir}/bench2')
+  R, aperture, thickness = 60., 25., 6.
+  sagMax = R - np.sqrt(R ** 2 - aperture ** 2)
+  lens = OpticalGroup(
+      OpticalType='Lens', Label='Lens', RefractiveIndex=1.5,
+      surfaces=[
+          S.sphere(T.translation(0, 0, R), elem=0, radius=R,
+                   zRange=(-R, -R + sagMax + 1e-6), orient=+1),
+          S.plane(T.translation(0, 0, thickness), elem=0, radius=aperture,
+                  orient=+1),
+          S.cylinder(T.translation(0, 0, thickness / 2), elem=0,
+                     radius=aperture, zRange=(-thickness / 2, thickness / 2),
+                     orient=+1),
+      ],
+      placements=[T.translation(0, 0, 50)])
+  scene.addOpticalGroup(lens)
+  mirror = OpticalGroup(
+      OpticalType='Mirror', Label='FoldMirror', Reflectivity=0.98,
+      surfaces=[S.plane(np.eye(4), elem=0, radius=40.)],
+      placements=[T.compose(T.translation(0, 0, 150),
+                            T.rotation((0, 1, 0), 45))])
+  scene.addOpticalGroup(mirror)
+  detector = OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(60., 60.))],
+      placements=[T.compose(T.translation(-100, 0, 150),
+                            T.rotation((0, 1, 0), 90))])
+  scene.addOpticalGroup(detector)
+  scene.addSource(PointSource(
+      Label='Source', PowerDensity='exp(-theta^2/0.02)',
+      ThetaDomain='0, 0.35', Wavelength=532.,
+      ThetaResolutionNumericMode='2e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=6)
+  return scene
+
+
+def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,
+                  bins=(128, 128), stratified=False, device='cuda'):
+  '''Compile the fused sample+trace+histogram step for a benchmark scene.
+  Returns (step, histograms, meta). step: (seed, hist) -> (hist, counters)
+  with `seed` a python int or a torch.Generator; `hist` is accumulated in
+  place. On the card the step is ONE launch of the CUDA trace kernel with
+  the in-kernel sampler; an ineligible scene raises (no batch-tracer
+  fallback in this slice). device='cpu' runs the kernel's plain PyTorch
+  version; the default 'cuda' raises without a card.'''
+  dev = resolveDevice(device)
+  if scene is None:
+    scene = buildLensMirrorScene()
+  sceneHost, info = scene.compile(device=None)
+  src = scene.lightSources()[0]
+  histSpec = fused.makeHistogramSpec(sceneHost, info,
+                                     bounds=(-60., 60., -60., 60.),
+                                     bins=bins)
+  hist = fused.initHistograms(histSpec, device=dev)
+  settings = scene.activeSimulationSettings()
+  step = cuda_trace.makeTraceStep(
+      sceneHost, histSpec, src.deviceColumnsGenerator(device=dev),
+      raysPerStep=raysPerStep, maxIntersections=maxIntersections,
+      maxRayLength=settings.maxRayLength(),
+      distTol=max(settings.distanceTolerance(), 1e-4), powerTol=1e-6,
+      stratified=stratified, sampler=src.samplerSpec(), device=dev)
+  return step, hist, dict(scene=scene, device=sceneHost, info=info,
+                          histSpec=histSpec,
+                          backend='cuda' if dev.type == 'cuda' else 'plain')

@@ -1,0 +1,6 @@
+from .scene import Scene
+from .settings import SimulationSettings, STORE_HIT_KEYS
+from .optical_group import OpticalGroup, OPTICAL_TYPES
+from .generic_source import GenericSource
+from .point_source import PointSource
+from . import common

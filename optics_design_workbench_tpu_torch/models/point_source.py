@@ -1,0 +1,263 @@
+'''
+Point light source with symbolic power density (counterpart of the JAX
+package's models/point_source.py; reference semantics:
+freecad_elements/point_source.py):
+
+  * PowerDensity expression in theta/phi/r/x/y; FocalLength 0 (pure point),
+    finite (converging/diverging through a focus) or 'inf' (collimated beam,
+    cylinder-coordinate sampling),
+  * coordinate substitutions + Jacobians building the random variable
+    (_rvArgs, point_source.py:273-362),
+  * ray placement so all rays pass through the focal point / run parallel
+    (point_source.py:407-456).
+
+This slice ports the device path of the source: `samplerSpec()` (the JAX
+package's `pallasSamplerSpec`, renamed because nothing here is Pallas),
+`deviceColumnsGenerator()` and `emissionBound()`. Fans, the host-side
+Monte-Carlo modes and the divergence/focal-length syncing are not ported
+yet.
+'''
+
+import numpy as np
+import torch
+
+from .. import distributions, resolveDevice
+from ..distributions.device_sampler import (buildDeviceTables, deviceDraw,
+                                            fitPiecewisePoly)
+from .common import parseDomain, evalExpr
+from .generic_source import GenericSource
+
+
+class PointSource(GenericSource):
+
+  def _properties(self):
+    return [
+        ('OpticalEmission', [
+            ('PowerDensity', 'exp(-theta^2/0.01)',
+             'emitted optical power per solid angle; variables theta, phi, '
+             'r, x, y (point_source.py:35-44)'),
+            ('Wavelength', 500., 'emission wavelength in nm'),
+            ('FocalLength', '0', "0 = point source, finite = focused beam, "
+                                 "'inf' = collimated"),
+            ('Divergence', '-', '1/e half-angle, synced with FocalLength'),
+            ('ThetaDomain', '0, pi/4', ''),
+            ('PhiDomain', '0, 2*pi', ''),
+            ('RadiusDomain', '0, 10', ''),
+        ]),
+        ('OpticalSimulationSettings', [
+            ('RandomNumberGeneratorMode', '?', 'readonly compile-mode echo'),
+            ('ThetaResolutionNumericMode', '1e5', ''),
+            ('RadiusResolutionNumericMode', '1e5', ''),
+            ('PhiResolutionNumericMode', '1e2', ''),
+            ('Fans', 2, 'number of ray fans in fan mode'),
+            ('FanPhi0', '0', 'fan azimuth offset'),
+            ('RaysPerFan', 20, ''),
+        ]),
+    ] + self._baseProperties()
+
+  def __init__(self, placement=None, **kwargs):
+    super().__init__(placement=placement, **kwargs)
+    self._vrv = None
+    self._deviceTables = None
+
+  # ---------------------------------------------------------------- domains
+
+  def parsedThetaDomain(self):
+    return parseDomain(self.ThetaDomain, default='0,pi/4',
+                       limits=('-20*pi', '20*pi'),
+                       spanLimits=(0, '20*pi'))[1]
+
+  def parsedPhiDomain(self):
+    return parseDomain(self.PhiDomain, default='0,2*pi',
+                       limits=('-20*pi', '20*pi'),
+                       spanLimits=(0, '20*pi'))[1]
+
+  def parsedRadiusDomain(self):
+    return parseDomain(self.RadiusDomain, default='0,10',
+                       limits=(-np.inf, np.inf), spanLimits=(0, np.inf))[1]
+
+  def focalLength(self):
+    return evalExpr(self.FocalLength)
+
+  def emissionBound(self):
+    '''Conservative world-frame emission envelope (originCenter (3,),
+    axis (3,), cosAlpha, originRadius): EVERY emitted ray starts within
+    `originRadius` of `originCenter` and points within arccos(cosAlpha) of
+    `axis`. Matches deviceColumnsGenerator's exact origin math: f = 0 emits
+    from the point, finite f from the |lo| = 2|f| sin(theta/2) cap, f = inf
+    collimated from the theta-radius disc. Returns None when no finite
+    bound exists. (Input of the per-bounce surface culls, which this slice
+    does not port yet.)'''
+    try:
+      t1, t2 = self.parsedThetaDomain()
+      f = self.focalLength()
+    except Exception:
+      return None
+    if not np.isfinite(t2) or t2 < 0:
+      return None
+    R = np.asarray(self.placement[:3, :3], dtype=float)
+    off = np.asarray(self.placement[:3, 3], dtype=float)
+    axis = R @ np.array([0., 0., 1.])
+    if not np.isfinite(f):
+      # collimated: theta doubles as the aperture radius
+      return off, axis, 1.0, float(abs(t2))
+    alpha = min(float(t2), np.pi)
+    rO = 2. * abs(float(f)) * np.sin(alpha / 2.)
+    return off, axis, float(np.cos(alpha)), rO
+
+  # ----------------------------------------------------- random variable ctor
+
+  def _rvArgs(self, densityString):
+    '''Build the kwargs for the vector random variable from the power
+    density string — coordinate substitutions and Jacobians exactly as the
+    reference (point_source.py:273-362).'''
+    import sympy as sy
+    f = self.focalLength()
+    if np.isfinite(f):
+      if np.isclose(f, 0):
+        stripped = densityString
+        for fn in ('exp', 'arcsin', 'arccos', 'arctan2', 'arctan', 'arccot',
+                   'arsinh', 'arcosh', 'artanh', 'arcoth', 'DiracDelta',
+                   'Piecewise', 'Heaviside', 'True', 'False'):
+          stripped = stripped.replace(fn, '')
+        for c in 'rxy':
+          if c in stripped:
+            raise ValueError(f'Variable {c} in power density expression '
+                             f'{self.PowerDensity} is forbidden if focal '
+                             f'length is zero')
+      densityString = '(' + densityString + ')*abs(sin(theta))'
+      fAbs = f'{abs(f):.8e}'
+      expr = (sy.sympify(densityString)
+              .subs('r', sy.sympify(f'(tan(theta)*{fAbs})'))
+              .subs('x', sy.sympify(f'(tan(theta)*cos(phi)*{fAbs})'))
+              .subs('y', sy.sympify(f'(tan(theta)*sin(phi)*{fAbs})')))
+      return dict(
+          probabilityDensity=str(expr),
+          variableOrder=('theta', 'phi'),
+          variableDomains=dict(theta=self.parsedThetaDomain(),
+                               phi=self.parsedPhiDomain()),
+          numericalResolutions=dict(
+              theta=float(self.ThetaResolutionNumericMode),
+              phi=float(self.PhiResolutionNumericMode)))
+    if 'theta' in densityString:
+      raise ValueError(f'Variable theta in power density expression '
+                       f'{self.PowerDensity} is forbidden if focal length '
+                       f'is infinite.')
+    densityString = '(' + densityString + ')*abs(r)'
+    expr = (sy.sympify(densityString)
+            .subs('x', sy.sympify('(r*cos(phi))'))
+            .subs('y', sy.sympify('(r*sin(phi))')))
+    return dict(
+        probabilityDensity=str(expr),
+        variableOrder=('r', 'phi'),
+        variableDomains=dict(r=self.parsedRadiusDomain(),
+                             phi=self.parsedPhiDomain()),
+        numericalResolutions=dict(
+            r=float(self.RadiusResolutionNumericMode),
+            phi=float(self.PhiResolutionNumericMode)))
+
+  def _getVrv(self):
+    if self._vrv is None:
+      self._vrv = distributions.VectorRandomVariable(
+          **self._rvArgs(self.PowerDensity))
+      self._vrv.compile()
+      self.RandomNumberGeneratorMode = self._vrv.mode()
+    return self._vrv
+
+  def _getDeviceTables(self):
+    if self._deviceTables is None:
+      self._deviceTables = buildDeviceTables(self._getVrv())
+    return self._deviceTables
+
+  # ------------------------------------------------------------- device path
+
+  def supportsDeviceSampling(self):
+    return True
+
+  def samplerSpec(self):
+    '''In-kernel sampling descriptor for the fused trace kernel
+    (ops/cuda_trace): the (theta|r, phi) inverse-CDF marginals as affine
+    maps or piecewise Horner polynomials, plus the placement/focal geometry.
+    Same dict as the JAX package's `pallasSamplerSpec()`. Returns None when
+    the source needs features the in-kernel sampler does not cover
+    (conditioned joints, discrete Heaviside events, >2 variables, inverses
+    too sharp to fit) — callers then feed the kernel ray columns from
+    `deviceColumnsGenerator`.'''
+    tables = self._getDeviceTables()['tables']
+    order = self._getDeviceTables()['order']
+    if len(tables) != 2:
+      return None
+    specs = []
+    for t in tables:
+      if int(t['discreteVals'].shape[0]):
+        return None
+      affine, lo, hi = t['affine']
+      if affine:
+        specs.append(('affine', float(lo), float(hi)))
+      elif t['rowsEqual']:
+        spec = fitPiecewisePoly(np.asarray(t['invCdf'][0], float))
+        if spec is None:
+          return None   # inverse too sharp for the piecewise fit
+        specs.append(spec)
+      else:
+        return None     # conditioned joint: needs the row-indexed inverse
+    specs = [specs[i] for i in order]
+    f = self.focalLength()
+    P = np.asarray(self.placement, float)
+    return dict(first=specs[0], phi=specs[1],
+                finite=bool(np.isfinite(f)),
+                f=float(f) if np.isfinite(f) else 0.,
+                R=tuple(tuple(float(x) for x in row) for row in P[:3, :3]),
+                off=tuple(float(x) for x in P[:3, 3]),
+                wavelength=float(self.Wavelength))
+
+  def deviceColumnsGenerator(self, device='cuda'):
+    '''Column-form device generator: returns
+    `generate(generator, N, stratified=False) -> dict(ox..dz, pw, wl)` with
+    every field a flat float32 (N,) tensor on `device`. `generator` is a
+    torch.Generator on that device (the explicit stand-in for a jax key);
+    `uniforms=` hands deviceDraw its quantiles instead (the tests' seam).'''
+    dev = resolveDevice(device)
+    tables = self._getDeviceTables()
+    f = self.focalLength()
+    finite = bool(np.isfinite(f))
+    R = np.asarray(self.placement[:3, :3], dtype=float)
+    off = np.asarray(self.placement[:3, 3], dtype=float)
+    wavelength = float(self.Wavelength)
+
+    def generate(generator, N, stratified=False, uniforms=None):
+      tp = deviceDraw(tables, generator, N, stratified=stratified, device=dev,
+                      uniforms=uniforms)
+      return pointColumns(tp[0], tp[1], finite, f, R, off, wavelength)
+
+    return generate
+
+
+def pointColumns(t, p, finite, f, R, off, wavelength):
+  '''Ray columns of a point source from its two drawn coordinates (theta or
+  radius `t`, azimuth `p`; float32 tensors): the focal geometry, then the
+  placement as component multiply-adds with host-scalar entries, in the
+  reference's operation order (deviceColumnsGenerator / the in-kernel
+  sampler share this maths).'''
+  f32 = lambda x: float(np.float32(x))
+  sp, cp = torch.sin(p), torch.cos(p)
+  if finite:
+    st, ct = torch.sin(t), torch.cos(t)
+    ldx, ldy, ldz = st * sp, -st * cp, ct
+    lox, loy, loz = f32(-f) * ldx, f32(-f) * ldy, f32(f) * (1. - ldz)
+  else:
+    ldx = torch.zeros_like(t)
+    ldy = torch.zeros_like(t)
+    ldz = torch.ones_like(t)
+    lox, loy, loz = t * cp, -t * sp, torch.zeros_like(t)
+  r = [[f32(R[i][j]) for j in range(3)] for i in range(3)]
+  o = [f32(x) for x in off]
+  ox = r[0][0] * lox + r[0][1] * loy + r[0][2] * loz + o[0]
+  oy = r[1][0] * lox + r[1][1] * loy + r[1][2] * loz + o[1]
+  oz = r[2][0] * lox + r[2][1] * loy + r[2][2] * loz + o[2]
+  dx = r[0][0] * ldx + r[0][1] * ldy + r[0][2] * ldz
+  dy = r[1][0] * ldx + r[1][1] * ldy + r[1][2] * ldz
+  dz = r[2][0] * ldx + r[2][1] * ldy + r[2][2] * ldz
+  return dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
+              pw=torch.ones_like(t),
+              wl=torch.full_like(t, wavelength))

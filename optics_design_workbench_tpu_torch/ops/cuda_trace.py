@@ -1,0 +1,724 @@
+'''
+Fused trace kernel for Hopper: sample (or read) rays, run the whole bounce
+loop per ray, and bin detector hits — ONE kernel launch per step, nothing
+ray-shaped in device memory on the main path.
+
+Counterpart of the JAX package's ops/pallas_trace.py (`makePallasTraceStep`
+in in-kernel-histogram mode). This module holds
+
+  * the host rows: `_sceneRows` turns a compiled scene + histogram spec into
+    per-surface / per-element python-float rows, `buildTraceTables` packs
+    them (and the sampler spec) into the float32 table the kernel reads;
+  * `traceHistogram`, the kernel's WRAPPER: checks its inputs, launches
+    csrc/trace_kernel.cu for CUDA tensors (counting launches in
+    `launchCount`), and runs `traceHistogramPlain` for CPU tensors — and
+    only for those: on a CUDA tensor it launches the kernel or raises;
+  * `traceHistogramPlain`, the plain PyTorch version: the same function as
+    column-wise tensor ops that follow the kernel step by step;
+  * `makeTraceStep`, which makes the user-level step.
+
+Three input modes of the one kernel: (a) seed only — rays are drawn in the
+kernel from Philox4x32-10 keyed by (seed, ray index); (b) the in-kernel
+sampler fed two uniform arrays; (c) eight ray columns ox..dz, pw, wl. The
+main path uses (a); (b) and (c) exist so that kernel, plain version and the
+JAX package can be fed the same numbers.
+
+Scene coverage of this slice (`ineligibleReason` names what is refused):
+PLANE / SPHERE / CYLINDER with window, annulus and z-band trims;
+Mirror / Lens / Absorber / Vacuum; Beer-Lambert absorption. The kernel
+sweeps every surface on every bounce (the reference's per-bounce culls only
+skip surfaces that cannot be hit).
+'''
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import hostArray as _hostArray, resolveDevice
+from ..geometry import surfaces as GS
+from ..tracing.element_table import (MIRROR, LENS, GRATING, ABSORBER,
+                                     EP_GRATTYPE)
+
+_BIG = 3.0e38
+
+# table capacities of the one compiled kernel (the wrapper raises beyond)
+MAX_SURFACES = 64
+MAX_ELEMENTS = 16
+MAX_PWPOLY_SEGMENTS = 12
+MAX_PWPOLY_COEFFS = 13
+MAX_TENT_KNOTS = 257
+MAX_HIT_SLOTS = 6
+
+# table layout — keep in step with csrc/trace_kernel.cu
+SURF_COLS = 20
+ELEM_COLS = 12
+_SEG_STRIDE = 4 + MAX_PWPOLY_COEFFS
+_MARG_LEN = 264
+_SAMPLER_GEOM = 16
+
+MODE_SEED, MODE_UNIFORMS, MODE_COLUMNS = 0, 1, 2
+
+# default ray-index stratum size on the card: one thread block (256 rays)
+# per (theta, phi) cell — the finest strata whose rays still share a block
+DEFAULT_STRATA_TILE = 256
+
+# number of kernel launches made by `traceHistogram` (the wrapper adds one
+# where it launches the kernel, and nowhere else)
+launchCount = 0
+
+
+def numSurfacesStatic(scene):
+  return int(scene['surfaces']['kind'].shape[0])
+
+
+def eligible(scene):
+  '''Static host-side check whether the kernel supports this scene.'''
+  return ineligibleReason(scene) is None
+
+
+def ineligibleReason(scene):
+  '''None when the kernel supports this scene, else a short human-readable
+  reason naming the feature this slice does not cover.'''
+  for key, what in (('scatter', 'stochastic scatter'),
+                    ('seqMask', 'sequential mode'),
+                    ('surfMask', 'per-source surface masks')):
+    if key in scene:
+      return f'{what} is not ported to the CUDA kernel yet'
+  if 'nTable' in scene['elements']:
+    return 'dispersive n(wavelength) tables are not ported yet'
+  kinds = _hostArray(scene['surfaces']['kind'])
+  bad = sorted(set(kinds.tolist()) - set(GS.PORTED_KINDS))
+  if bad:
+    names = ', '.join(GS._KIND_NAMES.get(k, str(k)) for k in bad)
+    return (f'surface kinds not ported yet: {names} (plane, sphere and '
+            f'cylinder are)')
+  trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
+  if not np.isin(trims0, (0., 1.)).all():
+    return 'bitmap and hole-primitive trims are not ported yet'
+  opts = _hostArray(scene['elements']['optType'])
+  if (opts == GRATING).any():
+    return 'gratings are not ported yet'
+  if len(kinds) > MAX_SURFACES:
+    return (f'{len(kinds)} surfaces > the {MAX_SURFACES} rows of the '
+            f"kernel's surface table")
+  if len(opts) > MAX_ELEMENTS:
+    return (f'{len(opts)} elements > the {MAX_ELEMENTS} rows of the '
+            f"kernel's element table")
+  return None
+
+
+def _sceneRows(scene, histSpec):
+  '''Extract python-float scene constants (host side). Returns
+  (surfRows, elemRows): one dict per surface (kind, world->local rotation
+  r00..r22 and offset t0..t2, orient, elemF, p0, trim0..trim2) and per
+  element (optF, n, refl, absLen, rec, detF, histogram bounds).'''
+  surf = scene['surfaces']
+  packed = _hostArray(surf['packed']).astype(float)
+  trims = _hostArray(surf['trim']).astype(float)
+  kinds = _hostArray(surf['kind'])
+  surfRows = []
+  for s in range(numSurfacesStatic(scene)):
+    p = packed[s]
+    surfRows.append(dict(
+        kind=int(kinds[s]),
+        r00=float(p[0]), r01=float(p[1]), r02=float(p[2]),
+        r10=float(p[3]), r11=float(p[4]), r12=float(p[5]),
+        r20=float(p[6]), r21=float(p[7]), r22=float(p[8]),
+        t0=float(p[9]), t1=float(p[10]), t2=float(p[11]),
+        orient=float(p[12]), elemF=float(p[13]), p0=float(p[15]),
+        trim0=float(trims[s, 0]), trim1=float(trims[s, 1]),
+        trim2=float(min(trims[s, 2], _BIG))))
+  ep = _hostArray(scene['elements']['packed']).astype(float)
+  elemToDet = _hostArray(histSpec['elemToDet'])
+  boundsArr = _hostArray(histSpec['bounds'])
+  elemRows = []
+  for e in range(ep.shape[0]):
+    det = int(elemToDet[e])
+    b = boundsArr[det] if det >= 0 else np.array([0., 1., 0., 1.])
+    absLen = float(ep[e, 3])
+    elemRows.append(dict(
+        optF=float(ep[e, 0]), n=float(ep[e, 1]), refl=float(ep[e, 2]),
+        absLen=absLen if np.isfinite(absLen) else _BIG,
+        rec=float(ep[e, 10]), detF=float(det),
+        bx0=float(b[0]), bx1=float(b[1]), by0=float(b[2]), by1=float(b[3])))
+  return surfRows, elemRows
+
+
+def autoHitSlots(scene, histSpec, maxIntersections):
+  '''Topology-derived hit-slot count: per recording element, the number of
+  possible passes is 1 for an absorber (the ray dies there) and
+  1 + (number of OTHER reflective elements) otherwise — a ray can only
+  re-cross a pass-through detector after being turned around. Capped at
+  MAX_HIT_SLOTS and at maxIntersections; the `hitOverflow` counter reports
+  any dropped passes beyond the cap.'''
+  opts = _hostArray(scene['elements']['optType'])
+  ep = _hostArray(scene['elements']['packed'])
+  elemToDet = _hostArray(histSpec['elemToDet'])
+  reflective = (opts == MIRROR) | ((opts == GRATING)
+                                   & (ep[:, EP_GRATTYPE] == 0))
+  nReflect = int(reflective.sum())
+  bound = 0
+  for e in np.nonzero(elemToDet >= 0)[0]:
+    if opts[e] == ABSORBER:
+      bound += 1
+    else:
+      bound += 1 + nReflect - int(reflective[e])
+  return max(1, min(maxIntersections, bound, MAX_HIT_SLOTS))
+
+
+def tileStrata(raysPerStep, strataTile):
+  '''(G1, G2) of the ray-index strata: cell = rayIndex // strataTile, the
+  cells form a G1 x G2 latin grid over the two sampler quantiles (G2 the
+  power of two nearest below sqrt(cells)). None when the step does not
+  decompose.'''
+  if strataTile <= 0 or raysPerStep % strataTile:
+    return None
+  nCells = raysPerStep // strataTile
+  if nCells <= 1:
+    return None
+  G2 = 1 << (max(int(nCells).bit_length() - 1, 0) // 2)
+  G1 = nCells // G2
+  return (int(G1), int(G2)) if G1 * G2 == nCells else None
+
+
+def _packMarginal(spec):
+  '''One marginal of the sampler spec as a (_MARG_LEN,) float32 block:
+  [kind, n, lo, hi | span, payload]. affine: kind 0, lo and the span hi-lo
+  (formed in double like the reference's python constants). pwpoly: kind 1,
+  n segments of (a, mid, 1/half, nCoef, ascending coefficients), clamp
+  [lo, hi]. table: kind 2, n tent knots.'''
+  out = np.zeros(_MARG_LEN, np.float64)
+  kind = spec[0]
+  if kind == 'affine':
+    _, lo, hi = spec
+    out[:4] = (0., 0., lo, hi - lo)
+  elif kind == 'pwpoly':
+    _, segs, lo, hi = spec
+    if len(segs) > MAX_PWPOLY_SEGMENTS:
+      raise ValueError(f'{len(segs)} pwpoly segments > {MAX_PWPOLY_SEGMENTS}')
+    out[:4] = (1., len(segs), lo, hi)
+    for i, (a, _b, mid, half, coeffs) in enumerate(segs):
+      if len(coeffs) > MAX_PWPOLY_COEFFS:
+        raise ValueError(f'pwpoly degree {len(coeffs) - 1} > '
+                         f'{MAX_PWPOLY_COEFFS - 1}')
+      o = 4 + i * _SEG_STRIDE
+      out[o:o + 4] = (a, mid, 1.0 / half, len(coeffs))
+      out[o + 4:o + 4 + len(coeffs)] = coeffs
+  elif kind == 'table':
+    _, table = spec
+    if len(table) > MAX_TENT_KNOTS or len(table) < 2:
+      raise ValueError(f'{len(table)} tent knots outside [2, '
+                       f'{MAX_TENT_KNOTS}]')
+    out[:4] = (2., len(table), 0., 0.)
+    out[4:4 + len(table)] = table
+  else:
+    raise ValueError(f'unknown marginal kind {kind!r}')
+  return out.astype(np.float32)
+
+
+def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
+  '''Pack a compiled scene (+ optionally a point-source sampler spec) into
+  the kernel's tables. Returns a dict with the float32 `table` tensor on
+  `device` (surface rows, element rows, sampler block), the host rows, and
+  the static facts the step needs (bins, detector count, anyMedium).
+  Raises ValueError for scenes the kernel does not cover.'''
+  dev = resolveDevice(device)
+  reason = ineligibleReason(scene)
+  if reason is not None:
+    raise ValueError(f'scene is not eligible for the CUDA trace kernel: '
+                     f'{reason}')
+  surfRows, elemRows = _sceneRows(scene, histSpec)
+  S, E = len(surfRows), len(elemRows)
+  surfT = np.zeros((S, SURF_COLS), np.float64)
+  for s, r in enumerate(surfRows):
+    annulus = r['kind'] == GS.PLANE and r['trim0'] != 1.
+    # constants the reference squares in double before rounding to float32
+    tA, tB = ((r['trim1'] ** 2, r['trim2'] ** 2) if annulus
+              else (r['trim1'], r['trim2']))
+    surfT[s] = [r['kind'], r['r00'], r['r01'], r['r02'], r['r10'], r['r11'],
+                r['r12'], r['r20'], r['r21'], r['r22'], r['t0'], r['t1'],
+                r['t2'], r['orient'], r['elemF'], r['p0'] ** 2, r['trim0'],
+                tA, tB, 0.]
+  elemT = np.zeros((E, ELEM_COLS), np.float64)
+  for e, r in enumerate(elemRows):
+    elemT[e] = [r['optF'], r['n'], r['refl'], r['absLen'], r['rec'],
+                r['detF'], r['bx0'], r['bx1'], r['by0'], r['by1'],
+                float(r['optF'] in (float(LENS), float(GRATING))), 0.]
+  with np.errstate(over='ignore'):      # an unbounded radius squares to inf
+    parts = [surfT.astype(np.float32).reshape(-1),
+             elemT.astype(np.float32).reshape(-1)]
+  samplerOff = -1
+  if samplerSpec is not None:
+    if samplerSpec.get('type') == 'surface':
+      raise ValueError('the surface-source sampler is not ported yet')
+    geom = np.zeros(_SAMPLER_GEOM, np.float32)
+    geom[0] = 1. if samplerSpec['finite'] else 0.
+    geom[1] = samplerSpec['f']
+    geom[2:11] = np.asarray(samplerSpec['R'], float).reshape(-1)
+    geom[11:14] = samplerSpec['off']
+    geom[14] = samplerSpec['wavelength']
+    samplerOff = S * SURF_COLS + E * ELEM_COLS
+    parts += [geom, _packMarginal(samplerSpec['first']),
+              _packMarginal(samplerSpec['phi'])]
+  table = np.concatenate(parts)
+  H, W = histSpec['bins']
+  return dict(table=torch.as_tensor(table, device=dev), nSurf=S, nElem=E,
+              samplerOff=samplerOff, bins=(int(H), int(W)),
+              nDet=int(_hostArray(histSpec['bounds']).shape[0]),
+              anyMedium=bool(elemT[:, 10].any()),
+              surfRows=surfRows, elemRows=elemRows, samplerSpec=samplerSpec)
+
+
+# --------------------------------------------------------- plain PyTorch path
+
+def _marginalPlain(m, u):
+  '''Plain version of the kernel's `marginal` on a packed float32 block.'''
+  kind, n = int(m[0]), int(m[1])
+  if kind == 0:
+    return float(m[2]) + u * float(m[3])
+  if kind == 1:
+    out = None
+    for i in range(n):
+      seg = m[4 + i * _SEG_STRIDE:4 + (i + 1) * _SEG_STRIDE]
+      s = (u - float(seg[1])) * float(seg[2])
+      nc = int(seg[3])
+      acc = torch.full_like(u, float(seg[4 + nc - 1]))
+      for c in range(nc - 2, -1, -1):
+        acc = acc * s + float(seg[4 + c])
+      out = acc if out is None else torch.where(u >= float(seg[0]), acc, out)
+    return torch.clamp(out, float(m[2]), float(m[3]))
+  from ..distributions.device_sampler import tentInterp
+  return tentInterp(torch.as_tensor(m[4:4 + n], device=u.device), u)
+
+
+def sampleRaysPlain(tables, u1, u2, strata=None, strataTile=0):
+  '''Plain version of the in-kernel point-source sampler: two uniform
+  float32 (N,) tensors -> the ray columns (ox..dz, pw). `strata` = (G1, G2)
+  stratifies the two quantiles by ray-index cell.'''
+  tab = tables['table'].detach().cpu().numpy()
+  sg = tab[tables['samplerOff']:]
+  if strata is not None:
+    G1, G2 = strata
+    cell = torch.arange(u1.shape[0], device=u1.device) // int(strataTile)
+    i1 = (cell // G2).to(torch.float32)
+    i2 = (cell % G2).to(torch.float32)
+    u1 = (i1 + u1) * float(np.float32(1.0 / G1))
+    u2 = (i2 + u2) * float(np.float32(1.0 / G2))
+  t = _marginalPlain(sg[_SAMPLER_GEOM:_SAMPLER_GEOM + _MARG_LEN], u1)
+  ph = _marginalPlain(sg[_SAMPLER_GEOM + _MARG_LEN:
+                         _SAMPLER_GEOM + 2 * _MARG_LEN], u2)
+  from ..models.point_source import pointColumns
+  cols = pointColumns(t, ph, bool(sg[0] != 0.), float(sg[1]),
+                      sg[2:11].reshape(3, 3), sg[11:14], float(sg[14]))
+  return tuple(cols[k] for k in ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw'))
+
+
+def _intersectPlain(r, ox, oy, oz, dx, dy, dz, tMin):
+  '''Plain version of the kernel's `intersect` for one float32 surface
+  row `r` (numpy) against all rays.'''
+  R = [float(x) for x in r[1:10]]
+  lox = R[0] * ox + R[1] * oy + R[2] * oz + float(r[10])
+  loy = R[3] * ox + R[4] * oy + R[5] * oz + float(r[11])
+  loz = R[6] * ox + R[7] * oy + R[8] * oz + float(r[12])
+  ldx = R[0] * dx + R[1] * dy + R[2] * dz
+  ldy = R[3] * dx + R[4] * dy + R[5] * dz
+  ldz = R[6] * dx + R[7] * dy + R[8] * dz
+  kind = int(r[0])
+  tA, tB = float(r[17]), float(r[18])
+  big = torch.full_like(ox, _BIG)
+  if kind == GS.PLANE:
+    dzS = torch.where(torch.abs(ldz) < 1e-12, torch.full_like(ldz, 1e-12),
+                      ldz)
+    t = -loz / dzS
+    x, y = lox + t * ldx, loy + t * ldy
+    if float(r[16]) == 1.:
+      ok = (torch.abs(x) <= tA) & (torch.abs(y) <= tB)
+    else:
+      r2 = x * x + y * y
+      ok = (r2 >= tA) & (r2 <= tB)
+    return torch.where((t > tMin) & ok, t, big)
+  if kind == GS.SPHERE:
+    a = ldx * ldx + ldy * ldy + ldz * ldz
+    b = 2. * (lox * ldx + loy * ldy + loz * ldz)
+    c = lox * lox + loy * loy + loz * loz - float(r[15])
+  else:
+    a = ldx * ldx + ldy * ldy
+    b = 2. * (lox * ldx + loy * ldy)
+    c = lox * lox + loy * loy - float(r[15])
+  disc = b * b - 4. * a * c
+  okD = disc >= 0
+  sqD = torch.sqrt(torch.clamp(disc, min=0.))
+  q = -0.5 * (b + torch.sign(b + 1e-30) * sqD)
+  aS = torch.where(torch.abs(a) < 1e-20, torch.full_like(a, 1e-20), a)
+  qS = torch.where(torch.abs(q) < 1e-20, torch.full_like(q, 1e-20), q)
+  t1, t2 = q / aS, c / qS
+  lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
+  zLo, zHi = loz + lo * ldz, loz + hi * ldz
+  loV = torch.where(okD & (lo > tMin) & (zLo >= tA) & (zLo <= tB), lo, big)
+  hiV = torch.where(okD & (hi > tMin) & (zHi >= tA) & (zHi <= tB), hi, big)
+  return torch.fmin(loV, hiV)
+
+
+def traceHistogramPlain(tables, histograms, columns, maxIntersections,
+                        maxRayLength, distTol, powerTol, hitSlots):
+  '''The kernel's bounce loop + binning as column-wise tensor ops, step by
+  step in the kernel's operation order: nearest hit with the other-medium
+  tracker and same-medium window, winner normal, Beer-Lambert, mirror /
+  Snell / TIR, medium and power updates, the hit ring (overflow overwrites
+  the last slot), `index_add_` binning. Adds into `histograms` IN PLACE and
+  returns an int64 (3,) tensor (segments, hits, hitOverflow).'''
+  ox, oy, oz, dx, dy, dz, pw = columns
+  dev = ox.device
+  N = ox.shape[0]
+  tab = tables['table'].detach().cpu().numpy()
+  S, E = tables['nSurf'], tables['nElem']
+  surfT = tab[:S * SURF_COLS].reshape(S, SURF_COLS)
+  elemT = tab[S * SURF_COLS:S * SURF_COLS + E * ELEM_COLS] \
+      .reshape(E, ELEM_COLS)
+  surfD = torch.as_tensor(surfT, device=dev)
+  elemD = torch.as_tensor(elemT, device=dev)
+  H, W = tables['bins']
+  anyMedium = tables['anyMedium']
+  f32 = lambda x: float(np.float32(x))
+  mrlEff = f32(min(float(maxRayLength), 0.5 * _BIG))
+  mrl, tMin = f32(maxRayLength), f32(distTol)
+  window, pTol = f32(2 * distTol), f32(powerTol)
+
+  medium = torch.full((N,), -1, dtype=torch.int64, device=dev)
+  alive = torch.ones((N,), dtype=torch.bool, device=dev)
+  segs = torch.zeros((), dtype=torch.int64, device=dev)
+  hitN = torch.zeros((N,), dtype=torch.int64, device=dev)
+  ringBin = torch.full((hitSlots, N), -1, dtype=torch.int64, device=dev)
+  ringW = torch.zeros((hitSlots, N), dtype=torch.float32, device=dev)
+  canBeMedium = elemD[:, 10] != 0
+  one = torch.ones((), dtype=torch.float32, device=dev)
+  big = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
+
+  for _bounce in range(maxIntersections):
+    tBest, tOth = big, big
+    sBest = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    sOth = sBest
+    for s in range(S):
+      t = _intersectPlain(surfT[s], ox, oy, oz, dx, dy, dz, tMin)
+      b = t < tBest
+      sBest = torch.where(b, s, sBest)
+      tBest = torch.where(b, t, tBest)
+      if anyMedium:
+        e = int(surfT[s, 14])
+        tO = torch.where(medium == e, big, t) if bool(canBeMedium[e]) else t
+        bO = tO < tOth
+        sOth = torch.where(bO, s, sOth)
+        tOth = torch.where(bO, tO, tOth)
+    hasHit = tBest <= mrlEff
+    if not anyMedium:
+      tOth, sOth = tBest, sBest
+    hasPref = (tOth <= mrlEff) & (tOth <= tBest + window)
+    tSel = torch.where(hasPref, tOth, tBest)
+    sIdx = torch.where(hasPref, sOth, sBest).clamp(min=0)
+    tSeg = torch.where(hasHit, tSel, torch.full_like(tSel, mrl))
+    px, py, pz = ox + tSeg * dx, oy + tSeg * dy, oz + tSeg * dz
+    segs = segs + alive.sum()
+    live = alive & hasHit
+
+    # winner attributes
+    row = surfD[sIdx]
+    R = [row[:, 1 + k] for k in range(9)]
+    lx = R[0] * px + R[1] * py + R[2] * pz + row[:, 10]
+    ly = R[3] * px + R[4] * py + R[5] * pz + row[:, 11]
+    lz = R[6] * px + R[7] * py + R[8] * pz + row[:, 12]
+    kind = row[:, 0]
+    invS = torch.rsqrt(lx * lx + ly * ly + lz * lz + 1e-20)
+    invC = torch.rsqrt(lx * lx + ly * ly + 1e-20)
+    isS, isC = kind == GS.SPHERE, kind == GS.CYLINDER
+    zero = torch.zeros_like(lx)
+    nlx = torch.where(isS, lx * invS, torch.where(isC, lx * invC, zero))
+    nly = torch.where(isS, ly * invS, torch.where(isC, ly * invC, zero))
+    nlz = torch.where(isS, lz * invS, torch.where(isC, zero, one))
+    orient = row[:, 13]
+    nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient
+    nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient
+    nzA = (R[2] * nlx + R[5] * nly + R[8] * nlz) * orient
+    elem = row[:, 14].to(torch.int64)
+    er = elemD[elem]
+
+    cosA = dx * nxA + dy * nyA + dz * nzA
+    isEntering = cosA < 0
+    sgn = torch.where(isEntering, -one, one)
+    nx, ny, nz = nxA * sgn, nyA * sgn, nzA * sgn
+
+    # Beer-Lambert
+    inMedium = medium >= 0
+    medRow = elemD[medium.clamp(min=0)]
+    nMed, absLenMed = medRow[:, 1], medRow[:, 3]
+    factor = torch.where(absLenMed <= 0, zero,
+                         torch.where(absLenMed >= _BIG, one,
+                                     torch.exp(-tSeg / absLenMed)))
+    pw = torch.where(inMedium, pw * factor, pw)
+
+    # interactions
+    dDotN = dx * nx + dy * ny + dz * nz
+    mxD = dx - 2. * nx * dDotN
+    myD = dy - 2. * ny * dDotN
+    mzD = dz - 2. * nz * dDotN
+    n1 = torch.where(inMedium, nMed, one)
+    n2 = torch.where(isEntering, er[:, 1], one)
+    mu = n1 / n2
+    sin2 = torch.clamp(1. - dDotN * dDotN, min=0.)
+    root = 1. - mu * mu * sin2
+    tir = root < 0
+    sq = torch.sqrt(torch.clamp(root, min=0.))
+    tx, ty, tz = dx - nx * dDotN, dy - ny * dDotN, dz - nz * dDotN
+    snx = torch.where(tir, mxD, mu * tx + nx * sq)
+    sny = torch.where(tir, myD, mu * ty + ny * sq)
+    snz = torch.where(tir, mzD, mu * tz + nz * sq)
+    opt = er[:, 0]
+    isMirror, isLens, isAbsorber = opt == MIRROR, opt == LENS, opt == ABSORBER
+    ndx = torch.where(isMirror, mxD, torch.where(isLens, snx, dx))
+    ndy = torch.where(isMirror, myD, torch.where(isLens, sny, dy))
+    ndz = torch.where(isMirror, mzD, torch.where(isLens, snz, dz))
+    inv = torch.rsqrt(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20)
+    ndx, ndy, ndz = ndx * inv, ndy * inv, ndz * inv
+
+    lensExit = isLens & ~isEntering & ~tir & (medium == elem)
+    newMedium = torch.where(isLens & isEntering, elem,
+                            torch.where(lensExit, -1, medium))
+    newPw = torch.where(isMirror, pw * er[:, 2],
+                        torch.where(isAbsorber, zero, pw))
+
+    # hit ring
+    bx0, by0 = er[:, 6], er[:, 8]
+    fx = (lx - bx0) / (er[:, 7] - bx0)
+    fy = (ly - by0) / (er[:, 9] - by0)
+    det = er[:, 5].to(torch.int64)
+    inside = ((fx >= 0) & (fx < 1) & (fy >= 0) & (fy < 1)
+              & (er[:, 4] > 0.5) & (det >= 0) & live)
+    ix = torch.floor(fx * float(W)).to(torch.int64)
+    iy = torch.floor(fy * float(H)).to(torch.int64)
+    binIdx = (det * H + iy) * W + ix
+    slot = torch.clamp(hitN, max=hitSlots - 1)
+    for k in range(hitSlots):
+      take = inside & (slot == k)
+      ringBin[k] = torch.where(take, binIdx, ringBin[k])
+      ringW[k] = torch.where(take, pw, ringW[k])
+    hitN = hitN + inside.to(torch.int64)
+
+    ox = torch.where(alive, px, ox)
+    oy = torch.where(alive, py, oy)
+    oz = torch.where(alive, pz, oz)
+    dx = torch.where(live, ndx, dx)
+    dy = torch.where(live, ndy, dy)
+    dz = torch.where(live, ndz, dz)
+    pw = torch.where(live, newPw, pw)
+    medium = torch.where(live, newMedium, medium)
+    alive = live & (newPw >= pTol)
+
+  power = histograms['power'].view(-1)
+  counts = histograms['counts'].view(-1)
+  hits = torch.zeros((), dtype=torch.int64, device=dev)
+  for k in range(hitSlots):
+    valid = ringBin[k] >= 0
+    idx = ringBin[k].clamp(min=0)
+    power.index_add_(0, idx, torch.where(valid, ringW[k],
+                                         torch.zeros_like(ringW[k])))
+    counts.index_add_(0, idx, valid.to(counts.dtype))
+    hits = hits + valid.sum()
+  overflow = torch.clamp(hitN - hitSlots, min=0).sum()
+  return torch.stack([segs, hits, overflow])
+
+
+# ------------------------------------------------------------------- wrapper
+
+def _kernelLibrary():
+  from .._build import buildKernels
+  lib, _info = buildKernels()
+  fn = lib.odwTraceHistogram
+  if fn.argtypes is None:
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+  return fn
+
+
+def _checkTensor(name, x, dev, shape, dtype=torch.float32):
+  if not isinstance(x, torch.Tensor):
+    raise TypeError(f'{name} must be a torch.Tensor')
+  if x.dtype != dtype:
+    raise TypeError(f'{name} must be {dtype}, got {x.dtype}')
+  if x.device != dev:
+    raise ValueError(f'{name} lies on {x.device}, expected {dev}')
+  if tuple(x.shape) != tuple(shape):
+    raise ValueError(f'{name} must have shape {tuple(shape)}, got '
+                     f'{tuple(x.shape)}')
+  if not x.is_contiguous():
+    raise ValueError(f'{name} must be contiguous')
+
+
+def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
+                   distTol, powerTol=1e-6, hitSlots=1, seed=None,
+                   uniforms=None, columns=None, strataTile=0):
+  '''Sample-or-read `nRays` rays, trace them, and ADD the detector hits
+  into `histograms` (dict of float32 (D, H, W) `power` / `counts`) in place.
+  Returns an int64 (3,) tensor (segments, hits, hitOverflow) on the tables'
+  device — no host synchronisation.
+
+  Exactly one input mode: `seed` (int; rays drawn in the kernel),
+  `uniforms` (float32 (2, nRays): the sampler's two quantile draws) or
+  `columns` (float32 (8, nRays): ox, oy, oz, dx, dy, dz, pw, wl).
+  `strataTile` > 0 stratifies the sampler quantiles by ray-index cell (see
+  `tileStrata`; ignored for `columns`).
+
+  Tensors on a CUDA device go through the CUDA kernel, or this raises; the
+  plain PyTorch version runs only for tensors on the CPU (there `seed` seeds
+  a torch.Generator that draws the two uniform arrays).'''
+  table = tables['table']
+  dev = table.device
+  if sum(x is not None for x in (seed, uniforms, columns)) != 1:
+    raise ValueError('give exactly one of seed, uniforms, columns')
+  if not 1 <= hitSlots <= MAX_HIT_SLOTS:
+    raise ValueError(f'hitSlots must be in [1, {MAX_HIT_SLOTS}]')
+  if nRays <= 0 or maxIntersections <= 0:
+    raise ValueError('nRays and maxIntersections must be positive')
+  H, W = tables['bins']
+  D = tables['nDet']
+  if D * H * W >= 2 ** 31:
+    raise ValueError('histogram too large for 32-bit bin indices')
+  for name in ('power', 'counts'):
+    _checkTensor(f"histograms['{name}']", histograms[name], dev, (D, H, W))
+  if columns is None and tables['samplerOff'] < 0:
+    raise ValueError('seed / uniforms input needs tables built with a '
+                     'sampler spec')
+  strata = None
+  if columns is None and strataTile:
+    strata = tileStrata(nRays, int(strataTile))
+  if uniforms is not None:
+    _checkTensor('uniforms', uniforms, dev, (2, nRays))
+  if columns is not None:
+    _checkTensor('columns', columns, dev, (8, nRays))
+
+  if dev.type == 'cpu':
+    if columns is not None:
+      cols = tuple(columns[k] for k in range(7))
+    else:
+      if uniforms is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(int(seed))
+        uniforms = torch.rand((2, nRays), generator=generator, device=dev,
+                              dtype=torch.float32)
+      cols = sampleRaysPlain(tables, uniforms[0], uniforms[1], strata,
+                             strataTile)
+    return traceHistogramPlain(tables, histograms, cols, maxIntersections,
+                               maxRayLength, distTol, powerTol, hitSlots)
+
+  if seed is not None:
+    mode, rayIn = MODE_SEED, None
+  elif uniforms is not None:
+    mode, rayIn = MODE_UNIFORMS, uniforms
+  else:
+    mode, rayIn = MODE_COLUMNS, columns
+  return _launchKernel(tables, histograms, nRays, mode, rayIn, int(seed or 0),
+                       strata, strataTile, maxIntersections, maxRayLength,
+                       distTol, powerTol, hitSlots)
+
+
+def _launchKernel(tables, histograms, nRays, mode, rayIn, seed, strata,
+                  strataTile, maxIntersections, maxRayLength, distTol,
+                  powerTol, hitSlots):
+  '''Launch csrc/trace_kernel.cu on PyTorch's current stream (inputs already
+  validated by `traceHistogram`). CUDA tensors only: a CPU tensor's address
+  means nothing to the card, so it is refused before anything is built.'''
+  global launchCount
+  table = tables['table']
+  dev = table.device
+  for t in (table, histograms['power'], histograms['counts'], rayIn):
+    if t is not None and t.device.type != 'cuda':
+      raise ValueError(f'the CUDA kernel takes CUDA tensors only, got a '
+                       f'tensor on {t.device}')
+  fn = _kernelLibrary()
+  counters = torch.zeros((3,), dtype=torch.int64, device=dev)
+  H, W = tables['bins']
+  G1, G2 = strata if strata is not None else (0, 1)
+  ip = (ctypes.c_longlong * 15)(
+      int(nRays), seed & 0x7fffffffffffffff, int(table.numel()),
+      tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
+      int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
+      int(strataTile) if strata is not None else 1, G1, G2)
+  fp = (ctypes.c_float * 7)(
+      min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
+      float(distTol), 2 * float(distTol), float(powerTol),
+      1.0 / max(G1, 1), 1.0 / G2)
+  with torch.cuda.device(dev):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(table.data_ptr(), rayIn.data_ptr() if rayIn is not None else None,
+             histograms['power'].data_ptr(), histograms['counts'].data_ptr(),
+             counters.data_ptr(), ip, fp, stream)
+  if err != 0:
+    raise RuntimeError(f'trace kernel launch failed: CUDA error {err}')
+  launchCount += 1
+  return counters
+
+
+def makeTraceStep(scene, histSpec, generator, raysPerStep, maxIntersections,
+                  maxRayLength, distTol, powerTol=1e-6, stratified=False,
+                  hitSlots='auto', sampler=None, strataTile='auto',
+                  device='cuda'):
+  '''Build the fused sample + trace + histogram step
+  `step(seed, histograms) -> (histograms, counters)`; the signature of the
+  JAX package's `makePallasTraceStep` minus the TPU-only knobs (tile,
+  histPrecision, innerSteps, jitWrap, interpret, emissionBound) and the
+  uniform-input seam (here an input mode of `traceHistogram` itself), plus
+  `device`, and with `strataTile` in place of `tileStratified`.
+
+  `seed` is a python int (or a torch.Generator, from which one is drawn).
+  With `sampler` (PointSource.samplerSpec()) rays are drawn inside the
+  kernel from its own counter-based generator. Without a sampler, or with
+  stratified=True, `generator(torchGenerator, N, stratified)` supplies the
+  eight ray columns (PointSource.deviceColumnsGenerator).
+
+  `histograms` are accumulated IN PLACE and returned (the JAX step relies
+  on buffer donation instead); counters are 0-d int64 tensors on the
+  device, so a step never synchronises with the host.
+
+  Ray-index strata: the sampler's two quantiles are stratified by
+  cell = rayIndex // strataTile ('auto': DEFAULT_STRATA_TILE rays, one
+  thread block per cell; 0 switches strata off; a step that does not
+  decompose into a G1 x G2 grid of cells runs without).'''
+  dev = resolveDevice(device)
+  if stratified:
+    sampler = None          # latin-hypercube draws come from the generator
+  if sampler is None and generator is None:
+    raise ValueError('need a sampler spec or a column generator')
+  tables = buildTraceTables(scene, histSpec, samplerSpec=sampler, device=dev)
+  if hitSlots == 'auto':
+    hitSlots = autoHitSlots(scene, histSpec, maxIntersections)
+  if strataTile == 'auto':
+    strataTile = DEFAULT_STRATA_TILE
+  if sampler is None or tileStrata(raysPerStep, strataTile) is None:
+    strataTile = 0
+  kw = dict(maxIntersections=maxIntersections, maxRayLength=maxRayLength,
+            distTol=distTol, powerTol=powerTol, hitSlots=hitSlots,
+            strataTile=strataTile)
+
+  def step(seed, histograms):
+    gen = seed if isinstance(seed, torch.Generator) else None
+    if sampler is not None:
+      if gen is not None:
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                 device=gen.device).item())
+      inputs = dict(seed=int(seed))
+    else:
+      if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+      batch = generator(gen, raysPerStep, stratified=stratified)
+      inputs = dict(columns=torch.stack(
+          [batch[k] for k in ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw',
+                              'wl')]).contiguous())
+    c = traceHistogram(tables, histograms, raysPerStep, **inputs, **kw)
+    return histograms, dict(segments=c[0], hits=c[1], hitOverflow=c[2])
+
+  step.tables = tables
+  step.hitSlots = hitSlots
+  step.strataTile = strataTile
+  return step

@@ -1,0 +1,126 @@
+'''The PyTorch port stands alone: importing and running it pulls in neither
+jax nor the JAX package, and the kernel's wrapper refuses what the kernel
+does not take.'''
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import torch_port_helpers as H
+from optics_design_workbench_tpu_torch import resolveDevice
+from optics_design_workbench_tpu_torch.ops import cuda_trace
+from optics_design_workbench_tpu_torch.tracing import fused
+
+torch.set_num_threads(1)
+
+_PROBE = '''
+import sys
+import torch
+torch.set_num_threads(1)
+import optics_design_workbench_tpu_torch as port
+from optics_design_workbench_tpu_torch import (benchmarks, convert, _build,
+                                               distributions, geometry,
+                                               models, ops, tracing)
+step, hist, meta = benchmarks.makeBenchStep(device='cpu', raysPerStep=4096)
+hist, counters = step(0, hist)
+assert int(counters['hits']) > 3600, counters
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
+             or m == 'optics_design_workbench_tpu'
+             or m.startswith('optics_design_workbench_tpu.'))
+print('LEAKED', bad)
+print('DIGEST', port.kernelSourceDigest(), port.versionInfo()['torch'])
+'''
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+  out = subprocess.run([sys.executable, '-c', _PROBE], capture_output=True,
+                       text=True, timeout=120)
+  assert out.returncode == 0, out.stderr[-2000:]
+  assert 'LEAKED []' in out.stdout, out.stdout
+  assert 'DIGEST' in out.stdout
+
+
+@pytest.fixture(scope='module')
+def setup():
+  scene, bounds, maxI = H.buildBench(H.torchNs(), 'sourceDetector')
+  sceneNp, info = scene.compile(device=None)
+  histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds,
+                                     bins=(8, 128))
+  tables = cuda_trace.buildTraceTables(
+      sceneNp, histSpec, samplerSpec=scene.lightSources()[0].samplerSpec(),
+      device='cpu')
+  return tables, histSpec
+
+
+def _call(tables, histSpec, n=256, hist=None, **inputs):
+  hist = hist or fused.initHistograms(histSpec, device='cpu')
+  return cuda_trace.traceHistogram(tables, hist, n, 2, 1000., 1e-4,
+                                   **inputs)
+
+
+def test_wrapper_refuses_float64_and_non_contiguous_inputs(setup):
+  tables, histSpec = setup
+  good = torch.rand((2, 256), dtype=torch.float32)
+  assert _call(tables, histSpec, uniforms=good).shape == (3,)
+  with pytest.raises(TypeError, match='float32'):
+    _call(tables, histSpec, uniforms=good.double())
+  with pytest.raises(ValueError, match='contiguous'):
+    _call(tables, histSpec, uniforms=torch.rand((256, 2)).t())
+  with pytest.raises(ValueError, match='shape'):
+    _call(tables, histSpec, uniforms=torch.rand((2, 255)))
+  with pytest.raises(ValueError, match='shape'):
+    _call(tables, histSpec, columns=torch.rand((7, 256)))
+  with pytest.raises(TypeError, match='float32'):
+    hist = fused.initHistograms(histSpec, dtype=torch.float64, device='cpu')
+    _call(tables, histSpec, hist=hist, uniforms=good)
+  with pytest.raises(ValueError, match='exactly one'):
+    _call(tables, histSpec, uniforms=good, seed=1)
+  with pytest.raises(ValueError, match='hitSlots'):
+    _call(tables, histSpec, uniforms=good, hitSlots=7)
+
+
+def test_kernel_launch_path_refuses_cpu_tensors(setup):
+  '''The CUDA launch itself never takes a CPU tensor: the wrapper routes
+  CPU tables to the plain version, the launch refuses them outright, and
+  tensors on another device than the tables are refused before anything
+  runs.'''
+  tables, histSpec = setup
+  before = cuda_trace.launchCount
+  _call(tables, histSpec, seed=3)
+  assert cuda_trace.launchCount == before     # plain version: no launch
+  hist = fused.initHistograms(histSpec, device='cpu')
+  with pytest.raises(ValueError, match='CUDA tensors only'):
+    cuda_trace._launchKernel(tables, hist, 256, cuda_trace.MODE_SEED, None, 3,
+                             None, 0, 2, 1000., 1e-4, 1e-6, 1)
+  assert cuda_trace.launchCount == before
+  with pytest.raises(ValueError, match='lies on'):
+    _call(tables, histSpec, uniforms=torch.rand((2, 256), device='meta'))
+  assert resolveDevice('cpu') == torch.device('cpu')
+
+
+def test_table_capacities_are_enforced(setup):
+  tables, histSpec = setup
+  spec = dict(tables['samplerSpec'])
+  segs = tuple((i / 20., (i + 1) / 20., (i + .5) / 20., .025, (0., 1.))
+               for i in range(cuda_trace.MAX_PWPOLY_SEGMENTS + 1))
+  spec['first'] = ('pwpoly', segs, 0., 1.)
+  dummy = dict(
+      surfaces=dict(packed=np.zeros((1, 24), np.float32),
+                    trim=np.zeros((1, 6), np.float32),
+                    kind=np.zeros(1, np.int32)),
+      elements=dict(packed=np.zeros((1, 11), np.float32),
+                    optType=np.array([3], np.int32),
+                    recordHits=np.array([True])))
+  with pytest.raises(ValueError, match='segments'):
+    cuda_trace.buildTraceTables(dummy, histSpec, samplerSpec=spec,
+                                device='cpu')
+  many = dict(dummy, surfaces=dict(
+      packed=np.zeros((cuda_trace.MAX_SURFACES + 1, 24), np.float32),
+      trim=np.zeros((cuda_trace.MAX_SURFACES + 1, 6), np.float32),
+      kind=np.zeros(cuda_trace.MAX_SURFACES + 1, np.int32)))
+  with pytest.raises(ValueError, match='surfaces'):
+    cuda_trace.buildTraceTables(many, histSpec, device='cpu')

@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+'''Where the CUDA trace kernel's time goes, on one NVIDIA GPU:
+
+    python3 tools/torch_kernel_probe.py
+
+times the port's main-path step (lens-and-mirror scene, 1 << 22 rays,
+128 x 128 bins) in variants, each by CUDA events over 20 launches after a
+warm-up, interleaved A B B A so that clock drift cancels:
+
+  * bounce budget 1, 2, 3, 4, 6 — the cost of sampling plus each bounce;
+  * ray-index strata on (256 rays per cell) and off;
+  * input mode (a) seed, (b) uniforms, (c) ray columns;
+  * the build with float contraction on (nvcc's default) against the
+    shipped -fmad=false build, with the number of rays whose fate or bin
+    then differs from the plain PyTorch version.
+
+Prints one JSON object per measurement. Needs a CUDA device.
+'''
+
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+from optics_design_workbench_tpu_torch import _build, benchmarks
+from optics_design_workbench_tpu_torch.ops import cuda_trace
+from optics_design_workbench_tpu_torch.tracing import fused
+
+N = 1 << 22
+BINS = (128, 128)
+REPS = 20
+
+
+def cudaMs(fn, reps=REPS):
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  fn()
+  torch.cuda.synchronize()
+  start.record()
+  for _ in range(reps):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / reps
+
+
+def main():
+  if not torch.cuda.is_available():
+    sys.exit('needs a CUDA device')
+  dev = torch.device('cuda')
+  smi = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True).stdout.strip()
+  print(json.dumps(dict(card=smi, torch=torch.__version__, rays=N,
+                        bins=BINS)), flush=True)
+
+  scene = benchmarks.buildLensMirrorScene()
+  sceneNp, info = scene.compile(device=None)
+  histSpec = fused.makeHistogramSpec(sceneNp, info,
+                                     bounds=(-60., 60., -60., 60.), bins=BINS)
+  tables = cuda_trace.buildTraceTables(
+      sceneNp, histSpec, samplerSpec=scene.lightSources()[0].samplerSpec(),
+      device=dev)
+  hist = fused.initHistograms(histSpec, device=dev)
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(11)
+  us = torch.rand((2, N), generator=gen, device=dev)
+  tile = cuda_trace.DEFAULT_STRATA_TILE
+  cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1],
+                                    cuda_trace.tileStrata(N, tile), tile)
+  colsT = torch.stack(list(cols) + [torch.full_like(cols[0], 532.)]) \
+      .contiguous()
+  seeds = iter(range(10 ** 9))
+
+  def run(maxI=6, strataTile=tile, mode='a'):
+    inputs = (dict(seed=next(seeds), strataTile=strataTile) if mode == 'a'
+              else dict(uniforms=us, strataTile=strataTile) if mode == 'b'
+              else dict(columns=colsT))
+    return cuda_trace.traceHistogram(tables, hist, N, maxI, 1000., 1e-4,
+                                     hitSlots=1, **inputs)
+
+  def record(name, **kw):
+    ms = cudaMs(lambda: run(**kw))
+    c = run(**kw).tolist()
+    print(json.dumps(dict(variant=name, ms=ms, segments=c[0], hits=c[1],
+                          **kw)), flush=True)
+
+  for rep in range(2):
+    for maxI in (1, 2, 3, 4, 6):
+      record(f'bounces{maxI}/rep{rep}', maxI=maxI)
+  for order in (('on', 'off'), ('off', 'on')):
+    for s in order:
+      record(f'strata-{s}', strataTile=tile if s == 'on' else 0)
+  for rep in range(2):
+    for mode in 'abc':
+      record(f'mode-{mode}/rep{rep}', mode=mode)
+
+  # contraction on against the shipped build, and both against the plain
+  # version on the same uniforms
+  kw = dict(maxIntersections=6, maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6, hitSlots=1)
+  hP = fused.initHistograms(histSpec, device=dev)
+  cP = cuda_trace.traceHistogramPlain(tables, hP, cols, **kw)
+  shipped = _build.NVCC_FLAGS
+  contracted = tuple(f for f in shipped if f != '-fmad=false')
+  for flags, label in ((shipped, 'fmad-off'), (contracted, 'fmad-on'),
+                       (contracted, 'fmad-on'), (shipped, 'fmad-off')):
+    _build.NVCC_FLAGS = flags
+    try:
+      ms = cudaMs(lambda: run(mode='b'))
+      hK = fused.initHistograms(histSpec, device=dev)
+      cK = cuda_trace.traceHistogram(tables, hK, N, uniforms=us,
+                                     strataTile=tile, **kw)
+      row = dict(variant=label, ms=ms, counters=cK.tolist(),
+                 plainCounters=cP.tolist(),
+                 movedRays=float((hK['counts'] - hP['counts']).abs().sum())
+                 / 2)
+    finally:
+      _build.NVCC_FLAGS = shipped
+    print(json.dumps(row), flush=True)
+
+
+if __name__ == '__main__':
+  main()
