@@ -72,20 +72,29 @@ def cudaMs(fn, reps):
   return start.elapsed_time(end) / reps
 
 
-def buildTables(scene, bounds, bins):
+def buildTables(scene, bounds, bins, tent=False):
+  '''Kernel tables of a scene; tent=True swaps the sampler's first marginal
+  for the source's 257-knot tent table (the kernel's third marginal kind,
+  which no source's own spec selects).'''
   sceneNp, info = scene.compile(device=None)
   histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds, bins=bins)
-  spec = scene.lightSources()[0].samplerSpec()
+  src = scene.lightSources()[0]
+  spec = src.samplerSpec()
   assert spec is not None, 'scene source has no in-kernel sampler spec'
+  if tent:
+    drawTables = src._getDeviceTables()
+    knots = drawTables['tables'][drawTables['order'][0]]['invCdfSmall']
+    spec = dict(spec, first=('table', tuple(float(v) for v in knots)))
   tables = cuda_trace.buildTraceTables(sceneNp, histSpec, samplerSpec=spec,
                                        device=DEV)
   return sceneNp, histSpec, tables
 
 
-def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None):
+def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
+                     tent=False):
   '''Kernel vs plain version on the card, modes (b) and (c), same inputs:
   counters equal, count bins within COUNT_BUDGET rays, power POWER_RTOL.'''
-  sceneNp, histSpec, tables = buildTables(scene, bounds, bins)
+  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, tent=tent)
   if hitSlots is None:
     hitSlots = cuda_trace.autoHitSlots(sceneNp, histSpec, maxI)
   settings = scene.activeSimulationSettings()
@@ -188,7 +197,7 @@ def main():
   lens, lensBounds, lensMaxI = helpers.buildBench(ns, 'lensMirror')
   worst = compareWithPlain('lensMirror', lens, lensBounds, lensMaxI, N_MAIN,
                            BINS)
-  for name in ('tir', 'absorbing'):
+  for name in ('tir', 'absorbing', 'collimated'):
     scene, bounds, maxI = helpers.SCENE_BUILDERS[name](ns)
     worst = max(worst, compareWithPlain(name, scene, bounds, maxI, N_SMALL,
                                         BINS))
@@ -196,6 +205,10 @@ def main():
   scene, bounds, maxI = helpers.buildAbsorbingScene(ns)
   worst = max(worst, compareWithPlain('absorbing-1slot', scene, bounds, maxI,
                                       N_SMALL, BINS, hitSlots=1))
+  # the tent-table marginal of the sampler
+  scene, bounds, maxI = helpers.buildBench(ns, 'sourceDetector')
+  worst = max(worst, compareWithPlain('sourceDetector-tent', scene, bounds,
+                                      maxI, N_SMALL, BINS, tent=True))
   compareSeedMode(lens, lensBounds, lensMaxI, N_MAIN, BINS)
 
   # ---- phase 3: the main path ----

@@ -100,6 +100,27 @@ def test_stratified_step_uses_ray_columns():
   assert 0.9 * 2048 < int(counters['hits']) <= 2048
 
 
+def test_collimated_scene_runs_end_to_end():
+  '''The f = inf branch through the whole step: every ray of the collimated
+  beam is folded by the mirror (power 0.95) into the detector.'''
+  from optics_design_workbench_tpu_torch.ops import cuda_trace
+  from optics_design_workbench_tpu_torch.tracing import fused
+  scene, bounds, maxI = H.buildCollimatedScene(H.torchNs())
+  sceneNp, info = scene.compile(device=None)
+  histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds,
+                                     bins=H.BINS)
+  src = scene.lightSources()[0]
+  spec = src.samplerSpec()
+  assert spec is not None and not spec['finite']
+  step = cuda_trace.makeTraceStep(
+      sceneNp, histSpec, None, raysPerStep=2048, maxIntersections=maxI,
+      maxRayLength=1000., distTol=1e-4, sampler=spec, device='cpu')
+  hist, c = step(9, fused.initHistograms(histSpec, device='cpu'))
+  assert int(c['hits']) == 2048 and int(c['segments']) == 2 * 2048
+  np.testing.assert_allclose(float(hist['power'].sum()), 0.95 * 2048,
+                             rtol=1e-5)
+
+
 def test_cuda_without_a_card_raises():
   if torch.cuda.is_available():
     pytest.skip('a CUDA device is present')

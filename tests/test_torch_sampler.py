@@ -139,3 +139,18 @@ def test_in_kernel_sampler_matches(sources, monkeypatch, strata):
       torch.as_tensor(sources['u'][1]), grid, strata or 0)
   port = dict(zip(('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw'), cols))
   _assertColumns(port, ref)
+
+
+def test_tent_marginal_of_the_kernel_sampler(sources):
+  '''The kernel sampler's third marginal kind, a tent table: the packed
+  block evaluates to the JAX package's tentInterp of the same knots.'''
+  jTab = jaxDs.buildDeviceTables(sources['jax']._getVrv())
+  knots = np.array(jTab['tables'][0]['invCdfSmall'])
+  block = cuda_trace._packMarginal(('table', tuple(float(v) for v in knots)))
+  assert block[0] == 2. and block[1] == len(knots) == 257
+  u = sources['u'][0]
+  ref = np.asarray(jaxDs.tentInterp(jnp.asarray(knots), jnp.asarray(u)))
+  got = cuda_trace._marginalPlain(block, torch.as_tensor(u))
+  np.testing.assert_allclose(got.numpy(), ref, atol=1e-6 * np.ptp(knots))
+  with pytest.raises(ValueError, match='tent knots'):
+    cuda_trace._packMarginal(('table', (0.,) * 300))

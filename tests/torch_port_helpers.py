@@ -100,6 +100,29 @@ def buildAbsorbingScene(ns):
   return scene, (-30., 30., -30., 30.), 8
 
 
+def buildCollimatedScene(ns):
+  '''Collimated Gaussian beam (FocalLength = inf: the sampler draws a radius,
+  every ray runs along +z) onto a 45 deg fold mirror and a detector.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='collimated')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Fold', Reflectivity=0.95,
+      surfaces=[S.plane(np.eye(4), elem=0, radius=40.)],
+      placements=[T.compose(T.translation(0, 0, 50),
+                            T.rotation((0, 1, 0), 45))]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(30., 30.))],
+      placements=[T.compose(T.translation(-60, 0, 50),
+                            T.rotation((0, 1, 0), 90))]))
+  scene.addSource(ns.PointSource(
+      Label='Source', PowerDensity='exp(-r^2/50)', FocalLength='inf',
+      RadiusDomain='0, 20', Wavelength=532.,
+      RadiusResolutionNumericMode='5e3'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=4)
+  return scene, (-30., 30., -30., 30.), 4
+
+
 def buildBench(ns, name):
   bounds = (-60., 60., -60., 60.)
   if name == 'lensMirror':
@@ -112,6 +135,7 @@ SCENE_BUILDERS = {
     'sourceDetector': lambda ns: buildBench(ns, 'sourceDetector'),
     'tir': buildTirScene,
     'absorbing': buildAbsorbingScene,
+    'collimated': buildCollimatedScene,
 }
 
 
