@@ -3,20 +3,34 @@
 
     python3 chip_smoke.py
 
-builds the CUDA kernel from the sources in this checkout, holds it against
-its plain PyTorch version on the card in all three input modes, drives the
-port's main path (`benchmarks.makeBenchStep()` on the lens-and-mirror scene:
-1 << 22 rays, 6 bounces, 128 x 128 bins) for a few timed steps, and checks
-the physics of what comes out. Every failing phase raises, so the exit code
-is non-zero and no result line is printed. Needs one CUDA device; exits
-non-zero without one. Prints one JSON object per phase; the last line is
-`{"ok": true, "device": {...}}`.
+builds the CUDA kernels from the sources in this checkout (one nvcc per
+source, in parallel) and holds each against its plain PyTorch version on the
+card: the in-kernel-histogram kernel in all three input modes, the
+per-ray-bin and raw-record kernels in modes (b) and (c) on scenes with one,
+two and four live ring slots and with a ring that overflows. It then drives
+the port's paths at full width on the lens-and-mirror scene:
+
+  * the fused step (`benchmarks.makeBenchStep()`: 1 << 22 rays, 6 bounces,
+    128 x 128 bins) for a few timed steps, with in-kernel binning and with
+    histPrecision='highest' (per-ray-bin kernel + float64 binning outside);
+  * the recording run: `makeRawStep` at 1 << 22 rays with its compaction
+    and fetch, `simulation.runSimulation(scene, 'true')` with raw recording
+    (4 iterations of 1 << 20 rays, hits written and read back) and with
+    histogram-first recording (32 iterations of 1 << 22 rays);
+
+and checks the physics of what comes out. Every failing phase raises, so the
+exit code is non-zero and no result line is printed. Needs one CUDA device;
+exits non-zero without one. Prints one JSON object per phase; the last line
+is `{"ok": true, "device": {...}}`.
 '''
 
+import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -27,18 +41,23 @@ sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, 'tests'))
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
-from optics_design_workbench_tpu_torch import _build, benchmarks
+from optics_design_workbench_tpu_torch import _build, benchmarks, simulation
 from optics_design_workbench_tpu_torch.ops import cuda_trace
+from optics_design_workbench_tpu_torch.simulation import results_store, runner
 from optics_design_workbench_tpu_torch.tracing import fused
 
 DEV = torch.device('cuda')
 N_MAIN = 1 << 22
 N_SMALL = 1 << 18
+N_RAW_ITERATION = 1 << 20   # rays per iteration of the raw recording run
+RAW_ITERATIONS = 4
+HIST_ITERATIONS = 32
 BINS = (128, 128)
 WARM_STEPS, TIMED_STEPS = 3, 20
 COUNT_BUDGET = 2          # rays allowed to cross a bin edge (ulp-level)
 POWER_RTOL = 1e-4         # float32 atomics add in a run-to-run order
 MARGINAL_L1 = 0.02        # mode (a): independent draws, 4M rays
+RAW_ATOL = 1e-4           # mm / unit power: the reference's own raw-row test
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
@@ -140,6 +159,90 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   return worst
 
 
+def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None):
+  '''The per-ray kernels vs their plain versions on the card, modes (b) and
+  (c), same inputs. traceRaw: counters, element, isEntering (hence
+  recordHit) equal element for element; power, point, direction within
+  RAW_ATOL. traceBins: counters equal, at most COUNT_BUDGET rays in another
+  bin, power and count equal where the bin is. Then traceBins + float64
+  binning against traceHistogram on the same uniforms: counts equal bin for
+  bin, power POWER_RTOL. Returns the worst absolute error per kernel.'''
+  sceneNp, histSpec, tables = buildTables(scene, bounds, bins)
+  if hitSlots is None:
+    hitSlots = cuda_trace.autoHitSlots(sceneNp, histSpec, maxI)
+  settings = scene.activeSimulationSettings()
+  kw = dict(maxIntersections=maxI, maxRayLength=settings.maxRayLength(),
+            distTol=1e-4, powerTol=1e-6, hitSlots=hitSlots)
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(4321)
+  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
+  strataTile = cuda_trace.DEFAULT_STRATA_TILE
+  strata = cuda_trace.tileStrata(n, strataTile)
+  cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1], strata, strataTile)
+  colsT = torch.stack(list(cols) + [torch.full_like(cols[0], 532.)]) \
+      .contiguous()
+  rawP, cRawP = cuda_trace.traceRawPlain(tables, cols, **kw)
+  binsP, cBinsP = cuda_trace.traceBinsPlain(tables, cols, **kw)
+  worst = dict(traceRaw=0., traceBins=0.)
+  for mode, inputs in (('b', dict(uniforms=us, strataTile=strataTile)),
+                       ('c', dict(columns=colsT))):
+    rawK, cRawK = cuda_trace.traceRaw(tables, n, **inputs, **kw)
+    binsK, cBinsK = cuda_trace.traceBins(tables, n, **inputs, **kw)
+    torch.cuda.synchronize()
+    for name, cK, cP in (('traceRaw', cRawK, cRawP),
+                         ('traceBins', cBinsK, cBinsP)):
+      if cK.tolist() != cP.tolist():
+        raise AssertionError(f'{label} {name} mode ({mode}): counters '
+                             f'differ: kernel {cK.tolist()} plain '
+                             f'{cP.tolist()}')
+    if int(cRawK[1]) <= 0 or int(cBinsK[1]) <= 0:
+      raise AssertionError(f'{label} mode ({mode}): no hits recorded')
+    for row, what in ((0, 'element'), (2, 'isEntering')):
+      if not torch.equal(rawK[row], rawP[row]):
+        raise AssertionError(f'{label} traceRaw mode ({mode}): {what} '
+                             f'differs from the plain version')
+    errRaw = float((rawK - rawP).abs().max())
+    if not errRaw <= RAW_ATOL:
+      raise AssertionError(f'{label} traceRaw mode ({mode}): records differ '
+                           f'by {errRaw} (atol {RAW_ATOL})')
+    sameBin = binsK[0] == binsP[0]
+    moved = int((~sameBin).sum())
+    if moved > COUNT_BUDGET:
+      raise AssertionError(f'{label} traceBins mode ({mode}): {moved} rays '
+                           f'in another bin (budget {COUNT_BUDGET})')
+    errBins = float(((binsK[1:] - binsP[1:]).abs() * sameBin).max())
+    if errBins != 0.:
+      raise AssertionError(f'{label} traceBins mode ({mode}): power / count '
+                           f'differ by {errBins} in equal bins')
+    worst['traceRaw'] = max(worst['traceRaw'], errRaw)
+    worst['traceBins'] = max(worst['traceBins'], errBins)
+    emit(dict(phase='ring-kernels-vs-plain', scene=label, mode=mode, rays=n,
+              hitSlots=hitSlots, rawCounters=cRawK.tolist(),
+              binsCounters=cBinsK.tolist(), maxAbsErrRaw=errRaw,
+              movedRays=moved, maxAbsErrBins=errBins))
+
+  # per-ray bins + float64 binning outside against the in-kernel histogram
+  h1 = fused.initHistograms(histSpec, device=DEV)
+  c1 = cuda_trace.traceHistogram(tables, h1, n, uniforms=us,
+                                 strataTile=strataTile, **kw)
+  h2 = fused.initHistograms(histSpec, device=DEV)
+  ring, c2 = cuda_trace.traceBins(tables, n, uniforms=us,
+                                  strataTile=strataTile, **kw)
+  cuda_trace.binRing(h2, ring)
+  torch.cuda.synchronize()
+  if c1.tolist() != c2.tolist() or not torch.equal(h1['counts'],
+                                                   h2['counts']):
+    raise AssertionError(f'{label}: traceBins + binRing counts differ from '
+                         f'traceHistogram ({c1.tolist()} / {c2.tolist()})')
+  if not torch.allclose(h1['power'], h2['power'], rtol=POWER_RTOL, atol=0.):
+    raise AssertionError(f'{label}: traceBins + binRing power differs from '
+                         f'traceHistogram beyond rtol {POWER_RTOL}')
+  emit(dict(phase='bins-vs-histogram', scene=label, rays=n,
+            counters=c2.tolist(),
+            maxAbsErrPower=float((h1['power'] - h2['power']).abs().max())))
+  return worst
+
+
 def compareSeedMode(scene, bounds, maxI, n, bins):
   '''Mode (a): the kernel's own Philox draws vs the plain version fed torch
   uniforms — independent numbers, so compared by histogram marginals.'''
@@ -175,51 +278,51 @@ def compareSeedMode(scene, bounds, maxI, n, bins):
                          f'segments {relSegs} off the plain version')
 
 
-def main():
-  if not torch.cuda.is_available():
-    sys.exit('chip_smoke.py needs a CUDA device: torch.cuda.is_available() '
-             'is False')
-  smi = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True).stdout.strip() \
-      .splitlines()[0]
+def resetLaunchCounts():
+  for name in cuda_trace.launchCounts:
+    cuda_trace.launchCounts[name] = 0
 
-  # ---- phase 1: the card and the build ----
-  lib, info = _build.buildKernels()
-  emit(dict(phase='card', nvidiaSmi=smi, torch=torch.__version__,
-            cuda=torch.version.cuda, buildSeconds=info['seconds'],
-            buildCached=info['cached'],
-            ptxas=[l for l in info['log'].splitlines()
-                   if 'registers' in l or 'spill' in l]))
 
-  # ---- phase 2: kernel against its plain version on the card ----
-  ns = helpers.torchNs()
-  lens, lensBounds, lensMaxI = helpers.buildBench(ns, 'lensMirror')
-  worst = compareWithPlain('lensMirror', lens, lensBounds, lensMaxI, N_MAIN,
-                           BINS)
-  for name in ('tir', 'absorbing', 'collimated'):
-    scene, bounds, maxI = helpers.SCENE_BUILDERS[name](ns)
-    worst = max(worst, compareWithPlain(name, scene, bounds, maxI, N_SMALL,
-                                        BINS))
-  # the ring's overflow rule: one slot where two passes happen
-  scene, bounds, maxI = helpers.buildAbsorbingScene(ns)
-  worst = max(worst, compareWithPlain('absorbing-1slot', scene, bounds, maxI,
-                                      N_SMALL, BINS, hitSlots=1))
-  # the tent-table marginal of the sampler
-  scene, bounds, maxI = helpers.buildBench(ns, 'sourceDetector')
-  worst = max(worst, compareWithPlain('sourceDetector-tent', scene, bounds,
-                                      maxI, N_SMALL, BINS, tent=True))
-  compareSeedMode(lens, lensBounds, lensMaxI, N_MAIN, BINS)
+def boundMs(tables, segmentsPerStep, nRays, outputBytes):
+  '''Least time the card could take for one step: (ms by operations, ms by
+  bytes), from this run's segment count and the bytes the kernel must move
+  (table and counters in, `outputBytes` out).'''
+  kinds = [r['kind'] for r in tables['surfRows']]
+  flopsPerSegment = (sum(FLOPS_INTERSECT[k] for k in kinds) + FLOPS_WINNER
+                     + FLOPS_PHYSICS)
+  flops = segmentsPerStep * flopsPerSegment + nRays * FLOPS_SAMPLER
+  nbytes = outputBytes + tables['table'].numel() * 4 + 3 * 8
+  return (flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3,
+          dict(flopsPerSegment=flopsPerSegment, flopsPerStep=flops,
+               bytesPerStep=nbytes))
 
-  # ---- phase 3: the main path ----
-  step, hist, meta = benchmarks.makeBenchStep()
+
+def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds):
+  boundOps, boundBytes, _ = bounds
+  return dict(name=name, route='cuda',
+              source=f'optics_design_workbench_tpu_torch/csrc/{source}',
+              replaces=f'optics_design_workbench_tpu/ops/pallas_trace.py:'
+                       f'{replaces}',
+              launches=launches, max_abs_err=err, ms=ms, plain_ms=plainMs,
+              bound_ms=max(boundOps, boundBytes),
+              bound_by='operations' if boundOps >= boundBytes else 'bytes',
+              library_ms=None)
+
+
+def fusedStepPhase(histPrecision):
+  '''The fused step through `benchmarks.makeBenchStep` at full width: a few
+  warm steps, TIMED_STEPS timed ones with the launch counts read around
+  them, the kernel alone by CUDA events, the plain version at the same
+  size, and the physics of the accumulated histogram.'''
+  wrapper = 'traceHistogram' if histPrecision == 'default' else 'traceBins'
+  step, hist, meta = benchmarks.makeBenchStep(histPrecision=histPrecision)
   assert meta['backend'] == 'cuda'
   for s in range(WARM_STEPS):
     hist, counters = step(s, hist)
   torch.cuda.synchronize()
   hist['power'].zero_()
   hist['counts'].zero_()
-  cuda_trace.launchCount = 0
+  resetLaunchCounts()
   t0 = time.perf_counter()
   allCounters = []
   for s in range(TIMED_STEPS):
@@ -227,21 +330,27 @@ def main():
     allCounters.append(counters)
   torch.cuda.synchronize()
   stepMs = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-  launches = cuda_trace.launchCount
+  launches = dict(cuda_trace.launchCounts)
   segments = sum(int(c['segments']) for c in allCounters)
   hits = sum(int(c['hits']) for c in allCounters)
   overflow = sum(int(c['hitOverflow']) for c in allCounters)
-  if launches != TIMED_STEPS:
-    raise AssertionError(f'{launches} kernel launches for {TIMED_STEPS} steps')
+  if launches != {**{k: 0 for k in launches}, wrapper: TIMED_STEPS}:
+    raise AssertionError(f'{launches} kernel launches for {TIMED_STEPS} '
+                         f'steps of histPrecision={histPrecision!r}')
 
   # the kernel alone (events), and the plain version at the same size
-  seeds = iter(range(5000, 5000 + 10 ** 6))
-  scratch = fused.initHistograms(meta['histSpec'], device=DEV)
-  kernelMs = cudaMs(lambda: step(next(seeds), scratch), TIMED_STEPS)
   tables = step.tables
   kw = dict(maxIntersections=6,
             maxRayLength=meta['scene'].activeSimulationSettings()
             .maxRayLength(), distTol=1e-4, powerTol=1e-6, hitSlots=1)
+  seeds = iter(range(5000, 5000 + 10 ** 6))
+  scratch = fused.initHistograms(meta['histSpec'], device=DEV)
+  if histPrecision == 'default':
+    kernelMs = cudaMs(lambda: step(next(seeds), scratch), TIMED_STEPS)
+  else:
+    kernelMs = cudaMs(lambda: cuda_trace.traceBins(
+        tables, N_MAIN, seed=next(seeds), strataTile=step.strataTile, **kw),
+        TIMED_STEPS)
   gen = torch.Generator(device=DEV)
   gen.manual_seed(7)
   strata = cuda_trace.tileStrata(N_MAIN, step.strataTile)
@@ -251,40 +360,37 @@ def main():
                     dtype=torch.float32)
     cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1], strata,
                                       step.strataTile)
-    cuda_trace.traceHistogramPlain(tables, scratch, cols, **kw)
+    if histPrecision == 'default':
+      cuda_trace.traceHistogramPlain(tables, scratch, cols, **kw)
+    else:
+      cuda_trace.traceBinsPlain(tables, cols, **kw)
 
   plainStep()
   plainMs = cudaMs(plainStep, 2)
 
-  # least time the card could take for this run's work
-  kinds = [r['kind'] for r in tables['surfRows']]
-  flopsPerSegment = (sum(FLOPS_INTERSECT[k] for k in kinds) + FLOPS_WINNER
-                     + FLOPS_PHYSICS)
   segsPerStep = segments / TIMED_STEPS
-  flops = segsPerStep * flopsPerSegment + N_MAIN * FLOPS_SAMPLER
-  histBytes = hist['power'].numel() * 4 * 2
-  nbytes = 2 * histBytes + tables['table'].numel() * 4 + 3 * 8
-  boundOps, boundBytes = flops / PEAK_F32_FLOPS * 1e3, \
-      nbytes / PEAK_BYTES * 1e3
-  boundMs = max(boundOps, boundBytes)
-  emit(dict(phase='main-path', rays=N_MAIN, maxIntersections=6, bins=BINS,
-            steps=TIMED_STEPS, stepMs=stepMs, kernelMs=kernelMs,
-            plainMs=plainMs, raySegmentsPerSec=segsPerStep / (stepMs * 1e-3),
+  outBytes = (2 * hist['power'].numel() * 4 * 2 if histPrecision == 'default'
+              else 3 * step.hitSlots * N_MAIN * 4)
+  bounds = boundMs(tables, segsPerStep, N_MAIN, outBytes)
+  emit(dict(phase='main-path', histPrecision=histPrecision, rays=N_MAIN,
+            maxIntersections=6, bins=BINS, steps=TIMED_STEPS, stepMs=stepMs,
+            kernelMs=kernelMs, plainMs=plainMs,
+            raySegmentsPerSec=segsPerStep / (stepMs * 1e-3),
             segmentsPerRay=segsPerStep / N_MAIN, hits=hits,
-            hitOverflow=overflow, launches=launches,
-            flopsPerSegment=flopsPerSegment, flopsPerStep=flops,
-            bytesPerStep=nbytes, boundMs=boundMs,
-            strataTile=step.strataTile))
+            hitOverflow=overflow, launches=launches[wrapper],
+            boundMs=max(bounds[:2]), strataTile=step.strataTile,
+            **bounds[2]))
 
-  # ---- phase 4: physics of the result ----
+  # physics of the result
   nRays = N_MAIN * TIMED_STEPS
   totalPower = float(hist['power'].double().sum())
   totalCounts = float(hist['counts'].double().sum())
   hitShare = hits / nRays
   segsPerRay = segments / nRays
   meanPower = totalPower / max(totalCounts, 1.)
-  emit(dict(phase='physics', hitShare=hitShare, segmentsPerRay=segsPerRay,
-            meanDetectedPower=meanPower, histCounts=totalCounts))
+  emit(dict(phase='physics', histPrecision=histPrecision, hitShare=hitShare,
+            segmentsPerRay=segsPerRay, meanDetectedPower=meanPower,
+            histCounts=totalCounts))
   if not torch.isfinite(hist['power']).all():
     raise AssertionError('non-finite histogram power')
   if tuple(hist['power'].shape) != (1,) + BINS:
@@ -297,15 +403,253 @@ def main():
   if abs(meanPower - 0.98) > 1e-3:
     raise AssertionError(f'mean detected power {meanPower}, expected the '
                          f"fold mirror's reflectivity 0.98")
+  return dict(launches=launches[wrapper], kernelMs=kernelMs, plainMs=plainMs,
+              bounds=bounds)
 
-  emit(dict(kernels=[dict(
-      name='traceHistogram', route='cuda',
-      source='optics_design_workbench_tpu_torch/csrc/trace_kernel.cu',
-      replaces='optics_design_workbench_tpu/ops/pallas_trace.py:2776',
-      launches=launches, max_abs_err=worst, ms=kernelMs, plain_ms=plainMs,
-      bound_ms=boundMs,
-      bound_by='operations' if boundOps >= boundBytes else 'bytes',
-      library_ms=None)]))
+
+def loadHits(runPath):
+  '''All stored hit columns of a run, concatenated over its files.'''
+  cols = {}
+  for f in results_store.resultFilePaths(
+      glob.glob(os.path.join(runPath, 'source-*', 'object-*'))[0], 'hits'):
+    for k, v in results_store.loadResultFile(f).items():
+      if v.ndim > 0 and k not in ('source', 'obj'):
+        cols.setdefault(k, []).append(v)
+  return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def timedRun(scene, **kwargs):
+  '''runSimulation with the host clock read at start, at every progress
+  callback and at the end. Returns (runPath, progress dicts, seconds of
+  set-up + first pass, of the later passes, of the clean-up).'''
+  progress, stamps = [], []
+
+  def onProgress(p):
+    torch.cuda.synchronize()
+    progress.append(p)
+    stamps.append(time.perf_counter())
+
+  t0 = time.perf_counter()
+  runPath = simulation.runSimulation(scene, 'true', seed=20261016,
+                                     progressCallback=onProgress, **kwargs)
+  t1 = time.perf_counter()
+  return runPath, progress, (stamps[0] - t0, stamps[-1] - stamps[0],
+                             t1 - stamps[-1])
+
+
+def recordingRunPhases(tmp):
+  '''The recording run at full width on the lens-and-mirror scene.'''
+  # ---- (i) the raw step alone: kernel, then kernel + compaction + fetch
+  scene = benchmarks.buildLensMirrorScene(tmpdir=tmp)
+  settings = scene.activeSimulationSettings()
+  sceneNp, info = scene.compile(device=None)
+  sceneNp['powerTol'] = 1e-6
+  histSpec = fused.makeHistogramSpec(sceneNp, info)
+  src = scene.lightSources()[0]
+  out = {}
+  for n in (N_MAIN, N_RAW_ITERATION):
+    step = cuda_trace.makeRawStep(
+        sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
+        raysPerStep=n, maxIntersections=6,
+        maxRayLength=settings.maxRayLength(), distTol=1e-4,
+        sampler=src.samplerSpec())
+    seeds = iter(range(10 ** 6))
+    records, counters = step(next(seeds))
+    kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
+        step.tables, n, 6, settings.maxRayLength(), 1e-4,
+        hitSlots=step.hitSlots, seed=next(seeds),
+        strataTile=step.strataTile), TIMED_STEPS)
+    stepOnlyMs = cudaMs(lambda: step(next(seeds)), TIMED_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+      records, counters = step(next(seeds))
+      hits = runner.compactRecordsToHits(records, {}, info['elementLabels'])
+    wholeMs = (time.perf_counter() - t0) * 1e3 / 3
+    rows = sum(len(c['points']) for c in hits.values())
+    if rows != int(counters['hits']) or list(hits) != ['Detector']:
+      raise AssertionError(f'compaction kept {rows} rows of '
+                           f'{int(counters["hits"])} hits in {list(hits)}')
+    out[n] = dict(kernelMs=kernelMs, segments=int(counters['segments']),
+                  hitSlots=step.hitSlots, tables=step.tables)
+    emit(dict(phase='raw-step', rays=n, hitSlots=step.hitSlots,
+              kernelMs=kernelMs, stepWithRecordsMs=stepOnlyMs,
+              kernelCompactFetchMs=wholeMs,
+              compactFetchMs=wholeMs - stepOnlyMs, hitRows=rows,
+              bytesFetched=rows * 36))
+
+  # ---- (ii) runSimulation with raw recording, hits written and read back
+  settings.RaysPerIteration = N_RAW_ITERATION
+  settings.EndAfterIterations = RAW_ITERATIONS
+  settings.EndAfterRays = 'inf'
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(scene,
+                                                        recording='raw')
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  hits = loadHits(runPath)
+  rows = len(hits['points'])
+  traced = last['totalTracedRays']
+  meanPower = float(hits['powers'].astype(np.float64).mean())
+  fileBytes = sum(os.path.getsize(f) for f in glob.glob(
+      os.path.join(runPath, 'source-*', 'object-*', '*')))
+  lc = simulation.Lifecycle(scene.resultsFolderPath())
+  perIterationMs = later / (RAW_ITERATIONS - 1) * 1e3
+  emit(dict(phase='run-raw', raysPerIteration=N_RAW_ITERATION,
+            iterations=last['totalIterations'], tracedRays=traced,
+            storedHits=rows, meanPower=meanPower, launches=launches,
+            setupAndFirstIterationS=first, laterIterationsS=later,
+            cleanupFlushS=cleanup, perIterationMs=perIterationMs,
+            traceMsPerIteration=out[N_RAW_ITERATION]['kernelMs'],
+            raysPerSecStoredLoop=N_RAW_ITERATION / (perIterationMs * 1e-3),
+            raysPerSecStoredWithFlush=traced / (first + later + cleanup),
+            fileBytes=fileBytes))
+  if launches != dict(traceHistogram=0, traceBins=0,
+                      traceRaw=RAW_ITERATIONS):
+    raise AssertionError(f'raw run launched {launches}')
+  if traced != N_RAW_ITERATION * RAW_ITERATIONS \
+      or rows != last['totalRecordedHits'] or rows < 0.9 * traced:
+    raise AssertionError(f'{rows} rows stored, {last}')
+  if set(hits) != {'points', 'directions', 'powers', 'isEntering'}:
+    raise AssertionError(f'stored columns {sorted(hits)}')
+  if not np.isfinite(hits['points']).all() \
+      or np.abs(hits['points'][:, 0] + 100.).max() > 1e-3:
+    raise AssertionError('stored points off the detector plane x = -100')
+  if abs(meanPower - 0.98) > 1e-3:
+    raise AssertionError(f'mean stored power {meanPower}')
+  if lc.isRunning() or lc.isCanceled() or not lc.isFinished():
+    raise AssertionError('lifecycle flags not cleared after the raw run')
+  rawLaunches = launches['traceRaw']
+
+  # ---- (iii) runSimulation with histogram-first recording
+  settings.RaysPerIteration = N_MAIN
+  settings.EndAfterIterations = HIST_ITERATIONS
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(
+      scene, recording='histogram', histBins=BINS,
+      histBounds=(-60., 60., -60., 60.))
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  snap = results_store.loadHistogramSnapshots(runPath)['Source']['Detector']
+  counts = float(snap['counts'].astype(np.float64).sum())
+  sample = loadHits(runPath)
+  sampleSteps = sum(1 for p in range(1, len(progress) + 1) if p % 8 == 1)
+  emit(dict(phase='run-histogram', raysPerIteration=N_MAIN,
+            iterations=last['totalIterations'], passes=len(progress),
+            tracedRays=last['totalTracedRays'], histCounts=counts,
+            recordedHits=last['totalRecordedHits'],
+            rawSampleRows=len(sample['points']), launches=launches,
+            setupAndFirstPassS=first, laterPassesS=later,
+            cleanupFlushS=cleanup,
+            raysPerSec=last['totalTracedRays'] / (first + later + cleanup)))
+  if last['totalIterations'] != HIST_ITERATIONS \
+      or last['totalTracedRays'] != HIST_ITERATIONS * N_MAIN:
+    raise AssertionError(f'histogram run ended at {last}')
+  if counts != last['totalRecordedHits'] or counts < 0.9 * HIST_ITERATIONS \
+      * N_MAIN:
+    raise AssertionError(f'snapshot counts {counts}, run counted '
+                         f'{last["totalRecordedHits"]}')
+  if not 0 < len(sample['points']) <= 8192 * sampleSteps:
+    raise AssertionError(f'raw sample holds {len(sample["points"])} rows')
+  if launches != dict(traceHistogram=HIST_ITERATIONS, traceBins=0,
+                      traceRaw=sampleSteps):
+    raise AssertionError(f'histogram run launched {launches}, expected '
+                         f'{HIST_ITERATIONS} steps + {sampleSteps} samples')
+  return rawLaunches, out[N_MAIN]
+
+
+def main():
+  if not torch.cuda.is_available():
+    sys.exit('chip_smoke.py needs a CUDA device: torch.cuda.is_available() '
+             'is False')
+  smi = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True).stdout.strip() \
+      .splitlines()[0]
+
+  # ---- phase 1: the card and the build ----
+  _libs, info = _build.buildKernels()
+  emit(dict(phase='card', nvidiaSmi=smi, torch=torch.__version__,
+            cuda=torch.version.cuda, buildSeconds=info['seconds'],
+            buildCached=info['cached'],
+            ptxas=[l for l in info['log'].splitlines()
+                   if 'registers' in l or 'spill' in l]))
+
+  # ---- phase 2: each kernel against its plain version on the card ----
+  ns = helpers.torchNs()
+  lens, lensBounds, lensMaxI = helpers.buildBench(ns, 'lensMirror')
+  worst = compareWithPlain('lensMirror', lens, lensBounds, lensMaxI, N_MAIN,
+                           BINS)
+  for name in ('tir', 'absorbing', 'collimated'):
+    scene, bounds, maxI = helpers.SCENES_BY_NAME[name](ns)
+    worst = max(worst, compareWithPlain(name, scene, bounds, maxI, N_SMALL,
+                                        BINS))
+  # the ring's overflow rule: one slot where two passes happen
+  scene, bounds, maxI = helpers.buildAbsorbingScene(ns)
+  worst = max(worst, compareWithPlain('absorbing-1slot', scene, bounds, maxI,
+                                      N_SMALL, BINS, hitSlots=1))
+  # the tent-table marginal of the sampler
+  scene, bounds, maxI = helpers.buildBench(ns, 'sourceDetector')
+  worst = max(worst, compareWithPlain('sourceDetector-tent', scene, bounds,
+                                      maxI, N_SMALL, BINS, tent=True))
+  compareSeedMode(lens, lensBounds, lensMaxI, N_MAIN, BINS)
+
+  # the per-ray kernels: one slot at full width, then two slots, one slot
+  # that overflows, and four live slots
+  worstRing = compareRingsWithPlain('lensMirror', lens, lensBounds, lensMaxI,
+                                    N_MAIN, BINS)
+  for label, name, slots in (('absorbing', 'absorbing', None),
+                             ('absorbing-1slot', 'absorbing', 1),
+                             ('stacked', 'stacked', None)):
+    scene, bounds, maxI = helpers.SCENES_BY_NAME[name](ns)
+    w = compareRingsWithPlain(label, scene, bounds, maxI, N_SMALL, BINS,
+                              hitSlots=slots)
+    worstRing = {k: max(v, w[k]) for k, v in worstRing.items()}
+
+  # ---- phase 3: the fused step, binned in the kernel and outside it ----
+  k1 = fusedStepPhase('default')
+  k2 = fusedStepPhase('highest')
+
+  # ---- phase 4: the recording run ----
+  tmp = tempfile.mkdtemp(prefix='odw_chip_smoke_')
+  try:
+    rawLaunches, raw = recordingRunPhases(tmp)
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+
+  # the raw kernel's plain version and bound at the full-width step
+  tables = raw['tables']
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(8)
+  strataTile = cuda_trace.DEFAULT_STRATA_TILE
+  strata = cuda_trace.tileStrata(N_MAIN, strataTile)
+  kw = dict(maxIntersections=6, maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6, hitSlots=raw['hitSlots'])
+
+  def plainRaw():
+    us = torch.rand((2, N_MAIN), generator=gen, device=DEV,
+                    dtype=torch.float32)
+    cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1], strata,
+                                      strataTile)
+    cuda_trace.traceRawPlain(tables, cols, **kw)
+
+  plainRaw()
+  plainRawMs = cudaMs(plainRaw, 2)
+  rawBounds = boundMs(tables, raw['segments'], N_MAIN,
+                      9 * raw['hitSlots'] * N_MAIN * 4)
+  emit(dict(phase='raw-kernel-bound', rays=N_MAIN, kernelMs=raw['kernelMs'],
+            plainMs=plainRawMs, boundOpsMs=rawBounds[0],
+            boundBytesMs=rawBounds[1], **rawBounds[2]))
+
+  emit(dict(kernels=[
+      kernelEntry('traceHistogram', 'trace_kernel.cu', 2776, k1['launches'],
+                  worst, k1['kernelMs'], k1['plainMs'], k1['bounds']),
+      kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
+                  worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
+                  rawBounds),
+      kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
+                  worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
+                  k2['bounds'])]))
   print(smi, flush=True)
   print(json.dumps(dict(ok=True, device=dict(
       platform='gpu', kind=torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ ray tracer, for one NVIDIA Hopper card.
 
 Counterpart of `optics_design_workbench_tpu` (the JAX package, which stays
 the reference): same sub-package and function names, PyTorch idiom inside.
-The fused sample + trace + histogram step runs in ONE hand-written CUDA
-kernel (csrc/trace_kernel.cu, wrapped by ops/cuda_trace.py); host-side scene
+The sample + trace steps run in hand-written CUDA kernels (csrc/, one shared
+body with three output modes: in-kernel histogram, per-ray bins, raw hit
+records; wrapped by ops/cuda_trace.py); `simulation.runSimulation` drives
+them and writes the JAX package's on-disk run-folder layout; host-side scene
 compilation stays numpy / sympy. This package imports torch, never jax, and
 nothing of the JAX package.
 
@@ -18,8 +20,10 @@ version.
 __version__ = '0.1.0'
 
 # sources that shape the compiled kernels: the build directory is keyed by
-# a digest of these, so an edited kernel can never load a stale binary
-_KERNEL_SOURCES = ('csrc/trace_kernel.cu',)
+# a digest of these, so an edited kernel can never load a stale binary. Each
+# .cu file becomes one shared library; the header holds their common body.
+_KERNEL_SOURCES = ('csrc/trace_common.cuh', 'csrc/trace_kernel.cu',
+                   'csrc/trace_bins_kernel.cu', 'csrc/trace_raw_kernel.cu')
 
 
 def kernelSourceDigest():

@@ -1,7 +1,7 @@
 '''
-First-use build of the CUDA kernels: `nvcc` compiles csrc/*.cu for sm_90a
-into a shared library with a plain C interface under `_build/<digest>/`
-(git-ignored), loaded with ctypes. The digest covers the sources and the
+First-use build of the CUDA kernels: `nvcc` compiles each csrc/*.cu for
+sm_90a into a shared library with a plain C interface under
+`_build/<digest>/` (git-ignored), loaded with ctypes. The digest covers the sources and the
 compiler flags, so editing a kernel rolls the build over. No PyTorch headers
 are included by the kernels, which keeps a build at a few seconds.
 '''
@@ -46,10 +46,12 @@ def buildDir(flags):
 
 
 def buildKernels(flags=None):
-  '''Compile (once per source digest) and load the kernel library. Returns
-  (ctypes library, info) with info = dict(path, seconds, log, cached).
-  One nvcc process per source, all started together; a failed build raises
-  with nvcc's output. `flags` defaults to NVCC_FLAGS (read at call time).'''
+  '''Compile (once per source digest) and load the kernel libraries.
+  Returns (libs, info): libs maps a source's stem ('trace_kernel',
+  'trace_bins_kernel', 'trace_raw_kernel') to its ctypes library, info =
+  dict(path, seconds, log, cached). One nvcc process per .cu source, all
+  started together; a failed build raises with nvcc's output. `flags`
+  defaults to NVCC_FLAGS (read at call time).'''
   flags = tuple(NVCC_FLAGS if flags is None else flags)
   if flags in _loaded:
     return _loaded[flags]
@@ -58,10 +60,11 @@ def buildKernels(flags=None):
   os.makedirs(out, exist_ok=True)
   t0 = time.time()
   jobs, logs, cached = [], [], True
-  for rel in _KERNEL_SOURCES:
-    src = os.path.join(base, rel)
-    lib = os.path.join(out, 'lib' + os.path.splitext(
-        os.path.basename(rel))[0] + '.so')
+  stems = [os.path.splitext(os.path.basename(rel))[0]
+           for rel in _KERNEL_SOURCES if rel.endswith('.cu')]
+  for stem in stems:
+    src = os.path.join(base, 'csrc', stem + '.cu')
+    lib = os.path.join(out, f'lib{stem}.so')
     if not os.path.isfile(lib):
       cached = False
       tmp = lib + f'.tmp{os.getpid()}'
@@ -75,9 +78,9 @@ def buildKernels(flags=None):
       raise RuntimeError(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n'
                          f'{log}')
     os.replace(tmp, lib)            # atomic: concurrent builds never race
-  libs = [ctypes.CDLL(os.path.join(out, 'lib' + os.path.splitext(
-      os.path.basename(rel))[0] + '.so')) for rel in _KERNEL_SOURCES]
+  libs = {stem: ctypes.CDLL(os.path.join(out, f'lib{stem}.so'))
+          for stem in stems}
   info = dict(path=out, seconds=time.time() - t0, log='\n'.join(logs),
               cached=cached)
-  _loaded[flags] = (libs[0], info)
+  _loaded[flags] = (libs, info)
   return _loaded[flags]

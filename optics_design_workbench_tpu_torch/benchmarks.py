@@ -72,12 +72,15 @@ def buildLensMirrorScene(tmpdir=None):
 
 
 def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,
-                  bins=(128, 128), stratified=False, device='cuda'):
+                  bins=(128, 128), stratified=False, histPrecision='default',
+                  device='cuda'):
   '''Compile the fused sample+trace+histogram step for a benchmark scene.
   Returns (step, histograms, meta). step: (seed, hist) -> (hist, counters)
   with `seed` a python int or a torch.Generator; `hist` is accumulated in
   place. On the card the step is ONE launch of the CUDA trace kernel with
-  the in-kernel sampler; an ineligible scene raises (no batch-tracer
+  the in-kernel sampler (histPrecision='highest': one launch of the
+  per-ray-bin kernel plus float64 binning outside, see
+  `cuda_trace.makeTraceStep`); an ineligible scene raises (no batch-tracer
   fallback in this slice). device='cpu' runs the kernel's plain PyTorch
   version; the default 'cuda' raises without a card.'''
   dev = resolveDevice(device)
@@ -95,7 +98,8 @@ def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,
       raysPerStep=raysPerStep, maxIntersections=maxIntersections,
       maxRayLength=settings.maxRayLength(),
       distTol=max(settings.distanceTolerance(), 1e-4), powerTol=1e-6,
-      stratified=stratified, sampler=src.samplerSpec(), device=dev)
+      stratified=stratified, histPrecision=histPrecision,
+      sampler=src.samplerSpec(), device=dev)
   return step, hist, dict(scene=scene, device=sceneHost, info=info,
                           histSpec=histSpec,
                           backend='cuda' if dev.type == 'cuda' else 'plain')

@@ -6,7 +6,9 @@ the arrays out of it and call this.
 '''
 
 import numpy as np
+import torch
 
+from . import resolveDevice
 from .ops import cuda_trace
 
 
@@ -39,3 +41,27 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
                   bins=tuple(int(b) for b in histSpecNp['bins']))
   return cuda_trace.buildTraceTables(scene, histSpec,
                                      samplerSpec=samplerSpec, device=device)
+
+
+_RECORD_DTYPES = dict(recordHit=torch.bool, hitElem=torch.int32,
+                      power=torch.float32, isEntering=torch.bool,
+                      point=torch.float32, direction=torch.float32)
+
+
+def recordsFromReference(recordsNp, device='cuda'):
+  '''Hit records of the JAX package's raw step (`makePallasRawStep`, or
+  the record tracer), handed over as numpy arrays, as the dict of tensors
+  that `ops.cuda_trace.makeRawStep` returns: `recordHit`, `hitElem`,
+  `power`, `isEntering` (S, N) and `point`, `direction` (S, N, 3).'''
+  dev = resolveDevice(device)
+  return {k: torch.as_tensor(np.array(recordsNp[k]), device=dev).to(dtype)
+          for k, dtype in _RECORD_DTYPES.items()}
+
+
+def recordsToNumpy(records):
+  '''The records of `makeRawStep` (or the JAX package's, or anything
+  array-like with the same keys) as host numpy arrays, so a test can put
+  the two packages' records side by side.'''
+  return {k: (records[k].detach().cpu().numpy()
+              if isinstance(records[k], torch.Tensor)
+              else np.asarray(records[k])) for k in _RECORD_DTYPES}

@@ -2,12 +2,8 @@
 //
 // Replaces: the in-kernel-histogram call of the JAX package's Pallas trace
 // kernel (optics_design_workbench_tpu/ops/pallas_trace.py, body `_makeKernel`,
-// built by `makePallasTraceStep`), main-path subset: PLANE / SPHERE /
-// CYLINDER surfaces with window, annulus and z-band trims; Mirror / Lens /
-// Absorber / Vacuum elements with Beer-Lambert absorption; the point-source
-// sampler with affine, piecewise-polynomial and tent marginals and
-// ray-index strata; the per-ray hit-slot ring; the (D, H, W) power + count
-// histograms.
+// built by `makePallasTraceStep`). The body is trace_common.cuh in its
+// OUT_HIST mode; see there for the scene coverage and the design.
 //
 // What bounds it on this card: operations, not bytes. In its main mode the
 // kernel reads no per-ray data at all (rays are drawn from a counter-based
@@ -15,424 +11,18 @@
 // histogram that stays in L2, so device memory is idle; the work is a few
 // hundred float32 operations per ray segment (one intersection test per
 // surface, the winner's normal, Snell / mirror physics) plus a handful of
-// sqrt / divide / sin / cos / exp calls per ray.
-//
-// What the design does about it:
-//  * one thread per ray, all ray state in registers, a `for` over bounces
-//    that `break`s when the ray dies — no tile-wide loop, no float masks;
-//  * the scene is DATA, not code: one compiled kernel reads a small surface
-//    / element / sampler table (copied once per block into shared memory,
-//    read as warp-wide broadcasts) and switches on the surface kind, so a
-//    new scene needs no compiler run;
-//  * the hit ring keeps only its LAST slot in registers: an earlier slot is
-//    final once written and goes to the histogram at once, the last slot is
-//    the one an overflow overwrites and is flushed after the loop — the
-//    histogram and the overflow count equal those of a full ring;
-//  * power is added in float32 with atomicAdd straight to global memory;
-//    segment / hit / overflow totals are reduced per block and added with
-//    one 64-bit atomic each.
-// Float contraction is switched off at build time (-fmad=false) so that the
-// arithmetic is the plain PyTorch version's, operation for operation.
+// sqrt / divide / sin / cos / exp calls per ray. Power is added in float32
+// with atomicAdd straight to global memory.
 //
 // Interface: one plain-C launcher, `odwTraceHistogram`, loaded with ctypes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trace_common.cuh"
 
-namespace {
-
-constexpr float kBig = 3.0e38f;
-constexpr int kSurfCols = 20;
-constexpr int kElemCols = 12;
-constexpr int kSegStride = 17;     // a, mid, 1/half, nCoef, 13 coefficients
-constexpr int kMargLen = 264;      // kind, n, lo, hi/span, 260 payload floats
-constexpr int kSamplerGeom = 16;   // finite, f, R(9), off(3), wavelength, pad
-constexpr int kBlock = 256;
-
-// surface row columns
-enum { S_KIND = 0, S_ROT = 1, S_OFF = 10, S_ORIENT = 13, S_ELEM = 14,
-       S_P0SQ = 15, S_TRIM0 = 16, S_TRIMA = 17, S_TRIMB = 18 };
-// element row columns
-enum { E_OPT = 0, E_N = 1, E_REFL = 2, E_ABSLEN = 3, E_REC = 4, E_DET = 5,
-       E_BX0 = 6, E_BX1 = 7, E_BY0 = 8, E_BY1 = 9, E_MEDIUM = 10 };
-enum { KIND_PLANE = 0, KIND_SPHERE = 1, KIND_CYLINDER = 2 };
-enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_ABSORBER = 3 };
-enum { MODE_SEED = 0, MODE_UNIFORMS = 1, MODE_COLUMNS = 2 };
-
-struct TraceParams {
-  long long N;
-  unsigned long long seed;
-  int tableLen, nSurf, nElem, samplerOff, mode;
-  int H, W, maxIntersections, hitSlots, anyMedium;
-  long long strataTile;
-  int G1, G2;
-  float mrlEff, maxRayLength, tMin, window, powerTol, invG1, invG2;
-};
-
-// ---- Philox4x32-10, written out (Salmon et al. 2011): counter = ray index,
-// key = seed. Two of the four output words are used per ray. ----
-__device__ __forceinline__ void philox4x32(uint32_t c0, uint32_t c1,
-                                           uint32_t c2, uint32_t c3,
-                                           uint32_t k0, uint32_t k1,
-                                           uint32_t out[4]) {
-  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    uint32_t hi0 = __umulhi(M0, c0), lo0 = M0 * c0;
-    uint32_t hi1 = __umulhi(M1, c2), lo1 = M1 * c2;
-    uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0; c1 = lo1; c2 = n2; c3 = lo0;
-    k0 += W0; k1 += W1;
-  }
-  out[0] = c0; out[1] = c1; out[2] = c2; out[3] = c3;
-}
-
-// high 23 bits -> float32 uniform in [0, 1)
-__device__ __forceinline__ float bitsToUniform(uint32_t x) {
-  return (float)(x >> 9) * (1.0f / 8388608.0f);
-}
-
-// inverse-CDF transform of one marginal block (see ops/cuda_trace.py
-// `_packMarginal` for the layout)
-__device__ float marginal(const float* m, float u) {
-  int kind = (int)m[0];
-  if (kind == 0) return m[2] + u * m[3];                 // affine: lo + u*span
-  int n = (int)m[1];
-  const float* data = m + 4;
-  if (kind == 1) {                                       // piecewise Horner
-    float out = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float* seg = data + i * kSegStride;
-      float s = (u - seg[1]) * seg[2];
-      int nc = (int)seg[3];
-      float acc = seg[4 + nc - 1];
-      for (int c = nc - 2; c >= 0; --c) acc = acc * s + seg[4 + c];
-      if (i == 0 || u >= seg[0]) out = acc;
-    }
-    return fminf(fmaxf(out, m[2]), m[3]);
-  }
-  // tent table of n knots on a uniform [0, 1] grid: only the two knots
-  // around pos carry weight
-  float pos = u * (float)(n - 1);
-  int j = min(max((int)pos, 0), n - 2);
-  float w0 = fmaxf(0.f, 1.f - fabsf(pos - (float)j));
-  float w1 = fmaxf(0.f, 1.f - fabsf(pos - ((float)j + 1.f)));
-  return w0 * data[j] + w1 * data[j + 1];
-}
-
-__device__ __forceinline__ float signf(float x) {
-  return (float)(x > 0.f) - (float)(x < 0.f);
-}
-
-// ray-surface distance in the surface's local frame, or kBig
-__device__ float intersect(const float* r, float ox, float oy, float oz,
-                           float dx, float dy, float dz, float tMin) {
-  const float* R = r + S_ROT;
-  float lox = R[0] * ox + R[1] * oy + R[2] * oz + r[S_OFF];
-  float loy = R[3] * ox + R[4] * oy + R[5] * oz + r[S_OFF + 1];
-  float loz = R[6] * ox + R[7] * oy + R[8] * oz + r[S_OFF + 2];
-  float ldx = R[0] * dx + R[1] * dy + R[2] * dz;
-  float ldy = R[3] * dx + R[4] * dy + R[5] * dz;
-  float ldz = R[6] * dx + R[7] * dy + R[8] * dz;
-  int kind = (int)r[S_KIND];
-  float tA = r[S_TRIMA], tB = r[S_TRIMB];
-  if (kind == KIND_PLANE) {
-    float dzS = fabsf(ldz) < 1e-12f ? 1e-12f : ldz;
-    float t = -loz / dzS;
-    float x = lox + t * ldx, y = loy + t * ldy;
-    bool ok;
-    if (r[S_TRIM0] == 1.f) {
-      ok = (fabsf(x) <= tA) && (fabsf(y) <= tB);
-    } else {                       // annulus; tA, tB hold the SQUARED radii
-      float r2 = x * x + y * y;
-      ok = (r2 >= tA) && (r2 <= tB);
-    }
-    return ((t > tMin) && ok) ? t : kBig;
-  }
-  float a, b, c;
-  if (kind == KIND_SPHERE) {
-    a = ldx * ldx + ldy * ldy + ldz * ldz;
-    b = 2.f * (lox * ldx + loy * ldy + loz * ldz);
-    c = lox * lox + loy * loy + loz * loz - r[S_P0SQ];
-  } else {                         // cylinder about local z
-    a = ldx * ldx + ldy * ldy;
-    b = 2.f * (lox * ldx + loy * ldy);
-    c = lox * lox + loy * loy - r[S_P0SQ];
-  }
-  float disc = b * b - 4.f * a * c;
-  bool okD = disc >= 0.f;
-  float sqD = sqrtf(fmaxf(disc, 0.f));
-  float q = -0.5f * (b + signf(b + 1e-30f) * sqD);
-  float aS = fabsf(a) < 1e-20f ? 1e-20f : a;
-  float qS = fabsf(q) < 1e-20f ? 1e-20f : q;
-  float t1 = q / aS, t2 = c / qS;
-  float lo = fminf(t1, t2), hi = fmaxf(t1, t2);
-  float zLo = loz + lo * ldz, zHi = loz + hi * ldz;
-  float loV = (okD && (lo > tMin) && (zLo >= tA) && (zLo <= tB)) ? lo : kBig;
-  float hiV = (okD && (hi > tMin) && (zHi >= tA) && (zHi <= tB)) ? hi : kBig;
-  return fminf(loV, hiV);
-}
-
-__global__ void __launch_bounds__(kBlock)
-traceHistogramKernel(TraceParams p, const float* __restrict__ table,
-                     const float* __restrict__ rayIn,
-                     float* __restrict__ histPower,
-                     float* __restrict__ histCounts,
-                     unsigned long long* __restrict__ counters) {
-  extern __shared__ float smem[];
-  for (int k = threadIdx.x; k < p.tableLen; k += blockDim.x)
-    smem[k] = table[k];
-  __syncthreads();
-  const float* surfT = smem;
-  const float* elemT = smem + p.nSurf * kSurfCols;
-
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int segs = 0, hitN = 0, flushed = 0;
-  int lastBin = -1;
-  float lastW = 0.f;
-
-  if (i < p.N) {
-    float ox, oy, oz, dx, dy, dz, pw;
-    if (p.mode == MODE_COLUMNS) {
-      ox = rayIn[i];             oy = rayIn[p.N + i];
-      oz = rayIn[2 * p.N + i];   dx = rayIn[3 * p.N + i];
-      dy = rayIn[4 * p.N + i];   dz = rayIn[5 * p.N + i];
-      pw = rayIn[6 * p.N + i];   // column 7 (wavelength) is unused here
-    } else {
-      // ---- in-kernel point-source sampler ----
-      float u1, u2;
-      if (p.mode == MODE_UNIFORMS) {
-        u1 = rayIn[i];
-        u2 = rayIn[p.N + i];
-      } else {
-        uint32_t rnd[4];
-        philox4x32((uint32_t)i, (uint32_t)((unsigned long long)i >> 32), 0u,
-                   0u, (uint32_t)p.seed, (uint32_t)(p.seed >> 32), rnd);
-        u1 = bitsToUniform(rnd[0]);
-        u2 = bitsToUniform(rnd[1]);
-      }
-      if (p.G1 > 0) {              // strata: a property of the ray index
-        long long cell = i / p.strataTile;
-        float i1 = (float)(cell / p.G2), i2 = (float)(cell % p.G2);
-        u1 = (i1 + u1) * p.invG1;
-        u2 = (i2 + u2) * p.invG2;
-      }
-      const float* sg = smem + p.samplerOff;
-      float t = marginal(sg + kSamplerGeom, u1);
-      float ph = marginal(sg + kSamplerGeom + kMargLen, u2);
-      float sp = sinf(ph), cp = cosf(ph);
-      float ldx, ldy, ldz, lox, loy, loz;
-      if (sg[0] != 0.f) {          // finite focal length
-        float f = sg[1];
-        float st = sinf(t), ct = cosf(t);
-        ldx = st * sp; ldy = -st * cp; ldz = ct;
-        lox = -f * ldx; loy = -f * ldy; loz = f * (1.f - ldz);
-      } else {                     // collimated: t is the radius
-        ldx = 0.f; ldy = 0.f; ldz = 1.f;
-        lox = t * cp; loy = -t * sp; loz = 0.f;
-      }
-      const float* R = sg + 2;
-      ox = R[0] * lox + R[1] * loy + R[2] * loz + sg[11];
-      oy = R[3] * lox + R[4] * loy + R[5] * loz + sg[12];
-      oz = R[6] * lox + R[7] * loy + R[8] * loz + sg[13];
-      dx = R[0] * ldx + R[1] * ldy + R[2] * ldz;
-      dy = R[3] * ldx + R[4] * ldy + R[5] * ldz;
-      dz = R[6] * ldx + R[7] * ldy + R[8] * ldz;
-      pw = 1.f;
-    }
-
-    int medium = -1;               // element id of the medium, -1 = vacuum
-    for (int bounce = 0; bounce < p.maxIntersections; ++bounce) {
-      // ---- nearest hit: online argmin (strict <: lowest index wins ties)
-      // plus the nearest surface NOT of the current medium ----
-      float tBest = kBig, tOth = kBig;
-      int sBest = -1, sOth = -1;
-      for (int s = 0; s < p.nSurf; ++s) {
-        const float* r = surfT + s * kSurfCols;
-        float t = intersect(r, ox, oy, oz, dx, dy, dz, p.tMin);
-        if (t < tBest) { tBest = t; sBest = s; }
-        if (p.anyMedium) {
-          int e = (int)r[S_ELEM];
-          float tO = (elemT[e * kElemCols + E_MEDIUM] != 0.f && medium == e)
-                         ? kBig : t;
-          if (tO < tOth) { tOth = tO; sOth = s; }
-        }
-      }
-      bool hasHit = tBest <= p.mrlEff;
-      if (!p.anyMedium) { tOth = tBest; sOth = sBest; }
-      bool hasPref = (tOth <= p.mrlEff) && (tOth <= tBest + p.window);
-      float tSel = hasPref ? tOth : tBest;
-      int sIdx = hasPref ? sOth : sBest;
-      float tSeg = hasHit ? tSel : p.maxRayLength;
-      float px = ox + tSeg * dx, py = oy + tSeg * dy, pz = oz + tSeg * dz;
-      ++segs;
-      if (!hasHit) break;          // escaped: the segment counts, the ray ends
-
-      // ---- winner attributes: local point, normal by kind, world normal
-      // through the transposed rotation times orient ----
-      const float* r = surfT + sIdx * kSurfCols;
-      const float* R = r + S_ROT;
-      float lx = R[0] * px + R[1] * py + R[2] * pz + r[S_OFF];
-      float ly = R[3] * px + R[4] * py + R[5] * pz + r[S_OFF + 1];
-      float lz = R[6] * px + R[7] * py + R[8] * pz + r[S_OFF + 2];
-      int kind = (int)r[S_KIND];
-      float nlx = 0.f, nly = 0.f, nlz = 1.f;
-      if (kind == KIND_SPHERE) {
-        float inv = rsqrtf(lx * lx + ly * ly + lz * lz + 1e-20f);
-        nlx = lx * inv; nly = ly * inv; nlz = lz * inv;
-      } else if (kind == KIND_CYLINDER) {
-        float inv = rsqrtf(lx * lx + ly * ly + 1e-20f);
-        nlx = lx * inv; nly = ly * inv; nlz = 0.f;
-      }
-      float orient = r[S_ORIENT];
-      float nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient;
-      float nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient;
-      float nzA = (R[2] * nlx + R[5] * nly + R[8] * nlz) * orient;
-      int elem = (int)r[S_ELEM];
-      const float* er = elemT + elem * kElemCols;
-
-      float cosA = dx * nxA + dy * nyA + dz * nzA;
-      bool isEntering = cosA < 0.f;
-      float sgn = isEntering ? -1.f : 1.f;
-      float nx = nxA * sgn, ny = nyA * sgn, nz = nzA * sgn;
-
-      // ---- Beer-Lambert along the segment, before the interaction ----
-      bool inMedium = medium >= 0;
-      float nMed = 1.f, absLenMed = kBig;
-      if (inMedium) {
-        nMed = elemT[medium * kElemCols + E_N];
-        absLenMed = elemT[medium * kElemCols + E_ABSLEN];
-        float factor = absLenMed <= 0.f ? 0.f
-                       : (absLenMed >= kBig ? 1.f : expf(-tSeg / absLenMed));
-        pw = pw * factor;
-      }
-
-      // ---- interactions ----
-      float dDotN = dx * nx + dy * ny + dz * nz;
-      float mxD = dx - 2.f * nx * dDotN;
-      float myD = dy - 2.f * ny * dDotN;
-      float mzD = dz - 2.f * nz * dDotN;
-      float n1 = inMedium ? nMed : 1.f;
-      float n2 = isEntering ? er[E_N] : 1.f;
-      float mu = n1 / n2;
-      float sin2 = fmaxf(1.f - dDotN * dDotN, 0.f);
-      float root = 1.f - mu * mu * sin2;
-      bool tir = root < 0.f;
-      float sq = sqrtf(fmaxf(root, 0.f));
-      float tx = dx - nx * dDotN, ty = dy - ny * dDotN, tz = dz - nz * dDotN;
-      float snx = tir ? mxD : mu * tx + nx * sq;
-      float sny = tir ? myD : mu * ty + ny * sq;
-      float snz = tir ? mzD : mu * tz + nz * sq;
-
-      int opt = (int)er[E_OPT];
-      bool isMirror = opt == OPT_MIRROR, isLens = opt == OPT_LENS;
-      bool isAbsorber = opt == OPT_ABSORBER;
-      float ndx = isMirror ? mxD : (isLens ? snx : dx);
-      float ndy = isMirror ? myD : (isLens ? sny : dy);
-      float ndz = isMirror ? mzD : (isLens ? snz : dz);
-      float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
-      ndx *= inv; ndy *= inv; ndz *= inv;
-
-      bool lensExit = isLens && !isEntering && !tir && (medium == elem);
-      int newMedium = (isLens && isEntering) ? elem
-                      : (lensExit ? -1 : medium);
-      float newPw = isMirror ? pw * er[E_REFL] : (isAbsorber ? 0.f : pw);
-
-      // ---- record the detector pass (power AFTER absorption, BEFORE the
-      // interaction) into the hit ring ----
-      float bx0 = er[E_BX0], by0 = er[E_BY0];
-      float fx = (lx - bx0) / (er[E_BX1] - bx0);
-      float fy = (ly - by0) / (er[E_BY1] - by0);
-      int det = (int)er[E_DET];
-      bool inside = (fx >= 0.f) && (fx < 1.f) && (fy >= 0.f) && (fy < 1.f)
-                    && (er[E_REC] > 0.5f) && (det >= 0);
-      if (inside) {
-        int ix = (int)floorf(fx * (float)p.W);
-        int iy = (int)floorf(fy * (float)p.H);
-        int bin = (det * p.H + iy) * p.W + ix;
-        if (hitN < p.hitSlots - 1) {
-          atomicAdd(histPower + bin, pw);
-          atomicAdd(histCounts + bin, 1.f);
-          ++flushed;
-        } else {                   // the last slot: an overflow overwrites it
-          lastBin = bin;
-          lastW = pw;
-        }
-        ++hitN;
-      }
-
-      if (!(newPw >= p.powerTol)) break;
-      ox = px; oy = py; oz = pz;
-      dx = ndx; dy = ndy; dz = ndz;
-      pw = newPw;
-      medium = newMedium;
-    }
-    if (lastBin >= 0) {
-      atomicAdd(histPower + lastBin, lastW);
-      atomicAdd(histCounts + lastBin, 1.f);
-      ++flushed;
-    }
-  }
-
-  // ---- per-block totals: segments, recorded hits, ring overflow ----
-  int ovf = max(hitN - p.hitSlots, 0);
-  __shared__ int red[3][kBlock / 32];
-  int v0 = segs, v1 = flushed, v2 = ovf;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v0 += __shfl_down_sync(0xffffffffu, v0, o);
-    v1 += __shfl_down_sync(0xffffffffu, v1, o);
-    v2 += __shfl_down_sync(0xffffffffu, v2, o);
-  }
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) { red[0][warp] = v0; red[1][warp] = v1; red[2][warp] = v2; }
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    unsigned long long total = 0;
-    for (int w = 0; w < kBlock / 32; ++w) total += red[threadIdx.x][w];
-    if (total) atomicAdd(counters + threadIdx.x, total);
-  }
-}
-
-}  // namespace
-
-// Launch on `stream`; no synchronisation, no allocation. `ip` / `fp` are
-// HOST arrays of the scalar parameters (see ops/cuda_trace.py
-// `_launchKernel` for their order). Returns cudaGetLastError().
 extern "C" int odwTraceHistogram(const float* table, const float* rayIn,
                                  float* histPower, float* histCounts,
                                  unsigned long long* counters,
                                  const long long* ip, const float* fp,
                                  void* stream) {
-  TraceParams p;
-  p.N = ip[0];
-  p.seed = (unsigned long long)ip[1];
-  p.tableLen = (int)ip[2];
-  p.nSurf = (int)ip[3];
-  p.nElem = (int)ip[4];
-  p.samplerOff = (int)ip[5];
-  p.mode = (int)ip[6];
-  p.H = (int)ip[7];
-  p.W = (int)ip[8];
-  p.maxIntersections = (int)ip[9];
-  p.hitSlots = (int)ip[10];
-  p.anyMedium = (int)ip[11];
-  p.strataTile = ip[12];
-  p.G1 = (int)ip[13];
-  p.G2 = (int)ip[14];
-  p.mrlEff = fp[0];
-  p.maxRayLength = fp[1];
-  p.tMin = fp[2];
-  p.window = fp[3];
-  p.powerTol = fp[4];
-  p.invG1 = fp[5];
-  p.invG2 = fp[6];
-  if (p.N <= 0) return 0;
-  long long blocks = (p.N + kBlock - 1) / kBlock;
-  size_t shmem = (size_t)p.tableLen * sizeof(float);
-  traceHistogramKernel<<<(unsigned)blocks, kBlock, shmem,
-                         (cudaStream_t)stream>>>(
-      p, table, rayIn, histPower, histCounts, counters);
-  return (int)cudaGetLastError();
+  return launchTrace<OUT_HIST>(table, rayIn, histPower, histCounts, counters,
+                               ip, fp, stream);
 }

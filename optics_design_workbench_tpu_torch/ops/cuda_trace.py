@@ -1,23 +1,33 @@
 '''
-Fused trace kernel for Hopper: sample (or read) rays, run the whole bounce
-loop per ray, and bin detector hits — ONE kernel launch per step, nothing
-ray-shaped in device memory on the main path.
+Trace kernels for Hopper: sample (or read) rays and run the whole bounce
+loop per ray in ONE kernel launch per step, with three output modes of one
+shared body (csrc/trace_common.cuh):
+
+  traceHistogram  detector hits are binned inside the kernel — nothing
+                  ray-shaped in device memory on the main path
+  traceBins       the hit ring comes back per ray as (bin, power, count);
+                  `binRing` forms the histogram outside, in float64
+  traceRaw        the hit ring comes back per ray as raw records (element,
+                  power, isEntering, point, incoming direction) for storage
 
 Counterpart of the JAX package's ops/pallas_trace.py (`makePallasTraceStep`
-in in-kernel-histogram mode). This module holds
+in its in-kernel-histogram and per-ray-output modes, `makePallasRawStep`).
+This module holds
 
   * the host rows: `_sceneRows` turns a compiled scene + histogram spec into
     per-surface / per-element python-float rows, `buildTraceTables` packs
-    them (and the sampler spec) into the float32 table the kernel reads;
-  * `traceHistogram`, the kernel's WRAPPER: checks its inputs, launches
-    csrc/trace_kernel.cu for CUDA tensors (counting launches in
-    `launchCount`), and runs `traceHistogramPlain` for CPU tensors — and
-    only for those: on a CUDA tensor it launches the kernel or raises;
-  * `traceHistogramPlain`, the plain PyTorch version: the same function as
-    column-wise tensor ops that follow the kernel step by step;
-  * `makeTraceStep`, which makes the user-level step.
+    them (and the sampler spec) into the float32 table the kernels read;
+  * the kernels' WRAPPERS `traceHistogram`, `traceBins`, `traceRaw`: each
+    checks its inputs, launches its kernel for CUDA tensors (counting
+    launches in `launchCounts`), and runs its plain version for CPU tensors
+    — and only for those: on a CUDA tensor it launches the kernel or raises;
+  * the plain PyTorch versions `traceHistogramPlain`, `traceBinsPlain`,
+    `traceRawPlain`: one bounce loop of column-wise tensor ops
+    (`_bounceLoopPlain`) that follows the kernels step by step, with three
+    epilogues;
+  * `makeTraceStep` and `makeRawStep`, which make the user-level steps.
 
-Three input modes of the one kernel: (a) seed only — rays are drawn in the
+Three input modes of every kernel: (a) seed only — rays are drawn in the
 kernel from Philox4x32-10 keyed by (seed, ray index); (b) the in-kernel
 sampler fed two uniform arrays; (c) eight ray columns ox..dz, pw, wl. The
 main path uses (a); (b) and (c) exist so that kernel, plain version and the
@@ -25,8 +35,8 @@ JAX package can be fed the same numbers.
 
 Scene coverage of this slice (`ineligibleReason` names what is refused):
 PLANE / SPHERE / CYLINDER with window, annulus and z-band trims;
-Mirror / Lens / Absorber / Vacuum; Beer-Lambert absorption. The kernel
-sweeps every surface on every bounce (the reference's per-bounce culls only
+Mirror / Lens / Absorber / Vacuum; Beer-Lambert absorption. The kernels
+sweep every surface on every bounce (the reference's per-bounce culls only
 skip surfaces that cannot be hit).
 '''
 
@@ -63,9 +73,14 @@ MODE_SEED, MODE_UNIFORMS, MODE_COLUMNS = 0, 1, 2
 # per (theta, phi) cell — the finest strata whose rays still share a block
 DEFAULT_STRATA_TILE = 256
 
-# number of kernel launches made by `traceHistogram` (the wrapper adds one
-# where it launches the kernel, and nowhere else)
-launchCount = 0
+# wrapper -> (library stem under csrc/, C launcher, number of output tensors)
+_KERNELS = {'traceHistogram': ('trace_kernel', 'odwTraceHistogram', 2),
+            'traceBins': ('trace_bins_kernel', 'odwTraceBins', 1),
+            'traceRaw': ('trace_raw_kernel', 'odwTraceRaw', 1)}
+
+# number of kernel launches made through each wrapper (one is added where
+# the wrapper launches its kernel, and nowhere else)
+launchCounts = {name: 0 for name in _KERNELS}
 
 
 def numSurfacesStatic(scene):
@@ -360,14 +375,24 @@ def _intersectPlain(r, ox, oy, oz, dx, dy, dz, tMin):
   return torch.fmin(loV, hiV)
 
 
-def traceHistogramPlain(tables, histograms, columns, maxIntersections,
-                        maxRayLength, distTol, powerTol, hitSlots):
-  '''The kernel's bounce loop + binning as column-wise tensor ops, step by
-  step in the kernel's operation order: nearest hit with the other-medium
-  tracker and same-medium window, winner normal, Beer-Lambert, mirror /
-  Snell / TIR, medium and power updates, the hit ring (overflow overwrites
-  the last slot), `index_add_` binning. Adds into `histograms` IN PLACE and
-  returns an int64 (3,) tensor (segments, hits, hitOverflow).'''
+def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
+                     distTol, powerTol, hitSlots, output):
+  '''The kernels' bounce loop as column-wise tensor ops, step by step in the
+  kernels' operation order: nearest hit with the other-medium tracker and
+  same-medium window, winner normal, Beer-Lambert, mirror / Snell / TIR,
+  medium and power updates, and the hit ring (slot = min(hitN, hitSlots-1):
+  an overflow overwrites the last slot). ONE loop for the three output
+  modes; `output` selects the record gate and what a ring slot holds:
+
+    'hist'  gate: recording element with a detector, hit inside the bounds;
+            slot = (bin int64, power)
+    'bins'  same gate; slot = (bin as float32, power, count 1)
+    'raw'   gate: recording element, no bounds; slot = (element, power,
+            isEntering, px, py, pz, incoming dx, dy, dz), all float32
+
+  Returns (ring, segments, hitN): ring a list of (hitSlots, N) tensors, one
+  per slot field, the first -1 and the others 0 where a slot was never
+  written; segments a 0-d int64 tensor; hitN the per-ray pass count.'''
   ox, oy, oz, dx, dy, dz, pw = columns
   dev = ox.device
   N = ox.shape[0]
@@ -389,8 +414,11 @@ def traceHistogramPlain(tables, histograms, columns, maxIntersections,
   alive = torch.ones((N,), dtype=torch.bool, device=dev)
   segs = torch.zeros((), dtype=torch.int64, device=dev)
   hitN = torch.zeros((N,), dtype=torch.int64, device=dev)
-  ringBin = torch.full((hitSlots, N), -1, dtype=torch.int64, device=dev)
-  ringW = torch.zeros((hitSlots, N), dtype=torch.float32, device=dev)
+  nFields = dict(hist=2, bins=3, raw=9)[output]
+  keyDtype = torch.int64 if output == 'hist' else torch.float32
+  ring = [torch.full((hitSlots, N), -1, dtype=keyDtype, device=dev)] + [
+      torch.zeros((hitSlots, N), dtype=torch.float32, device=dev)
+      for _ in range(nFields - 1)]
   canBeMedium = elemD[:, 10] != 0
   one = torch.ones((), dtype=torch.float32, device=dev)
   big = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
@@ -486,21 +514,28 @@ def traceHistogramPlain(tables, histograms, columns, maxIntersections,
     newPw = torch.where(isMirror, pw * er[:, 2],
                         torch.where(isAbsorber, zero, pw))
 
-    # hit ring
-    bx0, by0 = er[:, 6], er[:, 8]
-    fx = (lx - bx0) / (er[:, 7] - bx0)
-    fy = (ly - by0) / (er[:, 9] - by0)
-    det = er[:, 5].to(torch.int64)
-    inside = ((fx >= 0) & (fx < 1) & (fy >= 0) & (fy < 1)
-              & (er[:, 4] > 0.5) & (det >= 0) & live)
-    ix = torch.floor(fx * float(W)).to(torch.int64)
-    iy = torch.floor(fy * float(H)).to(torch.int64)
-    binIdx = (det * H + iy) * W + ix
+    # hit ring: power AFTER absorption and BEFORE the interaction
+    if output == 'raw':
+      inside = (er[:, 4] > 0.5) & live
+      fields = (elem.to(torch.float32), pw, isEntering.to(torch.float32),
+                px, py, pz, dx, dy, dz)
+    else:
+      bx0, by0 = er[:, 6], er[:, 8]
+      fx = (lx - bx0) / (er[:, 7] - bx0)
+      fy = (ly - by0) / (er[:, 9] - by0)
+      det = er[:, 5].to(torch.int64)
+      inside = ((fx >= 0) & (fx < 1) & (fy >= 0) & (fy < 1)
+                & (er[:, 4] > 0.5) & (det >= 0) & live)
+      ix = torch.floor(fx * float(W)).to(torch.int64)
+      iy = torch.floor(fy * float(H)).to(torch.int64)
+      binIdx = (det * H + iy) * W + ix
+      fields = ((binIdx, pw) if output == 'hist'
+                else (binIdx.to(torch.float32), pw, torch.ones_like(pw)))
     slot = torch.clamp(hitN, max=hitSlots - 1)
     for k in range(hitSlots):
       take = inside & (slot == k)
-      ringBin[k] = torch.where(take, binIdx, ringBin[k])
-      ringW[k] = torch.where(take, pw, ringW[k])
+      for field, value in zip(ring, fields):
+        field[k] = torch.where(take, value, field[k])
     hitN = hitN + inside.to(torch.int64)
 
     ox = torch.where(alive, px, ox)
@@ -512,29 +547,84 @@ def traceHistogramPlain(tables, histograms, columns, maxIntersections,
     pw = torch.where(live, newPw, pw)
     medium = torch.where(live, newMedium, medium)
     alive = live & (newPw >= pTol)
+  return ring, segs, hitN
 
+
+def _ringCounters(key, segs, hitN, hitSlots):
+  '''int64 (3,) tensor (segments, hits = filled ring slots, hitOverflow).'''
+  return torch.stack([segs, (key >= 0).sum(),
+                      torch.clamp(hitN - hitSlots, min=0).sum()])
+
+
+def traceHistogramPlain(tables, histograms, columns, maxIntersections,
+                        maxRayLength, distTol, powerTol, hitSlots):
+  '''Plain version of the histogram kernel: `_bounceLoopPlain` + float32
+  `index_add_` binning. Adds into `histograms` IN PLACE and returns an int64
+  (3,) tensor (segments, hits, hitOverflow).'''
+  (ringBin, ringW), segs, hitN = _bounceLoopPlain(
+      tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
+      hitSlots, 'hist')
   power = histograms['power'].view(-1)
   counts = histograms['counts'].view(-1)
-  hits = torch.zeros((), dtype=torch.int64, device=dev)
   for k in range(hitSlots):
     valid = ringBin[k] >= 0
     idx = ringBin[k].clamp(min=0)
     power.index_add_(0, idx, torch.where(valid, ringW[k],
                                          torch.zeros_like(ringW[k])))
     counts.index_add_(0, idx, valid.to(counts.dtype))
-    hits = hits + valid.sum()
-  overflow = torch.clamp(hitN - hitSlots, min=0).sum()
-  return torch.stack([segs, hits, overflow])
+  return _ringCounters(ringBin, segs, hitN, hitSlots)
 
 
-# ------------------------------------------------------------------- wrapper
+def traceBinsPlain(tables, columns, maxIntersections, maxRayLength, distTol,
+                   powerTol, hitSlots):
+  '''Plain version of the per-ray-bin kernel. Returns (ring, counters): ring
+  a float32 (3, hitSlots, N) tensor — bin (-1 = empty), power, count.'''
+  ring, segs, hitN = _bounceLoopPlain(
+      tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
+      hitSlots, 'bins')
+  return torch.stack(ring), _ringCounters(ring[0], segs, hitN, hitSlots)
 
-def _kernelLibrary():
+
+def traceRawPlain(tables, columns, maxIntersections, maxRayLength, distTol,
+                  powerTol, hitSlots):
+  '''Plain version of the raw-record kernel. Returns (ring, counters): ring
+  a float32 (9, hitSlots, N) tensor — element (-1 = empty), power,
+  isEntering, hit point (3), incoming direction (3).'''
+  ring, segs, hitN = _bounceLoopPlain(
+      tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
+      hitSlots, 'raw')
+  return torch.stack(ring), _ringCounters(ring[0], segs, hitN, hitSlots)
+
+
+def binRing(histograms, ring):
+  '''Add a per-ray (3, hitSlots, N) ring of (bin, power, count) into the
+  float32 (D, H, W) `histograms` IN PLACE, accumulating in float64: the
+  binning the reference leaves to XLA's scatter-add outside its kernel.
+  Plain PyTorch on either device (`index_add_` on float64 copies of the
+  histograms, cast back), so the sums do not depend on the order in which
+  the adds land.'''
+  shape = histograms['power'].shape
+  power = histograms['power'].double().view(-1)
+  counts = histograms['counts'].double().view(-1)
+  for s in range(ring.shape[1]):
+    valid = ring[0, s] >= 0
+    idx = torch.where(valid, ring[0, s], 0.).to(torch.int64)
+    power.index_add_(0, idx, torch.where(valid, ring[1, s], 0.).double())
+    counts.index_add_(0, idx, torch.where(valid, ring[2, s], 0.).double())
+  histograms['power'].copy_(power.view(shape))
+  histograms['counts'].copy_(counts.view(shape))
+
+
+# ------------------------------------------------------------------ wrappers
+
+def _kernelFunction(name):
   from .._build import buildKernels
-  lib, _info = buildKernels()
-  fn = lib.odwTraceHistogram
+  libs, _info = buildKernels()
+  stem, symbol, nOut = _KERNELS[name]
+  fn = getattr(libs[stem], symbol)
   if fn.argtypes is None:
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
+    # table, rayIn, the outputs, counters | ip, fp | stream
+    fn.argtypes = [ctypes.c_void_p] * (3 + nOut) + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -555,6 +645,47 @@ def _checkTensor(name, x, dev, shape, dtype=torch.float32):
     raise ValueError(f'{name} must be contiguous')
 
 
+def _checkInputs(tables, nRays, maxIntersections, hitSlots, seed, uniforms,
+                 columns, strataTile):
+  '''Validation shared by the three wrappers. Returns (mode, rayIn, strata)
+  of the kernel launch.'''
+  dev = tables['table'].device
+  if sum(x is not None for x in (seed, uniforms, columns)) != 1:
+    raise ValueError('give exactly one of seed, uniforms, columns')
+  if not 1 <= hitSlots <= MAX_HIT_SLOTS:
+    raise ValueError(f'hitSlots must be in [1, {MAX_HIT_SLOTS}]')
+  if nRays <= 0 or maxIntersections <= 0:
+    raise ValueError('nRays and maxIntersections must be positive')
+  if columns is None and tables['samplerOff'] < 0:
+    raise ValueError('seed / uniforms input needs tables built with a '
+                     'sampler spec')
+  strata = None
+  if columns is None and strataTile:
+    strata = tileStrata(nRays, int(strataTile))
+  if uniforms is not None:
+    _checkTensor('uniforms', uniforms, dev, (2, nRays))
+    return MODE_UNIFORMS, uniforms, strata
+  if columns is not None:
+    _checkTensor('columns', columns, dev, (8, nRays))
+    return MODE_COLUMNS, columns, strata
+  return MODE_SEED, None, strata
+
+
+def _plainColumns(tables, nRays, seed, uniforms, columns, strata, strataTile):
+  '''The seven ray columns a plain version starts from, for CPU inputs in
+  any of the three modes (`seed` seeds a torch.Generator that draws the two
+  uniform arrays).'''
+  if columns is not None:
+    return tuple(columns[k] for k in range(7))
+  if uniforms is None:
+    dev = tables['table'].device
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(int(seed))
+    uniforms = torch.rand((2, nRays), generator=generator, device=dev,
+                          dtype=torch.float32)
+  return sampleRaysPlain(tables, uniforms[0], uniforms[1], strata, strataTile)
+
+
 def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
                    distTol, powerTol=1e-6, hitSlots=1, seed=None,
                    uniforms=None, columns=None, strataTile=0):
@@ -572,70 +703,101 @@ def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
   Tensors on a CUDA device go through the CUDA kernel, or this raises; the
   plain PyTorch version runs only for tensors on the CPU (there `seed` seeds
   a torch.Generator that draws the two uniform arrays).'''
-  table = tables['table']
-  dev = table.device
-  if sum(x is not None for x in (seed, uniforms, columns)) != 1:
-    raise ValueError('give exactly one of seed, uniforms, columns')
-  if not 1 <= hitSlots <= MAX_HIT_SLOTS:
-    raise ValueError(f'hitSlots must be in [1, {MAX_HIT_SLOTS}]')
-  if nRays <= 0 or maxIntersections <= 0:
-    raise ValueError('nRays and maxIntersections must be positive')
+  dev = tables['table'].device
+  mode, rayIn, strata = _checkInputs(tables, nRays, maxIntersections,
+                                     hitSlots, seed, uniforms, columns,
+                                     strataTile)
   H, W = tables['bins']
   D = tables['nDet']
   if D * H * W >= 2 ** 31:
     raise ValueError('histogram too large for 32-bit bin indices')
   for name in ('power', 'counts'):
     _checkTensor(f"histograms['{name}']", histograms[name], dev, (D, H, W))
-  if columns is None and tables['samplerOff'] < 0:
-    raise ValueError('seed / uniforms input needs tables built with a '
-                     'sampler spec')
-  strata = None
-  if columns is None and strataTile:
-    strata = tileStrata(nRays, int(strataTile))
-  if uniforms is not None:
-    _checkTensor('uniforms', uniforms, dev, (2, nRays))
-  if columns is not None:
-    _checkTensor('columns', columns, dev, (8, nRays))
-
   if dev.type == 'cpu':
-    if columns is not None:
-      cols = tuple(columns[k] for k in range(7))
-    else:
-      if uniforms is None:
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(int(seed))
-        uniforms = torch.rand((2, nRays), generator=generator, device=dev,
-                              dtype=torch.float32)
-      cols = sampleRaysPlain(tables, uniforms[0], uniforms[1], strata,
-                             strataTile)
+    cols = _plainColumns(tables, nRays, seed, uniforms, columns, strata,
+                         strataTile)
     return traceHistogramPlain(tables, histograms, cols, maxIntersections,
                                maxRayLength, distTol, powerTol, hitSlots)
-
-  if seed is not None:
-    mode, rayIn = MODE_SEED, None
-  elif uniforms is not None:
-    mode, rayIn = MODE_UNIFORMS, uniforms
-  else:
-    mode, rayIn = MODE_COLUMNS, columns
-  return _launchKernel(tables, histograms, nRays, mode, rayIn, int(seed or 0),
-                       strata, strataTile, maxIntersections, maxRayLength,
-                       distTol, powerTol, hitSlots)
+  return _launchKernel('traceHistogram', tables,
+                       (histograms['power'], histograms['counts']), nRays,
+                       mode, rayIn, int(seed or 0), strata, strataTile,
+                       maxIntersections, maxRayLength, distTol, powerTol,
+                       hitSlots)
 
 
-def _launchKernel(tables, histograms, nRays, mode, rayIn, seed, strata,
+def _traceRing(name, plain, nFields, tables, nRays, maxIntersections,
+               maxRayLength, distTol, powerTol, hitSlots, seed, uniforms,
+               columns, strataTile):
+  '''Common part of `traceBins` and `traceRaw`: CPU tensors go through the
+  plain version, CUDA tensors through the kernel, which writes every element
+  of the (nFields, hitSlots, nRays) ring (allocated uninitialised).'''
+  dev = tables['table'].device
+  mode, rayIn, strata = _checkInputs(tables, nRays, maxIntersections,
+                                     hitSlots, seed, uniforms, columns,
+                                     strataTile)
+  if dev.type == 'cpu':
+    cols = _plainColumns(tables, nRays, seed, uniforms, columns, strata,
+                         strataTile)
+    return plain(tables, cols, maxIntersections, maxRayLength, distTol,
+                 powerTol, hitSlots)
+  ring = torch.empty((nFields, hitSlots, nRays), dtype=torch.float32,
+                     device=dev)
+  counters = _launchKernel(name, tables, (ring,), nRays, mode, rayIn,
+                           int(seed or 0), strata, strataTile,
+                           maxIntersections, maxRayLength, distTol, powerTol,
+                           hitSlots)
+  return ring, counters
+
+
+def traceBins(tables, nRays, maxIntersections, maxRayLength, distTol,
+              powerTol=1e-6, hitSlots=1, seed=None, uniforms=None,
+              columns=None, strataTile=0):
+  '''Sample-or-read `nRays` rays, trace them, and return the hit ring per
+  ray instead of binning it: (ring, counters) with ring a float32
+  (3, hitSlots, nRays) tensor — bin index into the flattened (D, H, W)
+  histogram (-1 = empty slot), power, count — gated exactly as
+  `traceHistogram` gates, and counters as there. `binRing` adds such a ring
+  into histograms. Input modes, strata and the device rule as in
+  `traceHistogram`.'''
+  H, W = tables['bins']
+  if tables['nDet'] * H * W > 2 ** 24:
+    raise ValueError('histogram too large for bin indices carried as '
+                     'float32 (more than 2**24 bins)')
+  return _traceRing('traceBins', traceBinsPlain, 3, tables, nRays,
+                    maxIntersections, maxRayLength, distTol, powerTol,
+                    hitSlots, seed, uniforms, columns, strataTile)
+
+
+def traceRaw(tables, nRays, maxIntersections, maxRayLength, distTol,
+             powerTol=1e-6, hitSlots=1, seed=None, uniforms=None,
+             columns=None, strataTile=0):
+  '''Sample-or-read `nRays` rays, trace them, and return EVERY hit on a
+  recording element (no histogram-bounds gate): (ring, counters) with ring
+  a float32 (9, hitSlots, nRays) tensor, slot-major, rows element (-1 =
+  empty slot), power (after Beer-Lambert along the segment, before the
+  interaction), isEntering, world hit point x y z, INCOMING direction
+  x y z; counters an int64 (3,) tensor (segments, hits = filled slots,
+  hitOverflow = passes beyond `hitSlots`, each of which overwrote the last
+  slot). Input modes, strata and the device rule as in `traceHistogram`.'''
+  return _traceRing('traceRaw', traceRawPlain, 9, tables, nRays,
+                    maxIntersections, maxRayLength, distTol, powerTol,
+                    hitSlots, seed, uniforms, columns, strataTile)
+
+
+def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
                   strataTile, maxIntersections, maxRayLength, distTol,
                   powerTol, hitSlots):
-  '''Launch csrc/trace_kernel.cu on PyTorch's current stream (inputs already
-  validated by `traceHistogram`). CUDA tensors only: a CPU tensor's address
+  '''Launch kernel `name` (a key of `_KERNELS`) on PyTorch's current stream
+  with the output tensors `outs` (inputs already validated by the wrapper),
+  and add one to its launch count. CUDA tensors only: a CPU tensor's address
   means nothing to the card, so it is refused before anything is built.'''
-  global launchCount
   table = tables['table']
   dev = table.device
-  for t in (table, histograms['power'], histograms['counts'], rayIn):
+  for t in (table, rayIn) + tuple(outs):
     if t is not None and t.device.type != 'cuda':
       raise ValueError(f'the CUDA kernel takes CUDA tensors only, got a '
                        f'tensor on {t.device}')
-  fn = _kernelLibrary()
+  fn = _kernelFunction(name)
   counters = torch.zeros((3,), dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
@@ -651,24 +813,70 @@ def _launchKernel(tables, histograms, nRays, mode, rayIn, seed, strata,
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(table.data_ptr(), rayIn.data_ptr() if rayIn is not None else None,
-             histograms['power'].data_ptr(), histograms['counts'].data_ptr(),
-             counters.data_ptr(), ip, fp, stream)
+             *(t.data_ptr() for t in outs), counters.data_ptr(), ip, fp,
+             stream)
   if err != 0:
-    raise RuntimeError(f'trace kernel launch failed: CUDA error {err}')
-  launchCount += 1
+    raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')
+  launchCounts[name] += 1
   return counters
+
+
+# --------------------------------------------------------------------- steps
+
+_COLUMN_KEYS = ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw', 'wl')
+
+
+def _stepSetup(scene, histSpec, generator, raysPerStep, maxIntersections,
+               hitSlots, sampler, strataTile, device):
+  '''What the step factories share: the kernel tables, the resolved slot
+  count and stratum size, and `inputsFor(seed)`, which turns a step's `seed`
+  (python int or torch.Generator) into the wrapper's input keywords — a
+  seed for the in-kernel sampler, or the eight ray columns drawn by
+  `generator(torchGenerator, N)`.'''
+  dev = resolveDevice(device)
+  if sampler is None and generator is None:
+    raise ValueError('need a sampler spec or a column generator')
+  tables = buildTraceTables(scene, histSpec, samplerSpec=sampler, device=dev)
+  if hitSlots == 'auto':
+    hitSlots = autoHitSlots(scene, histSpec, maxIntersections)
+  if strataTile == 'auto':
+    strataTile = DEFAULT_STRATA_TILE
+  if sampler is None or tileStrata(raysPerStep, strataTile) is None:
+    strataTile = 0
+
+  def inputsFor(seed):
+    gen = seed if isinstance(seed, torch.Generator) else None
+    if sampler is not None:
+      if gen is not None:
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                 device=gen.device).item())
+      return dict(seed=int(seed))
+    if gen is None:
+      gen = torch.Generator(device=dev)
+      gen.manual_seed(int(seed))
+    batch = generator(gen, raysPerStep)
+    return dict(columns=torch.stack([batch[k] for k in _COLUMN_KEYS])
+                .contiguous())
+
+  return tables, hitSlots, strataTile, inputsFor
 
 
 def makeTraceStep(scene, histSpec, generator, raysPerStep, maxIntersections,
                   maxRayLength, distTol, powerTol=1e-6, stratified=False,
-                  hitSlots='auto', sampler=None, strataTile='auto',
-                  device='cuda'):
+                  histPrecision='default', hitSlots='auto', sampler=None,
+                  strataTile='auto', device='cuda'):
   '''Build the fused sample + trace + histogram step
   `step(seed, histograms) -> (histograms, counters)`; the signature of the
   JAX package's `makePallasTraceStep` minus the TPU-only knobs (tile,
-  histPrecision, innerSteps, jitWrap, interpret, emissionBound) and the
-  uniform-input seam (here an input mode of `traceHistogram` itself), plus
-  `device`, and with `strataTile` in place of `tileStratified`.
+  innerSteps, jitWrap, interpret, emissionBound) and the uniform-input seam
+  (here an input mode of `traceHistogram` itself), plus `device`, and with
+  `strataTile` in place of `tileStratified`.
+
+  histPrecision: 'default' bins inside the kernel with float32 atomics (one
+  launch, nothing ray-shaped in device memory); 'highest' runs the
+  per-ray-bin kernel (`traceBins`) and bins its ring outside in float64
+  (`binRing`), so a bin's power does not depend on the order of the adds.
+  Counts are exact either way.
 
   `seed` is a python int (or a torch.Generator, from which one is drawn).
   With `sampler` (PointSource.samplerSpec()) rays are drawn inside the
@@ -684,41 +892,76 @@ def makeTraceStep(scene, histSpec, generator, raysPerStep, maxIntersections,
   cell = rayIndex // strataTile ('auto': DEFAULT_STRATA_TILE rays, one
   thread block per cell; 0 switches strata off; a step that does not
   decompose into a G1 x G2 grid of cells runs without).'''
-  dev = resolveDevice(device)
+  if histPrecision not in ('default', 'highest'):
+    raise ValueError(f"histPrecision must be 'default' or 'highest', got "
+                     f'{histPrecision!r}')
   if stratified:
     sampler = None          # latin-hypercube draws come from the generator
-  if sampler is None and generator is None:
-    raise ValueError('need a sampler spec or a column generator')
-  tables = buildTraceTables(scene, histSpec, samplerSpec=sampler, device=dev)
-  if hitSlots == 'auto':
-    hitSlots = autoHitSlots(scene, histSpec, maxIntersections)
-  if strataTile == 'auto':
-    strataTile = DEFAULT_STRATA_TILE
-  if sampler is None or tileStrata(raysPerStep, strataTile) is None:
-    strataTile = 0
+  columnsOf = generator and (
+      lambda gen, n: generator(gen, n, stratified=stratified))
+  tables, hitSlots, strataTile, inputsFor = _stepSetup(
+      scene, histSpec, columnsOf, raysPerStep, maxIntersections, hitSlots,
+      sampler, strataTile, device)
   kw = dict(maxIntersections=maxIntersections, maxRayLength=maxRayLength,
             distTol=distTol, powerTol=powerTol, hitSlots=hitSlots,
             strataTile=strataTile)
 
   def step(seed, histograms):
-    gen = seed if isinstance(seed, torch.Generator) else None
-    if sampler is not None:
-      if gen is not None:
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
-                                 device=gen.device).item())
-      inputs = dict(seed=int(seed))
+    inputs = inputsFor(seed)
+    if histPrecision == 'default':
+      c = traceHistogram(tables, histograms, raysPerStep, **inputs, **kw)
     else:
-      if gen is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-      batch = generator(gen, raysPerStep, stratified=stratified)
-      inputs = dict(columns=torch.stack(
-          [batch[k] for k in ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw',
-                              'wl')]).contiguous())
-    c = traceHistogram(tables, histograms, raysPerStep, **inputs, **kw)
+      ring, c = traceBins(tables, raysPerStep, **inputs, **kw)
+      binRing(histograms, ring)
     return histograms, dict(segments=c[0], hits=c[1], hitOverflow=c[2])
 
   step.tables = tables
   step.hitSlots = hitSlots
   step.strataTile = strataTile
   return step
+
+
+def makeRawStep(scene, histSpec, generator, raysPerStep, maxIntersections,
+                maxRayLength, distTol, hitSlots='auto', sampler=None,
+                strataTile='auto', device='cuda'):
+  '''Build `step(seed) -> (records, counters)`: RAW per-hit rows from the
+  raw-record kernel's hit ring, in the reference's records form — the
+  counterpart of the JAX package's `makePallasRawStep` minus tile /
+  interpret / uniformProvider / emissionBound, plus `device` and
+  `strataTile`. `records` is a dict of tensors on the device, slot-major:
+  `recordHit` bool (hitSlots, N), `hitElem` int32, `power` float32,
+  `isEntering` bool, `point` (hitSlots, N, 3), `direction` (hitSlots, N, 3)
+  — EVERY recording-element hit (no histogram-bounds gate), the INCOMING
+  direction, the pre-interaction power. `counters`: 0-d int64 tensors
+  `segments`, `hits`, `hitOverflow` on the device. The output feeds
+  simulation.runner.compactRecordsToHits -> SimulationResults.addHitBatch.
+
+  `seed`, `sampler`, `generator(torchGenerator, N)` and the strata as in
+  `makeTraceStep`; the power cut-off is the scene's `powerTol` (1e-6 when
+  the scene dict has none).'''
+  tables, hitSlots, strataTile, inputsFor = _stepSetup(
+      scene, histSpec, generator, raysPerStep, maxIntersections, hitSlots,
+      sampler, strataTile, device)
+  kw = dict(maxIntersections=maxIntersections, maxRayLength=maxRayLength,
+            distTol=distTol, powerTol=float(scene.get('powerTol', 1e-6)),
+            hitSlots=hitSlots, strataTile=strataTile)
+
+  def step(seed):
+    ring, c = traceRaw(tables, raysPerStep, **inputsFor(seed), **kw)
+    return recordsFromRing(ring), dict(segments=c[0], hits=c[1],
+                                       hitOverflow=c[2])
+
+  step.tables = tables
+  step.hitSlots = hitSlots
+  step.strataTile = strataTile
+  return step
+
+
+def recordsFromRing(ring):
+  '''The records dict of `makeRawStep` from a (9, hitSlots, N) raw ring.'''
+  return dict(recordHit=ring[0] >= 0,
+              hitElem=ring[0].to(torch.int32),
+              power=ring[1],
+              isEntering=ring[2] > 0.5,
+              point=torch.stack([ring[3], ring[4], ring[5]], dim=-1),
+              direction=torch.stack([ring[6], ring[7], ring[8]], dim=-1))

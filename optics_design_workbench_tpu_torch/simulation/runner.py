@@ -1,0 +1,497 @@
+'''
+Simulation runtime — the recording run (counterpart of the JAX package's
+simulation/runner.py; reference: simulation/processes/simulation_loop.py:
+291-775). One process drives the trace kernels over whole ray batches on one
+device; lifecycle flag files, the results folder layout, progress dumps, end
+criteria and the per-source iteration structure are the reference's, so
+external tooling behaves identically.
+
+Actions (reference: simulation_actions.py:22-37, simulation_loop.py:341-348):
+  'singletrue'   one Monte-Carlo iteration (true random)
+  'singlepseudo' one Monte-Carlo iteration (latin-hypercube draws)
+  'true'         continuous Monte-Carlo until end criteria / cancel
+  'pseudo'       continuous latin-hypercube Monte-Carlo
+  'stop'         cancel a running simulation
+  'clear'        stop + clear drawn rays (GUI no-op here)
+
+Every Monte-Carlo iteration goes through the hand-written kernels of
+ops/cuda_trace: `makeRawStep` for stored raw hits, `makeTraceStep` for
+histogram-first recording. What the reference routes through its record
+tracer (`tracing.tracer.trace`) is not ported yet and raises
+NotImplementedError by name instead of doing something else: the 'fans'
+action, `draw=`, `mesh=`, `slaveInfo=`, sources with RecordRays, enabled
+StoreHit* metadata columns, sources without device sampling, and scenes the
+kernels do not cover (see `_refuseArguments`, `_refuseScene`).
+'''
+
+import time
+
+import numpy as np
+import torch
+
+from .. import distributions, resolveDevice
+from ..ops import cuda_trace
+from ..tracing import fused
+from ..utils import io, timing
+from . import results_store
+from .lifecycle import Lifecycle, SimulationEnded
+
+SINGLE_SHOT_ACTIONS = ('singletrue', 'singlepseudo')
+CONTINUOUS_ACTIONS = ('true', 'pseudo')
+
+# rays per step are padded to a multiple of the kernels' thread block, so
+# that the ray-index strata of the in-kernel sampler decompose
+RAY_BLOCK = 256
+
+# where each refused feature is queued (ROADMAP.md, section A)
+_ROADMAP = {
+    'fans': 'A.10 (record tracer: fans, ray polylines, metadata columns)',
+    'recordRays': 'A.10 (record tracer: fans, ray polylines, metadata '
+                  'columns)',
+    'metadata': 'A.10 (record tracer: fans, ray polylines, metadata columns)',
+    'draw': 'A.10 (simulation/draw.py)',
+    'slaveInfo': 'A.10 (parallel/multiprocess.py workers)',
+    'mesh': 'A.13 (multi-GPU)',
+    'hostSource': 'A.4 (batch tracer for host-generated rays)',
+    'scene': 'A.4 (batch tracer fallback) and queue B (kernel features)',
+}
+
+
+def _notPorted(what, key):
+  return NotImplementedError(
+      f'{what} is not ported to the PyTorch package yet: ROADMAP item '
+      f'{_ROADMAP[key]}')
+
+
+def setupRandomSeed(seed=None, device='cuda'):
+  '''Per-process random seeding (reference: simulation_loop.py:813-820).
+  Returns a torch.Generator on `device`; the run draws its per-step seeds
+  and its latin-hypercube columns from it explicitly.'''
+  if seed is None:
+    seed = int(time.time() * 1e3) % (2 ** 31)
+  distributions.setGlobalSeed(seed)
+  np.random.seed(seed % (2 ** 31))
+  generator = torch.Generator(device=resolveDevice(device))
+  generator.manual_seed(int(seed))
+  return generator
+
+
+def _drawSeeds(generator, count):
+  '''`count` kernel seeds from the run's generator, as python ints, with ONE
+  device-to-host copy.'''
+  return torch.randint(0, 2 ** 62, (count,), generator=generator,
+                       device=generator.device).tolist()
+
+
+def _actionMode(action):
+  if action in ('singletrue', 'true'):
+    return 'true'
+  if action in ('singlepseudo', 'pseudo'):
+    return 'pseudo'
+  raise ValueError(f'unexpected action {action!r}')
+
+
+def _withMetadata(cols, rayIdx, metadata, enabledKeys):
+  '''Add the enabled per-ray metadata columns, gathered at the hits' ray
+  indices (`rayIdx()` is only called when there is any metadata).'''
+  wanted = {k: v for k, v in (metadata or {}).items()
+            if enabledKeys is None or k.lower() in enabledKeys}
+  if wanted:
+    nIdx = rayIdx()
+    for k, v in wanted.items():
+      cols[k] = np.asarray(v)[nIdx]
+  return cols
+
+
+def compactRecordsToHits(records, metadata, elementLabels, enabledKeys=None):
+  '''recordsToHits via compaction on the device: the recording rows of the
+  slot-major (S, N) records are found and split by element there
+  (`torch.nonzero` + `index_select`, plain PyTorch where the reference is
+  plain XLA), and each column of each element crosses to the host in ONE
+  copy of exactly its `count` rows instead of all S*N. The reference pads
+  the compacted rows to a power of two and falls back to a full fetch
+  beyond its buffer; both exist for fixed jit shapes and are left behind.
+  It also splits by element on the host; masking ~100 MB of fetched columns
+  with numpy there cost more than everything else in a raw step, so the
+  split happens before the copy. Row order within an element is not part of
+  the contract.'''
+  recordHit = records['recordHit']
+  S, N = recordHit.shape
+  idx = torch.nonzero(recordHit.reshape(-1)).reshape(-1)
+  if idx.numel() == 0:
+    return {}
+  elem = records['hitElem'].reshape(-1).index_select(0, idx)
+  out = {}
+  for e in torch.unique(elem).tolist():      # one small fetch per call
+    sel = idx[elem == e]
+
+    def take(x):
+      return x.reshape((S * N,) + tuple(x.shape[2:])).index_select(0, sel) \
+          .cpu().numpy()
+
+    cols = dict(points=take(records['point']),
+                directions=take(records['direction']),
+                powers=take(records['power']),
+                isEntering=take(records['isEntering']))
+    out[elementLabels[e]] = _withMetadata(
+        cols, lambda: (sel % N).cpu().numpy(), metadata, enabledKeys)
+  return out
+
+
+def recordsToHits(records, metadata, elementLabels, enabledKeys=None):
+  '''Convert slot-major device records into per-element columnar hit
+  batches: {elementLabel: dict(points, directions, powers, isEntering,
+  metadata columns)} (host side; fetches the full records).'''
+  host = {k: records[k].cpu().numpy()
+          for k in ('recordHit', 'hitElem', 'point', 'direction', 'power',
+                    'isEntering')}
+  recordHit = host['recordHit']
+  out = {}
+  for e, label in enumerate(elementLabels):
+    sel = np.nonzero(recordHit & (host['hitElem'] == e))
+    if not len(sel[0]):
+      continue
+    cols = dict(points=host['point'][sel], directions=host['direction'][sel],
+                powers=host['power'][sel], isEntering=host['isEntering'][sel])
+    out[label] = _withMetadata(cols, lambda: sel[1], metadata, enabledKeys)
+  return out
+
+
+class SimulationRun:
+  '''One compiled simulation: the scene's host tables (what
+  `cuda_trace.buildTraceTables` reads; one table for every source, since
+  per-source surface masks are refused by `Scene.compile` until ported) +
+  per-source settings. Single device; sharding the ray axis over several
+  cards waits for the multi-GPU port.'''
+
+  def __init__(self, scene, settings, device='cuda'):
+    self.scene = scene
+    self.settings = settings
+    self.torchDevice = resolveDevice(device)
+    self.device, self.info = scene.compile(device=None)
+    self.device['powerTol'] = 1e-6
+
+  def stepKwargs(self, source, raysPerStep):
+    '''Keyword arguments of a step factory that derive from the settings
+    and the source's scale factors.'''
+    maxI = max(1, int(round(self.settings.maxIntersections()
+                            * float(source.MaxIntersectionsScale))))
+    return dict(raysPerStep=raysPerStep, maxIntersections=maxI,
+                maxRayLength=self.settings.maxRayLength()
+                * float(source.MaxRayLengthScale),
+                device=self.torchDevice)
+
+
+def _refuseArguments(action, unsupported):
+  '''Raise NotImplementedError, by name, for the reference's arguments that
+  need modules this package lacks; TypeError for anything else.'''
+  if action == 'fans':
+    raise _notPorted("action='fans' (deterministic ray fans)", 'fans')
+  for key, what in (('draw', 'draw= (drawn ray polylines)'),
+                    ('mesh', 'mesh= (sharding over several devices)'),
+                    ('slaveInfo', 'slaveInfo= (the worker role)')):
+    value = unsupported.pop(key, None)
+    if value is not None and value is not False:
+      raise _notPorted(what, key)
+  if unsupported:
+    raise TypeError(f'runSimulation got unexpected keyword arguments '
+                    f'{sorted(unsupported)}')
+
+
+def _refuseScene(scene, run, settings):
+  '''Raise NotImplementedError, by name, for what the reference sends
+  through its record tracer: metadata columns, ray polylines, host-sampled
+  sources, and scenes the kernels do not cover.'''
+  enabled = settings.enabledMetadataKeys()
+  if enabled:
+    raise _notPorted(f'storing hit metadata columns (StoreHit* enabled: '
+                     f'{enabled})', 'metadata')
+  for src in scene.lightSources():
+    if bool(src.RecordRays):
+      raise _notPorted(f'RecordRays (ray polylines of source {src.Label})',
+                       'recordRays')
+    if not src.supportsDeviceSampling():
+      raise _notPorted(f'source {src.Label} without device sampling',
+                       'hostSource')
+    reason = cuda_trace.ineligibleReason(run.device)
+    if reason is not None:
+      raise _notPorted(f'this scene ({reason})', 'scene')
+
+
+def runSimulation(scene, action, endIf=None, seed=None, store=None,
+                  progressCallback=None, flushEverySeconds=5,
+                  recording='raw', histBounds=None, histBins=(256, 256),
+                  rawSampleRays=1 << 13, rawSampleEvery=8, device='cuda',
+                  **unsupported):
+  '''
+  Run a simulation on `scene` (a models.Scene) on `device` (default 'cuda';
+  raises without a card; 'cpu' runs the kernels' plain PyTorch versions).
+  Returns the run folder path (or None for 'stop'/'clear'). See the module
+  docstring for actions and for what raises NotImplementedError.
+
+  recording='raw' stores every hit on a recording element: each iteration
+  is one launch of the raw-record kernel, a compaction of its hit ring on
+  the device, one fetch of the recording rows and a buffered write.
+
+  recording='histogram' switches Monte-Carlo runs to histogram-first
+  storage: detector histograms accumulate ON THE DEVICE through the fused
+  sample + trace + bin kernel and are flushed as cumulative snapshots
+  (source-<label>/<ts>-histograms.npz, loader:
+  results_store.loadHistogramSnapshots); only a capped raw-hit sample
+  (`rawSampleRays` rays every `rawSampleEvery` iterations) goes through the
+  raw-record path, so a storing run keeps the fused step's throughput.
+  histBounds: detector-local (x0, x1, y0, y1) or dict label->bounds.
+  '''
+  resultsFolder = results_store.getResultsFolderPath(
+      scene.path or scene.label)
+  lifecycle = Lifecycle(resultsFolder)
+
+  if action in ('stop', 'clear'):
+    lifecycle.setIsCanceled(True)
+    for src in scene.lightSources():
+      src.clear()
+    return None
+
+  _refuseArguments(action, unsupported)
+  if action not in SINGLE_SHOT_ACTIONS + CONTINUOUS_ACTIONS:
+    raise ValueError(f'unknown action {action!r}')
+
+  if lifecycle.isRunning():
+    raise RuntimeError('a simulation is already running for this document')
+
+  dev = resolveDevice(device)
+  settings = scene.activeSimulationSettings()
+  mode = _actionMode(action)
+  continuous = action in CONTINUOUS_ACTIONS
+  run = SimulationRun(scene, settings, device=dev)
+  _refuseScene(scene, run, settings)
+
+  # store decisions (reference: simulation_loop.py:350-378): continuous runs
+  # always store; single-shot only with EnableStoreSingleShotData (or when
+  # explicitly requested)
+  if store is None:
+    store = continuous or bool(settings.EnableStoreSingleShotData)
+
+  generator = setupRandomSeed(seed, dev)
+  lifecycle.clearAll()
+  lifecycle.setIsRunning(True)
+
+  results = None
+  hists = {}         # referenced in `finally` — must exist even when the
+                     # run fails before the histogram-mode setup below
+  try:
+    endIter = settings.endAfterIterations() if continuous else 1
+    results = results_store.SimulationResults(
+        simulationType=action,
+        basePath=resultsFolder,
+        simulationRunFolder=results_store.generateSimulationFolderName(
+            resultsFolder),
+        flushEverySeconds=flushEverySeconds,
+        endAfterIterations=endIter,
+        endAfterRays=settings.endAfterRays() if continuous else np.inf,
+        endAfterHits=settings.endAfterHits() if continuous else np.inf)
+    results.dumpGlobalInfo(scene.collectGlobalInfo())
+
+    chunkTimer = timing.IntervalTimer(3600)
+    perfTimer = timing.IntervalTimer(60)
+
+    # ---- histogram-first recording: accumulation state on the device ----
+    histMode = recording == 'histogram'
+    histSteps, rawSteps = {}, {}
+    overflowWarned = set()
+    histFlushTimer = timing.IntervalTimer(flushEverySeconds)
+    # the histogram spec doubles as the raw path's element/detector map
+    histSpec = fused.makeHistogramSpec(run.device, run.info,
+                                       bounds=histBounds, bins=histBins)
+    histMeta = dict(bounds=np.asarray(histSpec['bounds']),
+                    detLabels=histSpec['detLabels'])
+    elementLabels = run.info['elementLabels']
+
+    # float32 kernels: a tolerance below 1e-4 mm lets a ray re-hit the
+    # surface it just left. The reference clamps on its raw path only; its
+    # histogram path passes the setting through and, at the default 1e-6,
+    # loses about a fifth of the hits on the lens-and-mirror scene. Both
+    # paths clamp here.
+    distTol = max(settings.distanceTolerance(), 1e-4)
+
+    # true random draws happen inside the kernel where the source has a
+    # sampler spec; latin-hypercube draws ('pseudo') always come as columns
+    # from the source's device generator
+    def buildHistStep(src, n):
+      nPad = -(-n // RAY_BLOCK) * RAY_BLOCK
+      return cuda_trace.makeTraceStep(
+          run.device, histSpec,
+          src.deviceColumnsGenerator(device=dev), sampler=src.samplerSpec(),
+          stratified=(mode == 'pseudo'), distTol=distTol,
+          **run.stepKwargs(src, nPad)), nPad
+
+    def buildRawStep(src, n):
+      nPad = -(-n // RAY_BLOCK) * RAY_BLOCK
+      columns, sampler = src.deviceColumnsGenerator(device=dev), None
+      if mode == 'pseudo':
+        columns = (lambda draw: lambda gen, count: draw(
+            gen, count, stratified=True))(columns)
+      else:
+        sampler = src.samplerSpec()
+      return cuda_trace.makeRawStep(
+          run.device, histSpec, columns, sampler=sampler,
+          distTol=distTol, **run.stepKwargs(src, nPad)), nPad
+
+    def stepSeed():
+      '''What a step is handed as its seed: a python int for the in-kernel
+      sampler, the run's generator itself for latin-hypercube columns.'''
+      return generator if mode == 'pseudo' else _drawSeeds(generator, 1)[0]
+
+    def flushHistograms():
+      for label, hist in hists.items():
+        results.writeHistogramSnapshot(
+            label, dict(power=hist['power'].cpu().numpy(),
+                        counts=hist['counts'].cpu().numpy()), histMeta)
+
+    def storeHits(srcLabel, hits):
+      '''One stored-hit schema for every path (raw / sampled).'''
+      for label, cols in hits.items():
+        meta = {k: v for k, v in cols.items()
+                if k not in ('points', 'directions', 'powers',
+                             'isEntering')}
+        results.addHitBatch(srcLabel, label, cols['points'],
+                            cols['directions'], cols['powers'],
+                            cols['isEntering'], meta)
+
+    def warnOverflow(src, overflow, what):
+      if overflow and src.Label not in overflowWarned:
+        overflowWarned.add(src.Label)
+        io.warn(f'{overflow} detector passes overflowed the per-ray '
+                f'hit-slot ring; {what} under-record (raise hitSlots)')
+
+    def rawIteration(src, n, key, countHits=True):
+      '''One launch of the raw-record kernel for `src`, its hits compacted,
+      fetched and buffered (or only counted when nothing is stored).
+      Returns the number of rays traced.'''
+      entry = rawSteps.get(key)
+      if entry is None:
+        entry = rawSteps[key] = buildRawStep(src, n)
+      stepR, nPad = entry
+      records, rawCounters = stepR(stepSeed())
+      before = results.totalRecordedHits
+      if store:
+        warnOverflow(src, int(rawCounters['hitOverflow']), 'stored hits')
+        storeHits(src.Label, compactRecordsToHits(records, {},
+                                                  elementLabels))
+      else:
+        # still count hits for end criteria / progress
+        results.totalRecordedHits += int(rawCounters['hits'])
+      if not countHits:
+        results.totalRecordedHits = before
+      return nPad
+
+    for src in scene.lightSources():
+      src.onInitializeSimulation(state='pre-worker-launch', ident=action)
+
+    iteration = 0
+    while True:
+      iteration += 1
+      # iteration accounting for windowed histogram dispatch: the window is
+      # shared across sources (one loop pass advances every source), so the
+      # extra iterations counted per pass are the MAX inner window over the
+      # sources, not their sum
+      passExtraIters = 0
+      for src in scene.lightSources():
+        n = max(1, int(round(settings.raysPerIteration()
+                             * float(src.RaysPerIterationScale))))
+        if not histMode:
+          results.incrementRayCount(rawIteration(src, n, src.Label))
+          continue
+
+        # ---- histogram-first path ----
+        entry = histSteps.get(src.Label)
+        if entry is None:
+          entry = histSteps[src.Label] = buildHistStep(src, n)
+          hists[src.Label] = fused.initHistograms(histSpec, device=dev)
+        step, nStep = entry
+        # dispatch a WINDOW of steps and fetch the hit counter once: a
+        # fetch per step would make the host wait for every kernel before
+        # it queues the next
+        if not continuous:
+          inner = 1
+        elif np.isfinite(results.endAfterRays):
+          remaining = results.endAfterRays - results.totalTracedRays
+          # divide by the PADDED per-step count (what incrementRayCount
+          # advances by) or the window overshoots endAfterRays
+          inner = int(np.clip(np.ceil(remaining / max(nStep, 1)), 1, 16))
+        else:
+          inner = 16
+        if np.isfinite(results.endAfterIterations):
+          inner = int(np.clip(results.endAfterIterations
+                              - results.totalIterations, 1, inner))
+        if np.isfinite(results.endAfterHits):
+          inner = min(inner, 4)     # bound the overshoot past the target
+        seeds = ([generator] * inner if mode == 'pseudo'
+                 else _drawSeeds(generator, inner))
+        counterAcc = None
+        for stepSeedValue in seeds:
+          hists[src.Label], counters = step(stepSeedValue, hists[src.Label])
+          c = torch.stack([counters['hits'], counters['hitOverflow']])
+          counterAcc = c if counterAcc is None else counterAcc + c
+        # count the rays the step ACTUALLY traced: the batch is padded to
+        # a block multiple and the padding rays are REAL rays whose hits
+        # land in the histograms, so the padded count is the correct
+        # normalization for power-per-ray statistics
+        results.incrementRayCount(nStep * inner)
+        passExtraIters = max(passExtraIters, inner - 1)
+        hitTotal, overflow = counterAcc.tolist()   # the window's one fetch
+        results.totalRecordedHits += hitTotal
+        warnOverflow(src, overflow, 'histogram counts')
+        # capped raw-hit sample for per-hit storage. Its rays are extra:
+        # they count neither as traced rays (as in the reference) nor as
+        # recorded hits (the reference adds them to the hit total, which
+        # then exceeds what the histograms hold)
+        if store and rawSampleRays and iteration % rawSampleEvery == 1:
+          rawIteration(src, rawSampleRays, (src.Label, 'sample'),
+                       countHits=False)
+        if store and histFlushTimer.check():
+          flushHistograms()
+
+      results.incrementIterationCount(1 + passExtraIters)
+      results.writeDiskIfNeeded()
+      progress = results.getProgress()
+      if progressCallback is not None:
+        progressCallback(progress)
+      if endIf is not None and endIf(results.runPath()):
+        lifecycle.setIsFinished(True)
+      if perfTimer.check():
+        io.info(results.performanceDescription())
+      if chunkTimer.check():
+        try:
+          results_store.chunkFiles(results.runPath())
+        except Exception as e:
+          io.warn(f'result-file chunking failed (run continues): {e}')
+      lifecycle.touchRunning()
+      if progress['reachedEnd'] or lifecycle.isCanceled() \
+          or lifecycle.isFinished():
+        break
+      if not continuous:
+        break
+  except SimulationEnded:
+    pass
+  finally:
+    if results is not None:
+      try:
+        if store and hists:
+          flushHistograms()
+      except Exception as e:
+        io.warn(f'final histogram flush failed: {e}')
+      results.cleanup()
+      io.info(f'simulation ended: {results.performanceDescription()}')
+    for src in scene.lightSources():
+      src.onExitSimulation(ident=action)
+    lifecycle.setIsFinished(True)
+    lifecycle.setIsRunning(False)
+    lifecycle.setIsCanceled(False)
+    io.gatherWorkerLogs()
+  return results.runPath()
+
+
+def runAction(scene, action, **kwargs):
+  '''Parity wrapper (reference: simulation_loop.py:275-289).'''
+  return runSimulation(scene, action, **kwargs)

@@ -23,10 +23,26 @@ torch.set_num_threads(1)
 import optics_design_workbench_tpu_torch as port
 from optics_design_workbench_tpu_torch import (benchmarks, convert, _build,
                                                distributions, geometry,
-                                               models, ops, tracing)
+                                               models, ops, simulation,
+                                               tracing, utils)
+from optics_design_workbench_tpu_torch.simulation import (lifecycle,
+                                                          results_store,
+                                                          runner)
+from optics_design_workbench_tpu_torch.utils import io, native_store, timing
 step, hist, meta = benchmarks.makeBenchStep(device='cpu', raysPerStep=4096)
 hist, counters = step(0, hist)
 assert int(counters['hits']) > 3600, counters
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+  scene = benchmarks.buildSourceDetectorScene(tmpdir=tmp)
+  settings = scene.activeSimulationSettings()
+  settings.RaysPerIteration, settings.EndAfterIterations = 1024, 2
+  progress = []
+  for recording in ('raw', 'histogram'):
+    simulation.runSimulation(scene, 'true', seed=1, device='cpu',
+                             recording=recording,
+                             progressCallback=progress.append)
+    assert progress[-1]['totalRecordedHits'] > 1800, progress[-1]
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
              or m == 'optics_design_workbench_tpu'
@@ -89,14 +105,17 @@ def test_kernel_launch_path_refuses_cpu_tensors(setup):
   tensors on another device than the tables are refused before anything
   runs.'''
   tables, histSpec = setup
-  before = cuda_trace.launchCount
+  before = dict(cuda_trace.launchCounts)
   _call(tables, histSpec, seed=3)
-  assert cuda_trace.launchCount == before     # plain version: no launch
+  assert cuda_trace.launchCounts == before    # plain version: no launch
   hist = fused.initHistograms(histSpec, device='cpu')
-  with pytest.raises(ValueError, match='CUDA tensors only'):
-    cuda_trace._launchKernel(tables, hist, 256, cuda_trace.MODE_SEED, None, 3,
-                             None, 0, 2, 1000., 1e-4, 1e-6, 1)
-  assert cuda_trace.launchCount == before
+  ring = torch.empty((9, 1, 256))
+  for name, outs in (('traceHistogram', (hist['power'], hist['counts'])),
+                     ('traceBins', (ring[:3],)), ('traceRaw', (ring,))):
+    with pytest.raises(ValueError, match='CUDA tensors only'):
+      cuda_trace._launchKernel(name, tables, outs, 256, cuda_trace.MODE_SEED,
+                               None, 3, None, 0, 2, 1000., 1e-4, 1e-6, 1)
+  assert cuda_trace.launchCounts == before
   with pytest.raises(ValueError, match='lies on'):
     _call(tables, histSpec, uniforms=torch.rand((2, 256), device='meta'))
   assert resolveDevice('cpu') == torch.device('cpu')

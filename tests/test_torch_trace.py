@@ -46,7 +46,7 @@ def columnsCase(request):
   '''One scene, mode (c): reference results (built once per module) and
   the port's result on the same columns.'''
   name = request.param
-  scene, bounds, maxI = H.SCENE_BUILDERS[name](H.jaxNs())
+  scene, bounds, maxI = H.SCENES_BY_NAME[name](H.jaxNs())
   deviceNp, histNp, spec = H.referenceArrays(scene, bounds)
   tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,
                                       device='cpu')

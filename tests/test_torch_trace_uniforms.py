@@ -29,7 +29,7 @@ def uniformsCase(request):
   '''One scene, mode (b): the JAX kernel's sampler and the port's are fed
   the same uniforms, strata included (cell = ray index // tile).'''
   name = request.param
-  scene, bounds, maxI = H.SCENE_BUILDERS[name](H.jaxNs())
+  scene, bounds, maxI = H.SCENES_BY_NAME[name](H.jaxNs())
   deviceNp, histNp, spec = H.referenceArrays(scene, bounds)
   tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,
                                       device='cpu')

@@ -123,6 +123,29 @@ def buildCollimatedScene(ns):
   return scene, (-30., 30., -30., 30.), 4
 
 
+def buildStackedDetectorScene(ns):
+  '''Two pass-through Vacuum detectors and a back mirror (the reference
+  suite's stacked-detector scene): every ray passes each detector twice, so
+  four ring slots are live.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='stacked')
+  for i, z in enumerate((40., 60.)):
+    scene.addOpticalGroup(ns.OpticalGroup(
+        OpticalType='Vacuum', Label=f'Det{i}', RecordHits=True,
+        surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(50., 50.))],
+        placements=[T.translation(0, 0, z)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Back',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(50., 50.))],
+      placements=[T.translation(0, 0, 90.)]))
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.02)',
+      ThetaDomain='0, 0.3', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=8)
+  return scene, (-50., 50., -50., 50.), 8
+
+
 def buildBench(ns, name):
   bounds = (-60., 60., -60., 60.)
   if name == 'lensMirror':
@@ -130,12 +153,13 @@ def buildBench(ns, name):
   return ns.benchmarks.buildSourceDetectorScene(), bounds, 2
 
 
-SCENE_BUILDERS = {
+SCENES_BY_NAME = {
     'lensMirror': lambda ns: buildBench(ns, 'lensMirror'),
     'sourceDetector': lambda ns: buildBench(ns, 'sourceDetector'),
     'tir': buildTirScene,
     'absorbing': buildAbsorbingScene,
     'collimated': buildCollimatedScene,
+    'stacked': buildStackedDetectorScene,
 }
 
 
@@ -159,7 +183,8 @@ def _result(hist, counters):
 
 
 def runReferenceColumns(jaxScene, colsNp, bounds, maxIntersections,
-                        hitSlots='auto', bins=BINS, withFused=True):
+                        hitSlots='auto', bins=BINS, withFused=True,
+                        withPallas=True):
   '''Mode (c) on the JAX side: a test-local generator returns the numpy
   columns to the interpret-mode Pallas kernel and to the XLA fused step.'''
   import jax
@@ -185,10 +210,12 @@ def runReferenceColumns(jaxScene, colsNp, bounds, maxIntersections,
   kw = dict(raysPerStep=n, maxIntersections=maxIntersections,
             maxRayLength=MAX_RAY_LENGTH, distTol=DIST_TOL)
   key = jax.random.PRNGKey(0)
-  stepP = pallas_trace.makePallasTraceStep(
-      device, histSpec, genCols, interpret=True, tile=TILE,
-      hitSlots=hitSlots, **kw)
-  out = dict(pallas=_result(*stepP(key, fused.initHistograms(histSpec))))
+  out = {}
+  if withPallas:
+    stepP = pallas_trace.makePallasTraceStep(
+        device, histSpec, genCols, interpret=True, tile=TILE,
+        hitSlots=hitSlots, **kw)
+    out['pallas'] = _result(*stepP(key, fused.initHistograms(histSpec)))
   if withFused:
     stepX = fused.makeFusedStep(device, genRows, histSpec, **kw)
     out['fused'] = _result(*stepX(key, fused.initHistograms(histSpec)))
@@ -219,6 +246,79 @@ def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
   us = jax.random.uniform(jax.random.fold_in(key, 0x0177),
                           (2, n // 128, 128))
   return res, np.array(us).reshape(2, n)
+
+
+def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
+                    colsNp=None, n=N_RAYS, seed=77, bins=BINS):
+  '''The JAX package's raw-record step (`makePallasRawStep`, Mosaic
+  interpret mode). With `colsNp` (mode (c)) a test-local generator feeds it
+  the numpy ray columns; without (mode (b)) its in-kernel sampler is fed
+  uniforms through `uniformProvider='input'` (no tile strata on this step).
+  Returns (records as numpy, counters as ints, uniforms (2, n) or None,
+  element labels).'''
+  import jax
+  import jax.numpy as jnp
+  from optics_design_workbench_tpu.ops import pallas_trace
+  from optics_design_workbench_tpu.tracing import fused
+  device, info = jaxScene.compile()
+  device['powerTol'] = 1e-6
+  histSpec = fused.makeHistogramSpec(device, info, bounds=bounds, bins=bins)
+  src = jaxScene.lightSources()[0]
+  kw = dict(raysPerStep=n, maxIntersections=maxIntersections,
+            maxRayLength=MAX_RAY_LENGTH, distTol=DIST_TOL, hitSlots=hitSlots,
+            interpret=True, tile=TILE)
+  key = jax.random.PRNGKey(seed)
+  us = None
+  if colsNp is not None:
+    def genCols(key, N, stratified=False):
+      return {k: jnp.asarray(v) for k, v in colsNp.items()}
+    step = pallas_trace.makePallasRawStep(device, histSpec, genCols, **kw)
+  else:
+    spec = src.pallasSamplerSpec()
+    assert spec is not None
+    step = pallas_trace.makePallasRawStep(
+        device, histSpec, src.deviceColumnsGenerator(), sampler=spec,
+        uniformProvider='input', **kw)
+    us = np.array(jax.random.uniform(jax.random.fold_in(key, 0x0177),
+                                     (2, n // 128, 128))).reshape(2, n)
+  records, counters = step(key)
+  return ({k: np.asarray(v) for k, v in records.items()},
+          {k: int(v) for k, v in counters.items()}, us,
+          list(info['elementLabels']))
+
+
+def hitRowset(records):
+  '''The recorded hits of a records dict (numpy) as one sorted (rows, 9)
+  array — element, point, direction, power, isEntering — the multiset the
+  reference suite compares (tests/test_pallas_interpret.py).'''
+  m = np.asarray(records['recordHit']).reshape(-1)
+  cols = np.concatenate([
+      np.asarray(records['hitElem']).reshape(-1, 1)[m],
+      np.asarray(records['point']).reshape(-1, 3)[m],
+      np.asarray(records['direction']).reshape(-1, 3)[m],
+      np.asarray(records['power']).reshape(-1, 1)[m],
+      np.asarray(records['isEntering']).reshape(-1, 1)[m].astype(float)],
+      axis=1)
+  return cols[np.lexsort(cols.T[::-1])]
+
+
+def buildE2eScene(ns, path):
+  '''The reference suite's end-to-end scene (tests/test_simulation_e2e.py):
+  Gaussian point source -> absorbing 100 x 100 mm detector at z = 100.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='example1', path=path)
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(50., 50.))],
+      placements=[T.translation(0, 0, 100)]))
+  scene.addSource(ns.PointSource(
+      Label='Source', PowerDensity='exp(-theta^2/0.01)',
+      ThetaDomain='0, pi/4', Wavelength=532.,
+      ThetaResolutionNumericMode='2e4'))
+  scene.addSimulationSettings(
+      EndAfterRays='2e4', RaysPerIteration=5000, MaxIntersections=5,
+      MaxRayLength=1000, EnableStoreSingleShotData=True)
+  return scene
 
 
 def nearlyEqualCounts(a, b, budget=2):

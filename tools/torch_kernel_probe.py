@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-'''Where the CUDA trace kernel's time goes, on one NVIDIA GPU:
+'''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
     python3 tools/torch_kernel_probe.py
 
@@ -10,6 +10,14 @@ warm-up, interleaved A B B A so that clock drift cancels:
   * bounce budget 1, 2, 3, 4, 6 — the cost of sampling plus each bounce;
   * ray-index strata on (256 rays per cell) and off;
   * input mode (a) seed, (b) uniforms, (c) ray columns;
+  * output mode: in-kernel histogram, per-ray bins, raw records — on the
+    main-path scene (one ring slot), and on the stacked-detector scene
+    (two pass-through detectors and a mirror, four passes per ray) with
+    1, 2 and 4 ring slots, which is what the ring's stores cost;
+  * the record compaction + fetch behind the raw-record kernel, split into
+    its device part (nonzero, split by element, gathers) and its
+    device-to-host copies, beside what a split on the host and copies into
+    pinned memory would cost (host clock around synchronised work);
   * the build with float contraction on (nvcc's default) against the
     shipped -fmad=false build, with the number of rays whose fate or bin
     then differs from the plain PyTorch version.
@@ -21,11 +29,15 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, 'tests'))
+
+import torch_port_helpers as helpers          # the check scenes (imports no jax)
 
 from optics_design_workbench_tpu_torch import _build, benchmarks
 from optics_design_workbench_tpu_torch.ops import cuda_trace
@@ -99,6 +111,86 @@ def main():
   for rep in range(2):
     for mode in 'abc':
       record(f'mode-{mode}/rep{rep}', mode=mode)
+
+  # output modes on the main-path scene, A B C C B A
+  def runOut(out, tab, n, maxI, slots):
+    kwOut = dict(hitSlots=slots, seed=next(seeds), strataTile=tile)
+    if out == 'hist':
+      return cuda_trace.traceHistogram(tab, runOut.hist, n, maxI, 1000., 1e-4,
+                                       **kwOut)
+    fn = cuda_trace.traceBins if out == 'bins' else cuda_trace.traceRaw
+    return fn(tab, n, maxI, 1000., 1e-4, **kwOut)[1]
+
+  runOut.hist = hist
+  for out in ('hist', 'bins', 'raw', 'raw', 'bins', 'hist'):
+    ms = cudaMs(lambda: runOut(out, tables, N, 6, 1))
+    c = runOut(out, tables, N, 6, 1).tolist()
+    print(json.dumps(dict(variant=f'output-{out}', scene='lensMirror', ms=ms,
+                          hitSlots=1, segments=c[0], hits=c[1],
+                          overflow=c[2])), flush=True)
+
+  # ring depth on the stacked-detector scene (four passes per ray)
+  stacked, sBounds, sMaxI = helpers.buildStackedDetectorScene(
+      helpers.torchNs())
+  stackedNp, sInfo = stacked.compile(device=None)
+  sSpec = fused.makeHistogramSpec(stackedNp, sInfo, bounds=sBounds, bins=BINS)
+  sTables = cuda_trace.buildTraceTables(
+      stackedNp, sSpec, samplerSpec=stacked.lightSources()[0].samplerSpec(),
+      device=dev)
+  runOut.hist = fused.initHistograms(sSpec, device=dev)
+  for rep in range(2):
+    for slots in (1, 2, 4):
+      for out in ('hist', 'bins', 'raw'):
+        ms = cudaMs(lambda: runOut(out, sTables, N, sMaxI, slots))
+        c = runOut(out, sTables, N, sMaxI, slots).tolist()
+        print(json.dumps(dict(variant=f'stacked-{out}-{slots}slots/rep{rep}',
+                              scene='stacked', ms=ms, hitSlots=slots,
+                              segments=c[0], hits=c[1], overflow=c[2])),
+              flush=True)
+  runOut.hist = hist
+
+  # record compaction + fetch of one full-width raw step, piece by piece
+  # (the pieces of simulation.runner.compactRecordsToHits, and what its
+  # split by element would cost with numpy on the host instead)
+  ring, c = cuda_trace.traceRaw(tables, N, 6, 1000., 1e-4, hitSlots=1,
+                                seed=next(seeds), strataTile=tile)
+  keys = ('point', 'direction', 'power', 'isEntering')
+  for rep in range(2):
+    records = cuda_trace.recordsFromRing(ring)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = cuda_trace.recordsFromRing(ring)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    idx = torch.nonzero(records['recordHit'].reshape(-1)).reshape(-1)
+    elem = records['hitElem'].reshape(-1).index_select(0, idx)
+    present = torch.unique(elem).tolist()
+    sel = idx[elem == present[0]]
+    taken = {k: records[k].reshape((N,) + tuple(records[k].shape[2:]))
+             .index_select(0, sel) for k in keys}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    host = {k: v.cpu().numpy() for k, v in taken.items()}
+    t3 = time.perf_counter()
+    m = elem.cpu().numpy() == present[0]
+    split = {k: v[m] for k, v in host.items()}
+    t4 = time.perf_counter()
+    pinned = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+              for k, v in taken.items()}
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    for k, v in taken.items():
+      pinned[k].copy_(v, non_blocking=True)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    print(json.dumps(dict(
+        variant=f'compaction/rep{rep}', rows=int(sel.numel()),
+        elements=present, bytes=sum(v.nbytes for v in host.values()),
+        recordsFromRingMs=(t1 - t0) * 1e3, deviceSplitGatherMs=(t2 - t1) * 1e3,
+        copyToPageableMs=(t3 - t2) * 1e3,
+        hostSplitInsteadMs=(t4 - t3) * 1e3,
+        pinnedAllocMs=(t5 - t4) * 1e3, copyToPinnedMs=(t6 - t5) * 1e3,
+        kept=int(len(split['power'])))), flush=True)
 
   # contraction on against the shipped build, and both against the plain
   # version on the same uniforms
