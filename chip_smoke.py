@@ -7,8 +7,10 @@ builds the CUDA kernels from the sources in this checkout (one nvcc per
 source, in parallel) and holds each against its plain PyTorch version on the
 card: the in-kernel-histogram kernel in all three input modes, the
 per-ray-bin and raw-record kernels in modes (b) and (c) on scenes with one,
-two and four live ring slots and with a ring that overflows. It then drives
-the port's paths at full width on the lens-and-mirror scene:
+two and four live ring slots and with a ring that overflows, the sweep
+kernel on a surface sweep and a source-placement sweep and, in seed mode,
+against one launch of the histogram kernel per variant. It then drives the
+port's paths at full width:
 
   * the fused step (`benchmarks.makeBenchStep()`: 1 << 22 rays, 6 bounces,
     128 x 128 bins) for a few timed steps, with in-kernel binning and with
@@ -17,9 +19,14 @@ the port's paths at full width on the lens-and-mirror scene:
     and fetch, `simulation.runSimulation(scene, 'true')` with raw recording
     (4 iterations of 1 << 20 rays, hits written and read back) and with
     histogram-first recording (32 iterations of 1 << 22 rays);
+  * the parameter sweep on the examples/3 lens scene:
+    `ParameterSweeper.evaluateBatched` at 11 radii x 200,000 rays and at
+    64 radii x 1 << 20 rays (one launch of the sweep kernel per call, beside
+    the same work as one histogram-kernel launch per variant), and
+    `optimize` through `runSimulation` and `RawFolder.loadHits`;
 
-and checks the physics of what comes out. Every failing phase raises, so the
-exit code is non-zero and no result line is printed. Needs one CUDA device;
+(the first three on the lens-and-mirror scene) and checks the physics of
+what comes out. Every failing phase raises, so the exit code is non-zero and no result line is printed. Needs one CUDA device;
 exits non-zero without one. Prints one JSON object per phase; the last line
 is `{"ok": true, "device": {...}}`.
 '''
@@ -42,6 +49,7 @@ sys.path.insert(0, os.path.join(HERE, 'tests'))
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
 from optics_design_workbench_tpu_torch import _build, benchmarks, simulation
+from optics_design_workbench_tpu_torch.jupyter_utils import RawFolder
 from optics_design_workbench_tpu_torch.ops import cuda_trace
 from optics_design_workbench_tpu_torch.simulation import results_store, runner
 from optics_design_workbench_tpu_torch.tracing import fused
@@ -58,6 +66,12 @@ COUNT_BUDGET = 2          # rays allowed to cross a bin edge (ulp-level)
 POWER_RTOL = 1e-4         # float32 atomics add in a run-to-run order
 MARGINAL_L1 = 0.02        # mode (a): independent draws, 4M rays
 RAW_ATOL = 1e-4           # mm / unit power: the reference's own raw-row test
+# the parameter sweep: the reference's own configuration of it (11 lens
+# radii x 200,000 rays) and the size of a design study on this card
+SWEEPS = ((11, 200_000), (64, 1 << 20))
+SWEEP_BINS = (64, 64)
+SWEEP_BOUNDS = (-40., 40., -40., 40.)
+SWEEP_MAX_INTERSECTIONS = 6
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
@@ -283,11 +297,19 @@ def resetLaunchCounts():
     cuda_trace.launchCounts[name] = 0
 
 
+def onlyLaunches(**counts):
+  '''The launch counts of a run that launched these kernels and no other.'''
+  return {**{name: 0 for name in cuda_trace.launchCounts}, **counts}
+
+
 def boundMs(tables, segmentsPerStep, nRays, outputBytes):
   '''Least time the card could take for one step: (ms by operations, ms by
   bytes), from this run's segment count and the bytes the kernel must move
   (table and counters in, `outputBytes` out).'''
-  kinds = [r['kind'] for r in tables['surfRows']]
+  rows = tables['surfRows']
+  if 'nVariants' in tables:            # a sweep: every variant, one structure
+    rows = rows[0]
+  kinds = [r['kind'] for r in rows]
   flopsPerSegment = (sum(FLOPS_INTERSECT[k] for k in kinds) + FLOPS_WINNER
                      + FLOPS_PHYSICS)
   flops = segmentsPerStep * flopsPerSegment + nRays * FLOPS_SAMPLER
@@ -334,7 +356,7 @@ def fusedStepPhase(histPrecision):
   segments = sum(int(c['segments']) for c in allCounters)
   hits = sum(int(c['hits']) for c in allCounters)
   overflow = sum(int(c['hitOverflow']) for c in allCounters)
-  if launches != {**{k: 0 for k in launches}, wrapper: TIMED_STEPS}:
+  if launches != onlyLaunches(**{wrapper: TIMED_STEPS}):
     raise AssertionError(f'{launches} kernel launches for {TIMED_STEPS} '
                          f'steps of histPrecision={histPrecision!r}')
 
@@ -407,17 +429,6 @@ def fusedStepPhase(histPrecision):
               bounds=bounds)
 
 
-def loadHits(runPath):
-  '''All stored hit columns of a run, concatenated over its files.'''
-  cols = {}
-  for f in results_store.resultFilePaths(
-      glob.glob(os.path.join(runPath, 'source-*', 'object-*'))[0], 'hits'):
-    for k, v in results_store.loadResultFile(f).items():
-      if v.ndim > 0 and k not in ('source', 'obj'):
-        cols.setdefault(k, []).append(v)
-  return {k: np.concatenate(v) for k, v in cols.items()}
-
-
 def timedRun(scene, **kwargs):
   '''runSimulation with the host clock read at start, at every progress
   callback and at the end. Returns (runPath, progress dicts, seconds of
@@ -487,7 +498,7 @@ def recordingRunPhases(tmp):
                                                         recording='raw')
   launches = dict(cuda_trace.launchCounts)
   last = progress[-1]
-  hits = loadHits(runPath)
+  hits = RawFolder(runPath).loadHits('Detector')
   rows = len(hits['points'])
   traced = last['totalTracedRays']
   meanPower = float(hits['powers'].astype(np.float64).mean())
@@ -504,13 +515,13 @@ def recordingRunPhases(tmp):
             raysPerSecStoredLoop=N_RAW_ITERATION / (perIterationMs * 1e-3),
             raysPerSecStoredWithFlush=traced / (first + later + cleanup),
             fileBytes=fileBytes))
-  if launches != dict(traceHistogram=0, traceBins=0,
-                      traceRaw=RAW_ITERATIONS):
+  if launches != onlyLaunches(traceRaw=RAW_ITERATIONS):
     raise AssertionError(f'raw run launched {launches}')
   if traced != N_RAW_ITERATION * RAW_ITERATIONS \
       or rows != last['totalRecordedHits'] or rows < 0.9 * traced:
     raise AssertionError(f'{rows} rows stored, {last}')
-  if set(hits) != {'points', 'directions', 'powers', 'isEntering'}:
+  if set(hits) - {'source', 'obj'} != {'points', 'directions', 'powers',
+                                       'isEntering'}:
     raise AssertionError(f'stored columns {sorted(hits)}')
   if not np.isfinite(hits['points']).all() \
       or np.abs(hits['points'][:, 0] + 100.).max() > 1e-3:
@@ -532,7 +543,7 @@ def recordingRunPhases(tmp):
   last = progress[-1]
   snap = results_store.loadHistogramSnapshots(runPath)['Source']['Detector']
   counts = float(snap['counts'].astype(np.float64).sum())
-  sample = loadHits(runPath)
+  sample = RawFolder(runPath).loadHits('Detector')
   sampleSteps = sum(1 for p in range(1, len(progress) + 1) if p % 8 == 1)
   emit(dict(phase='run-histogram', raysPerIteration=N_MAIN,
             iterations=last['totalIterations'], passes=len(progress),
@@ -551,11 +562,260 @@ def recordingRunPhases(tmp):
                          f'{last["totalRecordedHits"]}')
   if not 0 < len(sample['points']) <= 8192 * sampleSteps:
     raise AssertionError(f'raw sample holds {len(sample["points"])} rows')
-  if launches != dict(traceHistogram=HIST_ITERATIONS, traceBins=0,
-                      traceRaw=sampleSteps):
+  if launches != onlyLaunches(traceHistogram=HIST_ITERATIONS,
+                              traceRaw=sampleSteps):
     raise AssertionError(f'histogram run launched {launches}, expected '
                          f'{HIST_ITERATIONS} steps + {sampleSteps} samples')
   return rawLaunches, out[N_MAIN]
+
+
+def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo):
+  '''The sweep kernel vs its plain version on the card, same uniforms (and,
+  where the source is the same in every variant, the same ray columns):
+  per-variant counters equal, at most COUNT_BUDGET rays per variant in
+  another bin, power POWER_RTOL. Returns the worst absolute power error.'''
+  host = [sc.compile(device=None) for sc in scenes]
+  histSpec = fused.makeHistogramSpec(*host[0], bounds=bounds, bins=SWEEP_BINS)
+  specs = [sc.lightSources()[0].samplerSpec() for sc in scenes]
+  tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec, specs,
+                                       device=DEV)
+  V = tables['nVariants']
+  hitSlots = cuda_trace.autoHitSlots(host[0][0], histSpec, maxI)
+  kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6, hitSlots=hitSlots)
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(2468)
+  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
+  strataTile = cuda_trace.DEFAULT_STRATA_TILE
+  strata = cuda_trace.tileStrata(n, strataTile)
+  modes = [('b', dict(uniforms=us, strataTile=strataTile),
+            dict(uniforms=us, strata=strata, strataTile=strataTile))]
+  if columnsToo:
+    cols = cuda_trace.sampleRaysPlain(cuda_trace.variantTables(tables, 0),
+                                      us[0], us[1], strata, strataTile)
+    colsT = torch.stack(list(cols) + [torch.full_like(cols[0], 532.)]) \
+        .contiguous()
+    modes.append(('c', dict(columns=colsT), dict(columns=colsT)))
+  shape = (V, tables['nDet']) + SWEEP_BINS
+  worst = 0.
+  for mode, inputs, plainInputs in modes:
+    hK = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+    hP = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+    cK = cuda_trace.traceSweep(tables, hK, n, **inputs, **kw)
+    torch.cuda.synchronize()
+    cP = cuda_trace.traceSweepPlain(tables, hP, n, **plainInputs, **kw)
+    torch.cuda.synchronize()
+    if cK.tolist() != cP.tolist():
+      raise AssertionError(f'{label} sweep mode ({mode}): counters differ: '
+                           f'kernel {cK.tolist()} plain {cP.tolist()}')
+    moved = (hK['counts'] - hP['counts']).abs().sum(dim=(1, 2, 3)) / 2
+    if float(moved.max()) > COUNT_BUDGET:
+      raise AssertionError(f'{label} sweep mode ({mode}): {moved.tolist()} '
+                           f'rays per variant changed bins (budget '
+                           f'{COUNT_BUDGET})')
+    same = (hK['counts'] == hP['counts']) & (hP['counts'] > 0)
+    pK, pP = hK['power'][same], hP['power'][same]
+    if not torch.allclose(pK, pP, rtol=POWER_RTOL, atol=0.):
+      raise AssertionError(f'{label} sweep mode ({mode}): power differs '
+                           f'beyond rtol {POWER_RTOL}')
+    if int(cK[:, 1].min()) <= 0:
+      raise AssertionError(f'{label} sweep mode ({mode}): a variant recorded '
+                           f'no hits')
+    if V > 1 and torch.equal(hK['counts'][0], hK['counts'][1]):
+      raise AssertionError(f'{label} sweep mode ({mode}): variants 0 and 1 '
+                           f'gave the same histogram')
+    err = float((pK - pP).abs().max())
+    worst = max(worst, err)
+    emit(dict(phase='sweep-vs-plain', sweep=label, mode=mode, variants=V,
+              raysPerVariant=n, counters=cK.tolist(),
+              movedRays=moved.tolist(), maxAbsErrPower=err))
+  return worst
+
+
+def sweepScenes(radii):
+  return [benchmarks.buildSweepLensScene(float(r)) for r in radii]
+
+
+def sweepStepFor(radii, n):
+  '''(step, table, host scenes, sampler spec) of the lens-radius sweep.'''
+  scenes = sweepScenes(radii)
+  host = [sc.compile(device=None) for sc in scenes]
+  spec = scenes[0].lightSources()[0].samplerSpec()
+  step, pack = cuda_trace.makeSweepStep(
+      host, SWEEP_BOUNDS, SWEEP_BINS, spec, n, SWEEP_MAX_INTERSECTIONS,
+      1000., 1e-4, device=DEV)
+  return step, pack(host), host, spec
+
+
+def compareSweepWithSingle(V, n, seed=31):
+  '''The sweep kernel in seed mode against V launches of the histogram
+  kernel with the same seed and each variant's own table: the same rays, so
+  counts equal bin for bin, counters equal, power POWER_RTOL (the atomics
+  land in another order).'''
+  step, table, host, spec = sweepStepFor(np.linspace(45., 95., V), n)
+  power, counts, segments = step(seed, table)
+  torch.cuda.synchronize()
+  counters = step.counters.tolist()
+  worst = 0.
+  for v in range(V):
+    tables = cuda_trace.buildTraceTables(host[v][0], step.histSpec, spec,
+                                         device=DEV)
+    hist = fused.initHistograms(step.histSpec, device=DEV)
+    c = cuda_trace.traceHistogram(
+        tables, hist, n, SWEEP_MAX_INTERSECTIONS, 1000., 1e-4,
+        hitSlots=step.hitSlots, seed=seed, strataTile=step.strataTile)
+    torch.cuda.synchronize()
+    if c.tolist() != counters[v]:
+      raise AssertionError(f'sweep variant {v}: counters {counters[v]}, the '
+                           f'single-scene kernel {c.tolist()}')
+    if not torch.equal(hist['counts'], counts[v]):
+      raise AssertionError(f'sweep variant {v}: counts differ from the '
+                           f'single-scene kernel')
+    if not torch.allclose(hist['power'], power[v], rtol=POWER_RTOL, atol=0.):
+      raise AssertionError(f'sweep variant {v}: power differs from the '
+                           f'single-scene kernel beyond rtol {POWER_RTOL}')
+    worst = max(worst, float((hist['power'] - power[v]).abs().max()))
+  if int(segments) != sum(c[0] for c in counters):
+    raise AssertionError('the step\'s segment total is not the counters\'')
+  emit(dict(phase='sweep-vs-single', variants=V, raysPerVariant=n, seed=seed,
+            strataTile=step.strataTile, segments=int(segments),
+            hits=sum(c[1] for c in counters), maxAbsErrPower=worst))
+
+
+def sweepPathPhase(V, n):
+  '''`evaluateBatched` on the lens-radius sweep, three calls with shifted
+  radii (nothing can be cached by value): wall time cold and steady, the
+  sweep kernel alone by CUDA events, and the same work as one launch of the
+  histogram kernel per variant, timed the same way.'''
+  sweeper, holder = benchmarks.makeSweepLensSweeper()
+  radii = np.linspace(45., 95., V)
+  totals = []
+
+  def metric(power, counts):
+    totals.append(float(counts.sum()))
+    return helpers.spotMetric(power, counts)
+
+  def call(k, route):
+    sets = [dict(R=float(r + 0.3 * k)) for r in radii]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if route == 'sweep':
+      m = sweeper.evaluateBatched(
+          sets, metric, sceneFactory=lambda: holder['scene'], raysPerScene=n,
+          maxIntersections=SWEEP_MAX_INTERSECTIONS, bins=SWEEP_BINS,
+          histBounds=SWEEP_BOUNDS, seed=k)
+    else:
+      # the sweeper's own per-variant route, asked for directly: the same
+      # host work with V launches, V table uploads and V fetches
+      variants = sweeper._compileVariants(sets, lambda: holder['scene'])
+      hists = sweeper._perVariantRoute(
+          variants, n, SWEEP_MAX_INTERSECTIONS, 1000., 1e-4, SWEEP_BINS,
+          SWEEP_BOUNDS, k)
+      m = np.array([metric(p, c) for p, c in hists])
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+  resetLaunchCounts()
+  metrics, coldS = call(0, 'sweep')
+  steady = [call(k, 'sweep')[1] for k in (1, 2)]
+  launches = dict(cuda_trace.launchCounts)
+  if sweeper.lastBatchedRoute != 'sweep' \
+      or launches != onlyLaunches(traceSweep=3):
+    raise AssertionError(f'{launches} launches for 3 evaluateBatched calls '
+                         f'(route {sweeper.lastBatchedRoute})')
+  best = float(radii[int(np.argmin(metrics))])
+  gridStep = 50. / 10                      # of the 11-radius sweep
+  if abs(best - 60.) > gridStep + 1e-9:
+    raise AssertionError(f'argmin radius {best}, paraxial optimum 60 mm')
+  if min(totals) <= 0.9 * n or not np.all(np.isfinite(metrics)):
+    raise AssertionError(f'a variant counted {min(totals)} of {n} rays')
+  loopMetrics, _ = call(0, 'loop')
+  loop = [call(k, 'loop')[1] for k in (1, 2)]
+  if not np.array_equal(loopMetrics, metrics):
+    raise AssertionError('one launch per variant gave other metrics than '
+                         'the sweep kernel on the same seed')
+
+  # the kernels alone, by events, on prebuilt tables
+  step, table, host, spec = sweepStepFor(radii, n)
+  tables = dict(step.facts, table=torch.as_tensor(table, device=DEV))
+  shape = (V,) + step.histShape
+  hist = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+  kw = dict(maxIntersections=SWEEP_MAX_INTERSECTIONS, maxRayLength=1000.,
+            distTol=1e-4, hitSlots=step.hitSlots, strataTile=step.strataTile)
+  seeds = iter(range(7000, 10 ** 6))
+  counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds), **kw)
+  segments = int(counters[:, 0].sum())
+  reps = 20 if V * n < 1 << 24 else 5
+  sweepMs = cudaMs(lambda: cuda_trace.traceSweep(
+      tables, hist, n, seed=next(seeds), **kw), reps)
+  singles = [cuda_trace.buildTraceTables(h, step.histSpec, spec, device=DEV)
+             for h, _i in host]
+  hists1 = [fused.initHistograms(step.histSpec, device=DEV) for _ in singles]
+
+  def k1Loop():
+    seed = next(seeds)
+    for t, h in zip(singles, hists1):
+      cuda_trace.traceHistogram(t, h, n, seed=seed, **kw)
+
+  k1Loop()
+  loopMs = cudaMs(k1Loop, reps)
+  sweepMs2 = cudaMs(lambda: cuda_trace.traceSweep(
+      tables, hist, n, seed=next(seeds), **kw), reps)
+  steadyS, loopS = min(steady), min(loop)
+  emit(dict(phase='sweep-path', variants=V, raysPerVariant=n,
+            coldS=coldS, steadyS=steadyS, steadyCalls=steady,
+            raysPerSec=V * n / steadyS, sweepKernelMs=sweepMs,
+            sweepKernelMsAgain=sweepMs2,
+            hostShare=1. - sweepMs * 1e-3 / steadyS,
+            launchesPerCall=launches['traceSweep'] / 3,
+            segmentsPerCall=segments,
+            raySegmentsPerSecKernel=segments / (sweepMs * 1e-3),
+            bestRadius=best, minCountShare=min(totals) / n,
+            perVariantLoopSteadyS=loopS, perVariantLoopCalls=loop,
+            perVariantLoopKernelsMs=loopMs,
+            sweepOverLoopKernels=sweepMs / loopMs,
+            sweepOverLoopWall=steadyS / loopS))
+  return dict(launches=launches['traceSweep'], ms=sweepMs,
+              tables=tables, segments=segments, hist=hist, kw=kw)
+
+
+def sweepOptimizePhase(tmp):
+  '''The reference-style loop on the card: `optimize` -> `runSimulation`
+  (raw recording, 20,000 rays) -> `RawFolder.loadHits` -> penalty.'''
+  sweeper, holder = benchmarks.makeSweepLensSweeper(
+      path=os.path.join(tmp, 'example3'))
+  runs = []
+
+  def spotSize(raw):
+    runs.append(raw)
+    return helpers.spotSize(raw)
+
+  resetLaunchCounts()
+  t0 = time.perf_counter()
+  result = sweeper.optimize(spotSize, ['R'], method='Nelder-Mead',
+                            maxIterations=10, seed=1)
+  seconds = time.perf_counter() - t0
+  launches = dict(cuda_trace.launchCounts)
+  history = sweeper.history
+  rows = [len(raw.loadHits('Detector')) for raw in runs]
+  emit(dict(phase='sweep-optimize', evaluations=len(history),
+            seconds=seconds, msPerEvaluation=seconds * 1e3 / len(history),
+            firstPenalty=history[0]['penalty'],
+            bestPenalty=result.bestPenalty, bestRadius=result.bestParams['R'],
+            launches=launches, rowsPerRun=[min(rows), max(rows)]))
+  if len(history) < 5 or len(runs) != len(history):
+    raise AssertionError(f'{len(history)} evaluations, {len(runs)} runs')
+  if not result.bestPenalty <= history[0]['penalty'] \
+      or result.bestPenalty >= 1e98:
+    raise AssertionError(f'best penalty {result.bestPenalty}, first '
+                         f'{history[0]["penalty"]}')
+  if min(rows) < 0.9 * 20000 or not all(raw.uid() for raw in runs):
+    raise AssertionError(f'run folders hold {rows} rows')
+  if launches != onlyLaunches(traceRaw=len(history)):
+    raise AssertionError(f'optimize launched {launches}')
 
 
 def main():
@@ -606,6 +866,16 @@ def main():
                               hitSlots=slots)
     worstRing = {k: max(v, w[k]) for k, v in worstRing.items()}
 
+  # the sweep kernel: a surface sweep and a source-placement sweep against
+  # the plain version, then seed mode against the histogram kernel
+  scenes, bounds, maxI = helpers.sweepVariants(ns, 'radius')
+  worstSweep = compareSweepWithPlain('radius', scenes, bounds, maxI, N_SMALL,
+                                     columnsToo=True)
+  scenes, bounds, maxI = helpers.sweepVariants(ns, 'placement')
+  worstSweep = max(worstSweep, compareSweepWithPlain(
+      'placement', scenes, bounds, maxI, N_SMALL, columnsToo=False))
+  compareSweepWithSingle(*SWEEPS[0])
+
   # ---- phase 3: the fused step, binned in the kernel and outside it ----
   k1 = fusedStepPhase('default')
   k2 = fusedStepPhase('highest')
@@ -614,8 +884,31 @@ def main():
   tmp = tempfile.mkdtemp(prefix='odw_chip_smoke_')
   try:
     rawLaunches, raw = recordingRunPhases(tmp)
+    # ---- phase 5: the parameter sweep ----
+    for V, n in SWEEPS:
+      sweep = sweepPathPhase(V, n)
+    sweepOptimizePhase(tmp)
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
+
+  # the sweep kernel's plain version and bound at the design-study size
+  V, n = SWEEPS[-1]
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(9)
+  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
+  strata = cuda_trace.tileStrata(n, sweep['kw']['strataTile'])
+  t0 = time.perf_counter()
+  cuda_trace.traceSweepPlain(
+      sweep['tables'], sweep['hist'], n, powerTol=1e-6, uniforms=us,
+      strata=strata, **sweep['kw'])
+  torch.cuda.synchronize()
+  plainSweepMs = (time.perf_counter() - t0) * 1e3
+  sweepBounds = boundMs(sweep['tables'], sweep['segments'], V * n,
+                        2 * sweep['hist']['power'].numel() * 4 * 2)
+  emit(dict(phase='sweep-kernel-bound', variants=V, raysPerVariant=n,
+            kernelMs=sweep['ms'], plainMs=plainSweepMs,
+            boundOpsMs=sweepBounds[0], boundBytesMs=sweepBounds[1],
+            **sweepBounds[2]))
 
   # the raw kernel's plain version and bound at the full-width step
   tables = raw['tables']
@@ -649,7 +942,10 @@ def main():
                   rawBounds),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
-                  k2['bounds'])]))
+                  k2['bounds']),
+      kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
+                  sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
+                  sweepBounds)]))
   print(smi, flush=True)
   print(json.dumps(dict(ok=True, device=dict(
       platform='gpu', kind=torch.cuda.get_device_name(0),

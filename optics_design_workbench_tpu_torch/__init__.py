@@ -5,9 +5,12 @@ ray tracer, for one NVIDIA Hopper card.
 Counterpart of `optics_design_workbench_tpu` (the JAX package, which stays
 the reference): same sub-package and function names, PyTorch idiom inside.
 The sample + trace steps run in hand-written CUDA kernels (csrc/, one shared
-body with three output modes: in-kernel histogram, per-ray bins, raw hit
-records; wrapped by ops/cuda_trace.py); `simulation.runSimulation` drives
-them and writes the JAX package's on-disk run-folder layout; host-side scene
+body with three output modes — in-kernel histogram, per-ray bins, raw hit
+records — and a variant-major sweep of the first; wrapped by
+ops/cuda_trace.py); `simulation.runSimulation` drives them and writes the
+JAX package's on-disk run-folder layout, and
+`jupyter_utils.ParameterSweeper` sweeps and optimises designs over them
+(`evaluateBatched`: every variant in one launch); host-side scene
 compilation stays numpy / sympy. This package imports torch, never jax, and
 nothing of the JAX package.
 
@@ -23,7 +26,8 @@ __version__ = '0.1.0'
 # a digest of these, so an edited kernel can never load a stale binary. Each
 # .cu file becomes one shared library; the header holds their common body.
 _KERNEL_SOURCES = ('csrc/trace_common.cuh', 'csrc/trace_kernel.cu',
-                   'csrc/trace_bins_kernel.cu', 'csrc/trace_raw_kernel.cu')
+                   'csrc/trace_bins_kernel.cu', 'csrc/trace_raw_kernel.cu',
+                   'csrc/trace_sweep_kernel.cu')
 
 
 def kernelSourceDigest():

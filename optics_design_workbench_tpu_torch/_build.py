@@ -48,7 +48,8 @@ def buildDir(flags):
 def buildKernels(flags=None):
   '''Compile (once per source digest) and load the kernel libraries.
   Returns (libs, info): libs maps a source's stem ('trace_kernel',
-  'trace_bins_kernel', 'trace_raw_kernel') to its ctypes library, info =
+  'trace_bins_kernel', 'trace_raw_kernel', 'trace_sweep_kernel') to its
+  ctypes library, info =
   dict(path, seconds, log, cached). One nvcc process per .cu source, all
   started together; a failed build raises with nvcc's output. `flags`
   defaults to NVCC_FLAGS (read at call time).'''

@@ -4,7 +4,8 @@ JAX package's benchmarks.py): the headline scene mirrors
 examples/2-lens-and-mirror — Gaussian point source -> plano-convex lens ->
 45deg fold mirror -> absorbing detector — so every ray traces ~4 segments
 with refraction, reflection and medium tracking on the path, plus the
-simpler examples/1 source->detector scene.
+simpler examples/1 source->detector scene and the examples/3 lens whose
+radius a parameter sweep varies.
 '''
 
 import numpy as np
@@ -69,6 +70,60 @@ def buildLensMirrorScene(tmpdir=None):
       ThetaResolutionNumericMode='2e4'))
   scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=6)
   return scene
+
+
+def buildSweepLensScene(lensRadius=60., path=None):
+  '''examples/3-parameter-sweeps analog: a collimated Gaussian beam through
+  a plano-convex lens (n = 1.5) of front radius `lensRadius` at z = 40 onto
+  an absorbing detector at z = 160. The paraxial focus lies at f = R / (n-1)
+  behind the lens, so R = 60 mm puts it on the detector.'''
+  scene = Scene(label='example3', path=path)
+  R, aperture, thickness = float(lensRadius), 20., 5.
+  sag = R - np.sqrt(R ** 2 - aperture ** 2)
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Lens', Label='Lens', RefractiveIndex=1.5,
+      surfaces=[
+          S.sphere(T.translation(0, 0, R), elem=0, radius=R,
+                   zRange=(-R, -R + sag + 1e-6), orient=+1),
+          S.plane(T.translation(0, 0, thickness), elem=0, radius=aperture,
+                  orient=+1),
+          S.cylinder(T.translation(0, 0, thickness / 2), elem=0,
+                     radius=aperture,
+                     zRange=(-thickness / 2, thickness / 2), orient=+1)],
+      placements=[T.translation(0, 0, 40)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(60., 60.))],
+      placements=[T.translation(0, 0, 160)]))
+  scene.addSource(PointSource(Label='Source',
+                              PowerDensity='exp(-r^2/50)',
+                              FocalLength='inf',
+                              RadiusDomain='0, 15',
+                              RadiusResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(EndAfterRays='2e4', RaysPerIteration=20000,
+                              MaxIntersections=6,
+                              EnableStoreSingleShotData=True)
+  return scene
+
+
+def makeSweepLensSweeper(path=None, device='cuda'):
+  '''The examples/3 sweeper: a `ParameterSweeper` whose parameter R (bounds
+  40..100 mm) REBUILDS the lens scene, source included, as the example's
+  setter does. Returns (sweeper, holder); `holder['scene']` is the current
+  scene, which is what a `sceneFactory` for `evaluateBatched` returns.'''
+  from .jupyter_utils import Parameter, ParameterSweeper
+  holder = dict(scene=buildSweepLensScene(path=path), R=60.)
+
+  def setRadius(r):
+    holder['R'] = float(r)
+    holder['scene'] = buildSweepLensScene(float(r), path=path)
+    sweeper.scene = holder['scene']   # keep the optimizer on the new scene
+
+  sweeper = ParameterSweeper(
+      lambda sc: dict(R=Parameter(getter=lambda: holder['R'],
+                                  setter=setRadius, bounds=(40., 100.))),
+      scene=holder['scene'], device=device)
+  return sweeper, holder
 
 
 def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,

@@ -25,6 +25,14 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
     samplerSpec  optionally the dict from `pallasSamplerSpec()`.
 
   Returns what `ops.cuda_trace.buildTraceTables` returns, on `device`.'''
+  scene, histSpec = _sceneAndSpec(deviceNp, histSpecNp)
+  return cuda_trace.buildTraceTables(scene, histSpec,
+                                     samplerSpec=samplerSpec, device=device)
+
+
+def _sceneAndSpec(deviceNp, histSpecNp):
+  '''The port's host scene dict and histogram spec from the JAX package's
+  numpy outputs.'''
   scene = dict(
       surfaces={k: np.asarray(deviceNp['surfaces'][k])
                 for k in ('packed', 'trim', 'kind')},
@@ -39,8 +47,29 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
                   bounds=np.asarray(histSpecNp['bounds'],
                                     dtype=np.float32).reshape(-1, 4),
                   bins=tuple(int(b) for b in histSpecNp['bins']))
-  return cuda_trace.buildTraceTables(scene, histSpec,
-                                     samplerSpec=samplerSpec, device=device)
+  return scene, histSpec
+
+
+def sweepFromReference(hostScenesNp, histSpecNp, samplerSpec, geomRows=None,
+                       device='cuda'):
+  '''Build the sweep kernel's stacked tables from the JAX package's sweep
+  inputs (what it hands `makePallasSweepStep`):
+
+    hostScenesNp  one `Scene.compile(devicePut=False)` dict per variant;
+    histSpecNp    the histogram spec of the first variant;
+    samplerSpec   the dict from `pallasSamplerSpec()` of the sweep's source;
+    geomRows      optionally the (V, 13) rows of its geometry mode
+                  (`_sourceGeomRow`: R row-major, offset, wavelength), which
+                  replace the spec's placement and wavelength per variant.
+
+  Returns what `ops.cuda_trace.buildSweepTables` returns, on `device`.'''
+  scenes = [_sceneAndSpec(d, histSpecNp)[0] for d in hostScenesNp]
+  histSpec = _sceneAndSpec(hostScenesNp[0], histSpecNp)[1]
+  specs = [samplerSpec] * len(scenes)
+  if geomRows is not None:
+    specs = [cuda_trace.samplerSpecWithGeom(samplerSpec, r)
+             for r in np.asarray(geomRows).reshape(len(scenes), 13)]
+  return cuda_trace.buildSweepTables(scenes, histSpec, specs, device=device)
 
 
 _RECORD_DTYPES = dict(recordHit=torch.bool, hitElem=torch.int32,

@@ -1,8 +1,10 @@
 // Shared body of the trace kernels for NVIDIA Hopper (sm_90a): the sampler,
 // the surface sweep, the physics and the bounce loop exist ONCE here, as one
-// `__global__` function templated on its OUTPUT MODE. Each kernel source
-// (trace_kernel.cu, trace_bins_kernel.cu, trace_raw_kernel.cu) instantiates
-// one mode behind a plain-C launcher.
+// `__global__` function templated on its OUTPUT MODE and on whether it traces
+// ONE scene or a variant-major SWEEP of scenes. Each kernel source
+// (trace_kernel.cu, trace_bins_kernel.cu, trace_raw_kernel.cu,
+// trace_sweep_kernel.cu) instantiates one combination behind a plain-C
+// launcher.
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
 // (optics_design_workbench_tpu/ops/pallas_trace.py), main-path subset:
@@ -30,6 +32,17 @@
 // ray ends the thread fills its unwritten slots with -1 / 0. Every element
 // of the output is therefore written by the kernel (the wrapper allocates
 // with torch.empty), and a warp's 32 stores to one row are one 128-byte line.
+//
+// SWEEP (a compile-time flag, only with OUT_HIST): V scene tables of equal
+// layout lie stacked in device memory and the grid is variant-major —
+// blockIdx.x / blocksPerVariant is the block's variant, so a block never
+// straddles two variants and copies exactly its own variant's table into
+// shared memory. The ray index, and with it the Philox counter, the stratum
+// cell and the uniform / column inputs, is the index WITHIN the variant:
+// every variant traces the same rays (common random numbers), and variant v
+// of a sweep launch computes what the single-scene kernel computes for
+// N = raysPerVariant on variant v's table. Histograms and counters have one
+// block per variant. The single-scene instantiations read none of this.
 //
 // Common design: one thread per ray, all ray state in registers, a `for`
 // over bounces that `break`s when the ray dies; the scene is DATA (a small
@@ -74,6 +87,9 @@ struct TraceParams {
   long long strataTile;
   int G1, G2;
   float mrlEff, maxRayLength, tMin, window, powerTol, invG1, invG2;
+  // SWEEP only: blocks per variant, floats per variant's histogram
+  int blocksPerVariant;
+  long long histLen;
 };
 
 // ---- Philox4x32-10, written out (Salmon et al. 2011): counter = ray index,
@@ -182,13 +198,26 @@ __device__ float intersect(const float* r, float ox, float oy, float oz,
 }
 
 // OUT_HIST: out0 / out1 are the power / count histograms. OUT_BINS and
-// OUT_RAW: out0 is the (rows, hitSlots, N) ring, out1 is unused.
-template <int OUT>
+// OUT_RAW: out0 is the (rows, hitSlots, N) ring, out1 is unused. SWEEP:
+// `table` holds V tables of p.tableLen floats, out0 / out1 V histograms of
+// p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
+// `rayIn` (shared by all variants) has p.N columns.
+template <int OUT, bool SWEEP = false>
 __global__ void __launch_bounds__(kBlock)
 traceKernel(TraceParams p, const float* __restrict__ table,
             const float* __restrict__ rayIn, float* __restrict__ out0,
             float* __restrict__ out1,
             unsigned long long* __restrict__ counters) {
+  static_assert(!SWEEP || OUT == OUT_HIST, "the sweep bins in the kernel");
+  long long firstRay = (long long)blockIdx.x * blockDim.x;
+  if constexpr (SWEEP) {
+    const long long variant = blockIdx.x / p.blocksPerVariant;
+    firstRay = (long long)(blockIdx.x % p.blocksPerVariant) * blockDim.x;
+    table += variant * p.tableLen;
+    out0 += variant * p.histLen;
+    out1 += variant * p.histLen;
+    counters += variant * 3;
+  }
   extern __shared__ float smem[];
   for (int k = threadIdx.x; k < p.tableLen; k += blockDim.x)
     smem[k] = table[k];
@@ -196,7 +225,7 @@ traceKernel(TraceParams p, const float* __restrict__ table,
   const float* surfT = smem;
   const float* elemT = smem + p.nSurf * kSurfCols;
 
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = firstRay + threadIdx.x;
   int segs = 0, hitN = 0;
   int lastBin = -1;                // OUT_HIST: the ring's last slot
   float lastW = 0.f;
@@ -441,14 +470,9 @@ traceKernel(TraceParams p, const float* __restrict__ table,
 }
 
 
-// Launch one output mode on `stream`; no synchronisation, no allocation.
-// `ip` / `fp` are HOST arrays of the scalar parameters (see
-// ops/cuda_trace.py `_launchKernel` for their order). Returns
-// cudaGetLastError().
-template <int OUT>
-int launchTrace(const float* table, const float* rayIn, float* out0,
-                float* out1, unsigned long long* counters,
-                const long long* ip, const float* fp, void* stream) {
+// The scalar parameters from the HOST arrays `ip` / `fp` (see
+// ops/cuda_trace.py `_launchKernel` for their order).
+inline TraceParams traceParams(const long long* ip, const float* fp) {
   TraceParams p;
   p.N = ip[0];
   p.seed = (unsigned long long)ip[1];
@@ -472,6 +496,18 @@ int launchTrace(const float* table, const float* rayIn, float* out0,
   p.powerTol = fp[4];
   p.invG1 = fp[5];
   p.invG2 = fp[6];
+  p.blocksPerVariant = 0;
+  p.histLen = 0;
+  return p;
+}
+
+// Launch one output mode on `stream`; no synchronisation, no allocation.
+// Returns cudaGetLastError().
+template <int OUT>
+int launchTrace(const float* table, const float* rayIn, float* out0,
+                float* out1, unsigned long long* counters,
+                const long long* ip, const float* fp, void* stream) {
+  TraceParams p = traceParams(ip, fp);
   if (p.N <= 0) return 0;
   long long blocks = (p.N + kBlock - 1) / kBlock;
   size_t shmem = (size_t)p.tableLen * sizeof(float);

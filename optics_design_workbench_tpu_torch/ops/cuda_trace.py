@@ -1,7 +1,7 @@
 '''
 Trace kernels for Hopper: sample (or read) rays and run the whole bounce
 loop per ray in ONE kernel launch per step, with three output modes of one
-shared body (csrc/trace_common.cuh):
+shared body (csrc/trace_common.cuh) and a variant-major sweep of the first:
 
   traceHistogram  detector hits are binned inside the kernel — nothing
                   ray-shaped in device memory on the main path
@@ -9,23 +9,30 @@ shared body (csrc/trace_common.cuh):
                   `binRing` forms the histogram outside, in float64
   traceRaw        the hit ring comes back per ray as raw records (element,
                   power, isEntering, point, incoming direction) for storage
+  traceSweep      `traceHistogram` for V scene variants in one launch: V
+                  stacked tables in, V histograms out, the same rays in
+                  every variant (common random numbers)
 
 Counterpart of the JAX package's ops/pallas_trace.py (`makePallasTraceStep`
-in its in-kernel-histogram and per-ray-output modes, `makePallasRawStep`).
-This module holds
+in its in-kernel-histogram and per-ray-output modes, `makePallasRawStep`,
+`makePallasSweepStep`). This module holds
 
   * the host rows: `_sceneRows` turns a compiled scene + histogram spec into
     per-surface / per-element python-float rows, `buildTraceTables` packs
-    them (and the sampler spec) into the float32 table the kernels read;
-  * the kernels' WRAPPERS `traceHistogram`, `traceBins`, `traceRaw`: each
-    checks its inputs, launches its kernel for CUDA tensors (counting
-    launches in `launchCounts`), and runs its plain version for CPU tensors
-    — and only for those: on a CUDA tensor it launches the kernel or raises;
+    them (and the sampler spec) into the float32 table the kernels read,
+    `packSweepTables` / `buildSweepTables` stack one such table per variant;
+  * the kernels' WRAPPERS `traceHistogram`, `traceBins`, `traceRaw`,
+    `traceSweep`: each checks its inputs, launches its kernel for CUDA
+    tensors (counting launches in `launchCounts`), and runs its plain
+    version for CPU tensors — and only for those: on a CUDA tensor it
+    launches the kernel or raises;
   * the plain PyTorch versions `traceHistogramPlain`, `traceBinsPlain`,
-    `traceRawPlain`: one bounce loop of column-wise tensor ops
-    (`_bounceLoopPlain`) that follows the kernels step by step, with three
-    epilogues;
-  * `makeTraceStep` and `makeRawStep`, which make the user-level steps.
+    `traceRawPlain`, `traceSweepPlain`: one bounce loop of column-wise
+    tensor ops (`_bounceLoopPlain`) that follows the kernels step by step,
+    with three epilogues (the sweep's is the histogram's, variant by
+    variant);
+  * `makeTraceStep`, `makeRawStep` and `makeSweepStep`, which make the
+    user-level steps.
 
 Three input modes of every kernel: (a) seed only — rays are drawn in the
 kernel from Philox4x32-10 keyed by (seed, ray index); (b) the in-kernel
@@ -76,7 +83,8 @@ DEFAULT_STRATA_TILE = 256
 # wrapper -> (library stem under csrc/, C launcher, number of output tensors)
 _KERNELS = {'traceHistogram': ('trace_kernel', 'odwTraceHistogram', 2),
             'traceBins': ('trace_bins_kernel', 'odwTraceBins', 1),
-            'traceRaw': ('trace_raw_kernel', 'odwTraceRaw', 1)}
+            'traceRaw': ('trace_raw_kernel', 'odwTraceRaw', 1),
+            'traceSweep': ('trace_sweep_kernel', 'odwTraceSweep', 2)}
 
 # number of kernel launches made through each wrapper (one is added where
 # the wrapper launches its kernel, and nowhere else)
@@ -232,13 +240,12 @@ def _packMarginal(spec):
   return out.astype(np.float32)
 
 
-def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
-  '''Pack a compiled scene (+ optionally a point-source sampler spec) into
-  the kernel's tables. Returns a dict with the float32 `table` tensor on
-  `device` (surface rows, element rows, sampler block), the host rows, and
-  the static facts the step needs (bins, detector count, anyMedium).
+def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
+  '''The kernel's table of one compiled scene as host numpy, and its static
+  facts: (float32 (tableLen,) array, dict(nSurf, nElem, samplerOff, bins,
+  nDet, anyMedium, surfRows, elemRows, samplerSpec)). `marginalCache` (a
+  dict) lets several calls that share marginal specs pack each only once.
   Raises ValueError for scenes the kernel does not cover.'''
-  dev = resolveDevice(device)
   reason = ineligibleReason(scene)
   if reason is not None:
     raise ValueError(f'scene is not eligible for the CUDA trace kernel: '
@@ -274,15 +281,121 @@ def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
     geom[11:14] = samplerSpec['off']
     geom[14] = samplerSpec['wavelength']
     samplerOff = S * SURF_COLS + E * ELEM_COLS
-    parts += [geom, _packMarginal(samplerSpec['first']),
-              _packMarginal(samplerSpec['phi'])]
-  table = np.concatenate(parts)
+    parts.append(geom)
+    for key in ('first', 'phi'):
+      spec = samplerSpec[key]
+      block = None if marginalCache is None else marginalCache.get(id(spec))
+      if block is None:
+        block = _packMarginal(spec)
+        if marginalCache is not None:
+          marginalCache[id(spec)] = block
+      parts.append(block)
   H, W = histSpec['bins']
-  return dict(table=torch.as_tensor(table, device=dev), nSurf=S, nElem=E,
-              samplerOff=samplerOff, bins=(int(H), int(W)),
-              nDet=int(_hostArray(histSpec['bounds']).shape[0]),
-              anyMedium=bool(elemT[:, 10].any()),
-              surfRows=surfRows, elemRows=elemRows, samplerSpec=samplerSpec)
+  return np.concatenate(parts), dict(
+      nSurf=S, nElem=E, samplerOff=samplerOff, bins=(int(H), int(W)),
+      nDet=int(_hostArray(histSpec['bounds']).shape[0]),
+      anyMedium=bool(elemT[:, 10].any()),
+      surfRows=surfRows, elemRows=elemRows, samplerSpec=samplerSpec)
+
+
+def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
+  '''Pack a compiled scene (+ optionally a point-source sampler spec) into
+  the kernel's tables. Returns a dict with the float32 `table` tensor on
+  `device` (surface rows, element rows, sampler block), the host rows, and
+  the static facts the step needs (bins, detector count, anyMedium).
+  Raises ValueError for scenes the kernel does not cover.'''
+  dev = resolveDevice(device)
+  table, facts = _packTable(scene, histSpec, samplerSpec)
+  return dict(facts, table=torch.as_tensor(table, device=dev))
+
+
+def samplerSpecWithGeom(samplerSpec, geomRow):
+  '''`samplerSpec` with the source placement and wavelength of `geomRow`,
+  a (13,) row [R row-major (9), offset (3), wavelength]: what a sweep whose
+  variants move or recolour one source brings per variant.'''
+  row = np.asarray(geomRow, np.float32).reshape(13)
+  return dict(samplerSpec, R=row[:9].reshape(3, 3), off=row[9:12],
+              wavelength=float(row[12]))
+
+
+class SweepUnavailable(Exception):
+  '''The variants of a sweep cannot ride ONE launch of the sweep kernel
+  (fewer than two of them, or they differ in structure and not only in
+  values). Callers trace such a sweep variant by variant.'''
+
+
+def packSweepTables(scenes, histSpec, samplerSpecs):
+  '''Stack the kernel tables of V compiled scene variants (host numpy
+  scene dicts) that share one histogram spec. `samplerSpecs` is one sampler
+  spec per variant (the source's placement and wavelength may differ from
+  variant to variant: they are part of each table), or None for a sweep fed
+  ray columns. Returns (float32 (V, tableLen) numpy array, facts) with the
+  facts of `_packTable` for the sweep as a whole plus `nVariants`,
+  `tableLen`, `sameSource` (no variant moves or recolours the source) and
+  the per-variant `surfRows` / `elemRows` lists.
+
+  Raises SweepUnavailable unless the variants have the same STRUCTURE: the
+  same numbers of surfaces and elements, per surface the same kind, trim
+  mode and element, per element the same optical type, recording flag and
+  detector. Everything else is data and may differ.'''
+  V = len(scenes)
+  if V < 2:
+    raise SweepUnavailable('needs >= 2 variants')
+  if samplerSpecs is None:
+    samplerSpecs = [None] * V
+  if len(samplerSpecs) != V:
+    raise ValueError(f'{len(samplerSpecs)} sampler specs for {V} variants')
+  cache, tables, facts = {}, [], []
+  for scene, spec in zip(scenes, samplerSpecs):
+    reason = ineligibleReason(scene)
+    if reason is not None:
+      raise SweepUnavailable(reason)
+    t, f = _packTable(scene, histSpec, spec, marginalCache=cache)
+    tables.append(t)
+    facts.append(f)
+  f0 = facts[0]
+  for v, f in enumerate(facts[1:], 1):
+    if f['nSurf'] != f0['nSurf']:
+      raise SweepUnavailable(f'surface counts differ (variant {v})')
+    if f['nElem'] != f0['nElem']:
+      raise SweepUnavailable(f'element counts differ (variant {v})')
+    if f['samplerOff'] != f0['samplerOff']:
+      raise SweepUnavailable('some variants have a sampler and some none')
+    for s, (a, b) in enumerate(zip(f0['surfRows'], f['surfRows'])):
+      if any(a[k] != b[k] for k in ('kind', 'trim0', 'elemF')):
+        raise SweepUnavailable(f'surface {s}: kind, trim mode or element '
+                               f'differs (variant {v})')
+    for e, (a, b) in enumerate(zip(f0['elemRows'], f['elemRows'])):
+      if any(a[k] != b[k] for k in ('optF', 'rec', 'detF')):
+        raise SweepUnavailable(f'element {e}: optical type, recording flag '
+                               f'or detector differs (variant {v})')
+  stacked = np.stack(tables)
+  off = f0['samplerOff']
+  geom = stacked[:, off:off + _SAMPLER_GEOM]
+  sameSource = off < 0 or bool((geom == geom[0]).all())
+  return stacked, dict(
+      nVariants=V, sameSource=sameSource, tableLen=int(stacked.shape[1]),
+      nSurf=f0['nSurf'], nElem=f0['nElem'], samplerOff=f0['samplerOff'], bins=f0['bins'],
+      nDet=f0['nDet'], anyMedium=any(f['anyMedium'] for f in facts),
+      surfRows=[f['surfRows'] for f in facts],
+      elemRows=[f['elemRows'] for f in facts])
+
+
+def buildSweepTables(scenes, histSpec, samplerSpecs, device='cuda'):
+  '''`packSweepTables` with the stacked table as ONE float32 (V, tableLen)
+  tensor on `device`: what `traceSweep` reads.'''
+  dev = resolveDevice(device)
+  stacked, facts = packSweepTables(scenes, histSpec, samplerSpecs)
+  return dict(facts, table=torch.as_tensor(stacked, device=dev))
+
+
+def variantTables(sweepTables, v):
+  '''Variant `v` of a sweep's tables in the form of `buildTraceTables`
+  (its `table` a view of the stacked tensor): what the single-scene
+  wrappers and plain versions take.'''
+  return dict(sweepTables, table=sweepTables['table'][v],
+              surfRows=sweepTables['surfRows'][v],
+              elemRows=sweepTables['elemRows'][v])
 
 
 # --------------------------------------------------------- plain PyTorch path
@@ -575,6 +688,30 @@ def traceHistogramPlain(tables, histograms, columns, maxIntersections,
   return _ringCounters(ringBin, segs, hitN, hitSlots)
 
 
+def traceSweepPlain(sweepTables, histograms, raysPerVariant, maxIntersections,
+                    maxRayLength, distTol, powerTol, hitSlots, uniforms=None,
+                    columns=None, strata=None, strataTile=0):
+  '''Plain version of the sweep kernel: `traceHistogramPlain` variant by
+  variant, every variant fed the SAME float32 `uniforms` (2, n) — through
+  its own sampler block — or the same ray `columns` (8, n). Adds into the
+  (V, D, H, W) `histograms` IN PLACE and returns an int64 (V, 3) tensor of
+  (segments, hits, hitOverflow) per variant. (A loop over the variants: it
+  exists to be compared with, not to be fast.)'''
+  counters = []
+  for v in range(sweepTables['nVariants']):
+    tables = variantTables(sweepTables, v)
+    if columns is not None:
+      cols = tuple(columns[k] for k in range(7))
+    else:
+      cols = sampleRaysPlain(tables, uniforms[0], uniforms[1], strata,
+                             strataTile)
+    counters.append(traceHistogramPlain(
+        tables, dict(power=histograms['power'][v],
+                     counts=histograms['counts'][v]), cols, maxIntersections,
+        maxRayLength, distTol, powerTol, hitSlots))
+  return torch.stack(counters)
+
+
 def traceBinsPlain(tables, columns, maxIntersections, maxRayLength, distTol,
                    powerTol, hitSlots):
   '''Plain version of the per-ray-bin kernel. Returns (ring, counters): ring
@@ -784,13 +921,70 @@ def traceRaw(tables, nRays, maxIntersections, maxRayLength, distTol,
                     hitSlots, seed, uniforms, columns, strataTile)
 
 
+def traceSweep(sweepTables, histograms, raysPerVariant, maxIntersections,
+               maxRayLength, distTol, powerTol=1e-6, hitSlots=1, seed=None,
+               uniforms=None, columns=None, strataTile=0):
+  '''`traceHistogram` for every variant of `sweepTables`
+  (`buildSweepTables`) in ONE kernel launch: sample-or-read `raysPerVariant`
+  rays, trace them through each variant's scene, and ADD the detector hits
+  into `histograms` (dict of float32 (V, D, H, W) `power` / `counts`) in
+  place. Returns an int64 (V, 3) tensor (segments, hits, hitOverflow per
+  variant) on the tables' device — no host synchronisation.
+
+  The rays are the same in every variant (common random numbers): `seed`
+  draws by the ray's index WITHIN its variant, `uniforms` (2, raysPerVariant)
+  and `columns` (8, raysPerVariant) are shared, and `strataTile` stratifies
+  by the within-variant index. Variant v of this call therefore gets what
+  `traceHistogram` gives for nRays = raysPerVariant on variant v's table
+  with the same inputs. `columns` are for sweeps whose source is the same in
+  every variant.
+
+  Tensors on a CUDA device go through the CUDA kernel, or this raises; the
+  plain PyTorch version runs only for tensors on the CPU.'''
+  dev = sweepTables['table'].device
+  mode, rayIn, strata = _checkInputs(sweepTables, raysPerVariant,
+                                     maxIntersections, hitSlots, seed,
+                                     uniforms, columns, strataTile)
+  V = sweepTables['nVariants']
+  H, W = sweepTables['bins']
+  D = sweepTables['nDet']
+  if V * D * H * W >= 2 ** 31:
+    raise ValueError('stacked histograms too large for 32-bit bin indices')
+  if columns is not None and not sweepTables['sameSource']:
+    raise ValueError('ray columns are shared by all variants, but the '
+                     "source's placement or wavelength differs across them")
+  _checkTensor('sweep table', sweepTables['table'], dev,
+               (V, sweepTables['tableLen']))
+  for name in ('power', 'counts'):
+    _checkTensor(f"histograms['{name}']", histograms[name], dev,
+                 (V, D, H, W))
+  if dev.type == 'cpu':
+    if mode == MODE_SEED:
+      generator = torch.Generator(device=dev)
+      generator.manual_seed(int(seed))
+      uniforms = torch.rand((2, raysPerVariant), generator=generator,
+                            device=dev, dtype=torch.float32)
+    return traceSweepPlain(sweepTables, histograms, raysPerVariant,
+                           maxIntersections, maxRayLength, distTol, powerTol,
+                           hitSlots, uniforms=uniforms, columns=columns,
+                           strata=strata, strataTile=strataTile)
+  return _launchKernel('traceSweep', sweepTables,
+                       (histograms['power'], histograms['counts']),
+                       raysPerVariant, mode, rayIn, int(seed or 0), strata,
+                       strataTile, maxIntersections, maxRayLength, distTol,
+                       powerTol, hitSlots, sweep=(V, D * H * W))
+
+
 def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
                   strataTile, maxIntersections, maxRayLength, distTol,
-                  powerTol, hitSlots):
+                  powerTol, hitSlots, sweep=None):
   '''Launch kernel `name` (a key of `_KERNELS`) on PyTorch's current stream
   with the output tensors `outs` (inputs already validated by the wrapper),
-  and add one to its launch count. CUDA tensors only: a CPU tensor's address
-  means nothing to the card, so it is refused before anything is built.'''
+  and add one to its launch count. `sweep` = (variants, floats per variant's
+  histogram) for the sweep kernel, whose `tables` are stacked, whose `nRays`
+  are per variant and whose counters come back per variant. CUDA tensors
+  only: a CPU tensor's address means nothing to the card, so it is refused
+  before anything is built.'''
   table = tables['table']
   dev = table.device
   for t in (table, rayIn) + tuple(outs):
@@ -798,14 +992,17 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
       raise ValueError(f'the CUDA kernel takes CUDA tensors only, got a '
                        f'tensor on {t.device}')
   fn = _kernelFunction(name)
-  counters = torch.zeros((3,), dtype=torch.int64, device=dev)
+  variants, histLen = sweep if sweep is not None else (1, 0)
+  counters = torch.zeros((3,) if sweep is None else (variants, 3),
+                         dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
-  ip = (ctypes.c_longlong * 15)(
-      int(nRays), seed & 0x7fffffffffffffff, int(table.numel()),
+  ip = (ctypes.c_longlong * 17)(
+      int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
-      int(strataTile) if strata is not None else 1, G1, G2)
+      int(strataTile) if strata is not None else 1, G1, G2, variants,
+      histLen)
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
@@ -955,6 +1152,99 @@ def makeRawStep(scene, histSpec, generator, raysPerStep, maxIntersections,
   step.hitSlots = hitSlots
   step.strataTile = strataTile
   return step
+
+
+def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
+                  maxIntersections, maxRayLength, distTol, powerTol=1e-6,
+                  geomMode=False, hitSlots='auto', strataTile='auto',
+                  device='cuda'):
+  '''Batched parameter sweep through the sweep kernel; counterpart of the
+  JAX package's `makePallasSweepStep` minus tile / interpret, plus `device`,
+  `hitSlots` and `strataTile`.
+
+  hostScenes: [(sceneDict, info), ...] of `Scene.compile(device=None)`, one
+  per variant, of one structure (`packSweepTables` says what that means) or
+  SweepUnavailable raises. `samplerSpec` is the in-kernel sampler spec of
+  the sweep's source; with geomMode the source's placement and wavelength
+  differ per variant and ride `geomRows` (V, 13): R row-major (9), offset
+  (3), wavelength.
+
+  Returns (step, packTables):
+    packTables(hostScenesNow, geomRows=None) -> float32 (V, tableLen) numpy
+        table for the CURRENT variant values (structure checked again);
+    step(seed, table) -> (power (V, D, H, W), counts (V, D, H, W),
+        segments): ONE launch on fresh histograms. The two histograms are
+        views of `step.histograms`, a (2, V, D, H, W) tensor, so a caller
+        can fetch both in one copy; `step.counters` is the launch's int64
+        (V, 3) tensor of (segments, hits, hitOverflow) per variant and
+        `segments` its total, all on the device.
+
+  Exactly `raysPerVariant` rays are traced per variant (the reference rounds
+  up to whole tiles). Ray-index strata as in `makeTraceStep`, by the index
+  within the variant.'''
+  from ..tracing import fused
+  dev = resolveDevice(device)
+  V = len(hostScenes)
+  if V < 2:
+    raise SweepUnavailable('needs >= 2 variants')
+  if samplerSpec is None or samplerSpec.get('type') == 'surface':
+    raise SweepUnavailable('needs an in-kernel point-source sampler')
+  host0, info0 = hostScenes[0]
+  reason = ineligibleReason(host0)
+  if reason is not None:
+    raise SweepUnavailable(reason)
+  histSpec = fused.makeHistogramSpec(host0, info0, bounds=histBounds,
+                                     bins=bins)
+  if hitSlots == 'auto':
+    hitSlots = autoHitSlots(host0, histSpec, maxIntersections)
+  if strataTile == 'auto':
+    strataTile = DEFAULT_STRATA_TILE
+  if tileStrata(raysPerVariant, strataTile) is None:
+    strataTile = 0
+
+  def packTables(hostScenesNow, geomRows=None):
+    if len(hostScenesNow) != V:
+      raise SweepUnavailable(f'{len(hostScenesNow)} variants, the step was '
+                             f'made for {V}')
+    if geomMode == (geomRows is None):
+      raise ValueError('geomRows go with geomMode, and only with it')
+    specs = [samplerSpec] * V
+    if geomMode:
+      specs = [samplerSpecWithGeom(samplerSpec, r)
+               for r in np.asarray(geomRows).reshape(V, 13)]
+    table, facts = packSweepTables([h for h, _info in hostScenesNow],
+                                   histSpec, specs)
+    if any(facts[k] != step.facts[k] for k in _SWEEP_STRUCTURE):
+      raise SweepUnavailable('scene structure differs from the variants the '
+                             'step was made for')
+    return table
+
+  def step(seed, table):
+    hist = torch.zeros((2, V) + step.histShape, dtype=torch.float32,
+                       device=dev)
+    tables = dict(step.facts, table=torch.as_tensor(
+        np.ascontiguousarray(table, np.float32), device=dev))
+    c = traceSweep(tables, dict(power=hist[0], counts=hist[1]),
+                   raysPerVariant, maxIntersections, maxRayLength, distTol,
+                   powerTol=powerTol, hitSlots=hitSlots, seed=int(seed),
+                   strataTile=strataTile)
+    step.histograms, step.counters = hist, c
+    return hist[0], hist[1], c[:, 0].sum()
+
+  _table0, step.facts = packSweepTables(
+      [h for h, _info in hostScenes], histSpec, [samplerSpec] * V)
+  step.facts['sameSource'] = not geomMode
+  step.histSpec = histSpec
+  step.histShape = (step.facts['nDet'],) + step.facts['bins']
+  step.hitSlots = hitSlots
+  step.strataTile = strataTile
+  step.histograms = step.counters = None
+  return step, packTables
+
+
+# the facts of `packSweepTables` that a step is made for
+_SWEEP_STRUCTURE = ('nVariants', 'tableLen', 'nSurf', 'nElem', 'samplerOff',
+                    'bins', 'nDet', 'anyMedium')
 
 
 def recordsFromRing(ring):

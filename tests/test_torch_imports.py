@@ -23,8 +23,11 @@ torch.set_num_threads(1)
 import optics_design_workbench_tpu_torch as port
 from optics_design_workbench_tpu_torch import (benchmarks, convert, _build,
                                                distributions, geometry,
-                                               models, ops, simulation,
-                                               tracing, utils)
+                                               jupyter_utils, models, ops,
+                                               simulation, tracing, utils)
+from optics_design_workbench_tpu_torch.jupyter_utils import (
+    document, histogram, hits, parameter_sweeper, progress, retries,
+    transforms)
 from optics_design_workbench_tpu_torch.simulation import (lifecycle,
                                                           results_store,
                                                           runner)
@@ -43,6 +46,15 @@ with tempfile.TemporaryDirectory() as tmp:
                              recording=recording,
                              progressCallback=progress.append)
     assert progress[-1]['totalRecordedHits'] > 1800, progress[-1]
+  raw = jupyter_utils.latestRawFolder(scene.resultsFolderPath())
+  assert len(raw.loadHits('Detector')) > 0
+  sweeper = jupyter_utils.ParameterSweeper(
+      lambda sc: dict(wl=(sc.getObject('Source'), 'Wavelength')),
+      scene=scene, device='cpu')
+  metrics = sweeper.evaluateBatched(
+      [dict(wl=500.), dict(wl=600.)], lambda power, counts: counts.sum(),
+      raysPerScene=512, maxIntersections=2)
+  assert sweeper.lastBatchedRoute == 'sweep' and metrics.min() > 400, metrics
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'
              or m == 'optics_design_workbench_tpu'
@@ -111,7 +123,8 @@ def test_kernel_launch_path_refuses_cpu_tensors(setup):
   hist = fused.initHistograms(histSpec, device='cpu')
   ring = torch.empty((9, 1, 256))
   for name, outs in (('traceHistogram', (hist['power'], hist['counts'])),
-                     ('traceBins', (ring[:3],)), ('traceRaw', (ring,))):
+                     ('traceBins', (ring[:3],)), ('traceRaw', (ring,)),
+                     ('traceSweep', (hist['power'], hist['counts']))):
     with pytest.raises(ValueError, match='CUDA tensors only'):
       cuda_trace._launchKernel(name, tables, outs, 256, cuda_trace.MODE_SEED,
                                None, 3, None, 0, 2, 1000., 1e-4, 1e-6, 1)

@@ -146,6 +146,145 @@ def buildStackedDetectorScene(ns):
   return scene, (-50., 50., -50., 50.), 8
 
 
+def buildSweepLensScene(ns, lensRadius=60., path=None, detector=60.):
+  '''The examples/3 scene: a collimated Gaussian beam through a
+  plano-convex lens (n = 1.5) of front radius `lensRadius` onto an absorbing
+  detector at z = 160; R = 60 mm puts the paraxial focus on the detector.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='example3', path=path)
+  R, aperture, thickness = float(lensRadius), 20., 5.
+  sag = R - np.sqrt(R ** 2 - aperture ** 2)
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Lens', Label='Lens', RefractiveIndex=1.5,
+      surfaces=[
+          S.sphere(T.translation(0, 0, R), elem=0, radius=R,
+                   zRange=(-R, -R + sag + 1e-6), orient=+1),
+          S.plane(T.translation(0, 0, thickness), elem=0, radius=aperture,
+                  orient=+1),
+          S.cylinder(T.translation(0, 0, thickness / 2), elem=0,
+                     radius=aperture,
+                     zRange=(-thickness / 2, thickness / 2), orient=+1)],
+      placements=[T.translation(0, 0, 40)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(detector, detector))],
+      placements=[T.translation(0, 0, 160)]))
+  scene.addSource(ns.PointSource(
+      Label='Source', PowerDensity='exp(-r^2/50)', FocalLength='inf',
+      RadiusDomain='0, 15', RadiusResolutionNumericMode='1e4',
+      Wavelength=532.))
+  scene.addSimulationSettings(EndAfterRays='2e4', RaysPerIteration=20000,
+                              MaxIntersections=6,
+                              EnableStoreSingleShotData=True)
+  return scene, (-40., 40., -40., 40.), 6
+
+
+def buildPlacementScene(ns, xOffset=0., path=None, wavelength=532.):
+  '''A Gaussian point source at (xOffset, 0, 1e-3) in front of an absorbing
+  detector: the scene of a source-placement sweep (nothing varies but the
+  source's placement and wavelength).'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='srcsweep', path=path)
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(80., 80.))],
+      placements=[T.translation(0, 0, 60.)]))
+  scene.addSource(ns.PointSource(
+      Label='Source', PowerDensity='exp(-theta^2/0.02)',
+      ThetaDomain='0, 0.4', Wavelength=wavelength,
+      ThetaResolutionNumericMode='1e3',
+      placement=T.translation(xOffset, 0, 1e-3)))
+  scene.addSimulationSettings(RaysPerIteration=5000, MaxIntersections=2,
+                              EnableStoreSingleShotData=True)
+  return scene, (-80., 80., -80., 80.), 2
+
+
+def buildDocScene(ns, path, lensRadius=60.):
+  '''The reference suite's analysis-layer scene (tests/test_jupyter_utils.py
+  `buildScene`, without its StoreHit* metadata columns): Gaussian point
+  source -> plano-convex lens of front radius `lensRadius` -> absorbing
+  160 x 160 mm detector at z = 160.'''
+  scene, _bounds, _maxI = buildSweepLensScene(ns, lensRadius, path=path,
+                                              detector=80.)
+  scene.label = 'doc1'
+  scene.objects = [o for o in scene.objects
+                   if o not in scene.lightSources()
+                   + scene.simulationSettingsObjects()]
+  scene.addSource(ns.PointSource(
+      Label='Source', PowerDensity='exp(-theta^2/0.02)',
+      ThetaDomain='0, 0.3', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(EndAfterRays='1e4', RaysPerIteration=5000,
+                              MaxIntersections=6,
+                              EnableStoreSingleShotData=True)
+  return scene
+
+
+def buildSourceSweepScene(ns, path, xOffset=0.):
+  '''The reference suite's source-parameter sweep scene
+  (tests/test_jupyter_utils.py): point source at x = xOffset, absorbing
+  detector at z = 160.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='srcsweep', path=path)
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(80., 80.))],
+      placements=[T.translation(0, 0, 160)]))
+  scene.addSource(ns.PointSource(
+      Label='Source', PowerDensity='exp(-theta^2/0.02)',
+      ThetaDomain='0, 0.3', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.getObject('Source').placement[0, 3] = float(xOffset)
+  scene.addSimulationSettings(RaysPerIteration=5000, MaxIntersections=4,
+                              EnableStoreSingleShotData=True)
+  return scene
+
+
+SWEEP_RADII = (45., 60., 80.)
+SWEEP_OFFSETS = (0., 15., -25.)
+
+
+def sweepVariants(ns, kind):
+  '''The three variants of the surface sweep ('radius') or of the
+  source-placement sweep ('placement'): ([scene], bounds, maxI).'''
+  if kind == 'radius':
+    built = [buildSweepLensScene(ns, r) for r in SWEEP_RADII]
+  else:
+    built = [buildPlacementScene(ns, x) for x in SWEEP_OFFSETS]
+  return [b[0] for b in built], built[0][1], built[0][2]
+
+
+def spotMetric(power, counts):
+  '''Second moment of a detector's count histogram about its centre of
+  mass, in bins^2 (the examples/3 merit).'''
+  H = counts[0]
+  n = H.sum()
+  if n == 0:
+    return 1e9
+  ys, xs = np.indices(H.shape)
+  cy, cx = (H * ys).sum() / n, (H * xs).sum() / n
+  return float((H * ((ys - cy) ** 2 + (xs - cx) ** 2)).sum() / n)
+
+
+def centreOfMassX(power, counts):
+  H = counts[0]
+  n = H.sum()
+  if n == 0:
+    return np.nan
+  _, xs = np.indices(H.shape)
+  return float((H * xs).sum() / n)
+
+
+def spotSize(raw):
+  '''Standard deviation of the hit radii about the spot's centre on the
+  'Detector' of a run folder (the examples/3 penalty).'''
+  p = raw.loadHits('Detector').points()
+  if len(p) < 100:
+    return 1e6
+  return float(np.hypot(p[:, 0] - p[:, 0].mean(),
+                        p[:, 1] - p[:, 1].mean()).std())
+
+
 def buildBench(ns, name):
   bounds = (-60., 60., -60., 60.)
   if name == 'lensMirror':

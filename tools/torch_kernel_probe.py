@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
-    python3 tools/torch_kernel_probe.py
+    python3 tools/torch_kernel_probe.py [sweep]
 
-times the port's main-path step (lens-and-mirror scene, 1 << 22 rays,
-128 x 128 bins) in variants, each by CUDA events over 20 launches after a
+(`sweep` runs the sweep breakdown alone) times the port's main-path step
+(lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
 warm-up, interleaved A B B A so that clock drift cancels:
 
   * bounce budget 1, 2, 3, 4, 6 — the cost of sampling plus each bounce;
@@ -20,15 +20,28 @@ warm-up, interleaved A B B A so that clock drift cancels:
     pinned memory would cost (host clock around synchronised work);
   * the build with float contraction on (nvcc's default) against the
     shipped -fmad=false build, with the number of rays whose fate or bin
-    then differs from the plain PyTorch version.
+    then differs from the plain PyTorch version;
+  * the parameter sweep on the examples/3 lens scene: the sweep kernel
+    against the number of variants (2, 11, 64 radii from 45 to 95 mm; one
+    variant is the histogram kernel) at 1 << 24 rays in all, each beside a
+    loop of histogram-kernel launches over the same variants; 64 variants
+    all at one radius, focused (60 mm: every ray in a few bins) and
+    defocused (95 mm), which is what the histogram atomics cost; and a call
+    of `ParameterSweeper.evaluateBatched` split into building and compiling
+    the variants, packing the stacked table, upload + launch + fetch, and
+    the metric; and one evaluation of `optimize` (`runSimulation` with raw
+    recording, then `RawFolder.loadHits`) with a new source object and with
+    the same one (host clock around synchronised work).
 
 Prints one JSON object per measurement. Needs a CUDA device.
 '''
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -39,7 +52,9 @@ sys.path.insert(0, os.path.join(HERE, 'tests'))
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
 
-from optics_design_workbench_tpu_torch import _build, benchmarks
+from optics_design_workbench_tpu_torch import (_build, benchmarks,
+                                               simulation)
+from optics_design_workbench_tpu_torch.jupyter_utils import RawFolder
 from optics_design_workbench_tpu_torch.ops import cuda_trace
 from optics_design_workbench_tpu_torch.tracing import fused
 
@@ -61,6 +76,122 @@ def cudaMs(fn, reps=REPS):
   return start.elapsed_time(end) / reps
 
 
+SWEEP_TOTAL_RAYS = 1 << 24
+SWEEP_BINS = (64, 64)
+SWEEP_BOUNDS = (-40., 40., -40., 40.)
+
+
+def sweepBreakdown(dev):
+  import numpy as np
+  seeds = iter(range(10 ** 9))
+  kw = dict(maxIntersections=6, maxRayLength=1000., distTol=1e-4, hitSlots=1)
+
+  def kernels(label, radii, rep):
+    '''The sweep kernel and the loop of histogram-kernel launches over the
+    same variants, SWEEP_TOTAL_RAYS rays in all.'''
+    V = len(radii)
+    n = SWEEP_TOTAL_RAYS // V
+    scenes = [benchmarks.buildSweepLensScene(float(r)) for r in radii]
+    host = [sc.compile(device=None) for sc in scenes]
+    spec = scenes[0].lightSources()[0].samplerSpec()
+    histSpec = fused.makeHistogramSpec(*host[0], bounds=SWEEP_BOUNDS,
+                                       bins=SWEEP_BINS)
+    tile = cuda_trace.DEFAULT_STRATA_TILE \
+        if cuda_trace.tileStrata(n, cuda_trace.DEFAULT_STRATA_TILE) else 0
+    singles = [cuda_trace.buildTraceTables(h, histSpec, spec, device=dev)
+               for h, _i in host]
+    hists = [fused.initHistograms(histSpec, device=dev) for _ in singles]
+
+    def loop():
+      seed = next(seeds)
+      for t, h in zip(singles, hists):
+        c = cuda_trace.traceHistogram(t, h, n, seed=seed, strataTile=tile,
+                                      **kw)
+      return c
+
+    row = dict(variant=f'sweep-{label}/rep{rep}', variants=V,
+               raysPerVariant=n, strataTile=tile, loopMs=cudaMs(loop, 5))
+    if V > 1:
+      tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec,
+                                           [spec] * V, device=dev)
+      shape = (V, 1) + SWEEP_BINS
+      hist = dict(power=torch.zeros(shape, device=dev),
+                  counts=torch.zeros(shape, device=dev))
+      sweep = lambda: cuda_trace.traceSweep(tables, hist, n, seed=next(seeds),
+                                            strataTile=tile, **kw)
+      row['sweepMs'] = cudaMs(sweep, 5)
+      row['segments'] = int(sweep()[:, 0].sum())
+      row['gSegmentsPerSec'] = row['segments'] / row['sweepMs'] / 1e6
+    print(json.dumps(row), flush=True)
+
+  for rep in range(2):
+    for V in (1, 2, 11, 64):
+      kernels(f'{V}radii', np.linspace(45., 95., V) if V > 1 else [60.], rep)
+    kernels('64xfocused', [60.] * 64, rep)
+    kernels('64xdefocused', [95.] * 64, rep)
+
+  # one evaluateBatched call, piece by piece (the pieces of
+  # ParameterSweeper.evaluateBatched, asked for one at a time)
+  sweeper, holder = benchmarks.makeSweepLensSweeper(device=dev)
+
+  def metric(power, counts):
+    return helpers.spotMetric(power, counts)
+
+  for V, n in ((11, 200_000), (64, 1 << 20)):
+    for k in range(3):
+      sets = [dict(R=float(r + 0.3 * k)) for r in np.linspace(45., 95., V)]
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      variants = sweeper._compileVariants(sets, lambda: holder['scene'])
+      t1 = time.perf_counter()
+      step, table = sweeper._sweepRoute(variants, n, 6, 1000., 1e-4,
+                                        SWEEP_BINS, SWEEP_BOUNDS)
+      t2 = time.perf_counter()
+      step(k, table)
+      torch.cuda.synchronize()
+      t3 = time.perf_counter()
+      both = step.histograms.cpu().numpy()
+      t4 = time.perf_counter()
+      m = [metric(p, c) for p, c in zip(both[0], both[1])]
+      t5 = time.perf_counter()
+      whole = sweeper.evaluateBatched(
+          sets, metric, sceneFactory=lambda: holder['scene'], raysPerScene=n,
+          maxIntersections=6, bins=SWEEP_BINS, histBounds=SWEEP_BOUNDS,
+          seed=k)
+      t6 = time.perf_counter()
+      assert list(whole) == m
+      print(json.dumps(dict(
+          variant=f'evaluateBatched/{V}x{n}/call{k}',
+          buildAndCompileVariantsMs=(t1 - t0) * 1e3,
+          signaturesSpecAndPackMs=(t2 - t1) * 1e3,
+          uploadLaunchWaitMs=(t3 - t2) * 1e3, fetchMs=(t4 - t3) * 1e3,
+          metricMs=(t5 - t4) * 1e3, wholeCallMs=(t6 - t5) * 1e3)), flush=True)
+
+  # one evaluation of `optimize` (runSimulation with raw recording, 20,000
+  # rays, then RawFolder.loadHits), with a NEW source object, as the
+  # examples/3 setter makes one per evaluation, and again on the same scene,
+  # whose source keeps its compiled sampling tables
+  tmp = tempfile.mkdtemp(prefix='odw_probe_')
+  try:
+    for k in range(3):
+      row = dict(variant=f'optimizeEvaluation/call{k}')
+      t0 = time.perf_counter()
+      scene = benchmarks.buildSweepLensScene(60. + k,
+                                             path=os.path.join(tmp, 'e3'))
+      row['buildSceneMs'] = (time.perf_counter() - t0) * 1e3
+      for label in ('newSource', 'sameSource'):
+        t0 = time.perf_counter()
+        runPath = simulation.runSimulation(scene, 'true', seed=k, device=dev)
+        t1 = time.perf_counter()
+        rows = len(RawFolder(runPath).loadHits('Detector'))
+        row[f'{label}RunMs'] = (t1 - t0) * 1e3
+        row[f'{label}LoadHitsMs'] = (time.perf_counter() - t1) * 1e3
+      row['hitRows'] = rows
+      print(json.dumps(row), flush=True)
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
@@ -70,6 +201,8 @@ def main():
       capture_output=True, text=True, check=True).stdout.strip()
   print(json.dumps(dict(card=smi, torch=torch.__version__, rays=N,
                         bins=BINS)), flush=True)
+  if sys.argv[1:] == ['sweep']:
+    return sweepBreakdown(dev)
 
   scene = benchmarks.buildLensMirrorScene()
   sceneNp, info = scene.compile(device=None)
@@ -215,6 +348,8 @@ def main():
     finally:
       _build.NVCC_FLAGS = shipped
     print(json.dumps(row), flush=True)
+
+  sweepBreakdown(dev)
 
 
 if __name__ == '__main__':
