@@ -49,7 +49,8 @@ sys.path.insert(0, os.path.join(HERE, 'tests'))
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
 from optics_design_workbench_tpu_torch import _build, benchmarks, simulation
-from optics_design_workbench_tpu_torch.jupyter_utils import RawFolder
+from optics_design_workbench_tpu_torch.jupyter_utils import (
+    RawFolder, parameter_sweeper)
 from optics_design_workbench_tpu_torch.ops import cuda_trace
 from optics_design_workbench_tpu_torch.simulation import results_store, runner
 from optics_design_workbench_tpu_torch.tracing import fused
@@ -579,7 +580,6 @@ def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo):
   specs = [sc.lightSources()[0].samplerSpec() for sc in scenes]
   tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec, specs,
                                        device=DEV)
-  V = tables['nVariants']
   hitSlots = cuda_trace.autoHitSlots(host[0][0], histSpec, maxI)
   kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
             powerTol=1e-6, hitSlots=hitSlots)
@@ -596,42 +596,52 @@ def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo):
     colsT = torch.stack(list(cols) + [torch.full_like(cols[0], 532.)]) \
         .contiguous()
     modes.append(('c', dict(columns=colsT), dict(columns=colsT)))
-  shape = (V, tables['nDet']) + SWEEP_BINS
-  worst = 0.
-  for mode, inputs, plainInputs in modes:
-    hK = dict(power=torch.zeros(shape, device=DEV),
-              counts=torch.zeros(shape, device=DEV))
-    hP = dict(power=torch.zeros(shape, device=DEV),
-              counts=torch.zeros(shape, device=DEV))
-    cK = cuda_trace.traceSweep(tables, hK, n, **inputs, **kw)
-    torch.cuda.synchronize()
-    cP = cuda_trace.traceSweepPlain(tables, hP, n, **plainInputs, **kw)
-    torch.cuda.synchronize()
-    if cK.tolist() != cP.tolist():
-      raise AssertionError(f'{label} sweep mode ({mode}): counters differ: '
-                           f'kernel {cK.tolist()} plain {cP.tolist()}')
-    moved = (hK['counts'] - hP['counts']).abs().sum(dim=(1, 2, 3)) / 2
-    if float(moved.max()) > COUNT_BUDGET:
-      raise AssertionError(f'{label} sweep mode ({mode}): {moved.tolist()} '
-                           f'rays per variant changed bins (budget '
-                           f'{COUNT_BUDGET})')
-    same = (hK['counts'] == hP['counts']) & (hP['counts'] > 0)
-    pK, pP = hK['power'][same], hP['power'][same]
-    if not torch.allclose(pK, pP, rtol=POWER_RTOL, atol=0.):
-      raise AssertionError(f'{label} sweep mode ({mode}): power differs '
-                           f'beyond rtol {POWER_RTOL}')
-    if int(cK[:, 1].min()) <= 0:
-      raise AssertionError(f'{label} sweep mode ({mode}): a variant recorded '
-                           f'no hits')
-    if V > 1 and torch.equal(hK['counts'][0], hK['counts'][1]):
-      raise AssertionError(f'{label} sweep mode ({mode}): variants 0 and 1 '
-                           f'gave the same histogram')
-    err = float((pK - pP).abs().max())
-    worst = max(worst, err)
-    emit(dict(phase='sweep-vs-plain', sweep=label, mode=mode, variants=V,
-              raysPerVariant=n, counters=cK.tolist(),
-              movedRays=moved.tolist(), maxAbsErrPower=err))
-  return worst
+  return max(holdSweepAgainstPlain(label, mode, tables, n, inputs,
+                                   plainInputs, kw)[0]
+             for mode, inputs, plainInputs in modes)
+
+
+def holdSweepAgainstPlain(label, mode, tables, n, inputs, plainInputs, kw):
+  '''One launch of the sweep kernel and one run of its plain version on the
+  same inputs, each into fresh histograms; raises where they disagree.
+  Returns (worst absolute power error, the plain version's ms).'''
+  V = tables['nVariants']
+  shape = (V, tables['nDet']) + tuple(tables['bins'])
+  hK = dict(power=torch.zeros(shape, device=DEV),
+            counts=torch.zeros(shape, device=DEV))
+  hP = dict(power=torch.zeros(shape, device=DEV),
+            counts=torch.zeros(shape, device=DEV))
+  cK = cuda_trace.traceSweep(tables, hK, n, **inputs, **kw)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  cP = cuda_trace.traceSweepPlain(tables, hP, n, **plainInputs, **kw)
+  torch.cuda.synchronize()
+  plainMs = (time.perf_counter() - t0) * 1e3
+  if cK.tolist() != cP.tolist():
+    raise AssertionError(f'{label} sweep mode ({mode}): counters differ: '
+                         f'kernel {cK.tolist()} plain {cP.tolist()}')
+  moved = (hK['counts'] - hP['counts']).abs().sum(dim=(1, 2, 3)) / 2
+  if float(moved.max()) > COUNT_BUDGET:
+    raise AssertionError(f'{label} sweep mode ({mode}): {moved.tolist()} '
+                         f'rays per variant changed bins (budget '
+                         f'{COUNT_BUDGET})')
+  same = (hK['counts'] == hP['counts']) & (hP['counts'] > 0)
+  pK, pP = hK['power'][same], hP['power'][same]
+  if not torch.allclose(pK, pP, rtol=POWER_RTOL, atol=0.):
+    raise AssertionError(f'{label} sweep mode ({mode}): power differs '
+                         f'beyond rtol {POWER_RTOL}')
+  if int(cK[:, 1].min()) <= 0:
+    raise AssertionError(f'{label} sweep mode ({mode}): a variant recorded '
+                         f'no hits')
+  if torch.equal(hK['counts'][0], hK['counts'][1]):
+    raise AssertionError(f'{label} sweep mode ({mode}): variants 0 and 1 '
+                         f'gave the same histogram')
+  err = float((pK - pP).abs().max())
+  emit(dict(phase='sweep-vs-plain', sweep=label, mode=mode, variants=V,
+            raysPerVariant=n, counterTotals=cK.sum(dim=0).tolist(),
+            movedRaysMax=float(moved.max()), maxAbsErrPower=err,
+            plainMs=plainMs))
+  return err, plainMs
 
 
 def sweepScenes(radii):
@@ -701,19 +711,12 @@ def sweepPathPhase(V, n):
     sets = [dict(R=float(r + 0.3 * k)) for r in radii]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if route == 'sweep':
-      m = sweeper.evaluateBatched(
-          sets, metric, sceneFactory=lambda: holder['scene'], raysPerScene=n,
-          maxIntersections=SWEEP_MAX_INTERSECTIONS, bins=SWEEP_BINS,
-          histBounds=SWEEP_BOUNDS, seed=k)
-    else:
-      # the sweeper's own per-variant route, asked for directly: the same
-      # host work with V launches, V table uploads and V fetches
-      variants = sweeper._compileVariants(sets, lambda: holder['scene'])
-      hists = sweeper._perVariantRoute(
-          variants, n, SWEEP_MAX_INTERSECTIONS, 1000., 1e-4, SWEEP_BINS,
-          SWEEP_BOUNDS, k)
-      m = np.array([metric(p, c) for p, c in hists])
+    # 'loop' is the sweeper's per-variant route: the same host work with V
+    # launches, V table uploads and V fetches
+    hists = sweeper._batchedHistograms(
+        sets, lambda: holder['scene'], n, SWEEP_MAX_INTERSECTIONS,
+        SWEEP_BINS, SWEEP_BOUNDS, k, sweepKernel=(route == 'sweep'))
+    m = np.array([metric(p, c) for p, c in hists])
     torch.cuda.synchronize()
     return m, time.perf_counter() - t0
 
@@ -733,6 +736,11 @@ def sweepPathPhase(V, n):
     raise AssertionError(f'a variant counted {min(totals)} of {n} rays')
   loopMetrics, _ = call(0, 'loop')
   loop = [call(k, 'loop')[1] for k in (1, 2)]
+  if sweeper.lastBatchedRoute != 'perVariant' \
+      or dict(cuda_trace.launchCounts) != onlyLaunches(traceSweep=3,
+                                                       traceHistogram=3 * V):
+    raise AssertionError(f'{dict(cuda_trace.launchCounts)} launches after '
+                         f'3 per-variant calls')
   if not np.array_equal(loopMetrics, metrics):
     raise AssertionError('one launch per variant gave other metrics than '
                          'the sweep kernel on the same seed')
@@ -744,7 +752,8 @@ def sweepPathPhase(V, n):
   hist = dict(power=torch.zeros(shape, device=DEV),
               counts=torch.zeros(shape, device=DEV))
   kw = dict(maxIntersections=SWEEP_MAX_INTERSECTIONS, maxRayLength=1000.,
-            distTol=1e-4, hitSlots=step.hitSlots, strataTile=step.strataTile)
+            distTol=1e-4, powerTol=1e-6, hitSlots=step.hitSlots,
+            strataTile=step.strataTile)
   seeds = iter(range(7000, 10 ** 6))
   counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds), **kw)
   segments = int(counters[:, 0].sum())
@@ -778,8 +787,19 @@ def sweepPathPhase(V, n):
             perVariantLoopKernelsMs=loopMs,
             sweepOverLoopKernels=sweepMs / loopMs,
             sweepOverLoopWall=steadyS / loopS))
-  return dict(launches=launches['traceSweep'], ms=sweepMs,
-              tables=tables, segments=segments, hist=hist, kw=kw)
+
+  # the kernel against its plain version at this shape, same uniforms
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(9)
+  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
+  inputs = dict(uniforms=us, strataTile=step.strataTile)
+  err, plainMs = holdSweepAgainstPlain(
+      f'path-{V}x{n}', 'b', tables, n, inputs,
+      dict(inputs, strata=cuda_trace.tileStrata(n, step.strataTile)),
+      {k: v for k, v in kw.items() if k != 'strataTile'})
+  return dict(launches=launches['traceSweep'], ms=sweepMs, plainMs=plainMs,
+              maxAbsErr=err, tables=tables, segments=segments,
+              histBytes=2 * hist['power'].numel() * 4)
 
 
 def sweepOptimizePhase(tmp):
@@ -808,6 +828,8 @@ def sweepOptimizePhase(tmp):
             launches=launches, rowsPerRun=[min(rows), max(rows)]))
   if len(history) < 5 or len(runs) != len(history):
     raise AssertionError(f'{len(history)} evaluations, {len(runs)} runs')
+  if any(h['penalty'] >= parameter_sweeper.PENALTY for h in history):
+    raise AssertionError('an evaluation failed and was scored as a penalty')
   if not result.bestPenalty <= history[0]['penalty'] \
       or result.bestPenalty >= 1e98:
     raise AssertionError(f'best penalty {result.bestPenalty}, first '
@@ -887,24 +909,16 @@ def main():
     # ---- phase 5: the parameter sweep ----
     for V, n in SWEEPS:
       sweep = sweepPathPhase(V, n)
+      worstSweep = max(worstSweep, sweep['maxAbsErr'])
     sweepOptimizePhase(tmp)
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
-  # the sweep kernel's plain version and bound at the design-study size
+  # the sweep kernel's bound at the design-study size
   V, n = SWEEPS[-1]
-  gen = torch.Generator(device=DEV)
-  gen.manual_seed(9)
-  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
-  strata = cuda_trace.tileStrata(n, sweep['kw']['strataTile'])
-  t0 = time.perf_counter()
-  cuda_trace.traceSweepPlain(
-      sweep['tables'], sweep['hist'], n, powerTol=1e-6, uniforms=us,
-      strata=strata, **sweep['kw'])
-  torch.cuda.synchronize()
-  plainSweepMs = (time.perf_counter() - t0) * 1e3
+  plainSweepMs = sweep['plainMs']
   sweepBounds = boundMs(sweep['tables'], sweep['segments'], V * n,
-                        2 * sweep['hist']['power'].numel() * 4 * 2)
+                        2 * sweep['histBytes'])
   emit(dict(phase='sweep-kernel-bound', variants=V, raysPerVariant=n,
             kernelMs=sweep['ms'], plainMs=plainSweepMs,
             boundOpsMs=sweepBounds[0], boundBytesMs=sweepBounds[1],

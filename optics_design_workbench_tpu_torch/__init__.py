@@ -43,13 +43,19 @@ def kernelSourceDigest():
   return h.hexdigest()[:10]
 
 
+class KernelError(RuntimeError):
+  '''The card or one of its kernels cannot be used: no CUDA device, no
+  `nvcc`, a build that fails, a launch that returns an error. Nothing
+  treats it as a bad design point: the optimiser's loops let it through.'''
+
+
 def resolveDevice(device='cuda'):
   '''The package-wide device rule: returns a torch.device; a CUDA request
   without a card RAISES instead of falling back to the CPU.'''
   import torch
   dev = torch.device(device)
   if dev.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError(
+    raise KernelError(
         "device='cuda' requested but no CUDA device is available; pass "
         "device='cpu' explicitly to run the plain PyTorch version")
   return dev

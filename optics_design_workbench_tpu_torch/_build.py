@@ -13,7 +13,7 @@ import shutil
 import subprocess
 import time
 
-from . import _KERNEL_SOURCES, kernelSourceDigest
+from . import KernelError, _KERNEL_SOURCES, kernelSourceDigest
 
 # -fmad=false: the kernel rounds every multiply and add separately, exactly
 # like the plain PyTorch version it is held against (eager tensor ops never
@@ -34,8 +34,8 @@ def _findNvcc():
         nvcc = cand
         break
   if nvcc is None:
-    raise RuntimeError('nvcc not found: the CUDA kernels build at first use '
-                       'and need the CUDA toolkit (nvcc on PATH, or CUDA_HOME)')
+    raise KernelError('nvcc not found: the CUDA kernels build at first use '
+                      'and need the CUDA toolkit (nvcc on PATH, or CUDA_HOME)')
   return nvcc
 
 
@@ -76,8 +76,8 @@ def buildKernels(flags=None):
     log, _ = proc.communicate()
     logs.append(log)
     if proc.returncode != 0:
-      raise RuntimeError(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n'
-                         f'{log}')
+      raise KernelError(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n'
+                        f'{log}')
     os.replace(tmp, lib)            # atomic: concurrent builds never race
   libs = {stem: ctypes.CDLL(os.path.join(out, f'lib{stem}.so'))
           for stem in stems}

@@ -36,7 +36,7 @@ import time
 
 import numpy as np
 
-from .. import resolveDevice, simulation
+from .. import KernelError, resolveDevice, simulation
 from ..models.point_source import PointSource
 from ..ops import cuda_trace
 from ..tracing import fused
@@ -45,6 +45,8 @@ from .document import RawFolder, saveScene
 from .retries import retryOnError
 
 PENALTY = 1e99
+# what `optimize` never scores as a penalty
+_NOT_A_DESIGN_FAULT = (KernelError, NotImplementedError)
 
 
 def _sourceSignature(src, mode):
@@ -262,7 +264,9 @@ class ParameterSweeper:
     (reference: parameter_sweeper.py:757-918). Bounded parameters are
     normalized to [0, 1] for the optimizer; failures score PENALTY so the
     minimizer routes around crashes; the best parameters are restored (and
-    optionally autosaved) at exit.'''
+    optionally autosaved) at exit. A kernel that does not build or launch
+    (KernelError) and a scene that is not ported (NotImplementedError) are
+    no design's fault: they raise.'''
     import scipy.optimize
     params = self.parameters()
     names = list(parameters)
@@ -278,7 +282,8 @@ class ParameterSweeper:
       return {n: lo + xi * (hi - lo)
               for n, xi, (lo, hi) in zip(names, x, boundsList)}
 
-    @retryOnError(subject='simulate+evaluate', maxRetries=retries)
+    @retryOnError(subject='simulate+evaluate', maxRetries=retries,
+                  fatal=_NOT_A_DESIGN_FAULT)
     def _simulateAndEvaluate(paramDict):
       if prepareSimulation is not None:
         prepareSimulation()
@@ -290,6 +295,8 @@ class ParameterSweeper:
       paramDict = denorm(np.clip(np.asarray(x, float), 0, 1))
       try:
         penalty = _simulateAndEvaluate(paramDict)
+      except _NOT_A_DESIGN_FAULT:
+        raise
       except Exception as e:
         io.warn(f'optimization step failed, assigning penalty {PENALTY:g}: '
                 f'{e}')
@@ -338,7 +345,7 @@ class ParameterSweeper:
     other in-process, the global best surviving into each next strategy —
     the reference's own path when the job does not pickle or with
     parallel=False. Returns one optimize() result (or None for a strategy
-    that failed) per strategy.
+    that failed) per strategy; KernelError and NotImplementedError raise.
 
     parallel=True (concurrent OS worker processes with global-best
     tracking, revival and laggard quitting) is not ported and raises
@@ -359,6 +366,8 @@ class ParameterSweeper:
               f'{cfg.get("method", "Nelder-Mead")}')
       try:
         results.append(self.optimize(**cfg))
+      except _NOT_A_DESIGN_FAULT:
+        raise
       except Exception as e:
         io.warn(f'strategy {i + 1} failed: {e}')
         results.append(None)
@@ -513,22 +522,34 @@ class ParameterSweeper:
     `lastBatchedRoute` says which route ran ('sweep' or 'perVariant'). A
     scene the kernels do not cover raises NotImplementedError.
     '''
+    hists = self._batchedHistograms(parameterSets, sceneFactory, raysPerScene,
+                                    maxIntersections, bins, histBounds, seed)
+    return np.array([metric(power, counts) for power, counts in hists])
+
+  def _batchedHistograms(self, parameterSets, sceneFactory, raysPerScene,
+                         maxIntersections, bins, histBounds, seed,
+                         sweepKernel=True):
+    '''The [(power, counts)] numpy histograms of `evaluateBatched`, one per
+    variant. `sweepKernel=False` skips the sweep kernel and takes the
+    per-variant route whatever the variants allow: the yardstick the sweep
+    kernel is timed against.'''
     variants = self._compileVariants(parameterSets, sceneFactory)
     settings = self.scene.activeSimulationSettings()
     maxRayLength = float(settings.maxRayLength())
     distTol = float(max(settings.distanceTolerance(), 1e-4))
     args = (variants, raysPerScene, maxIntersections, maxRayLength, distTol,
             tuple(bins), histBounds)
-    try:
-      step, table = self._sweepRoute(*args)
-    except cuda_trace.SweepUnavailable as e:
-      io.verb(f'sweep kernel unavailable ({e}); tracing the variants one '
-              f'launch each')
+    step = None
+    if sweepKernel:
+      try:
+        step, table = self._sweepRoute(*args)
+      except cuda_trace.SweepUnavailable as e:
+        io.verb(f'sweep kernel unavailable ({e}); tracing the variants one '
+                f'launch each')
+    if step is None:
       self.lastBatchedRoute = 'perVariant'
-      hists = self._perVariantRoute(*args, seed)
-    else:
-      self.lastBatchedRoute = 'sweep'
-      step(int(seed), table)
-      both = step.histograms.cpu().numpy()      # ONE device->host fetch
-      hists = list(zip(both[0], both[1]))
-    return np.array([metric(power, counts) for power, counts in hists])
+      return self._perVariantRoute(*args, seed)
+    self.lastBatchedRoute = 'sweep'
+    step(int(seed), table)
+    both = step.histograms.cpu().numpy()        # ONE device->host fetch
+    return list(zip(both[0], both[1]))

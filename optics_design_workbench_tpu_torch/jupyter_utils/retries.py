@@ -7,10 +7,12 @@ from ..utils import io
 
 
 def retryOnError(subject='operation', maxRetries=3,
-                 callbackAfterRetries=None, callback=None, delay=0.):
+                 callbackAfterRetries=None, callback=None, delay=0.,
+                 fatal=()):
   '''Retry the wrapped callable up to maxRetries times; `callback` runs after
   every failure, `callbackAfterRetries` once all retries are exhausted (the
-  reference uses it to restart a wedged FreeCAD instance).'''
+  reference uses it to restart a wedged FreeCAD instance). Exceptions of the
+  `fatal` types are not retried: they pass straight through.'''
 
   def decorator(fn):
     @functools.wraps(fn)
@@ -19,6 +21,8 @@ def retryOnError(subject='operation', maxRetries=3,
       for attempt in range(int(maxRetries) + 1):
         try:
           return fn(*args, **kwargs)
+        except fatal:
+          raise
         except Exception as e:
           lastErr = e
           io.warn(f'{subject} failed (attempt {attempt + 1}/'

@@ -52,7 +52,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import hostArray as _hostArray, resolveDevice
+from .. import KernelError, hostArray as _hostArray, resolveDevice
 from ..geometry import surfaces as GS
 from ..tracing.element_table import (MIRROR, LENS, GRATING, ABSORBER,
                                      EP_GRATTYPE)
@@ -1013,7 +1013,7 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
              *(t.data_ptr() for t in outs), counters.data_ptr(), ip, fp,
              stream)
   if err != 0:
-    raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')
+    raise KernelError(f'{name} kernel launch failed: CUDA error {err}')
   launchCounts[name] += 1
   return counters
 
@@ -1156,11 +1156,9 @@ def makeRawStep(scene, histSpec, generator, raysPerStep, maxIntersections,
 
 def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
                   maxIntersections, maxRayLength, distTol, powerTol=1e-6,
-                  geomMode=False, hitSlots='auto', strataTile='auto',
-                  device='cuda'):
+                  geomMode=False, device='cuda'):
   '''Batched parameter sweep through the sweep kernel; counterpart of the
-  JAX package's `makePallasSweepStep` minus tile / interpret, plus `device`,
-  `hitSlots` and `strataTile`.
+  JAX package's `makePallasSweepStep` minus tile / interpret, plus `device`.
 
   hostScenes: [(sceneDict, info), ...] of `Scene.compile(device=None)`, one
   per variant, of one structure (`packSweepTables` says what that means) or
@@ -1180,8 +1178,9 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
         `segments` its total, all on the device.
 
   Exactly `raysPerVariant` rays are traced per variant (the reference rounds
-  up to whole tiles). Ray-index strata as in `makeTraceStep`, by the index
-  within the variant.'''
+  up to whole tiles). Ring slots and ray-index strata are `makeTraceStep`'s
+  'auto' (strata by the index within the variant); `step.hitSlots` and
+  `step.strataTile` say what they came to.'''
   from ..tracing import fused
   dev = resolveDevice(device)
   V = len(hostScenes)
@@ -1195,10 +1194,8 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
     raise SweepUnavailable(reason)
   histSpec = fused.makeHistogramSpec(host0, info0, bounds=histBounds,
                                      bins=bins)
-  if hitSlots == 'auto':
-    hitSlots = autoHitSlots(host0, histSpec, maxIntersections)
-  if strataTile == 'auto':
-    strataTile = DEFAULT_STRATA_TILE
+  hitSlots = autoHitSlots(host0, histSpec, maxIntersections)
+  strataTile = DEFAULT_STRATA_TILE
   if tileStrata(raysPerVariant, strataTile) is None:
     strataTile = 0
 

@@ -197,6 +197,15 @@ def test_small_helpers():
     return 'ok'
 
   assert flaky() == 'ok' and len(calls) == 2
+
+  @retryOnError(subject='fatal', maxRetries=2, fatal=(KeyError,))
+  def fatal():
+    calls.append(1)
+    raise KeyError('through')
+
+  with pytest.raises(KeyError):
+    fatal()
+  assert len(calls) == 3
   line = ProgressTracker.formatLine(dict(
       totalIterations=1, endAfterIterations=2, totalRecordedHits=3,
       endAfterHits=float('inf'), totalTracedRays=4, endAfterRays=8,

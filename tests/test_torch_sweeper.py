@@ -23,6 +23,7 @@ from optics_design_workbench_tpu.jupyter_utils import (
     ParameterSweeper as RefSweeper, Parameter as RefParameter)
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     ParameterSweeper, Parameter, MetaParameter, RawFolder)
+from optics_design_workbench_tpu_torch import KernelError
 from optics_design_workbench_tpu_torch.ops import cuda_trace
 
 torch.set_num_threads(1)
@@ -272,6 +273,37 @@ def test_optimize_needs_bounds_and_scores_failures(zSweeper):
   result = zSweeper.optimize(broken, ['z'], maxIterations=1, seed=1,
                              retries=0)
   assert result.bestPenalty == 1e99
+
+
+@pytest.mark.parametrize('error', [KernelError, NotImplementedError])
+def test_optimize_raises_what_is_no_designs_fault(zSweeper, error):
+  '''A kernel that does not build or launch, and a scene that is not ported,
+  are never scored as a penalty: `optimize` and `optimizeStrategyStep` let
+  them through, without retries.'''
+  calls = []
+
+  def broken(raw):
+    calls.append(raw)
+    raise error('not a design point')
+
+  with pytest.raises(error, match='not a design point'):
+    zSweeper.optimize(broken, ['z'], maxIterations=3, seed=1, retries=2)
+  assert len(calls) == 1 and zSweeper.history == []
+  with pytest.raises(error, match='not a design point'):
+    zSweeper.optimizeStrategyStep(
+        [dict(minimizeFunc=broken, parameters=['z'], maxIterations=1)])
+  assert len(calls) == 2
+
+
+def test_optimize_without_a_card_raises(zSweeper):
+  '''`device='cuda'` with no card: the first evaluation raises, nothing
+  carries on as a row of penalties.'''
+  if torch.cuda.is_available():
+    pytest.skip('this machine has a card')
+  zSweeper.device = 'cuda'
+  with pytest.raises(KernelError, match='no CUDA device'):
+    zSweeper.optimize(H.spotSize, ['z'], maxIterations=2, seed=1)
+  assert zSweeper.history == []
 
 
 def test_sweep_runs_one_simulation_per_combination(zSweeper):
