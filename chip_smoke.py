@@ -9,8 +9,11 @@ card: the in-kernel-histogram kernel in all three input modes, the
 per-ray-bin and raw-record kernels in modes (b) and (c) on scenes with one,
 two and four live ring slots and with a ring that overflows, the sweep
 kernel on a surface sweep and a source-placement sweep and, in seed mode,
-against one launch of the histogram kernel per variant. It then drives the
-port's paths at full width:
+against one launch of the histogram kernel per variant; then the same on
+the scenes of gratings, dispersion, sequential mode and per-source masks
+(a reflection and a transmission grating, a Cauchy lens, the sequential
+ball lens, a source that ignores a mirror; the spectrometer at full width;
+a wavelength sweep). It then drives the port's paths at full width:
 
   * the fused step (`benchmarks.makeBenchStep()`: 1 << 22 rays, 6 bounces,
     128 x 128 bins) for a few timed steps, with in-kernel binning and with
@@ -24,6 +27,15 @@ port's paths at full width:
     64 radii x 1 << 20 rays (one launch of the sweep kernel per call, beside
     the same work as one histogram-kernel launch per variant), and
     `optimize` through `runSimulation` and `RawFolder.loadHits`;
+  * the grating spectrometer (examples/4): the fused step on
+    `benchmarks.buildSpectrometerScene()` (1 << 22 rays, 3 intersections,
+    128 x 128 bins over +-80 mm) with both binnings; `runSimulation` on
+    examples/4's scene with one source each at 450, 550 and 650 nm, raw
+    (4 iterations of 1 << 20 rays per source) and histogram-first (8 of
+    1 << 22); a wavelength calibration through `evaluateBatched` (64
+    wavelengths from 400 to 700 nm x 1 << 20 rays, one sweep-kernel launch
+    per call); and one step at 2000 lines/mm and 650 nm, whose first order
+    is evanescent;
 
 (the first three on the lens-and-mirror scene) and checks the physics of
 what comes out. Every failing phase raises, so the exit code is non-zero and no result line is printed. Needs one CUDA device;
@@ -46,8 +58,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, 'tests'))
+sys.path.insert(0, os.path.join(HERE, 'examples'))
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
+import torch_4_spectrometer as example4       # examples/4 on the port
 from optics_design_workbench_tpu_torch import _build, benchmarks, simulation
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     RawFolder, parameter_sweeper)
@@ -73,6 +87,16 @@ SWEEPS = ((11, 200_000), (64, 1 << 20))
 SWEEP_BINS = (64, 64)
 SWEEP_BOUNDS = (-40., 40., -40., 40.)
 SWEEP_MAX_INTERSECTIONS = 6
+# the spectrometer: the reference's throughput scene of examples/4 and its
+# recording run at the sizes of a measurement on this card
+SPECTRO_BOUNDS = (-80., 80., -80., 80.)
+SPECTRO_MAX_INTERSECTIONS = 3
+SPECTRO_WAVELENGTHS = (450., 550., 650.)
+SPECTRO_RAW_ITERATIONS = 4
+SPECTRO_HIST_ITERATIONS = 8
+SPECTRO_SWEEP = (64, 1 << 20)            # wavelengths x rays per wavelength
+LINE_TOL_MM = 0.15                       # the JAX suite's own bound
+BIN_MM = (SPECTRO_BOUNDS[1] - SPECTRO_BOUNDS[0]) / BINS[1]
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
@@ -87,6 +111,15 @@ FLOPS_INTERSECT = {0: 33 + 12 + 6, 1: 33 + 42 + 6, 2: 33 + 35 + 6}
 FLOPS_WINNER = 52         # hit point, local point, normal, world normal
 FLOPS_PHYSICS = 80        # Beer-Lambert, mirror, Snell / TIR, record, update
 FLOPS_SAMPLER = 160       # Philox rounds, two marginals, sin / cos, placement
+# the parts of the body behind header flags, counted the same way from
+# csrc/trace_common.cuh: a ray's pass through a grating (frame, Ludwig
+# quadratic, diffracted direction, medium / power / stage updates); the
+# stage gate per surface tested (stage clamp, shift, mask, compare); n(lambda)
+# per segment of a dispersive scene (two Horner evaluations of up to 13
+# coefficients)
+FLOPS_GRATING = 107
+FLOPS_STAGE_GATE = 3
+FLOPS_DISPERSION = 2 * (3 + 2 * 12)
 
 
 def emit(obj):
@@ -106,13 +139,16 @@ def cudaMs(fn, reps):
   return start.elapsed_time(end) / reps
 
 
-def buildTables(scene, bounds, bins, tent=False):
-  '''Kernel tables of a scene; tent=True swaps the sampler's first marginal
-  for the source's 257-knot tent table (the kernel's third marginal kind,
-  which no source's own spec selects).'''
+def buildTables(scene, bounds, bins, tent=False, source=0):
+  '''Kernel tables of a scene as the runner traces light source `source`
+  (with its surface mask); tent=True swaps the sampler's first marginal for
+  the source's 257-knot tent table (the kernel's third marginal kind, which
+  no source's own spec selects).'''
   sceneNp, info = scene.compile(device=None)
   histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds, bins=bins)
-  src = scene.lightSources()[0]
+  src = scene.lightSources()[source]
+  if src.Label in info['surfaceMasks']:
+    sceneNp = dict(sceneNp, surfMask=info['surfaceMasks'][src.Label])
   spec = src.samplerSpec()
   assert spec is not None, 'scene source has no in-kernel sampler spec'
   if tent:
@@ -124,11 +160,19 @@ def buildTables(scene, bounds, bins, tent=False):
   return sceneNp, histSpec, tables
 
 
+def rayColumns(tables, cols):
+  '''The eight ray columns of mode (c): the sampler's seven and its
+  wavelength.'''
+  wl = torch.full_like(cols[0], cuda_trace.samplerWavelength(tables))
+  return torch.stack(list(cols) + [wl]).contiguous()
+
+
 def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
-                     tent=False):
+                     tent=False, source=0):
   '''Kernel vs plain version on the card, modes (b) and (c), same inputs:
   counters equal, count bins within COUNT_BUDGET rays, power POWER_RTOL.'''
-  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, tent=tent)
+  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, tent=tent,
+                                          source=source)
   if hitSlots is None:
     hitSlots = cuda_trace.autoHitSlots(sceneNp, histSpec, maxI)
   settings = scene.activeSimulationSettings()
@@ -140,8 +184,7 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   strataTile = cuda_trace.DEFAULT_STRATA_TILE
   strata = cuda_trace.tileStrata(n, strataTile)
   cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1], strata, strataTile)
-  colsT = torch.stack(list(cols) + [torch.full_like(cols[0], 532.)]) \
-      .contiguous()
+  colsT = rayColumns(tables, cols)
   worst = 0.
   for mode, inputs in (('b', dict(uniforms=us, strataTile=strataTile)),
                        ('c', dict(columns=colsT))):
@@ -174,7 +217,8 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   return worst
 
 
-def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None):
+def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
+                          source=0):
   '''The per-ray kernels vs their plain versions on the card, modes (b) and
   (c), same inputs. traceRaw: counters, element, isEntering (hence
   recordHit) equal element for element; power, point, direction within
@@ -182,7 +226,7 @@ def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None):
   bin, power and count equal where the bin is. Then traceBins + float64
   binning against traceHistogram on the same uniforms: counts equal bin for
   bin, power POWER_RTOL. Returns the worst absolute error per kernel.'''
-  sceneNp, histSpec, tables = buildTables(scene, bounds, bins)
+  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, source=source)
   if hitSlots is None:
     hitSlots = cuda_trace.autoHitSlots(sceneNp, histSpec, maxI)
   settings = scene.activeSimulationSettings()
@@ -194,8 +238,7 @@ def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None):
   strataTile = cuda_trace.DEFAULT_STRATA_TILE
   strata = cuda_trace.tileStrata(n, strataTile)
   cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1], strata, strataTile)
-  colsT = torch.stack(list(cols) + [torch.full_like(cols[0], 532.)]) \
-      .contiguous()
+  colsT = rayColumns(tables, cols)
   rawP, cRawP = cuda_trace.traceRawPlain(tables, cols, **kw)
   binsP, cBinsP = cuda_trace.traceBinsPlain(tables, cols, **kw)
   worst = dict(traceRaw=0., traceBins=0.)
@@ -303,42 +346,61 @@ def onlyLaunches(**counts):
   return {**{name: 0 for name in cuda_trace.launchCounts}, **counts}
 
 
-def boundMs(tables, segmentsPerStep, nRays, outputBytes):
+def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0):
   '''Least time the card could take for one step: (ms by operations, ms by
-  bytes), from this run's segment count and the bytes the kernel must move
-  (table and counters in, `outputBytes` out).'''
+  bytes), from this run's segment count, its passes through a grating and
+  the bytes the kernel must move (table and counters in, `outputBytes`
+  out).'''
   rows = tables['surfRows']
   if 'nVariants' in tables:            # a sweep: every variant, one structure
     rows = rows[0]
   kinds = [r['kind'] for r in rows]
   flopsPerSegment = (sum(FLOPS_INTERSECT[k] for k in kinds) + FLOPS_WINNER
                      + FLOPS_PHYSICS)
-  flops = segmentsPerStep * flopsPerSegment + nRays * FLOPS_SAMPLER
+  if tables['gate']:
+    flopsPerSegment += FLOPS_STAGE_GATE * len(kinds)
+  if tables['dispOff'] >= 0:
+    flopsPerSegment += FLOPS_DISPERSION
+  flops = (segmentsPerStep * flopsPerSegment + nRays * FLOPS_SAMPLER
+           + gratingPasses * FLOPS_GRATING)
   nbytes = outputBytes + tables['table'].numel() * 4 + 3 * 8
   return (flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3,
           dict(flopsPerSegment=flopsPerSegment, flopsPerStep=flops,
                bytesPerStep=nbytes))
 
 
-def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds):
+def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
+                spectro):
+  '''One entry of the `kernels` line: the main-path numbers (lens-and-mirror
+  scene; the examples/3 sweep for the sweep kernel) and, beside them, the
+  kernel on the spectrometer (`spectro`: its launches on that path, ms and
+  bound) and the worst error over the scenes of gratings, dispersion,
+  sequential mode and masks (`max_abs_err` is the worst of both).'''
   boundOps, boundBytes, _ = bounds
+  spOps, spBytes, _ = spectro['bounds']
   return dict(name=name, route='cuda',
               source=f'optics_design_workbench_tpu_torch/csrc/{source}',
               replaces=f'optics_design_workbench_tpu/ops/pallas_trace.py:'
                        f'{replaces}',
-              launches=launches, max_abs_err=err, ms=ms, plain_ms=plainMs,
-              bound_ms=max(boundOps, boundBytes),
+              launches=launches, max_abs_err=max(err, spectro['err']), ms=ms,
+              plain_ms=plainMs, bound_ms=max(boundOps, boundBytes),
               bound_by='operations' if boundOps >= boundBytes else 'bytes',
-              library_ms=None)
+              library_ms=None, lens_mirror_max_abs_err=err,
+              b4_max_abs_err=spectro['err'],
+              spectrometer_launches=spectro['launches'],
+              spectrometer_ms=spectro['ms'],
+              spectrometer_bound_ms=max(spOps, spBytes))
 
 
-def fusedStepPhase(histPrecision):
-  '''The fused step through `benchmarks.makeBenchStep` at full width: a few
-  warm steps, TIMED_STEPS timed ones with the launch counts read around
-  them, the kernel alone by CUDA events, the plain version at the same
-  size, and the physics of the accumulated histogram.'''
+def timeBenchStep(histPrecision, maxI, **benchKw):
+  '''A `benchmarks.makeBenchStep` step at full width: a few warm steps,
+  TIMED_STEPS timed ones into zeroed histograms with the launch counts read
+  around them, then the kernel alone by CUDA events. Returns a dict of the
+  step, its histograms, meta, and what was measured.'''
   wrapper = 'traceHistogram' if histPrecision == 'default' else 'traceBins'
-  step, hist, meta = benchmarks.makeBenchStep(histPrecision=histPrecision)
+  step, hist, meta = benchmarks.makeBenchStep(
+      raysPerStep=N_MAIN, maxIntersections=maxI, bins=BINS,
+      histPrecision=histPrecision, **benchKw)
   assert meta['backend'] == 'cuda'
   for s in range(WARM_STEPS):
     hist, counters = step(s, hist)
@@ -354,26 +416,38 @@ def fusedStepPhase(histPrecision):
   torch.cuda.synchronize()
   stepMs = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
   launches = dict(cuda_trace.launchCounts)
-  segments = sum(int(c['segments']) for c in allCounters)
-  hits = sum(int(c['hits']) for c in allCounters)
-  overflow = sum(int(c['hitOverflow']) for c in allCounters)
   if launches != onlyLaunches(**{wrapper: TIMED_STEPS}):
     raise AssertionError(f'{launches} kernel launches for {TIMED_STEPS} '
                          f'steps of histPrecision={histPrecision!r}')
-
-  # the kernel alone (events), and the plain version at the same size
-  tables = step.tables
-  kw = dict(maxIntersections=6,
+  kw = dict(maxIntersections=maxI,
             maxRayLength=meta['scene'].activeSimulationSettings()
-            .maxRayLength(), distTol=1e-4, powerTol=1e-6, hitSlots=1)
+            .maxRayLength(), distTol=1e-4, powerTol=1e-6,
+            hitSlots=step.hitSlots)
   seeds = iter(range(5000, 5000 + 10 ** 6))
   scratch = fused.initHistograms(meta['histSpec'], device=DEV)
   if histPrecision == 'default':
     kernelMs = cudaMs(lambda: step(next(seeds), scratch), TIMED_STEPS)
   else:
     kernelMs = cudaMs(lambda: cuda_trace.traceBins(
-        tables, N_MAIN, seed=next(seeds), strataTile=step.strataTile, **kw),
-        TIMED_STEPS)
+        step.tables, N_MAIN, seed=next(seeds), strataTile=step.strataTile,
+        **kw), TIMED_STEPS)
+  return dict(step=step, hist=hist, meta=meta, kw=kw, wrapper=wrapper,
+              stepMs=stepMs, kernelMs=kernelMs, launches=launches[wrapper],
+              segments=sum(int(c['segments']) for c in allCounters),
+              hits=sum(int(c['hits']) for c in allCounters),
+              overflow=sum(int(c['hitOverflow']) for c in allCounters))
+
+
+def fusedStepPhase(histPrecision):
+  '''The fused step through `benchmarks.makeBenchStep` at full width
+  (`timeBenchStep`), the plain version at the same size, and the physics of
+  the accumulated histogram.'''
+  t = timeBenchStep(histPrecision, 6)
+  step, hist, meta, kw = t['step'], t['hist'], t['meta'], t['kw']
+  stepMs, kernelMs = t['stepMs'], t['kernelMs']
+  segments, hits, overflow = t['segments'], t['hits'], t['overflow']
+  tables = step.tables
+  scratch = fused.initHistograms(meta['histSpec'], device=DEV)
   gen = torch.Generator(device=DEV)
   gen.manual_seed(7)
   strata = cuda_trace.tileStrata(N_MAIN, step.strataTile)
@@ -400,7 +474,7 @@ def fusedStepPhase(histPrecision):
             kernelMs=kernelMs, plainMs=plainMs,
             raySegmentsPerSec=segsPerStep / (stepMs * 1e-3),
             segmentsPerRay=segsPerStep / N_MAIN, hits=hits,
-            hitOverflow=overflow, launches=launches[wrapper],
+            hitOverflow=overflow, launches=t['launches'],
             boundMs=max(bounds[:2]), strataTile=step.strataTile,
             **bounds[2]))
 
@@ -426,7 +500,7 @@ def fusedStepPhase(histPrecision):
   if abs(meanPower - 0.98) > 1e-3:
     raise AssertionError(f'mean detected power {meanPower}, expected the '
                          f"fold mirror's reflectivity 0.98")
-  return dict(launches=launches[wrapper], kernelMs=kernelMs, plainMs=plainMs,
+  return dict(launches=t['launches'], kernelMs=kernelMs, plainMs=plainMs,
               bounds=bounds)
 
 
@@ -591,10 +665,10 @@ def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo):
   modes = [('b', dict(uniforms=us, strataTile=strataTile),
             dict(uniforms=us, strata=strata, strataTile=strataTile))]
   if columnsToo:
-    cols = cuda_trace.sampleRaysPlain(cuda_trace.variantTables(tables, 0),
-                                      us[0], us[1], strata, strataTile)
-    colsT = torch.stack(list(cols) + [torch.full_like(cols[0], 532.)]) \
-        .contiguous()
+    tables0 = cuda_trace.variantTables(tables, 0)
+    cols = cuda_trace.sampleRaysPlain(tables0, us[0], us[1], strata,
+                                      strataTile)
+    colsT = rayColumns(tables0, cols)
     modes.append(('c', dict(columns=colsT), dict(columns=colsT)))
   return max(holdSweepAgainstPlain(label, mode, tables, n, inputs,
                                    plainInputs, kw)[0]
@@ -659,39 +733,52 @@ def sweepStepFor(radii, n):
   return step, pack(host), host, spec
 
 
-def compareSweepWithSingle(V, n, seed=31):
-  '''The sweep kernel in seed mode against V launches of the histogram
-  kernel with the same seed and each variant's own table: the same rays, so
-  counts equal bin for bin, counters equal, power POWER_RTOL (the atomics
-  land in another order).'''
-  step, table, host, spec = sweepStepFor(np.linspace(45., 95., V), n)
-  power, counts, segments = step(seed, table)
+def holdSweepAgainstSingles(label, power, counts, counters, singles,
+                            histSpec, n, kw, seed):
+  '''A seed-mode launch of the sweep kernel (its per-variant `power`,
+  `counts`, `counters`) against one launch of the histogram kernel per
+  variant with the same seed on that variant's own table (`singles`): the
+  same rays, so counters equal, counts equal bin for bin, power POWER_RTOL
+  (the atomics land in another order).'''
   torch.cuda.synchronize()
-  counters = step.counters.tolist()
+  counters = counters.tolist()
   worst = 0.
-  for v in range(V):
-    tables = cuda_trace.buildTraceTables(host[v][0], step.histSpec, spec,
-                                         device=DEV)
-    hist = fused.initHistograms(step.histSpec, device=DEV)
-    c = cuda_trace.traceHistogram(
-        tables, hist, n, SWEEP_MAX_INTERSECTIONS, 1000., 1e-4,
-        hitSlots=step.hitSlots, seed=seed, strataTile=step.strataTile)
+  for v, tables in enumerate(singles):
+    hist = fused.initHistograms(histSpec, device=DEV)
+    c = cuda_trace.traceHistogram(tables, hist, n, seed=seed, **kw)
     torch.cuda.synchronize()
     if c.tolist() != counters[v]:
-      raise AssertionError(f'sweep variant {v}: counters {counters[v]}, the '
-                           f'single-scene kernel {c.tolist()}')
+      raise AssertionError(f'{label} sweep variant {v}: counters '
+                           f'{counters[v]}, the single-scene kernel '
+                           f'{c.tolist()}')
     if not torch.equal(hist['counts'], counts[v]):
-      raise AssertionError(f'sweep variant {v}: counts differ from the '
-                           f'single-scene kernel')
+      raise AssertionError(f'{label} sweep variant {v}: counts differ from '
+                           f'the single-scene kernel')
     if not torch.allclose(hist['power'], power[v], rtol=POWER_RTOL, atol=0.):
-      raise AssertionError(f'sweep variant {v}: power differs from the '
-                           f'single-scene kernel beyond rtol {POWER_RTOL}')
+      raise AssertionError(f'{label} sweep variant {v}: power differs from '
+                           f'the single-scene kernel beyond rtol '
+                           f'{POWER_RTOL}')
     worst = max(worst, float((hist['power'] - power[v]).abs().max()))
-  if int(segments) != sum(c[0] for c in counters):
-    raise AssertionError('the step\'s segment total is not the counters\'')
-  emit(dict(phase='sweep-vs-single', variants=V, raysPerVariant=n, seed=seed,
-            strataTile=step.strataTile, segments=int(segments),
+  emit(dict(phase='sweep-vs-single', sweep=label, variants=len(singles),
+            raysPerVariant=n, seed=seed, strataTile=kw['strataTile'],
+            segments=sum(c[0] for c in counters),
             hits=sum(c[1] for c in counters), maxAbsErrPower=worst))
+
+
+def compareSweepWithSingle(V, n, seed=31):
+  '''The path's sweep step (`makeSweepStep`) in seed mode against V
+  launches of the histogram kernel (`holdSweepAgainstSingles`).'''
+  step, table, host, spec = sweepStepFor(np.linspace(45., 95., V), n)
+  power, counts, segments = step(seed, table)
+  if int(segments) != int(step.counters[:, 0].sum()):
+    raise AssertionError('the step\'s segment total is not the counters\'')
+  singles = [cuda_trace.buildTraceTables(h, step.histSpec, spec, device=DEV)
+             for h, _i in host]
+  holdSweepAgainstSingles(
+      'radius', power, counts, step.counters, singles, step.histSpec, n,
+      dict(maxIntersections=SWEEP_MAX_INTERSECTIONS, maxRayLength=1000.,
+           distTol=1e-4, hitSlots=step.hitSlots, strataTile=step.strataTile),
+      seed)
 
 
 def sweepPathPhase(V, n):
@@ -840,6 +927,312 @@ def sweepOptimizePhase(tmp):
     raise AssertionError(f'optimize launched {launches}')
 
 
+def lineCentroidMm(counts):
+  '''Distance (mm) of the count centroid of a (1, H, W) detector histogram
+  over SPECTRO_BOUNDS from the axis: where the spectral line lies.'''
+  H = counts[0].double()
+  n = float(H.sum())
+  ys = torch.arange(H.shape[0], dtype=torch.float64, device=H.device)
+  xs = torch.arange(H.shape[1], dtype=torch.float64, device=H.device)
+  x = SPECTRO_BOUNDS[0] + (float((H.sum(0) * xs).sum()) / n + 0.5) * BIN_MM
+  y = SPECTRO_BOUNDS[2] + (float((H.sum(1) * ys).sum()) / n + 0.5) * BIN_MM
+  return float(np.hypot(x, y))
+
+
+def b4KernelChecks():
+  '''Each kernel against its plain version on the scenes of gratings,
+  dispersion, sequential mode and per-source masks (modes (b) and (c),
+  the gates of phase 2), the histogram kernel on the spectrometer at full
+  width, and the sweep kernel on a 3-wavelength sweep of the spectrometer:
+  against its plain version, and in seed mode against one launch of the
+  histogram kernel per variant. Returns the worst error per kernel.'''
+  ns = helpers.torchNs()
+  worst = dict(traceHistogram=0., traceBins=0., traceRaw=0., traceSweep=0.)
+  for name, (build, source) in helpers.B4_SCENES.items():
+    scene, bounds, maxI = build(ns)
+    worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+        name, scene, bounds, maxI, N_SMALL, BINS, source=source))
+    w = compareRingsWithPlain(name, scene, bounds, maxI, N_SMALL, BINS,
+                              source=source)
+    worst['traceRaw'] = max(worst['traceRaw'], w['traceRaw'])
+    worst['traceBins'] = max(worst['traceBins'], w['traceBins'])
+  worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+      'spectrometer', benchmarks.buildSpectrometerScene(), SPECTRO_BOUNDS,
+      SPECTRO_MAX_INTERSECTIONS, N_MAIN, BINS))
+  scenes = [benchmarks.buildSpectrometerScene(wavelength=w)
+            for w in SPECTRO_WAVELENGTHS]
+  worst['traceSweep'] = compareSweepWithPlain(
+      'wavelength', scenes, SPECTRO_BOUNDS, SPECTRO_MAX_INTERSECTIONS,
+      N_SMALL, columnsToo=False)
+  host = [sc.compile(device=None) for sc in scenes]
+  histSpec = fused.makeHistogramSpec(*host[0], bounds=SPECTRO_BOUNDS,
+                                     bins=SWEEP_BINS)
+  specs = [sc.lightSources()[0].samplerSpec() for sc in scenes]
+  tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec, specs,
+                                       device=DEV)
+  shape = (len(scenes), 1) + SWEEP_BINS
+  hist = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+  kw = dict(maxIntersections=SPECTRO_MAX_INTERSECTIONS, maxRayLength=1000.,
+            distTol=1e-4, powerTol=1e-6, hitSlots=1,
+            strataTile=cuda_trace.DEFAULT_STRATA_TILE)
+  seed = 41
+  counters = cuda_trace.traceSweep(tables, hist, N_SMALL, seed=seed, **kw)
+  singles = [cuda_trace.buildTraceTables(h, histSpec, spec, device=DEV)
+             for (h, _i), spec in zip(host, specs)]
+  holdSweepAgainstSingles('wavelength', hist['power'], hist['counts'],
+                          counters, singles, histSpec, N_SMALL, kw, seed)
+  return worst
+
+
+def spectroStepPhase(histPrecision):
+  '''The fused step on the spectrometer at full width (`timeBenchStep`):
+  every ray meets the grating and the detector, the line lies where the
+  grating equation puts it, nothing is lost on the way.'''
+  t = timeBenchStep(histPrecision, SPECTRO_MAX_INTERSECTIONS,
+                    scene=benchmarks.buildSpectrometerScene(),
+                    histBounds=SPECTRO_BOUNDS)
+  step, hist = t['step'], t['hist']
+  nRays = N_MAIN * TIMED_STEPS
+  segsPerStep = t['segments'] / TIMED_STEPS
+  outBytes = (2 * hist['power'].numel() * 4 * 2 if histPrecision == 'default'
+              else 3 * step.hitSlots * N_MAIN * 4)
+  bounds = boundMs(step.tables, segsPerStep, N_MAIN, outBytes,
+                   gratingPasses=N_MAIN)
+  centroid = lineCentroidMm(hist['counts'])
+  expected = example4.expectedPosition(532.)
+  meanPower = float(hist['power'].double().sum()
+                    / hist['counts'].double().sum())
+  emit(dict(phase='spectrometer-step', histPrecision=histPrecision,
+            rays=N_MAIN, maxIntersections=SPECTRO_MAX_INTERSECTIONS,
+            bins=BINS, steps=TIMED_STEPS, stepMs=t['stepMs'],
+            kernelMs=t['kernelMs'],
+            raySegmentsPerSec=segsPerStep / (t['stepMs'] * 1e-3),
+            segmentsPerRay=segsPerStep / N_MAIN, hits=t['hits'],
+            hitOverflow=t['overflow'], launches=t['launches'],
+            boundMs=max(bounds[:2]), lineCentroidMm=centroid,
+            expectedMm=expected, meanDetectedPower=meanPower,
+            peakBinShare=float(hist['counts'].max() / hist['counts'].sum()),
+            **bounds[2]))
+  # every ray: source -> grating -> detector (one pass through the grating)
+  if t['hits'] != nRays or t['segments'] != 2 * nRays or t['overflow']:
+    raise AssertionError(f'spectrometer: {t["hits"]} hits, {t["segments"]} '
+                         f'segments for {nRays} rays')
+  if float(hist['counts'].double().sum()) != t['hits']:
+    raise AssertionError('spectrometer histogram counts != hits')
+  if abs(centroid - expected) > BIN_MM or abs(meanPower - 1.) > 1e-6:
+    raise AssertionError(f'spectral line at {centroid} mm (expected '
+                         f'{expected}), mean power {meanPower}')
+  return dict(launches=t['launches'], ms=t['kernelMs'], bounds=bounds)
+
+
+def evanescentPhase():
+  '''At 2000 lines/mm and 650 nm the first order is evanescent at normal
+  incidence: the grating absorbs every ray, the detector records nothing.'''
+  step, hist, _meta = benchmarks.makeBenchStep(
+      scene=benchmarks.buildSpectrometerScene(linesPerMm=2000.,
+                                              wavelength=650.),
+      raysPerStep=N_MAIN, maxIntersections=SPECTRO_MAX_INTERSECTIONS,
+      bins=BINS, histBounds=SPECTRO_BOUNDS)
+  hist, counters = step(3, hist)
+  power = float(hist['power'].double().sum())
+  emit(dict(phase='spectrometer-evanescent', rays=N_MAIN,
+            hits=int(counters['hits']), segments=int(counters['segments']),
+            detectedPower=power))
+  if int(counters['hits']) != 0 or power != 0. \
+      or int(counters['segments']) != N_MAIN:
+    raise AssertionError('the evanescent order reached the detector')
+
+
+def spectroRunPhases(tmp):
+  '''`runSimulation` on examples/4's scene, one source each at 450, 550 and
+  650 nm: raw recording, each line from the stored hits within LINE_TOL_MM
+  of the grating equation; then histogram-first recording. Returns the raw
+  kernel's launches, its time on one source's 1 << 20-ray step and its
+  bound.'''
+  scene = example4.buildScene(path=os.path.join(tmp, 'example4'),
+                              wavelengths=SPECTRO_WAVELENGTHS)
+  settings = scene.activeSimulationSettings()
+  settings.RaysPerIteration = N_RAW_ITERATION
+  settings.EndAfterIterations = SPECTRO_RAW_ITERATIONS
+  settings.EndAfterRays = 'inf'
+  nSrc = len(SPECTRO_WAVELENGTHS)
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(scene,
+                                                        recording='raw')
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  raw = RawFolder(runPath)
+  positions, rows = {}, 0
+  for wl in SPECTRO_WAVELENGTHS:
+    pts = raw.loadHits('Detector', source=f'Source{int(wl)}').points()
+    rows += len(pts)
+    positions[wl] = float(np.hypot(pts[:, 0], pts[:, 1]).mean())
+  traced = last['totalTracedRays']
+  perIterationMs = later / (SPECTRO_RAW_ITERATIONS - 1) * 1e3
+  emit(dict(phase='spectrometer-run-raw', sources=nSrc,
+            raysPerIteration=N_RAW_ITERATION,
+            iterations=last['totalIterations'], tracedRays=traced,
+            storedHits=rows, launches=launches,
+            linePositionsMm={str(int(k)): v for k, v in positions.items()},
+            expectedMm={str(int(k)): example4.expectedPosition(k)
+                        for k in SPECTRO_WAVELENGTHS},
+            setupAndFirstIterationS=first, laterIterationsS=later,
+            cleanupFlushS=cleanup, perIterationMs=perIterationMs,
+            raysPerSecStoredLoop=nSrc * N_RAW_ITERATION
+            / (perIterationMs * 1e-3),
+            raysPerSecStoredWithFlush=traced / (first + later + cleanup)))
+  if launches != onlyLaunches(traceRaw=nSrc * SPECTRO_RAW_ITERATIONS):
+    raise AssertionError(f'spectrometer raw run launched {launches}')
+  if traced != nSrc * N_RAW_ITERATION * SPECTRO_RAW_ITERATIONS \
+      or rows != last['totalRecordedHits'] or rows != traced:
+    raise AssertionError(f'{rows} rows stored, {last}')
+  for wl, pos in positions.items():
+    if abs(pos - example4.expectedPosition(wl)) > LINE_TOL_MM:
+      raise AssertionError(f'{wl} nm line at {pos} mm, expected '
+                           f'{example4.expectedPosition(wl)}')
+  if not positions[450.] < positions[550.] < positions[650.]:
+    raise AssertionError(f'line positions not increasing: {positions}')
+  rawLaunches = launches['traceRaw']
+
+  # the raw kernel alone on one source's step, and its bound
+  sceneNp, info = scene.compile(device=None)
+  sceneNp['powerTol'] = 1e-6
+  histSpec = fused.makeHistogramSpec(sceneNp, info)
+  src = scene.lightSources()[1]
+  step = cuda_trace.makeRawStep(
+      sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
+      raysPerStep=N_RAW_ITERATION, maxIntersections=SPECTRO_MAX_INTERSECTIONS,
+      maxRayLength=settings.maxRayLength(), distTol=1e-4,
+      sampler=src.samplerSpec())
+  seeds = iter(range(10 ** 6))
+  _records, counters = step(next(seeds))
+  kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
+      step.tables, N_RAW_ITERATION, SPECTRO_MAX_INTERSECTIONS,
+      settings.maxRayLength(), 1e-4, hitSlots=step.hitSlots,
+      seed=next(seeds), strataTile=step.strataTile), TIMED_STEPS)
+  rawBounds = boundMs(step.tables, int(counters['segments']), N_RAW_ITERATION,
+                      9 * step.hitSlots * N_RAW_ITERATION * 4,
+                      gratingPasses=N_RAW_ITERATION)
+
+  # histogram-first recording
+  settings.RaysPerIteration = N_MAIN
+  settings.EndAfterIterations = SPECTRO_HIST_ITERATIONS
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(
+      scene, recording='histogram', histBins=BINS, histBounds=SPECTRO_BOUNDS)
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  snaps = results_store.loadHistogramSnapshots(runPath)
+  centroids, counts = {}, 0.
+  for wl in SPECTRO_WAVELENGTHS:
+    snap = snaps[f'Source{int(wl)}']['Detector']
+    c = torch.as_tensor(snap['counts']).reshape((1,) + BINS)
+    counts += float(c.double().sum())
+    centroids[wl] = lineCentroidMm(c)
+  sampleSteps = sum(1 for p in range(1, len(progress) + 1) if p % 8 == 1)
+  emit(dict(phase='spectrometer-run-histogram', sources=nSrc,
+            raysPerIteration=N_MAIN, iterations=last['totalIterations'],
+            passes=len(progress), tracedRays=last['totalTracedRays'],
+            histCounts=counts, recordedHits=last['totalRecordedHits'],
+            lineCentroidsMm={str(int(k)): v for k, v in centroids.items()},
+            launches=launches, setupAndFirstPassS=first,
+            laterPassesS=later, cleanupFlushS=cleanup,
+            raysPerSec=last['totalTracedRays'] / (first + later + cleanup)))
+  if last['totalTracedRays'] != nSrc * SPECTRO_HIST_ITERATIONS * N_MAIN \
+      or counts != last['totalRecordedHits'] \
+      or counts != last['totalTracedRays']:
+    raise AssertionError(f'spectrometer histogram run: counts {counts}, '
+                         f'{last}')
+  for wl, pos in centroids.items():
+    if abs(pos - example4.expectedPosition(wl)) > BIN_MM:
+      raise AssertionError(f'{wl} nm histogram line at {pos} mm')
+  if launches != onlyLaunches(traceHistogram=nSrc * SPECTRO_HIST_ITERATIONS,
+                              traceRaw=nSrc * sampleSteps):
+    raise AssertionError(f'spectrometer histogram run launched {launches}')
+  return dict(launches=rawLaunches, ms=kernelMs, bounds=rawBounds)
+
+
+def spectroSweepPhase():
+  '''A wavelength calibration of the spectrometer through `evaluateBatched`
+  (geometry mode: the source's wavelength is the swept parameter), three
+  calls with shifted wavelengths: one sweep-kernel launch per call, each
+  line's centroid within one bin of the grating equation; the sweep kernel
+  alone by CUDA events and against its plain version at this shape.'''
+  V, n = SPECTRO_SWEEP
+  scene = benchmarks.buildSpectrometerScene()
+  sweeper = parameter_sweeper.ParameterSweeper(
+      lambda sc: dict(wl=(sc.lightSources()[0], 'Wavelength')),
+      scene=scene, device=DEV)
+  wavelengths = np.linspace(400., 700., V)
+  worstMm, walls = 0., []
+  resetLaunchCounts()
+  for k in range(3):
+    wls = wavelengths + 0.5 * k
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centroids = sweeper.evaluateBatched(
+        [dict(wl=float(w)) for w in wls],
+        lambda power, counts: lineCentroidMm(torch.as_tensor(counts)),
+        raysPerScene=n, maxIntersections=SPECTRO_MAX_INTERSECTIONS,
+        bins=BINS, histBounds=SPECTRO_BOUNDS, seed=k)
+    walls.append(time.perf_counter() - t0)
+    expected = np.array([example4.expectedPosition(w) for w in wls])
+    worstMm = max(worstMm, float(np.abs(centroids - expected).max()))
+  launches = dict(cuda_trace.launchCounts)
+  if sweeper.lastBatchedRoute != 'sweep' \
+      or launches != onlyLaunches(traceSweep=3):
+    raise AssertionError(f'{launches} launches for 3 evaluateBatched calls '
+                         f'(route {sweeper.lastBatchedRoute})')
+  if worstMm > BIN_MM:
+    raise AssertionError(f'a centroid lies {worstMm} mm off the grating '
+                         f'equation')
+
+  # the kernel alone, by events, and against its plain version
+  scenes = [benchmarks.buildSpectrometerScene(wavelength=float(w))
+            for w in wavelengths]
+  host = [sc.compile(device=None) for sc in scenes]
+  histSpec = fused.makeHistogramSpec(*host[0], bounds=SPECTRO_BOUNDS,
+                                     bins=BINS)
+  specs = [sc.lightSources()[0].samplerSpec() for sc in scenes]
+  tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec, specs,
+                                       device=DEV)
+  shape = (V, 1) + BINS
+  hist = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+  tile = cuda_trace.DEFAULT_STRATA_TILE
+  kw = dict(maxIntersections=SPECTRO_MAX_INTERSECTIONS, maxRayLength=1000.,
+            distTol=1e-4, powerTol=1e-6, hitSlots=1)
+  seeds = iter(range(7000, 10 ** 6))
+  counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds),
+                                   strataTile=tile, **kw)
+  segments = int(counters[:, 0].sum())
+  sweepMs = cudaMs(lambda: cuda_trace.traceSweep(
+      tables, hist, n, seed=next(seeds), strataTile=tile, **kw), 5)
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(10)
+  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
+  err, plainMs = holdSweepAgainstPlain(
+      f'spectrometer-{V}x{n}', 'b', tables, n,
+      dict(uniforms=us, strataTile=tile),
+      dict(uniforms=us, strata=cuda_trace.tileStrata(n, tile),
+           strataTile=tile), kw)
+  steady = min(walls[1:])
+  bounds = boundMs(tables, segments, V * n, 2 * 2 * hist['power'].numel() * 4,
+                   gratingPasses=V * n)
+  emit(dict(phase='spectrometer-sweep', variants=V, raysPerVariant=n,
+            coldS=walls[0], steadyS=steady, calls=walls,
+            raysPerSec=V * n / steady, sweepKernelMs=sweepMs,
+            hostShare=1. - sweepMs * 1e-3 / steady,
+            launchesPerCall=launches['traceSweep'] / 3,
+            segmentsPerCall=segments,
+            raySegmentsPerSecKernel=segments / (sweepMs * 1e-3),
+            worstCentroidOffMm=worstMm, binMm=BIN_MM, plainMs=plainMs,
+            maxAbsErrPower=err, boundMs=max(bounds[:2]), **bounds[2]))
+  return dict(launches=launches['traceSweep'], ms=sweepMs, err=err,
+              bounds=bounds)
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('chip_smoke.py needs a CUDA device: torch.cuda.is_available() '
@@ -898,6 +1291,10 @@ def main():
       'placement', scenes, bounds, maxI, N_SMALL, columnsToo=False))
   compareSweepWithSingle(*SWEEPS[0])
 
+  # the same gates on the scenes of gratings, dispersion, sequential mode
+  # and per-source masks, and on the spectrometer
+  worstB4 = b4KernelChecks()
+
   # ---- phase 3: the fused step, binned in the kernel and outside it ----
   k1 = fusedStepPhase('default')
   k2 = fusedStepPhase('highest')
@@ -911,6 +1308,12 @@ def main():
       sweep = sweepPathPhase(V, n)
       worstSweep = max(worstSweep, sweep['maxAbsErr'])
     sweepOptimizePhase(tmp)
+    # ---- phase 6: the grating spectrometer ----
+    spectro = dict(traceHistogram=spectroStepPhase('default'),
+                   traceBins=spectroStepPhase('highest'))
+    evanescentPhase()
+    spectro['traceRaw'] = spectroRunPhases(tmp)
+    spectro['traceSweep'] = spectroSweepPhase()
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -948,18 +1351,21 @@ def main():
             plainMs=plainRawMs, boundOpsMs=rawBounds[0],
             boundBytesMs=rawBounds[1], **rawBounds[2]))
 
+  for name, entry in spectro.items():
+    entry['err'] = max(entry.get('err', 0.), worstB4[name])
   emit(dict(kernels=[
       kernelEntry('traceHistogram', 'trace_kernel.cu', 2776, k1['launches'],
-                  worst, k1['kernelMs'], k1['plainMs'], k1['bounds']),
+                  worst, k1['kernelMs'], k1['plainMs'], k1['bounds'],
+                  spectro['traceHistogram']),
       kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
                   worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
-                  rawBounds),
+                  rawBounds, spectro['traceRaw']),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
-                  k2['bounds']),
+                  k2['bounds'], spectro['traceBins']),
       kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
                   sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
-                  sweepBounds)]))
+                  sweepBounds, spectro['traceSweep'])]))
   print(smi, flush=True)
   print(json.dumps(dict(ok=True, device=dict(
       platform='gpu', kind=torch.cuda.get_device_name(0),

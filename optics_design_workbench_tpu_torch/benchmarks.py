@@ -4,8 +4,8 @@ JAX package's benchmarks.py): the headline scene mirrors
 examples/2-lens-and-mirror — Gaussian point source -> plano-convex lens ->
 45deg fold mirror -> absorbing detector — so every ray traces ~4 segments
 with refraction, reflection and medium tracking on the path, plus the
-simpler examples/1 source->detector scene and the examples/3 lens whose
-radius a parameter sweep varies.
+simpler examples/1 source->detector scene, the examples/3 lens whose
+radius a parameter sweep varies, and the examples/4 grating spectrometer.
 '''
 
 import numpy as np
@@ -106,6 +106,34 @@ def buildSweepLensScene(lensRadius=60., path=None):
   return scene
 
 
+def buildSpectrometerScene(linesPerMm=500., wavelength=532.):
+  '''The reference's throughput scene of the examples/4 spectrometer
+  (tools/scene_throughput.sceneSpectrometer): a point source at the origin,
+  `exp(-theta^2/1e-4)` over theta in [0, 0.05] at `wavelength` nm, onto a
+  reflection grating at z = 100 mm (`linesPerMm` lines/mm, order 1, lines
+  along x, a disc of radius 40 mm facing the source), which sends each
+  wavelength's first order back onto an absorbing detector plane of
+  160 x 160 mm at z = 0; 3 intersections. At 500 lines/mm and 532 nm the
+  line lies 28.2 mm off the axis.'''
+  scene = Scene(label='spectro_tp')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Grating', Label='Grating', GratingType='Reflection',
+      GratingLinesPerMillimeter=float(linesPerMm), GratingDiffractionOrder=1,
+      GratingLinesOrientation=(1., 0., 0.),
+      surfaces=[S.plane(np.eye(4), elem=0, radius=40., orient=-1)],
+      placements=[T.translation(0, 0, 100.)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(80., 80.))],
+      placements=[T.translation(0, 0, 0)]))
+  scene.addSource(PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/1e-4)',
+      Wavelength=float(wavelength), ThetaDomain='0, 0.05',
+      ThetaResolutionNumericMode='2e3'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=3)
+  return scene
+
+
 def makeSweepLensSweeper(path=None, device='cuda'):
   '''The examples/3 sweeper: a `ParameterSweeper` whose parameter R (bounds
   40..100 mm) REBUILDS the lens scene, source included, as the example's
@@ -127,9 +155,10 @@ def makeSweepLensSweeper(path=None, device='cuda'):
 
 
 def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,
-                  bins=(128, 128), stratified=False, histPrecision='default',
-                  device='cuda'):
-  '''Compile the fused sample+trace+histogram step for a benchmark scene.
+                  bins=(128, 128), histBounds=(-60., 60., -60., 60.),
+                  stratified=False, histPrecision='default', device='cuda'):
+  '''Compile the fused sample+trace+histogram step for a benchmark scene
+  (`histBounds`: the detector-local x0, x1, y0, y1 of the histograms).
   Returns (step, histograms, meta). step: (seed, hist) -> (hist, counters)
   with `seed` a python int or a torch.Generator; `hist` is accumulated in
   place. On the card the step is ONE launch of the CUDA trace kernel with
@@ -144,8 +173,7 @@ def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,
   sceneHost, info = scene.compile(device=None)
   src = scene.lightSources()[0]
   histSpec = fused.makeHistogramSpec(sceneHost, info,
-                                     bounds=(-60., 60., -60., 60.),
-                                     bins=bins)
+                                     bounds=histBounds, bins=bins)
   hist = fused.initHistograms(histSpec, device=dev)
   settings = scene.activeSimulationSettings()
   step = cuda_trace.makeTraceStep(

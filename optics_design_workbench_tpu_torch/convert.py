@@ -18,9 +18,12 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
     deviceNp     the dict of numpy arrays from
                  `Scene.compile(devicePut=False)`: `surfaces` with `packed`,
                  `trim`, `kind`; `elements` with `packed`, `optType`,
-                 `recordHits` (extra keys are ignored, except that
-                 `scatter`, `seqMask`, `surfMask` and `nTable` are refused
-                 as not ported yet);
+                 `recordHits` and, for a dispersive scene, `nLambda`,
+                 `nTable`, `hasDispersion`; the sequential-mode mask
+                 `seqMask` and a source's `surfMask` (as the JAX runner's
+                 `sceneFor` adds it) where present. Other keys are
+                 ignored, except that `scatter` is refused as not ported
+                 yet;
     histSpecNp   the histogram spec: `elemToDet`, `bounds`, `bins`;
     samplerSpec  optionally the dict from `pallasSamplerSpec()`.
 
@@ -38,11 +41,14 @@ def _sceneAndSpec(deviceNp, histSpecNp):
                 for k in ('packed', 'trim', 'kind')},
       elements={k: np.asarray(deviceNp['elements'][k])
                 for k in ('packed', 'optType', 'recordHits')})
-  for key in ('scatter', 'seqMask', 'surfMask'):
+  for key in ('seqMask', 'surfMask'):
     if key in deviceNp:
-      scene[key] = deviceNp[key]
-  if 'nTable' in deviceNp['elements']:
-    scene['elements']['nTable'] = deviceNp['elements']['nTable']
+      scene[key] = np.asarray(deviceNp[key])
+  if 'scatter' in deviceNp:
+    scene['scatter'] = deviceNp['scatter']
+  for key in ('nLambda', 'nTable', 'hasDispersion'):
+    if key in deviceNp['elements']:
+      scene['elements'][key] = np.asarray(deviceNp['elements'][key])
   histSpec = dict(elemToDet=np.asarray(histSpecNp['elemToDet']),
                   bounds=np.asarray(histSpecNp['bounds'],
                                     dtype=np.float32).reshape(-1, 4),

@@ -1,17 +1,29 @@
 // Shared body of the trace kernels for NVIDIA Hopper (sm_90a): the sampler,
 // the surface sweep, the physics and the bounce loop exist ONCE here, as one
-// `__global__` function templated on its OUTPUT MODE and on whether it traces
-// ONE scene or a variant-major SWEEP of scenes. Each kernel source
-// (trace_kernel.cu, trace_bins_kernel.cu, trace_raw_kernel.cu,
-// trace_sweep_kernel.cu) instantiates one combination behind a plain-C
-// launcher.
+// `__global__` function templated on its OUTPUT MODE, on whether it traces
+// ONE scene or a variant-major SWEEP of scenes, and on B4 (below). Each
+// kernel source (trace_kernel.cu, trace_bins_kernel.cu, trace_raw_kernel.cu,
+// trace_sweep_kernel.cu) instantiates one mode, with and without B4, behind
+// a plain-C launcher.
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
 // (optics_design_workbench_tpu/ops/pallas_trace.py), main-path subset:
 // PLANE / SPHERE / CYLINDER surfaces with window, annulus and z-band trims;
-// Mirror / Lens / Absorber / Vacuum elements with Beer-Lambert absorption;
-// the point-source sampler with affine, piecewise-polynomial and tent
-// marginals and ray-index strata; the per-ray hit-slot ring.
+// Mirror / Lens / Absorber / Vacuum / Grating elements with Beer-Lambert
+// absorption; n(wavelength) of dispersive elements as a Horner polynomial;
+// sequential mode and per-source surface masks; the point-source sampler
+// with affine, piecewise-polynomial and tent marginals and ray-index strata;
+// the per-ray hit-slot ring.
+//
+// The grating, dispersion and the stage gate sit behind header flags of the
+// launch (hasGrating, dispOff >= 0, gate, nStages > 0), the same for every
+// thread, and behind the compile-time flag B4, which the launcher sets when
+// any of them is on: a scene without them runs an instance without that
+// code, so its work is what it was before B4. n(wavelength) is evaluated
+// where it is read, for the winning element and for the medium on each
+// bounce, instead of once per ray into a per-thread array (16 elements
+// would spill to local memory); the polynomial's operations are the same,
+// and with contraction off so are its bits.
 //
 // Output modes (what happens to a hit-ring slot):
 //   OUT_HIST  the slot is added to the (D, H, W) power + count histograms
@@ -62,20 +74,32 @@ namespace {
 
 constexpr float kBig = 3.0e38f;
 constexpr int kSurfCols = 20;
-constexpr int kElemCols = 12;
+constexpr int kElemCols = 18;
+constexpr int kDispCols = 17;     // mid, 1/half, nCoef, 0, 13 coefficients
 constexpr int kSegStride = 17;     // a, mid, 1/half, nCoef, 13 coefficients
 constexpr int kMargLen = 264;      // kind, n, lo, hi/span, 260 payload floats
 constexpr int kSamplerGeom = 16;   // finite, f, R(9), off(3), wavelength, pad
 constexpr int kBlock = 256;
+// blocks of kBlock threads the compiler must be able to keep resident on
+// one SM (the second argument of __launch_bounds__): 1 leaves the registers
+// per thread uncapped; N caps them at 65536 / (N * kBlock). A build-time
+// constant so that a probe can build the other choices beside it.
+#ifndef ODW_MIN_BLOCKS_PER_SM
+#define ODW_MIN_BLOCKS_PER_SM 1
+#endif
 
 // surface row columns
+// S_STAGES: bit q lets a ray whose clamped stage index is q hit the surface
+// (without sequential mode: 1 = allowed, 0 = masked by the source)
 enum { S_KIND = 0, S_ROT = 1, S_OFF = 10, S_ORIENT = 13, S_ELEM = 14,
-       S_P0SQ = 15, S_TRIM0 = 16, S_TRIMA = 17, S_TRIMB = 18 };
+       S_P0SQ = 15, S_TRIM0 = 16, S_TRIMA = 17, S_TRIMB = 18, S_STAGES = 19 };
 // element row columns
 enum { E_OPT = 0, E_N = 1, E_REFL = 2, E_ABSLEN = 3, E_REC = 4, E_DET = 5,
-       E_BX0 = 6, E_BX1 = 7, E_BY0 = 8, E_BY1 = 9, E_MEDIUM = 10 };
+       E_BX0 = 6, E_BX1 = 7, E_BY0 = 8, E_BY1 = 9, E_MEDIUM = 10,
+       E_DISP = 11, E_GTYPE = 12, E_GLPM = 13, E_GDIR = 14, E_GORDER = 17 };
 enum { KIND_PLANE = 0, KIND_SPHERE = 1, KIND_CYLINDER = 2 };
-enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_ABSORBER = 3 };
+enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_GRATING = 2, OPT_ABSORBER = 3,
+       OPT_VACUUM = 4 };
 enum { MODE_SEED = 0, MODE_UNIFORMS = 1, MODE_COLUMNS = 2 };
 enum { OUT_HIST = 0, OUT_BINS = 1, OUT_RAW = 2 };
 
@@ -90,6 +114,10 @@ struct TraceParams {
   // SWEEP only: blocks per variant, floats per variant's histogram
   int blocksPerVariant;
   long long histLen;
+  // header flags of the scene: any grating; sequential stages (0: none);
+  // some surface not always allowed; offset of the dispersion block (-1:
+  // no dispersive element)
+  int hasGrating, nStages, gate, dispOff;
 };
 
 // ---- Philox4x32-10, written out (Salmon et al. 2011): counter = ray index,
@@ -142,6 +170,15 @@ __device__ float marginal(const float* m, float u) {
   float w0 = fmaxf(0.f, 1.f - fabsf(pos - (float)j));
   float w1 = fmaxf(0.f, 1.f - fabsf(pos - ((float)j + 1.f)));
   return w0 * data[j] + w1 * data[j + 1];
+}
+
+// n(wavelength) from one dispersion row: Horner in the scaled wavelength
+__device__ __forceinline__ float dispersionN(const float* d, float wl) {
+  float s = (wl - d[0]) * d[1];
+  int nc = (int)d[2];
+  float acc = d[4 + nc - 1];
+  for (int c = nc - 2; c >= 0; --c) acc = acc * s + d[4 + c];
+  return acc;
 }
 
 __device__ __forceinline__ float signf(float x) {
@@ -202,8 +239,8 @@ __device__ float intersect(const float* r, float ox, float oy, float oz,
 // `table` holds V tables of p.tableLen floats, out0 / out1 V histograms of
 // p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
 // `rayIn` (shared by all variants) has p.N columns.
-template <int OUT, bool SWEEP = false>
-__global__ void __launch_bounds__(kBlock)
+template <int OUT, bool SWEEP, bool B4>
+__global__ void __launch_bounds__(kBlock, ODW_MIN_BLOCKS_PER_SM)
 traceKernel(TraceParams p, const float* __restrict__ table,
             const float* __restrict__ rayIn, float* __restrict__ out0,
             float* __restrict__ out1,
@@ -235,12 +272,12 @@ traceKernel(TraceParams p, const float* __restrict__ table,
   float* ring = out0 + i;
 
   if (i < p.N) {
-    float ox, oy, oz, dx, dy, dz, pw;
+    float ox, oy, oz, dx, dy, dz, pw, wl;
     if (p.mode == MODE_COLUMNS) {
       ox = rayIn[i];             oy = rayIn[p.N + i];
       oz = rayIn[2 * p.N + i];   dx = rayIn[3 * p.N + i];
       dy = rayIn[4 * p.N + i];   dz = rayIn[5 * p.N + i];
-      pw = rayIn[6 * p.N + i];   // column 7 (wavelength) is unused here
+      pw = rayIn[6 * p.N + i];   wl = rayIn[7 * p.N + i];
     } else {
       // ---- in-kernel point-source sampler ----
       float u1, u2;
@@ -282,16 +319,23 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       dy = R[3] * ldx + R[4] * ldy + R[5] * ldz;
       dz = R[6] * ldx + R[7] * ldy + R[8] * ldz;
       pw = 1.f;
+      wl = sg[14];
     }
 
     int medium = -1;               // element id of the medium, -1 = vacuum
+    int seq = 0;                   // sequential mode: the ray's stage index
     for (int bounce = 0; bounce < p.maxIntersections; ++bounce) {
       // ---- nearest hit: online argmin (strict <: lowest index wins ties)
-      // plus the nearest surface NOT of the current medium ----
+      // plus the nearest surface NOT of the current medium, over the
+      // surfaces the ray's stage allows (a skipped surface is one whose
+      // distance is kBig: it changes no other surface's index) ----
       float tBest = kBig, tOth = kBig;
       int sBest = -1, sOth = -1;
+      const int stage = B4 ? min(seq, max(p.nStages, 1) - 1) : 0;
       for (int s = 0; s < p.nSurf; ++s) {
         const float* r = surfT + s * kSurfCols;
+        if (B4 && p.gate && !(((unsigned)r[S_STAGES] >> stage) & 1u))
+          continue;
         float t = intersect(r, ox, oy, oz, dx, dy, dz, p.tMin);
         if (t < tBest) { tBest = t; sBest = s; }
         if (p.anyMedium) {
@@ -339,12 +383,19 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       float sgn = isEntering ? -1.f : 1.f;
       float nx = nxA * sgn, ny = nyA * sgn, nz = nzA * sgn;
 
+      float nElem = er[E_N];
+      if (B4 && p.dispOff >= 0 && er[E_DISP] != 0.f)
+        nElem = dispersionN(smem + p.dispOff + elem * kDispCols, wl);
+
       // ---- Beer-Lambert along the segment, before the interaction ----
       bool inMedium = medium >= 0;
       float nMed = 1.f, absLenMed = kBig;
       if (inMedium) {
-        nMed = elemT[medium * kElemCols + E_N];
-        absLenMed = elemT[medium * kElemCols + E_ABSLEN];
+        const float* mr = elemT + medium * kElemCols;
+        nMed = mr[E_N];
+        if (B4 && p.dispOff >= 0 && mr[E_DISP] != 0.f)
+          nMed = dispersionN(smem + p.dispOff + medium * kDispCols, wl);
+        absLenMed = mr[E_ABSLEN];
         float factor = absLenMed <= 0.f ? 0.f
                        : (absLenMed >= kBig ? 1.f : expf(-tSeg / absLenMed));
         pw = pw * factor;
@@ -356,7 +407,7 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       float myD = dy - 2.f * ny * dDotN;
       float mzD = dz - 2.f * nz * dDotN;
       float n1 = inMedium ? nMed : 1.f;
-      float n2 = isEntering ? er[E_N] : 1.f;
+      float n2 = isEntering ? nElem : 1.f;
       float mu = n1 / n2;
       float sin2 = fmaxf(1.f - dDotN * dDotN, 0.f);
       float root = 1.f - mu * mu * sin2;
@@ -373,13 +424,63 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       float ndx = isMirror ? mxD : (isLens ? snx : dx);
       float ndy = isMirror ? myD : (isLens ? sny : dy);
       float ndz = isMirror ? mzD : (isLens ? snz : dz);
-      float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
-      ndx *= inv; ndy *= inv; ndz *= inv;
-
       bool lensExit = isLens && !isEntering && !tir && (medium == elem);
       int newMedium = (isLens && isEntering) ? elem
                       : (lensExit ? -1 : medium);
       float newPw = isMirror ? pw * er[E_REFL] : (isAbsorber ? 0.f : pw);
+      bool seqInc = isMirror || isAbsorber || opt == OPT_VACUUM || lensExit;
+
+      if (B4 && p.hasGrating && opt == OPT_GRATING) {
+        // ---- Ludwig-1970 line grating with the incidence-side normal: the
+        // line direction (world frame) and the normal span the grating
+        // frame; the diffracted direction solves a quadratic whose negative
+        // discriminant is an evanescent order ----
+        bool isReflG = er[E_GTYPE] == 0.f;
+        float gn1 = isReflG ? n1 : 1.f;
+        float gn2 = isReflG ? n1 : nElem;
+        float gmu = gn1 / gn2;
+        float gdx = er[E_GDIR], gdy = er[E_GDIR + 1], gdz = er[E_GDIR + 2];
+        float nix = -nx, niy = -ny, niz = -nz;
+        float pgx = gdy * niz - gdz * niy;
+        float pgy = gdz * nix - gdx * niz;
+        float pgz = gdx * niy - gdy * nix;
+        float pinv = rsqrtf(pgx * pgx + pgy * pgy + pgz * pgz + 1e-20f);
+        pgx *= pinv; pgy *= pinv; pgz *= pinv;
+        float dgx = niy * pgz - niz * pgy;
+        float dgy = niz * pgx - nix * pgz;
+        float dgz = nix * pgy - niy * pgx;
+        float dinv = rsqrtf(dgx * dgx + dgy * dgy + dgz * dgz + 1e-20f);
+        dgx *= dinv; dgy *= dinv; dgz *= dinv;
+        float lamUm = wl / 1000.f;
+        float spacing = 1000.f / er[E_GLPM];
+        float Tt = er[E_GORDER] * lamUm / (gn1 * spacing);
+        float Vg = gmu * (dx * nix + dy * niy + dz * niz);
+        float Wg = gmu * gmu - 1.f + Tt * Tt
+                   - 2.f * gmu * Tt * (dx * dgx + dy * dgy + dz * dgz);
+        float discG = Vg * Vg - Wg;
+        float gsq = sqrtf(fmaxf(discG, 0.f));
+        float qg = isReflG ? -Vg + gsq : -Vg - gsq;
+        if (isEntering) {
+          float ggx = gmu * dx - Tt * dgx + qg * nix;
+          float ggy = gmu * dy - Tt * dgy + qg * niy;
+          float ggz = gmu * dz - Tt * dgz + qg * niz;
+          float ginv = rsqrtf(ggx * ggx + ggy * ggy + ggz * ggz + 1e-20f);
+          ndx = ggx * ginv; ndy = ggy * ginv; ndz = ggz * ginv;
+          if (discG < 0.f) newPw = 0.f;        // evanescent order
+        } else if (!isReflG) {
+          // a transmissive grating exiting its substrate refracts like a
+          // lens; a reflective one passes non-entering rays through
+          ndx = snx; ndy = sny; ndz = snz;
+        }
+        bool transExit = !isReflG && !isEntering && !tir;
+        if (!isReflG) newMedium = isEntering ? elem : (transExit ? -1 : medium);
+        seqInc = (isReflG && isEntering) || transExit;
+      }
+      float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
+      ndx *= inv; ndy *= inv; ndz *= inv;
+      // the stage advances on every interaction but a lens or
+      // transmission-grating ENTRY
+      if (B4 && p.nStages > 0 && seqInc) ++seq;
 
       // ---- record the detector pass (power AFTER absorption, BEFORE the
       // interaction) into the hit ring; slot = min(hitN, hitSlots - 1), so
@@ -498,7 +599,17 @@ inline TraceParams traceParams(const long long* ip, const float* fp) {
   p.invG2 = fp[6];
   p.blocksPerVariant = 0;
   p.histLen = 0;
+  p.hasGrating = (int)ip[17];
+  p.nStages = (int)ip[18];
+  p.gate = (int)ip[19];
+  p.dispOff = (int)ip[20];
   return p;
+}
+
+// Whether a launch needs the B4 instance: any header flag of the grating,
+// dispersion, sequential mode or a surface mask.
+inline bool needsB4(const TraceParams& p) {
+  return p.hasGrating || p.nStages > 0 || p.gate || p.dispOff >= 0;
 }
 
 // Launch one output mode on `stream`; no synchronisation, no allocation.
@@ -511,7 +622,9 @@ int launchTrace(const float* table, const float* rayIn, float* out0,
   if (p.N <= 0) return 0;
   long long blocks = (p.N + kBlock - 1) / kBlock;
   size_t shmem = (size_t)p.tableLen * sizeof(float);
-  traceKernel<OUT><<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
+  auto kernel = needsB4(p) ? traceKernel<OUT, false, true>
+                           : traceKernel<OUT, false, false>;
+  kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
       p, table, rayIn, out0, out1, counters);
   return (int)cudaGetLastError();
 }

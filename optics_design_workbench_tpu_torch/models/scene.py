@@ -102,31 +102,27 @@ class Scene:
 
   def compile(self, dtype=np.float32, device='cuda'):
     '''Build the scene dict: surface table (one instance per group
-    placement) and element table. Returns (sceneDict, info) where info maps
-    element indices to labels. Compilation is host-side numpy; `device`
+    placement), element table, sequential-mode mask. Returns (sceneDict,
+    info) where info maps element indices to labels and holds the
+    per-source surface masks. Compilation is host-side numpy; `device`
     says where the leaves go afterwards: a torch device (default 'cuda',
     raising without a card) turns every array into a tensor there, and
     device=None keeps host numpy (what `buildTraceTables` reads —
     the counterpart of the reference's devicePut=False).
 
-    Not ported yet, and refused by name: stochastic scatter densities,
-    sequential mode (`seqMask`) and per-source ignore lists (`surfMask`).'''
+    `seqMask` (stages x surfaces, bool) comes from the active settings'
+    SequentialModeElements; `info['surfaceMasks']` maps a source's label
+    to the surfaces its IgnoredOpticalElements leave (the runner puts it
+    into that source's scene as `surfMask`). Not ported yet, and refused
+    by name: stochastic scatter densities.'''
     groups = self.opticalObjects()
     if not groups:
       raise ValueError('scene has no optical elements')
     for g in groups:
       if g.scatterKinds():
         raise NotImplementedError(
-            f'stochastic scatter densities ({g.Label}) are not ported yet')
-    settings = self.activeSimulationSettings()
-    if settings is not None and settings.SequentialMode \
-        and settings.SequentialModeElements:
-      raise NotImplementedError('sequential mode (seqMask) is not ported yet')
-    for src in self.lightSources():
-      if getattr(src, 'IgnoredOpticalElements', []):
-        raise NotImplementedError(
-            f'per-source ignore lists (surfMask, {src.Label}) are not '
-            f'ported yet')
+            f'stochastic scatter densities ({g.Label}) are not ported yet: '
+            f'ROADMAP item B5')
     surfs, elems = [], []
     for e, group in enumerate(groups):
       elems.append(group.toElementDict())
@@ -139,12 +135,31 @@ class Scene:
           surfs.append(inst)
     scene = dict(surfaces=geomSurfaces.buildSurfaceTable(surfs, dtype=dtype),
                  elements=buildElementTable(elems, dtype=dtype))
+    surfElem = scene['surfaces']['elem']
+
+    settings = self.activeSimulationSettings()
+    if settings is not None and settings.SequentialMode \
+        and settings.SequentialModeElements:
+      labelToIdx = {g.Label: i for i, g in enumerate(groups)}
+      scene['seqMask'] = np.stack([
+          np.isin(surfElem, [labelToIdx[l] for l in labels])
+          for labels in settings.SequentialModeElements])
+
+    surfMasks = {}
+    for src in self.lightSources():
+      ignored = set(getattr(src, 'IgnoredOpticalElements', []) or [])
+      if ignored:
+        surfMasks[src.Label] = np.array([groups[e].Label not in ignored
+                                         for e in surfElem])
     if device is not None:
       dev = resolveDevice(device)
-      scene = {name: {k: torch.as_tensor(v, device=dev)
-                      for k, v in table.items()}
-               for name, table in scene.items()}
-    info = dict(elementLabels=[g.Label for g in groups], surfaceMasks={})
+      put = lambda v: torch.as_tensor(v, device=dev)
+      scene = {name: ({k: put(v) for k, v in leaf.items()}
+                      if isinstance(leaf, dict) else put(leaf))
+               for name, leaf in scene.items()}
+      surfMasks = {k: put(v) for k, v in surfMasks.items()}
+    info = dict(elementLabels=[g.Label for g in groups],
+                surfaceMasks=surfMasks)
     return scene, info
 
   # ------------------------------------------------------------- global info

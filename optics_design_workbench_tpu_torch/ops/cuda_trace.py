@@ -42,9 +42,12 @@ JAX package can be fed the same numbers.
 
 Scene coverage of this slice (`ineligibleReason` names what is refused):
 PLANE / SPHERE / CYLINDER with window, annulus and z-band trims;
-Mirror / Lens / Absorber / Vacuum; Beer-Lambert absorption. The kernels
-sweep every surface on every bounce (the reference's per-bounce culls only
-skip surfaces that cannot be hit).
+Mirror / Lens / Absorber / Vacuum / Grating (Ludwig line gratings,
+reflective and transmissive); Beer-Lambert absorption; dispersive n(lambda)
+as a fitted polynomial per element; sequential mode (a per-ray stage index
+gating each surface) and per-source surface masks. The kernels sweep every
+allowed surface on every bounce (the reference's per-bounce culls only skip
+surfaces that cannot be hit).
 '''
 
 import ctypes
@@ -55,7 +58,9 @@ import torch
 from .. import KernelError, hostArray as _hostArray, resolveDevice
 from ..geometry import surfaces as GS
 from ..tracing.element_table import (MIRROR, LENS, GRATING, ABSORBER,
-                                     EP_GRATTYPE)
+                                     VACUUM, EP_GRATTYPE, EP_GRATLPM,
+                                     EP_GRATDIRX, EP_GRATDIRY, EP_GRATDIRZ,
+                                     EP_GRATORDER)
 
 _BIG = 3.0e38
 
@@ -66,10 +71,19 @@ MAX_PWPOLY_SEGMENTS = 12
 MAX_PWPOLY_COEFFS = 13
 MAX_TENT_KNOTS = 257
 MAX_HIT_SLOTS = 6
+# sequential stages: a surface's stage bitmask is held exactly in a float32
+MAX_STAGES = 24
+# n(lambda) fit: degree <= 12 in the scaled wavelength, to 2e-5
+MAX_DISP_COEFFS = 13
+DISP_FIT_TOL = 2e-5
 
-# table layout — keep in step with csrc/trace_kernel.cu
+# table layout — keep in step with csrc/trace_common.cuh. A surface row ends
+# with its stage bitmask (column 19); an element row with its dispersion
+# flag (11) and grating columns (12-17); a scene with dispersion adds one
+# block row per element: mid, 1/half, coefficient count, 0, coefficients.
 SURF_COLS = 20
-ELEM_COLS = 12
+ELEM_COLS = 18
+DISP_COLS = 4 + MAX_DISP_COEFFS
 _SEG_STRIDE = 4 + MAX_PWPOLY_COEFFS
 _MARG_LEN = 264
 _SAMPLER_GEOM = 16
@@ -103,13 +117,13 @@ def eligible(scene):
 def ineligibleReason(scene):
   '''None when the kernel supports this scene, else a short human-readable
   reason naming the feature this slice does not cover.'''
-  for key, what in (('scatter', 'stochastic scatter'),
-                    ('seqMask', 'sequential mode'),
-                    ('surfMask', 'per-source surface masks')):
-    if key in scene:
-      return f'{what} is not ported to the CUDA kernel yet'
-  if 'nTable' in scene['elements']:
-    return 'dispersive n(wavelength) tables are not ported yet'
+  if 'scatter' in scene:
+    return ('stochastic scatter is not ported to the CUDA kernel yet '
+            '(ROADMAP B5)')
+  if 'nTable' in scene['elements'] and not dispersionFitsInKernel(scene):
+    return ('dispersive n(wavelength) tables do not fit the in-kernel '
+            f'polynomial model (degree <= {MAX_DISP_COEFFS - 1} to '
+            f'{DISP_FIT_TOL})')
   kinds = _hostArray(scene['surfaces']['kind'])
   bad = sorted(set(kinds.tolist()) - set(GS.PORTED_KINDS))
   if bad:
@@ -120,29 +134,110 @@ def ineligibleReason(scene):
   if not np.isin(trims0, (0., 1.)).all():
     return 'bitmap and hole-primitive trims are not ported yet'
   opts = _hostArray(scene['elements']['optType'])
-  if (opts == GRATING).any():
-    return 'gratings are not ported yet'
   if len(kinds) > MAX_SURFACES:
     return (f'{len(kinds)} surfaces > the {MAX_SURFACES} rows of the '
             f"kernel's surface table")
   if len(opts) > MAX_ELEMENTS:
     return (f'{len(opts)} elements > the {MAX_ELEMENTS} rows of the '
             f"kernel's element table")
+  if 'seqMask' in scene:
+    nStages = _hostArray(scene['seqMask']).shape[0]
+    if nStages > MAX_STAGES:
+      return (f"{nStages} sequential stages > the {MAX_STAGES} of the "
+              f"kernel's stage bitmask")
   return None
+
+
+def _dispersionPolys(scene, deg=MAX_DISP_COEFFS - 1, tol=DISP_FIT_TOL):
+  '''{elemIdx: (mid, half, coeffsAscending)} for dispersive elements: n on
+  the scene's wavelength grid fitted by an even-degree polynomial (4 ..
+  `deg`) in the scaled wavelength (lambda - mid) / half, the lowest degree
+  that meets `tol`. Raises ValueError for a row no such fit meets (callers
+  gate on `dispersionFitsInKernel`). The JAX package's `_dispersionPolys`,
+  step for step.'''
+  elements = scene['elements']
+  if 'nTable' not in elements:
+    return {}
+  lam = _hostArray(elements['nLambda']).astype(float)
+  nTab = _hostArray(elements['nTable']).astype(float)
+  hasDisp = _hostArray(elements['hasDispersion'])
+  mid, half = (lam[0] + lam[-1]) / 2., max((lam[-1] - lam[0]) / 2., 1e-9)
+  s = (lam - mid) / half
+  out = {}
+  for e in range(nTab.shape[0]):
+    if not hasDisp[e]:
+      continue
+    for d in range(4, deg + 1, 2):
+      c = np.polyfit(s, nTab[e], d)
+      if np.abs(np.polyval(c, s) - nTab[e]).max() <= tol:
+        out[e] = (float(mid), float(half), tuple(float(x) for x in c[::-1]))
+        break
+    else:
+      raise ValueError(f'dispersion row of element {e} cannot be fitted to '
+                       f'{tol} by a degree-{deg} polynomial')
+  return out
+
+
+def dispersionFitsInKernel(scene):
+  '''True when every dispersive n(lambda) row fits the kernel's
+  polynomial.'''
+  try:
+    _dispersionPolys(scene)
+    return True
+  except ValueError:
+    return False
+
+
+def _staticMasks(scene):
+  '''(surfAllowed, seqSpec) from the scene's per-source surface mask
+  (`surfMask`) and sequential-mode mask (`seqMask`), as the JAX package
+  forms them: surfAllowed the sorted list of surfaces a ray may hit, or None
+  for all; seqSpec (nStages, {surface: allowed-stage tuple}), or None
+  without sequential mode. A surface allowed at no stage is not allowed.'''
+  S = numSurfacesStatic(scene)
+  surfMask = np.ones(S, dtype=bool)
+  if 'surfMask' in scene:
+    surfMask = _hostArray(scene['surfMask']).astype(bool)
+  seqSpec = None
+  if 'seqMask' in scene:
+    seq = _hostArray(scene['seqMask']).astype(bool)
+    Q = seq.shape[0]
+    stages = {s: tuple(q for q in range(Q) if seq[q, s]) for s in range(S)}
+    seqSpec = (Q, stages)
+    surfMask &= np.array([len(stages[s]) > 0 for s in range(S)])
+  allowed = None if surfMask.all() \
+      else sorted(s for s in range(S) if surfMask[s])
+  return allowed, seqSpec
 
 
 def _sceneRows(scene, histSpec):
   '''Extract python-float scene constants (host side). Returns
-  (surfRows, elemRows): one dict per surface (kind, world->local rotation
-  r00..r22 and offset t0..t2, orient, elemF, p0, trim0..trim2) and per
-  element (optF, n, refl, absLen, rec, detF, histogram bounds).'''
+  (surfRows, elemRows, nStages): one dict per surface (kind, world->local
+  rotation r00..r22 and offset t0..t2, orient, elemF, p0, trim0..trim2,
+  stage bitmask `stages`) and per element (optF, n, refl, absLen, rec,
+  detF, histogram bounds, grating type / lines per mm / line direction /
+  order, `nPoly` = (mid, half, ascending coefficients) or None), and the
+  number of sequential stages (0 without sequential mode).
+
+  Bit q of `stages` lets a ray whose stage index, clamped to nStages - 1,
+  is q hit the surface. Without sequential mode the bitmask is 1 for a
+  surface the source's mask allows and 0 for one it does not; with it, the
+  bits of the surface's stages (0 for a masked surface). A surface whose
+  bitmask is 0 is never hit, but keeps its row and its index.'''
   surf = scene['surfaces']
   packed = _hostArray(surf['packed']).astype(float)
   trims = _hostArray(surf['trim']).astype(float)
   kinds = _hostArray(surf['kind'])
+  allowed, seqSpec = _staticMasks(scene)
   surfRows = []
   for s in range(numSurfacesStatic(scene)):
     p = packed[s]
+    if allowed is not None and s not in allowed:
+      stages = 0
+    elif seqSpec is None:
+      stages = 1
+    else:
+      stages = sum(1 << q for q in seqSpec[1][s])
     surfRows.append(dict(
         kind=int(kinds[s]),
         r00=float(p[0]), r01=float(p[1]), r02=float(p[2]),
@@ -151,10 +246,11 @@ def _sceneRows(scene, histSpec):
         t0=float(p[9]), t1=float(p[10]), t2=float(p[11]),
         orient=float(p[12]), elemF=float(p[13]), p0=float(p[15]),
         trim0=float(trims[s, 0]), trim1=float(trims[s, 1]),
-        trim2=float(min(trims[s, 2], _BIG))))
+        trim2=float(min(trims[s, 2], _BIG)), stages=stages))
   ep = _hostArray(scene['elements']['packed']).astype(float)
   elemToDet = _hostArray(histSpec['elemToDet'])
   boundsArr = _hostArray(histSpec['bounds'])
+  nPolys = _dispersionPolys(scene)
   elemRows = []
   for e in range(ep.shape[0]):
     det = int(elemToDet[e])
@@ -164,8 +260,14 @@ def _sceneRows(scene, histSpec):
         optF=float(ep[e, 0]), n=float(ep[e, 1]), refl=float(ep[e, 2]),
         absLen=absLen if np.isfinite(absLen) else _BIG,
         rec=float(ep[e, 10]), detF=float(det),
-        bx0=float(b[0]), bx1=float(b[1]), by0=float(b[2]), by1=float(b[3])))
-  return surfRows, elemRows
+        bx0=float(b[0]), bx1=float(b[1]), by0=float(b[2]), by1=float(b[3]),
+        gratType=float(ep[e, EP_GRATTYPE]),
+        gratLpm=float(max(ep[e, EP_GRATLPM], 1e-9)),
+        gratDirX=float(ep[e, EP_GRATDIRX]),
+        gratDirY=float(ep[e, EP_GRATDIRY]),
+        gratDirZ=float(ep[e, EP_GRATDIRZ]),
+        gratOrder=float(ep[e, EP_GRATORDER]), nPoly=nPolys.get(e)))
+  return surfRows, elemRows, (seqSpec[0] if seqSpec is not None else 0)
 
 
 def autoHitSlots(scene, histSpec, maxIntersections):
@@ -243,14 +345,19 @@ def _packMarginal(spec):
 def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   '''The kernel's table of one compiled scene as host numpy, and its static
   facts: (float32 (tableLen,) array, dict(nSurf, nElem, samplerOff, bins,
-  nDet, anyMedium, surfRows, elemRows, samplerSpec)). `marginalCache` (a
-  dict) lets several calls that share marginal specs pack each only once.
-  Raises ValueError for scenes the kernel does not cover.'''
+  nDet, anyMedium, hasGrating, nStages, gate, dispOff, surfRows, elemRows,
+  samplerSpec)). `gate` says some surface is not always allowed (a masked
+  surface, or sequential mode), `dispOff` where the dispersion block starts
+  (-1: no dispersive element); these and hasGrating / nStages are the
+  kernel's header flags, so a scene without them skips that code.
+  `marginalCache` (a dict) lets several calls that share marginal specs
+  pack each only once. Raises ValueError for scenes the kernel does not
+  cover.'''
   reason = ineligibleReason(scene)
   if reason is not None:
     raise ValueError(f'scene is not eligible for the CUDA trace kernel: '
                      f'{reason}')
-  surfRows, elemRows = _sceneRows(scene, histSpec)
+  surfRows, elemRows, nStages = _sceneRows(scene, histSpec)
   S, E = len(surfRows), len(elemRows)
   surfT = np.zeros((S, SURF_COLS), np.float64)
   for s, r in enumerate(surfRows):
@@ -261,15 +368,28 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
     surfT[s] = [r['kind'], r['r00'], r['r01'], r['r02'], r['r10'], r['r11'],
                 r['r12'], r['r20'], r['r21'], r['r22'], r['t0'], r['t1'],
                 r['t2'], r['orient'], r['elemF'], r['p0'] ** 2, r['trim0'],
-                tA, tB, 0.]
+                tA, tB, r['stages']]
   elemT = np.zeros((E, ELEM_COLS), np.float64)
+  dispT = np.zeros((E, DISP_COLS), np.float64)
   for e, r in enumerate(elemRows):
     elemT[e] = [r['optF'], r['n'], r['refl'], r['absLen'], r['rec'],
                 r['detF'], r['bx0'], r['bx1'], r['by0'], r['by1'],
-                float(r['optF'] in (float(LENS), float(GRATING))), 0.]
+                float(r['optF'] in (float(LENS), float(GRATING))),
+                float(r['nPoly'] is not None), r['gratType'], r['gratLpm'],
+                r['gratDirX'], r['gratDirY'], r['gratDirZ'], r['gratOrder']]
+    if r['nPoly'] is not None:
+      # the reference's constants: mid and 1/half formed in double, each
+      # rounded to float32 once, like every coefficient
+      mid, half, coeffs = r['nPoly']
+      dispT[e, :4] = (mid, 1.0 / half, len(coeffs), 0.)
+      dispT[e, 4:4 + len(coeffs)] = coeffs
   with np.errstate(over='ignore'):      # an unbounded radius squares to inf
     parts = [surfT.astype(np.float32).reshape(-1),
              elemT.astype(np.float32).reshape(-1)]
+  dispOff = -1
+  if elemT[:, 11].any():
+    dispOff = S * SURF_COLS + E * ELEM_COLS
+    parts.append(dispT.astype(np.float32).reshape(-1))
   samplerOff = -1
   if samplerSpec is not None:
     if samplerSpec.get('type') == 'surface':
@@ -280,7 +400,7 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
     geom[2:11] = np.asarray(samplerSpec['R'], float).reshape(-1)
     geom[11:14] = samplerSpec['off']
     geom[14] = samplerSpec['wavelength']
-    samplerOff = S * SURF_COLS + E * ELEM_COLS
+    samplerOff = sum(len(x) for x in parts)
     parts.append(geom)
     for key in ('first', 'phi'):
       spec = samplerSpec[key]
@@ -295,7 +415,10 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
       nSurf=S, nElem=E, samplerOff=samplerOff, bins=(int(H), int(W)),
       nDet=int(_hostArray(histSpec['bounds']).shape[0]),
       anyMedium=bool(elemT[:, 10].any()),
-      surfRows=surfRows, elemRows=elemRows, samplerSpec=samplerSpec)
+      hasGrating=bool((elemT[:, 0] == GRATING).any()), nStages=nStages,
+      gate=any(r['stages'] != (1 << max(nStages, 1)) - 1 for r in surfRows),
+      dispOff=dispOff, surfRows=surfRows, elemRows=elemRows,
+      samplerSpec=samplerSpec)
 
 
 def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
@@ -337,7 +460,12 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   Raises SweepUnavailable unless the variants have the same STRUCTURE: the
   same numbers of surfaces and elements, per surface the same kind, trim
   mode and element, per element the same optical type, recording flag and
-  detector. Everything else is data and may differ.'''
+  detector, and dispersion in all variants or in none. Everything else is
+  data and may differ: each variant's element rows, grating constants,
+  n(lambda) polynomials and surface masks are its own. Sequential mode
+  raises SweepUnavailable, as the reference's sweep step refuses it
+  (`makePallasSweepStep`); the sweeper then traces the variants one launch
+  each, with the stage gate.'''
   V = len(scenes)
   if V < 2:
     raise SweepUnavailable('needs >= 2 variants')
@@ -350,6 +478,8 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
     reason = ineligibleReason(scene)
     if reason is not None:
       raise SweepUnavailable(reason)
+    if 'seqMask' in scene:
+      raise SweepUnavailable('sequential mode')
     t, f = _packTable(scene, histSpec, spec, marginalCache=cache)
     tables.append(t)
     facts.append(f)
@@ -359,8 +489,9 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       raise SweepUnavailable(f'surface counts differ (variant {v})')
     if f['nElem'] != f0['nElem']:
       raise SweepUnavailable(f'element counts differ (variant {v})')
-    if f['samplerOff'] != f0['samplerOff']:
-      raise SweepUnavailable('some variants have a sampler and some none')
+    if f['samplerOff'] != f0['samplerOff'] or f['dispOff'] != f0['dispOff']:
+      raise SweepUnavailable('some variants have a sampler or dispersion '
+                             'and some none')
     for s, (a, b) in enumerate(zip(f0['surfRows'], f['surfRows'])):
       if any(a[k] != b[k] for k in ('kind', 'trim0', 'elemF')):
         raise SweepUnavailable(f'surface {s}: kind, trim mode or element '
@@ -375,8 +506,11 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   sameSource = off < 0 or bool((geom == geom[0]).all())
   return stacked, dict(
       nVariants=V, sameSource=sameSource, tableLen=int(stacked.shape[1]),
-      nSurf=f0['nSurf'], nElem=f0['nElem'], samplerOff=f0['samplerOff'], bins=f0['bins'],
-      nDet=f0['nDet'], anyMedium=any(f['anyMedium'] for f in facts),
+      nSurf=f0['nSurf'], nElem=f0['nElem'], samplerOff=f0['samplerOff'],
+      bins=f0['bins'], nDet=f0['nDet'],
+      anyMedium=any(f['anyMedium'] for f in facts),
+      hasGrating=f0['hasGrating'], nStages=0,
+      gate=any(f['gate'] for f in facts), dispOff=f0['dispOff'],
       surfRows=[f['surfRows'] for f in facts],
       elemRows=[f['elemRows'] for f in facts])
 
@@ -418,6 +552,16 @@ def _marginalPlain(m, u):
     return torch.clamp(out, float(m[2]), float(m[3]))
   from ..distributions.device_sampler import tentInterp
   return tentInterp(torch.as_tensor(m[4:4 + n], device=u.device), u)
+
+
+def samplerWavelength(tables):
+  '''The wavelength (nm, as the kernel reads it: float32) of the sampler
+  block of single-scene `tables`: what every ray the sampler draws
+  carries.'''
+  if tables['samplerOff'] < 0:
+    raise ValueError('these tables have no sampler block: give the '
+                     'wavelength as the eighth ray column')
+  return float(tables['table'][tables['samplerOff'] + 14])
 
 
 def sampleRaysPlain(tables, u1, u2, strata=None, strataTile=0):
@@ -488,14 +632,27 @@ def _intersectPlain(r, ox, oy, oz, dx, dy, dz, tMin):
   return torch.fmin(loV, hiV)
 
 
+def _hornerPlain(d, wl):
+  '''Plain version of the kernel's `dispersionN`: n(wl) from one packed
+  float32 dispersion row (mid, 1/half, count, 0, ascending coefficients).'''
+  sW = (wl - float(d[0])) * float(d[1])
+  nc = int(d[2])
+  acc = torch.full_like(wl, float(d[4 + nc - 1]))
+  for c in range(nc - 2, -1, -1):
+    acc = acc * sW + float(d[4 + c])
+  return acc
+
+
 def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
                      distTol, powerTol, hitSlots, output):
   '''The kernels' bounce loop as column-wise tensor ops, step by step in the
-  kernels' operation order: nearest hit with the other-medium tracker and
-  same-medium window, winner normal, Beer-Lambert, mirror / Snell / TIR,
-  medium and power updates, and the hit ring (slot = min(hitN, hitSlots-1):
-  an overflow overwrites the last slot). ONE loop for the three output
-  modes; `output` selects the record gate and what a ring slot holds:
+  kernels' operation order: nearest hit over the surfaces the ray's stage
+  allows, with the other-medium tracker and same-medium window, winner
+  normal, n(lambda) of the winner and of the medium, Beer-Lambert, mirror /
+  Snell / TIR / grating, medium, power and stage updates, and the hit ring
+  (slot = min(hitN, hitSlots-1): an overflow overwrites the last slot). ONE
+  loop for the three output modes; `output` selects the record gate and
+  what a ring slot holds:
 
     'hist'  gate: recording element with a detector, hit inside the bounds;
             slot = (bin int64, power)
@@ -503,10 +660,13 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     'raw'   gate: recording element, no bounds; slot = (element, power,
             isEntering, px, py, pz, incoming dx, dy, dz), all float32
 
+  `columns` are ox, oy, oz, dx, dy, dz, pw and, optionally, the wavelength
+  (without it every ray has the sampler's wavelength).
+
   Returns (ring, segments, hitN): ring a list of (hitSlots, N) tensors, one
   per slot field, the first -1 and the others 0 where a slot was never
   written; segments a 0-d int64 tensor; hitN the per-ray pass count.'''
-  ox, oy, oz, dx, dy, dz, pw = columns
+  ox, oy, oz, dx, dy, dz, pw = columns[:7]
   dev = ox.device
   N = ox.shape[0]
   tab = tables['table'].detach().cpu().numpy()
@@ -518,6 +678,17 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   elemD = torch.as_tensor(elemT, device=dev)
   H, W = tables['bins']
   anyMedium = tables['anyMedium']
+  hasGrating, dispOff = tables['hasGrating'], tables['dispOff']
+  nStages, gate = tables['nStages'], tables['gate']
+  wl = columns[7] if len(columns) > 7 else None
+  if wl is None and (hasGrating or dispOff >= 0):
+    wl = torch.full_like(ox, samplerWavelength(tables))
+  # n(wl) per dispersive element: constant along a ray
+  nOf = {}
+  if dispOff >= 0:
+    dispT = tab[dispOff:dispOff + E * DISP_COLS].reshape(E, DISP_COLS)
+    nOf = {e: _hornerPlain(dispT[e], wl) for e in range(E)
+           if elemT[e, 11] != 0}
   f32 = lambda x: float(np.float32(x))
   mrlEff = f32(min(float(maxRayLength), 0.5 * _BIG))
   mrl, tMin = f32(maxRayLength), f32(distTol)
@@ -527,6 +698,7 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   alive = torch.ones((N,), dtype=torch.bool, device=dev)
   segs = torch.zeros((), dtype=torch.int64, device=dev)
   hitN = torch.zeros((N,), dtype=torch.int64, device=dev)
+  seq = torch.zeros((N,), dtype=torch.int64, device=dev)
   nFields = dict(hist=2, bins=3, raw=9)[output]
   keyDtype = torch.int64 if output == 'hist' else torch.float32
   ring = [torch.full((hitSlots, N), -1, dtype=keyDtype, device=dev)] + [
@@ -535,13 +707,20 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   canBeMedium = elemD[:, 10] != 0
   one = torch.ones((), dtype=torch.float32, device=dev)
   big = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
+  allStages = (1 << max(nStages, 1)) - 1
 
   for _bounce in range(maxIntersections):
     tBest, tOth = big, big
     sBest = torch.full((N,), -1, dtype=torch.int64, device=dev)
     sOth = sBest
+    stage = torch.clamp(seq, max=max(nStages, 1) - 1)
     for s in range(S):
+      bits = int(surfT[s, 19])
+      if bits == 0:
+        continue                   # masked: never hit, keeps its index
       t = _intersectPlain(surfT[s], ox, oy, oz, dx, dy, dz, tMin)
+      if bits != allStages:        # the stage gate, before both trackers
+        t = torch.where(((bits >> stage) & 1) == 1, t, big)
       b = t < tBest
       sBest = torch.where(b, s, sBest)
       tBest = torch.where(b, t, tBest)
@@ -588,10 +767,17 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     sgn = torch.where(isEntering, -one, one)
     nx, ny, nz = nxA * sgn, nyA * sgn, nzA * sgn
 
+    # n(wl) of the winner and of the medium (dispersive elements)
+    nElem = er[:, 1]
+    medClamped = medium.clamp(min=0)
+    medRow = elemD[medClamped]
+    nMed, absLenMed = medRow[:, 1], medRow[:, 3]
+    for e, nE in nOf.items():
+      nElem = torch.where(elem == e, nE, nElem)
+      nMed = torch.where(medClamped == e, nE, nMed)
+
     # Beer-Lambert
     inMedium = medium >= 0
-    medRow = elemD[medium.clamp(min=0)]
-    nMed, absLenMed = medRow[:, 1], medRow[:, 3]
     factor = torch.where(absLenMed <= 0, zero,
                          torch.where(absLenMed >= _BIG, one,
                                      torch.exp(-tSeg / absLenMed)))
@@ -603,7 +789,7 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     myD = dy - 2. * ny * dDotN
     mzD = dz - 2. * nz * dDotN
     n1 = torch.where(inMedium, nMed, one)
-    n2 = torch.where(isEntering, er[:, 1], one)
+    n2 = torch.where(isEntering, nElem, one)
     mu = n1 / n2
     sin2 = torch.clamp(1. - dDotN * dDotN, min=0.)
     root = 1. - mu * mu * sin2
@@ -615,9 +801,56 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     snz = torch.where(tir, mzD, mu * tz + nz * sq)
     opt = er[:, 0]
     isMirror, isLens, isAbsorber = opt == MIRROR, opt == LENS, opt == ABSORBER
+    isGrating = opt == GRATING
     ndx = torch.where(isMirror, mxD, torch.where(isLens, snx, dx))
     ndy = torch.where(isMirror, myD, torch.where(isLens, sny, dy))
     ndz = torch.where(isMirror, mzD, torch.where(isLens, snz, dz))
+    if hasGrating:
+      # Ludwig-1970 line grating with the incidence-side normal
+      isReflG = er[:, 12] == 0
+      gn1 = torch.where(isReflG, n1, one)
+      gn2 = torch.where(isReflG, n1, nElem)
+      gmu = gn1 / gn2
+      gDirX, gDirY, gDirZ = er[:, 14], er[:, 15], er[:, 16]
+      nix, niy, niz = -nx, -ny, -nz
+      pgx = gDirY * niz - gDirZ * niy
+      pgy = gDirZ * nix - gDirX * niz
+      pgz = gDirX * niy - gDirY * nix
+      pinv = torch.rsqrt(pgx * pgx + pgy * pgy + pgz * pgz + 1e-20)
+      pgx, pgy, pgz = pgx * pinv, pgy * pinv, pgz * pinv
+      dgx = niy * pgz - niz * pgy
+      dgy = niz * pgx - nix * pgz
+      dgz = nix * pgy - niy * pgx
+      dinv = torch.rsqrt(dgx * dgx + dgy * dgy + dgz * dgz + 1e-20)
+      dgx, dgy, dgz = dgx * dinv, dgy * dinv, dgz * dinv
+      # true divisions, as in the kernel: on the card PyTorch turns a
+      # python-scalar divisor into a multiply by its reciprocal, and on
+      # either device `scalar / tensor` into reciprocal-and-multiply, each
+      # up to an ulp away from the quotient
+      thousand = torch.full_like(wl, 1000.)
+      lamUm = wl / thousand
+      spacing = thousand / er[:, 13]
+      Tt = er[:, 17] * lamUm / (gn1 * spacing)
+      Vg = gmu * (dx * nix + dy * niy + dz * niz)
+      Wg = (gmu * gmu - 1. + Tt * Tt
+            - 2. * gmu * Tt * (dx * dgx + dy * dgy + dz * dgz))
+      discG = Vg * Vg - Wg
+      evanescent = discG < 0
+      gsq = torch.sqrt(torch.clamp(discG, min=0.))
+      qg = torch.where(isReflG, -Vg + gsq, -Vg - gsq)
+      ggx = gmu * dx - Tt * dgx + qg * nix
+      ggy = gmu * dy - Tt * dgy + qg * niy
+      ggz = gmu * dz - Tt * dgz + qg * niz
+      ginv = torch.rsqrt(ggx * ggx + ggy * ggy + ggz * ggz + 1e-20)
+      ggx, ggy, ggz = ggx * ginv, ggy * ginv, ggz * ginv
+      # a reflective grating passes non-entering rays through; a
+      # transmissive one exiting its substrate refracts like a lens
+      ndx = torch.where(isGrating, torch.where(
+          isEntering, ggx, torch.where(isReflG, dx, snx)), ndx)
+      ndy = torch.where(isGrating, torch.where(
+          isEntering, ggy, torch.where(isReflG, dy, sny)), ndy)
+      ndz = torch.where(isGrating, torch.where(
+          isEntering, ggz, torch.where(isReflG, dz, snz)), ndz)
     inv = torch.rsqrt(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20)
     ndx, ndy, ndz = ndx * inv, ndy * inv, ndz * inv
 
@@ -626,6 +859,14 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
                             torch.where(lensExit, -1, medium))
     newPw = torch.where(isMirror, pw * er[:, 2],
                         torch.where(isAbsorber, zero, pw))
+    seqInc = isMirror | isAbsorber | (opt == VACUUM) | lensExit
+    if hasGrating:
+      gTrans = isGrating & ~isReflG
+      gratExit = gTrans & ~isEntering & ~tir
+      newMedium = torch.where(gTrans & isEntering, elem,
+                              torch.where(gratExit, -1, newMedium))
+      newPw = torch.where(isGrating & isEntering & evanescent, zero, newPw)
+      seqInc = seqInc | (isGrating & isReflG & isEntering) | gratExit
 
     # hit ring: power AFTER absorption and BEFORE the interaction
     if output == 'raw':
@@ -659,6 +900,8 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     dz = torch.where(live, ndz, dz)
     pw = torch.where(live, newPw, pw)
     medium = torch.where(live, newMedium, medium)
+    if nStages:
+      seq = seq + (live & seqInc).to(torch.int64)
     alive = live & (newPw >= pTol)
   return ring, segs, hitN
 
@@ -701,7 +944,7 @@ def traceSweepPlain(sweepTables, histograms, raysPerVariant, maxIntersections,
   for v in range(sweepTables['nVariants']):
     tables = variantTables(sweepTables, v)
     if columns is not None:
-      cols = tuple(columns[k] for k in range(7))
+      cols = tuple(columns[k] for k in range(8))
     else:
       cols = sampleRaysPlain(tables, uniforms[0], uniforms[1], strata,
                              strataTile)
@@ -813,7 +1056,7 @@ def _plainColumns(tables, nRays, seed, uniforms, columns, strata, strataTile):
   any of the three modes (`seed` seeds a torch.Generator that draws the two
   uniform arrays).'''
   if columns is not None:
-    return tuple(columns[k] for k in range(7))
+    return tuple(columns[k] for k in range(8))
   if uniforms is None:
     dev = tables['table'].device
     generator = torch.Generator(device=dev)
@@ -997,12 +1240,13 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
                          dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
-  ip = (ctypes.c_longlong * 17)(
+  ip = (ctypes.c_longlong * 21)(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
       int(strataTile) if strata is not None else 1, G1, G2, variants,
-      histLen)
+      histLen, int(tables['hasGrating']), int(tables['nStages']),
+      int(tables['gate']), int(tables['dispOff']))
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
@@ -1241,7 +1485,8 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
 
 # the facts of `packSweepTables` that a step is made for
 _SWEEP_STRUCTURE = ('nVariants', 'tableLen', 'nSurf', 'nElem', 'samplerOff',
-                    'bins', 'nDet', 'anyMedium')
+                    'bins', 'nDet', 'anyMedium', 'hasGrating', 'gate',
+                    'dispOff')
 
 
 def recordsFromRing(ring):

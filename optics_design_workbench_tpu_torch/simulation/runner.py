@@ -159,10 +159,10 @@ def recordsToHits(records, metadata, elementLabels, enabledKeys=None):
 
 class SimulationRun:
   '''One compiled simulation: the scene's host tables (what
-  `cuda_trace.buildTraceTables` reads; one table for every source, since
-  per-source surface masks are refused by `Scene.compile` until ported) +
-  per-source settings. Single device; sharding the ray axis over several
-  cards waits for the multi-GPU port.'''
+  `cuda_trace.buildTraceTables` reads) + per-source settings. A source with
+  IgnoredOpticalElements traces its own copy of the scene, with its surface
+  mask (`sceneFor`). Single device; sharding the ray axis over several cards
+  waits for the multi-GPU port.'''
 
   def __init__(self, scene, settings, device='cuda'):
     self.scene = scene
@@ -170,6 +170,15 @@ class SimulationRun:
     self.torchDevice = resolveDevice(device)
     self.device, self.info = scene.compile(device=None)
     self.device['powerTol'] = 1e-6
+
+  def sceneFor(self, source):
+    '''The scene `source` is traced through: the compiled scene, plus the
+    source's `surfMask` where its IgnoredOpticalElements leave out some
+    surfaces.'''
+    mask = self.info['surfaceMasks'].get(source.Label)
+    if mask is None:
+      return self.device
+    return dict(self.device, surfMask=mask)
 
   def stepKwargs(self, source, raysPerStep):
     '''Keyword arguments of a step factory that derive from the settings
@@ -213,9 +222,10 @@ def _refuseScene(scene, run, settings):
     if not src.supportsDeviceSampling():
       raise _notPorted(f'source {src.Label} without device sampling',
                        'hostSource')
-    reason = cuda_trace.ineligibleReason(run.device)
+    reason = cuda_trace.ineligibleReason(run.sceneFor(src))
     if reason is not None:
-      raise _notPorted(f'this scene ({reason})', 'scene')
+      raise _notPorted(f'this scene ({reason}, source {src.Label})',
+                       'scene')
 
 
 def runSimulation(scene, action, endIf=None, seed=None, store=None,
@@ -320,7 +330,7 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
     def buildHistStep(src, n):
       nPad = -(-n // RAY_BLOCK) * RAY_BLOCK
       return cuda_trace.makeTraceStep(
-          run.device, histSpec,
+          run.sceneFor(src), histSpec,
           src.deviceColumnsGenerator(device=dev), sampler=src.samplerSpec(),
           stratified=(mode == 'pseudo'), distTol=distTol,
           **run.stepKwargs(src, nPad)), nPad
@@ -334,7 +344,7 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
       else:
         sampler = src.samplerSpec()
       return cuda_trace.makeRawStep(
-          run.device, histSpec, columns, sampler=sampler,
+          run.sceneFor(src), histSpec, columns, sampler=sampler,
           distTol=distTol, **run.stepKwargs(src, nPad)), nPad
 
     def stepSeed():

@@ -50,13 +50,11 @@ def element(opticalType='Vacuum', refractiveIndex=1.0, reflectivity=1.0,
 
 def buildElementTable(elems, dtype=np.float32):
   '''Pack element dicts into the SoA table (host-side numpy; Scene.compile
-  moves it to the requested device). Dispersion tables (n(lambda) per
-  element) are not ported yet and raise.'''
+  moves it to the requested device). Dispersive elements add `nLambda` (the
+  one wavelength grid all of them share), `nTable` (n on that grid, one row
+  per element: the constant n for the others) and `hasDispersion`.'''
   if not elems:
     raise ValueError('scene contains no optical elements')
-  if any(e.get('dispersion') is not None for e in elems):
-    raise NotImplementedError('dispersive RefractiveIndex (n(wavelength) '
-                              'tables) is not ported yet')
   npDtype = np.dtype(dtype)
   host = dict(
       optType=np.asarray([OPTICAL_TYPES[e['opticalType']] for e in elems],
@@ -90,4 +88,23 @@ def buildElementTable(elems, dtype=np.float32):
       e['gratingDiffractionOrder'],
       float(bool(e['recordHits']))]) for e in elems])
   table['packed'] = packed.astype(npDtype)
+  if any(e.get('dispersion') is not None for e in elems):
+    grids = [np.asarray(e['dispersion'][0], dtype=float)
+             for e in elems if e.get('dispersion') is not None]
+    lamGrid = grids[0]
+    for g in grids[1:]:
+      if len(g) != len(lamGrid) or not np.allclose(g, lamGrid):
+        raise ValueError('all dispersion tables must share one wavelength '
+                         'grid')
+    rows, hasDisp = [], []
+    for e in elems:
+      if e.get('dispersion') is not None:
+        rows.append(np.asarray(e['dispersion'][1], dtype=float))
+        hasDisp.append(True)
+      else:
+        rows.append(np.full(len(lamGrid), e['refractiveIndex']))
+        hasDisp.append(False)
+    table['nLambda'] = lamGrid.astype(npDtype)
+    table['nTable'] = np.stack(rows).astype(npDtype)
+    table['hasDispersion'] = np.asarray(hasDisp, dtype=bool)
   return table

@@ -130,17 +130,22 @@ def test_eligibility_names_what_is_not_ported():
 
 
 def test_scene_compile_refuses_unported_features():
+  '''Stochastic scatter is still refused by name; per-source ignore lists
+  and sequential mode now compile into `surfaceMasks` and `seqMask`.'''
   ns = H.torchNs()
-  scene, _, _ = H.buildBench(ns, 'lensMirror')
-  scene.lightSources()[0].IgnoredOpticalElements = ['Lens']
-  with pytest.raises(NotImplementedError, match='surfMask'):
-    scene.compile(device=None)
   scene2, _, _ = H.buildBench(ns, 'lensMirror')
   scene2.opticalObjects()[1].ReflectedProbabilityDensity = 'exp(-theta^2)'
-  with pytest.raises(NotImplementedError, match='scatter'):
+  with pytest.raises(NotImplementedError, match='scatter.*ROADMAP item B5'):
     scene2.compile(device=None)
+  scene, _, _ = H.buildBench(ns, 'lensMirror')
+  scene.lightSources()[0].IgnoredOpticalElements = ['Lens']
+  dev, info = scene.compile(device=None)
+  lens = dev['surfaces']['elem'] == 0
+  assert info['surfaceMasks']['Source'].tolist() == (~lens).tolist()
+  assert cuda_trace.eligible(dict(dev, surfMask=info['surfaceMasks']['Source']))
   scene3, _, _ = H.buildBench(ns, 'lensMirror')
   scene3.addSimulationSettings(SequentialMode=True,
                                SequentialModeElements=[['Lens']])
-  with pytest.raises(NotImplementedError, match='seqMask'):
-    scene3.compile(device=None)
+  dev3, _info = scene3.compile(device=None)
+  assert dev3['seqMask'].tolist() == [lens.tolist()]
+  assert cuda_trace.eligible(dev3)

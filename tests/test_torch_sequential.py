@@ -1,0 +1,186 @@
+'''Sequential mode and per-source surface masks in the PyTorch port (a
+per-ray stage index gating each surface, and a source's
+IgnoredOpticalElements, in the trace kernels' shared body; on the CPU their
+plain versions) against the JAX package:
+
+  * the reference suite's sequential ball-lens scene (stages [Ball], [Det]:
+    lens entry does not advance the stage, so the exit face stays open) and
+    a two-source scene in which source 'Blind' ignores the fold mirror that
+    source 'Src' is folded by, traced as the JAX runner traces 'Blind';
+  * the Pallas kernel (interpret mode) and the port's plain versions on the
+    same uniforms: counters equal, counts within the 2-ray bin-edge budget,
+    power per bin within 1 %, raw rows ray by ray within atol 1e-4;
+  * `Scene.compile` builds the JAX package's `seqMask` and `surfaceMasks`;
+  * `runSimulation` traces each source through its own mask, as the
+    reference runner does;
+  * `evaluateBatched` ignores a source's IgnoredOpticalElements, as the
+    reference sweeper does (it never builds `surfMask`; ROADMAP C), and
+    takes one launch per variant for a scene in sequential mode, with the
+    stage gate (the reference's sweep kernel refuses `seqMask`).
+'''
+
+import numpy as np
+import pytest
+import torch
+
+import jax  # noqa: F401  (both frameworks live in this process)
+
+import torch_port_helpers as H
+from optics_design_workbench_tpu.jupyter_utils import \
+    ParameterSweeper as RefSweeper
+from optics_design_workbench_tpu.ops import pallas_trace
+from optics_design_workbench_tpu_torch import simulation as torchSim
+from optics_design_workbench_tpu_torch.jupyter_utils import (ParameterSweeper,
+                                                             RawFolder)
+from optics_design_workbench_tpu_torch.ops import cuda_trace
+
+torch.set_num_threads(1)
+
+MASK_SCENES = ('seqBall', 'maskedSource')
+BOUNDS = (-40., 40., -40., 40.)
+
+
+@pytest.fixture(scope='module', params=MASK_SCENES)
+def maskCase(request):
+  return dict(H.runB4Case(request.param), name=request.param)
+
+
+def test_masked_histograms_match_reference(maskCase):
+  H.assertHistogramsMatch(maskCase)
+
+
+def test_masked_raw_rows_match_reference(maskCase):
+  H.assertRawRowsMatch(maskCase)
+
+
+def test_gate_flags_and_paths(maskCase):
+  '''The ball's exit face stays open (3 segments a ray: entry, exit,
+  detector); 'Blind' passes the fold mirror's surface and reaches the back
+  detector in one segment.'''
+  tables, n = maskCase['tables'], H.N_RAYS
+  _, port = maskCase['hist']
+  assert tables['gate'] and not tables['hasGrating']
+  if maskCase['name'] == 'seqBall':
+    assert tables['nStages'] == 2
+    assert port['counters']['segments'] == 3 * n
+  else:
+    assert tables['nStages'] == 0
+    assert [r['stages'] for r in tables['surfRows']] == [0, 1, 1]
+    assert port['counters']['segments'] == n
+  assert port['counters']['hits'] == n
+
+
+@pytest.mark.parametrize('name', MASK_SCENES)
+def test_compile_builds_the_reference_masks(name):
+  build, _source = H.B4_SCENES[name]
+  jaxScene, _, _ = build(H.jaxNs())
+  torchScene, _, _ = build(H.torchNs())
+  ref, refInfo = jaxScene.compile(devicePut=False)
+  own, ownInfo = torchScene.compile(device=None)
+  assert ('seqMask' in own) == ('seqMask' in ref)
+  if 'seqMask' in ref:
+    np.testing.assert_array_equal(own['seqMask'], np.asarray(ref['seqMask']))
+  assert set(ownInfo['surfaceMasks']) == set(refInfo['surfaceMasks'])
+  for label, mask in refInfo['surfaceMasks'].items():
+    np.testing.assert_array_equal(ownInfo['surfaceMasks'][label],
+                                  np.asarray(mask))
+  for src in torchScene.lightSources():
+    mask = ownInfo['surfaceMasks'].get(src.Label)
+    scene = own if mask is None else dict(own, surfMask=mask)
+    refScene = ref if mask is None else dict(ref, surfMask=mask)
+    assert cuda_trace._staticMasks(scene) == \
+        pallas_trace._staticMasks(refScene)
+
+
+def _maskedScene(ns, path, sources=('Src', 'Blind')):
+  scene, _, _ = H.buildMaskedSourcesScene(ns)
+  scene.path = path
+  scene.objects = [o for o in scene.objects
+                   if o not in scene.lightSources()
+                   or o.Label in sources]
+  settings = scene.activeSimulationSettings()
+  settings.RaysPerIteration = 2048
+  settings.EnableStoreSingleShotData = True
+  return scene
+
+
+def test_runner_traces_each_source_through_its_own_mask(tmp_path):
+  scene = _maskedScene(H.torchNs(), str(tmp_path / 'masked'))
+  runPath = torchSim.runSimulation(scene, 'singletrue', seed=5, device='cpu')
+  raw = RawFolder(runPath)
+  side = len(raw.loadHits('Side', source='Src'))
+  back = len(raw.loadHits('Back', source='Blind'))
+  assert back == 2048                       # straight through the mirror
+  assert side > 0.9 * 2048                  # folded onto the side detector
+  for label, source in (('Side', 'Blind'), ('Back', 'Src')):
+    try:
+      rows = len(raw.loadHits(label, source=source))
+    except (FileNotFoundError, KeyError, ValueError):
+      rows = 0
+    assert rows == 0, (label, source)
+
+
+def _countsPerDetector(power, counts):
+  return tuple(float(c) for c in counts.sum(axis=(1, 2)))
+
+
+def test_sweeper_ignores_per_source_masks_like_the_reference(tmp_path):
+  '''A one-source scene whose source ignores the fold mirror: both
+  packages' `evaluateBatched` still fold the beam onto the side detector.'''
+  out = {}
+  for label, ns, Sweeper, kw in (
+      ('port', H.torchNs(), ParameterSweeper, dict(device='cpu')),
+      ('reference', H.jaxNs(), RefSweeper, {})):
+    scene = _maskedScene(ns, str(tmp_path / label), sources=('Blind',))
+    sweeper = Sweeper(
+        lambda sc: dict(r=(sc.getObject('Fold'), 'Reflectivity')),
+        scene=scene, **kw)
+    out[label] = sweeper.evaluateBatched(
+        [dict(r=0.9), dict(r=0.95)], _countsPerDetector, raysPerScene=512,
+        maxIntersections=4, bins=(16, 16), histBounds=BOUNDS)
+    if label == 'port':
+      assert sweeper.lastBatchedRoute == 'sweep'
+      scene.lightSources()[0].IgnoredOpticalElements = []
+      unmasked = sweeper.evaluateBatched(
+          [dict(r=0.9), dict(r=0.95)], _countsPerDetector, raysPerScene=512,
+          maxIntersections=4, bins=(16, 16), histBounds=BOUNDS)
+      np.testing.assert_array_equal(out[label], unmasked)
+  for label in ('port', 'reference'):
+    side, back = out[label][0]
+    assert side > 0.9 * 512 and back == 0, (label, out[label])
+
+
+def test_sequential_sweep_keeps_the_stage_gate(tmp_path):
+  '''A sequential scene whose stages leave the ball out ([Det] only): the
+  sweep kernel is not used (as the reference's refuses `seqMask`), each
+  variant is one launch of the histogram kernel with the gate, so the ball's
+  index does not matter and no ray is focused.'''
+  ns = H.torchNs()
+  scene, _, _ = H.buildSequentialBallScene(ns)
+  scene.path = str(tmp_path / 'seq')
+  settings = scene.activeSimulationSettings()
+  sweeper = ParameterSweeper(
+      lambda sc: dict(n=(sc.getObject('Ball'), 'RefractiveIndex')),
+      scene=scene, device='cpu')
+  kw = dict(raysPerScene=1024, maxIntersections=5, bins=(32, 32),
+            histBounds=(-80., 80., -80., 80.))
+  sets = [dict(n=1.5), dict(n=1.7)]
+  focused = sweeper.evaluateBatched(sets, H.spotMetric, **kw)
+  assert sweeper.lastBatchedRoute == 'perVariant'
+  settings.SequentialModeElements = [['Det']]
+  gated = sweeper.evaluateBatched(sets, H.spotMetric, **kw)
+  assert sweeper.lastBatchedRoute == 'perVariant'
+  assert gated[0] == gated[1]
+  assert gated[0] > 2 * min(focused) and gated[0] not in focused
+
+
+def test_more_stages_than_the_bitmask_holds_are_refused_by_name():
+  scene, _, _ = H.buildSequentialBallScene(H.torchNs())
+  settings = scene.activeSimulationSettings()
+  settings.SequentialModeElements = [['Ball']] * cuda_trace.MAX_STAGES \
+      + [['Det']]
+  dev, _info = scene.compile(device=None)
+  assert dev['seqMask'].shape[0] == cuda_trace.MAX_STAGES + 1
+  assert 'sequential stages' in cuda_trace.ineligibleReason(dev)
+  settings.SequentialModeElements = settings.SequentialModeElements[1:]
+  assert cuda_trace.eligible(scene.compile(device=None)[0])

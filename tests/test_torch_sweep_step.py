@@ -195,7 +195,8 @@ def test_make_sweep_step_seed_mode_is_repeatable_and_exact_in_rays():
                                         device='cpu')
   assert step.strataTile == 0
   table = pack(host)
-  assert table.shape == (3, 4 * 20 + 2 * 12 + 544) and table.dtype == np.float32
+  rowFloats = 4 * cuda_trace.SURF_COLS + 2 * cuda_trace.ELEM_COLS
+  assert table.shape == (3, rowFloats + 544) and table.dtype == np.float32
   p1, c1, segs = step(4, table)
   first = (p1.clone(), c1.clone())
   p2, c2, _ = step(4, table)

@@ -151,7 +151,8 @@ def test_unported_scene_and_parallel_raise_by_name(tmp_path):
     sweeper.optimizeStrategyStep([dict(minimizeFunc=H.spotSize,
                                        parameters=['n'])], parallel=True)
   assert sweeper.optimizeStrategyStep([]) == []
-  scene.getObject('Lens').OpticalType = 'Grating'
+  # a dispersive n(wavelength) that no in-kernel polynomial fits
+  scene.getObject('Detector').RefractiveIndex = '1.5 + 0.01*sin(wavelength/10)'
   with pytest.raises(NotImplementedError, match='ROADMAP queue B'):
     sweeper.evaluateBatched([dict(n=1.4), dict(n=1.6)], H.spotMetric,
                             raysPerScene=256)

@@ -285,6 +285,128 @@ def spotSize(raw):
                         p[:, 1] - p[:, 1].mean()).std())
 
 
+def buildGratingScene(ns):
+  '''The reference suite's grating scene (tests/test_pallas_interpret.py
+  `test_grating_matches_xla_tracer_interpret`): a 600 lines/mm reflection
+  grating tilted by 20 deg about x, first order, onto a spherical absorber
+  of radius 300 mm around it.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='gratinterp')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Grating', Label='Grat', GratingType='Reflection',
+      GratingLinesPerMillimeter=600., GratingDiffractionOrder=1,
+      GratingLinesOrientation=(1., 0., 0.),
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(30., 30.))],
+      placements=[T.compose(T.translation(0, 0, 100),
+                            T.rotation((1, 0, 0), 20))]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.sphere(T.translation(0, 0, 100), elem=0, radius=300.,
+                         orient=-1)],
+      placements=[np.eye(4)]))
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.005)',
+      ThetaDomain='0, 0.2', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
+  return scene, (-300., 300., -300., 300.), 3
+
+
+def buildTransmissionGratingScene(ns):
+  '''A 300 lines/mm transmission grating on a 5 mm glass plate (n = 1.5):
+  the first order leaves the entry face inside the glass, the exit face
+  refracts it like a lens face, and an absorber 95 mm behind records it.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='transgrating')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Grating', Label='Grat', GratingType='Transmission',
+      RefractiveIndex=1.5, GratingLinesPerMillimeter=300.,
+      GratingDiffractionOrder=1, GratingLinesOrientation=(1., 0., 0.),
+      surfaces=[
+          S.plane(T.translation(0, 0, 50), elem=0, radius=30., orient=-1),
+          S.plane(T.translation(0, 0, 55), elem=0, radius=30., orient=+1)],
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(60., 60.))],
+      placements=[T.translation(0, 0, 150)]))
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.005)',
+      ThetaDomain='0, 0.15', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=4)
+  return scene, (-60., 60., -60., 60.), 4
+
+
+# BK7's Cauchy coefficients A and B, the wavelength in nm
+CAUCHY_GLASS = '1.5046 + 4200/wavelength^2'
+
+
+def buildDispersiveLensMirrorScene(ns):
+  '''The lens-and-mirror scene with a dispersive lens (Cauchy glass) and the
+  source at 486 nm (the F line).'''
+  scene = ns.benchmarks.buildLensMirrorScene()
+  scene.getObject('Lens').RefractiveIndex = CAUCHY_GLASS
+  scene.lightSources()[0].Wavelength = 486.
+  return scene, (-60., 60., -60., 60.), 6
+
+
+def buildSequentialBallScene(ns):
+  '''The reference suite's sequential ball-lens scene
+  (tests/test_pallas_interpret.py
+  `test_sequential_with_lens_matches_xla_interpret`): stages [Ball], [Det];
+  lens entry does not advance the stage, so the exit face must stay open.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='seqlensinterp')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Lens', Label='Ball', RefractiveIndex=1.5,
+      surfaces=[S.sphere(np.eye(4), elem=0, radius=10.)],
+      placements=[T.translation(0, 0, 30.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det', RecordHits=True,
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(80., 80.))],
+      placements=[T.translation(0, 0, 80.)]))
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.02)',
+      ThetaDomain='0, 0.25', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(
+      RaysPerIteration=1e4, MaxIntersections=5, SequentialMode=True,
+      SequentialModeElements=[['Ball'], ['Det']])
+  return scene, (-80., 80., -80., 80.), 5
+
+
+def buildMaskedSourcesScene(ns):
+  '''Two sources before a 45 deg fold mirror: 'Src' sees everything and is
+  folded onto the side detector, 'Blind' ignores the mirror
+  (IgnoredOpticalElements) and reaches the back detector through it.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='masked')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Fold', Reflectivity=0.95,
+      surfaces=[S.plane(np.eye(4), elem=0, radius=40.)],
+      placements=[T.compose(T.translation(0, 0, 50),
+                            T.rotation((0, 1, 0), 45))]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Side',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(40., 40.))],
+      placements=[T.compose(T.translation(-60, 0, 50),
+                            T.rotation((0, 1, 0), 90))]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Back',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(40., 40.))],
+      placements=[T.translation(0, 0, 120)]))
+  for label, ignored in (('Src', []), ('Blind', ['Fold'])):
+    src = ns.PointSource(
+        Label=label, PowerDensity='exp(-theta^2/0.02)',
+        ThetaDomain='0, 0.2', Wavelength=532.,
+        ThetaResolutionNumericMode='1e4')
+    src.IgnoredOpticalElements = ignored
+    scene.addSource(src)
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=4)
+  return scene, (-40., 40., -40., 40.), 4
+
+
 def buildBench(ns, name):
   bounds = (-60., 60., -60., 60.)
   if name == 'lensMirror':
@@ -301,18 +423,40 @@ SCENES_BY_NAME = {
     'stacked': buildStackedDetectorScene,
 }
 
+# the scenes of the B4 features: name -> (scene function, traced source)
+B4_SCENES = {
+    'grating': (buildGratingScene, 0),
+    'transGrating': (buildTransmissionGratingScene, 0),
+    'cauchyLensMirror': (buildDispersiveLensMirrorScene, 0),
+    'seqBall': (buildSequentialBallScene, 0),
+    'maskedSource': (buildMaskedSourcesScene, 1),
+}
 
-def referenceArrays(jaxScene, bounds, bins=BINS):
+
+def _jaxSceneFor(jaxScene, source, devicePut=True):
+  '''The JAX package's compiled scene as its runner traces `source` (index
+  into the light sources): with that source's `surfMask`
+  (`SimulationRun.sceneFor`). Returns (scene dict, info, the source).'''
+  device, info = jaxScene.compile(devicePut=devicePut)
+  src = jaxScene.lightSources()[source]
+  mask = info['surfaceMasks'].get(src.Label)
+  if mask is not None:
+    device = dict(device, surfMask=mask)
+  return device, info, src
+
+
+def referenceArrays(jaxScene, bounds, bins=BINS, source=0):
   '''What the JAX package hands over: the numpy scene dict of
-  `compile(devicePut=False)`, the histogram spec as numpy, and the sampler
-  spec of the first source.'''
+  `compile(devicePut=False)` as its runner traces light source `source`
+  (with that source's `surfMask`), the histogram spec as numpy, and the
+  source's sampler spec.'''
   from optics_design_workbench_tpu.tracing import fused
-  deviceNp, info = jaxScene.compile(devicePut=False)
+  deviceNp, info, src = _jaxSceneFor(jaxScene, source, devicePut=False)
   histSpec = fused.makeHistogramSpec(deviceNp, info, bounds=bounds, bins=bins)
   histNp = dict(elemToDet=np.asarray(histSpec['elemToDet']),
                 bounds=np.asarray(histSpec['bounds']),
                 bins=tuple(histSpec['bins']))
-  return deviceNp, histNp, jaxScene.lightSources()[0].pallasSamplerSpec()
+  return deviceNp, histNp, src.pallasSamplerSpec()
 
 
 def _result(hist, counters):
@@ -362,16 +506,16 @@ def runReferenceColumns(jaxScene, colsNp, bounds, maxIntersections,
 
 
 def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
-                         seed=77, bins=BINS):
-  '''Mode (b) on the JAX side: in-kernel sampler fed uniforms through the
-  `uniformProvider='input'` seam. Returns the kernel's result and the very
-  uniforms the step drew, as a (2, n) numpy array in ray order.'''
+                         seed=77, bins=BINS, source=0):
+  '''Mode (b) on the JAX side: in-kernel sampler of light source `source`
+  fed uniforms through the `uniformProvider='input'` seam. Returns the
+  kernel's result and the very uniforms the step drew, as a (2, n) numpy
+  array in ray order.'''
   import jax
   from optics_design_workbench_tpu.ops import pallas_trace
   from optics_design_workbench_tpu.tracing import fused
-  device, info = jaxScene.compile()
+  device, info, src = _jaxSceneFor(jaxScene, source)
   device['powerTol'] = 1e-6
-  src = jaxScene.lightSources()[0]
   spec = src.pallasSamplerSpec()
   assert spec is not None
   histSpec = fused.makeHistogramSpec(device, info, bounds=bounds, bins=bins)
@@ -388,21 +532,20 @@ def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
 
 
 def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
-                    colsNp=None, n=N_RAYS, seed=77, bins=BINS):
+                    colsNp=None, n=N_RAYS, seed=77, bins=BINS, source=0):
   '''The JAX package's raw-record step (`makePallasRawStep`, Mosaic
   interpret mode). With `colsNp` (mode (c)) a test-local generator feeds it
   the numpy ray columns; without (mode (b)) its in-kernel sampler is fed
   uniforms through `uniformProvider='input'` (no tile strata on this step).
-  Returns (records as numpy, counters as ints, uniforms (2, n) or None,
-  element labels).'''
+  `source` picks the light source (and its `surfMask`). Returns (records as
+  numpy, counters as ints, uniforms (2, n) or None, element labels).'''
   import jax
   import jax.numpy as jnp
   from optics_design_workbench_tpu.ops import pallas_trace
   from optics_design_workbench_tpu.tracing import fused
-  device, info = jaxScene.compile()
+  device, info, src = _jaxSceneFor(jaxScene, source)
   device['powerTol'] = 1e-6
   histSpec = fused.makeHistogramSpec(device, info, bounds=bounds, bins=bins)
-  src = jaxScene.lightSources()[0]
   kw = dict(raysPerStep=n, maxIntersections=maxIntersections,
             maxRayLength=MAX_RAY_LENGTH, distTol=DIST_TOL, hitSlots=hitSlots,
             interpret=True, tile=TILE)
@@ -424,6 +567,69 @@ def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
   return ({k: np.asarray(v) for k, v in records.items()},
           {k: int(v) for k, v in counters.items()}, us,
           list(info['elementLabels']))
+
+
+def runB4Case(name, n=N_RAYS):
+  '''One scene of `B4_SCENES` through both packages in mode (b): the JAX
+  Pallas kernel in interpret mode (histogram step and raw-record step, each
+  fed the uniforms it draws for its `uniformProvider='input'` seam) and the
+  port's plain versions on those very uniforms, on the traced source's own
+  scene (its `surfMask` included). Returns dict(hist=(ref, port),
+  raw=((records, counters) of the reference, of the port), tables).'''
+  import torch
+  from optics_design_workbench_tpu_torch import convert
+  from optics_design_workbench_tpu_torch.ops import cuda_trace
+  from optics_design_workbench_tpu_torch.tracing import fused as torchFused
+  build, source = B4_SCENES[name]
+  scene, bounds, maxI = build(jaxNs())
+  deviceNp, histNp, spec = referenceArrays(scene, bounds, source=source)
+  tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,
+                                      device='cpu')
+  ref, us = runReferenceUniforms(scene, bounds, maxI, n=n, source=source)
+  hist = torchFused.initHistograms(histNp, device='cpu')
+  c = cuda_trace.traceHistogram(
+      tables, hist, n, maxI, MAX_RAY_LENGTH, DIST_TOL, hitSlots=1,
+      uniforms=torch.as_tensor(us), strataTile=TILE)
+  port = dict(counts=hist['counts'].numpy(), power=hist['power'].numpy(),
+              counters=dict(segments=int(c[0]), hits=int(c[1]),
+                            hitOverflow=int(c[2])))
+  hitSlots = cuda_trace.autoHitSlots(deviceNp, histNp, maxI)
+  refR, refRC, usR, _labels = runReferenceRaw(scene, bounds, maxI, n=n,
+                                              source=source)
+  ring, cR = cuda_trace.traceRaw(tables, n, maxI, MAX_RAY_LENGTH, DIST_TOL,
+                                 hitSlots=hitSlots,
+                                 uniforms=torch.as_tensor(usR))
+  portR = convert.recordsToNumpy(cuda_trace.recordsFromRing(ring))
+  portRC = dict(segments=int(cR[0]), hits=int(cR[1]), hitOverflow=int(cR[2]))
+  return dict(hist=(ref, port), raw=((refR, refRC), (portR, portRC)),
+              tables=tables, maxI=maxI)
+
+
+def assertHistogramsMatch(case):
+  '''Histogram mode: counters equal, counts within the 2-ray bin-edge
+  budget, power per bin within 1 % (the reference bins in bf16).'''
+  ref, port = case['hist']
+  for k in ('segments', 'hits', 'hitOverflow'):
+    assert port['counters'][k] == ref['counters'][k], k
+  assert nearlyEqualCounts(port['counts'], ref['counts'])
+  same = (ref['counts'] == port['counts']) & (ref['counts'] > 0)
+  np.testing.assert_allclose(port['power'][same], ref['power'][same],
+                             rtol=1e-2)
+
+
+def assertRawRowsMatch(case, atol=1e-4):
+  '''Raw mode: counters equal, rows equal ray by ray and slot by slot
+  (element, isEntering exactly; point, direction, power within `atol`).'''
+  (refR, refC), (portR, portC) = case['raw']
+  for k in ('segments', 'hits', 'hitOverflow'):
+    assert portC[k] == refC[k], k
+  m = refR['recordHit']
+  np.testing.assert_array_equal(portR['recordHit'], m)
+  for k in ('hitElem', 'isEntering'):
+    np.testing.assert_array_equal(portR[k][m], refR[k][m], err_msg=k)
+  for k in ('point', 'direction', 'power'):
+    np.testing.assert_allclose(portR[k][m], refR[k][m], rtol=0., atol=atol,
+                               err_msg=k)
 
 
 def hitRowset(records):

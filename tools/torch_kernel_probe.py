@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
-    python3 tools/torch_kernel_probe.py [sweep]
+    python3 tools/torch_kernel_probe.py [sweep | spectrometer]
 
-(`sweep` runs the sweep breakdown alone) times the port's main-path step
+(`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
+alone) times the port's main-path step
 (lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
 warm-up, interleaved A B B A so that clock drift cancels:
 
@@ -31,7 +32,19 @@ warm-up, interleaved A B B A so that clock drift cancels:
     the variants, packing the stacked table, upload + launch + fetch, and
     the metric; and one evaluation of `optimize` (`runSimulation` with raw
     recording, then `RawFolder.loadHits`) with a new source object and with
-    the same one (host clock around synchronised work).
+    the same one (host clock around synchronised work);
+  * the grating spectrometer (`benchmarks.buildSpectrometerScene`, 1 << 22
+    rays, 128 x 128 bins over +-80 mm), beside the lens-and-mirror main
+    path at 6 bounces: the histogram kernel at a bounce budget of 1, 2 and
+    3; the grating against a mirror in its place (the grating's share of a
+    step); and the focused line's atomics: the histogram kernel on the
+    throughput scene's line (theta <= 0.05) and on examples/4's narrower
+    one (theta <= 0.01, most rays in a few bins), each beside the same step
+    with histogram bounds that miss the line (no atomics), and the
+    per-ray-bin and raw-record kernels, which write per ray instead; and
+    the histogram kernel on both scenes built for 4, 5 and 6 resident
+    blocks per SM (`-DODW_MIN_BLOCKS_PER_SM`: at most 64, 48 and 40
+    registers a thread).
 
 Prints one JSON object per measurement. Needs a CUDA device.
 '''
@@ -192,6 +205,86 @@ def sweepBreakdown(dev):
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+SPECTRO_BOUNDS = (-80., 80., -80., 80.)
+
+
+def spectrometerBreakdown(dev):
+  seeds = iter(range(10 ** 9))
+  tile = cuda_trace.DEFAULT_STRATA_TILE
+
+  def tablesOf(scene, bounds):
+    sceneNp, info = scene.compile(device=None)
+    histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds,
+                                       bins=BINS)
+    return (cuda_trace.buildTraceTables(
+        sceneNp, histSpec, samplerSpec=scene.lightSources()[0].samplerSpec(),
+        device=dev), fused.initHistograms(histSpec, device=dev))
+
+  def k1(label, tables, hist, maxI, out='hist'):
+    kw = dict(hitSlots=1, strataTile=tile)
+    if out == 'hist':
+      fn = lambda: cuda_trace.traceHistogram(tables, hist, N, maxI, 1000.,
+                                             1e-4, seed=next(seeds), **kw)
+    else:
+      wrapper = cuda_trace.traceBins if out == 'bins' else cuda_trace.traceRaw
+      fn = lambda: wrapper(tables, N, maxI, 1000., 1e-4, seed=next(seeds),
+                           **kw)[1]
+    ms = cudaMs(fn)
+    c = fn().tolist()
+    print(json.dumps(dict(variant=label, output=out, ms=ms, bounces=maxI,
+                          segments=c[0], hits=c[1],
+                          gSegmentsPerSec=c[0] / ms / 1e6,
+                          peakBinShare=float(hist['counts'].max()
+                                             / max(float(hist['counts'].sum()),
+                                                   1.)))), flush=True)
+
+  lens = tablesOf(benchmarks.buildLensMirrorScene(), (-60., 60., -60., 60.))
+  spectro = tablesOf(benchmarks.buildSpectrometerScene(), SPECTRO_BOUNDS)
+  mirrorScene = benchmarks.buildSpectrometerScene()
+  mirrorScene.getObject('Grating').OpticalType = 'Mirror'
+  mirror = tablesOf(mirrorScene, SPECTRO_BOUNDS)
+  narrowScene = benchmarks.buildSpectrometerScene()
+  src = narrowScene.lightSources()[0]
+  src.PowerDensity, src.ThetaDomain = 'exp(-theta^2/1e-6)', '0, 0.01'
+  narrow = tablesOf(narrowScene, SPECTRO_BOUNDS)
+  # the same steps with histogram bounds away from the line: every hit fails
+  # the bounds gate, so no atomic is issued
+  quiet = {label: tablesOf(scene, (60., 80., 60., 80.))
+           for label, scene in (('wide', benchmarks.buildSpectrometerScene()),
+                                ('narrow', narrowScene))}
+  for rep in range(2):
+    k1(f'lensMirror-bounces6/rep{rep}', *lens, 6)
+    for maxI in (1, 2, 3):
+      k1(f'spectrometer-bounces{maxI}/rep{rep}', *spectro, maxI)
+    for label, t in (('grating', spectro), ('mirror', mirror),
+                     ('mirror', mirror), ('grating', spectro)):
+      k1(f'spectrometer-{label}/rep{rep}', *t, 3)
+    for label, t in (('wide', spectro), ('narrow', narrow)):
+      for out in ('hist', 'bins', 'raw'):
+        k1(f'line-{label}/rep{rep}', *t, 3, out=out)
+      k1(f'line-{label}-outOfBounds/rep{rep}', *quiet[label], 3)
+
+  # register caps: the same sources built for 4, 5 and 6 resident blocks of
+  # 256 threads per SM (at most 64, 48 and 40 registers a thread; ptxas
+  # spills what does not fit), the histogram kernel on the lens-and-mirror
+  # main path and on the spectrometer, interleaved
+  shipped = _build.NVCC_FLAGS
+  for blocks in (None, 4, 5, 6, 6, 5, 4, None):
+    flags = shipped + (() if blocks is None
+                       else (f'-DODW_MIN_BLOCKS_PER_SM={blocks}',))
+    _build.NVCC_FLAGS = flags
+    try:
+      _libs, info = _build.buildKernels()
+      ptxas = [l.strip() for l in info['log'].splitlines()
+               if 'registers' in l or 'spill' in l]
+      print(json.dumps(dict(variant=f'minBlocks-{blocks}', ptxas=ptxas)),
+            flush=True)
+      k1(f'minBlocks-{blocks}/lensMirror', *lens, 6)
+      k1(f'minBlocks-{blocks}/spectrometer', *spectro, 3)
+    finally:
+      _build.NVCC_FLAGS = shipped
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
@@ -203,6 +296,8 @@ def main():
                         bins=BINS)), flush=True)
   if sys.argv[1:] == ['sweep']:
     return sweepBreakdown(dev)
+  if sys.argv[1:] == ['spectrometer']:
+    return spectrometerBreakdown(dev)
 
   scene = benchmarks.buildLensMirrorScene()
   sceneNp, info = scene.compile(device=None)
@@ -350,6 +445,7 @@ def main():
     print(json.dumps(row), flush=True)
 
   sweepBreakdown(dev)
+  spectrometerBreakdown(dev)
 
 
 if __name__ == '__main__':
