@@ -12,8 +12,11 @@ kernel on a surface sweep and a source-placement sweep and, in seed mode,
 against one launch of the histogram kernel per variant; then the same on
 the scenes of gratings, dispersion, sequential mode and per-source masks
 (a reflection and a transmission grating, a Cauchy lens, the sequential
-ball lens, a source that ignores a mirror; the spectrometer at full width;
-a wavelength sweep). It then drives the port's paths at full width:
+ball lens, a source that ignores a mirror; the spectrometer at full width
+and one examples/4 source at a raw iteration's 1 << 20 rays; 3-variant
+sweeps of the spectrometer's wavelength, of the Cauchy lens's dispersion
+and, under a source's mask, of a detector's distance). It then drives the
+port's paths at full width:
 
   * the fused step (`benchmarks.makeBenchStep()`: 1 << 22 rays, 6 bounces,
     128 x 128 bins) for a few timed steps, with in-kernel binning and with
@@ -644,16 +647,30 @@ def recordingRunPhases(tmp):
   return rawLaunches, out[N_MAIN]
 
 
-def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo):
+def sweepTablesFor(scenes, bounds, source=0):
+  '''(stacked sweep tables, host scenes, histogram spec) of these variants
+  as light source `source` of each is traced (with its surface mask).'''
+  host, specs = [], []
+  for sc in scenes:
+    sceneNp, info = sc.compile(device=None)
+    src = sc.lightSources()[source]
+    if src.Label in info['surfaceMasks']:
+      sceneNp = dict(sceneNp, surfMask=info['surfaceMasks'][src.Label])
+    host.append((sceneNp, info))
+    specs.append(src.samplerSpec())
+  histSpec = fused.makeHistogramSpec(*host[0], bounds=bounds, bins=SWEEP_BINS)
+  tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec, specs,
+                                       device=DEV)
+  return tables, host, histSpec, specs
+
+
+def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo,
+                          source=0):
   '''The sweep kernel vs its plain version on the card, same uniforms (and,
   where the source is the same in every variant, the same ray columns):
   per-variant counters equal, at most COUNT_BUDGET rays per variant in
   another bin, power POWER_RTOL. Returns the worst absolute power error.'''
-  host = [sc.compile(device=None) for sc in scenes]
-  histSpec = fused.makeHistogramSpec(*host[0], bounds=bounds, bins=SWEEP_BINS)
-  specs = [sc.lightSources()[0].samplerSpec() for sc in scenes]
-  tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec, specs,
-                                       device=DEV)
+  tables, host, histSpec, _specs = sweepTablesFor(scenes, bounds, source)
   hitSlots = cuda_trace.autoHitSlots(host[0][0], histSpec, maxI)
   kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
             powerTol=1e-6, hitSlots=hitSlots)
@@ -939,49 +956,82 @@ def lineCentroidMm(counts):
   return float(np.hypot(x, y))
 
 
+def compareSweepWithSingles(label, scenes, bounds, maxI, n, seed, source=0):
+  '''The sweep kernel in seed mode on these variants against one launch of
+  the histogram kernel per variant (`holdSweepAgainstSingles`).'''
+  tables, host, histSpec, specs = sweepTablesFor(scenes, bounds, source)
+  shape = (len(scenes), tables['nDet']) + SWEEP_BINS
+  hist = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+  kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6,
+            hitSlots=cuda_trace.autoHitSlots(host[0][0], histSpec, maxI),
+            strataTile=cuda_trace.DEFAULT_STRATA_TILE)
+  counters = cuda_trace.traceSweep(tables, hist, n, seed=seed, **kw)
+  singles = [cuda_trace.buildTraceTables(h, histSpec, spec, device=DEV)
+             for (h, _i), spec in zip(host, specs)]
+  holdSweepAgainstSingles(label, hist['power'], hist['counts'], counters,
+                          singles, histSpec, n, kw, seed)
+
+
 def b4KernelChecks():
   '''Each kernel against its plain version on the scenes of gratings,
   dispersion, sequential mode and per-source masks (modes (b) and (c),
-  the gates of phase 2), the histogram kernel on the spectrometer at full
-  width, and the sweep kernel on a 3-wavelength sweep of the spectrometer:
-  against its plain version, and in seed mode against one launch of the
-  histogram kernel per variant. Returns the worst error per kernel.'''
+  the gates of phase 2); the histogram and per-ray kernels at the shapes the
+  spectrometer's path gives them (the throughput scene at full width, one
+  examples/4 source at a raw iteration's 1 << 20 rays); and the sweep
+  kernel on three 3-variant sweeps — the spectrometer's wavelength, the
+  Cauchy lens's dispersion (each variant its own n(lambda) polynomial) and,
+  under a source's surface mask, the back detector's distance (the stage
+  gate) — against its plain version, and in seed mode against one launch
+  of the histogram kernel per variant. Returns the worst error per
+  kernel.'''
   ns = helpers.torchNs()
   worst = dict(traceHistogram=0., traceBins=0., traceRaw=0., traceSweep=0.)
+
+  def rings(*args, **kw):
+    w = compareRingsWithPlain(*args, **kw)
+    for name in ('traceRaw', 'traceBins'):
+      worst[name] = max(worst[name], w[name])
+
   for name, (build, source) in helpers.B4_SCENES.items():
     scene, bounds, maxI = build(ns)
     worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
         name, scene, bounds, maxI, N_SMALL, BINS, source=source))
-    w = compareRingsWithPlain(name, scene, bounds, maxI, N_SMALL, BINS,
-                              source=source)
-    worst['traceRaw'] = max(worst['traceRaw'], w['traceRaw'])
-    worst['traceBins'] = max(worst['traceBins'], w['traceBins'])
+    rings(name, scene, bounds, maxI, N_SMALL, BINS, source=source)
+  spectrometer = benchmarks.buildSpectrometerScene()
   worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
-      'spectrometer', benchmarks.buildSpectrometerScene(), SPECTRO_BOUNDS,
-      SPECTRO_MAX_INTERSECTIONS, N_MAIN, BINS))
-  scenes = [benchmarks.buildSpectrometerScene(wavelength=w)
-            for w in SPECTRO_WAVELENGTHS]
-  worst['traceSweep'] = compareSweepWithPlain(
-      'wavelength', scenes, SPECTRO_BOUNDS, SPECTRO_MAX_INTERSECTIONS,
-      N_SMALL, columnsToo=False)
-  host = [sc.compile(device=None) for sc in scenes]
-  histSpec = fused.makeHistogramSpec(*host[0], bounds=SPECTRO_BOUNDS,
-                                     bins=SWEEP_BINS)
-  specs = [sc.lightSources()[0].samplerSpec() for sc in scenes]
-  tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec, specs,
-                                       device=DEV)
-  shape = (len(scenes), 1) + SWEEP_BINS
-  hist = dict(power=torch.zeros(shape, device=DEV),
-              counts=torch.zeros(shape, device=DEV))
-  kw = dict(maxIntersections=SPECTRO_MAX_INTERSECTIONS, maxRayLength=1000.,
-            distTol=1e-4, powerTol=1e-6, hitSlots=1,
-            strataTile=cuda_trace.DEFAULT_STRATA_TILE)
-  seed = 41
-  counters = cuda_trace.traceSweep(tables, hist, N_SMALL, seed=seed, **kw)
-  singles = [cuda_trace.buildTraceTables(h, histSpec, spec, device=DEV)
-             for (h, _i), spec in zip(host, specs)]
-  holdSweepAgainstSingles('wavelength', hist['power'], hist['counts'],
-                          counters, singles, histSpec, N_SMALL, kw, seed)
+      'spectrometer', spectrometer, SPECTRO_BOUNDS, SPECTRO_MAX_INTERSECTIONS,
+      N_MAIN, BINS))
+  rings('spectrometer', spectrometer, SPECTRO_BOUNDS,
+        SPECTRO_MAX_INTERSECTIONS, N_MAIN, BINS)
+  rings('example4-550nm', example4.buildScene(wavelengths=SPECTRO_WAVELENGTHS),
+        SPECTRO_BOUNDS, SPECTRO_MAX_INTERSECTIONS, N_RAW_ITERATION, BINS,
+        source=1)
+
+  def cauchy(b):
+    scene, bounds, maxI = helpers.buildDispersiveLensMirrorScene(ns)
+    scene.getObject('Lens').RefractiveIndex = f'1.5046 + {b}/wavelength^2'
+    return scene, bounds, maxI
+
+  def backAt(z):
+    scene, bounds, maxI = helpers.buildMaskedSourcesScene(ns)
+    scene.getObject('Back').placements = [ns.T.translation(0, 0, z)]
+    return scene, bounds, maxI
+
+  sweeps = (
+      ('wavelength', [(benchmarks.buildSpectrometerScene(wavelength=w),
+                       SPECTRO_BOUNDS, SPECTRO_MAX_INTERSECTIONS)
+                      for w in SPECTRO_WAVELENGTHS], 0, False),
+      ('cauchyB', [cauchy(b) for b in (4200., 3000., 6000.)], 0, True),
+      ('maskedBack', [backAt(z) for z in (120., 100., 140.)], 1, True))
+  for label, variants, source, columnsToo in sweeps:
+    scenes = [sc for sc, _b, _m in variants]
+    _s, bounds, maxI = variants[0]
+    worst['traceSweep'] = max(worst['traceSweep'], compareSweepWithPlain(
+        label, scenes, bounds, maxI, N_SMALL, columnsToo, source=source))
+    compareSweepWithSingles(label, scenes, bounds, maxI, N_SMALL, seed=41,
+                            source=source)
   return worst
 
 

@@ -80,13 +80,6 @@ constexpr int kSegStride = 17;     // a, mid, 1/half, nCoef, 13 coefficients
 constexpr int kMargLen = 264;      // kind, n, lo, hi/span, 260 payload floats
 constexpr int kSamplerGeom = 16;   // finite, f, R(9), off(3), wavelength, pad
 constexpr int kBlock = 256;
-// blocks of kBlock threads the compiler must be able to keep resident on
-// one SM (the second argument of __launch_bounds__): 1 leaves the registers
-// per thread uncapped; N caps them at 65536 / (N * kBlock). A build-time
-// constant so that a probe can build the other choices beside it.
-#ifndef ODW_MIN_BLOCKS_PER_SM
-#define ODW_MIN_BLOCKS_PER_SM 1
-#endif
 
 // surface row columns
 // S_STAGES: bit q lets a ray whose clamped stage index is q hit the surface
@@ -240,7 +233,7 @@ __device__ float intersect(const float* r, float ox, float oy, float oz,
 // p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
 // `rayIn` (shared by all variants) has p.N columns.
 template <int OUT, bool SWEEP, bool B4>
-__global__ void __launch_bounds__(kBlock, ODW_MIN_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(kBlock)
 traceKernel(TraceParams p, const float* __restrict__ table,
             const float* __restrict__ rayIn, float* __restrict__ out0,
             float* __restrict__ out1,

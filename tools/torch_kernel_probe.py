@@ -41,10 +41,7 @@ warm-up, interleaved A B B A so that clock drift cancels:
     throughput scene's line (theta <= 0.05) and on examples/4's narrower
     one (theta <= 0.01, most rays in a few bins), each beside the same step
     with histogram bounds that miss the line (no atomics), and the
-    per-ray-bin and raw-record kernels, which write per ray instead; and
-    the histogram kernel on both scenes built for 4, 5 and 6 resident
-    blocks per SM (`-DODW_MIN_BLOCKS_PER_SM`: at most 64, 48 and 40
-    registers a thread).
+    per-ray-bin and raw-record kernels, which write per ray instead.
 
 Prints one JSON object per measurement. Needs a CUDA device.
 '''
@@ -263,26 +260,6 @@ def spectrometerBreakdown(dev):
       for out in ('hist', 'bins', 'raw'):
         k1(f'line-{label}/rep{rep}', *t, 3, out=out)
       k1(f'line-{label}-outOfBounds/rep{rep}', *quiet[label], 3)
-
-  # register caps: the same sources built for 4, 5 and 6 resident blocks of
-  # 256 threads per SM (at most 64, 48 and 40 registers a thread; ptxas
-  # spills what does not fit), the histogram kernel on the lens-and-mirror
-  # main path and on the spectrometer, interleaved
-  shipped = _build.NVCC_FLAGS
-  for blocks in (None, 4, 5, 6, 6, 5, 4, None):
-    flags = shipped + (() if blocks is None
-                       else (f'-DODW_MIN_BLOCKS_PER_SM={blocks}',))
-    _build.NVCC_FLAGS = flags
-    try:
-      _libs, info = _build.buildKernels()
-      ptxas = [l.strip() for l in info['log'].splitlines()
-               if 'registers' in l or 'spill' in l]
-      print(json.dumps(dict(variant=f'minBlocks-{blocks}', ptxas=ptxas)),
-            flush=True)
-      k1(f'minBlocks-{blocks}/lensMirror', *lens, 6)
-      k1(f'minBlocks-{blocks}/spectrometer', *spectro, 3)
-    finally:
-      _build.NVCC_FLAGS = shipped
 
 
 def main():
