@@ -39,9 +39,20 @@ port's paths at full width:
     wavelengths from 400 to 700 nm x 1 << 20 rays, one sweep-kernel launch
     per call); and one step at 2000 lines/mm and 650 nm, whose first order
     is evanescent;
+  * the surface source (`benchmarks.buildSurfaceSourceScene()`, the
+    reference's surface-source scene: a cos^2 disc emitter, a fold mirror,
+    a detector; 4 intersections, 128 x 128 bins over +-120 mm): the fused
+    step with both binnings (1 << 22 rays), `runSimulation` raw (4
+    iterations of 1 << 20 rays) and histogram-first (8 of 1 << 22), the
+    detected share and mean detected power against the JAX package's;
 
 (the first three on the lens-and-mirror scene) and checks the physics of
-what comes out. Every failing phase raises, so the exit code is non-zero and no result line is printed. Needs one CUDA device;
+what comes out. Before those paths it holds the histogram, per-ray-bin and
+raw-record kernels against their plain versions on the surface-source
+scenes (the throughput scene at full width, an emitter of four face kinds
+under two placements), the surface sampler's own draws against the
+source's `deviceColumnsGenerator` by distribution, and one histogram step
+onto bins that already hold 2**24 (they must go on counting). Every failing phase raises, so the exit code is non-zero and no result line is printed. Needs one CUDA device;
 exits non-zero without one. Prints one JSON object per phase; the last line
 is `{"ok": true, "device": {...}}`.
 '''
@@ -100,6 +111,17 @@ SPECTRO_HIST_ITERATIONS = 8
 SPECTRO_SWEEP = (64, 1 << 20)            # wavelengths x rays per wavelength
 LINE_TOL_MM = 0.15                       # the JAX suite's own bound
 BIN_MM = (SPECTRO_BOUNDS[1] - SPECTRO_BOUNDS[0]) / BINS[1]
+# the surface source: the reference's surface-source throughput scene
+# (tools/scene_throughput.sceneSurfaceSource) and its recording run
+SURFACE_BOUNDS = (-120., 120., -120., 120.)
+SURFACE_MAX_INTERSECTIONS = 4
+SURFACE_HIST_ITERATIONS = 8
+# the JAX package on that scene: detected share and mean detected power of
+# its fused step at 65,536 rays, seed 0 (tests/test_torch_surface_source.py
+# computes them and holds them equal to these)
+REF_SURFACE_SHARE = 0.68133544921875
+REF_SURFACE_POWER = 0.9838300736950235
+REF_SURFACE_RAYS = 1 << 16
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
@@ -114,6 +136,12 @@ FLOPS_INTERSECT = {0: 33 + 12 + 6, 1: 33 + 42 + 6, 2: 33 + 35 + 6}
 FLOPS_WINNER = 52         # hit point, local point, normal, world normal
 FLOPS_PHYSICS = 80        # Beer-Lambert, mirror, Snell / TIR, record, update
 FLOPS_SAMPLER = 160       # Philox rounds, two marginals, sin / cos, placement
+# the surface-source sampler, counted the same way: two Philox calls (200),
+# five uniforms, the face's closed form and placement, three
+# normalisations, the tangent, the theta marginal (~80), two Rodrigues
+# rotations; plus FLOPS_FACE_SCAN per emitting face (the window test)
+FLOPS_SURFACE_SAMPLER = 430
+FLOPS_FACE_SCAN = 3
 # the parts of the body behind header flags, counted the same way from
 # csrc/trace_common.cuh: a ray's pass through a grating (frame, Ludwig
 # quadratic, diffracted direction, medium / power / stage updates); the
@@ -170,6 +198,21 @@ def rayColumns(tables, cols):
   return torch.stack(list(cols) + [wl]).contiguous()
 
 
+def samplerInputs(tables, n, seed):
+  '''The inputs of modes (b) and (c) for the tables' in-kernel sampler:
+  (uniforms, one row per draw of the sampler, from a torch generator seeded
+  `seed`; the strata tile; the seven ray columns its plain version draws
+  from them, stratified where the sampler is the point source's).'''
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(seed)
+  us = torch.rand((cuda_trace.samplerUniforms(tables), n), generator=gen,
+                  device=DEV, dtype=torch.float32)
+  strataTile = cuda_trace.DEFAULT_STRATA_TILE
+  cols = cuda_trace.samplerColumnsPlain(
+      tables, us, cuda_trace.tileStrata(n, strataTile), strataTile)
+  return us, strataTile, cols
+
+
 def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
                      tent=False, source=0):
   '''Kernel vs plain version on the card, modes (b) and (c), same inputs:
@@ -181,12 +224,7 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   settings = scene.activeSimulationSettings()
   kw = dict(maxIntersections=maxI, maxRayLength=settings.maxRayLength(),
             distTol=1e-4, powerTol=1e-6, hitSlots=hitSlots)
-  gen = torch.Generator(device=DEV)
-  gen.manual_seed(1234)
-  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
-  strataTile = cuda_trace.DEFAULT_STRATA_TILE
-  strata = cuda_trace.tileStrata(n, strataTile)
-  cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1], strata, strataTile)
+  us, strataTile, cols = samplerInputs(tables, n, 1234)
   colsT = rayColumns(tables, cols)
   worst = 0.
   for mode, inputs in (('b', dict(uniforms=us, strataTile=strataTile)),
@@ -235,12 +273,7 @@ def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   settings = scene.activeSimulationSettings()
   kw = dict(maxIntersections=maxI, maxRayLength=settings.maxRayLength(),
             distTol=1e-4, powerTol=1e-6, hitSlots=hitSlots)
-  gen = torch.Generator(device=DEV)
-  gen.manual_seed(4321)
-  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
-  strataTile = cuda_trace.DEFAULT_STRATA_TILE
-  strata = cuda_trace.tileStrata(n, strataTile)
-  cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1], strata, strataTile)
+  us, strataTile, cols = samplerInputs(tables, n, 4321)
   colsT = rayColumns(tables, cols)
   rawP, cRawP = cuda_trace.traceRawPlain(tables, cols, **kw)
   binsP, cBinsP = cuda_trace.traceBinsPlain(tables, cols, **kw)
@@ -364,7 +397,11 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0):
     flopsPerSegment += FLOPS_STAGE_GATE * len(kinds)
   if tables['dispOff'] >= 0:
     flopsPerSegment += FLOPS_DISPERSION
-  flops = (segmentsPerStep * flopsPerSegment + nRays * FLOPS_SAMPLER
+  sampler = FLOPS_SAMPLER
+  if tables.get('samplerKind') == cuda_trace.SAMPLER_SURFACE:
+    sampler = (FLOPS_SURFACE_SAMPLER
+               + FLOPS_FACE_SCAN * len(tables['samplerSpec']['faces']))
+  flops = (segmentsPerStep * flopsPerSegment + nRays * sampler
            + gratingPasses * FLOPS_GRATING)
   nbytes = outputBytes + tables['table'].numel() * 4 + 3 * 8
   return (flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3,
@@ -373,26 +410,39 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0):
 
 
 def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
-                spectro):
+                spectro, surface=None):
   '''One entry of the `kernels` line: the main-path numbers (lens-and-mirror
   scene; the examples/3 sweep for the sweep kernel) and, beside them, the
   kernel on the spectrometer (`spectro`: its launches on that path, ms and
   bound) and the worst error over the scenes of gratings, dispersion,
-  sequential mode and masks (`max_abs_err` is the worst of both).'''
+  sequential mode and masks, and on the surface-source scene (`surface`:
+  launches, ms, bound and the worst error over the surface scenes; None
+  for the sweep kernel, which samples point sources only). `max_abs_err`
+  is the worst of all.'''
   boundOps, boundBytes, _ = bounds
   spOps, spBytes, _ = spectro['bounds']
+  surf = dict(surface_launches=None, surface_ms=None, surface_bound_ms=None,
+              surface_max_abs_err=None)
+  if surface is not None:
+    sOps, sBytes, _ = surface['bounds']
+    surf = dict(surface_launches=surface['launches'],
+                surface_ms=surface['ms'],
+                surface_bound_ms=max(sOps, sBytes),
+                surface_max_abs_err=surface['err'])
   return dict(name=name, route='cuda',
               source=f'optics_design_workbench_tpu_torch/csrc/{source}',
               replaces=f'optics_design_workbench_tpu/ops/pallas_trace.py:'
                        f'{replaces}',
-              launches=launches, max_abs_err=max(err, spectro['err']), ms=ms,
+              launches=launches,
+              max_abs_err=max(err, spectro['err'],
+                              surf['surface_max_abs_err'] or 0.), ms=ms,
               plain_ms=plainMs, bound_ms=max(boundOps, boundBytes),
               bound_by='operations' if boundOps >= boundBytes else 'bytes',
               library_ms=None, lens_mirror_max_abs_err=err,
               b4_max_abs_err=spectro['err'],
               spectrometer_launches=spectro['launches'],
               spectrometer_ms=spectro['ms'],
-              spectrometer_bound_ms=max(spOps, spBytes))
+              spectrometer_bound_ms=max(spOps, spBytes), **surf)
 
 
 def timeBenchStep(histPrecision, maxI, **benchKw):
@@ -1283,6 +1333,250 @@ def spectroSweepPhase():
               bounds=bounds)
 
 
+def sensorStatistics(records, n):
+  '''What the sensor scene's records say of the sampler (each ray's one
+  record: its emission direction and, to 0.01 tan(theta) mm, its emission
+  point): the share of rays per face (x < 0: the rectangle, x > 0: the
+  annulus) and normalised histograms of theta, phi and of x and y.'''
+  m = records['recordHit'][0]
+  p, d = records['point'][0][m], records['direction'][0][m]
+  theta = torch.acos(torch.clamp(d[:, 2], -1., 1.))
+  phi = torch.atan2(d[:, 1], d[:, 0])
+  rows = int(m.sum())
+
+  def hist(x, lo, hi, bins):
+    return (torch.histc(x.double(), bins, lo, hi) / rows).cpu().numpy()
+
+  return rows, dict(
+      face=np.array([float((p[:, 0] < 0).sum()) / rows,
+                     float((p[:, 0] > 0).sum()) / rows]),
+      theta=hist(theta, 0., np.pi / 2, 32), phi=hist(phi, -np.pi, np.pi, 32),
+      x=hist(p[:, 0], -45., 45., 90), y=hist(p[:, 1], -10., 10., 40))
+
+
+def surfaceSeedPhase(n):
+  '''Mode (a) of the surface-source sampler by distribution: the raw
+  kernel's own Philox draws (five uniforms a ray, two Philox calls) on the
+  sensor scene against the same kernel fed ray columns from the source's
+  `deviceColumnsGenerator` (torch's generator): face fractions, theta,
+  phi and position marginals within L1 MARGINAL_L1, rows within 5e-3.'''
+  scene, bounds, maxI = helpers.buildSurfaceSensorScene(helpers.torchNs())
+  sceneNp, histSpec, tables = buildTables(scene, bounds, BINS)
+  kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6, hitSlots=1)
+  ringK, cK = cuda_trace.traceRaw(tables, n, seed=20261017, **kw)
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(77)
+  cols = scene.lightSources()[0].deviceColumnsGenerator(device=DEV)(gen, n)
+  colsT = torch.stack([cols[k] for k in ('ox', 'oy', 'oz', 'dx', 'dy', 'dz',
+                                         'pw', 'wl')]).contiguous()
+  ringC, cC = cuda_trace.traceRaw(tables, n, columns=colsT, **kw)
+  rowsK, statK = sensorStatistics(cuda_trace.recordsFromRing(ringK), n)
+  rowsC, statC = sensorStatistics(cuda_trace.recordsFromRing(ringC), n)
+  faces = scene.lightSources()[0].samplerSpec()['faces']
+  areaShare = np.array([f['cumHi'] - f['cumLo'] for f in faces])
+  dists = {k: float(np.abs(statK[k] - statC[k]).sum()) for k in statK}
+  emit(dict(phase='surface-seed-mode', scene='surfaceSensor', rays=n,
+            rowsKernel=rowsK, rowsColumns=rowsC, counters=cK.tolist(),
+            faceShareKernel=statK['face'].tolist(),
+            faceShareColumns=statC['face'].tolist(),
+            areaShare=areaShare.tolist(), marginalL1=dists))
+  if max(dists.values()) > MARGINAL_L1 \
+      or abs(rowsK - rowsC) > 5e-3 * rowsC or rowsK < 0.99 * n:
+    raise AssertionError(f'surface sampler mode (a): marginals {dists}, '
+                         f'rows {rowsK} / {rowsC}')
+
+
+def surfaceKernelChecks():
+  '''K1, K2 and K4 against their plain versions on the surface-source
+  scenes, modes (b) (five uniforms a ray) and (c): the reference's
+  throughput scene at full width and the four-kind emitter at N_SMALL.
+  Returns the worst error per kernel.'''
+  ns = helpers.torchNs()
+  worst = dict(traceHistogram=0., traceBins=0., traceRaw=0.)
+  for name, n in (('surfaceBench', N_MAIN), ('surfaceEmitter', N_SMALL)):
+    scene, bounds, maxI = helpers.SURFACE_SCENES[name](ns)
+    worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+        name, scene, bounds, maxI, n, BINS))
+    w = compareRingsWithPlain(name, scene, bounds, maxI, n, BINS)
+    for k in ('traceRaw', 'traceBins'):
+      worst[k] = max(worst[k], w[k])
+  return worst
+
+
+def fullBinsPhase():
+  '''ROADMAP C.1 on the card: one K1 step at full width onto spectrometer
+  histograms whose every bin holds 2**24. The step bins into a zeroed delta
+  and adds it once, so each bin grows by the step's own delta, rounded once
+  (the same seed into fresh histograms gives that delta), and the total by
+  the step's hits to within that rounding.'''
+  full = float(2 ** 24)
+  step, fresh, _meta = benchmarks.makeBenchStep(
+      scene=benchmarks.buildSpectrometerScene(), raysPerStep=N_MAIN,
+      maxIntersections=SPECTRO_MAX_INTERSECTIONS, bins=BINS,
+      histBounds=SPECTRO_BOUNDS)
+  fresh, c0 = step(11, fresh)
+  hist = {k: torch.full_like(v, full) for k, v in fresh.items()}
+  hist, c = step(11, hist)
+  torch.cuda.synchronize()
+  hits = int(c['hits'])
+  want = (torch.full_like(fresh['counts'], full) + fresh['counts'])
+  grown = float((hist['counts'].double() - full).sum())
+  touched = int((fresh['counts'] > 0).sum())
+  emit(dict(phase='full-bins', rays=N_MAIN, hits=hits,
+            countsGrown=grown, binsTouched=touched,
+            powerGrown=float((hist['power'].double() - full).sum()),
+            freshPower=float(fresh['power'].double().sum())))
+  if int(c0['hits']) != hits or not torch.equal(hist['counts'], want) \
+      or abs(grown - hits) > touched or grown < 0.99 * hits:
+    raise AssertionError(f'bins at 2**24 grew by {grown} for {hits} hits '
+                         f'({touched} bins touched)')
+
+
+def surfaceStepPhase(histPrecision):
+  '''The fused step on the reference's surface-source scene at full width
+  (`timeBenchStep`): the detected share and the mean detected power within
+  3 sigma of the JAX package's values on this scene.'''
+  scene = benchmarks.buildSurfaceSourceScene()
+  t = timeBenchStep(histPrecision, SURFACE_MAX_INTERSECTIONS, scene=scene,
+                    histBounds=SURFACE_BOUNDS)
+  step, hist = t['step'], t['hist']
+  nRays = N_MAIN * TIMED_STEPS
+  segsPerStep = t['segments'] / TIMED_STEPS
+  outBytes = (2 * hist['power'].numel() * 4 * 2 if histPrecision == 'default'
+              else 3 * step.hitSlots * N_MAIN * 4)
+  bounds = boundMs(step.tables, segsPerStep, N_MAIN, outBytes)
+  share = t['hits'] / nRays
+  meanPower = float(hist['power'].double().sum()
+                    / hist['counts'].double().sum())
+  emit(dict(phase='surface-step', histPrecision=histPrecision, rays=N_MAIN,
+            maxIntersections=SURFACE_MAX_INTERSECTIONS, bins=BINS,
+            steps=TIMED_STEPS, stepMs=t['stepMs'], kernelMs=t['kernelMs'],
+            raySegmentsPerSec=segsPerStep / (t['stepMs'] * 1e-3),
+            segmentsPerRay=segsPerStep / N_MAIN, hits=t['hits'],
+            hitOverflow=t['overflow'], launches=t['launches'],
+            boundMs=max(bounds[:2]), detectedShare=share,
+            meanDetectedPower=meanPower, referenceShare=REF_SURFACE_SHARE,
+            referenceMeanPower=REF_SURFACE_POWER, **bounds[2]))
+  checkSurfacePhysics('surface step', share, meanPower, nRays)
+  if float(hist['counts'].double().sum()) != t['hits'] or t['overflow']:
+    raise AssertionError('surface step: histogram counts != hits, or the '
+                         'ring overflowed')
+  return dict(launches=t['launches'], ms=t['kernelMs'], bounds=bounds)
+
+
+def checkSurfacePhysics(label, share, meanPower, nRays):
+  '''The detected share and mean detected power of the surface-source
+  scene against the JAX package's (65,536 rays) within 3 sigma of the two
+  samples: the power is 0.98 (met the mirror) or 1 (came straight).'''
+  p, n0 = REF_SURFACE_SHARE, REF_SURFACE_RAYS
+  sigma = np.sqrt(p * (1 - p) / n0 + p * (1 - p) / nRays)
+  q = (1. - REF_SURFACE_POWER) / 0.02
+  sigmaP = 0.02 * np.sqrt(q * (1 - q) / (p * n0) + q * (1 - q)
+                          / (share * nRays))
+  if abs(share - p) > 3 * sigma or abs(meanPower - REF_SURFACE_POWER) \
+      > 3 * sigmaP:
+    raise AssertionError(f'{label}: detected share {share}, mean power '
+                         f'{meanPower}; the JAX package: {p}, '
+                         f'{REF_SURFACE_POWER}')
+
+
+def surfaceRunPhases(tmp):
+  '''`runSimulation` on the surface-source scene: raw recording (the raw
+  kernel, rows read back == the run's hits) and histogram-first recording
+  (the histogram kernel, snapshot counts == the run's hits), the physics
+  against the JAX package's; then the raw kernel alone on one raw
+  iteration's step, and its bound.'''
+  scene = benchmarks.buildSurfaceSourceScene(tmpdir=tmp)
+  settings = scene.activeSimulationSettings()
+  settings.RaysPerIteration = N_RAW_ITERATION
+  settings.EndAfterIterations = RAW_ITERATIONS
+  settings.EndAfterRays = 'inf'
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(scene,
+                                                        recording='raw')
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  hits = RawFolder(runPath).loadHits('Detector')
+  rows = len(hits['points'])
+  traced = last['totalTracedRays']
+  meanPower = float(hits['powers'].astype(np.float64).mean())
+  perIterationMs = later / (RAW_ITERATIONS - 1) * 1e3
+  emit(dict(phase='surface-run-raw', raysPerIteration=N_RAW_ITERATION,
+            iterations=last['totalIterations'], tracedRays=traced,
+            storedHits=rows, detectedShare=rows / traced,
+            meanPower=meanPower, launches=launches,
+            setupAndFirstIterationS=first, laterIterationsS=later,
+            cleanupFlushS=cleanup, perIterationMs=perIterationMs,
+            raysPerSecStoredLoop=N_RAW_ITERATION / (perIterationMs * 1e-3),
+            raysPerSecStoredWithFlush=traced / (first + later + cleanup)))
+  if launches != onlyLaunches(traceRaw=RAW_ITERATIONS):
+    raise AssertionError(f'surface raw run launched {launches}')
+  if traced != N_RAW_ITERATION * RAW_ITERATIONS \
+      or rows != last['totalRecordedHits']:
+    raise AssertionError(f'surface raw run: {rows} rows stored, {last}')
+  if not np.isfinite(hits['points']).all() \
+      or np.abs(hits['points'][:, 0] + 100.).max() > 1e-3:
+    raise AssertionError('surface raw run: points off the detector plane')
+  checkSurfacePhysics('surface raw run', rows / traced, meanPower, traced)
+
+  # the raw kernel alone on one iteration's step, and its bound
+  sceneNp, info = scene.compile(device=None)
+  sceneNp['powerTol'] = 1e-6
+  histSpec = fused.makeHistogramSpec(sceneNp, info)
+  src = scene.lightSources()[0]
+  step = cuda_trace.makeRawStep(
+      sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
+      raysPerStep=N_RAW_ITERATION, maxIntersections=SURFACE_MAX_INTERSECTIONS,
+      maxRayLength=settings.maxRayLength(), distTol=1e-4,
+      sampler=src.samplerSpec())
+  seeds = iter(range(10 ** 6))
+  _records, counters = step(next(seeds))
+  kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
+      step.tables, N_RAW_ITERATION, SURFACE_MAX_INTERSECTIONS,
+      settings.maxRayLength(), 1e-4, hitSlots=step.hitSlots,
+      seed=next(seeds)), TIMED_STEPS)
+  rawBounds = boundMs(step.tables, int(counters['segments']),
+                      N_RAW_ITERATION,
+                      9 * step.hitSlots * N_RAW_ITERATION * 4)
+
+  # histogram-first recording
+  settings.RaysPerIteration = N_MAIN
+  settings.EndAfterIterations = SURFACE_HIST_ITERATIONS
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(
+      scene, recording='histogram', histBins=BINS, histBounds=SURFACE_BOUNDS)
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  snap = results_store.loadHistogramSnapshots(runPath)['Source']['Detector']
+  counts = float(snap['counts'].astype(np.float64).sum())
+  power = float(snap['power'].astype(np.float64).sum())
+  sampleSteps = sum(1 for p in range(1, len(progress) + 1) if p % 8 == 1)
+  emit(dict(phase='surface-run-histogram', raysPerIteration=N_MAIN,
+            iterations=last['totalIterations'], passes=len(progress),
+            tracedRays=last['totalTracedRays'], histCounts=counts,
+            recordedHits=last['totalRecordedHits'],
+            detectedShare=counts / last['totalTracedRays'],
+            meanDetectedPower=power / counts, launches=launches,
+            setupAndFirstPassS=first, laterPassesS=later,
+            cleanupFlushS=cleanup,
+            raysPerSec=last['totalTracedRays'] / (first + later + cleanup)))
+  if last['totalTracedRays'] != SURFACE_HIST_ITERATIONS * N_MAIN \
+      or counts != last['totalRecordedHits']:
+    raise AssertionError(f'surface histogram run: counts {counts}, {last}')
+  checkSurfacePhysics('surface histogram run',
+                      counts / last['totalTracedRays'], power / counts,
+                      last['totalTracedRays'])
+  if launches != onlyLaunches(traceHistogram=SURFACE_HIST_ITERATIONS,
+                              traceRaw=sampleSteps):
+    raise AssertionError(f'surface histogram run launched {launches}')
+  return dict(rawLaunches=RAW_ITERATIONS,
+              raw=dict(ms=kernelMs, bounds=rawBounds))
+
+
+T0 = time.perf_counter()
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('chip_smoke.py needs a CUDA device: torch.cuda.is_available() '
@@ -1344,6 +1638,11 @@ def main():
   # the same gates on the scenes of gratings, dispersion, sequential mode
   # and per-source masks, and on the spectrometer
   worstB4 = b4KernelChecks()
+  # ... on the surface-source scenes; the surface sampler's own draws by
+  # distribution; and bins that already hold 2**24 (ROADMAP C.1)
+  worstSurface = surfaceKernelChecks()
+  surfaceSeedPhase(N_MAIN)
+  fullBinsPhase()
 
   # ---- phase 3: the fused step, binned in the kernel and outside it ----
   k1 = fusedStepPhase('default')
@@ -1364,6 +1663,12 @@ def main():
     evanescentPhase()
     spectro['traceRaw'] = spectroRunPhases(tmp)
     spectro['traceSweep'] = spectroSweepPhase()
+    # ---- phase 7: the surface source ----
+    surface = dict(traceHistogram=surfaceStepPhase('default'),
+                   traceBins=surfaceStepPhase('highest'))
+    surfRun = surfaceRunPhases(tmp)
+    surface['traceRaw'] = dict(surfRun['raw'],
+                               launches=surfRun['rawLaunches'])
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1403,16 +1708,19 @@ def main():
 
   for name, entry in spectro.items():
     entry['err'] = max(entry.get('err', 0.), worstB4[name])
+  for name, entry in surface.items():
+    entry['err'] = worstSurface[name]
+  emit(dict(phase='total', seconds=time.perf_counter() - T0))
   emit(dict(kernels=[
       kernelEntry('traceHistogram', 'trace_kernel.cu', 2776, k1['launches'],
                   worst, k1['kernelMs'], k1['plainMs'], k1['bounds'],
-                  spectro['traceHistogram']),
+                  spectro['traceHistogram'], surface['traceHistogram']),
       kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
                   worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
-                  rawBounds, spectro['traceRaw']),
+                  rawBounds, spectro['traceRaw'], surface['traceRaw']),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
-                  k2['bounds'], spectro['traceBins']),
+                  k2['bounds'], spectro['traceBins'], surface['traceBins']),
       kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
                   sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
                   sweepBounds, spectro['traceSweep'])]))

@@ -5,7 +5,8 @@ examples/2-lens-and-mirror — Gaussian point source -> plano-convex lens ->
 45deg fold mirror -> absorbing detector — so every ray traces ~4 segments
 with refraction, reflection and medium tracking on the path, plus the
 simpler examples/1 source->detector scene, the examples/3 lens whose
-radius a parameter sweep varies, and the examples/4 grating spectrometer.
+radius a parameter sweep varies, the examples/4 grating spectrometer, and
+the reference's surface-source scene (a Lambertian-like disc emitter).
 '''
 
 import numpy as np
@@ -131,6 +132,35 @@ def buildSpectrometerScene(linesPerMm=500., wavelength=532.):
       Wavelength=float(wavelength), ThetaDomain='0, 0.05',
       ThetaResolutionNumericMode='2e3'))
   scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=3)
+  return scene
+
+
+def buildSurfaceSourceScene(tmpdir=None):
+  '''The reference's surface-source throughput scene
+  (tools/scene_throughput.sceneSurfaceSource): a cos(theta)^2 disc emitter
+  of radius 20 mm at the origin facing +z, radiating onto an absorbing
+  detector plane of 240 x 240 mm at x = -100 past a 45 deg fold mirror of
+  radius 80 mm (reflectivity 0.98) at z = 120; 4 intersections. Part of
+  the lobe reaches the detector without touching the mirror.'''
+  from .models import SurfaceSource
+  scene = Scene(label='bench_ss', path=tmpdir and f'{tmpdir}/bench_ss')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Emitter',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=20.)],
+      placements=[T.translation(0, 0, 0)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='FoldMirror', Reflectivity=0.98,
+      surfaces=[S.plane(np.eye(4), elem=0, radius=80.)],
+      placements=[T.compose(T.translation(0, 0, 120),
+                            T.rotation((0, 1, 0), 45))]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(120., 120.))],
+      placements=[T.compose(T.translation(-100, 0, 120),
+                            T.rotation((0, 1, 0), 90))]))
+  scene.addSource(SurfaceSource(Label='Source', ActiveSurfaces=['Emitter'],
+                                PowerDensity='cos(theta)**2'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=4)
   return scene
 
 

@@ -25,12 +25,42 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
                  ignored, except that `scatter` is refused as not ported
                  yet;
     histSpecNp   the histogram spec: `elemToDet`, `bounds`, `bins`;
-    samplerSpec  optionally the dict from `pallasSamplerSpec()`.
+    samplerSpec  optionally the dict from `pallasSamplerSpec()` of a point
+                 or a surface source (`samplerSpecFromReference`).
 
   Returns what `ops.cuda_trace.buildTraceTables` returns, on `device`.'''
   scene, histSpec = _sceneAndSpec(deviceNp, histSpecNp)
-  return cuda_trace.buildTraceTables(scene, histSpec,
-                                     samplerSpec=samplerSpec, device=device)
+  return cuda_trace.buildTraceTables(
+      scene, histSpec, samplerSpec=samplerSpecFromReference(samplerSpec),
+      device=device)
+
+
+def _plain(x):
+  '''`x` with every array and number turned into python floats / ints,
+  tuples and dicts (a spec's leaves may be numpy scalars or arrays).'''
+  if isinstance(x, dict):
+    return {k: _plain(v) for k, v in x.items()}
+  if isinstance(x, (str, bool)) or x is None:
+    return x
+  if isinstance(x, (list, tuple, np.ndarray)):
+    return tuple(_plain(v) for v in x)
+  if isinstance(x, (int, np.integer)):
+    return int(x)
+  return float(x)
+
+
+def samplerSpecFromReference(spec):
+  '''The in-kernel sampler spec of the JAX package's
+  `pallasSamplerSpec()` as plain python values, the form of the port's
+  `samplerSpec()`: a point source's marginals and placement, or a surface
+  source's faces (kind, params, trim, orient, R, off, area-CDF window) and
+  theta marginal. None stays None.'''
+  if spec is None:
+    return None
+  out = _plain(spec)
+  if out.get('type') == 'surface':
+    out['faces'] = tuple(dict(f, kind=int(f['kind'])) for f in out['faces'])
+  return out
 
 
 def _sceneAndSpec(deviceNp, histSpecNp):

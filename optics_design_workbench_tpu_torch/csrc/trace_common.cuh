@@ -1,10 +1,11 @@
 // Shared body of the trace kernels for NVIDIA Hopper (sm_90a): the sampler,
 // the surface sweep, the physics and the bounce loop exist ONCE here, as one
 // `__global__` function templated on its OUTPUT MODE, on whether it traces
-// ONE scene or a variant-major SWEEP of scenes, and on B4 (below). Each
-// kernel source (trace_kernel.cu, trace_bins_kernel.cu, trace_raw_kernel.cu,
-// trace_sweep_kernel.cu) instantiates one mode, with and without B4, behind
-// a plain-C launcher.
+// ONE scene or a variant-major SWEEP of scenes, on B4 (below) and on SURF,
+// the sampler (below). Each kernel source (trace_kernel.cu,
+// trace_bins_kernel.cu, trace_raw_kernel.cu, trace_sweep_kernel.cu)
+// instantiates one mode, with and without B4, and the single-scene ones
+// with each sampler, behind a plain-C launcher.
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
 // (optics_design_workbench_tpu/ops/pallas_trace.py), main-path subset:
@@ -13,7 +14,19 @@
 // absorption; n(wavelength) of dispersive elements as a Horner polynomial;
 // sequential mode and per-source surface masks; the point-source sampler
 // with affine, piecewise-polynomial and tent marginals and ray-index strata;
-// the per-ray hit-slot ring.
+// the surface-source sampler (plane, sphere-zone and cylinder faces); the
+// per-ray hit-slot ring.
+//
+// The two samplers are two compile-time instances (SURF), chosen by the
+// launcher from the sampler kind of the tables: the point sampler draws two
+// uniforms per ray, the surface sampler five (face, u, v, theta, phi — the
+// reference's draw order, `_sampleRays`), picks the face whose area-CDF
+// window holds the face draw by scanning the faces in order (as the
+// reference's masks do: a binary search could pick another face where two
+// windows touch), places the ray on it in closed form and turns the face
+// normal by theta about a tangent and by phi about the normal. Strata are
+// the point sampler's only: the reference's surface branch returns before
+// them.
 //
 // The grating, dispersion and the stage gate sit behind header flags of the
 // launch (hasGrating, dispOff >= 0, gate, nStages > 0), the same for every
@@ -79,6 +92,8 @@ constexpr int kDispCols = 17;     // mid, 1/half, nCoef, 0, 13 coefficients
 constexpr int kSegStride = 17;     // a, mid, 1/half, nCoef, 13 coefficients
 constexpr int kMargLen = 264;      // kind, n, lo, hi/span, 260 payload floats
 constexpr int kSamplerGeom = 16;   // finite, f, R(9), off(3), wavelength, pad
+                                   // (surface: nFaces, 2 pi, .., wavelength)
+constexpr int kFaceCols = 21;      // one emitting face of a surface sampler
 constexpr int kBlock = 256;
 
 // surface row columns
@@ -90,6 +105,12 @@ enum { S_KIND = 0, S_ROT = 1, S_OFF = 10, S_ORIENT = 13, S_ELEM = 14,
 enum { E_OPT = 0, E_N = 1, E_REFL = 2, E_ABSLEN = 3, E_REC = 4, E_DET = 5,
        E_BX0 = 6, E_BX1 = 7, E_BY0 = 8, E_BY1 = 9, E_MEDIUM = 10,
        E_DISP = 11, E_GTYPE = 12, E_GLPM = 13, E_GDIR = 14, E_GORDER = 17 };
+// emitting-face row columns (ops/cuda_trace.py `_packSurfaceSampler`):
+// kind, rectangle flag, four sampling constants (rectangle: half-widths;
+// disc: rOut^2 - rIn^2, rIn^2; sphere zone: z1, z2 - z1, R^2, 1/R;
+// cylinder: z1, z2 - z1, R), placement, orient, area-CDF window
+enum { F_KIND = 0, F_RECT = 1, F_C = 2, F_ROT = 6, F_OFF = 15, F_ORIENT = 18,
+       F_CUMLO = 19, F_CUMHI = 20 };
 enum { KIND_PLANE = 0, KIND_SPHERE = 1, KIND_CYLINDER = 2 };
 enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_GRATING = 2, OPT_ABSORBER = 3,
        OPT_VACUUM = 4 };
@@ -174,6 +195,97 @@ __device__ __forceinline__ float dispersionN(const float* d, float wl) {
   return acc;
 }
 
+// Rodrigues rotation of v about the unit axis a by `ang`, in the
+// reference's operation order (`_rotColumns`)
+__device__ __forceinline__ void rotate(float& vx, float& vy, float& vz,
+                                       float ax, float ay, float az,
+                                       float ang) {
+  float c = cosf(ang), s = sinf(ang);
+  float cx = ay * vz - az * vy;
+  float cy = az * vx - ax * vz;
+  float cz = ax * vy - ay * vx;
+  float dot = ax * vx + ay * vy + az * vz;
+  float omc = 1.f - c;
+  float rx = vx * c + cx * s + ax * dot * omc;
+  float ry = vy * c + cy * s + ay * dot * omc;
+  float rz = vz * c + cz * s + az * dot * omc;
+  vx = rx; vy = ry; vz = rz;
+}
+
+// The surface-source sampler (B6): the reference's `_surfaceSampleColumns`
+// for one ray from its five uniforms. `sg` is the sampler block: nFaces,
+// 2 pi, wavelength at 14, the theta marginal, the face rows.
+__device__ void sampleSurface(const float* sg, float uF, float u, float v,
+                              float uT, float uP, float& ox, float& oy,
+                              float& oz, float& dx, float& dy, float& dz) {
+  const int nFaces = (int)sg[0];
+  const float* faces = sg + kSamplerGeom + kMargLen;
+  int sel = -1;                    // the last window holding uF wins
+  for (int f = 0; f < nFaces; ++f) {
+    const float* fr = faces + f * kFaceCols;
+    if (uF >= fr[F_CUMLO] && uF < fr[F_CUMHI]) sel = f;
+  }
+  float nx = 0.f, ny = 0.f, nz = 1.f;
+  ox = 0.f; oy = 0.f; oz = 0.f;
+  if (sel >= 0) {
+    const float* fr = faces + sel * kFaceCols;
+    const float c0 = fr[F_C], c1 = fr[F_C + 1], c2 = fr[F_C + 2],
+                c3 = fr[F_C + 3];
+    const float a = sg[1] * v;
+    float lx, ly, lz, nlx = 0.f, nly = 0.f, nlz = 1.f;
+    const int kind = (int)fr[F_KIND];
+    if (kind == KIND_PLANE) {
+      if (fr[F_RECT] != 0.f) {
+        lx = (2.f * u - 1.f) * c0;
+        ly = (2.f * v - 1.f) * c1;
+      } else {
+        float r = sqrtf(u * c0 + c1);
+        lx = r * cosf(a);
+        ly = r * sinf(a);
+      }
+      lz = 0.f;
+    } else {
+      const float z = c0 + u * c1;
+      if (kind == KIND_SPHERE) {
+        float rr = sqrtf(fmaxf(c2 - z * z, 0.f));
+        lx = rr * cosf(a);
+        ly = rr * sinf(a);
+        nlx = lx * c3; nly = ly * c3; nlz = z * c3;
+      } else {                     // cylinder
+        float ca = cosf(a), sa = sinf(a);
+        lx = c2 * ca;
+        ly = c2 * sa;
+        nlx = ca; nly = sa; nlz = 0.f;
+      }
+      lz = z;
+    }
+    const float* R = fr + F_ROT;
+    ox = R[0] * lx + R[1] * ly + R[2] * lz + fr[F_OFF];
+    oy = R[3] * lx + R[4] * ly + R[5] * lz + fr[F_OFF + 1];
+    oz = R[6] * lx + R[7] * ly + R[8] * lz + fr[F_OFF + 2];
+    const float o = fr[F_ORIENT];
+    nx = (R[0] * nlx + R[1] * nly + R[2] * nlz) * o;
+    ny = (R[3] * nlx + R[4] * nly + R[5] * nlz) * o;
+    nz = (R[6] * nlx + R[7] * nly + R[8] * nlz) * o;
+  }
+  const float ninv = rsqrtf(nx * nx + ny * ny + nz * nz + 1e-20f);
+  nx *= ninv; ny *= ninv; nz *= ninv;
+  // tangent: cross(n, x-hat), or cross(n, y-hat) where n is nearly x
+  const bool useX = fabsf(nx) < 0.9f;
+  float tx = useX ? 0.f : -nz;
+  float ty = useX ? nz : 0.f;
+  float tz = useX ? -ny : nx;
+  const float tinv = rsqrtf(tx * tx + ty * ty + tz * tz + 1e-20f);
+  tx *= tinv; ty *= tinv; tz *= tinv;
+  const float theta = marginal(sg + kSamplerGeom, uT);
+  const float phi = uP * sg[1];
+  dx = nx; dy = ny; dz = nz;
+  rotate(dx, dy, dz, tx, ty, tz, theta);
+  rotate(dx, dy, dz, nx, ny, nz, phi);
+  const float dinv = rsqrtf(dx * dx + dy * dy + dz * dz + 1e-20f);
+  dx *= dinv; dy *= dinv; dz *= dinv;
+}
+
 __device__ __forceinline__ float signf(float x) {
   return (float)(x > 0.f) - (float)(x < 0.f);
 }
@@ -232,13 +344,14 @@ __device__ float intersect(const float* r, float ox, float oy, float oz,
 // `table` holds V tables of p.tableLen floats, out0 / out1 V histograms of
 // p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
 // `rayIn` (shared by all variants) has p.N columns.
-template <int OUT, bool SWEEP, bool B4>
+template <int OUT, bool SWEEP, bool B4, bool SURF>
 __global__ void __launch_bounds__(kBlock)
 traceKernel(TraceParams p, const float* __restrict__ table,
             const float* __restrict__ rayIn, float* __restrict__ out0,
             float* __restrict__ out1,
             unsigned long long* __restrict__ counters) {
   static_assert(!SWEEP || OUT == OUT_HIST, "the sweep bins in the kernel");
+  static_assert(!(SWEEP && SURF), "the sweep samples point sources only");
   long long firstRay = (long long)blockIdx.x * blockDim.x;
   if constexpr (SWEEP) {
     const long long variant = blockIdx.x / p.blocksPerVariant;
@@ -271,6 +384,32 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       oz = rayIn[2 * p.N + i];   dx = rayIn[3 * p.N + i];
       dy = rayIn[4 * p.N + i];   dz = rayIn[5 * p.N + i];
       pw = rayIn[6 * p.N + i];   wl = rayIn[7 * p.N + i];
+    } else if constexpr (SURF) {
+      // ---- in-kernel surface-source sampler: five uniforms per ray; in
+      // seed mode the second Philox call takes counter word 2 = 1 ----
+      float uF, u, v, uT, uP;
+      if (p.mode == MODE_UNIFORMS) {
+        uF = rayIn[i];            u = rayIn[p.N + i];
+        v = rayIn[2 * p.N + i];   uT = rayIn[3 * p.N + i];
+        uP = rayIn[4 * p.N + i];
+      } else {
+        const uint32_t lo = (uint32_t)i;
+        const uint32_t hi = (uint32_t)((unsigned long long)i >> 32);
+        const uint32_t k0 = (uint32_t)p.seed;
+        const uint32_t k1 = (uint32_t)(p.seed >> 32);
+        uint32_t rnd[4];
+        philox4x32(lo, hi, 0u, 0u, k0, k1, rnd);
+        uF = bitsToUniform(rnd[0]);
+        u = bitsToUniform(rnd[1]);
+        v = bitsToUniform(rnd[2]);
+        uT = bitsToUniform(rnd[3]);
+        philox4x32(lo, hi, 1u, 0u, k0, k1, rnd);
+        uP = bitsToUniform(rnd[0]);
+      }
+      const float* sg = smem + p.samplerOff;
+      sampleSurface(sg, uF, u, v, uT, uP, ox, oy, oz, dx, dy, dz);
+      pw = 1.f;
+      wl = sg[14];
     } else {
       // ---- in-kernel point-source sampler ----
       float u1, u2;
@@ -615,8 +754,13 @@ int launchTrace(const float* table, const float* rayIn, float* out0,
   if (p.N <= 0) return 0;
   long long blocks = (p.N + kBlock - 1) / kBlock;
   size_t shmem = (size_t)p.tableLen * sizeof(float);
-  auto kernel = needsB4(p) ? traceKernel<OUT, false, true>
-                           : traceKernel<OUT, false, false>;
+  // ip[21]: the tables' sampler, 0 point source, 1 surface source
+  const bool surf = ip[21] == 1 && p.mode != MODE_COLUMNS;
+  auto kernel = needsB4(p)
+      ? (surf ? traceKernel<OUT, false, true, true>
+              : traceKernel<OUT, false, true, false>)
+      : (surf ? traceKernel<OUT, false, false, true>
+              : traceKernel<OUT, false, false, false>);
   kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
       p, table, rayIn, out0, out1, counters);
   return (int)cudaGetLastError();

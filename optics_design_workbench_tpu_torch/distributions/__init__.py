@@ -1,2 +1,3 @@
-from .random_variables import VectorRandomVariable, setGlobalSeed
+from .random_variables import (VectorRandomVariable, ScalarRandomVariable,
+                               setGlobalSeed)
 from .device_sampler import buildDeviceTables, deviceDraw

@@ -16,9 +16,13 @@ distributions/random_number_generator.py:54-802):
   * `draw(N)` — chained conditional inverse-transform sampling on the host
     (compile() probes the analytic transforms with it).
 
+  * `ScalarRandomVariable(probabilityDensity, variableDomain, variable)` —
+    the one-variable wrapper (a surface source's theta density).
+
 `distributions/device_sampler.buildDeviceTables` exports the compiled
-tables as tensors for on-device sampling. The low-discrepancy host draw,
-deterministic grids, and the scalar / sampled wrappers are not ported yet.
+tables as tensors for on-device sampling. The low-discrepancy host draw
+(`drawPseudo`), deterministic grids (`findGrid`) and the sampled wrapper are
+not ported yet (ROADMAP A.10a).
 '''
 
 import math
@@ -580,3 +584,44 @@ class VectorRandomVariable:
                          f'specified?')
     order = [names.index(v) for v in self._variableOrder]
     return result[order]
+
+
+class ScalarRandomVariable(VectorRandomVariable):
+  '''One-variable wrapper (reference: random_number_generator.py:729-769).'''
+
+  def __init__(self, probabilityDensity, variableDomain, variable=None,
+               numericalResolution=None, **kwargs):
+    self._desiredVariable = variable
+    if variable is None:
+      variable = str(list(sy.sympify(probabilityDensity).free_symbols)[0])
+    super().__init__(
+        probabilityDensity,
+        variableDomains={variable: variableDomain},
+        numericalResolutions={} if numericalResolution is None
+        else {variable: numericalResolution},
+        variableOrder=[variable],
+        **kwargs)
+
+  def compile(self, **kwargs):
+    def _checkScalarity():
+      freeSymbols = sy.sympify(self._probabilityDensityExpr).free_symbols
+      if (len(freeSymbols) and self._desiredVariable is not None
+          and self._desiredVariable not in [str(s) for s in freeSymbols]):
+        raise ValueError(f'specified variable "{self._desiredVariable}" does '
+                         f'not seem to appear in expression '
+                         f'"{self._probabilityDensityExpr}"')
+      if len(self._variables) > 1:
+        raise ValueError(f'expression "{self._probabilityDensityExpr}" seems '
+                         f'to have more than one free variable after '
+                         f'substituting constants; did you pass all constants '
+                         f'to .compile() or .draw()?')
+    try:
+      super().compile(**kwargs)
+    except ValueError as e:
+      if 'requires finite limits' in str(e):
+        _checkScalarity()
+      raise
+    _checkScalarity()
+
+  def draw(self, N=None, **kwargs):
+    return super().draw(N=N, **kwargs)[0]

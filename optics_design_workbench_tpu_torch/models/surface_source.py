@@ -1,0 +1,413 @@
+'''
+Surface light source — rays emitted from the faces of scene geometry with an
+angular power density in theta per surface element (counterpart of the JAX
+package's models/surface_source.py; reference semantics:
+freecad_elements/surface_source.py):
+
+  * ActiveSurfaces: whole optical groups or individual face indices
+    (surface_source.py:35-37, 437-457);
+  * area-correct position sampling: faces chosen with probability
+    proportional to their area, positions drawn in closed form per kind
+    (plane rectangle / disc / annulus, sphere zone, cylinder);
+  * PowerDensity in theta only (default cos(theta)**2, :38-43); phi
+    uniform; direction = Rot(normal, phi) Rot(tangent, theta) normal
+    (:85-111).
+
+This slice ports the device path of the source: `samplerSpec()` (the JAX
+package's `pallasSamplerSpec`, named as the port names the point source's),
+`deviceColumnsGenerator()`, `emissionBound()` and the column maths the trace
+kernels' sampler repeats (`surfaceSampleColumns`). Faces of kind cone,
+asphere, torus or triangle raise NotImplementedError (ROADMAP A.6); the
+host-side modes (`generateRays`: fans, true / pseudo on the host) wait for
+A.10a.
+'''
+
+import numpy as np
+import torch
+
+from .. import distributions, resolveDevice
+from ..distributions.device_sampler import (buildDeviceTables, deviceDraw,
+                                            fitPiecewisePoly)
+from ..geometry import surfaces as GS
+from ..utils import io
+from .common import parseDomain
+from .generic_source import GenericSource
+
+# the face kinds whose closed-form sampling is ported
+SAMPLED_KINDS = (GS.PLANE, GS.SPHERE, GS.CYLINDER)
+# the in-kernel sampler's face limit (the reference's)
+MAX_SAMPLER_FACES = 32
+
+
+def _refuseKind(kind):
+  if kind not in SAMPLED_KINDS:
+    raise NotImplementedError(
+        f'surface-source faces of kind '
+        f'{GS._KIND_NAMES.get(kind, kind)!r} are not ported to the PyTorch '
+        f'package yet: ROADMAP item A.6 (the rest of the geometry; plane, '
+        f'sphere and cylinder faces are)')
+
+
+class _Face:
+  '''Host-side sampling adapter for one analytic surface instance.'''
+
+  def __init__(self, spec, placement):
+    self.transform = np.asarray(placement, float) @ \
+        np.asarray(spec['transform'], float)
+    self.kind = spec['kind']
+    self.params = np.asarray(spec['params'], float)
+    self.trim = np.asarray(spec['trim'], float)
+    self.orient = float(spec['orient'])
+
+  def area(self):
+    k, p, t = self.kind, self.params, self.trim
+    _refuseKind(k)
+    if k == GS.PLANE:
+      if t[0] > 0.5:
+        return 4 * t[1] * t[2]
+      rOut = t[2] if np.isfinite(t[2]) else 0.
+      return np.pi * (rOut ** 2 - t[1] ** 2)
+    return 2 * np.pi * p[0] * (t[2] - t[1])  # sphere zone / cylinder
+
+
+class SurfaceSource(GenericSource):
+
+  def _properties(self):
+    return [
+        ('OpticalEmission', [
+            ('ActiveSurfaces', [],
+             'list of group labels (all faces emit) or (groupLabel, '
+             'surfaceIndex) pairs for individual faces (reference: '
+             'surface_source.py:35-37)'),
+            ('PowerDensity', 'cos(theta)**2',
+             'emitted power per solid angle per surface element, in theta'),
+            ('Wavelength', 500., 'emission wavelength in nm'),
+            ('ThetaDomain', '0, pi/2', ''),
+        ]),
+        ('OpticalSimulationSettings', [
+            ('RandomNumberGeneratorMode', '?', ''),
+            ('ThetaResolutionNumericMode', '1e5', ''),
+            ('UVSamplingInitialResolution', '5', 'parity; analytic faces '
+                                                 'sample in closed form'),
+            ('UVSamplingMaxRelAreaElementChange', '0.1', 'parity'),
+            ('FanModeRayCount', 100,
+             'total rays over all emitting faces in fan mode'),
+        ]),
+    ] + self._baseProperties()
+
+  def __init__(self, scene=None, placement=None, **kwargs):
+    self._scene = scene
+    super().__init__(placement=placement, **kwargs)
+    self._vrv = None
+    self._deviceTables = None
+
+  def attachScene(self, scene):
+    self._scene = scene
+
+  def parsedThetaDomain(self):
+    return parseDomain(self.ThetaDomain, default='0,pi/2',
+                       limits=('-20*pi', '20*pi'), spanLimits=(0, '20*pi'))[1]
+
+  def emissionBound(self):
+    '''Conservative world-frame emission envelope (originCenter, axis,
+    cosAlpha, originRadius), the contract of PointSource.emissionBound.
+    Only flat emitters (plane faces: constant normal) are bounded; curved
+    faces return None. The direction cone is the cone around the mean face
+    normal widened by the per-face normal spread plus the theta-domain
+    maximum. (Input of the per-bounce surface culls, which the port does
+    not have yet.)'''
+    try:
+      faces = self._activeFaces()
+      _t1, t2 = self.parsedThetaDomain()
+    except Exception:
+      return None
+    if not faces or not np.isfinite(t2):
+      return None
+    centers, radii, normals = [], [], []
+    for f in faces:
+      t = f.trim
+      if f.kind != GS.PLANE or abs(t[0] - 2.) < .5:
+        return None               # curved emitter, or a bitmap-trim chart
+      rho = float(np.hypot(t[1], t[2])) if t[0] > 0.5 else float(t[2])
+      if not np.isfinite(rho):
+        return None
+      nL = np.array([0., 0., 1.]) * (f.orient or 1.)
+      M = np.asarray(f.transform, float)
+      R, off = M[:3, :3], M[:3, 3]
+      nW = R @ nL
+      centers.append(off)
+      radii.append(rho)
+      normals.append(nW / max(np.linalg.norm(nW), 1e-30))
+    axis = np.sum(normals, axis=0)
+    nAxis = np.linalg.norm(axis)
+    if nAxis < 1e-12:
+      return None                 # opposing emitters: no useful cone
+    axis = axis / nAxis
+    spread = max(float(np.arccos(np.clip(float(n @ axis), -1., 1.)))
+                 for n in normals)
+    alpha = spread + min(float(t2), np.pi)
+    if alpha >= np.pi:
+      return None
+    o = np.mean(centers, axis=0)
+    rO = max(float(np.linalg.norm(c - o)) + r
+             for c, r in zip(centers, radii))
+    return o, axis, float(np.cos(alpha)), float(rO)
+
+  def _getVrv(self):
+    if self._vrv is None:
+      self._vrv = distributions.ScalarRandomVariable(
+          self.PowerDensity, variable='theta',
+          variableDomain=self.parsedThetaDomain(),
+          numericalResolution=float(self.ThetaResolutionNumericMode))
+      self._vrv.compile()
+      self.RandomNumberGeneratorMode = self._vrv.mode()
+    return self._vrv
+
+  def _getDeviceTables(self):
+    if self._deviceTables is None:
+      self._deviceTables = buildDeviceTables(self._getVrv())
+    return self._deviceTables
+
+  def _activeFaces(self):
+    '''Resolve ActiveSurfaces into _Face adapters, one per (face,
+    placement) instance.'''
+    if self._scene is None:
+      raise ValueError('SurfaceSource needs attachScene(scene) before '
+                       'generating rays')
+    faces = []
+    for entry in self.ActiveSurfaces:
+      if isinstance(entry, str):
+        label, indices = entry, None
+      else:
+        label, indices = entry
+        if np.isscalar(indices):
+          indices = [indices]
+      group = self._scene.getObject(label)
+      specs = group.surfaces if indices is None else \
+          [group.surfaces[i] for i in indices]
+      for placement in group.placements:
+        faces.extend(_Face(spec, placement) for spec in specs)
+    if not faces:
+      io.warn(f'surface source {self.Label} has no ActiveSurfaces selected '
+              f'for emission')
+    return faces
+
+  def generateRays(self, mode, settings=None, maxFanCount=np.inf,
+                   maxRaysPerFan=np.inf, rng=None):
+    '''The host-side ray modes (fans, and true / pseudo drawn on the host)
+    need the deterministic grids and the low-discrepancy draws of the
+    random variables, which are not ported yet.'''
+    raise NotImplementedError(
+        f'SurfaceSource.generateRays({mode!r}) (host-side fans and draws) is '
+        f'not ported to the PyTorch package yet: ROADMAP item A.10a (ray '
+        f'fans, drawPseudo / findGrid); the device path '
+        f'(samplerSpec / deviceColumnsGenerator) is')
+
+  # ------------------------------------------------------------- device path
+
+  def supportsDeviceSampling(self):
+    try:
+      return bool(self._scene is not None and self._activeFaces())
+    except Exception:
+      return False
+
+  def _faceConstants(self):
+    '''Per-face python-float constants for the device and kernel samplers:
+    area-CDF windows, placement, kind parameters.'''
+    faces = self._activeFaces()
+    if not faces:
+      return []
+    areas = np.array([f.area() for f in faces])
+    cum = np.concatenate([[0.], np.cumsum(areas / areas.sum())])
+    cum[-1] = 1.0 + 1e-7      # catch u == 1 - ulp in the last window
+    return [dict(kind=int(f.kind),
+                 params=tuple(float(x) for x in f.params),
+                 trim=tuple(float(x) for x in f.trim),
+                 orient=float(f.orient),
+                 R=tuple(tuple(float(x) for x in row)
+                         for row in f.transform[:3, :3]),
+                 off=tuple(float(x) for x in f.transform[:3, 3]),
+                 cumLo=float(cum[i]), cumHi=float(cum[i + 1]))
+            for i, f in enumerate(faces)]
+
+  def _thetaSpec(self):
+    '''The theta marginal as the kernel's sampler takes it: an affine map
+    or a piecewise Horner fit of the inverse CDF; None when the density has
+    discrete events or its inverse is too sharp to fit.'''
+    t = self._getDeviceTables()['tables'][0]
+    if int(t['discreteVals'].shape[0]):
+      return None
+    affine, lo, hi = t['affine']
+    if affine:
+      return ('affine', float(lo), float(hi))
+    return fitPiecewisePoly(np.asarray(t['invCdf'][0], float))
+
+  def samplerSpec(self):
+    '''In-kernel sampling descriptor for the trace kernels (ops/cuda_trace,
+    `type='surface'`): the per-face closed-form position constants and the
+    theta marginal. Same dict as the JAX package's `pallasSamplerSpec()`.
+    None when there are no faces or more than 32, or the theta inverse
+    cannot be represented in the kernel — callers then feed the kernel ray
+    columns from `deviceColumnsGenerator`.'''
+    faces = self._faceConstants()
+    if not faces or len(faces) > MAX_SAMPLER_FACES:
+      return None
+    thetaSpec = self._thetaSpec()
+    if thetaSpec is None:
+      return None
+    return dict(type='surface', faces=tuple(faces), theta=thetaSpec,
+                wavelength=float(self.Wavelength))
+
+  def deviceColumnsGenerator(self, device='cuda'):
+    '''Column-form device generator (the twin of
+    PointSource.deviceColumnsGenerator): returns
+    `generate(generator, N, stratified=False, uniforms=None) ->
+    dict(ox..dz, pw, wl, _theta, _phi, _face)`, every field a flat float32
+    (N,) tensor on `device`: faces area-proportionally, positions
+    area-uniformly per kind in closed form, theta from the compiled
+    PowerDensity inverse CDF, phi uniformly. `generator` is a
+    torch.Generator on that device; `uniforms` ((5, N): face, u, v, theta
+    quantile, phi quantile — the kernel sampler's draw order) replaces its
+    draws (the tests' seam).'''
+    dev = resolveDevice(device)
+    faces = self._faceConstants()
+    if not faces:
+      raise ValueError('surface source has no active faces')
+    tables = self._getDeviceTables()
+    wavelength = float(self.Wavelength)
+
+    def generate(generator, N, stratified=False, uniforms=None):
+      if uniforms is None:
+        uF, u, v = torch.rand((3, N), generator=generator, device=dev,
+                              dtype=torch.float32)
+        theta = deviceDraw(tables, generator, N, stratified=stratified,
+                           device=dev)[0]
+        uP = torch.rand((N,), generator=generator, device=dev,
+                        dtype=torch.float32)
+      else:
+        uF, u, v, uT, uP = uniforms
+        theta = deviceDraw(tables, None, N, device=dev, uniforms=uT[None])[0]
+      phi = uP * _f32(2. * np.pi)
+      cols = surfaceSampleColumns(faces, uF, u, v, theta, phi, wavelength)
+      cols['_theta'] = theta
+      cols['_phi'] = phi
+      cols['_face'] = faceIndexColumn(faces, uF)
+      return cols
+
+    return generate
+
+
+def _f32(x):
+  return float(np.float32(x))
+
+
+def faceIndexColumn(faces, uF):
+  '''The index of the face each face quantile `uF` selects (float32).'''
+  idx = torch.zeros_like(uF)
+  for i, f in enumerate(faces[1:], start=1):
+    idx = torch.where(uF >= _f32(f['cumLo']), float(i), idx)
+  return idx
+
+
+def faceSamplingConstants(face):
+  '''The four float32 constants of a face's closed-form position sampling,
+  each formed in double from the face's parameters and rounded once, as the
+  reference's python constants are (the kernel's sampler block holds the
+  same four):
+    plane rectangle  (half-width x, half-width y, 0, 0)
+    plane disc       (rOut**2 - rIn**2, rIn**2, 0, 0)
+    sphere zone      (z1, z2 - z1, R**2, 1 / R)
+    cylinder         (z1, z2 - z1, R, 0)'''
+  k, p, t = face['kind'], face['params'], face['trim']
+  _refuseKind(k)
+  if k == GS.PLANE:
+    if t[0] > 0.5:
+      return (t[1], t[2], 0., 0.)
+    return (t[2] ** 2 - t[1] ** 2, t[1] ** 2, 0., 0.)
+  if k == GS.SPHERE:
+    return (t[1], t[2] - t[1], p[0] ** 2, 1.0 / p[0])
+  return (t[1], t[2] - t[1], p[0], 0.)
+
+
+def localSampleColumns(face, u, v):
+  '''Local position + canonical normal of one face from two float32
+  uniform columns, in closed form per kind, in the reference's operation
+  order (`_localSampleColumns`). `face` is a dict of python floats.
+  Returns (lx, ly, lz, nlx, nly, nlz) with the orient flip NOT yet
+  applied.'''
+  k, t = face['kind'], face['trim']
+  c0, c1, c2, c3 = (_f32(c) for c in faceSamplingConstants(face))
+  one = torch.ones_like(u)
+  zero = torch.zeros_like(u)
+  a = _f32(2. * np.pi) * v
+  if k == GS.PLANE:
+    if t[0] > 0.5:
+      return ((2. * u - 1.) * c0, (2. * v - 1.) * c1, zero, zero, zero, one)
+    r = torch.sqrt(u * c0 + c1)
+    return r * torch.cos(a), r * torch.sin(a), zero, zero, zero, one
+  z = c0 + u * c1
+  if k == GS.SPHERE:
+    rr = torch.sqrt(torch.clamp(c2 - z * z, min=0.))
+    lx, ly = rr * torch.cos(a), rr * torch.sin(a)
+    return lx, ly, z, lx * c3, ly * c3, z * c3
+  ca, sa = torch.cos(a), torch.sin(a)
+  return c2 * ca, c2 * sa, z, ca, sa, zero
+
+
+def rotColumns(vx, vy, vz, ax, ay, az, ang):
+  '''Rodrigues rotation of column vectors v about unit axes a by `ang`.'''
+  c, s = torch.cos(ang), torch.sin(ang)
+  cx = ay * vz - az * vy
+  cy = az * vx - ax * vz
+  cz = ax * vy - ay * vx
+  dot = ax * vx + ay * vy + az * vz
+  return (vx * c + cx * s + ax * dot * (1. - c),
+          vy * c + cy * s + ay * dot * (1. - c),
+          vz * c + cz * s + az * dot * (1. - c))
+
+
+def surfaceSampleColumns(faces, uF, u, v, theta, phi, wavelength):
+  '''World-frame ray columns from the per-face constants and the uniform /
+  theta / phi columns (float32 tensors): the face whose area-CDF window
+  [cumLo, cumHi) holds uF (scanned in face order; none: origin 0, normal
+  +z), its closed-form local position and normal, the placement, `orient`;
+  then direction = Rot(n, phi) Rot(tangent, theta) n with the tangent
+  cross(n, x-hat), or cross(n, y-hat) where |n_x| >= 0.9. The reference's
+  `_surfaceSampleColumns`, operation for operation; the kernels' sampler
+  repeats it.'''
+  zero = torch.zeros_like(uF)
+  ox, oy, oz = zero, zero, zero
+  nx, ny, nz = zero, zero, zero + 1.
+  for f in faces:
+    m = (uF >= _f32(f['cumLo'])) & (uF < _f32(f['cumHi']))
+    lx, ly, lz, nlx, nly, nlz = localSampleColumns(f, u, v)
+    R = [[_f32(x) for x in row] for row in f['R']]
+    off = [_f32(x) for x in f['off']]
+    orient = _f32(f['orient'])
+    wx = R[0][0] * lx + R[0][1] * ly + R[0][2] * lz + off[0]
+    wy = R[1][0] * lx + R[1][1] * ly + R[1][2] * lz + off[1]
+    wz = R[2][0] * lx + R[2][1] * ly + R[2][2] * lz + off[2]
+    wnx = (R[0][0] * nlx + R[0][1] * nly + R[0][2] * nlz) * orient
+    wny = (R[1][0] * nlx + R[1][1] * nly + R[1][2] * nlz) * orient
+    wnz = (R[2][0] * nlx + R[2][1] * nly + R[2][2] * nlz) * orient
+    ox = torch.where(m, wx, ox)
+    oy = torch.where(m, wy, oy)
+    oz = torch.where(m, wz, oz)
+    nx = torch.where(m, wnx, nx)
+    ny = torch.where(m, wny, ny)
+    nz = torch.where(m, wnz, nz)
+  ninv = torch.rsqrt(nx * nx + ny * ny + nz * nz + 1e-20)
+  nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
+  useX = torch.abs(nx) < 0.9
+  tx = torch.where(useX, zero, -nz)
+  ty = torch.where(useX, nz, zero)
+  tz = torch.where(useX, -ny, nx)
+  tinv = torch.rsqrt(tx * tx + ty * ty + tz * tz + 1e-20)
+  tx, ty, tz = tx * tinv, ty * tinv, tz * tinv
+  dx, dy, dz = rotColumns(nx, ny, nz, tx, ty, tz, theta)
+  dx, dy, dz = rotColumns(dx, dy, dz, nx, ny, nz, phi)
+  dinv = torch.rsqrt(dx * dx + dy * dy + dz * dz + 1e-20)
+  return dict(ox=ox, oy=oy, oz=oz,
+              dx=dx * dinv, dy=dy * dinv, dz=dz * dinv,
+              pw=torch.ones_like(uF),
+              wl=torch.full_like(uF, wavelength))

@@ -36,7 +36,8 @@ in its in-kernel-histogram and per-ray-output modes, `makePallasRawStep`,
 
 Three input modes of every kernel: (a) seed only — rays are drawn in the
 kernel from Philox4x32-10 keyed by (seed, ray index); (b) the in-kernel
-sampler fed two uniform arrays; (c) eight ray columns ox..dz, pw, wl. The
+sampler fed its uniform arrays (two for a point source, five for a surface
+source); (c) eight ray columns ox..dz, pw, wl. The
 main path uses (a); (b) and (c) exist so that kernel, plain version and the
 JAX package can be fed the same numbers.
 
@@ -45,7 +46,9 @@ PLANE / SPHERE / CYLINDER with window, annulus and z-band trims;
 Mirror / Lens / Absorber / Vacuum / Grating (Ludwig line gratings,
 reflective and transmissive); Beer-Lambert absorption; dispersive n(lambda)
 as a fitted polynomial per element; sequential mode (a per-ray stage index
-gating each surface) and per-source surface masks. The kernels sweep every
+gating each surface) and per-source surface masks. In-kernel samplers: the
+point source and the surface source (plane, sphere-zone and cylinder faces,
+up to 32). The kernels sweep every
 allowed surface on every bounce (the reference's per-bounce culls only skip
 surfaces that cannot be hit).
 '''
@@ -87,6 +90,16 @@ DISP_COLS = 4 + MAX_DISP_COEFFS
 _SEG_STRIDE = 4 + MAX_PWPOLY_COEFFS
 _MARG_LEN = 264
 _SAMPLER_GEOM = 16
+# a surface-source sampler block: the geometry block (face count, 2 pi,
+# wavelength at 14), the theta marginal, then one row per face: kind,
+# rectangle flag, the four sampling constants of
+# `surface_source.faceSamplingConstants`, the placement R (9, row-major)
+# and offset (3), orient, and the face's area-CDF window [cumLo, cumHi)
+FACE_COLS = 21
+# the in-kernel samplers and the uniforms each draws per ray (the uniform
+# seam's rows): point (first, phi); surface (face, u, v, theta, phi)
+SAMPLER_POINT, SAMPLER_SURFACE = 0, 1
+SAMPLER_UNIFORMS = {SAMPLER_POINT: 2, SAMPLER_SURFACE: 5}
 
 MODE_SEED, MODE_UNIFORMS, MODE_COLUMNS = 0, 1, 2
 
@@ -390,10 +403,12 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   if elemT[:, 11].any():
     dispOff = S * SURF_COLS + E * ELEM_COLS
     parts.append(dispT.astype(np.float32).reshape(-1))
-  samplerOff = -1
-  if samplerSpec is not None:
-    if samplerSpec.get('type') == 'surface':
-      raise ValueError('the surface-source sampler is not ported yet')
+  samplerOff, samplerKind = -1, SAMPLER_POINT
+  if samplerSpec is not None and samplerSpec.get('type') == 'surface':
+    samplerKind = SAMPLER_SURFACE
+    samplerOff = sum(len(x) for x in parts)
+    parts.extend(_packSurfaceSampler(samplerSpec))
+  elif samplerSpec is not None:
     geom = np.zeros(_SAMPLER_GEOM, np.float32)
     geom[0] = 1. if samplerSpec['finite'] else 0.
     geom[1] = samplerSpec['f']
@@ -418,14 +433,42 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
       hasGrating=bool((elemT[:, 0] == GRATING).any()), nStages=nStages,
       gate=any(r['stages'] != (1 << max(nStages, 1)) - 1 for r in surfRows),
       dispOff=dispOff, surfRows=surfRows, elemRows=elemRows,
-      samplerSpec=samplerSpec)
+      samplerSpec=samplerSpec, samplerKind=samplerKind)
+
+
+def _packSurfaceSampler(spec):
+  '''The sampler block of a surface source (`SurfaceSource.samplerSpec()`)
+  as float32 parts: the geometry block, the theta marginal, the face rows
+  (see FACE_COLS). Every constant is formed in double from the spec and
+  rounded to float32 once, as the reference bakes its python constants.'''
+  from ..models.surface_source import (MAX_SAMPLER_FACES,
+                                      faceSamplingConstants)
+  faces = spec['faces']
+  if not 1 <= len(faces) <= MAX_SAMPLER_FACES:
+    raise ValueError(f'{len(faces)} emitting faces outside [1, '
+                     f'{MAX_SAMPLER_FACES}]')
+  geom = np.zeros(_SAMPLER_GEOM, np.float64)
+  geom[0] = len(faces)
+  geom[1] = 2. * np.pi
+  geom[14] = spec['wavelength']
+  rows = np.zeros((len(faces), FACE_COLS), np.float64)
+  for i, f in enumerate(faces):
+    rows[i, 0] = f['kind']
+    rows[i, 1] = 1. if f['trim'][0] > 0.5 else 0.
+    rows[i, 2:6] = faceSamplingConstants(f)
+    rows[i, 6:15] = np.asarray(f['R'], float).reshape(-1)
+    rows[i, 15:18] = f['off']
+    rows[i, 18:21] = (f['orient'], f['cumLo'], f['cumHi'])
+  return [geom.astype(np.float32), _packMarginal(spec['theta']),
+          rows.astype(np.float32).reshape(-1)]
 
 
 def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
-  '''Pack a compiled scene (+ optionally a point-source sampler spec) into
-  the kernel's tables. Returns a dict with the float32 `table` tensor on
-  `device` (surface rows, element rows, sampler block), the host rows, and
-  the static facts the step needs (bins, detector count, anyMedium).
+  '''Pack a compiled scene (+ optionally a point- or surface-source
+  sampler spec) into the kernel's tables. Returns a dict with the float32
+  `table` tensor on `device` (surface rows, element rows, sampler block),
+  the host rows, and the static facts the step needs (bins, detector count,
+  anyMedium, samplerKind).
   Raises ValueError for scenes the kernel does not cover.'''
   dev = resolveDevice(device)
   table, facts = _packTable(scene, histSpec, samplerSpec)
@@ -473,6 +516,10 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
     samplerSpecs = [None] * V
   if len(samplerSpecs) != V:
     raise ValueError(f'{len(samplerSpecs)} sampler specs for {V} variants')
+  if any(spec is not None and spec.get('type') == 'surface'
+         for spec in samplerSpecs):
+    # as the reference's sweep step refuses it (makePallasSweepStep)
+    raise SweepUnavailable('needs an in-kernel point-source sampler')
   cache, tables, facts = {}, [], []
   for scene, spec in zip(scenes, samplerSpecs):
     reason = ineligibleReason(scene)
@@ -511,6 +558,7 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       anyMedium=any(f['anyMedium'] for f in facts),
       hasGrating=f0['hasGrating'], nStages=0,
       gate=any(f['gate'] for f in facts), dispOff=f0['dispOff'],
+      samplerKind=SAMPLER_POINT,
       surfRows=[f['surfRows'] for f in facts],
       elemRows=[f['elemRows'] for f in facts])
 
@@ -584,6 +632,41 @@ def sampleRaysPlain(tables, u1, u2, strata=None, strataTile=0):
   cols = pointColumns(t, ph, bool(sg[0] != 0.), float(sg[1]),
                       sg[2:11].reshape(3, 3), sg[11:14], float(sg[14]))
   return tuple(cols[k] for k in ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw'))
+
+
+def sampleSurfaceRaysPlain(tables, uniforms):
+  '''Plain version of the in-kernel surface-source sampler: five uniform
+  float32 (N,) rows (face, u, v, theta quantile, phi quantile) -> the ray
+  columns (ox..dz, pw): theta through the packed marginal, phi = 2 pi
+  times its quantile, then `surface_source.surfaceSampleColumns` on the
+  spec's faces (whose float32 constants are the packed rows').'''
+  from ..models.surface_source import surfaceSampleColumns
+  tab = tables['table'].detach().cpu().numpy()
+  sg = tab[tables['samplerOff']:]
+  spec = tables['samplerSpec']
+  uF, u, v, uT, uP = (uniforms[k] for k in range(5))
+  theta = _marginalPlain(sg[_SAMPLER_GEOM:_SAMPLER_GEOM + _MARG_LEN], uT)
+  phi = uP * float(sg[1])
+  cols = surfaceSampleColumns(spec['faces'], uF, u, v, theta, phi,
+                              float(sg[14]))
+  return tuple(cols[k] for k in ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw'))
+
+
+def samplerColumnsPlain(tables, uniforms, strata=None, strataTile=0):
+  '''The seven ray columns the tables' in-kernel sampler draws from the
+  float32 `uniforms` (one row per draw: `samplerUniforms(tables)` rows),
+  by its plain version. `strata` applies to the point sampler only.'''
+  if tables['samplerKind'] == SAMPLER_SURFACE:
+    return sampleSurfaceRaysPlain(tables, uniforms)
+  return sampleRaysPlain(tables, uniforms[0], uniforms[1], strata,
+                         strataTile)
+
+
+def samplerUniforms(tables):
+  '''How many uniforms the tables' in-kernel sampler draws per ray (the
+  rows of the uniform input mode): 2 for a point source, 5 for a surface
+  source.'''
+  return SAMPLER_UNIFORMS[tables['samplerKind']]
 
 
 def _intersectPlain(r, ox, oy, oz, dx, dy, dz, tMin):
@@ -915,20 +998,35 @@ def _ringCounters(key, segs, hitN, hitSlots):
 def traceHistogramPlain(tables, histograms, columns, maxIntersections,
                         maxRayLength, distTol, powerTol, hitSlots):
   '''Plain version of the histogram kernel: `_bounceLoopPlain` + float32
-  `index_add_` binning. Adds into `histograms` IN PLACE and returns an int64
-  (3,) tensor (segments, hits, hitOverflow).'''
+  `index_add_` binning into a fresh zero delta, which is then added into
+  `histograms` IN PLACE. Returns an int64 (3,) tensor (segments, hits,
+  hitOverflow).'''
   (ringBin, ringW), segs, hitN = _bounceLoopPlain(
       tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
       hitSlots, 'hist')
-  power = histograms['power'].view(-1)
-  counts = histograms['counts'].view(-1)
+  delta = torch.zeros((2, histograms['power'].numel()), dtype=torch.float32,
+                      device=ringW.device)
   for k in range(hitSlots):
     valid = ringBin[k] >= 0
     idx = ringBin[k].clamp(min=0)
-    power.index_add_(0, idx, torch.where(valid, ringW[k],
-                                         torch.zeros_like(ringW[k])))
-    counts.index_add_(0, idx, valid.to(counts.dtype))
+    delta[0].index_add_(0, idx, torch.where(valid, ringW[k],
+                                            torch.zeros_like(ringW[k])))
+    delta[1].index_add_(0, idx, valid.to(torch.float32))
+  _addDelta(histograms, delta)
   return _ringCounters(ringBin, segs, hitN, hitSlots)
+
+
+def _addDelta(histograms, delta):
+  '''Add one step's (2, ...) power / count delta into the run's float32
+  `histograms` in place. The step's hits are binned into a zeroed delta
+  first and the delta is added once, as the reference adds its kernel's
+  per-step output, so a bin keeps growing past 2**24 (where float32 `+1`
+  rounds back to the bin). One fused add for both histograms: on the card
+  one launch beside the kernel, with the delta's memset two.'''
+  torch._foreach_add_(
+      [histograms['power'], histograms['counts']],
+      [delta[0].view_as(histograms['power']),
+       delta[1].view_as(histograms['counts'])])
 
 
 def traceSweepPlain(sweepTables, histograms, raysPerVariant, maxIntersections,
@@ -1039,11 +1137,14 @@ def _checkInputs(tables, nRays, maxIntersections, hitSlots, seed, uniforms,
   if columns is None and tables['samplerOff'] < 0:
     raise ValueError('seed / uniforms input needs tables built with a '
                      'sampler spec')
+  # strata belong to the point sampler: the reference's surface branch
+  # returns before them
   strata = None
-  if columns is None and strataTile:
+  if columns is None and strataTile \
+      and tables['samplerKind'] == SAMPLER_POINT:
     strata = tileStrata(nRays, int(strataTile))
   if uniforms is not None:
-    _checkTensor('uniforms', uniforms, dev, (2, nRays))
+    _checkTensor('uniforms', uniforms, dev, (samplerUniforms(tables), nRays))
     return MODE_UNIFORMS, uniforms, strata
   if columns is not None:
     _checkTensor('columns', columns, dev, (8, nRays))
@@ -1053,17 +1154,18 @@ def _checkInputs(tables, nRays, maxIntersections, hitSlots, seed, uniforms,
 
 def _plainColumns(tables, nRays, seed, uniforms, columns, strata, strataTile):
   '''The seven ray columns a plain version starts from, for CPU inputs in
-  any of the three modes (`seed` seeds a torch.Generator that draws the two
-  uniform arrays).'''
+  any of the three modes (`seed` seeds a torch.Generator that draws the
+  sampler's uniform rows).'''
   if columns is not None:
     return tuple(columns[k] for k in range(8))
   if uniforms is None:
     dev = tables['table'].device
     generator = torch.Generator(device=dev)
     generator.manual_seed(int(seed))
-    uniforms = torch.rand((2, nRays), generator=generator, device=dev,
+    uniforms = torch.rand((samplerUniforms(tables), nRays),
+                          generator=generator, device=dev,
                           dtype=torch.float32)
-  return sampleRaysPlain(tables, uniforms[0], uniforms[1], strata, strataTile)
+  return samplerColumnsPlain(tables, uniforms, strata, strataTile)
 
 
 def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
@@ -1074,15 +1176,22 @@ def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
   Returns an int64 (3,) tensor (segments, hits, hitOverflow) on the tables'
   device — no host synchronisation.
 
+  The kernel bins into a zeroed per-step delta, a (2, D, H, W) workspace
+  kept on `tables` (`histDelta`, so a step allocates nothing), which is
+  then added into `histograms` on the device: the reference's per-step
+  delta, so a bin goes on counting past 2**24.
+
   Exactly one input mode: `seed` (int; rays drawn in the kernel),
-  `uniforms` (float32 (2, nRays): the sampler's two quantile draws) or
-  `columns` (float32 (8, nRays): ox, oy, oz, dx, dy, dz, pw, wl).
-  `strataTile` > 0 stratifies the sampler quantiles by ray-index cell (see
-  `tileStrata`; ignored for `columns`).
+  `uniforms` (float32 (`samplerUniforms(tables)`, nRays): the sampler's
+  draws — point source: first variable, phi; surface source: face, u, v,
+  theta, phi) or `columns` (float32 (8, nRays): ox, oy, oz, dx, dy, dz, pw,
+  wl). `strataTile` > 0 stratifies the point sampler's quantiles by
+  ray-index cell (see `tileStrata`; ignored for `columns` and for a surface
+  sampler, whose reference returns before its strata).
 
   Tensors on a CUDA device go through the CUDA kernel, or this raises; the
   plain PyTorch version runs only for tensors on the CPU (there `seed` seeds
-  a torch.Generator that draws the two uniform arrays).'''
+  a torch.Generator that draws the sampler's uniform rows).'''
   dev = tables['table'].device
   mode, rayIn, strata = _checkInputs(tables, nRays, maxIntersections,
                                      hitSlots, seed, uniforms, columns,
@@ -1098,11 +1207,17 @@ def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
                          strataTile)
     return traceHistogramPlain(tables, histograms, cols, maxIntersections,
                                maxRayLength, distTol, powerTol, hitSlots)
-  return _launchKernel('traceHistogram', tables,
-                       (histograms['power'], histograms['counts']), nRays,
-                       mode, rayIn, int(seed or 0), strata, strataTile,
-                       maxIntersections, maxRayLength, distTol, powerTol,
-                       hitSlots)
+  delta = tables.get('histDelta')
+  if delta is None or tuple(delta.shape) != (2, D, H, W):
+    delta = tables['histDelta'] = torch.empty((2, D, H, W),
+                                              dtype=torch.float32, device=dev)
+  delta.zero_()
+  counters = _launchKernel('traceHistogram', tables, (delta[0], delta[1]),
+                           nRays, mode, rayIn, int(seed or 0), strata,
+                           strataTile, maxIntersections, maxRayLength,
+                           distTol, powerTol, hitSlots)
+  _addDelta(histograms, delta)
+  return counters
 
 
 def _traceRing(name, plain, nFields, tables, nRays, maxIntersections,
@@ -1240,13 +1355,14 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
                          dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
-  ip = (ctypes.c_longlong * 21)(
+  ip = (ctypes.c_longlong * 22)(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
       int(strataTile) if strata is not None else 1, G1, G2, variants,
       histLen, int(tables['hasGrating']), int(tables['nStages']),
-      int(tables['gate']), int(tables['dispOff']))
+      int(tables['gate']), int(tables['dispOff']),
+      int(tables['samplerKind']))
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
@@ -1282,7 +1398,8 @@ def _stepSetup(scene, histSpec, generator, raysPerStep, maxIntersections,
     hitSlots = autoHitSlots(scene, histSpec, maxIntersections)
   if strataTile == 'auto':
     strataTile = DEFAULT_STRATA_TILE
-  if sampler is None or tileStrata(raysPerStep, strataTile) is None:
+  if tables['samplerKind'] != SAMPLER_POINT or sampler is None \
+      or tileStrata(raysPerStep, strataTile) is None:
     strataTile = 0
 
   def inputsFor(seed):

@@ -423,10 +423,13 @@ class SimulationResults:
                    detLabels=np.asarray(
                        [str(l) for l in histMeta['detLabels']]))
     ownKey = f'pid{os.getpid()}-thread{threading.get_ident()}'
+    path = os.path.join(folder, f'{self._fingerprint()}-histograms.npz')
+    # a snapshot written in the same millisecond as the one before has the
+    # same name: it replaces that file, and must not be deleted with it
     old = [f for f in glob.glob(os.path.join(folder, '*-histograms.npz'))
-           if _histogramWorkerKey(os.path.basename(f)) == ownKey]
-    path = os.path.join(folder, f'{self._fingerprint()}-histograms')
-    _saveNpz(path + '.npz', payload)
+           if _histogramWorkerKey(os.path.basename(f)) == ownKey
+           and f != path]
+    _saveNpz(path, payload)
     for f in old:
       try:
         os.remove(f)

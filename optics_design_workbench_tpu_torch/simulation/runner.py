@@ -45,10 +45,10 @@ RAY_BLOCK = 256
 
 # where each refused feature is queued (ROADMAP.md, section A)
 _ROADMAP = {
-    'fans': 'A.10 (record tracer: fans, ray polylines, metadata columns)',
+    'fans': 'A.10a (ray fans and hit metadata)',
     'recordRays': 'A.10 (record tracer: fans, ray polylines, metadata '
                   'columns)',
-    'metadata': 'A.10 (record tracer: fans, ray polylines, metadata columns)',
+    'metadata': 'A.10a (ray fans and hit metadata)',
     'draw': 'A.10 (simulation/draw.py)',
     'slaveInfo': 'A.10 (parallel/multiprocess.py workers)',
     'mesh': 'A.13 (multi-GPU)',

@@ -28,6 +28,7 @@ from optics_design_workbench_tpu_torch import (benchmarks, convert, _build,
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     document, histogram, hits, parameter_sweeper, progress, retries,
     transforms)
+from optics_design_workbench_tpu_torch.models import surface_source
 from optics_design_workbench_tpu_torch.simulation import (lifecycle,
                                                           results_store,
                                                           runner)
@@ -35,6 +36,11 @@ from optics_design_workbench_tpu_torch.utils import io, native_store, timing
 step, hist, meta = benchmarks.makeBenchStep(device='cpu', raysPerStep=4096)
 hist, counters = step(0, hist)
 assert int(counters['hits']) > 3600, counters
+step, hist, meta = benchmarks.makeBenchStep(
+    scene=benchmarks.buildSurfaceSourceScene(), device='cpu',
+    raysPerStep=4096, maxIntersections=4, histBounds=(-120., 120., -120., 120.))
+hist, counters = step(0, hist)
+assert step.tables['samplerKind'] == 1 and int(counters['hits']) > 2500
 import tempfile
 with tempfile.TemporaryDirectory() as tmp:
   scene = benchmarks.buildSourceDetectorScene(tmpdir=tmp)

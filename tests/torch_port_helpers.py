@@ -18,19 +18,21 @@ COLS = ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw', 'wl')
 def jaxNs():
   from optics_design_workbench_tpu import benchmarks
   from optics_design_workbench_tpu.models import (Scene, PointSource,
-                                                  OpticalGroup)
+                                                  SurfaceSource, OpticalGroup)
   from optics_design_workbench_tpu.geometry import surfaces, transforms
   return SimpleNamespace(Scene=Scene, PointSource=PointSource,
+                         SurfaceSource=SurfaceSource,
                          OpticalGroup=OpticalGroup, S=surfaces, T=transforms,
                          benchmarks=benchmarks)
 
 
 def torchNs():
   from optics_design_workbench_tpu_torch import benchmarks
-  from optics_design_workbench_tpu_torch.models import (Scene, PointSource,
-                                                        OpticalGroup)
+  from optics_design_workbench_tpu_torch.models import (
+      Scene, PointSource, SurfaceSource, OpticalGroup)
   from optics_design_workbench_tpu_torch.geometry import surfaces, transforms
   return SimpleNamespace(Scene=Scene, PointSource=PointSource,
+                         SurfaceSource=SurfaceSource,
                          OpticalGroup=OpticalGroup, S=surfaces, T=transforms,
                          benchmarks=benchmarks)
 
@@ -407,6 +409,78 @@ def buildMaskedSourcesScene(ns):
   return scene, (-40., 40., -40., 40.), 4
 
 
+def buildSurfaceEmitterScene(ns):
+  '''A surface source on four kinds of face under two placements — a
+  plane rectangle, a plane annulus facing -z (orient -1), a sphere zone and
+  a cylinder — inside an absorbing detector shell of radius 60 mm that
+  catches every ray leaving the emitter (the emitter's faces are mirrors:
+  some rays bounce between them first). The shell is kept near: a
+  direction that differs in its last bits between two libraries' sin / cos
+  moves a hit point in proportion to the path (ROADMAP C, sensitivities).'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='surfaceEmitter')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Emitter',
+      surfaces=[
+          S.plane(np.eye(4), elem=0, halfExtents=(10., 5.)),
+          S.plane(T.translation(0, 0, -3), elem=0, radius=6.,
+                  innerRadius=2., orient=-1),
+          S.sphere(np.eye(4), elem=0, radius=8., zRange=(2., 8.)),
+          S.cylinder(np.eye(4), elem=0, radius=4., zRange=(0., 6.))],
+      placements=[T.compose(T.translation(3, -2, 10),
+                            T.rotation((0, 1, 0), 15)),
+                  T.compose(T.translation(-20, 5, 0),
+                            T.rotation((1, 0, 0), 30))]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Shell',
+      surfaces=[S.sphere(np.eye(4), elem=0, radius=60., orient=-1)],
+      placements=[T.translation(-8, 1, 5)]))
+  scene.addSource(ns.SurfaceSource(Label='SS', ActiveSurfaces=['Emitter'],
+                                   PowerDensity='cos(theta)**2'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
+  return scene, (-60., 60., -60., 60.), 3
+
+
+def buildSurfaceBench(ns):
+  '''The reference's surface-source throughput scene, its bounds and
+  bounce budget (tools/scene_throughput.sceneSurfaceSource).'''
+  return (ns.benchmarks.buildSurfaceSourceScene(),
+          (-120., 120., -120., 120.), 4)
+
+
+def buildSurfaceSensorScene(ns):
+  '''A surface source whose rays are recorded where they are born: a
+  plane rectangle (20 x 10 mm, centred at x = -30) and an annulus (radii 2
+  and 6 mm, centred at x = +30), both in the plane z = 0 and facing +z,
+  transparent (Vacuum) and not recording, under a recording Vacuum sensor
+  plane 0.01 mm above them. A ray's one record holds its emission direction
+  and, to within 0.01 tan(theta) mm, its emission point: what a check of the
+  sampler's face fractions, theta marginal and positions reads.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='surfaceSensor')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Vacuum', Label='Emitter', RecordHits=False,
+      surfaces=[S.plane(T.translation(-30, 0, 0), elem=0,
+                        halfExtents=(10., 5.)),
+                S.plane(T.translation(30, 0, 0), elem=0, radius=6.,
+                        innerRadius=2.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Vacuum', Label='Sensor', RecordHits=True,
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(100., 100.))],
+      placements=[T.translation(0, 0, 0.01)]))
+  scene.addSource(ns.SurfaceSource(Label='SS', ActiveSurfaces=['Emitter'],
+                                   PowerDensity='cos(theta)**2'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=1)
+  return scene, (-100., 100., -100., 100.), 1
+
+
+# the surface-source scenes: name -> scene function
+SURFACE_SCENES = {
+    'surfaceEmitter': buildSurfaceEmitterScene,
+    'surfaceBench': buildSurfaceBench,
+}
+
+
 def buildBench(ns, name):
   bounds = (-60., 60., -60., 60.)
   if name == 'lensMirror':
@@ -506,11 +580,12 @@ def runReferenceColumns(jaxScene, colsNp, bounds, maxIntersections,
 
 
 def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
-                         seed=77, bins=BINS, source=0):
+                         seed=77, bins=BINS, source=0, prefill=None):
   '''Mode (b) on the JAX side: in-kernel sampler of light source `source`
-  fed uniforms through the `uniformProvider='input'` seam. Returns the
-  kernel's result and the very uniforms the step drew, as a (2, n) numpy
-  array in ray order.'''
+  fed uniforms through the `uniformProvider='input'` seam, onto fresh
+  histograms (or histograms whose every bin holds `prefill`). Returns the
+  kernel's result and the very uniforms the step drew, as a (draws, n)
+  numpy array in ray order (`samplerDraws`).'''
   import jax
   from optics_design_workbench_tpu.ops import pallas_trace
   from optics_design_workbench_tpu.tracing import fused
@@ -525,10 +600,28 @@ def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
       maxIntersections=maxIntersections, maxRayLength=MAX_RAY_LENGTH,
       distTol=DIST_TOL)
   key = jax.random.PRNGKey(seed)
-  res = _result(*step(key, fused.initHistograms(histSpec)))
-  us = jax.random.uniform(jax.random.fold_in(key, 0x0177),
-                          (2, n // 128, 128))
-  return res, np.array(us).reshape(2, n)
+  hist = fused.initHistograms(histSpec)
+  if prefill is not None:
+    hist = {k: v + prefill for k, v in hist.items()}
+  res = _result(*step(key, hist))
+  return res, referenceUniforms(key, spec, n)
+
+
+def samplerDraws(spec):
+  '''Uniforms the JAX kernel's in-kernel sampler draws per ray (its
+  uniform seam's rows): 2 for a point source, 5 (face, u, v, theta, phi)
+  for a surface source.'''
+  return 5 if spec.get('type') == 'surface' else 2
+
+
+def referenceUniforms(key, spec, n):
+  '''The very uniforms a JAX step with `uniformProvider='input'` and no
+  in-kernel scatter draws from `key`, as a (draws, n) numpy array in ray
+  order.'''
+  import jax
+  k = samplerDraws(spec)
+  us = jax.random.uniform(jax.random.fold_in(key, 0x0177), (k, n // 128, 128))
+  return np.array(us).reshape(k, n)
 
 
 def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
@@ -538,7 +631,7 @@ def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
   the numpy ray columns; without (mode (b)) its in-kernel sampler is fed
   uniforms through `uniformProvider='input'` (no tile strata on this step).
   `source` picks the light source (and its `surfMask`). Returns (records as
-  numpy, counters as ints, uniforms (2, n) or None, element labels).'''
+  numpy, counters as ints, uniforms (draws, n) or None, element labels).'''
   import jax
   import jax.numpy as jnp
   from optics_design_workbench_tpu.ops import pallas_trace
@@ -561,8 +654,7 @@ def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
     step = pallas_trace.makePallasRawStep(
         device, histSpec, src.deviceColumnsGenerator(), sampler=spec,
         uniformProvider='input', **kw)
-    us = np.array(jax.random.uniform(jax.random.fold_in(key, 0x0177),
-                                     (2, n // 128, 128))).reshape(2, n)
+    us = referenceUniforms(key, spec, n)
   records, counters = step(key)
   return ({k: np.asarray(v) for k, v in records.items()},
           {k: int(v) for k, v in counters.items()}, us,
@@ -570,7 +662,14 @@ def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
 
 
 def runB4Case(name, n=N_RAYS):
-  '''One scene of `B4_SCENES` through both packages in mode (b): the JAX
+  '''One scene of `B4_SCENES` through both packages in mode (b)
+  (`runUniformsCase`).'''
+  build, source = B4_SCENES[name]
+  return runUniformsCase(build, source, n)
+
+
+def runUniformsCase(build, source=0, n=N_RAYS):
+  '''The scene `build(ns)` makes through both packages in mode (b): the JAX
   Pallas kernel in interpret mode (histogram step and raw-record step, each
   fed the uniforms it draws for its `uniformProvider='input'` seam) and the
   port's plain versions on those very uniforms, on the traced source's own
@@ -580,7 +679,6 @@ def runB4Case(name, n=N_RAYS):
   from optics_design_workbench_tpu_torch import convert
   from optics_design_workbench_tpu_torch.ops import cuda_trace
   from optics_design_workbench_tpu_torch.tracing import fused as torchFused
-  build, source = B4_SCENES[name]
   scene, bounds, maxI = build(jaxNs())
   deviceNp, histNp, spec = referenceArrays(scene, bounds, source=source)
   tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,

@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
-    python3 tools/torch_kernel_probe.py [sweep | spectrometer]
+    python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]]
 
 (`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
-alone) times the port's main-path step
+alone; `k1 ROOT` times the main-path step of the package in the checkout at
+ROOT — another commit's, unpacked — three series of 20 steps by CUDA events,
+and prints the registers of its histogram kernel's instances, so that two
+commits run in one call can be compared in turns) times the port's
+main-path step
 (lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
 warm-up, interleaved A B B A so that clock drift cancels:
 
@@ -59,6 +63,8 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, 'tests'))
+if sys.argv[1:2] == ['k1'] and len(sys.argv) > 2:
+  sys.path.insert(0, os.path.abspath(sys.argv[2]))   # the package measured
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
 
@@ -262,6 +268,24 @@ def spectrometerBreakdown(dev):
       k1(f'line-{label}-outOfBounds/rep{rep}', *quiet[label], 3)
 
 
+def k1Series():
+  '''The main-path step (`makeBenchStep`: lens-and-mirror, 1 << 22 rays,
+  6 bounces, 128 x 128 bins) of the package on the path: three series of
+  20 steps by CUDA events, and the registers of its histogram kernel.'''
+  import optics_design_workbench_tpu_torch as port
+  step, hist, _meta = benchmarks.makeBenchStep(raysPerStep=N,
+                                               maxIntersections=6, bins=BINS)
+  seeds = iter(range(10 ** 9))
+  series = [cudaMs(lambda: step(next(seeds), hist)) for _ in range(3)]
+  _libs, info = _build.buildKernels()
+  regs = [l.split('Used ')[1].split(' registers')[0]
+          for l in info['log'].splitlines()
+          if 'Used' in l and 'registers' in l]
+  print(json.dumps(dict(variant='k1-main-path', package=port.__file__,
+                        digest=port.kernelSourceDigest(), msSeries=series,
+                        registersInBuildOrder=regs)), flush=True)
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
@@ -275,6 +299,8 @@ def main():
     return sweepBreakdown(dev)
   if sys.argv[1:] == ['spectrometer']:
     return spectrometerBreakdown(dev)
+  if sys.argv[1:2] == ['k1']:
+    return k1Series()
 
   scene = benchmarks.buildLensMirrorScene()
   sceneNp, info = scene.compile(device=None)
