@@ -123,6 +123,33 @@ REF_SURFACE_SHARE = 0.68133544921875
 REF_SURFACE_POWER = 0.9838300736950235
 REF_SURFACE_RAYS = 1 << 16
 
+# stochastic scatter (phase 8): the reference's three scatter throughput
+# scenes (4 intersections, 128 x 128 bins over +-100 mm), the diffuser's
+# height sweep (11 heights x 1 << 20 rays), the recording runs
+SCATTER_SCENES = (('diffuse', 'buildDiffuseScatterScene'),
+                  ('dirac', 'buildConditionedDiracScene'),
+                  ('coupled', 'buildCoupledScatterScene'))
+SCATTER_BOUNDS = (-100., 100., -100., 100.)
+SCATTER_MAX_INTERSECTIONS = 4
+SCATTER_HEIGHTS = tuple(np.linspace(40., 60., 11))
+SCATTER_SWEEP_RAYS = 1 << 20
+SCATTER_RAW_ITERATIONS = 4       # of N_RAW_ITERATION rays
+SCATTER_HIST_ITERATIONS = 8      # of N_MAIN rays
+# The JAX package's fused step on each scatter scene at 65,536 rays, seed 0
+# (tests/test_torch_scatter_stats.py computes them and holds them equal to
+# these): the share of rays binned on the detector, the mean binned power,
+# and the first two moments of r^2 = x^2 + y^2 (mm^2, bin centres) over the
+# binned hits.
+REF_SCATTER_RAYS = 1 << 16
+REF_SCATTER = {
+    'diffuse': dict(share=1.0, power=1.0, r2=36.43222153186798,
+                    r4=34684.1870850767),
+    'dirac': dict(share=0.9994354248046875, power=1.0, r2=71.26806608569406,
+                  r4=44136.73619874265),
+    'coupled': dict(share=1.0, power=1.0, r2=35.05237400531769,
+                    r4=34770.715683407616),
+}
+
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
 PEAK_F32_FLOPS = 67e12
@@ -151,6 +178,61 @@ FLOPS_FACE_SCAN = 3
 FLOPS_GRATING = 107
 FLOPS_STAGE_GATE = 3
 FLOPS_DISPERSION = 2 * (3 + 2 * 12)
+# the scatter section (csrc/trace_common.cuh `scatterBounce`), counted the
+# same way with a sin or cos as one: per segment of a scene with scatter the
+# second normalisation (9); per scatter pass the entry scan (3 an entry),
+# the incidence angle where an entry is conditioned (clamps, 12 Horner
+# steps, sqrt: 29), the draw (`scatterEntryFlops`), the lobe axis (20) and
+# two Rodrigues rotations (29 each, sin and cos included) with the lobe
+# normal's sign (3)
+FLOPS_SCATTER_RENORM = 9
+FLOPS_SCATTER_SCAN = 3
+FLOPS_ACOS = 29
+FLOPS_SCATTER_TURN = 20 + 2 * 29 + 3
+
+
+def fnFlops(spec):
+  '''Operations of one 1-D function of a scatter entry.'''
+  if spec[0] == 'const':
+    return 0
+  if spec[0] == 'poly1d':
+    return 2 + 2 * (len(spec[3]) - 1)
+  return 2 + 4 + 12 * (len(spec[2]) - 1)         # Fourier: sin, cos, terms
+
+
+def specFlops(spec):
+  '''Operations of one marginal spec of a scatter entry (a pwpoly2d
+  evaluates its selected rectangle only, after scanning the others).'''
+  if spec[0] == 'pwpoly':
+    return sum(3 + 2 * (len(seg[4]) - 1) for seg in spec[1]) + 2
+  if spec[0] == 'pwpoly2d':
+    rects = spec[1]
+    nU, nC = len(rects[0][8]), len(rects[0][8][0])
+    return 4 * (len(rects) - 1) + 6 + nU * 2 * (nC - 1) + 2 * (nU - 1) + 2
+  return sum(specFlops(a) + fnFlops(b) + 2 for a, b in spec[1]) + 2
+
+
+def scatterEntryFlops(entry):
+  '''Operations of one draw of a scatter entry: its phi and theta specs
+  and its discrete events.'''
+  _e, _k, phiSpec, thetaSpec, phiDisc, thetaDisc = entry
+  events = sum(fnFlops(c) + fnFlops(v) + 2 for c, v in phiDisc + thetaDisc)
+  return specFlops(phiSpec) + specFlops(thetaSpec) + events
+
+
+def scatterPassFlops(tables):
+  '''Operations of one scatter pass of the tables' scene: the costliest
+  lobe entry and the costliest MODIFY entry, with the fixed parts.'''
+  consts = tables['scatterConsts']
+  lobe = [c for c in consts if c[1] != 3]
+  mods = [c for c in consts if c[1] == 3]
+  cond = any(c[2][0] != 'pwpoly' or c[3][0] != 'pwpoly' or c[4] or c[5]
+             for c in consts)
+  flops = FLOPS_SCATTER_SCAN * len(consts) + (FLOPS_ACOS if cond else 0)
+  for group in (lobe, mods):
+    if group:
+      flops += max(scatterEntryFlops(c) for c in group) + FLOPS_SCATTER_TURN
+  return flops
 
 
 def emit(obj):
@@ -170,12 +252,23 @@ def cudaMs(fn, reps):
   return start.elapsed_time(end) / reps
 
 
+_COMPILED = {}
+
+
+def compiled(scene):
+  '''`scene.compile(device=None)`, once per scene object (a scene with a
+  density conditioned on theta_in costs tens of seconds of sympy).'''
+  if id(scene) not in _COMPILED:
+    _COMPILED[id(scene)] = (scene, scene.compile(device=None))
+  return _COMPILED[id(scene)][1]
+
+
 def buildTables(scene, bounds, bins, tent=False, source=0):
   '''Kernel tables of a scene as the runner traces light source `source`
   (with its surface mask); tent=True swaps the sampler's first marginal for
   the source's 257-knot tent table (the kernel's third marginal kind, which
   no source's own spec selects).'''
-  sceneNp, info = scene.compile(device=None)
+  sceneNp, info = compiled(scene)
   histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds, bins=bins)
   src = scene.lightSources()[source]
   if src.Label in info['surfaceMasks']:
@@ -198,19 +291,34 @@ def rayColumns(tables, cols):
   return torch.stack(list(cols) + [wl]).contiguous()
 
 
-def samplerInputs(tables, n, seed):
+def samplerInputs(tables, n, seed, maxI):
   '''The inputs of modes (b) and (c) for the tables' in-kernel sampler:
-  (uniforms, one row per draw of the sampler, from a torch generator seeded
-  `seed`; the strata tile; the seven ray columns its plain version draws
-  from them, stratified where the sampler is the point source's).'''
+  (uniforms, one row per draw of the sampler and, on a scene with scatter,
+  of every bounce's scatter draws (`uniformRows`), from a torch generator
+  seeded `seed`; the strata tile; the seven ray columns its plain version
+  draws from them, stratified where the sampler is the point source's; the
+  scatter rows, or None).'''
   gen = torch.Generator(device=DEV)
   gen.manual_seed(seed)
-  us = torch.rand((cuda_trace.samplerUniforms(tables), n), generator=gen,
+  us = torch.rand((cuda_trace.uniformRows(tables, maxI), n), generator=gen,
                   device=DEV, dtype=torch.float32)
   strataTile = cuda_trace.DEFAULT_STRATA_TILE
   cols = cuda_trace.samplerColumnsPlain(
       tables, us, cuda_trace.tileStrata(n, strataTile), strataTile)
-  return us, strataTile, cols
+  scatterU = (us[cuda_trace.samplerUniforms(tables):] if tables['scatter']
+              else None)
+  return us, strataTile, cols, scatterU
+
+
+def inputModes(tables, us, strataTile, colsT):
+  '''The input modes a kernel is held against its plain version in: (b)
+  and (c); (b) alone on a scene with scatter, whose draws from ray columns
+  come from the kernel's own Philox stream (phase 8 holds that mode by
+  distribution).'''
+  modes = [('b', dict(uniforms=us, strataTile=strataTile))]
+  if not tables['scatter']:
+    modes.append(('c', dict(columns=colsT)))
+  return modes
 
 
 def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
@@ -224,16 +332,16 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   settings = scene.activeSimulationSettings()
   kw = dict(maxIntersections=maxI, maxRayLength=settings.maxRayLength(),
             distTol=1e-4, powerTol=1e-6, hitSlots=hitSlots)
-  us, strataTile, cols = samplerInputs(tables, n, 1234)
+  us, strataTile, cols, scatterU = samplerInputs(tables, n, 1234, maxI)
   colsT = rayColumns(tables, cols)
   worst = 0.
-  for mode, inputs in (('b', dict(uniforms=us, strataTile=strataTile)),
-                       ('c', dict(columns=colsT))):
+  for mode, inputs in inputModes(tables, us, strataTile, colsT):
     hK = fused.initHistograms(histSpec, device=DEV)
     cK = cuda_trace.traceHistogram(tables, hK, n, **inputs, **kw)
     torch.cuda.synchronize()
     hP = fused.initHistograms(histSpec, device=DEV)
-    cP = cuda_trace.traceHistogramPlain(tables, hP, cols, **kw)
+    cP = cuda_trace.traceHistogramPlain(tables, hP, cols, **kw,
+                                        scatterUniforms=scatterU)
     torch.cuda.synchronize()
     if cK.tolist() != cP.tolist():
       raise AssertionError(f'{label} mode ({mode}): counters differ: kernel '
@@ -273,13 +381,14 @@ def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   settings = scene.activeSimulationSettings()
   kw = dict(maxIntersections=maxI, maxRayLength=settings.maxRayLength(),
             distTol=1e-4, powerTol=1e-6, hitSlots=hitSlots)
-  us, strataTile, cols = samplerInputs(tables, n, 4321)
+  us, strataTile, cols, scatterU = samplerInputs(tables, n, 4321, maxI)
   colsT = rayColumns(tables, cols)
-  rawP, cRawP = cuda_trace.traceRawPlain(tables, cols, **kw)
-  binsP, cBinsP = cuda_trace.traceBinsPlain(tables, cols, **kw)
+  rawP, cRawP = cuda_trace.traceRawPlain(tables, cols, **kw,
+                                         scatterUniforms=scatterU)
+  binsP, cBinsP = cuda_trace.traceBinsPlain(tables, cols, **kw,
+                                           scatterUniforms=scatterU)
   worst = dict(traceRaw=0., traceBins=0.)
-  for mode, inputs in (('b', dict(uniforms=us, strataTile=strataTile)),
-                       ('c', dict(columns=colsT))):
+  for mode, inputs in inputModes(tables, us, strataTile, colsT):
     rawK, cRawK = cuda_trace.traceRaw(tables, n, **inputs, **kw)
     binsK, cBinsK = cuda_trace.traceBins(tables, n, **inputs, **kw)
     torch.cuda.synchronize()
@@ -382,11 +491,12 @@ def onlyLaunches(**counts):
   return {**{name: 0 for name in cuda_trace.launchCounts}, **counts}
 
 
-def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0):
+def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
+            scatterPasses=0, inputBytes=0):
   '''Least time the card could take for one step: (ms by operations, ms by
   bytes), from this run's segment count, its passes through a grating and
-  the bytes the kernel must move (table and counters in, `outputBytes`
-  out).'''
+  through a scattering element, and the bytes the kernel must move (table,
+  counters and `inputBytes` in, `outputBytes` out).'''
   rows = tables['surfRows']
   if 'nVariants' in tables:            # a sweep: every variant, one structure
     rows = rows[0]
@@ -397,28 +507,36 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0):
     flopsPerSegment += FLOPS_STAGE_GATE * len(kinds)
   if tables['dispOff'] >= 0:
     flopsPerSegment += FLOPS_DISPERSION
+  if tables['scatter']:
+    flopsPerSegment += FLOPS_SCATTER_RENORM
   sampler = FLOPS_SAMPLER
   if tables.get('samplerKind') == cuda_trace.SAMPLER_SURFACE:
     sampler = (FLOPS_SURFACE_SAMPLER
                + FLOPS_FACE_SCAN * len(tables['samplerSpec']['faces']))
   flops = (segmentsPerStep * flopsPerSegment + nRays * sampler
            + gratingPasses * FLOPS_GRATING)
-  nbytes = outputBytes + tables['table'].numel() * 4 + 3 * 8
+  if scatterPasses:
+    flops += scatterPasses * scatterPassFlops(tables)
+  nbytes = (outputBytes + inputBytes + tables['table'].numel() * 4
+            + 3 * 8)
   return (flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3,
           dict(flopsPerSegment=flopsPerSegment, flopsPerStep=flops,
                bytesPerStep=nbytes))
 
 
 def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
-                spectro, surface=None):
+                spectro, surface=None, scatter=None):
   '''One entry of the `kernels` line: the main-path numbers (lens-and-mirror
   scene; the examples/3 sweep for the sweep kernel) and, beside them, the
   kernel on the spectrometer (`spectro`: its launches on that path, ms and
   bound) and the worst error over the scenes of gratings, dispersion,
   sequential mode and masks, and on the surface-source scene (`surface`:
   launches, ms, bound and the worst error over the surface scenes; None
-  for the sweep kernel, which samples point sources only). `max_abs_err`
-  is the worst of all.'''
+  for the sweep kernel, which samples point sources only), and on the
+  scatter scenes (`scatter`: launches on the scatter path, ms and bound on
+  the diffuse scene, per-scene ms, and the worst error over the scatter
+  scenes and the scene of many surfaces). `max_abs_err` is the worst of
+  all.'''
   boundOps, boundBytes, _ = bounds
   spOps, spBytes, _ = spectro['bounds']
   surf = dict(surface_launches=None, surface_ms=None, surface_bound_ms=None,
@@ -429,20 +547,28 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
                 surface_ms=surface['ms'],
                 surface_bound_ms=max(sOps, sBytes),
                 surface_max_abs_err=surface['err'])
+  sOps, sBytes, _ = scatter['bounds']
+  scat = dict(scatter_launches=scatter['launches'],
+              scatter_ms=scatter['ms'],
+              scatter_bound_ms=max(sOps, sBytes),
+              scatter_bound_by='operations' if sOps >= sBytes else 'bytes',
+              scatter_ms_by_scene=scatter.get('byScene'),
+              scatter_max_abs_err=scatter['err'])
   return dict(name=name, route='cuda',
               source=f'optics_design_workbench_tpu_torch/csrc/{source}',
               replaces=f'optics_design_workbench_tpu/ops/pallas_trace.py:'
                        f'{replaces}',
               launches=launches,
               max_abs_err=max(err, spectro['err'],
-                              surf['surface_max_abs_err'] or 0.), ms=ms,
+                              surf['surface_max_abs_err'] or 0.,
+                              scatter['err']), ms=ms,
               plain_ms=plainMs, bound_ms=max(boundOps, boundBytes),
               bound_by='operations' if boundOps >= boundBytes else 'bytes',
               library_ms=None, lens_mirror_max_abs_err=err,
               b4_max_abs_err=spectro['err'],
               spectrometer_launches=spectro['launches'],
               spectrometer_ms=spectro['ms'],
-              spectrometer_bound_ms=max(spOps, spBytes), **surf)
+              spectrometer_bound_ms=max(spOps, spBytes), **surf, **scat)
 
 
 def timeBenchStep(histPrecision, maxI, **benchKw):
@@ -702,7 +828,7 @@ def sweepTablesFor(scenes, bounds, source=0):
   as light source `source` of each is traced (with its surface mask).'''
   host, specs = [], []
   for sc in scenes:
-    sceneNp, info = sc.compile(device=None)
+    sceneNp, info = compiled(sc)
     src = sc.lightSources()[source]
     if src.Label in info['surfaceMasks']:
       sceneNp = dict(sceneNp, surfMask=info['surfaceMasks'][src.Label])
@@ -726,7 +852,8 @@ def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo,
             powerTol=1e-6, hitSlots=hitSlots)
   gen = torch.Generator(device=DEV)
   gen.manual_seed(2468)
-  us = torch.rand((2, n), generator=gen, device=DEV, dtype=torch.float32)
+  us = torch.rand((cuda_trace.uniformRows(tables, maxI), n), generator=gen,
+                  device=DEV, dtype=torch.float32)
   strataTile = cuda_trace.DEFAULT_STRATA_TILE
   strata = cuda_trace.tileStrata(n, strataTile)
   modes = [('b', dict(uniforms=us, strataTile=strataTile),
@@ -1404,6 +1531,39 @@ def surfaceKernelChecks():
   return worst
 
 
+def manySurfacesPhase():
+  '''ROADMAP C.2 on the card: K1, K2 and K4 against their plain versions
+  on a scene of 72 surfaces and 22 elements (past the 64 surfaces and 16
+  elements the kernels held before); then K1 on the same inputs with its
+  table padded past the 48 KB of shared memory a launch gets by default
+  (the launcher raises the limit for such a table): the same counters and
+  histograms bit for bit. Returns the worst error per kernel.'''
+  scene, bounds, maxI = helpers.buildManySurfacesScene(helpers.torchNs())
+  worst = dict(traceHistogram=compareWithPlain(
+      'many-surfaces', scene, bounds, maxI, N_SMALL, BINS))
+  worst.update(compareRingsWithPlain('many-surfaces', scene, bounds, maxI,
+                                     N_SMALL, BINS))
+  sceneNp, histSpec, tables = buildTables(scene, bounds, BINS)
+  us, strataTile, _cols, _scatterU = samplerInputs(tables, N_SMALL, 99, maxI)
+  kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6, hitSlots=1, uniforms=us, strataTile=strataTile)
+  padFloats = 100 * 1024 // 4
+  padded = dict(tables, table=torch.cat([
+      tables['table'], torch.zeros(padFloats, device=DEV)]))
+  out = []
+  for t in (tables, padded):
+    hist = fused.initHistograms(histSpec, device=DEV)
+    out.append((cuda_trace.traceHistogram(t, hist, N_SMALL, **kw), hist))
+  torch.cuda.synchronize()
+  (c0, h0), (c1, h1) = out
+  emit(dict(phase='large-table', surfaces=tables['nSurf'],
+            elements=tables['nElem'], tableBytes=tables['table'].numel() * 4,
+            paddedBytes=padded['table'].numel() * 4, counters=c1.tolist()))
+  if c0.tolist() != c1.tolist() or not torch.equal(h0['counts'], h1['counts']):
+    raise AssertionError('a table past 48 KB gave other counters or counts')
+  return worst
+
+
 def fullBinsPhase():
   '''ROADMAP C.1 on the card: one K1 step at full width onto spectrometer
   histograms whose every bin holds 2**24. The step bins into a zeroed delta
@@ -1574,6 +1734,273 @@ def surfaceRunPhases(tmp):
               raw=dict(ms=kernelMs, bounds=rawBounds))
 
 
+def scatterScenes():
+  '''The three scatter scenes of phase 8, each built and compiled once
+  (the host's sympy and fits: the compile is cached per scene object, the
+  scatter tables per density).'''
+  scenes = {}
+  for name, builder in SCATTER_SCENES:
+    t0 = time.perf_counter()
+    scene = getattr(benchmarks, builder)()
+    sceneNp, _info = compiled(scene)
+    t1 = time.perf_counter()
+    consts = cuda_trace.scatterConstantsOf(sceneNp)
+    emit(dict(phase='scatter-compile', scene=name, compileS=t1 - t0,
+              constantsS=time.perf_counter() - t1,
+              entries=[dict(element=c[0], kind=c[1], phi=c[2][0],
+                            theta=c[3][0], thetaParts=len(c[3][1]),
+                            phiEvents=len(c[4]), thetaEvents=len(c[5]))
+                       for c in consts]))
+    scenes[name] = scene
+  return scenes
+
+
+def scatterKernelChecks(scenes):
+  '''Phase 8's kernel checks: K1, K2 and K4 against their plain versions
+  on each scatter scene at full width, in the uniform mode (the same rows
+  to both); the scatter kinds no reference scene reaches (a lens's entry
+  and exit lobes, a mirror's MODIFY); K3 on the diffuser's height sweep
+  against its plain version on the same uniforms and, in seed mode,
+  against one K1 launch per variant. Returns the worst error per
+  kernel.'''
+  worst = dict(traceHistogram=0., traceBins=0., traceRaw=0., traceSweep=0.)
+  checks = [(f'scatter-{name}', scene, SCATTER_BOUNDS,
+             SCATTER_MAX_INTERSECTIONS, N_MAIN)
+            for name, scene in scenes.items()]
+  checks.append(('scatter-kinds',)
+                + helpers.buildScatterKindsScene(helpers.torchNs())
+                + (N_SMALL,))
+  for label, scene, bounds, maxI, n in checks:
+    worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+        label, scene, bounds, maxI, n, BINS))
+    w = compareRingsWithPlain(label, scene, bounds, maxI, n, BINS)
+    for k in ('traceRaw', 'traceBins'):
+      worst[k] = max(worst[k], w[k])
+  variants = [benchmarks.buildDiffuseScatterScene(diffuserZ=z)
+              for z in SCATTER_HEIGHTS]
+  worst['traceSweep'] = compareSweepWithPlain(
+      'scatter-height', variants, SCATTER_BOUNDS, SCATTER_MAX_INTERSECTIONS,
+      SCATTER_SWEEP_RAYS, columnsToo=False)
+  compareSweepWithSingles('scatter-height', variants, SCATTER_BOUNDS,
+                          SCATTER_MAX_INTERSECTIONS, SCATTER_SWEEP_RAYS,
+                          seed=41)
+  return worst
+
+
+def checkScatterStats(label, name, stats, nRays):
+  '''`helpers.scatterStats` of a run of `nRays` against the JAX
+  package's on the same scene (REF_SCATTER, 65,536 rays), by
+  `helpers.scatterStatsGate`: the share and the mean r^2 within 3 sigma of
+  the two samples, the mean power within 1e-6.'''
+  ref = REF_SCATTER[name]
+  ok, sigmas = helpers.scatterStatsGate(stats, ref, nRays, REF_SCATTER_RAYS)
+  emit(dict(phase='scatter-statistics', run=label, scene=name, rays=nRays,
+            share=stats['share'], refShare=ref['share'],
+            meanPower=stats['power'], refMeanPower=ref['power'],
+            r2=stats['r2'], refR2=ref['r2'], **sigmas))
+  if not ok:
+    raise AssertionError(f'{label} on {name}: {stats} against the JAX '
+                         f'package\'s {ref}')
+
+
+def scatterStepPhase(name, scene, histPrecision):
+  '''The fused step (`benchmarks.makeBenchStep`, seed mode: the kernel's
+  own Philox draws) on a scatter scene at full width: timed
+  (`timeBenchStep`), its bound, and its statistics against the JAX
+  package's.'''
+  t = timeBenchStep(histPrecision, SCATTER_MAX_INTERSECTIONS, scene=scene,
+                    histBounds=SCATTER_BOUNDS)
+  step, hist = t['step'], t['hist']
+  nRays = N_MAIN * TIMED_STEPS
+  segsPerStep = t['segments'] / TIMED_STEPS
+  outBytes = (2 * hist['power'].numel() * 4 * 2 if histPrecision == 'default'
+              else 3 * step.hitSlots * N_MAIN * 4)
+  # a ray meets the diffuser at most once, on its first segment, and its
+  # last segment ends it: its scatter passes are its segments less one
+  bounds = boundMs(step.tables, segsPerStep, N_MAIN, outBytes,
+                   scatterPasses=segsPerStep - N_MAIN)
+  emit(dict(phase='scatter-step', scene=name, histPrecision=histPrecision,
+            rays=N_MAIN, steps=TIMED_STEPS, stepMs=t['stepMs'],
+            kernelMs=t['kernelMs'], segmentsPerRay=segsPerStep / N_MAIN,
+            hits=t['hits'], hitOverflow=t['overflow'],
+            launches=t['launches'], boundMs=max(bounds[:2]), **bounds[2]))
+  if not torch.isfinite(hist['power']).all() \
+      or float(hist['counts'].double().sum()) != t['hits'] or t['overflow']:
+    raise AssertionError(f'scatter step on {name}: histogram counts != '
+                         f'hits, a non-finite bin, or an overflow')
+  checkScatterStats(f'step-{histPrecision}', name,
+                    helpers.scatterStats(hist, t['hits'], nRays), nRays)
+  return dict(launches=t['launches'], ms=t['kernelMs'], bounds=bounds)
+
+
+def scatterRunPhases(tmp):
+  '''`runSimulation` on the diffuse scatter scene: raw recording (the raw
+  kernel; rows read back == the run's hits, on the detector plane, the
+  share within the histogram bounds against the JAX package's) and
+  histogram-first recording (the histogram kernel; snapshot counts == the
+  run's hits, the statistics against the JAX package's); then the raw
+  kernel alone on one raw iteration's step, and its bound.'''
+  scene = benchmarks.buildDiffuseScatterScene(tmpdir=tmp)
+  settings = scene.activeSimulationSettings()
+  settings.RaysPerIteration = N_RAW_ITERATION
+  settings.EndAfterIterations = SCATTER_RAW_ITERATIONS
+  settings.EndAfterRays = 'inf'
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(scene,
+                                                        recording='raw')
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  hits = RawFolder(runPath).loadHits('Det')
+  pts = hits['points']
+  traced = last['totalTracedRays']
+  x0, x1, y0, y1 = SCATTER_BOUNDS
+  inside = ((pts[:, 0] >= x0) & (pts[:, 0] < x1) & (pts[:, 1] >= y0)
+            & (pts[:, 1] < y1))
+  share = float(inside.sum()) / traced
+  ref = REF_SCATTER['diffuse']
+  sigma = max(np.sqrt(ref['share'] * (1 - ref['share'])
+                      * (1 / REF_SCATTER_RAYS + 1 / traced)),
+              1 / REF_SCATTER_RAYS)
+  emit(dict(phase='scatter-run-raw', raysPerIteration=N_RAW_ITERATION,
+            iterations=last['totalIterations'], tracedRays=traced,
+            storedHits=len(pts), shareInBounds=share,
+            refShare=ref['share'], launches=launches,
+            setupAndFirstIterationS=first, laterIterationsS=later,
+            cleanupFlushS=cleanup))
+  if launches != onlyLaunches(traceRaw=SCATTER_RAW_ITERATIONS):
+    raise AssertionError(f'scatter raw run launched {launches}')
+  if traced != N_RAW_ITERATION * SCATTER_RAW_ITERATIONS \
+      or len(pts) != last['totalRecordedHits']:
+    raise AssertionError(f'scatter raw run: {len(pts)} rows stored, {last}')
+  if not np.isfinite(pts).all() or np.abs(pts[:, 2]).max() > 1e-3 \
+      or abs(share - ref['share']) > 3 * sigma:
+    raise AssertionError(f'scatter raw run: points off the detector plane, '
+                         f'or a share of {share} in the bounds against the '
+                         f'JAX package\'s {ref["share"]}')
+
+  # the raw kernel alone on one iteration's step, and its bound
+  sceneNp, info = scene.compile(device=None)
+  sceneNp['powerTol'] = 1e-6
+  histSpec = fused.makeHistogramSpec(sceneNp, info)
+  src = scene.lightSources()[0]
+  step = cuda_trace.makeRawStep(
+      sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
+      raysPerStep=N_RAW_ITERATION, maxIntersections=SCATTER_MAX_INTERSECTIONS,
+      maxRayLength=settings.maxRayLength(), distTol=1e-4,
+      sampler=src.samplerSpec())
+  seeds = iter(range(10 ** 6))
+  _records, counters = step(next(seeds))
+  kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
+      step.tables, N_RAW_ITERATION, SCATTER_MAX_INTERSECTIONS,
+      settings.maxRayLength(), 1e-4, hitSlots=step.hitSlots,
+      seed=next(seeds), strataTile=step.strataTile), TIMED_STEPS)
+  segments = int(counters['segments'])
+  rawBounds = boundMs(step.tables, segments, N_RAW_ITERATION,
+                      9 * step.hitSlots * N_RAW_ITERATION * 4,
+                      scatterPasses=segments - N_RAW_ITERATION)
+
+  # histogram-first recording
+  settings.RaysPerIteration = N_MAIN
+  settings.EndAfterIterations = SCATTER_HIST_ITERATIONS
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(
+      scene, recording='histogram', histBins=BINS, histBounds=SCATTER_BOUNDS)
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  snap = results_store.loadHistogramSnapshots(runPath)['Src']['Det']
+  counts = float(snap['counts'].astype(np.float64).sum())
+  sampleSteps = sum(1 for p in range(1, len(progress) + 1) if p % 8 == 1)
+  traced = last['totalTracedRays']
+  emit(dict(phase='scatter-run-histogram', raysPerIteration=N_MAIN,
+            iterations=last['totalIterations'], passes=len(progress),
+            tracedRays=traced, histCounts=counts,
+            recordedHits=last['totalRecordedHits'], launches=launches,
+            setupAndFirstPassS=first, laterPassesS=later,
+            cleanupFlushS=cleanup,
+            raysPerSec=traced / (first + later + cleanup)))
+  if traced != SCATTER_HIST_ITERATIONS * N_MAIN \
+      or counts != last['totalRecordedHits']:
+    raise AssertionError(f'scatter histogram run: counts {counts}, {last}')
+  if launches != onlyLaunches(traceHistogram=SCATTER_HIST_ITERATIONS,
+                              traceRaw=sampleSteps):
+    raise AssertionError(f'scatter histogram run launched {launches}')
+  hist = {k: torch.as_tensor(snap[k].astype(np.float32)).reshape(
+      (1,) + BINS) for k in ('power', 'counts')}
+  checkScatterStats('run-histogram', 'diffuse',
+                    helpers.scatterStats(hist, counts, traced), traced)
+  return dict(launches=SCATTER_RAW_ITERATIONS, ms=kernelMs, bounds=rawBounds)
+
+
+def scatterSweepPhase():
+  '''`ParameterSweeper.evaluateBatched` on the diffuser's height (11
+  heights x 1 << 20 rays): one launch of the sweep kernel per call; timed
+  by CUDA events alone, with its bound.'''
+  from optics_design_workbench_tpu_torch.jupyter_utils import (
+      Parameter, ParameterSweeper)
+  holder = dict(z=50., scene=benchmarks.buildDiffuseScatterScene())
+
+  def setZ(z):
+    holder['z'] = float(z)
+    holder['scene'] = benchmarks.buildDiffuseScatterScene(diffuserZ=z)
+    sweeper.scene = holder['scene']
+
+  sweeper = ParameterSweeper(
+      lambda sc: dict(z=Parameter(getter=lambda: holder['z'], setter=setZ,
+                                  bounds=(40., 60.))),
+      scene=holder['scene'], device=DEV)
+  values = []
+
+  def metric(power, counts):
+    stats = helpers.scatterStats(dict(power=power, counts=counts), 0., 1.)
+    values.append(stats['r2'])
+    return stats['r2']
+
+  resetLaunchCounts()
+  t0 = time.perf_counter()
+  sweeper.evaluateBatched([dict(z=z) for z in SCATTER_HEIGHTS], metric,
+                          sceneFactory=lambda: holder['scene'],
+                          raysPerScene=SCATTER_SWEEP_RAYS,
+                          maxIntersections=SCATTER_MAX_INTERSECTIONS,
+                          histBounds=SCATTER_BOUNDS, bins=BINS)
+  torch.cuda.synchronize()
+  wallS = time.perf_counter() - t0
+  launches = dict(cuda_trace.launchCounts)
+  route = sweeper.lastBatchedRoute
+  emit(dict(phase='scatter-sweep', variants=len(SCATTER_HEIGHTS),
+            raysPerVariant=SCATTER_SWEEP_RAYS, route=route,
+            launches=launches, wallS=wallS, r2ByHeight=values))
+  if route != 'sweep' or launches != onlyLaunches(traceSweep=1):
+    raise AssertionError(f'scatter sweep: route {route}, launches '
+                         f'{launches}')
+  if not np.all(np.isfinite(values)) or not values[0] < values[-1]:
+    raise AssertionError(f'scatter sweep: r^2 by height {values} does not '
+                         f'grow with the height')
+
+  # the sweep kernel alone on these variants, by CUDA events, and its bound
+  variants = [benchmarks.buildDiffuseScatterScene(diffuserZ=z)
+              for z in SCATTER_HEIGHTS]
+  tables, host, histSpec, _specs = sweepTablesFor(variants, SCATTER_BOUNDS)
+  V, n = len(variants), SCATTER_SWEEP_RAYS
+  shape = (V, tables['nDet']) + SWEEP_BINS
+  hist = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+  kw = dict(maxIntersections=SCATTER_MAX_INTERSECTIONS, maxRayLength=1000.,
+            distTol=1e-4, powerTol=1e-6,
+            hitSlots=cuda_trace.autoHitSlots(host[0][0], histSpec,
+                                             SCATTER_MAX_INTERSECTIONS),
+            strataTile=cuda_trace.DEFAULT_STRATA_TILE)
+  seeds = iter(range(77, 10 ** 6))
+  counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds), **kw)
+  segments = int(counters[:, 0].sum())
+  kernelMs = cudaMs(lambda: cuda_trace.traceSweep(
+      tables, hist, n, seed=next(seeds), **kw), TIMED_STEPS)
+  bounds = boundMs(tables, segments, V * n, 2 * hist['power'].numel() * 4 * 2,
+                   scatterPasses=segments - V * n)
+  emit(dict(phase='scatter-sweep-kernel', variants=V, raysPerVariant=n,
+            kernelMs=kernelMs, boundMs=max(bounds[:2]), **bounds[2]))
+  return dict(launches=launches['traceSweep'], ms=kernelMs, bounds=bounds)
+
+
 T0 = time.perf_counter()
 
 
@@ -1669,6 +2096,21 @@ def main():
     surfRun = surfaceRunPhases(tmp)
     surface['traceRaw'] = dict(surfRun['raw'],
                                launches=surfRun['rawLaunches'])
+    # ---- phase 8: stochastic scatter ----
+    t8 = time.perf_counter()
+    scenes = scatterScenes()
+    worstScatter = scatterKernelChecks(scenes)
+    worstMany = manySurfacesPhase()
+    scatter = {}
+    for wrapper, precision in (('traceHistogram', 'default'),
+                               ('traceBins', 'highest')):
+      byScene = {name: scatterStepPhase(name, scene, precision)
+                 for name, scene in scenes.items()}
+      scatter[wrapper] = dict(byScene['diffuse'], byScene={
+          name: r['ms'] for name, r in byScene.items()})
+    scatter['traceRaw'] = scatterRunPhases(tmp)
+    scatter['traceSweep'] = scatterSweepPhase()
+    emit(dict(phase='scatter-total', seconds=time.perf_counter() - t8))
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1710,20 +2152,26 @@ def main():
     entry['err'] = max(entry.get('err', 0.), worstB4[name])
   for name, entry in surface.items():
     entry['err'] = worstSurface[name]
+  for name, entry in scatter.items():
+    entry['err'] = max(worstScatter[name], worstMany.get(name, 0.))
   emit(dict(phase='total', seconds=time.perf_counter() - T0))
   emit(dict(kernels=[
       kernelEntry('traceHistogram', 'trace_kernel.cu', 2776, k1['launches'],
                   worst, k1['kernelMs'], k1['plainMs'], k1['bounds'],
-                  spectro['traceHistogram'], surface['traceHistogram']),
+                  spectro['traceHistogram'], surface['traceHistogram'],
+                  scatter['traceHistogram']),
       kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
                   worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
-                  rawBounds, spectro['traceRaw'], surface['traceRaw']),
+                  rawBounds, spectro['traceRaw'], surface['traceRaw'],
+                  scatter['traceRaw']),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
-                  k2['bounds'], spectro['traceBins'], surface['traceBins']),
+                  k2['bounds'], spectro['traceBins'], surface['traceBins'],
+                  scatter['traceBins']),
       kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
                   sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
-                  sweepBounds, spectro['traceSweep'])]))
+                  sweepBounds, spectro['traceSweep'], None,
+                  scatter['traceSweep'])]))
   print(smi, flush=True)
   print(json.dumps(dict(ok=True, device=dict(
       platform='gpu', kind=torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ examples/2-lens-and-mirror — Gaussian point source -> plano-convex lens ->
 45deg fold mirror -> absorbing detector — so every ray traces ~4 segments
 with refraction, reflection and medium tracking on the path, plus the
 simpler examples/1 source->detector scene, the examples/3 lens whose
-radius a parameter sweep varies, the examples/4 grating spectrometer, and
-the reference's surface-source scene (a Lambertian-like disc emitter).
+radius a parameter sweep varies, the examples/4 grating spectrometer, the
+reference's surface-source scene (a Lambertian-like disc emitter) and its
+three stochastic-scatter scenes (a diffuser, an ideal-plus-conditioned
+mixture, an astigmatic diffuser).
 '''
 
 import numpy as np
@@ -162,6 +164,62 @@ def buildSurfaceSourceScene(tmpdir=None):
                                 PowerDensity='cos(theta)**2'))
   scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=4)
   return scene
+
+
+def _scatterScene(density, thetaDom, srcTheta, label, tmpdir=None,
+                  diffuserZ=50.):
+  '''The reference's scatter throughput scene
+  (tools/scene_throughput._scatterScene): a point source of
+  `exp(-theta^2/0.01)` over `srcTheta` at z = 1e-3 mm onto a mirror disc of
+  radius 50 mm at z = `diffuserZ` (reflectivity 1, facing the source) whose
+  ReflectedProbabilityDensity is `density` over theta in `thetaDom`, phi
+  in [0, 2 pi]; the scattered light falls on an absorbing 1000 x 1000 mm
+  detector at z = 0; 4 intersections (histograms over +-100 mm).'''
+  scene = Scene(label=label, path=tmpdir and f'{tmpdir}/{label}')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Diffuser', Reflectivity=1.0,
+      ReflectedProbabilityDensity=density,
+      PowerThetaDomain=thetaDom, PowerPhiDomain='0, 2*pi',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=50., orient=-1)],
+      placements=[T.translation(0, 0, float(diffuserZ))]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(500., 500.))],
+      placements=[T.translation(0, 0, 0)]))
+  scene.addSource(PointSource(Label='Src',
+                              PowerDensity='exp(-theta^2/0.01)',
+                              ThetaDomain=srcTheta,
+                              ThetaResolutionNumericMode='2e3',
+                              placement=T.translation(0, 0, 1e-3)))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=4)
+  return scene
+
+
+def buildDiffuseScatterScene(tmpdir=None, diffuserZ=50.):
+  '''The reference's `sceneDiffuseScatter`: a diffuser whose lobe
+  exp(-theta^2/0.02) over theta in [0, pi/3] ignores the incidence angle
+  (one pwpoly in theta, one in phi).'''
+  return _scatterScene('exp(-theta^2/0.02)', '0, pi/3', '0, 0.05',
+                       'scat_diffuse', tmpdir, diffuserZ)
+
+
+def buildConditionedDiracScene(tmpdir=None):
+  '''The reference's `sceneConditionedDirac`: the ideal reflection as a
+  DiracDelta event plus a lobe about the incidence angle,
+  DiracDelta(theta-theta_refl) + 5*exp(-(theta-theta_in)**2/0.02) over
+  theta in [0, pi/2] (a pwpoly2d in (quantile, theta_in) and one event).'''
+  return _scatterScene('DiracDelta(theta-theta_refl)'
+                       ' + 5*exp(-(theta-theta_in)**2/0.02)', '0, pi/2',
+                       '0, 0.3', 'scat_dirac', tmpdir)
+
+
+def buildCoupledScatterScene(tmpdir=None):
+  '''The reference's `sceneCoupledScatter`: an astigmatic diffuser,
+  exp(-(theta*cos(phi))**2/0.003 - (theta*sin(phi))**2/0.05) over theta in
+  [0, pi/3], whose theta depends on phi (a low-rank expansion).'''
+  return _scatterScene(
+      'exp(-(theta*cos(phi))**2/0.003 - (theta*sin(phi))**2/0.05)',
+      '0, pi/3', '0, 0.05', 'scat_coupled', tmpdir)
 
 
 def makeSweepLensSweeper(path=None, device='cuda'):

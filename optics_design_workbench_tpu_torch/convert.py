@@ -20,10 +20,10 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
                  `trim`, `kind`; `elements` with `packed`, `optType`,
                  `recordHits` and, for a dispersive scene, `nLambda`,
                  `nTable`, `hasDispersion`; the sequential-mode mask
-                 `seqMask` and a source's `surfMask` (as the JAX runner's
-                 `sceneFor` adds it) where present. Other keys are
-                 ignored, except that `scatter` is refused as not ported
-                 yet;
+                 `seqMask`, a source's `surfMask` (as the JAX runner's
+                 `sceneFor` adds it) and the stochastic scatter tables
+                 `scatter` where present (carried over as numpy, so both
+                 packages fit the same tables). Other keys are ignored;
     histSpecNp   the histogram spec: `elemToDet`, `bounds`, `bins`;
     samplerSpec  optionally the dict from `pallasSamplerSpec()` of a point
                  or a surface source (`samplerSpecFromReference`).
@@ -75,7 +75,8 @@ def _sceneAndSpec(deviceNp, histSpecNp):
     if key in deviceNp:
       scene[key] = np.asarray(deviceNp[key])
   if 'scatter' in deviceNp:
-    scene['scatter'] = deviceNp['scatter']
+    scene['scatter'] = {k: np.asarray(v)
+                        for k, v in deviceNp['scatter'].items()}
   for key in ('nLambda', 'nTable', 'hasDispersion'):
     if key in deviceNp['elements']:
       scene['elements'][key] = np.asarray(deviceNp['elements'][key])

@@ -1,11 +1,12 @@
 // Shared body of the trace kernels for NVIDIA Hopper (sm_90a): the sampler,
 // the surface sweep, the physics and the bounce loop exist ONCE here, as one
 // `__global__` function templated on its OUTPUT MODE, on whether it traces
-// ONE scene or a variant-major SWEEP of scenes, on B4 (below) and on SURF,
-// the sampler (below). Each kernel source (trace_kernel.cu,
-// trace_bins_kernel.cu, trace_raw_kernel.cu, trace_sweep_kernel.cu)
-// instantiates one mode, with and without B4, and the single-scene ones
-// with each sampler, behind a plain-C launcher.
+// ONE scene or a variant-major SWEEP of scenes, on B4 (below), on SURF, the
+// sampler (below), and on SCAT, stochastic scatter (below). Each kernel
+// source (trace_kernel.cu, trace_bins_kernel.cu, trace_raw_kernel.cu,
+// trace_sweep_kernel.cu) instantiates one mode, with and without B4, with
+// SCAT on top of B4, and the single-scene ones with each sampler, behind a
+// plain-C launcher.
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
 // (optics_design_workbench_tpu/ops/pallas_trace.py), main-path subset:
@@ -15,7 +16,7 @@
 // sequential mode and per-source surface masks; the point-source sampler
 // with affine, piecewise-polynomial and tent marginals and ray-index strata;
 // the surface-source sampler (plane, sphere-zone and cylinder faces); the
-// per-ray hit-slot ring.
+// in-kernel stochastic scatter draw; the per-ray hit-slot ring.
 //
 // The two samplers are two compile-time instances (SURF), chosen by the
 // launcher from the sampler kind of the tables: the point sampler draws two
@@ -37,6 +38,26 @@
 // bounce, instead of once per ray into a per-thread array (16 elements
 // would spill to local memory); the polynomial's operations are the same,
 // and with contraction off so are its bits.
+//
+// Stochastic scatter (SCAT, a compile-time instance built on the B4 body,
+// which the launcher picks from its scatter word): after the ideal new
+// direction is formed, a ray that met a mirror or a lens whose element
+// carries a scatter density draws (theta, phi) of the lobe (REFLECT on a
+// mirror, REFRACT_ENTER / REFRACT_EXIT on a lens) and turns the lobe axis
+// (the incidence-side normal for a mirror, the forward normal for a lens)
+// by theta about axis x incoming direction and by phi about the lobe axis;
+// then MODIFY, drawn likewise, turns the new direction about itself; every
+// ray's direction is normalised once more. The draws evaluate the fitted
+// constants of the table's scatter block (layout beside the enums below):
+// piecewise Horner polynomials in the uniform, 2-D ones in (uniform,
+// incidence angle), low-rank sums whose phi factors are polynomials or
+// Fourier series, and DiracDelta events selected by a uniform. The
+// incidence angle is arccos(d . n) through the reference's sqrt-times-
+// polynomial form, so both packages condition on the same angle. Uniforms:
+// in the uniform input mode bounce b reads rows samplerRows + b * rows per
+// bounce (the lobe's u1, u2 [, u3, u4], then MODIFY's); otherwise each
+// bounce makes one Philox call for the lobe and one for MODIFY, counter
+// words (ray index, 2 + b, 0 or 1), apart from the sampler's.
 //
 // Output modes (what happens to a hit-ring slot):
 //   OUT_HIST  the slot is added to the (D, H, W) power + count histograms
@@ -111,6 +132,31 @@ enum { E_OPT = 0, E_N = 1, E_REFL = 2, E_ABSLEN = 3, E_REC = 4, E_DET = 5,
 // cylinder: z1, z2 - z1, R), placement, orient, area-CDF window
 enum { F_KIND = 0, F_RECT = 1, F_C = 2, F_ROT = 6, F_OFF = 15, F_ORIENT = 18,
        F_CUMLO = 19, F_CUMHI = 20 };
+// the scatter block (ops/cuda_trace.py `_packScatter`), right after the
+// element rows: a header of kScHeader floats (entry count, uniform rows per
+// bounce, the lobe's rows, MODIFY's rows, whether the incidence angle is
+// needed, the 13 arccos coefficients at SC_ACOS), one entry row per
+// (element, kind) and then the specs; offsets count from the block's
+// start. A spec is [kind, n, lo, hi, ...]: SPEC_PWPOLY as a marginal
+// block; SPEC_PWPOLY2D then cMid, 1/cHalf, nU, nC and n rectangles of
+// kRectHead floats and nU x nC coefficients (u power major); SPEC_LOWRANK
+// then n offset pairs (its pwpoly2d, its phi factor). A 1-D function block
+// (kFnCols floats) is FN_CONST (value), FN_POLY1D (mid, 1/half, nCoef,
+// ascending coefficients) or FN_FOURIER (c0, nTerms, 0, a1, b1, ...); an
+// event is a (cumulative probability, value) pair of them.
+constexpr int kScHeader = 24;
+constexpr int kScEntryCols = 8;
+constexpr int kFnCols = 34;
+constexpr int kRectHead = 8;
+constexpr int kAcosCoeffs = 13;
+enum { SC_N = 0, SC_ROWS = 1, SC_LOBEROWS = 2, SC_MODROWS = 3, SC_COND = 4,
+       SC_ACOS = 8 };
+enum { EN_ELEM = 0, EN_KIND = 1, EN_PHI = 2, EN_THETA = 3, EN_PHIDISC = 4,
+       EN_NPHIDISC = 5, EN_THETADISC = 6, EN_NTHETADISC = 7 };
+enum { SPEC_PWPOLY = 1, SPEC_PWPOLY2D = 3, SPEC_LOWRANK = 4 };
+enum { FN_CONST = 0, FN_POLY1D = 1, FN_FOURIER = 2 };
+enum { SCAT_REFLECT = 0, SCAT_REFRACT_ENTER = 1, SCAT_REFRACT_EXIT = 2,
+       SCAT_MODIFY = 3 };
 enum { KIND_PLANE = 0, KIND_SPHERE = 1, KIND_CYLINDER = 2 };
 enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_GRATING = 2, OPT_ABSORBER = 3,
        OPT_VACUUM = 4 };
@@ -210,6 +256,226 @@ __device__ __forceinline__ void rotate(float& vx, float& vy, float& vz,
   float ry = vy * c + cy * s + ay * dot * omc;
   float rz = vz * c + cz * s + az * dot * omc;
   vx = rx; vy = ry; vz = rz;
+}
+
+// ---- stochastic scatter (B5): the evaluators of the fitted constants, in
+// the reference's operation order (device_sampler.evalPwpoly2d,
+// evalLowRankTheta, evalFourier, evalPoly1d, evalDiscreteEvents,
+// arccosApprox) ----
+
+// a 1-D function block at c
+__device__ float evalFn1d(const float* f, float c) {
+  const int kind = (int)f[0];
+  if (kind == FN_CONST) return f[1];
+  if (kind == FN_POLY1D) {
+    float s = (c - f[1]) * f[2];
+    int nc = (int)f[3];
+    float acc = f[4 + nc - 1];
+    for (int j = nc - 2; j >= 0; --j) acc = acc * s + f[4 + j];
+    return acc;
+  }
+  // Fourier series by the angle-addition recurrence
+  const float c1 = cosf(c), s1 = sinf(c);
+  float out = f[1] + f[4] * c1 + f[5] * s1;
+  float cp = 1.f, sp = 0.f, cm = c1, sm = s1;
+  const int nT = (int)f[2];
+  for (int m = 2; m <= nT; ++m) {
+    float cn = 2.f * c1 * cm - cp;
+    cp = cm; cm = cn;
+    float sn = 2.f * c1 * sm - sp;
+    sp = sm; sm = sn;
+    out = out + f[4 + 2 * (m - 1)] * cm + f[5 + 2 * (m - 1)] * sm;
+  }
+  return out;
+}
+
+// a pwpoly2d spec at (u, c): the last rectangle whose closed box holds
+// (u, scaled c) wins, else the first — only that one is evaluated
+__device__ float evalPwpoly2d(const float* sp, float u, float c) {
+  const int n = (int)sp[1], nU = (int)sp[6], nC = (int)sp[7];
+  const int stride = kRectHead + nU * nC;
+  const float s = (c - sp[4]) * sp[5];
+  int sel = 0;
+  for (int r = n - 1; r >= 1; --r) {
+    const float* rr = sp + 8 + r * stride;
+    if (u >= rr[0] && u <= rr[1] && s >= rr[2] && s <= rr[3]) {
+      sel = r;
+      break;
+    }
+  }
+  const float* rr = sp + 8 + sel * stride;
+  const float x = (u - rr[4]) * rr[5];
+  const float cc = (s - rr[6]) * rr[7];
+  const float* coef = rr + kRectHead;
+  float acc = 0.f;
+  for (int i = nU - 1; i >= 0; --i) {
+    const float* row = coef + i * nC;
+    float h = row[nC - 1];
+    for (int j = nC - 2; j >= 0; --j) h = h * cc + row[j];
+    acc = (i == nU - 1) ? h : acc * x + h;
+  }
+  return fminf(fmaxf(acc, sp[2]), sp[3]);
+}
+
+// one marginal spec of an entry at u (conditioned on c = theta_in and, for
+// a low-rank spec, on the drawn phi)
+__device__ float evalScatterSpec(const float* sc, const float* sp, float u,
+                                 float c, float phi) {
+  const int kind = (int)sp[0];
+  if (kind == SPEC_PWPOLY) return marginal(sp, u);
+  if (kind == SPEC_PWPOLY2D) return evalPwpoly2d(sp, u, c);
+  const int n = (int)sp[1];
+  float out = 0.f;
+  for (int k = 0; k < n; ++k) {
+    const float bv = evalFn1d(sc + (int)sp[5 + 2 * k], phi);
+    const float term = evalPwpoly2d(sc + (int)sp[4 + 2 * k], u, c) * bv;
+    out = k == 0 ? term : out + term;
+  }
+  return fminf(fmaxf(out, sp[2]), sp[3]);
+}
+
+// discrete (DiracDelta) events: the event index is the count of cumulative
+// probabilities below u; u past the last keeps the continuous draw
+__device__ float discreteEvents(const float* d, int n, float c, float u,
+                                float cont) {
+  float out = 0.f, prevCum = 0.f;
+  for (int ev = 0; ev < n; ++ev) {
+    const float v = evalFn1d(d + (2 * ev + 1) * kFnCols, c);
+    out = (ev == 0 || u > prevCum) ? v : out;
+    prevCum = evalFn1d(d + 2 * ev * kFnCols, c);
+  }
+  return u <= prevCum ? out : cont;
+}
+
+// (theta, phi) of one entry: phi first, then theta conditioned on it
+__device__ void drawEntry(const float* sc, const float* en, float thetaIn,
+                          float u1, float u2, float u3, float u4,
+                          float& theta, float& phi) {
+  phi = evalScatterSpec(sc, sc + (int)en[EN_PHI], u1, thetaIn, 0.f);
+  if (en[EN_NPHIDISC] > 0.f)
+    phi = discreteEvents(sc + (int)en[EN_PHIDISC], (int)en[EN_NPHIDISC],
+                         thetaIn, u3, phi);
+  theta = evalScatterSpec(sc, sc + (int)en[EN_THETA], u2, thetaIn, phi);
+  if (en[EN_NTHETADISC] > 0.f)
+    theta = discreteEvents(sc + (int)en[EN_THETADISC],
+                           (int)en[EN_NTHETADISC], thetaIn, u4, theta);
+}
+
+// arccos(mu) for mu in [0, 1] as sqrt(1 - x) * P(2x - 1)
+__device__ __forceinline__ float arccosApprox(const float* P, float mu) {
+  const float x = fminf(fmaxf(mu, 0.f), 1.f);
+  const float s = 2.f * x - 1.f;
+  float acc = P[kAcosCoeffs - 1];
+  for (int k = kAcosCoeffs - 2; k >= 0; --k) acc = acc * s + P[k];
+  return sqrtf(fmaxf(1.f - x, 0.f)) * acc;
+}
+
+// unit b x d, or a perpendicular of b (b x x-hat, else b x y-hat) where b
+// and d are nearly parallel
+__device__ __forceinline__ void lobeAxis(float bx, float by, float bz,
+                                         float dx, float dy, float dz,
+                                         float& ax, float& ay, float& az) {
+  ax = by * dz - bz * dy;
+  ay = bz * dx - bx * dz;
+  az = bx * dy - by * dx;
+  const float ax2 = ax * ax + ay * ay + az * az;
+  if (ax2 < 1e-12f) {
+    const float alt2 = bz * bz + by * by;
+    if (alt2 > 1e-12f) { ax = 0.f; ay = bz; az = -by; }
+    else { ax = -bz; ay = 0.f; az = bx; }
+  }
+  const float ainv = rsqrtf(ax * ax + ay * ay + az * az + 1e-20f);
+  ax *= ainv; ay *= ainv; az *= ainv;
+}
+
+// The scatter section of one bounce (see the header): `sc` is the scatter
+// block, `elem` the winner's element, (nx, ny, nz) the normal on the side
+// the ray travels to, d the incoming and nd the new direction (in / out).
+__device__ void scatterBounce(const float* sc, const TraceParams& p,
+                              const float* rayIn, long long i, int bounce,
+                              int samplerRows, int elem, bool isMirror,
+                              bool isLens, bool isEntering, float dDotN,
+                              float nx, float ny, float nz, float dx,
+                              float dy, float dz, float& ndx, float& ndy,
+                              float& ndz) {
+  const int nEnt = (int)sc[SC_N];
+  const int kindL = isMirror ? SCAT_REFLECT
+                    : (isLens ? (isEntering ? SCAT_REFRACT_ENTER
+                                            : SCAT_REFRACT_EXIT) : -1);
+  int lobeE = -1, modE = -1;
+  for (int k = 0; k < nEnt; ++k) {
+    const float* en = sc + kScHeader + k * kScEntryCols;
+    if ((int)en[EN_ELEM] != elem) continue;
+    const int kind = (int)en[EN_KIND];
+    if (kind == SCAT_MODIFY) {
+      if (isMirror || isLens) modE = k;
+    } else if (kind == kindL) {
+      lobeE = k;
+    }
+  }
+  if (lobeE >= 0 || modE >= 0) {
+    const float thetaIn = sc[SC_COND] != 0.f
+        ? arccosApprox(sc + SC_ACOS, fminf(fmaxf(dDotN, 0.f), 1.f)) : 0.f;
+    const int lobeRows = (int)sc[SC_LOBEROWS];
+    const long long row0 = samplerRows + (long long)bounce * (int)sc[SC_ROWS];
+    const uint32_t lo = (uint32_t)i;
+    const uint32_t hi = (uint32_t)((unsigned long long)i >> 32);
+    const uint32_t k0 = (uint32_t)p.seed, k1 = (uint32_t)(p.seed >> 32);
+    uint32_t rnd[4];
+    if (lobeE >= 0) {
+      float u1, u2, u3 = 0.f, u4 = 0.f;
+      if (p.mode == MODE_UNIFORMS) {
+        u1 = rayIn[row0 * p.N + i];
+        u2 = rayIn[(row0 + 1) * p.N + i];
+        if (lobeRows == 4) {
+          u3 = rayIn[(row0 + 2) * p.N + i];
+          u4 = rayIn[(row0 + 3) * p.N + i];
+        }
+      } else {
+        philox4x32(lo, hi, 2u + (uint32_t)bounce, 0u, k0, k1, rnd);
+        u1 = bitsToUniform(rnd[0]); u2 = bitsToUniform(rnd[1]);
+        u3 = bitsToUniform(rnd[2]); u4 = bitsToUniform(rnd[3]);
+      }
+      float th, ph;
+      drawEntry(sc, sc + kScHeader + lobeE * kScEntryCols, thetaIn, u1, u2,
+                u3, u4, th, ph);
+      const float nSgn = isMirror ? -1.f : 1.f;
+      const float lnx = nx * nSgn, lny = ny * nSgn, lnz = nz * nSgn;
+      float ax, ay, az;
+      lobeAxis(lnx, lny, lnz, dx, dy, dz, ax, ay, az);
+      float sx = lnx, sy = lny, sz = lnz;
+      rotate(sx, sy, sz, ax, ay, az, th);
+      rotate(sx, sy, sz, lnx, lny, lnz, ph);
+      ndx = sx; ndy = sy; ndz = sz;
+    }
+    if (modE >= 0) {
+      float m1, m2, m3 = 0.f, m4 = 0.f;
+      if (p.mode == MODE_UNIFORMS) {
+        const long long r = row0 + lobeRows;
+        m1 = rayIn[r * p.N + i];
+        m2 = rayIn[(r + 1) * p.N + i];
+        if ((int)sc[SC_MODROWS] == 4) {
+          m3 = rayIn[(r + 2) * p.N + i];
+          m4 = rayIn[(r + 3) * p.N + i];
+        }
+      } else {
+        philox4x32(lo, hi, 2u + (uint32_t)bounce, 1u, k0, k1, rnd);
+        m1 = bitsToUniform(rnd[0]); m2 = bitsToUniform(rnd[1]);
+        m3 = bitsToUniform(rnd[2]); m4 = bitsToUniform(rnd[3]);
+      }
+      float th, ph;
+      drawEntry(sc, sc + kScHeader + modE * kScEntryCols, thetaIn, m1, m2,
+                m3, m4, th, ph);
+      float ax, ay, az;
+      lobeAxis(ndx, ndy, ndz, dx, dy, dz, ax, ay, az);
+      float sx = ndx, sy = ndy, sz = ndz;
+      rotate(sx, sy, sz, ax, ay, az, th);
+      rotate(sx, sy, sz, ndx, ndy, ndz, ph);
+      ndx = sx; ndy = sy; ndz = sz;
+    }
+  }
+  const float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
+  ndx *= inv; ndy *= inv; ndz *= inv;
 }
 
 // The surface-source sampler (B6): the reference's `_surfaceSampleColumns`
@@ -344,7 +610,7 @@ __device__ float intersect(const float* r, float ox, float oy, float oz,
 // `table` holds V tables of p.tableLen floats, out0 / out1 V histograms of
 // p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
 // `rayIn` (shared by all variants) has p.N columns.
-template <int OUT, bool SWEEP, bool B4, bool SURF>
+template <int OUT, bool SWEEP, bool B4, bool SURF, bool SCAT>
 __global__ void __launch_bounds__(kBlock)
 traceKernel(TraceParams p, const float* __restrict__ table,
             const float* __restrict__ rayIn, float* __restrict__ out0,
@@ -352,6 +618,7 @@ traceKernel(TraceParams p, const float* __restrict__ table,
             unsigned long long* __restrict__ counters) {
   static_assert(!SWEEP || OUT == OUT_HIST, "the sweep bins in the kernel");
   static_assert(!(SWEEP && SURF), "the sweep samples point sources only");
+  static_assert(!SCAT || B4, "scatter is built on the B4 body");
   long long firstRay = (long long)blockIdx.x * blockDim.x;
   if constexpr (SWEEP) {
     const long long variant = blockIdx.x / p.blocksPerVariant;
@@ -610,6 +877,11 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       }
       float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
       ndx *= inv; ndy *= inv; ndz *= inv;
+      if constexpr (SCAT)
+        scatterBounce(smem + p.nSurf * kSurfCols + p.nElem * kElemCols, p,
+                      rayIn, i, bounce, SURF ? 5 : 2, elem, isMirror, isLens,
+                      isEntering, dDotN, nx, ny, nz, dx, dy, dz, ndx, ndy,
+                      ndz);
       // the stage advances on every interaction but a lens or
       // transmission-grating ENTRY
       if (B4 && p.nStages > 0 && seqInc) ++seq;
@@ -744,6 +1016,16 @@ inline bool needsB4(const TraceParams& p) {
   return p.hasGrating || p.nStages > 0 || p.gate || p.dispOff >= 0;
 }
 
+// The table lives in dynamic shared memory: past the default 48 KB an
+// instance has to be allowed more (up to what a block may hold on the
+// card; the wrapper refuses larger tables before they get here).
+template <typename Kernel>
+int allowTable(Kernel kernel, size_t shmem) {
+  if (shmem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+}
+
 // Launch one output mode on `stream`; no synchronisation, no allocation.
 // Returns cudaGetLastError().
 template <int OUT>
@@ -754,13 +1036,18 @@ int launchTrace(const float* table, const float* rayIn, float* out0,
   if (p.N <= 0) return 0;
   long long blocks = (p.N + kBlock - 1) / kBlock;
   size_t shmem = (size_t)p.tableLen * sizeof(float);
-  // ip[21]: the tables' sampler, 0 point source, 1 surface source
+  // ip[21]: the tables' sampler, 0 point source, 1 surface source; ip[22]:
+  // the table has a scatter block
   const bool surf = ip[21] == 1 && p.mode != MODE_COLUMNS;
-  auto kernel = needsB4(p)
-      ? (surf ? traceKernel<OUT, false, true, true>
-              : traceKernel<OUT, false, true, false>)
-      : (surf ? traceKernel<OUT, false, false, true>
-              : traceKernel<OUT, false, false, false>);
+  auto kernel = ip[22]
+      ? (surf ? traceKernel<OUT, false, true, true, true>
+              : traceKernel<OUT, false, true, false, true>)
+      : needsB4(p)
+      ? (surf ? traceKernel<OUT, false, true, true, false>
+              : traceKernel<OUT, false, true, false, false>)
+      : (surf ? traceKernel<OUT, false, false, true, false>
+              : traceKernel<OUT, false, false, false, false>);
+  if (int err = allowTable(kernel, shmem)) return err;
   kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
       p, table, rayIn, out0, out1, counters);
   return (int)cudaGetLastError();

@@ -113,16 +113,12 @@ class Scene:
     `seqMask` (stages x surfaces, bool) comes from the active settings'
     SequentialModeElements; `info['surfaceMasks']` maps a source's label
     to the surfaces its IgnoredOpticalElements leave (the runner puts it
-    into that source's scene as `surfMask`). Not ported yet, and refused
-    by name: stochastic scatter densities.'''
+    into that source's scene as `surfMask`). Groups with stochastic
+    scatter densities add `scatter`, the tables of
+    `models/scatter.buildScatterTables`.'''
     groups = self.opticalObjects()
     if not groups:
       raise ValueError('scene has no optical elements')
-    for g in groups:
-      if g.scatterKinds():
-        raise NotImplementedError(
-            f'stochastic scatter densities ({g.Label}) are not ported yet: '
-            f'ROADMAP item B5')
     surfs, elems = [], []
     for e, group in enumerate(groups):
       elems.append(group.toElementDict())
@@ -136,6 +132,13 @@ class Scene:
     scene = dict(surfaces=geomSurfaces.buildSurfaceTable(surfs, dtype=dtype),
                  elements=buildElementTable(elems, dtype=dtype))
     surfElem = scene['surfaces']['elem']
+
+    # stochastic scatter tables (Reflected / Refracted / RayModification
+    # probability densities)
+    from .scatter import buildScatterTables
+    scatter = buildScatterTables(groups, dtype=dtype)
+    if scatter is not None:
+      scene['scatter'] = scatter
 
     settings = self.activeSimulationSettings()
     if settings is not None and settings.SequentialMode \

@@ -46,20 +46,28 @@ PLANE / SPHERE / CYLINDER with window, annulus and z-band trims;
 Mirror / Lens / Absorber / Vacuum / Grating (Ludwig line gratings,
 reflective and transmissive); Beer-Lambert absorption; dispersive n(lambda)
 as a fitted polynomial per element; sequential mode (a per-ray stage index
-gating each surface) and per-source surface masks. In-kernel samplers: the
-point source and the surface source (plane, sphere-zone and cylinder faces,
-up to 32). The kernels sweep every
-allowed surface on every bounce (the reference's per-bounce culls only skip
-surfaces that cannot be hit).
+gating each surface) and per-source surface masks; stochastic scatter
+(the lobe of a mirror or lens and the ray modification, drawn per bounce
+from the fitted constants of `tracing/scatter.scatterConstants`, packed as
+the table's scatter block). In-kernel samplers: the point source and the
+surface source (plane, sphere-zone and cylinder faces, up to 32). Up to 256
+surfaces, any number of elements, as long as the table fits a thread
+block's shared memory. The kernels sweep every allowed surface on every
+bounce (the reference's per-bounce culls only skip surfaces that cannot be
+hit).
 '''
 
 import ctypes
+import hashlib
 
 import numpy as np
 import torch
 
 from .. import KernelError, hostArray as _hostArray, resolveDevice
+from ..distributions.device_sampler import ACOS_POLY
 from ..geometry import surfaces as GS
+from ..models.surface_source import rotColumns as _rotPlain
+from ..tracing import scatter as SC
 from ..tracing.element_table import (MIRROR, LENS, GRATING, ABSORBER,
                                      VACUUM, EP_GRATTYPE, EP_GRATLPM,
                                      EP_GRATDIRX, EP_GRATDIRY, EP_GRATDIRZ,
@@ -67,9 +75,13 @@ from ..tracing.element_table import (MIRROR, LENS, GRATING, ABSORBER,
 
 _BIG = 3.0e38
 
-# table capacities of the one compiled kernel (the wrapper raises beyond)
-MAX_SURFACES = 64
-MAX_ELEMENTS = 16
+# table capacities of the one compiled kernel (the wrapper raises beyond).
+# Surfaces: the reference keeps up to 256 analytic surfaces as immediates
+# and sweeps more from a table (ROADMAP B8). The whole table lives in a
+# thread block's shared memory: up to 227 KB on Hopper, less what the
+# kernel's own reduction needs.
+MAX_SURFACES = 256
+MAX_TABLE_BYTES = 227 * 1024 - 1024
 MAX_PWPOLY_SEGMENTS = 12
 MAX_PWPOLY_COEFFS = 13
 MAX_TENT_KNOTS = 257
@@ -100,6 +112,27 @@ FACE_COLS = 21
 # seam's rows): point (first, phi); surface (face, u, v, theta, phi)
 SAMPLER_POINT, SAMPLER_SURFACE = 0, 1
 SAMPLER_UNIFORMS = {SAMPLER_POINT: 2, SAMPLER_SURFACE: 5}
+# the scatter block (B5), right after the element rows. A header: entry
+# count, uniform rows per bounce (lobe + modify), lobe rows, modify rows,
+# whether the incidence angle is needed, then the arccos polynomial's
+# coefficients (ascending) at SC_ACOS; one row per (element, kind) entry:
+# element, kind, offsets of the phi and theta specs, offset and count of
+# the phi and theta events (offsets from the block's start); then the
+# specs. A spec starts [kind, n, lo, hi]: pwpoly (kind 1, the marginal
+# layout: n segments of _SEG_STRIDE), pwpoly2d (kind 3, then cMid,
+# 1/cHalf, nU, nC and n rectangles of a, b, ca, cb, midU, 1/halfU, midC,
+# 1/halfC and nU x nC coefficients, u power major), low-rank (kind 4, n
+# pairs of offsets: its pwpoly2d and its phi factor). A 1-D function (an
+# event's cumulative probability or value, a phi factor) is a block of
+# FN_COLS: const (0, value), poly1d (1, mid, 1/half, nCoef, ascending
+# coefficients) or Fourier (2, c0, nTerms, 0, a1, b1, a2, b2, ...); an
+# event is a (cumulative, value) pair of them.
+SC_HEADER = 24
+SC_ACOS = 8
+SC_ENTRY_COLS = 8
+SPEC_PWPOLY, SPEC_PWPOLY2D, SPEC_LOWRANK = 1, 3, 4
+FN_CONST, FN_POLY1D, FN_FOURIER = 0, 1, 2
+FN_COLS = 4 + 30
 
 MODE_SEED, MODE_UNIFORMS, MODE_COLUMNS = 0, 1, 2
 
@@ -130,9 +163,13 @@ def eligible(scene):
 def ineligibleReason(scene):
   '''None when the kernel supports this scene, else a short human-readable
   reason naming the feature this slice does not cover.'''
-  if 'scatter' in scene:
-    return ('stochastic scatter is not ported to the CUDA kernel yet '
-            '(ROADMAP B5)')
+  if 'scatter' in scene and scatterConstantsOf(scene) is None:
+    flags = scene['scatter'].get('flags')
+    nCombos = 0 if flags is None else int(_hostArray(flags).sum())
+    if nCombos > SC.MAX_COMBOS:
+      return (f'{nCombos} scattering (element, kind) combinations > the '
+              f'{SC.MAX_COMBOS} the kernel draws from')
+    return SC.GATHER_ONLY_REASON
   if 'nTable' in scene['elements'] and not dispersionFitsInKernel(scene):
     return ('dispersive n(wavelength) tables do not fit the in-kernel '
             f'polynomial model (degree <= {MAX_DISP_COEFFS - 1} to '
@@ -146,19 +183,138 @@ def ineligibleReason(scene):
   trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
   if not np.isin(trims0, (0., 1.)).all():
     return 'bitmap and hole-primitive trims are not ported yet'
-  opts = _hostArray(scene['elements']['optType'])
   if len(kinds) > MAX_SURFACES:
-    return (f'{len(kinds)} surfaces > the {MAX_SURFACES} rows of the '
-            f"kernel's surface table")
-  if len(opts) > MAX_ELEMENTS:
-    return (f'{len(opts)} elements > the {MAX_ELEMENTS} rows of the '
-            f"kernel's element table")
+    return (f'{len(kinds)} surfaces > the {MAX_SURFACES} the kernel sweeps '
+            f'from its surface rows; more need the surface-table sweep '
+            f'(ROADMAP B8)')
   if 'seqMask' in scene:
     nStages = _hostArray(scene['seqMask']).shape[0]
     if nStages > MAX_STAGES:
       return (f"{nStages} sequential stages > the {MAX_STAGES} of the "
               f"kernel's stage bitmask")
   return None
+
+
+# scatterConstants per scatter table, keyed by a digest of the tables (the
+# fits take up to seconds; a scene is checked and packed several times)
+_SCATTER_CONSTS = {}
+
+
+def scatterConstantsOf(scene):
+  '''`tracing/scatter.scatterConstants` of the scene, computed once per
+  distinct scatter table.'''
+  if 'scatter' not in scene:
+    return None
+  sc = scene['scatter']
+  h = hashlib.sha1()
+  for k in sorted(sc):
+    a = np.ascontiguousarray(_hostArray(sc[k]))
+    h.update(k.encode() + str(a.dtype).encode() + str(a.shape).encode())
+    h.update(a.tobytes())
+  key = h.hexdigest()
+  if key not in _SCATTER_CONSTS:
+    _SCATTER_CONSTS[key] = SC.scatterConstants(scene)
+  return _SCATTER_CONSTS[key]
+
+
+def _fnBlock(spec):
+  '''A 1-D function spec (const, poly1d, fourier) as a (FN_COLS,) float64
+  row (see the scatter block's layout).'''
+  out = np.zeros(FN_COLS)
+  if spec[0] == 'const':
+    out[:2] = (FN_CONST, spec[1])
+  elif spec[0] == 'poly1d':
+    _, mid, half, coeffs = spec
+    if len(coeffs) > FN_COLS - 4:
+      raise ValueError(f'poly1d degree {len(coeffs) - 1} > {FN_COLS - 5}')
+    out[:4] = (FN_POLY1D, mid, 1.0 / half, len(coeffs))
+    out[4:4 + len(coeffs)] = coeffs
+  else:
+    _, c0, terms = spec
+    if 2 * len(terms) > FN_COLS - 4:
+      raise ValueError(f'{len(terms)} Fourier terms > {(FN_COLS - 4) // 2}')
+    out[:4] = (FN_FOURIER, c0, len(terms), 0.)
+    out[4:4 + 2 * len(terms)] = np.asarray(terms, float).reshape(-1)
+  return out
+
+
+def _specBlock(spec, base, parts):
+  '''Append a marginal spec (pwpoly, pwpoly2d, lowrank) to `parts` (a list
+  of float64 arrays that starts at the scatter block's start) and return
+  its offset; `base` is the length of `parts` so far.'''
+  kind = spec[0]
+  off = base
+  if kind == 'pwpoly':
+    _, segs, lo, hi = spec
+    block = np.zeros(4 + len(segs) * _SEG_STRIDE)
+    block[:4] = (SPEC_PWPOLY, len(segs), lo, hi)
+    for i, (a, _b, mid, half, coeffs) in enumerate(segs):
+      if len(coeffs) > MAX_PWPOLY_COEFFS:
+        raise ValueError(f'pwpoly degree {len(coeffs) - 1} > '
+                         f'{MAX_PWPOLY_COEFFS - 1}')
+      o = 4 + i * _SEG_STRIDE
+      block[o:o + 4] = (a, mid, 1.0 / half, len(coeffs))
+      block[o + 4:o + 4 + len(coeffs)] = coeffs
+    parts.append(block)
+    return off, base + len(block)
+  if kind == 'pwpoly2d':
+    _, rects, lo, hi, cMid, cHalf = spec
+    nU, nC = len(rects[0][8]), len(rects[0][8][0])
+    stride = 8 + nU * nC
+    block = np.zeros(8 + len(rects) * stride)
+    block[:8] = (SPEC_PWPOLY2D, len(rects), lo, hi, cMid, 1.0 / cHalf, nU,
+                 nC)
+    for i, (a, b, ca, cb, midU, halfU, midC, halfC, coeffs) in \
+        enumerate(rects):
+      o = 8 + i * stride
+      block[o:o + 8] = (a, b, ca, cb, midU, 1.0 / halfU, midC, 1.0 / halfC)
+      block[o + 8:o + stride] = np.asarray(coeffs, float).reshape(-1)
+    parts.append(block)
+    return off, base + len(block)
+  if kind == 'lowrank':
+    _, comps, lo, hi = spec
+    head = np.zeros(4 + 2 * len(comps))
+    head[:4] = (SPEC_LOWRANK, len(comps), lo, hi)
+    parts.append(head)
+    base += len(head)
+    for i, (aspec, bspec) in enumerate(comps):
+      aOff, base = _specBlock(aspec, base, parts)
+      parts.append(_fnBlock(bspec))
+      head[4 + 2 * i:6 + 2 * i] = (aOff, base)
+      base += FN_COLS
+    return off, base
+  raise ValueError(f'unknown scatter spec kind {kind!r}')
+
+
+def _packScatter(consts):
+  '''The scatter block of `scatterConstants` entries as a float32 array,
+  each constant formed in double and rounded to float32 once (as the
+  reference's python constants are), and its facts (uniform rows per bounce
+  of the lobe and of MODIFY).'''
+  lobe, mods = SC.splitEntries(consts)
+  lobeRows, modRows = SC.uniformsPerBounce(lobe), SC.uniformsPerBounce(mods)
+  n = len(consts)
+  head = np.zeros(SC_HEADER + n * SC_ENTRY_COLS)
+  head[:5] = (n, lobeRows + modRows, lobeRows, modRows,
+              float(SC.needsIncidence(consts)))
+  head[SC_ACOS:SC_ACOS + len(ACOS_POLY)] = ACOS_POLY
+  parts = [head]
+  base = len(head)
+  for i, (e, k, phiSpec, thetaSpec, phiDisc, thetaDisc) in enumerate(consts):
+    row = head[SC_HEADER + i * SC_ENTRY_COLS:
+               SC_HEADER + (i + 1) * SC_ENTRY_COLS]
+    row[:2] = (e, k)
+    row[2], base = _specBlock(phiSpec, base, parts)
+    row[3], base = _specBlock(thetaSpec, base, parts)
+    for col, disc in ((4, phiDisc), (6, thetaDisc)):
+      row[col:col + 2] = (base, len(disc))
+      for cumSpec, valSpec in disc:
+        parts += [_fnBlock(cumSpec), _fnBlock(valSpec)]
+        base += 2 * FN_COLS
+  block = np.concatenate(parts)
+  assert len(block) == base
+  return block.astype(np.float32), dict(scatterRows=lobeRows + modRows,
+                                        lobeRows=lobeRows, modRows=modRows)
 
 
 def _dispersionPolys(scene, deg=MAX_DISP_COEFFS - 1, tol=DISP_FIT_TOL):
@@ -359,10 +515,14 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   '''The kernel's table of one compiled scene as host numpy, and its static
   facts: (float32 (tableLen,) array, dict(nSurf, nElem, samplerOff, bins,
   nDet, anyMedium, hasGrating, nStages, gate, dispOff, surfRows, elemRows,
-  samplerSpec)). `gate` says some surface is not always allowed (a masked
-  surface, or sequential mode), `dispOff` where the dispersion block starts
-  (-1: no dispersive element); these and hasGrating / nStages are the
-  kernel's header flags, so a scene without them skips that code.
+  samplerSpec, scatter, scatterConsts, scatterRows, lobeRows, modRows)).
+  `gate` says some surface is not always allowed (a masked surface, or
+  sequential mode), `dispOff` where the dispersion block starts (-1: no
+  dispersive element); these and hasGrating / nStages are the kernel's
+  header flags, so a scene without them skips that code. `scatter` says
+  the table holds a scatter block (right after the element rows), drawn
+  from `scatterRows` uniforms per bounce (`lobeRows` for the lobe, then
+  `modRows` for MODIFY).
   `marginalCache` (a dict) lets several calls that share marginal specs
   pack each only once. Raises ValueError for scenes the kernel does not
   cover.'''
@@ -399,9 +559,14 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   with np.errstate(over='ignore'):      # an unbounded radius squares to inf
     parts = [surfT.astype(np.float32).reshape(-1),
              elemT.astype(np.float32).reshape(-1)]
+  consts = scatterConstantsOf(scene)
+  scatFacts = dict(scatterRows=0, lobeRows=0, modRows=0)
+  if consts:
+    block, scatFacts = _packScatter(consts)
+    parts.append(block)
   dispOff = -1
   if elemT[:, 11].any():
-    dispOff = S * SURF_COLS + E * ELEM_COLS
+    dispOff = sum(len(x) for x in parts)
     parts.append(dispT.astype(np.float32).reshape(-1))
   samplerOff, samplerKind = -1, SAMPLER_POINT
   if samplerSpec is not None and samplerSpec.get('type') == 'surface':
@@ -426,14 +591,20 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
           marginalCache[id(spec)] = block
       parts.append(block)
   H, W = histSpec['bins']
-  return np.concatenate(parts), dict(
+  table = np.concatenate(parts)
+  if table.nbytes > MAX_TABLE_BYTES:
+    raise ValueError(f"the kernel's table of {table.nbytes} bytes > the "
+                     f'{MAX_TABLE_BYTES} a thread block holds in shared '
+                     f'memory')
+  return table, dict(
       nSurf=S, nElem=E, samplerOff=samplerOff, bins=(int(H), int(W)),
       nDet=int(_hostArray(histSpec['bounds']).shape[0]),
       anyMedium=bool(elemT[:, 10].any()),
       hasGrating=bool((elemT[:, 0] == GRATING).any()), nStages=nStages,
       gate=any(r['stages'] != (1 << max(nStages, 1)) - 1 for r in surfRows),
       dispOff=dispOff, surfRows=surfRows, elemRows=elemRows,
-      samplerSpec=samplerSpec, samplerKind=samplerKind)
+      samplerSpec=samplerSpec, samplerKind=samplerKind,
+      scatter=bool(consts), scatterConsts=consts or None, **scatFacts)
 
 
 def _packSurfaceSampler(spec):
@@ -505,7 +676,11 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   mode and element, per element the same optical type, recording flag and
   detector, and dispersion in all variants or in none. Everything else is
   data and may differ: each variant's element rows, grating constants,
-  n(lambda) polynomials and surface masks are its own. Sequential mode
+  n(lambda) polynomials and surface masks are its own. Scatter constants
+  must be equal in every variant: they are not swept (the reference's
+  sweep step bakes variant 0's into every variant; ROADMAP C), so variants
+  whose densities differ raise SweepUnavailable and are traced one by one.
+  Sequential mode
   raises SweepUnavailable, as the reference's sweep step refuses it
   (`makePallasSweepStep`); the sweeper then traces the variants one launch
   each, with the stage gate.'''
@@ -536,6 +711,8 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       raise SweepUnavailable(f'surface counts differ (variant {v})')
     if f['nElem'] != f0['nElem']:
       raise SweepUnavailable(f'element counts differ (variant {v})')
+    if f['scatterConsts'] != f0['scatterConsts']:
+      raise SweepUnavailable(f'scatter constants differ (variant {v})')
     if f['samplerOff'] != f0['samplerOff'] or f['dispOff'] != f0['dispOff']:
       raise SweepUnavailable('some variants have a sampler or dispersion '
                              'and some none')
@@ -558,7 +735,9 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       anyMedium=any(f['anyMedium'] for f in facts),
       hasGrating=f0['hasGrating'], nStages=0,
       gate=any(f['gate'] for f in facts), dispOff=f0['dispOff'],
-      samplerKind=SAMPLER_POINT,
+      samplerKind=SAMPLER_POINT, scatter=f0['scatter'],
+      scatterConsts=f0['scatterConsts'], scatterRows=f0['scatterRows'],
+      lobeRows=f0['lobeRows'], modRows=f0['modRows'],
       surfRows=[f['surfRows'] for f in facts],
       elemRows=[f['elemRows'] for f in facts])
 
@@ -664,9 +843,18 @@ def samplerColumnsPlain(tables, uniforms, strata=None, strataTile=0):
 
 def samplerUniforms(tables):
   '''How many uniforms the tables' in-kernel sampler draws per ray (the
-  rows of the uniform input mode): 2 for a point source, 5 for a surface
-  source.'''
+  first rows of the uniform input mode): 2 for a point source, 5 for a
+  surface source.'''
   return SAMPLER_UNIFORMS[tables['samplerKind']]
+
+
+def uniformRows(tables, maxIntersections):
+  '''The rows of the uniform input mode: the sampler's draws, then for
+  every bounce the scatter draws (`tables['scatterRows']`: the lobe's u1,
+  u2 and, with discrete events, u3, u4; then MODIFY's likewise) — the JAX
+  package's order for its uniform seam (`uniformProvider='input'`).'''
+  return samplerUniforms(tables) \
+      + tables.get('scatterRows', 0) * int(maxIntersections)
 
 
 def _intersectPlain(r, ox, oy, oz, dx, dy, dz, tMin):
@@ -726,8 +914,74 @@ def _hornerPlain(d, wl):
   return acc
 
 
+def _lobeAxisPlain(bx, by, bz, dx, dy, dz):
+  '''The rotation axis of a scatter draw: unit b x d, or an arbitrary
+  perpendicular of b (b x x-hat, else b x y-hat) where b and d are nearly
+  parallel.'''
+  axX = by * dz - bz * dy
+  axY = bz * dx - bx * dz
+  axZ = bx * dy - by * dx
+  ax2 = axX * axX + axY * axY + axZ * axZ
+  zero = torch.zeros_like(bx)
+  altX, altY, altZ = zero, bz, -by                  # b x x_hat
+  alt2X, alt2Y, alt2Z = -bz, zero, bx               # b x y_hat
+  alt2 = altY * altY + altZ * altZ
+  useAlt, altOk = ax2 < 1e-12, alt2 > 1e-12
+  axX = torch.where(useAlt, torch.where(altOk, altX, alt2X), axX)
+  axY = torch.where(useAlt, torch.where(altOk, altY, alt2Y), axY)
+  axZ = torch.where(useAlt, torch.where(altOk, altZ, alt2Z), axZ)
+  ainv = torch.rsqrt(axX * axX + axY * axY + axZ * axZ + 1e-20)
+  return axX * ainv, axY * ainv, axZ * ainv
+
+
+def _scatterPlain(consts, rows, lobeRows, elem, isMirror, isLens,
+                  isEntering, dDotN, nx, ny, nz, dx, dy, dz, ndx, ndy, ndz):
+  '''The kernels' scatter section for one bounce: the lobe (REFLECT on a
+  mirror, REFRACT_ENTER / REFRACT_EXIT on a lens) turns the ideal direction
+  into a draw about the lobe axis (the incidence-side normal for a mirror,
+  the forward normal for a lens), then MODIFY turns the result about
+  itself; then the direction is normalised again (every ray, as the
+  reference does). `rows` are this bounce's uniform rows, the lobe's
+  first.'''
+  lobe, mods = SC.splitEntries(consts)
+  thetaIn = SC.incidenceAngle(dDotN) if SC.needsIncidence(consts) else None
+
+  def draw(entries, kind, u):
+    u = list(u) + [None, None]
+    theta, phi = SC.scatterDrawConst(entries, elem, kind, thetaIn, *u[:4])
+    applies = torch.zeros_like(isMirror)
+    for e, k, *_specs in entries:
+      applies = applies | ((elem == e) & (kind == k))
+    return theta, phi, applies
+
+  if lobe:
+    kindL = torch.where(isMirror, 0, torch.where(
+        isLens & isEntering, 1, torch.where(isLens, 2, -1)))
+    thetaS, phiS, applies = draw(lobe, kindL, rows[:lobeRows])
+    nSgn = torch.where(isMirror, -1., 1.)
+    lnx, lny, lnz = nx * nSgn, ny * nSgn, nz * nSgn
+    ax = _lobeAxisPlain(lnx, lny, lnz, dx, dy, dz)
+    s1 = _rotPlain(lnx, lny, lnz, *ax, thetaS)
+    s1 = _rotPlain(*s1, lnx, lny, lnz, phiS)
+    ndx = torch.where(applies, s1[0], ndx)
+    ndy = torch.where(applies, s1[1], ndy)
+    ndz = torch.where(applies, s1[2], ndz)
+  if mods:
+    kindM = torch.where(isMirror | isLens, 3, -1)
+    thetaM, phiM, appliesM = draw(mods, kindM, rows[lobeRows:])
+    ax = _lobeAxisPlain(ndx, ndy, ndz, dx, dy, dz)
+    s2 = _rotPlain(ndx, ndy, ndz, *ax, thetaM)
+    s2 = _rotPlain(*s2, ndx, ndy, ndz, phiM)
+    ndx = torch.where(appliesM, s2[0], ndx)
+    ndy = torch.where(appliesM, s2[1], ndy)
+    ndz = torch.where(appliesM, s2[2], ndz)
+  inv = torch.rsqrt(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20)
+  return ndx * inv, ndy * inv, ndz * inv
+
+
 def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
-                     distTol, powerTol, hitSlots, output):
+                     distTol, powerTol, hitSlots, output,
+                     scatterUniforms=None):
   '''The kernels' bounce loop as column-wise tensor ops, step by step in the
   kernels' operation order: nearest hit over the surfaces the ray's stage
   allows, with the other-medium tracker and same-medium window, winner
@@ -744,7 +998,9 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
             isEntering, px, py, pz, incoming dx, dy, dz), all float32
 
   `columns` are ox, oy, oz, dx, dy, dz, pw and, optionally, the wavelength
-  (without it every ray has the sampler's wavelength).
+  (without it every ray has the sampler's wavelength). A scene with
+  scatter needs `scatterUniforms`: float32 (scatterRows * maxIntersections,
+  N), bounce-major (the rows after the sampler's in `uniformRows`).
 
   Returns (ring, segments, hitN): ring a list of (hitSlots, N) tensors, one
   per slot field, the first -1 and the others 0 where a slot was never
@@ -752,6 +1008,13 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   ox, oy, oz, dx, dy, dz, pw = columns[:7]
   dev = ox.device
   N = ox.shape[0]
+  consts = tables.get('scatterConsts')
+  if consts:
+    rpb = tables['scatterRows']
+    if scatterUniforms is None \
+        or tuple(scatterUniforms.shape) != (rpb * maxIntersections, N):
+      raise ValueError(f'a scene with scatter needs its uniform rows: '
+                       f'({rpb * maxIntersections}, {N}) scatterUniforms')
   tab = tables['table'].detach().cpu().numpy()
   S, E = tables['nSurf'], tables['nElem']
   surfT = tab[:S * SURF_COLS].reshape(S, SURF_COLS)
@@ -936,6 +1199,11 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
           isEntering, ggz, torch.where(isReflG, dz, snz)), ndz)
     inv = torch.rsqrt(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20)
     ndx, ndy, ndz = ndx * inv, ndy * inv, ndz * inv
+    if consts:
+      ndx, ndy, ndz = _scatterPlain(
+          consts, scatterUniforms[_bounce * rpb:(_bounce + 1) * rpb],
+          tables['lobeRows'], elem, isMirror, isLens, isEntering, dDotN, nx,
+          ny, nz, dx, dy, dz, ndx, ndy, ndz)
 
     lensExit = isLens & ~isEntering & ~tir & (medium == elem)
     newMedium = torch.where(isLens & isEntering, elem,
@@ -996,14 +1264,15 @@ def _ringCounters(key, segs, hitN, hitSlots):
 
 
 def traceHistogramPlain(tables, histograms, columns, maxIntersections,
-                        maxRayLength, distTol, powerTol, hitSlots):
+                        maxRayLength, distTol, powerTol, hitSlots,
+                        scatterUniforms=None):
   '''Plain version of the histogram kernel: `_bounceLoopPlain` + float32
   `index_add_` binning into a fresh zero delta, which is then added into
   `histograms` IN PLACE. Returns an int64 (3,) tensor (segments, hits,
-  hitOverflow).'''
+  hitOverflow). `scatterUniforms`: see `_bounceLoopPlain`.'''
   (ringBin, ringW), segs, hitN = _bounceLoopPlain(
       tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
-      hitSlots, 'hist')
+      hitSlots, 'hist', scatterUniforms)
   delta = torch.zeros((2, histograms['power'].numel()), dtype=torch.float32,
                       device=ringW.device)
   for k in range(hitSlots):
@@ -1031,46 +1300,51 @@ def _addDelta(histograms, delta):
 
 def traceSweepPlain(sweepTables, histograms, raysPerVariant, maxIntersections,
                     maxRayLength, distTol, powerTol, hitSlots, uniforms=None,
-                    columns=None, strata=None, strataTile=0):
+                    columns=None, strata=None, strataTile=0,
+                    scatterUniforms=None):
   '''Plain version of the sweep kernel: `traceHistogramPlain` variant by
-  variant, every variant fed the SAME float32 `uniforms` (2, n) — through
-  its own sampler block — or the same ray `columns` (8, n). Adds into the
-  (V, D, H, W) `histograms` IN PLACE and returns an int64 (V, 3) tensor of
-  (segments, hits, hitOverflow) per variant. (A loop over the variants: it
-  exists to be compared with, not to be fast.)'''
+  variant, every variant fed the SAME float32 `uniforms`
+  (`uniformRows`, n) — through its own sampler block — or the same ray
+  `columns` (8, n) with the same `scatterUniforms` for a scene with
+  scatter. Adds into the (V, D, H, W) `histograms` IN PLACE and returns an
+  int64 (V, 3) tensor of (segments, hits, hitOverflow) per variant. (A
+  loop over the variants: it exists to be compared with, not to be
+  fast.)'''
   counters = []
   for v in range(sweepTables['nVariants']):
     tables = variantTables(sweepTables, v)
+    scatterU = scatterUniforms
     if columns is not None:
       cols = tuple(columns[k] for k in range(8))
     else:
       cols = sampleRaysPlain(tables, uniforms[0], uniforms[1], strata,
                              strataTile)
+      scatterU = uniforms[2:] if tables['scatter'] else None
     counters.append(traceHistogramPlain(
         tables, dict(power=histograms['power'][v],
                      counts=histograms['counts'][v]), cols, maxIntersections,
-        maxRayLength, distTol, powerTol, hitSlots))
+        maxRayLength, distTol, powerTol, hitSlots, scatterU))
   return torch.stack(counters)
 
 
 def traceBinsPlain(tables, columns, maxIntersections, maxRayLength, distTol,
-                   powerTol, hitSlots):
+                   powerTol, hitSlots, scatterUniforms=None):
   '''Plain version of the per-ray-bin kernel. Returns (ring, counters): ring
   a float32 (3, hitSlots, N) tensor — bin (-1 = empty), power, count.'''
   ring, segs, hitN = _bounceLoopPlain(
       tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
-      hitSlots, 'bins')
+      hitSlots, 'bins', scatterUniforms)
   return torch.stack(ring), _ringCounters(ring[0], segs, hitN, hitSlots)
 
 
 def traceRawPlain(tables, columns, maxIntersections, maxRayLength, distTol,
-                  powerTol, hitSlots):
+                  powerTol, hitSlots, scatterUniforms=None):
   '''Plain version of the raw-record kernel. Returns (ring, counters): ring
   a float32 (9, hitSlots, N) tensor — element (-1 = empty), power,
   isEntering, hit point (3), incoming direction (3).'''
   ring, segs, hitN = _bounceLoopPlain(
       tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
-      hitSlots, 'raw')
+      hitSlots, 'raw', scatterUniforms)
   return torch.stack(ring), _ringCounters(ring[0], segs, hitN, hitSlots)
 
 
@@ -1128,8 +1402,16 @@ def _checkInputs(tables, nRays, maxIntersections, hitSlots, seed, uniforms,
   '''Validation shared by the three wrappers. Returns (mode, rayIn, strata)
   of the kernel launch.'''
   dev = tables['table'].device
-  if sum(x is not None for x in (seed, uniforms, columns)) != 1:
-    raise ValueError('give exactly one of seed, uniforms, columns')
+  scatter = tables.get('scatter', False)
+  seedWithColumns = scatter and seed is not None and columns is not None \
+      and uniforms is None
+  if sum(x is not None for x in (seed, uniforms, columns)) != 1 \
+      and not seedWithColumns:
+    raise ValueError('give exactly one of seed, uniforms, columns (a scene '
+                     'with scatter traced from columns adds a seed)')
+  if scatter and columns is not None and seed is None:
+    raise ValueError('a scene with scatter traced from ray columns needs a '
+                     'seed: it keys the scatter draws')
   if not 1 <= hitSlots <= MAX_HIT_SLOTS:
     raise ValueError(f'hitSlots must be in [1, {MAX_HIT_SLOTS}]')
   if nRays <= 0 or maxIntersections <= 0:
@@ -1144,7 +1426,8 @@ def _checkInputs(tables, nRays, maxIntersections, hitSlots, seed, uniforms,
       and tables['samplerKind'] == SAMPLER_POINT:
     strata = tileStrata(nRays, int(strataTile))
   if uniforms is not None:
-    _checkTensor('uniforms', uniforms, dev, (samplerUniforms(tables), nRays))
+    _checkTensor('uniforms', uniforms, dev,
+                 (uniformRows(tables, maxIntersections), nRays))
     return MODE_UNIFORMS, uniforms, strata
   if columns is not None:
     _checkTensor('columns', columns, dev, (8, nRays))
@@ -1152,20 +1435,29 @@ def _checkInputs(tables, nRays, maxIntersections, hitSlots, seed, uniforms,
   return MODE_SEED, None, strata
 
 
-def _plainColumns(tables, nRays, seed, uniforms, columns, strata, strataTile):
-  '''The seven ray columns a plain version starts from, for CPU inputs in
-  any of the three modes (`seed` seeds a torch.Generator that draws the
-  sampler's uniform rows).'''
-  if columns is not None:
-    return tuple(columns[k] for k in range(8))
-  if uniforms is None:
-    dev = tables['table'].device
+def _plainColumns(tables, nRays, seed, uniforms, columns, strata, strataTile,
+                  maxIntersections):
+  '''(the ray columns a plain version starts from, its scatter uniform rows
+  or None) for CPU inputs in any of the three modes: `seed` seeds a
+  torch.Generator that draws the uniform rows (`uniformRows`; with
+  `columns`, the scatter rows only).'''
+  dev = tables['table'].device
+  scatter = tables.get('scatter', False)
+
+  def draw(rows):
     generator = torch.Generator(device=dev)
     generator.manual_seed(int(seed))
-    uniforms = torch.rand((samplerUniforms(tables), nRays),
-                          generator=generator, device=dev,
-                          dtype=torch.float32)
-  return samplerColumnsPlain(tables, uniforms, strata, strataTile)
+    return torch.rand((rows, nRays), generator=generator, device=dev,
+                      dtype=torch.float32)
+
+  if columns is not None:
+    return (tuple(columns[k] for k in range(8)),
+            draw(tables['scatterRows'] * maxIntersections) if scatter
+            else None)
+  if uniforms is None:
+    uniforms = draw(uniformRows(tables, maxIntersections))
+  cols = samplerColumnsPlain(tables, uniforms, strata, strataTile)
+  return cols, (uniforms[samplerUniforms(tables):] if scatter else None)
 
 
 def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
@@ -1182,10 +1474,14 @@ def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
   delta, so a bin goes on counting past 2**24.
 
   Exactly one input mode: `seed` (int; rays drawn in the kernel),
-  `uniforms` (float32 (`samplerUniforms(tables)`, nRays): the sampler's
-  draws — point source: first variable, phi; surface source: face, u, v,
-  theta, phi) or `columns` (float32 (8, nRays): ox, oy, oz, dx, dy, dz, pw,
-  wl). `strataTile` > 0 stratifies the point sampler's quantiles by
+  `uniforms` (float32 (`uniformRows(tables, maxIntersections)`, nRays): the
+  sampler's draws — point source: first variable, phi; surface source:
+  face, u, v, theta, phi — then a scene's scatter draws, bounce by bounce)
+  or `columns` (float32 (8, nRays): ox, oy, oz, dx, dy, dz, pw, wl; on a
+  scene with scatter together with a `seed`, which keys the scatter
+  draws). In seed mode the scatter draws of bounce b are Philox calls with
+  counter words 2 = 2 + b and 3 = 0 (the lobe) or 1 (MODIFY), apart from
+  the sampler's words 0 and 1. `strataTile` > 0 stratifies the point sampler's quantiles by
   ray-index cell (see `tileStrata`; ignored for `columns` and for a surface
   sampler, whose reference returns before its strata).
 
@@ -1203,10 +1499,11 @@ def traceHistogram(tables, histograms, nRays, maxIntersections, maxRayLength,
   for name in ('power', 'counts'):
     _checkTensor(f"histograms['{name}']", histograms[name], dev, (D, H, W))
   if dev.type == 'cpu':
-    cols = _plainColumns(tables, nRays, seed, uniforms, columns, strata,
-                         strataTile)
+    cols, scatterU = _plainColumns(tables, nRays, seed, uniforms, columns,
+                                   strata, strataTile, maxIntersections)
     return traceHistogramPlain(tables, histograms, cols, maxIntersections,
-                               maxRayLength, distTol, powerTol, hitSlots)
+                               maxRayLength, distTol, powerTol, hitSlots,
+                               scatterU)
   delta = tables.get('histDelta')
   if delta is None or tuple(delta.shape) != (2, D, H, W):
     delta = tables['histDelta'] = torch.empty((2, D, H, W),
@@ -1231,10 +1528,10 @@ def _traceRing(name, plain, nFields, tables, nRays, maxIntersections,
                                      hitSlots, seed, uniforms, columns,
                                      strataTile)
   if dev.type == 'cpu':
-    cols = _plainColumns(tables, nRays, seed, uniforms, columns, strata,
-                         strataTile)
+    cols, scatterU = _plainColumns(tables, nRays, seed, uniforms, columns,
+                                   strata, strataTile, maxIntersections)
     return plain(tables, cols, maxIntersections, maxRayLength, distTol,
-                 powerTol, hitSlots)
+                 powerTol, hitSlots, scatterU)
   ring = torch.empty((nFields, hitSlots, nRays), dtype=torch.float32,
                      device=dev)
   counters = _launchKernel(name, tables, (ring,), nRays, mode, rayIn,
@@ -1290,8 +1587,9 @@ def traceSweep(sweepTables, histograms, raysPerVariant, maxIntersections,
   variant) on the tables' device — no host synchronisation.
 
   The rays are the same in every variant (common random numbers): `seed`
-  draws by the ray's index WITHIN its variant, `uniforms` (2, raysPerVariant)
-  and `columns` (8, raysPerVariant) are shared, and `strataTile` stratifies
+  draws by the ray's index WITHIN its variant, `uniforms`
+  (`uniformRows`, raysPerVariant) and `columns` (8, raysPerVariant; with a
+  `seed` for the scatter draws of a scene with scatter) are shared, and `strataTile` stratifies
   by the within-variant index. Variant v of this call therefore gets what
   `traceHistogram` gives for nRays = raysPerVariant on variant v's table
   with the same inputs. `columns` are for sweeps whose source is the same in
@@ -1317,15 +1615,22 @@ def traceSweep(sweepTables, histograms, raysPerVariant, maxIntersections,
     _checkTensor(f"histograms['{name}']", histograms[name], dev,
                  (V, D, H, W))
   if dev.type == 'cpu':
+    scatterU = None
+    if mode == MODE_COLUMNS:
+      _cols, scatterU = _plainColumns(
+          variantTables(sweepTables, 0), raysPerVariant, seed, None, columns,
+          strata, strataTile, maxIntersections)
     if mode == MODE_SEED:
       generator = torch.Generator(device=dev)
       generator.manual_seed(int(seed))
-      uniforms = torch.rand((2, raysPerVariant), generator=generator,
+      uniforms = torch.rand((uniformRows(sweepTables, maxIntersections),
+                             raysPerVariant), generator=generator,
                             device=dev, dtype=torch.float32)
     return traceSweepPlain(sweepTables, histograms, raysPerVariant,
                            maxIntersections, maxRayLength, distTol, powerTol,
                            hitSlots, uniforms=uniforms, columns=columns,
-                           strata=strata, strataTile=strataTile)
+                           strata=strata, strataTile=strataTile,
+                           scatterUniforms=scatterU)
   return _launchKernel('traceSweep', sweepTables,
                        (histograms['power'], histograms['counts']),
                        raysPerVariant, mode, rayIn, int(seed or 0), strata,
@@ -1355,14 +1660,14 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
                          dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
-  ip = (ctypes.c_longlong * 22)(
+  ip = (ctypes.c_longlong * 23)(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
       int(strataTile) if strata is not None else 1, G1, G2, variants,
       histLen, int(tables['hasGrating']), int(tables['nStages']),
       int(tables['gate']), int(tables['dispOff']),
-      int(tables['samplerKind']))
+      int(tables['samplerKind']), int(tables.get('scatter', False)))
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
@@ -1413,8 +1718,12 @@ def _stepSetup(scene, histSpec, generator, raysPerStep, maxIntersections,
       gen = torch.Generator(device=dev)
       gen.manual_seed(int(seed))
     batch = generator(gen, raysPerStep)
-    return dict(columns=torch.stack([batch[k] for k in _COLUMN_KEYS])
-                .contiguous())
+    inputs = dict(columns=torch.stack([batch[k] for k in _COLUMN_KEYS])
+                  .contiguous())
+    if tables['scatter']:            # the key of the scatter draws
+      inputs['seed'] = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                         device=gen.device).item())
+    return inputs
 
   return tables, hitSlots, strataTile, inputsFor
 
@@ -1603,7 +1912,7 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
 # the facts of `packSweepTables` that a step is made for
 _SWEEP_STRUCTURE = ('nVariants', 'tableLen', 'nSurf', 'nElem', 'samplerOff',
                     'bins', 'nDet', 'anyMedium', 'hasGrating', 'gate',
-                    'dispOff')
+                    'dispOff', 'scatterConsts')
 
 
 def recordsFromRing(ring):

@@ -115,6 +115,7 @@ def test_eligibility_names_what_is_not_ported():
   dev, _info = scene.compile(device=None)
   assert cuda_trace.eligible(dev)
   assert cuda_trace.numSurfacesStatic(dev) == 5
+  # scatter tables the kernel cannot read (the reference's gather path)
   bad = dict(dev, scatter={})
   assert 'scatter' in cuda_trace.ineligibleReason(bad)
   cone = dict(dev, surfaces=dict(dev['surfaces'],
@@ -130,13 +131,15 @@ def test_eligibility_names_what_is_not_ported():
 
 
 def test_scene_compile_refuses_unported_features():
-  '''Stochastic scatter is still refused by name; per-source ignore lists
-  and sequential mode now compile into `surfaceMasks` and `seqMask`.'''
+  '''Stochastic scatter, per-source ignore lists and sequential mode now
+  compile: into `scatter` (tables the kernels take), `surfaceMasks` and
+  `seqMask`.'''
   ns = H.torchNs()
   scene2, _, _ = H.buildBench(ns, 'lensMirror')
   scene2.opticalObjects()[1].ReflectedProbabilityDensity = 'exp(-theta^2)'
-  with pytest.raises(NotImplementedError, match='scatter.*ROADMAP item B5'):
-    scene2.compile(device=None)
+  dev2, _info = scene2.compile(device=None)
+  assert dev2['scatter']['flags'].tolist()[1] == [True, False, False, False]
+  assert cuda_trace.eligible(dev2)
   scene, _, _ = H.buildBench(ns, 'lensMirror')
   scene.lightSources()[0].IgnoredOpticalElements = ['Lens']
   dev, info = scene.compile(device=None)

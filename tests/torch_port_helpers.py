@@ -475,6 +475,213 @@ def buildSurfaceSensorScene(ns):
 
 
 # the surface-source scenes: name -> scene function
+# the reference's scatter throughput scenes
+# (tools/scene_throughput.sceneDiffuseScatter, sceneConditionedDirac,
+# sceneCoupledScatter): (density, theta domain, source theta domain)
+SCATTER_DENSITIES = {
+    'diffuse': ('exp(-theta^2/0.02)', '0, pi/3', '0, 0.05'),
+    'dirac': ('DiracDelta(theta-theta_refl)'
+              ' + 5*exp(-(theta-theta_in)**2/0.02)', '0, pi/2', '0, 0.3'),
+    'coupled': ('exp(-(theta*cos(phi))**2/0.003 - (theta*sin(phi))**2/0.05)',
+                '0, pi/3', '0, 0.05'),
+    # the ideal reflection plus a floor (pwpoly and one event), and a lobe
+    # that tilts with the incidence angle (a pwpoly2d; analytic in sympy, so
+    # its 33 rows compile in seconds where a Gaussian about theta_in takes
+    # ~40 s)
+    'diracFloor': ('DiracDelta(theta-theta_refl) + 0.1', '0, pi/2',
+                   '0, 0.3'),
+    'conditioned': ('1 + theta_in*theta', '0, pi/2', '0, 0.3'),
+}
+SCATTER_BOUNDS = (-100., 100., -100., 100.)
+
+
+def buildScatterScene(ns, name, diffuserZ=50.):
+  '''The reference's scatter throughput scene (tools/scene_throughput
+  ._scatterScene) with the density `name` of SCATTER_DENSITIES: a point source at z = 1e-3 onto a
+  scattering mirror disc (radius 50 mm) at z = `diffuserZ`, which throws
+  the light back onto an absorbing 1000 x 1000 mm detector at z = 0; 4
+  intersections.'''
+  density, thetaDom, srcTheta = SCATTER_DENSITIES[name]
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='scat_tp')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Diffuser', Reflectivity=1.0,
+      ReflectedProbabilityDensity=density,
+      PowerThetaDomain=thetaDom, PowerPhiDomain='0, 2*pi',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=50., orient=-1)],
+      placements=[T.translation(0, 0, float(diffuserZ))]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(500., 500.))],
+      placements=[T.translation(0, 0, 0)]))
+  scene.addSource(ns.PointSource(Label='Src',
+                                 PowerDensity='exp(-theta^2/0.01)',
+                                 ThetaDomain=srcTheta,
+                                 ThetaResolutionNumericMode='2e3',
+                                 placement=T.translation(0, 0, 1e-3)))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=4)
+  return scene, SCATTER_BOUNDS, 4
+
+
+def scatterStats(hist, hits, nRays, bounds=SCATTER_BOUNDS):
+  '''What the scatter scenes are held to across packages and devices: the
+  share of rays binned on the detector (`hits` of `nRays`), their mean
+  power, and the first two moments of r^2 = x^2 + y^2 over the binned hits
+  (mm^2, at the bin centres of the (1, H, W) histograms over `bounds`).'''
+  host = lambda x: np.asarray(x.cpu() if hasattr(x, 'cpu') else x,
+                              np.float64)
+  c, p = host(hist['counts'])[0], host(hist['power'])[0]
+  x0, x1, y0, y1 = bounds
+  Hb, Wb = c.shape
+  cx = x0 + (np.arange(Wb) + .5) * ((x1 - x0) / Wb)
+  cy = y0 + (np.arange(Hb) + .5) * ((y1 - y0) / Hb)
+  r2 = cx[None, :] ** 2 + cy[:, None] ** 2
+  n = float(c.sum())
+  return dict(share=hits / nRays, power=float(p.sum()) / n,
+              r2=float((c * r2).sum()) / n,
+              r4=float((c * r2 ** 2).sum()) / n, binned=n)
+
+
+def scatterStatsGate(stats, ref, nRays, refRays):
+  '''(whether `scatterStats` of a run of `nRays` agree with the JAX
+  package's `ref` of `refRays`, the sigmas): the share and the mean of r^2
+  within 3 sigma of the two samples (a share of 1 has no binomial spread:
+  one ray of the smaller sample is allowed), the mean power (1 for every
+  binned hit of these scenes) within 1e-6.'''
+  p = ref['share']
+  sigma = max(np.sqrt(p * (1 - p) / refRays + p * (1 - p) / nRays),
+              1. / min(refRays, nRays))
+  sigmaR2 = np.sqrt((ref['r4'] - ref['r2'] ** 2) / (p * refRays)
+                    + (stats['r4'] - stats['r2'] ** 2) / stats['binned'])
+  ok = (abs(stats['share'] - p) <= 3 * sigma
+        and abs(stats['power'] - ref['power']) <= 1e-6
+        and abs(stats['r2'] - ref['r2']) <= 3 * sigmaR2)
+  return ok, dict(sigmaShare=float(sigma), sigmaR2=float(sigmaR2))
+
+
+def assertScatterStatsAgree(stats, ref, nRays, refRays):
+  ok, sigmas = scatterStatsGate(stats, ref, nRays, refRays)
+  assert ok, (stats, ref, sigmas)
+
+
+def scatterStatsOfReference(name, n, scene=None, seed=0):
+  '''`scatterStats` of the JAX package's fused step (seed `seed`, `n`
+  rays, 4 intersections, 128 x 128 bins over SCATTER_BOUNDS) on the
+  scatter scene `name` (or the JAX `scene` given, built as that one).'''
+  import jax
+  from optics_design_workbench_tpu.tracing import fused
+  if scene is None:
+    scene, _b, _m = buildScatterScene(jaxNs(), name)
+  device, info = scene.compile()
+  device['powerTol'] = 1e-6
+  histSpec = fused.makeHistogramSpec(device, info, bounds=SCATTER_BOUNDS,
+                                     bins=(128, 128))
+  step = fused.makeFusedStep(
+      device, scene.lightSources()[0].deviceGenerator(), histSpec,
+      raysPerStep=n, maxIntersections=4,
+      maxRayLength=scene.activeSimulationSettings().maxRayLength(),
+      distTol=1e-4)
+  hist, counters = step(jax.random.PRNGKey(seed),
+                        fused.initHistograms(histSpec))
+  return scatterStats(hist, int(counters['hits']), n)
+
+
+def portScatterStats(jaxScene, n, seed=5):
+  '''`scatterStats` of the port's fused step (`makeTraceStep` in seed
+  mode: its own draws, the plain version on the CPU) on the JAX scene's
+  arrays carried over by `convert`, its scatter tables included (so the
+  port compiles no sympy of its own).'''
+  from optics_design_workbench_tpu_torch import convert
+  from optics_design_workbench_tpu_torch.ops import cuda_trace
+  from optics_design_workbench_tpu_torch.tracing import fused
+  deviceNp, histNp, spec = referenceArrays(jaxScene, SCATTER_BOUNDS,
+                                           bins=(128, 128))
+  scene, histSpec = convert._sceneAndSpec(deviceNp, histNp)
+  step = cuda_trace.makeTraceStep(
+      scene, histSpec, None, raysPerStep=n, maxIntersections=4,
+      maxRayLength=jaxScene.activeSimulationSettings().maxRayLength(),
+      distTol=1e-4, sampler=convert.samplerSpecFromReference(spec),
+      device='cpu')
+  hist, c = step(seed, fused.initHistograms(histSpec, device='cpu'))
+  return scatterStats(hist, int(c['hits']), n)
+
+
+def buildScatterKindsScene(ns):
+  '''The scatter kinds no reference scene reaches: a collimated beam
+  (radius 8 mm) through a plane-parallel glass slab (n = 1.5, faces at
+  z = 20 and 26, radius 25 mm) whose RefractedProbabilityDensity scatters
+  on entry (REFRACT_ENTER) and exit (REFRACT_EXIT), then onto a 45 deg fold
+  mirror at z = 60 (radius 40 mm) whose RayModificationProbabilityDensity
+  turns the reflected ray (MODIFY), then onto an absorbing detector at
+  x = -60; 5 intersections. theta-only densities (one pwpoly each).'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='scat_kinds')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Lens', Label='Slab', RefractiveIndex=1.5,
+      RefractedProbabilityDensity='exp(-theta^2/0.002)',
+      PowerThetaDomain='0, 0.3', PowerPhiDomain='0, 2*pi',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=25., orient=-1),
+                S.plane(T.translation(0, 0, 6), elem=0, radius=25.,
+                        orient=+1)],
+      placements=[T.translation(0, 0, 20)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Fold', Reflectivity=0.95,
+      RayModificationProbabilityDensity='exp(-theta^2/0.001)',
+      ModifyThetaDomain='0, 0.2', ModifyPhiDomain='0, 2*pi',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=40.)],
+      placements=[T.compose(T.translation(0, 0, 60),
+                            T.rotation((0, 1, 0), 45))]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(60., 60.))],
+      placements=[T.compose(T.translation(-60, 0, 60),
+                            T.rotation((0, 1, 0), 90))]))
+  scene.addSource(ns.PointSource(Label='Source',
+                                 PowerDensity='exp(-r^2/20)',
+                                 FocalLength='inf', RadiusDomain='0, 8',
+                                 RadiusResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=5)
+  return scene, (-60., 60., -60., 60.), 5
+
+
+def buildManySurfacesScene(ns):
+  '''More surfaces and elements than the kernels held before (ROADMAP C.2):
+  a collimated beam (radius 16 mm) onto 20 small glass slabs (n = 1.5,
+  radius 3 mm, 3 mm thick: front disc, back disc and barrel) on a 5 x 4
+  grid at z = 20, an absorbing baffle of 11 discs (radius 1.5 mm, one
+  element under 11 placements) at z = 40, and an absorbing detector at
+  z = 100: 72 surfaces, 22 elements; 5 intersections.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='many_surfaces')
+  k = 0
+  for x in (-12., -6., 0., 6., 12.):
+    for y in (-9., -3., 3., 9.):
+      scene.addOpticalGroup(ns.OpticalGroup(
+          OpticalType='Lens', Label=f'Slab{k}', RefractiveIndex=1.5,
+          surfaces=[S.plane(np.eye(4), elem=0, radius=3., orient=-1),
+                    S.plane(T.translation(0, 0, 3), elem=0, radius=3.,
+                            orient=+1),
+                    S.cylinder(T.translation(0, 0, 1.5), elem=0, radius=3.,
+                               zRange=(-1.5, 1.5), orient=+1)],
+          placements=[T.translation(x, y, 20)]))
+      k += 1
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Baffle', RecordHits=False,
+      surfaces=[S.plane(np.eye(4), elem=0, radius=1.5)],
+      placements=[T.translation(-15. + 3. * j, 1.5 * j - 7.5, 40)
+                  for j in range(11)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(60., 60.))],
+      placements=[T.translation(0, 0, 100)]))
+  scene.addSource(ns.PointSource(Label='Source',
+                                 PowerDensity='exp(-r^2/200)',
+                                 FocalLength='inf', RadiusDomain='0, 16',
+                                 RadiusResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=5)
+  return scene, (-60., 60., -60., 60.), 5
+
+
 SURFACE_SCENES = {
     'surfaceEmitter': buildSurfaceEmitterScene,
     'surfaceBench': buildSurfaceBench,
@@ -505,6 +712,28 @@ B4_SCENES = {
     'seqBall': (buildSequentialBallScene, 0),
     'maskedSource': (buildMaskedSourcesScene, 1),
 }
+
+
+def compileOnce(jaxScene):
+  '''Make the JAX scene's `compile` run once: later calls, with either
+  `devicePut`, return shallow copies of the first result (with host numpy
+  leaves for devicePut=False). The JAX package keeps no cache of its
+  scatter tables, and a density that mentions theta_in costs it tens of
+  seconds of sympy per compile. Returns the scene.'''
+  import jax
+  first = jaxScene.compile
+  memo = []
+
+  def compile(devicePut=True):
+    if not memo:
+      memo.append(first())
+    device, info = memo[0]
+    if not devicePut:
+      device = jax.tree_util.tree_map(np.asarray, device)
+    return dict(device), info
+
+  jaxScene.compile = compile
+  return jaxScene
 
 
 def _jaxSceneFor(jaxScene, source, devicePut=True):
@@ -580,7 +809,8 @@ def runReferenceColumns(jaxScene, colsNp, bounds, maxIntersections,
 
 
 def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
-                         seed=77, bins=BINS, source=0, prefill=None):
+                         seed=77, bins=BINS, source=0, prefill=None,
+                         tile=TILE):
   '''Mode (b) on the JAX side: in-kernel sampler of light source `source`
   fed uniforms through the `uniformProvider='input'` seam, onto fresh
   histograms (or histograms whose every bin holds `prefill`). Returns the
@@ -596,7 +826,7 @@ def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
   histSpec = fused.makeHistogramSpec(device, info, bounds=bounds, bins=bins)
   step = pallas_trace.makePallasTraceStep(
       device, histSpec, src.deviceColumnsGenerator(), sampler=spec,
-      uniformProvider='input', interpret=True, tile=TILE, raysPerStep=n,
+      uniformProvider='input', interpret=True, tile=tile, raysPerStep=n,
       maxIntersections=maxIntersections, maxRayLength=MAX_RAY_LENGTH,
       distTol=DIST_TOL)
   key = jax.random.PRNGKey(seed)
@@ -604,7 +834,9 @@ def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
   if prefill is not None:
     hist = {k: v + prefill for k, v in hist.items()}
   res = _result(*step(key, hist))
-  return res, referenceUniforms(key, spec, n)
+  return res, referenceUniforms(key, spec, n,
+                                referenceUniformRows(device, spec,
+                                                     maxIntersections))
 
 
 def samplerDraws(spec):
@@ -614,18 +846,34 @@ def samplerDraws(spec):
   return 5 if spec.get('type') == 'surface' else 2
 
 
-def referenceUniforms(key, spec, n):
-  '''The very uniforms a JAX step with `uniformProvider='input'` and no
-  in-kernel scatter draws from `key`, as a (draws, n) numpy array in ray
-  order.'''
+def referenceUniformRows(device, spec, maxIntersections):
+  '''Rows of the JAX kernel's uniform seam on the compiled scene `device`:
+  the sampler's draws, then per bounce 2 (or 4, with discrete events) for
+  the scatter lobe and as many for MODIFY (`makePallasTraceStep`).'''
+  from optics_design_workbench_tpu.tracing.batch_tracer import \
+      scatterConstants
+  consts = scatterConstants(device) or ()
+  perBounce = lambda cs: (0 if not cs else
+                          2 + (2 if any(c[4] or c[5] for c in cs) else 0))
+  lobe = [c for c in consts if c[1] in (0, 1, 2)]
+  mods = [c for c in consts if c[1] == 3]
+  return samplerDraws(spec) + (perBounce(lobe) + perBounce(mods)) \
+      * maxIntersections
+
+
+def referenceUniforms(key, spec, n, rows=None):
+  '''The very uniforms a JAX step with `uniformProvider='input'` draws
+  from `key` (`rows` of them per ray: by default the sampler's, for a scene
+  without in-kernel scatter), as a (rows, n) numpy array in ray order.'''
   import jax
-  k = samplerDraws(spec)
+  k = samplerDraws(spec) if rows is None else rows
   us = jax.random.uniform(jax.random.fold_in(key, 0x0177), (k, n // 128, 128))
   return np.array(us).reshape(k, n)
 
 
 def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
-                    colsNp=None, n=N_RAYS, seed=77, bins=BINS, source=0):
+                    colsNp=None, n=N_RAYS, seed=77, bins=BINS, source=0,
+                    tile=TILE):
   '''The JAX package's raw-record step (`makePallasRawStep`, Mosaic
   interpret mode). With `colsNp` (mode (c)) a test-local generator feeds it
   the numpy ray columns; without (mode (b)) its in-kernel sampler is fed
@@ -641,7 +889,7 @@ def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
   histSpec = fused.makeHistogramSpec(device, info, bounds=bounds, bins=bins)
   kw = dict(raysPerStep=n, maxIntersections=maxIntersections,
             maxRayLength=MAX_RAY_LENGTH, distTol=DIST_TOL, hitSlots=hitSlots,
-            interpret=True, tile=TILE)
+            interpret=True, tile=tile)
   key = jax.random.PRNGKey(seed)
   us = None
   if colsNp is not None:
@@ -654,7 +902,9 @@ def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
     step = pallas_trace.makePallasRawStep(
         device, histSpec, src.deviceColumnsGenerator(), sampler=spec,
         uniformProvider='input', **kw)
-    us = referenceUniforms(key, spec, n)
+    us = referenceUniforms(key, spec, n,
+                           referenceUniformRows(device, spec,
+                                                maxIntersections))
   records, counters = step(key)
   return ({k: np.asarray(v) for k, v in records.items()},
           {k: int(v) for k, v in counters.items()}, us,
@@ -668,39 +918,46 @@ def runB4Case(name, n=N_RAYS):
   return runUniformsCase(build, source, n)
 
 
-def runUniformsCase(build, source=0, n=N_RAYS):
+def runUniformsCase(build, source=0, n=N_RAYS, tile=TILE, maxI=None):
   '''The scene `build(ns)` makes through both packages in mode (b): the JAX
   Pallas kernel in interpret mode (histogram step and raw-record step, each
-  fed the uniforms it draws for its `uniformProvider='input'` seam) and the
-  port's plain versions on those very uniforms, on the traced source's own
-  scene (its `surfMask` included). Returns dict(hist=(ref, port),
-  raw=((records, counters) of the reference, of the port), tables).'''
+  fed the uniforms it draws for its `uniformProvider='input'` seam; `tile`
+  rays a grid step) and the port's plain versions on those very uniforms,
+  on the traced source's own scene (its `surfMask` included; a scene's
+  scatter tables carried over from the JAX package), `maxI` bounces (by
+  default the scene's), strata by `tile` (the reference's by-tile
+  strata). The JAX scene compiles once (`compileOnce`). Returns
+  dict(hist=(ref, port), raw=((records, counters) of the reference, of the
+  port), tables, uniforms (the histogram step's)).'''
   import torch
   from optics_design_workbench_tpu_torch import convert
   from optics_design_workbench_tpu_torch.ops import cuda_trace
   from optics_design_workbench_tpu_torch.tracing import fused as torchFused
-  scene, bounds, maxI = build(jaxNs())
+  scene, bounds, sceneMaxI = build(jaxNs())
+  maxI = sceneMaxI if maxI is None else maxI
+  compileOnce(scene)
   deviceNp, histNp, spec = referenceArrays(scene, bounds, source=source)
   tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,
                                       device='cpu')
-  ref, us = runReferenceUniforms(scene, bounds, maxI, n=n, source=source)
+  ref, us = runReferenceUniforms(scene, bounds, maxI, n=n, source=source,
+                                 tile=tile)
   hist = torchFused.initHistograms(histNp, device='cpu')
   c = cuda_trace.traceHistogram(
       tables, hist, n, maxI, MAX_RAY_LENGTH, DIST_TOL, hitSlots=1,
-      uniforms=torch.as_tensor(us), strataTile=TILE)
+      uniforms=torch.as_tensor(us), strataTile=tile)
   port = dict(counts=hist['counts'].numpy(), power=hist['power'].numpy(),
               counters=dict(segments=int(c[0]), hits=int(c[1]),
                             hitOverflow=int(c[2])))
   hitSlots = cuda_trace.autoHitSlots(deviceNp, histNp, maxI)
   refR, refRC, usR, _labels = runReferenceRaw(scene, bounds, maxI, n=n,
-                                              source=source)
+                                              source=source, tile=tile)
   ring, cR = cuda_trace.traceRaw(tables, n, maxI, MAX_RAY_LENGTH, DIST_TOL,
                                  hitSlots=hitSlots,
                                  uniforms=torch.as_tensor(usR))
   portR = convert.recordsToNumpy(cuda_trace.recordsFromRing(ring))
   portRC = dict(segments=int(cR[0]), hits=int(cR[1]), hitOverflow=int(cR[2]))
   return dict(hist=(ref, port), raw=((refR, refRC), (portR, portRC)),
-              tables=tables, maxI=maxI)
+              tables=tables, maxI=maxI, uniforms=us)
 
 
 def assertHistogramsMatch(case):
@@ -715,9 +972,10 @@ def assertHistogramsMatch(case):
                              rtol=1e-2)
 
 
-def assertRawRowsMatch(case, atol=1e-4):
+def assertRawRowsMatch(case, atol=1e-4, looseAtol=None, maxLoose=0):
   '''Raw mode: counters equal, rows equal ray by ray and slot by slot
-  (element, isEntering exactly; point, direction, power within `atol`).'''
+  (element, isEntering exactly; point, direction, power within `atol`, or
+  within `looseAtol` for at most `maxLoose` rows).'''
   (refR, refC), (portR, portC) = case['raw']
   for k in ('segments', 'hits', 'hitOverflow'):
     assert portC[k] == refC[k], k
@@ -725,9 +983,14 @@ def assertRawRowsMatch(case, atol=1e-4):
   np.testing.assert_array_equal(portR['recordHit'], m)
   for k in ('hitElem', 'isEntering'):
     np.testing.assert_array_equal(portR[k][m], refR[k][m], err_msg=k)
+  loose = np.zeros(int(m.sum()), bool)
   for k in ('point', 'direction', 'power'):
-    np.testing.assert_allclose(portR[k][m], refR[k][m], rtol=0., atol=atol,
+    diff = np.abs(portR[k][m] - refR[k][m]).reshape(int(m.sum()), -1)
+    loose |= (diff > atol).any(axis=1)
+    np.testing.assert_allclose(portR[k][m], refR[k][m], rtol=0.,
+                               atol=atol if looseAtol is None else looseAtol,
                                err_msg=k)
+  assert int(loose.sum()) <= maxLoose, (int(loose.sum()), maxLoose)
 
 
 def hitRowset(records):
