@@ -150,6 +150,47 @@ REF_SCATTER = {
                     r4=34770.715683407616),
 }
 
+# the other surface kinds and trims (phase 9, B2 / B3): the reference's
+# torus-mirror and mesh-fold throughput scenes, the two slotted mirrors of
+# its trim tests, the kinds scene and the emitter of those kinds; name ->
+# (benchmarks scene function, intersections, histogram bounds); the torus's
+# height sweep; a 30-stage sequential scene (ROADMAP C.2)
+GEOM_SCENES = {
+    'torus': ('buildTorusMirrorScene', 3, (-200., 200., -200., 200.)),
+    'meshFold': ('buildMeshFoldScene', 3, (-300., 300., -300., 300.)),
+    'bitmapSlot': ('buildBitmapSlotScene', 4, (-300., 300., -300., 300.)),
+    'primSlot': ('buildPrimSlotScene', 4, (-300., 300., -300., 300.)),
+    'kinds': ('buildKindsScene', 8, (-300., 300., -300., 300.)),
+    'emitter': ('buildEmitterKindsScene', 4, (-200., 200., -200., 200.)),
+}
+TORUS_HEIGHTS = tuple(np.linspace(70., 90., 11))
+TORUS_SWEEP_RAYS = 1 << 20
+TORUS_RAW_ITERATIONS = 4          # of N_RAW_ITERATION rays
+TORUS_HIST_ITERATIONS = 8         # of N_MAIN rays
+MANY_STAGES = 30
+# The JAX package's fused step on the torus-mirror scene at 65,536 rays,
+# seed 0 (tests/test_torch_torus_mesh.py computes them and holds them equal
+# to these): the share of rays binned on the detector, the mean binned
+# power, and the first two moments of r^2 over the binned hits.
+REF_TORUS_RAYS = 1 << 16
+REF_TORUS = dict(share=0.57965087890625, power=1.0, r2=6995.6086050200065,
+                 r4=154135922.72938535)
+# registers of the instances without B2 / B3 (output mode, sweep, B4,
+# surface sampler, scatter) -> count: as built before B2 / B3 (PERF.md §6),
+# but for the histogram kernel's B4 instances, whose stage gate reads the
+# stage words of ROADMAP C.2 (58 before)
+OLD_REGISTERS = {
+    (0, 0, 0, 0, 0): 40, (1, 0, 0, 0, 0): 42, (2, 0, 0, 0, 0): 40,
+    (0, 1, 0, 0, 0): 40, (0, 0, 0, 1, 0): 40, (1, 0, 0, 1, 0): 44,
+    (2, 0, 0, 1, 0): 40,
+    (0, 0, 1, 0, 0): 56, (1, 0, 1, 0, 0): 57, (2, 0, 1, 0, 0): 54,
+    (0, 1, 1, 0, 0): 56, (0, 0, 1, 1, 0): 56, (1, 0, 1, 1, 0): 57,
+    (2, 0, 1, 1, 0): 54,
+    (0, 0, 1, 0, 1): 79, (0, 0, 1, 1, 1): 64, (1, 0, 1, 0, 1): 64,
+    (1, 0, 1, 1, 1): 64, (2, 0, 1, 0, 1): 79, (2, 0, 1, 1, 1): 64,
+    (0, 1, 1, 0, 1): 64,
+}
+
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
 PEAK_F32_FLOPS = 67e12
@@ -159,7 +200,26 @@ PEAK_BYTES = 3.35e12
 # csrc/trace_kernel.cu (a multiply, add, compare, select, sqrt, divide or
 # rsqrt counts as one): ray into the surface frame 33, then per kind the
 # root / trim tests; 6 for the two argmin trackers.
-FLOPS_INTERSECT = {0: 33 + 12 + 6, 1: 33 + 42 + 6, 2: 33 + 35 + 6}
+FLOPS_INTERSECT = {0: 33 + 12 + 6, 1: 33 + 42 + 6, 2: 33 + 35 + 6,
+                   # B2, counted the same way from `intersectGeom`: the
+                   # asphere's sphere seed (31), 16 Newton steps (54 each)
+                   # and its final test (31); Moeller-Trumbore; the cone's
+                   # and the quadric's quadratic with their root tests; the
+                   # torus's set-up (67), depressed coefficients (22), 28
+                   # steps of the resolvent cubic (20 each), the two
+                   # quadratics (36) and per candidate 3 polish steps (21
+                   # each) and the residual / tube-angle test (48, the
+                   # polynomial atan2 included)
+                   3: 33 + 31 + 16 * 54 + 31 + 6, 4: 33 + 53 + 6,
+                   5: 33 + 62 + 6, 6: 33 + 78 + 6,
+                   7: 33 + 67 + 22 + 28 * 20 + 36 + 4 * (3 * 21 + 48) + 6}
+# B3 per root tested: the polynomial atan2 and the pixel lookup of a bitmap
+# trim; one hole primitive
+FLOPS_BITMAP = 25 + 12
+FLOPS_PRIM = 10
+# the surface sampler's faces of B2: the closed form of a cone face, an
+# asphere's marginal (~80) and sag / slope, a torus's marginal and cos / sin
+FLOPS_GEOM_FACE = {3: 80 + 45, 4: 12, 5: 20, 7: 80 + 10}
 FLOPS_WINNER = 52         # hit point, local point, normal, world normal
 FLOPS_PHYSICS = 80        # Beer-Lambert, mirror, Snell / TIR, record, update
 FLOPS_SAMPLER = 160       # Philox rounds, two marginals, sin / cos, placement
@@ -322,9 +382,9 @@ def inputModes(tables, us, strataTile, colsT):
 
 
 def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
-                     tent=False, source=0):
+                     tent=False, source=0, budget=COUNT_BUDGET):
   '''Kernel vs plain version on the card, modes (b) and (c), same inputs:
-  counters equal, count bins within COUNT_BUDGET rays, power POWER_RTOL.'''
+  counters equal, count bins within `budget` rays, power POWER_RTOL.'''
   sceneNp, histSpec, tables = buildTables(scene, bounds, bins, tent=tent,
                                           source=source)
   if hitSlots is None:
@@ -347,9 +407,9 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
       raise AssertionError(f'{label} mode ({mode}): counters differ: kernel '
                            f'{cK.tolist()} plain {cP.tolist()}')
     moved = float((hK['counts'] - hP['counts']).abs().sum())
-    if moved > 2 * COUNT_BUDGET:
+    if moved > 2 * budget:
       raise AssertionError(f'{label} mode ({mode}): {moved / 2} rays changed '
-                           f'bins (budget {COUNT_BUDGET})')
+                           f'bins (budget {budget})')
     same = (hK['counts'] == hP['counts']) & (hP['counts'] > 0)
     pK, pP = hK['power'][same], hP['power'][same]
     if not torch.allclose(pK, pP, rtol=POWER_RTOL, atol=0.):
@@ -367,11 +427,11 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
 
 
 def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
-                          source=0):
+                          source=0, budget=COUNT_BUDGET, rawAtol=RAW_ATOL):
   '''The per-ray kernels vs their plain versions on the card, modes (b) and
   (c), same inputs. traceRaw: counters, element, isEntering (hence
   recordHit) equal element for element; power, point, direction within
-  RAW_ATOL. traceBins: counters equal, at most COUNT_BUDGET rays in another
+  `rawAtol`. traceBins: counters equal, at most `budget` rays in another
   bin, power and count equal where the bin is. Then traceBins + float64
   binning against traceHistogram on the same uniforms: counts equal bin for
   bin, power POWER_RTOL. Returns the worst absolute error per kernel.'''
@@ -405,14 +465,14 @@ def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
         raise AssertionError(f'{label} traceRaw mode ({mode}): {what} '
                              f'differs from the plain version')
     errRaw = float((rawK - rawP).abs().max())
-    if not errRaw <= RAW_ATOL:
+    if not errRaw <= rawAtol:
       raise AssertionError(f'{label} traceRaw mode ({mode}): records differ '
-                           f'by {errRaw} (atol {RAW_ATOL})')
+                           f'by {errRaw} (atol {rawAtol})')
     sameBin = binsK[0] == binsP[0]
     moved = int((~sameBin).sum())
-    if moved > COUNT_BUDGET:
+    if moved > budget:
       raise AssertionError(f'{label} traceBins mode ({mode}): {moved} rays '
-                           f'in another bin (budget {COUNT_BUDGET})')
+                           f'in another bin (budget {budget})')
     errBins = float(((binsK[1:] - binsP[1:]).abs() * sameBin).max())
     if errBins != 0.:
       raise AssertionError(f'{label} traceBins mode ({mode}): power / count '
@@ -503,6 +563,11 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
   kinds = [r['kind'] for r in rows]
   flopsPerSegment = (sum(FLOPS_INTERSECT[k] for k in kinds) + FLOPS_WINNER
                      + FLOPS_PHYSICS)
+  for r in rows:                       # the trims of B3, both roots tested
+    roots = 1 if r['kind'] == 0 else 2
+    if r['trim0'] == 2.:
+      flopsPerSegment += roots * FLOPS_BITMAP
+    flopsPerSegment += roots * FLOPS_PRIM * len(r.get('holePrims', ()))
   if tables['gate']:
     flopsPerSegment += FLOPS_STAGE_GATE * len(kinds)
   if tables['dispOff'] >= 0:
@@ -511,8 +576,9 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
     flopsPerSegment += FLOPS_SCATTER_RENORM
   sampler = FLOPS_SAMPLER
   if tables.get('samplerKind') == cuda_trace.SAMPLER_SURFACE:
-    sampler = (FLOPS_SURFACE_SAMPLER
-               + FLOPS_FACE_SCAN * len(tables['samplerSpec']['faces']))
+    faces = tables['samplerSpec']['faces']
+    sampler = (FLOPS_SURFACE_SAMPLER + FLOPS_FACE_SCAN * len(faces)
+               + max(FLOPS_GEOM_FACE.get(f['kind'], 0) for f in faces))
   flops = (segmentsPerStep * flopsPerSegment + nRays * sampler
            + gratingPasses * FLOPS_GRATING)
   if scatterPasses:
@@ -525,7 +591,7 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
 
 
 def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
-                spectro, surface=None, scatter=None):
+                spectro, surface=None, scatter=None, geom=None):
   '''One entry of the `kernels` line: the main-path numbers (lens-and-mirror
   scene; the examples/3 sweep for the sweep kernel) and, beside them, the
   kernel on the spectrometer (`spectro`: its launches on that path, ms and
@@ -535,8 +601,10 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
   for the sweep kernel, which samples point sources only), and on the
   scatter scenes (`scatter`: launches on the scatter path, ms and bound on
   the diffuse scene, per-scene ms, and the worst error over the scatter
-  scenes and the scene of many surfaces). `max_abs_err` is the worst of
-  all.'''
+  scenes and the scene of many surfaces), and on the scenes of the other
+  surface kinds and trims (`geom`: launches on the torus-mirror path, ms
+  and bound on the torus scene, per-scene ms, the worst error over phase
+  9's checks). `max_abs_err` is the worst of all.'''
   boundOps, boundBytes, _ = bounds
   spOps, spBytes, _ = spectro['bounds']
   surf = dict(surface_launches=None, surface_ms=None, surface_bound_ms=None,
@@ -554,6 +622,12 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
               scatter_bound_by='operations' if sOps >= sBytes else 'bytes',
               scatter_ms_by_scene=scatter.get('byScene'),
               scatter_max_abs_err=scatter['err'])
+  gOps, gBytes, _ = geom['bounds']
+  geo = dict(geom_launches=geom['launches'], geom_ms=geom['ms'],
+             geom_bound_ms=max(gOps, gBytes),
+             geom_bound_by='operations' if gOps >= gBytes else 'bytes',
+             geom_ms_by_scene=geom.get('byScene'),
+             geom_max_abs_err=geom['err'])
   return dict(name=name, route='cuda',
               source=f'optics_design_workbench_tpu_torch/csrc/{source}',
               replaces=f'optics_design_workbench_tpu/ops/pallas_trace.py:'
@@ -561,14 +635,15 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
               launches=launches,
               max_abs_err=max(err, spectro['err'],
                               surf['surface_max_abs_err'] or 0.,
-                              scatter['err']), ms=ms,
+                              scatter['err'], geom['err']), ms=ms,
               plain_ms=plainMs, bound_ms=max(boundOps, boundBytes),
               bound_by='operations' if boundOps >= boundBytes else 'bytes',
               library_ms=None, lens_mirror_max_abs_err=err,
               b4_max_abs_err=spectro['err'],
               spectrometer_launches=spectro['launches'],
               spectrometer_ms=spectro['ms'],
-              spectrometer_bound_ms=max(spOps, spBytes), **surf, **scat)
+              spectrometer_bound_ms=max(spOps, spBytes), **surf, **scat,
+              **geo)
 
 
 def timeBenchStep(histPrecision, maxI, **benchKw):
@@ -841,7 +916,7 @@ def sweepTablesFor(scenes, bounds, source=0):
 
 
 def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo,
-                          source=0):
+                          source=0, budget=COUNT_BUDGET):
   '''The sweep kernel vs its plain version on the card, same uniforms (and,
   where the source is the same in every variant, the same ray columns):
   per-variant counters equal, at most COUNT_BUDGET rays per variant in
@@ -865,11 +940,12 @@ def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo,
     colsT = rayColumns(tables0, cols)
     modes.append(('c', dict(columns=colsT), dict(columns=colsT)))
   return max(holdSweepAgainstPlain(label, mode, tables, n, inputs,
-                                   plainInputs, kw)[0]
+                                   plainInputs, kw, budget)[0]
              for mode, inputs, plainInputs in modes)
 
 
-def holdSweepAgainstPlain(label, mode, tables, n, inputs, plainInputs, kw):
+def holdSweepAgainstPlain(label, mode, tables, n, inputs, plainInputs, kw,
+                          budget=COUNT_BUDGET):
   '''One launch of the sweep kernel and one run of its plain version on the
   same inputs, each into fresh histograms; raises where they disagree.
   Returns (worst absolute power error, the plain version's ms).'''
@@ -889,10 +965,10 @@ def holdSweepAgainstPlain(label, mode, tables, n, inputs, plainInputs, kw):
     raise AssertionError(f'{label} sweep mode ({mode}): counters differ: '
                          f'kernel {cK.tolist()} plain {cP.tolist()}')
   moved = (hK['counts'] - hP['counts']).abs().sum(dim=(1, 2, 3)) / 2
-  if float(moved.max()) > COUNT_BUDGET:
+  if float(moved.max()) > budget:
     raise AssertionError(f'{label} sweep mode ({mode}): {moved.tolist()} '
                          f'rays per variant changed bins (budget '
-                         f'{COUNT_BUDGET})')
+                         f'{budget})')
   same = (hK['counts'] == hP['counts']) & (hP['counts'] > 0)
   pK, pP = hK['power'][same], hP['power'][same]
   if not torch.allclose(pK, pP, rtol=POWER_RTOL, atol=0.):
@@ -2001,6 +2077,331 @@ def scatterSweepPhase():
   return dict(launches=launches['traceSweep'], ms=kernelMs, bounds=bounds)
 
 
+
+def registerCounts(log):
+  '''ptxas's registers and spill bytes per instance of the kernel template,
+  from the build log: {(output mode, sweep, B4, surface sampler, scatter,
+  GEOM): (registers, spill store bytes)}.'''
+  import re
+  out, current = {}, None
+  for line in log.splitlines():
+    m = re.search(r'traceKernelILi(\d)E((?:Lb[01]E)+)', line)
+    if 'Compiling entry function' in line and m:
+      flags = tuple(int(x) for x in re.findall(r'Lb([01])E', m.group(2)))
+      current = (int(m.group(1)),) + flags
+      continue
+    m = re.search(r'(\d+) bytes spill stores', line)
+    if m and current is not None:
+      out[current] = (out.get(current, (0, 0))[0], int(m.group(1)))
+    m = re.search(r'Used (\d+) registers', line)
+    if m and current is not None:
+      out[current] = (int(m.group(1)), out.get(current, (0, 0))[1])
+      current = None
+  return out
+
+
+def registerPhase(log):
+  '''The registers of every instance (phase 9's first gate): the instances
+  without B2 / B3 keep OLD_REGISTERS.'''
+  regs = registerCounts(log)
+  emit(dict(phase='registers', instances=len(regs), byInstance={
+      ','.join(map(str, k)): v for k, v in sorted(regs.items())}))
+  for key, want in OLD_REGISTERS.items():
+    got = regs.get(key + (0,), (None, None))[0]
+    if got != want:
+      raise AssertionError(f'instance {key} uses {got} registers, '
+                           f'{want} before B2 / B3')
+  return regs
+
+
+def geomScenes():
+  '''The scenes of phase 9, built once.'''
+  return {name: getattr(benchmarks, make)()
+          for name, (make, _m, _b) in GEOM_SCENES.items()}
+
+
+def geomKernelChecks(scenes):
+  '''Phase 9's kernel checks: K1, K2 and K4 against their plain versions
+  on every scene of the other kinds and trims (the throughput scenes at a
+  raw iteration's 1 << 20 rays, the kinds scene and the emitter at 1 << 18;
+  modes (b) and (c)) with no ray moved and every ring value equal; the 30-stage
+  sequential scene (ROADMAP C.2) likewise; K3 on three torus heights
+  against its plain version and, in seed mode, against one K1 launch per
+  variant. Returns the worst error per kernel.'''
+  worst = dict(traceHistogram=0., traceBins=0., traceRaw=0., traceSweep=0.)
+  full = ('torus', 'meshFold', 'bitmapSlot', 'primSlot')
+  for name, scene in scenes.items():
+    _make, maxI, bounds = GEOM_SCENES[name]
+    n = N_RAW_ITERATION if name in full else N_SMALL
+    worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+        f'geom-{name}', scene, bounds, maxI, n, BINS, budget=0))
+    w = compareRingsWithPlain(f'geom-{name}', scene, bounds, maxI, n, BINS,
+                              budget=0, rawAtol=0.)
+    for k in ('traceRaw', 'traceBins'):
+      worst[k] = max(worst[k], w[k])
+  stages, bounds, maxI = helpers.buildManyStagesScene(helpers.torchNs(),
+                                                      MANY_STAGES)
+  worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+      f'stages-{MANY_STAGES}', stages, bounds, maxI, N_SMALL, BINS,
+      budget=0))
+  _make, maxI, bounds = GEOM_SCENES['torus']
+  variants = [benchmarks.buildTorusMirrorScene(height=z)
+              for z in TORUS_HEIGHTS[::5]]
+  worst['traceSweep'] = compareSweepWithPlain(
+      'torus-height', variants, bounds, maxI, N_SMALL, columnsToo=True,
+      budget=0)
+  compareSweepWithSingles('torus-height', variants, bounds, maxI, N_SMALL,
+                          seed=43)
+  return worst
+
+
+def slotCrossings(records, zPlane=50., rMax=18.):
+  '''Of a slotted-mirror scene's raw records (`makeRawStep`): the hits on
+  the detector beyond the mirror plane whose ray crossed the plane inside
+  the mirror's disc (r < rMax: through the slot), and those before it (the
+  mirror folded them back).'''
+  hit = records['recordHit']
+  p, d = records['point'][hit], records['direction'][hit]
+  far = p[:, 2] > zPlane
+  s = (p[:, 2] - zPlane) / d[:, 2]
+  cx, cy = p[:, 0] - s * d[:, 0], p[:, 1] - s * d[:, 1]
+  through = far & (cx * cx + cy * cy < rMax * rMax)
+  return int(through.sum()), int((~far).sum())
+
+
+def geomStepPhase(name, scene, histPrecision):
+  '''The fused step (`benchmarks.makeBenchStep`, seed mode) on a scene of
+  phase 9 at full width: timed (`timeBenchStep`) with its bound; the
+  histogram holds every counted hit.'''
+  _make, maxI, bounds = GEOM_SCENES[name]
+  t = timeBenchStep(histPrecision, maxI, scene=scene, histBounds=bounds)
+  step, hist = t['step'], t['hist']
+  segsPerStep = t['segments'] / TIMED_STEPS
+  outBytes = (2 * hist['power'].numel() * 4 * 2 if histPrecision == 'default'
+              else 3 * step.hitSlots * N_MAIN * 4)
+  bounds = boundMs(step.tables, segsPerStep, N_MAIN, outBytes)
+  emit(dict(phase='geom-step', scene=name, histPrecision=histPrecision,
+            rays=N_MAIN, steps=TIMED_STEPS, stepMs=t['stepMs'],
+            kernelMs=t['kernelMs'], segmentsPerRay=segsPerStep / N_MAIN,
+            hits=t['hits'], hitOverflow=t['overflow'],
+            launches=t['launches'], boundMs=max(bounds[:2]), **bounds[2]))
+  binned = float(hist['counts'].double().sum())
+  if not torch.isfinite(hist['power']).all() or t['hits'] <= 0 \
+      or binned > t['hits']:
+    raise AssertionError(f'geometry step on {name}: {binned} binned of '
+                         f'{t["hits"]} hits, or a non-finite bin')
+  if name == 'torus':
+    nRays = N_MAIN * TIMED_STEPS
+    stats = helpers.scatterStats(hist, binned, nRays, bounds=GEOM_SCENES[
+        'torus'][2])
+    ok, sigmas = helpers.scatterStatsGate(stats, REF_TORUS, nRays,
+                                          REF_TORUS_RAYS)
+    emit(dict(phase='torus-statistics', run=f'step-{histPrecision}',
+              rays=nRays, **stats, ref=REF_TORUS, **sigmas))
+    if not ok:
+      raise AssertionError(f'torus step: {stats} against the JAX '
+                           f"package's {REF_TORUS}")
+  return dict(launches=t['launches'], ms=t['kernelMs'], bounds=bounds)
+
+
+def geomRawIteration(name, scene):
+  '''One raw iteration (`makeRawStep`, 1 << 20 rays) on a scene of phase
+  9: its records, the raw kernel alone by CUDA events, and its bound; on
+  the slotted mirrors, rays must pass the slot and rays must fold back.'''
+  _make, maxI, bounds = GEOM_SCENES[name]
+  sceneNp, info = compiled(scene)
+  sceneNp = dict(sceneNp, powerTol=1e-6)
+  histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds, bins=BINS)
+  src = scene.lightSources()[0]
+  settings = scene.activeSimulationSettings()
+  resetLaunchCounts()
+  step = cuda_trace.makeRawStep(
+      sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
+      raysPerStep=N_RAW_ITERATION, maxIntersections=maxI,
+      maxRayLength=settings.maxRayLength(), distTol=1e-4,
+      sampler=src.samplerSpec())
+  records, counters = step(11)
+  torch.cuda.synchronize()
+  launches = dict(cuda_trace.launchCounts)
+  if launches != onlyLaunches(traceRaw=1):
+    raise AssertionError(f'raw iteration on {name} launched {launches}')
+  seeds = iter(range(100, 10 ** 6))
+  kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
+      step.tables, N_RAW_ITERATION, maxI, settings.maxRayLength(), 1e-4,
+      hitSlots=step.hitSlots, seed=next(seeds)), TIMED_STEPS)
+  bounds = boundMs(step.tables, int(counters['segments']), N_RAW_ITERATION,
+                   9 * step.hitSlots * N_RAW_ITERATION * 4)
+  out = dict(phase='geom-raw-iteration', scene=name, rays=N_RAW_ITERATION,
+             hits=int(counters['hits']), segments=int(counters['segments']),
+             kernelMs=kernelMs, boundMs=max(bounds[:2]), **bounds[2])
+  if int(counters['hits']) <= 0 or not bool(torch.isfinite(
+      records['point'][records['recordHit']]).all()):
+    raise AssertionError(f'raw iteration on {name}: no hits, or a '
+                         f'non-finite point')
+  if name in ('bitmapSlot', 'primSlot'):
+    through, back = slotCrossings(records)
+    out.update(throughSlot=through, foldedBack=back)
+    if through <= 0 or back <= 0:
+      raise AssertionError(f'{name}: {through} rays through the slot, '
+                           f'{back} folded back')
+  emit(out)
+  return dict(launches=1, ms=kernelMs, bounds=bounds)
+
+
+def torusRunPhases(tmp):
+  '''`runSimulation` on the torus-mirror scene: raw recording (4 x 1 << 20,
+  the raw kernel; rows read back == the run's hits) and histogram-first
+  recording (8 x 1 << 22, the histogram kernel; snapshot counts == the
+  run's hits); the detected share against the JAX package's.'''
+  scene = benchmarks.buildTorusMirrorScene(tmpdir=tmp)
+  settings = scene.activeSimulationSettings()
+  settings.RaysPerIteration = N_RAW_ITERATION
+  settings.EndAfterIterations = TORUS_RAW_ITERATIONS
+  settings.EndAfterRays = 'inf'
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(scene,
+                                                        recording='raw')
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  hits = RawFolder(runPath).loadHits('Det')
+  rows = len(hits['points'])
+  traced = last['totalTracedRays']
+  emit(dict(phase='torus-run-raw', raysPerIteration=N_RAW_ITERATION,
+            iterations=last['totalIterations'], tracedRays=traced,
+            storedHits=rows, detectedShare=rows / traced, launches=launches,
+            setupAndFirstIterationS=first, laterIterationsS=later,
+            cleanupFlushS=cleanup))
+  if launches != onlyLaunches(traceRaw=TORUS_RAW_ITERATIONS) \
+      or traced != N_RAW_ITERATION * TORUS_RAW_ITERATIONS \
+      or rows != last['totalRecordedHits'] or rows <= 0:
+    raise AssertionError(f'torus raw run: {rows} rows, {launches}, {last}')
+  if not np.isfinite(hits['points']).all() \
+      or np.abs(hits['points'][:, 2]).max() > 1e-3:
+    raise AssertionError('torus raw run: points off the detector plane')
+
+  settings.RaysPerIteration = N_MAIN
+  settings.EndAfterIterations = TORUS_HIST_ITERATIONS
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(
+      scene, recording='histogram', histBins=BINS,
+      histBounds=GEOM_SCENES['torus'][2])
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  snap = results_store.loadHistogramSnapshots(runPath)['Src']['Det']
+  counts = float(snap['counts'].astype(np.float64).sum())
+  nRays = last['totalTracedRays']
+  emit(dict(phase='torus-run-histogram', raysPerIteration=N_MAIN,
+            iterations=last['totalIterations'], tracedRays=nRays,
+            histCounts=counts, recordedHits=last['totalRecordedHits'],
+            detectedShare=counts / nRays, launches=launches,
+            setupAndFirstPassS=first, laterPassesS=later,
+            cleanupFlushS=cleanup,
+            raysPerSec=nRays / (first + later + cleanup)))
+  if nRays != TORUS_HIST_ITERATIONS * N_MAIN \
+      or counts != last['totalRecordedHits'] \
+      or launches.get('traceHistogram') != TORUS_HIST_ITERATIONS:
+    raise AssertionError(f'torus histogram run: counts {counts}, '
+                         f'{launches}, {last}')
+  p = REF_TORUS['share']
+  sigma = np.sqrt(p * (1 - p) / REF_TORUS_RAYS + p * (1 - p) / nRays)
+  if abs(counts / nRays - p) > 3 * sigma:
+    raise AssertionError(f'torus histogram run: detected share '
+                         f'{counts / nRays}, the JAX package {p}')
+
+
+def torusSweepPhase():
+  '''`ParameterSweeper.evaluateBatched` on the torus's height (11 heights
+  x 1 << 20 rays): one launch of the sweep kernel per call; the kernel
+  alone by CUDA events, with its bound.'''
+  from optics_design_workbench_tpu_torch.jupyter_utils import (
+      Parameter, ParameterSweeper)
+  _make, maxI, tBounds = GEOM_SCENES['torus']
+  holder = dict(z=80., scene=benchmarks.buildTorusMirrorScene())
+
+  def setZ(z):
+    holder['z'] = float(z)
+    holder['scene'] = benchmarks.buildTorusMirrorScene(height=z)
+    sweeper.scene = holder['scene']
+
+  sweeper = ParameterSweeper(
+      lambda sc: dict(z=Parameter(getter=lambda: holder['z'], setter=setZ,
+                                  bounds=(70., 90.))),
+      scene=holder['scene'], device=DEV)
+  shares = []
+
+  def metric(power, counts):
+    shares.append(float(counts.sum()) / TORUS_SWEEP_RAYS)
+    return shares[-1]
+
+  resetLaunchCounts()
+  t0 = time.perf_counter()
+  sweeper.evaluateBatched([dict(z=z) for z in TORUS_HEIGHTS], metric,
+                          sceneFactory=lambda: holder['scene'],
+                          raysPerScene=TORUS_SWEEP_RAYS,
+                          maxIntersections=maxI, histBounds=tBounds,
+                          bins=BINS)
+  torch.cuda.synchronize()
+  wallS = time.perf_counter() - t0
+  launches = dict(cuda_trace.launchCounts)
+  route = sweeper.lastBatchedRoute
+  emit(dict(phase='torus-sweep', variants=len(TORUS_HEIGHTS),
+            raysPerVariant=TORUS_SWEEP_RAYS, route=route, launches=launches,
+            wallS=wallS, detectedShareByHeight=shares))
+  if route != 'sweep' or launches != onlyLaunches(traceSweep=1):
+    raise AssertionError(f'torus sweep: route {route}, launches {launches}')
+  if not all(0. < x < 1. for x in shares):
+    raise AssertionError(f'torus sweep: detected shares {shares}')
+
+  variants = [benchmarks.buildTorusMirrorScene(height=z)
+              for z in TORUS_HEIGHTS]
+  tables, host, histSpec, _specs = sweepTablesFor(variants, tBounds)
+  V, n = len(variants), TORUS_SWEEP_RAYS
+  shape = (V, tables['nDet']) + SWEEP_BINS
+  hist = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+  kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6,
+            hitSlots=cuda_trace.autoHitSlots(host[0][0], histSpec, maxI),
+            strataTile=cuda_trace.DEFAULT_STRATA_TILE)
+  seeds = iter(range(77, 10 ** 6))
+  counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds), **kw)
+  segments = int(counters[:, 0].sum())
+  kernelMs = cudaMs(lambda: cuda_trace.traceSweep(
+      tables, hist, n, seed=next(seeds), **kw), TIMED_STEPS)
+  bounds = boundMs(tables, segments, V * n, 2 * hist['power'].numel() * 4 * 2)
+  emit(dict(phase='torus-sweep-kernel', variants=V, raysPerVariant=n,
+            kernelMs=kernelMs, boundMs=max(bounds[:2]), **bounds[2]))
+  return dict(launches=launches['traceSweep'], ms=kernelMs, bounds=bounds)
+
+
+def geomPhase(tmp, log):
+  '''Phase 9, the other surface kinds (B2) and trims (B3) after the
+  24-stage cap (C.2): registers, kernel checks, then each scene's path
+  through the port's entry points at full width. Returns, per wrapper, its
+  launches, ms and bound on the torus scene, ms by scene, and its worst
+  error.'''
+  t9 = time.perf_counter()
+  registerPhase(log)
+  scenes = geomScenes()
+  worst = geomKernelChecks(scenes)
+  out = {}
+  for wrapper, precision in (('traceHistogram', 'default'),
+                             ('traceBins', 'highest')):
+    byScene = {name: geomStepPhase(name, scene, precision)
+               for name, scene in scenes.items()}
+    out[wrapper] = dict(byScene['torus'], byScene={
+        name: r['ms'] for name, r in byScene.items()})
+  rawByScene = {name: geomRawIteration(name, scene)
+                for name, scene in scenes.items()}
+  torusRunPhases(tmp)
+  out['traceRaw'] = dict(rawByScene['torus'], launches=TORUS_RAW_ITERATIONS,
+                         byScene={n: r['ms'] for n, r in rawByScene.items()})
+  out['traceSweep'] = torusSweepPhase()
+  for name, entry in out.items():
+    entry['err'] = worst[name]
+  emit(dict(phase='geom-total', seconds=time.perf_counter() - t9))
+  return out
+
 T0 = time.perf_counter()
 
 
@@ -2018,8 +2419,7 @@ def main():
   emit(dict(phase='card', nvidiaSmi=smi, torch=torch.__version__,
             cuda=torch.version.cuda, buildSeconds=info['seconds'],
             buildCached=info['cached'],
-            ptxas=[l for l in info['log'].splitlines()
-                   if 'registers' in l or 'spill' in l]))
+            instances=len(registerCounts(info['log']))))
 
   # ---- phase 2: each kernel against its plain version on the card ----
   ns = helpers.torchNs()
@@ -2111,6 +2511,8 @@ def main():
     scatter['traceRaw'] = scatterRunPhases(tmp)
     scatter['traceSweep'] = scatterSweepPhase()
     emit(dict(phase='scatter-total', seconds=time.perf_counter() - t8))
+    # ---- phase 9: the other surface kinds and trims ----
+    geom = geomPhase(tmp, info['log'])
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2159,19 +2561,19 @@ def main():
       kernelEntry('traceHistogram', 'trace_kernel.cu', 2776, k1['launches'],
                   worst, k1['kernelMs'], k1['plainMs'], k1['bounds'],
                   spectro['traceHistogram'], surface['traceHistogram'],
-                  scatter['traceHistogram']),
+                  scatter['traceHistogram'], geom['traceHistogram']),
       kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
                   worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
                   rawBounds, spectro['traceRaw'], surface['traceRaw'],
-                  scatter['traceRaw']),
+                  scatter['traceRaw'], geom['traceRaw']),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
                   k2['bounds'], spectro['traceBins'], surface['traceBins'],
-                  scatter['traceBins']),
+                  scatter['traceBins'], geom['traceBins']),
       kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
                   sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
                   sweepBounds, spectro['traceSweep'], None,
-                  scatter['traceSweep'])]))
+                  scatter['traceSweep'], geom['traceSweep'])]))
   print(smi, flush=True)
   print(json.dumps(dict(ok=True, device=dict(
       platform='gpu', kind=torch.cuda.get_device_name(0),

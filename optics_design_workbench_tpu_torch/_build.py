@@ -50,7 +50,8 @@ def buildKernels(flags=None):
   Returns (libs, info): libs maps a source's stem ('trace_kernel',
   'trace_bins_kernel', 'trace_raw_kernel', 'trace_sweep_kernel') to its
   ctypes library, info =
-  dict(path, seconds, log, cached). One nvcc process per .cu source, all
+  dict(path, seconds, log, cached), `log` nvcc's output of the build that
+  made these libraries. One nvcc process per .cu source, all
   started together; a failed build raises with nvcc's output. `flags`
   defaults to NVCC_FLAGS (read at call time).'''
   flags = tuple(NVCC_FLAGS if flags is None else flags)
@@ -81,7 +82,17 @@ def buildKernels(flags=None):
     os.replace(tmp, lib)            # atomic: concurrent builds never race
   libs = {stem: ctypes.CDLL(os.path.join(out, f'lib{stem}.so'))
           for stem in stems}
-  info = dict(path=out, seconds=time.time() - t0, log='\n'.join(logs),
-              cached=cached)
+  # nvcc's output (ptxas's registers and spills per instance) is kept
+  # beside the libraries, so a cached build reports it too
+  logPath = os.path.join(out, 'build.log')
+  if logs:
+    with open(logPath + f'.tmp{os.getpid()}', 'w') as f:
+      f.write('\n'.join(logs))
+    os.replace(logPath + f'.tmp{os.getpid()}', logPath)
+  log = ''
+  if os.path.isfile(logPath):
+    with open(logPath) as f:
+      log = f.read()
+  info = dict(path=out, seconds=time.time() - t0, log=log, cached=cached)
   _loaded[flags] = (libs, info)
   return _loaded[flags]

@@ -6,9 +6,11 @@ examples/2-lens-and-mirror — Gaussian point source -> plano-convex lens ->
 with refraction, reflection and medium tracking on the path, plus the
 simpler examples/1 source->detector scene, the examples/3 lens whose
 radius a parameter sweep varies, the examples/4 grating spectrometer, the
-reference's surface-source scene (a Lambertian-like disc emitter) and its
+reference's surface-source scene (a Lambertian-like disc emitter), its
 three stochastic-scatter scenes (a diffuser, an ideal-plus-conditioned
-mixture, an astigmatic diffuser).
+mixture, an astigmatic diffuser), its torus-mirror and mesh-fold throughput
+scenes, the two slotted mirrors of its trim tests, a scene of the other
+surface kinds and an emitter whose faces are of those kinds.
 '''
 
 import numpy as np
@@ -220,6 +222,206 @@ def buildCoupledScatterScene(tmpdir=None):
   return _scatterScene(
       'exp(-(theta*cos(phi))**2/0.003 - (theta*sin(phi))**2/0.05)',
       '0, pi/3', '0, 0.05', 'scat_coupled', tmpdir)
+
+
+def buildTorusMirrorScene(tmpdir=None, height=80.):
+  '''The reference's `sceneTorusMirror`: a toroidal mirror (R = 30 mm,
+  tube r = 8 mm, full tube) at z = `height` (80 mm) above a point source
+  of exp(-(theta-0.38)^2/0.01) over theta in [0.15, 0.55], which lights a
+  band of the ring; the reflected light falls on an absorbing 400 x 400 mm
+  detector plane at z = 0; 3 intersections (histograms over +-200 mm).'''
+  scene = Scene(label='torus_tp', path=tmpdir and f'{tmpdir}/torus_tp')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Ring',
+      surfaces=[S.torus(np.eye(4), elem=0, majorRadius=30., minorRadius=8.)],
+      placements=[T.translation(0, 0, float(height))]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(200., 200.))],
+      placements=[T.translation(0, 0, 0)]))
+  scene.addSource(PointSource(
+      Label='Src', PowerDensity='exp(-(theta-0.38)^2/0.01)',
+      ThetaDomain='0.15, 0.55', Wavelength=532.,
+      ThetaResolutionNumericMode='1e3'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=3)
+  return scene
+
+
+def buildMeshFoldScene(tmpdir=None):
+  '''The reference's `sceneMeshFold`: a 50 x 50 mm fold mirror made of two
+  triangles tilted 45 deg about x at z = 60 mm, a point source of
+  exp(-theta^2/0.05) over theta in [0, 0.3], and an absorbing sphere of
+  radius 300 mm about the source as the detector; 3 intersections
+  (histograms over +-300 mm).'''
+  c, s = np.cos(np.radians(45.)), np.sin(np.radians(45.))
+
+  def pt(x, y):
+    return (x, y * c, 60. + y * s)
+
+  scene = Scene(label='mesh_tp', path=tmpdir and f'{tmpdir}/mesh_tp')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='FoldTri',
+      surfaces=[S.triangle(pt(-25, -25), pt(25, -25), pt(25, 25), elem=0),
+                S.triangle(pt(-25, -25), pt(25, 25), pt(-25, 25), elem=0)],
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(_sphereDetector())
+  scene.addSource(PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.05)',
+      ThetaDomain='0, 0.3', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=3)
+  return scene
+
+
+def _sphereDetector():
+  return OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.sphere(np.eye(4), elem=0, radius=300., orient=-1)],
+      placements=[np.eye(4)])
+
+
+def _slottedMirrorScene(label, slotted, tmpdir):
+  scene = Scene(label=label, path=tmpdir and f'{tmpdir}/{label}')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Slotted', surfaces=[slotted],
+      placements=[T.translation(0, 0, 50)]))
+  scene.addOpticalGroup(_sphereDetector())
+  scene.addSource(PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.1)',
+      ThetaDomain='0, 0.45', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=4)
+  return scene
+
+
+def slotBitmap(R=64, rDisc=20., slotHalf=2., window=25.):
+  '''A disc occupancy bitmap with a vertical slot cut (the shape of
+  example 2's slotted mirrors), mask[iv, iu] over a square chart window:
+  the `trimBitmap` of a plane face.'''
+  ax = (np.arange(R) + .5) / R * (2 * window) - window
+  X, Y = np.meshgrid(ax, ax)                     # row iv -> y, col iu -> x
+  mask = ((X ** 2 + Y ** 2 <= rDisc ** 2)
+          & (np.abs(X) >= slotHalf)).astype(np.uint8)
+  return dict(mask=mask, u0=-window, v0=-window,
+              invDu=R / (2 * window), invDv=R / (2 * window))
+
+
+def buildBitmapSlotScene(tmpdir=None):
+  '''The slotted bitmap mirror of the reference's trim tests: a plane
+  mirror at z = 50 mm trimmed by a 64 x 64 bitmap (a disc of radius 20 mm
+  with a 4 mm slot), a point source of exp(-theta^2/0.1) over [0, 0.45]
+  and an absorbing sphere of radius 300 mm as the detector: rays through
+  the slot and past the disc reach the far side, the rest fold back; 4
+  intersections (histograms over +-300 mm).'''
+  slotted = S.plane(np.eye(4), elem=0, halfExtents=(25., 25.))
+  slotted['trimBitmap'] = slotBitmap()
+  return _slottedMirrorScene('bitmap_slot', slotted, tmpdir)
+
+
+def buildPrimSlotScene(tmpdir=None):
+  '''The hole-primitive slotted mirror of the reference's trim tests: a
+  disc mirror of radius 22 mm at z = 50 mm minus a rotated rectangular
+  strip (half-width 2.2 mm at 30 deg) and a half-plane corner cut, with the
+  source and detector of `buildBitmapSlotScene`.'''
+  slotted = S.plane(np.eye(4), elem=0, radius=22.)
+  slotted['trim'][0] = 3.                      # annulus base + prims
+  ang = np.deg2rad(30.)
+  slotted['trimPrims'] = dict(holes=[
+      (1., 0.5, -0.25, 1e7, 2.2, float(np.cos(ang)), float(np.sin(ang))),
+      (3., 14., 14., 1., 1., 0., 0.),          # half-plane corner cut
+  ])
+  return _slottedMirrorScene('prim_slot', slotted, tmpdir)
+
+
+def _ellipsoidCoeffs(a, b, c):
+  q = np.array([1. / a ** 2, 1. / b ** 2, 1. / c ** 2, 0., -1.])
+  return tuple(q / q[:3].max())
+
+
+def buildKindsScene(tmpdir=None):
+  '''Every surface kind of B2 on one optical axis, onto an absorbing
+  sphere of radius 300 mm about a point source of exp(-theta^2/0.1) over
+  theta in [0, 0.5]:
+    * a lens (n = 1.5) at z = 40 mm: an even asphere front (c = 1/50,
+      a4 = -2e-6; it stays an ASPHERE), a conic back (c = -1/60, k = -0.5;
+      rewritten as a QUADRIC) and a CONE barrel between their rims;
+    * the reference's quadric lens (n = 1.6): a plane disc of radius 16 mm
+      at z = 110 mm under the cap z in [160, 165] of an ellipsoid of
+      semi-axes (20, 30, 15) mm centred at z = 150 mm (a QUADRIC);
+    * a TORUS mirror (R = 30, r = 8 mm) at z = 80 mm trimmed to the outer
+      half of its tube (v in [-pi/2, pi/2]), which the wider rays meet;
+  8 intersections (histograms over +-300 mm).'''
+  scene = Scene(label='kinds', path=tmpdir and f'{tmpdir}/kinds')
+  cF, a4, rF = 1. / 50., -2e-6, 8.
+  cB, kB, rB, thick = -1. / 60., -0.5, 8.5, 6.
+
+  def sag(c, k, r, a4=0.):
+    return c * r * r / (1. + np.sqrt(1. - (1. + k) * c * c * r * r)) \
+        + a4 * r ** 4
+  zF, zB = sag(cF, 0., rF, a4), thick + sag(cB, kB, rB)
+  tanA = (rB - rF) / (zB - zF)
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Lens', Label='AsphLens', RefractiveIndex=1.5,
+      surfaces=[
+          S.asphere(np.eye(4), elem=0, curvature=cF, coeffs=(a4,), rMax=rF,
+                    orient=-1),
+          S.asphere(T.translation(0, 0, thick), elem=0, curvature=cB,
+                    conic=kB, rMax=rB, orient=+1),
+          S.cone(np.eye(4), elem=0, radius=rF - zF * tanA, tanAngle=tanA,
+                 zRange=(zF, zB), orient=+1)],
+      placements=[T.translation(0, 0, 40)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Lens', Label='DomeLens', RefractiveIndex=1.6,
+      surfaces=[
+          S.quadric(T.translation(0, 0, 40), elem=0,
+                    coeffs=_ellipsoidCoeffs(20., 30., 15.),
+                    zRange=(10., 15.)),
+          S.plane(np.eye(4), elem=0, radius=16., orient=-1)],
+      placements=[T.translation(0, 0, 110)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='HalfRing',
+      surfaces=[S.torus(np.eye(4), elem=0, majorRadius=30., minorRadius=8.,
+                        vRange=(-1.5707, 1.5707))],
+      placements=[T.translation(0, 0, 80.)]))
+  scene.addOpticalGroup(_sphereDetector())
+  scene.addSource(PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.1)',
+      ThetaDomain='0, 0.5', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=8)
+  return scene
+
+
+def buildEmitterKindsScene(tmpdir=None):
+  '''A surface source whose four emitting faces are of the kinds of B2:
+  a cone (radius 10 + 0.3 z over z in [0, 10] mm) at x = -60 mm, an even
+  asphere dish (c = -1/40, a4 = 1e-6, r <= 15 mm) at x = 60 mm, the upper
+  outer quarter of a torus (R = 15, r = 4 mm, v in [0, pi/2]) at y = 60 mm
+  and a triangle at y = -60 mm, all radiating cos(theta)^2 onto an
+  absorbing 400 x 400 mm detector plane at z = 100 mm; 4 intersections
+  (histograms over +-200 mm).'''
+  from .models import SurfaceSource
+  scene = Scene(label='emit_kinds', path=tmpdir and f'{tmpdir}/emit_kinds')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Emitters',
+      surfaces=[
+          S.cone(T.translation(-60, 0, 0), elem=0, radius=10., tanAngle=0.3,
+                 zRange=(0., 10.)),
+          S.asphere(T.translation(60, 0, 0), elem=0, curvature=-1. / 40.,
+                    coeffs=(1e-6,), rMax=15.),
+          S.torus(T.translation(0, 60, 0), elem=0, majorRadius=15.,
+                  minorRadius=4., vRange=(0., np.pi / 2)),
+          S.triangle((-10., -70., 0.), (10., -70., 0.), (0., -50., 0.),
+                     elem=0)],
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(200., 200.))],
+      placements=[T.translation(0, 0, 100)]))
+  scene.addSource(SurfaceSource(Label='Source', ActiveSurfaces=['Emitters'],
+                                PowerDensity='cos(theta)**2'))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=4)
+  return scene
 
 
 def makeSweepLensSweeper(path=None, device='cuda'):

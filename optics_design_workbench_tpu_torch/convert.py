@@ -17,7 +17,9 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
 
     deviceNp     the dict of numpy arrays from
                  `Scene.compile(devicePut=False)`: `surfaces` with `packed`,
-                 `trim`, `kind`; `elements` with `packed`, `optType`,
+                 `trim`, `kind` and, for bitmap or hole-primitive trims,
+                 `trimMasks`, `trimMaskIdx`, `trimPrims`; `elements` with
+                 `packed`, `optType`,
                  `recordHits` and, for a dispersive scene, `nLambda`,
                  `nTable`, `hasDispersion`; the sequential-mode mask
                  `seqMask`, a source's `surfMask` (as the JAX runner's
@@ -68,7 +70,9 @@ def _sceneAndSpec(deviceNp, histSpecNp):
   numpy outputs.'''
   scene = dict(
       surfaces={k: np.asarray(deviceNp['surfaces'][k])
-                for k in ('packed', 'trim', 'kind')},
+                for k in ('packed', 'trim', 'kind', 'trimMasks',
+                          'trimMaskIdx', 'trimPrims')
+                if k in deviceNp['surfaces']},
       elements={k: np.asarray(deviceNp['elements'][k])
                 for k in ('packed', 'optType', 'recordHits')})
   for key in ('seqMask', 'surfMask'):

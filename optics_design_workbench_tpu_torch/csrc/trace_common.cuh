@@ -5,12 +5,17 @@
 // sampler (below), and on SCAT, stochastic scatter (below). Each kernel
 // source (trace_kernel.cu, trace_bins_kernel.cu, trace_raw_kernel.cu,
 // trace_sweep_kernel.cu) instantiates one mode, with and without B4, with
-// SCAT on top of B4, and the single-scene ones with each sampler, behind a
-// plain-C launcher.
+// SCAT on top of B4, GEOM (with and without SCAT) on top of B4, and the
+// single-scene ones with each sampler, behind a plain-C launcher.
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
-// (optics_design_workbench_tpu/ops/pallas_trace.py), main-path subset:
-// PLANE / SPHERE / CYLINDER surfaces with window, annulus and z-band trims;
+// (optics_design_workbench_tpu/ops/pallas_trace.py), but for its triangle-
+// and surface-table sweeps, histogram layout and per-bounce culls:
+// PLANE / SPHERE / CYLINDER surfaces with window, annulus and z-band trims,
+// and in the GEOM instance every other kind (ASPHERE by 16 Newton steps
+// from its osculating sphere, TRIANGLE by Moeller-Trumbore, CONE and QUADRIC
+// by their quadratics, TORUS by the quartic through its resolvent cubic)
+// with UV-bitmap and hole-primitive trims;
 // Mirror / Lens / Absorber / Vacuum / Grating elements with Beer-Lambert
 // absorption; n(wavelength) of dispersive elements as a Horner polynomial;
 // sequential mode and per-source surface masks; the point-source sampler
@@ -29,6 +34,10 @@
 // the point sampler's only: the reference's surface branch returns before
 // them.
 //
+// The stage gate reads, for a surface, the uint32 word stage / 32 of its
+// allowed-stage set (bit-cast into the table at the offset in its row), so
+// sequential mode has no cap on its stages but the table's size.
+//
 // The grating, dispersion and the stage gate sit behind header flags of the
 // launch (hasGrating, dispOff >= 0, gate, nStages > 0), the same for every
 // thread, and behind the compile-time flag B4, which the launcher sets when
@@ -38,6 +47,15 @@
 // bounce, instead of once per ray into a per-thread array (16 elements
 // would spill to local memory); the polynomial's operations are the same,
 // and with contraction off so are its bits.
+//
+// The other kinds and trims (GEOM, a compile-time instance built on the B4
+// body, which the launcher picks from its geometry word): a GEOM table
+// widens each surface row by kGeomCols (params, constants of the kind
+// formed in double on the host, a bitmap's pixel map and the offset of its
+// bit words, the offset and count of its hole primitives), so a scene of
+// plane / sphere / cylinder with window trims runs an instance without that
+// code and reads the rows it read before. The surface sampler's faces of
+// kind cone, asphere, torus and triangle are GEOM's too.
 //
 // Stochastic scatter (SCAT, a compile-time instance built on the B4 body,
 // which the launcher picks from its scatter word): after the ideal new
@@ -114,14 +132,28 @@ constexpr int kSegStride = 17;     // a, mid, 1/half, nCoef, 13 coefficients
 constexpr int kMargLen = 264;      // kind, n, lo, hi/span, 260 payload floats
 constexpr int kSamplerGeom = 16;   // finite, f, R(9), off(3), wavelength, pad
                                    // (surface: nFaces, 2 pi, .., wavelength)
-constexpr int kFaceCols = 21;      // one emitting face of a surface sampler
+constexpr int kFaceCols = 33;      // one emitting face of a surface sampler
+constexpr int kGeomCols = 20;      // GEOM: the widening of a surface row
+constexpr int kPrimCols = 9;       // one hole primitive of a surface
 constexpr int kBlock = 256;
 
 // surface row columns
-// S_STAGES: bit q lets a ray whose clamped stage index is q hit the surface
-// (without sequential mode: 1 = allowed, 0 = masked by the source)
+// S_STAGES: the offset of the surface's stage words, read only where the
+// scene has a stage gate: ceil(stages / 32) uint32 words bit-cast into the
+// table, bit q of which lets a ray whose clamped stage index is q hit the
+// surface (without sequential mode one word: 1 = allowed, 0 = masked by
+// the source)
 enum { S_KIND = 0, S_ROT = 1, S_OFF = 10, S_ORIENT = 13, S_ELEM = 14,
        S_P0SQ = 15, S_TRIM0 = 16, S_TRIMA = 17, S_TRIMB = 18, S_STAGES = 19 };
+// GEOM surface row columns past kSurfCols (ops/cuda_trace.py `_packTable`):
+// params p0..p4, nine kind constants (triangle: e1, e2, unit normal;
+// asphere: (1+k) c^2, 1/c, 1/c^2, sphere seed on; torus: (r/R)^2, r^2, the
+// residual gate), a bitmap's 1/du, 1/dv, the offset of its bit words and
+// its resolution (u0, v0 sit in S_TRIMA / S_TRIMB), the offset and count of
+// its hole-primitive rows (shape, isAdd, isInverted, cx, cy, p0, p1, cosA,
+// sinA)
+enum { G_P = 20, G_X = 25, G_TRIM3 = 34, G_TRIM4 = 35, G_MASKOFF = 36,
+       G_MASKRES = 37, G_PRIMOFF = 38, G_NPRIM = 39 };
 // element row columns
 enum { E_OPT = 0, E_N = 1, E_REFL = 2, E_ABSLEN = 3, E_REC = 4, E_DET = 5,
        E_BX0 = 6, E_BX1 = 7, E_BY0 = 8, E_BY1 = 9, E_MEDIUM = 10,
@@ -130,8 +162,11 @@ enum { E_OPT = 0, E_N = 1, E_REFL = 2, E_ABSLEN = 3, E_REC = 4, E_DET = 5,
 // kind, rectangle flag, four sampling constants (rectangle: half-widths;
 // disc: rOut^2 - rIn^2, rIn^2; sphere zone: z1, z2 - z1, R^2, 1/R;
 // cylinder: z1, z2 - z1, R), placement, orient, area-CDF window
+// F_X: twelve more constants of a cone, asphere, torus or triangle face
+// (`surface_source.faceExtraConstants`; an asphere's or torus's first is the
+// offset of its radius / tube-angle marginal from the sampler block)
 enum { F_KIND = 0, F_RECT = 1, F_C = 2, F_ROT = 6, F_OFF = 15, F_ORIENT = 18,
-       F_CUMLO = 19, F_CUMHI = 20 };
+       F_CUMLO = 19, F_CUMHI = 20, F_X = 21 };
 // the scatter block (ops/cuda_trace.py `_packScatter`), right after the
 // element rows: a header of kScHeader floats (entry count, uniform rows per
 // bounce, the lobe's rows, MODIFY's rows, whether the incidence angle is
@@ -157,7 +192,8 @@ enum { SPEC_PWPOLY = 1, SPEC_PWPOLY2D = 3, SPEC_LOWRANK = 4 };
 enum { FN_CONST = 0, FN_POLY1D = 1, FN_FOURIER = 2 };
 enum { SCAT_REFLECT = 0, SCAT_REFRACT_ENTER = 1, SCAT_REFRACT_EXIT = 2,
        SCAT_MODIFY = 3 };
-enum { KIND_PLANE = 0, KIND_SPHERE = 1, KIND_CYLINDER = 2 };
+enum { KIND_PLANE = 0, KIND_SPHERE = 1, KIND_CYLINDER = 2, KIND_ASPHERE = 3,
+       KIND_TRIANGLE = 4, KIND_CONE = 5, KIND_QUADRIC = 6, KIND_TORUS = 7 };
 enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_GRATING = 2, OPT_ABSORBER = 3,
        OPT_VACUUM = 4 };
 enum { MODE_SEED = 0, MODE_UNIFORMS = 1, MODE_COLUMNS = 2 };
@@ -478,9 +514,67 @@ __device__ void scatterBounce(const float* sc, const TraceParams& p,
   ndx *= inv; ndy *= inv; ndz *= inv;
 }
 
+// The local position and canonical normal on a face of kind cone, asphere,
+// torus or triangle (B2's faces; GEOM only), in the reference's operation
+// order (`_localSampleColumns`): the cone's z from its area CDF in closed
+// form, an asphere's radius and a torus's tube angle from their fitted
+// inverse CDFs (a marginal block of the sampler), a triangle's point from
+// two uniforms folded into the triangle.
+__device__ __noinline__ void sampleGeomFace(const float* sg, const float* fr,
+                                            float u, float v, float a,
+                                            float& lx, float& ly, float& lz,
+                                            float& nlx, float& nly,
+                                            float& nlz) {
+  const float* X = fr + F_X;
+  const int kind = (int)fr[F_KIND];
+  if (kind == KIND_TRIANGLE) {
+    const bool flip = u + v > 1.f;
+    const float aa = flip ? 1.f - u : u, bb = flip ? 1.f - v : v;
+    lx = X[0] + aa * X[3] + bb * X[6];
+    ly = X[1] + aa * X[4] + bb * X[7];
+    lz = X[2] + aa * X[5] + bb * X[8];
+    nlx = X[9]; nly = X[10]; nlz = X[11];
+    return;
+  }
+  const float ca = cosf(a), sa = sinf(a);
+  if (kind == KIND_CONE) {
+    float z;
+    if (X[7] != 0.f) {
+      z = X[5] + u * X[6];
+    } else {
+      const float target = fr[F_C] + u * fr[F_C + 1];
+      const float disc = fmaxf(fr[F_C + 2] + fr[F_C + 3] * target, 0.f);
+      z = (-X[0] + sqrtf(disc)) * X[1];
+    }
+    const float rr = X[0] + z * X[2];
+    lx = rr * ca; ly = rr * sa; lz = z;
+    nlx = ca * X[3]; nly = sa * X[3]; nlz = 0.f - X[4];
+  } else if (kind == KIND_ASPHERE) {
+    const float r = marginal(sg + (int)X[0], u);
+    const float c0 = X[1], K1 = X[2];
+    const float r2 = r * r;
+    const float root = sqrtf(fmaxf(1.f - K1 * r2, 1e-12f));
+    const float opr = 1.f + root;
+    const float sag = c0 * r2 / opr + r2 * r2 * (X[3] + r2 * (X[4] + r2 * X[5]));
+    const float g = c0 * (2.f / opr + K1 * r2 / (root * (opr * opr)))
+                    + X[6] * r2 + X[7] * r2 * r2 + X[8] * (r2 * (r2 * r2));
+    const float ninv = rsqrtf(g * g * r2 + 1.f + 1e-20f);
+    lx = r * ca; ly = r * sa; lz = sag;
+    nlx = -g * r * ca * ninv; nly = -g * r * sa * ninv; nlz = ninv;
+  } else {                         // torus
+    const float vT = marginal(sg + (int)X[0], u);
+    const float cv = cosf(vT), sv = sinf(vT);
+    const float rad = X[1] + X[2] * cv;
+    lx = rad * ca; ly = rad * sa; lz = X[2] * sv;
+    nlx = cv * ca; nly = cv * sa; nlz = sv;
+  }
+}
+
 // The surface-source sampler (B6): the reference's `_surfaceSampleColumns`
 // for one ray from its five uniforms. `sg` is the sampler block: nFaces,
-// 2 pi, wavelength at 14, the theta marginal, the face rows.
+// 2 pi, wavelength at 14, the theta marginal, the face rows. GEOM adds the
+// faces of kind cone, asphere, torus and triangle.
+template <bool GEOM>
 __device__ void sampleSurface(const float* sg, float uF, float u, float v,
                               float uT, float uP, float& ox, float& oy,
                               float& oz, float& dx, float& dy, float& dz) {
@@ -510,6 +604,8 @@ __device__ void sampleSurface(const float* sg, float uF, float u, float v,
         ly = r * sinf(a);
       }
       lz = 0.f;
+    } else if (GEOM && kind != KIND_SPHERE && kind != KIND_CYLINDER) {
+      sampleGeomFace(sg, fr, u, v, a, lx, ly, lz, nlx, nly, nlz);
     } else {
       const float z = c0 + u * c1;
       if (kind == KIND_SPHERE) {
@@ -605,12 +701,405 @@ __device__ float intersect(const float* r, float ox, float oy, float oz,
   return fminf(loV, hiV);
 }
 
+// The asphere's Newton loop and the torus's quartic are inlined into the
+// surface sweep: on the card that spills less and runs faster than calling
+// them out of line (a build with -DODW_GEOM_OUT_OF_LINE does that:
+// tools/torch_kernel_probe.py geom measures both).
+#ifdef ODW_GEOM_OUT_OF_LINE
+#define ODW_GEOM_ROOT __noinline__
+#else
+#define ODW_GEOM_ROOT __forceinline__
+#endif
+
+// ---- B2 / B3 (GEOM only): the other surface kinds and the trims of CAD
+// faces, in the reference's operation order (`_intersectConst`,
+// `_bitmapOkConst`, `_applyPrimsConst`, geometry/surfaces
+// `_quarticSmallestRoot`), every power written as products ----
+
+// The reference's branchless polynomial atan2 (`chartAtan2`): it sets the
+// bitmaps' azimuth pixels and the torus's tube angle.
+__device__ __forceinline__ float chartAtan2(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float hi = fmaxf(ax, ay), lo = fminf(ax, ay);
+  const float a = lo / fmaxf(hi, 1e-30f);
+  const bool big = a > 0.41421356237309503f;     // tan(pi/8)
+  const float aa = big ? (a - 1.f) / (a + 1.f) : a;
+  const float z = aa * aa;
+  float p = ((8.05374449538e-2f * z - 1.38776856032e-1f) * z
+             + 1.99777106478e-1f) * z - 3.33329491539e-1f;
+  p = p * z * aa + aa;
+  if (big) p = p + 0.7853981633974483f;
+  if (ay > ax) p = 1.5707963267948966f - p;
+  if (x < 0.f) p = 3.14159265358979323846f - p;
+  return y < 0.f ? -p : p;
+}
+
+// A bitmap trim (flag 2): the pixel of chart point (u, v) inside the R x R
+// window, and its bit (row-major over (iv, iu), LSB first).
+__device__ bool bitmapOk(const float* r, const float* smem, float u,
+                         float v) {
+  const float R = r[G_MASKRES];
+  const float pu = (u - r[S_TRIMA]) * r[G_TRIM3];
+  const float pv = (v - r[S_TRIMB]) * r[G_TRIM4];
+  if (!(pu >= 0.f && pu < R && pv >= 0.f && pv < R)) return false;
+  const int idx = (int)floorf(pv) * (int)R + (int)floorf(pu);
+  const uint32_t w = __float_as_uint(smem[(int)r[G_MASKOFF] + (idx >> 5)]);
+  return (w >> (idx & 31)) & 1u;
+}
+
+// Hole-primitive trims (flags 3, 4): (base OR any add-prim) AND NOT any
+// hole-prim, on the local point (x, y, z).
+__device__ bool applyPrims(const float* r, const float* smem, float x,
+                           float y, float z, bool base) {
+  const float* h = smem + (int)r[G_PRIMOFF];
+  const int n = (int)r[G_NPRIM];
+  bool add = false, hole = false;
+  for (int k = 0; k < n; ++k, h += kPrimCols) {
+    const float shape = h[0], cx = h[3], cy = h[4], p0 = h[5], p1 = h[6],
+                ca = h[7], sa = h[8];
+    const float dxp = x - cx, dyp = y - cy;
+    bool in;
+    if (shape > 5.5f) {
+      in = x * cx + y * cy + z * p0 >= p1;
+    } else if (shape > 4.5f) {
+      in = (cx * x * x + cy * x * y + p0 * y * y + p1 * x + ca * y + sa)
+           <= 0.f;
+    } else if (shape > 3.5f) {
+      const float xr = ca * dxp + sa * dyp;
+      const float yr = -sa * dxp + ca * dyp;
+      in = yr <= p0 * xr * xr + p1 * xr;
+    } else if (shape > 2.5f) {
+      in = dxp * p0 + dyp * p1 >= 0.f;
+    } else if (shape > 1.5f) {
+      in = dxp * dxp + dyp * dyp <= p0;
+    } else {
+      const float xr = ca * dxp + sa * dyp;
+      const float yr = -sa * dxp + ca * dyp;
+      in = fabsf(xr) <= p0 && fabsf(yr) <= p1;
+    }
+    if (h[2] != 0.f) in = !in;
+    if (h[1] != 0.f) add = add || in;
+    else hole = hole || in;
+  }
+  return (base || add) && !hole;
+}
+
+// The trim of a charted kind at local point (xx, yy, z) whose band
+// coordinate is v, on top of the kind's own test `pre`: the bitmap over
+// (azimuth, v), or the band [S_TRIMA, S_TRIMB] with the hole primitives.
+__device__ bool chartOk(const float* r, const float* smem, float trim0,
+                        float xx, float yy, float z, float v, bool pre) {
+  if (trim0 == 2.f) return pre && bitmapOk(r, smem, chartAtan2(yy, xx), v);
+  bool band = pre && (v >= r[S_TRIMA]) && (v <= r[S_TRIMB]);
+  if (trim0 == 3.f) band = applyPrims(r, smem, xx, yy, z, band);
+  return band;
+}
+
+// stable roots of t^2 + b t + c, sorted; +inf where there are none
+__device__ __forceinline__ void quadRoots(float b, float c, float& lo,
+                                          float& hi) {
+  const float disc = b * b - 4.f * c;
+  const bool ok = disc >= 0.f;
+  const float sq = ok ? sqrtf(disc) : 0.f;
+  const float q = -0.5f * (b + signf(b + 1e-30f) * sq);
+  const float t2 = c / (fabsf(q) < 1e-20f ? 1e-20f : q);
+  lo = ok ? fminf(q, t2) : INFINITY;
+  hi = ok ? fmaxf(q, t2) : INFINITY;
+}
+
+// an asphere: the vertex-plane start, the osculating sphere's nearest
+// positive root where the curvature allows, 16 Newton steps on z - sag(r),
+// then the residual gate and the r-band trim
+__device__ ODW_GEOM_ROOT float intersectAsphere(
+    const float* r, const float* smem, float lox, float loy, float loz,
+    float ldx, float ldy, float ldz, float tMin) {
+  const float* P = r + G_P;
+  const float* X = r + G_X;
+  const float c0 = P[0], a4 = P[2], a6 = P[3], a8 = P[4], K1 = X[0];
+  const float dzS = fabsf(ldz) < 1e-9f ? (ldz >= 0.f ? 1e-9f : -1e-9f) : ldz;
+  float t = fmaxf(-loz / dzS, 0.f);
+  if (X[3] != 0.f) {
+    const float ocz = loz - X[1];
+    const float b = 2.f * (lox * ldx + loy * ldy + ocz * ldz);
+    const float cc = lox * lox + loy * loy + ocz * ocz - X[2];
+    const float disc = b * b - 4.f * cc;
+    const bool okD = disc >= 0.f;
+    const float sqD = sqrtf(fmaxf(disc, 0.f));
+    const float q = -0.5f * (b + signf(b + 1e-30f) * sqD);
+    const float t2 = cc / (fabsf(q) < 1e-20f ? 1e-20f : q);
+    const float lo = fminf(q, t2), hi = fmaxf(q, t2);
+    const float sph = (okD && lo > tMin) ? lo : ((okD && hi > tMin) ? hi : t);
+    t = okD ? sph : t;
+  }
+  const float K4 = 4.f * a4, K6 = 6.f * a6, K8 = 8.f * a8;
+  for (int it = 0; it < 16; ++it) {
+    const float x = lox + t * ldx, y = loy + t * ldy, z = loz + t * ldz;
+    const float r2 = x * x + y * y;
+    const float rootA = sqrtf(fmaxf(1.f - K1 * r2, 1e-12f));
+    const float opr = 1.f + rootA;
+    const float sag = c0 * r2 / opr + r2 * r2 * (a4 + r2 * (a6 + r2 * a8));
+    const float g = c0 * (2.f / opr + K1 * r2 / (rootA * (opr * opr)))
+                    + K4 * r2 + K6 * r2 * r2 + K8 * (r2 * (r2 * r2));
+    const float f = z - sag;
+    float slope = -g * x * ldx - g * y * ldy + ldz;
+    if (fabsf(slope) < 1e-12f) slope = slope >= 0.f ? 1e-12f : -1e-12f;
+    t = t - f / slope;
+  }
+  const float x = lox + t * ldx, y = loy + t * ldy, z = loz + t * ldz;
+  const float r2 = x * x + y * y;
+  const float rootA = sqrtf(fmaxf(1.f - K1 * r2, 1e-12f));
+  const float opr = 1.f + rootA;
+  const float sag = c0 * r2 / opr + r2 * r2 * (a4 + r2 * (a6 + r2 * a8));
+  const bool ok = (t > tMin) && (fabsf(z - sag) < 1e-4f)
+                  && chartOk(r, smem, r[S_TRIM0], x, y, z, sqrtf(r2), true);
+  return ok ? t : kBig;
+}
+
+// a torus: the ray re-anchored at its closest approach to the centre and
+// scaled by R, the quartic's smallest valid root by Ferrari through the
+// resolvent cubic (28 damped Newton steps from above) and three Newton
+// polish steps per candidate, mapped back
+__device__ ODW_GEOM_ROOT float intersectTorus(
+    const float* r, const float* smem, float lox, float loy, float loz,
+    float ldx, float ldy, float ldz, float tMin) {
+  const float R0 = r[G_P];
+  const float rr2 = r[G_X], rT2 = r[G_X + 1], resTol = r[G_X + 2];
+  const float trim0 = r[S_TRIM0];
+  const float dd = ldx * ldx + ldy * ldy + ldz * ldz;
+  const float ddS = dd < 1e-20f ? 1e-20f : dd;
+  const float tMid = -(lox * ldx + loy * ldy + loz * ldz) / ddS;
+  const float stretch = sqrtf(ddS) / R0;
+  const float osx = (lox + tMid * ldx) / R0;
+  const float osy = (loy + tMid * ldy) / R0;
+  const float osz = (loz + tMid * ldz) / R0;
+  const float invL = rsqrtf(ddS);
+  const float dsx = ldx * invL, dsy = ldy * invL, dsz = ldz * invL;
+  const float K = osx * osx + osy * osy + osz * osz + 1.f - rr2;
+  const float bq = 2.f * (osx * dsx + osy * dsy + osz * dsz);
+  const float exy = dsx * dsx + dsy * dsy;
+  const float fxy = osx * dsx + osy * dsy;
+  const float gxy = osx * osx + osy * osy;
+  const float b = 2.f * bq;
+  const float c = bq * bq + 2.f * K - 4.f * exy;
+  const float d = 2.f * bq * K - 8.f * fxy;
+  const float e = K * K - 4.f * gxy;
+  const float tauMin = (tMin - tMid) * stretch;
+  // depressed quartic u^4 + p u^2 + q u + r with t = u - b/4
+  const float b4 = b / 4.f;
+  const float bb = b * b;
+  const float p = c - 3.f * b * b / 8.f;
+  const float q = d - b * c / 2.f + b * bb / 8.f;
+  const float rq = e - b * d / 4.f + bb * c / 16.f - 3.f * (bb * bb) / 256.f;
+  // largest root of S^3 + 2p S^2 + (p^2 - 4r) S - q^2
+  const float B = 2.f * p, C = p * p - 4.f * rq, D = -q * q;
+  float S = 1.f + fmaxf(fabsf(B), fmaxf(fabsf(C), fabsf(D)));
+  for (int it = 0; it < 28; ++it) {
+    const float f = ((S + B) * S + C) * S + D;
+    float fp = (3.f * S + 2.f * B) * S + C;
+    if (fabsf(fp) < 1e-20f) fp = 1e-20f;
+    const float step = f / fp;
+    S = S - fminf(fmaxf(step, -fabsf(S) - 1.f), fabsf(S) + 1.f);
+  }
+  S = fmaxf(S, 0.f);
+  const bool biquad = S < 1e-10f * (1.f + fabsf(p));
+  const float s = sqrtf(biquad ? 1.f : S);
+  const float sSafe = biquad ? 1.f : s;
+  float A = 0.5f * (p + S - q / sSafe);
+  float Bb = 0.5f * (p + S + q / sSafe);
+  if (biquad) {
+    float y1, y2;
+    quadRoots(p, rq, y1, y2);
+    A = y1 < INFINITY ? -y1 : 0.f;
+    Bb = y2 < INFINITY ? -y2 : 0.f;
+  }
+  const float sQ = biquad ? 0.f : s;
+  float u[4];
+  quadRoots(sQ, A, u[0], u[1]);
+  quadRoots(-sQ, Bb, u[2], u[3]);
+  float tauBest = INFINITY;
+  for (int k = 0; k < 4; ++k) {
+    float tau = u[k] < INFINITY ? u[k] - b4 : INFINITY;
+    for (int it = 0; it < 3; ++it) {
+      const float f = (((tau + b) * tau + c) * tau + d) * tau + e;
+      float fp = ((4.f * tau + 3.f * b) * tau + 2.f * c) * tau + d;
+      if (fabsf(fp) < 1e-20f) fp = 1e-20f;
+      if (tau < INFINITY) tau = tau - f / fp;
+    }
+    if (!(tau > tauMin && tau < INFINITY)) continue;
+    // the residual gate (spurious factorisation roots) and the tube-angle
+    // trim
+    const float t = tMid + tau / stretch;
+    const float x = lox + t * ldx, y = loy + t * ldy, z = loz + t * ldz;
+    const float sxy = sqrtf(x * x + y * y);
+    const float dr = sxy - R0;
+    const float g = dr * dr + z * z - rT2;
+    if (fabsf(g) < resTol
+        && chartOk(r, smem, trim0, x, y, z, chartAtan2(z, dr), true))
+      tauBest = fminf(tauBest, tau);
+  }
+  return tauBest < kBig ? tMid + tauBest / stretch : kBig;
+}
+
+// Ray-surface distance of every kind and trim (GEOM); plane / sphere /
+// cylinder with window trims compute what `intersect` computes.
+__device__ float intersectGeom(const float* r, const float* smem, float ox,
+                               float oy, float oz, float dx, float dy,
+                               float dz, float tMin) {
+  const float* R = r + S_ROT;
+  const float lox = R[0] * ox + R[1] * oy + R[2] * oz + r[S_OFF];
+  const float loy = R[3] * ox + R[4] * oy + R[5] * oz + r[S_OFF + 1];
+  const float loz = R[6] * ox + R[7] * oy + R[8] * oz + r[S_OFF + 2];
+  const float ldx = R[0] * dx + R[1] * dy + R[2] * dz;
+  const float ldy = R[3] * dx + R[4] * dy + R[5] * dz;
+  const float ldz = R[6] * dx + R[7] * dy + R[8] * dz;
+  const int kind = (int)r[S_KIND];
+  const float trim0 = r[S_TRIM0];
+  const float tA = r[S_TRIMA], tB = r[S_TRIMB];
+  const float* P = r + G_P;
+  if (kind == KIND_TRIANGLE) {     // Moeller-Trumbore
+    const float* X = r + G_X;
+    const float e1x = X[0], e1y = X[1], e1z = X[2];
+    const float e2x = X[3], e2y = X[4], e2z = X[5];
+    const float pvx = ldy * e2z - ldz * e2y;
+    const float pvy = ldz * e2x - ldx * e2z;
+    const float pvz = ldx * e2y - ldy * e2x;
+    const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+    const float detS = fabsf(det) < 1e-12f ? 1e-12f : det;
+    const float tvx = lox - P[0], tvy = loy - P[1], tvz = loz - P[2];
+    const float u = (tvx * pvx + tvy * pvy + tvz * pvz) / detS;
+    const float qvx = tvy * e1z - tvz * e1y;
+    const float qvy = tvz * e1x - tvx * e1z;
+    const float qvz = tvx * e1y - tvy * e1x;
+    const float v = (ldx * qvx + ldy * qvy + ldz * qvz) / detS;
+    const float t = (e2x * qvx + e2y * qvy + e2z * qvz) / detS;
+    const bool ok = (fabsf(det) > 1e-12f) && (u >= 0.f) && (v >= 0.f)
+                    && (u + v <= 1.f) && (t > tMin);
+    return ok ? t : kBig;
+  }
+  if (kind == KIND_PLANE) {
+    const float dzS = fabsf(ldz) < 1e-12f ? 1e-12f : ldz;
+    const float t = -loz / dzS;
+    const float x = lox + t * ldx, y = loy + t * ldy;
+    bool ok;
+    if (trim0 == 2.f) {
+      ok = bitmapOk(r, smem, x, y);
+    } else if (trim0 == 1.f || trim0 == 4.f) {
+      ok = (fabsf(x) <= tA) && (fabsf(y) <= tB);
+    } else {                       // annulus; tA, tB hold the SQUARED radii
+      const float r2 = x * x + y * y;
+      ok = (r2 >= tA) && (r2 <= tB);
+    }
+    if (trim0 == 3.f || trim0 == 4.f) ok = applyPrims(r, smem, x, y, 0.f, ok);
+    return ((t > tMin) && ok) ? t : kBig;
+  }
+  if (kind == KIND_ASPHERE)
+    return intersectAsphere(r, smem, lox, loy, loz, ldx, ldy, ldz, tMin);
+  if (kind == KIND_TORUS)
+    return intersectTorus(r, smem, lox, loy, loz, ldx, ldy, ldz, tMin);
+  // sphere, cylinder, cone, quadric: a quadratic in t
+  float a, b, c, w0 = 0.f, wd = 0.f;
+  if (kind == KIND_SPHERE) {
+    a = ldx * ldx + ldy * ldy + ldz * ldz;
+    b = 2.f * (lox * ldx + loy * ldy + loz * ldz);
+    c = lox * lox + loy * loy + loz * loz - r[S_P0SQ];
+  } else if (kind == KIND_CYLINDER) {
+    a = ldx * ldx + ldy * ldy;
+    b = 2.f * (lox * ldx + loy * ldy);
+    c = lox * lox + loy * loy - r[S_P0SQ];
+  } else if (kind == KIND_CONE) {  // |(x, y)| = r0 + z tanA, one nappe
+    const float r0 = P[0], tanA = P[1];
+    w0 = r0 + loz * tanA;
+    wd = ldz * tanA;
+    a = ldx * ldx + ldy * ldy - wd * wd;
+    b = 2.f * (lox * ldx + loy * ldy - w0 * wd);
+    c = lox * lox + loy * loy - w0 * w0;
+  } else {                         // principal-axis quadric
+    const float qa = P[0], qb = P[1], qc = P[2], qz = P[3], q0 = P[4];
+    a = qa * ldx * ldx + qb * ldy * ldy + qc * ldz * ldz;
+    b = 2.f * (qa * lox * ldx + qb * loy * ldy + qc * loz * ldz) + qz * ldz;
+    c = qa * lox * lox + qb * loy * loy + qc * loz * loz + qz * loz + q0;
+  }
+  const float disc = b * b - 4.f * a * c;
+  bool okD = disc >= 0.f;
+  const float sqD = sqrtf(fmaxf(disc, 0.f));
+  const float q = -0.5f * (b + signf(b + 1e-30f) * sqD);
+  const float aS = fabsf(a) < 1e-20f ? 1e-20f : a;
+  const float qS = fabsf(q) < 1e-20f ? 1e-20f : q;
+  float t1 = q / aS, t2 = c / qS;
+  if (kind == KIND_QUADRIC) {      // the linear case: the root -c / b
+    const float linT = -c / (fabsf(b) < 1e-20f ? 1e-20f : b);
+    const bool isLin = (fabsf(a) < 1e-14f * (fabsf(b) + 1e-20f))
+                       && (fabsf(b) > 1e-20f);
+    if (isLin) { t1 = linT; t2 = kBig; okD = true; }
+  }
+  const float lo = fminf(t1, t2), hi = fmaxf(t1, t2);
+  float out = kBig;
+  for (int k = 0; k < 2; ++k) {
+    const float t = k == 0 ? lo : hi;
+    const float z = loz + t * ldz;
+    const bool pre = kind != KIND_CONE || (w0 + t * wd >= 0.f);
+    const bool ok = (trim0 == 0.f || trim0 == 1.f)
+        ? pre && (z >= tA) && (z <= tB)
+        : chartOk(r, smem, trim0, lox + t * ldx, loy + t * ldy, z, z, pre);
+    out = fminf(out, (okD && (t > tMin) && ok) ? t : kBig);
+  }
+  return out;
+}
+
+// whether a ray at stage `stage` may hit surface row r (a stage gate)
+__device__ __forceinline__ bool stageAllowed(const float* smem,
+                                             const float* r, int stage) {
+  const uint32_t w = __float_as_uint(smem[(int)r[S_STAGES] + (stage >> 5)]);
+  return (w >> (stage & 31)) & 1u;
+}
+
+// The canonical local normal of the kinds of B2 at local point l (GEOM), in
+// the reference's operation order (`_normalFromCols`: its param columns are
+// float32, so (1 + k) c^2 is formed in float32 here).
+__device__ void geomNormal(const float* r, int kind, float lx, float ly,
+                           float lz, float& nlx, float& nly, float& nlz) {
+  const float* P = r + G_P;
+  if (kind == KIND_TRIANGLE) {
+    nlx = r[G_X + 6]; nly = r[G_X + 7]; nlz = r[G_X + 8];
+  } else if (kind == KIND_QUADRIC) {
+    const float n0 = 2.f * P[0] * lx, n1 = 2.f * P[1] * ly;
+    const float n2 = 2.f * P[2] * lz + P[3];
+    const float inv = rsqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
+    nlx = n0 * inv; nly = n1 * inv; nlz = n2 * inv;
+  } else if (kind == KIND_CONE) {
+    float rr = sqrtf(lx * lx + ly * ly);
+    if (rr < 1e-12f) rr = 1e-12f;
+    const float n0 = lx / rr, n1 = ly / rr, n2 = -P[1];
+    const float inv = rsqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
+    nlx = n0 * inv; nly = n1 * inv; nlz = n2 * inv;
+  } else if (kind == KIND_ASPHERE) {
+    const float c0 = P[0], kk = P[1], a4 = P[2], a6 = P[3], a8 = P[4];
+    const float r2 = lx * lx + ly * ly;
+    const float K1 = (1.f + kk) * c0 * c0;
+    const float rootA = sqrtf(fmaxf(1.f - K1 * r2, 1e-12f));
+    const float opr = 1.f + rootA;
+    const float g = c0 * (2.f / opr + K1 * r2 / (rootA * (opr * opr)))
+                    + 4.f * a4 * r2 + 6.f * a6 * r2 * r2
+                    + 8.f * a8 * (r2 * (r2 * r2));
+    const float inv = rsqrtf(g * g * r2 + 1.f + 1e-20f);
+    nlx = -g * lx * inv; nly = -g * ly * inv; nlz = inv;
+  } else if (kind == KIND_TORUS) {
+    float sxy = sqrtf(lx * lx + ly * ly);
+    if (sxy < 1e-12f) sxy = 1e-12f;
+    const float scale = P[0] / sxy;
+    const float n0 = lx * (1.f - scale), n1 = ly * (1.f - scale);
+    const float inv = rsqrtf(n0 * n0 + n1 * n1 + lz * lz + 1e-20f);
+    nlx = n0 * inv; nly = n1 * inv; nlz = lz * inv;
+  }
+}
+
 // OUT_HIST: out0 / out1 are the power / count histograms. OUT_BINS and
 // OUT_RAW: out0 is the (rows, hitSlots, N) ring, out1 is unused. SWEEP:
 // `table` holds V tables of p.tableLen floats, out0 / out1 V histograms of
 // p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
 // `rayIn` (shared by all variants) has p.N columns.
-template <int OUT, bool SWEEP, bool B4, bool SURF, bool SCAT>
+template <int OUT, bool SWEEP, bool B4, bool SURF, bool SCAT,
+          bool GEOM = false>
 __global__ void __launch_bounds__(kBlock)
 traceKernel(TraceParams p, const float* __restrict__ table,
             const float* __restrict__ rayIn, float* __restrict__ out0,
@@ -619,6 +1108,9 @@ traceKernel(TraceParams p, const float* __restrict__ table,
   static_assert(!SWEEP || OUT == OUT_HIST, "the sweep bins in the kernel");
   static_assert(!(SWEEP && SURF), "the sweep samples point sources only");
   static_assert(!SCAT || B4, "scatter is built on the B4 body");
+  static_assert(!GEOM || B4, "the other kinds and trims are built on B4");
+  // a GEOM table widens every surface row by kGeomCols
+  constexpr int kRow = GEOM ? kSurfCols + kGeomCols : kSurfCols;
   long long firstRay = (long long)blockIdx.x * blockDim.x;
   if constexpr (SWEEP) {
     const long long variant = blockIdx.x / p.blocksPerVariant;
@@ -633,7 +1125,7 @@ traceKernel(TraceParams p, const float* __restrict__ table,
     smem[k] = table[k];
   __syncthreads();
   const float* surfT = smem;
-  const float* elemT = smem + p.nSurf * kSurfCols;
+  const float* elemT = smem + p.nSurf * kRow;
 
   const long long i = firstRay + threadIdx.x;
   int segs = 0, hitN = 0;
@@ -674,7 +1166,7 @@ traceKernel(TraceParams p, const float* __restrict__ table,
         uP = bitsToUniform(rnd[0]);
       }
       const float* sg = smem + p.samplerOff;
-      sampleSurface(sg, uF, u, v, uT, uP, ox, oy, oz, dx, dy, dz);
+      sampleSurface<GEOM>(sg, uF, u, v, uT, uP, ox, oy, oz, dx, dy, dz);
       pw = 1.f;
       wl = sg[14];
     } else {
@@ -732,10 +1224,13 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       int sBest = -1, sOth = -1;
       const int stage = B4 ? min(seq, max(p.nStages, 1) - 1) : 0;
       for (int s = 0; s < p.nSurf; ++s) {
-        const float* r = surfT + s * kSurfCols;
-        if (B4 && p.gate && !(((unsigned)r[S_STAGES] >> stage) & 1u))
-          continue;
-        float t = intersect(r, ox, oy, oz, dx, dy, dz, p.tMin);
+        const float* r = surfT + s * kRow;
+        if (B4 && p.gate && !stageAllowed(smem, r, stage)) continue;
+        float t;
+        if constexpr (GEOM)
+          t = intersectGeom(r, smem, ox, oy, oz, dx, dy, dz, p.tMin);
+        else
+          t = intersect(r, ox, oy, oz, dx, dy, dz, p.tMin);
         if (t < tBest) { tBest = t; sBest = s; }
         if (p.anyMedium) {
           int e = (int)r[S_ELEM];
@@ -756,7 +1251,7 @@ traceKernel(TraceParams p, const float* __restrict__ table,
 
       // ---- winner attributes: local point, normal by kind, world normal
       // through the transposed rotation times orient ----
-      const float* r = surfT + sIdx * kSurfCols;
+      const float* r = surfT + sIdx * kRow;
       const float* R = r + S_ROT;
       float lx = R[0] * px + R[1] * py + R[2] * pz + r[S_OFF];
       float ly = R[3] * px + R[4] * py + R[5] * pz + r[S_OFF + 1];
@@ -769,6 +1264,8 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       } else if (kind == KIND_CYLINDER) {
         float inv = rsqrtf(lx * lx + ly * ly + 1e-20f);
         nlx = lx * inv; nly = ly * inv; nlz = 0.f;
+      } else if constexpr (GEOM) {
+        geomNormal(r, kind, lx, ly, lz, nlx, nly, nlz);
       }
       float orient = r[S_ORIENT];
       float nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient;
@@ -878,7 +1375,7 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
       ndx *= inv; ndy *= inv; ndz *= inv;
       if constexpr (SCAT)
-        scatterBounce(smem + p.nSurf * kSurfCols + p.nElem * kElemCols, p,
+        scatterBounce(smem + p.nSurf * kRow + p.nElem * kElemCols, p,
                       rayIn, i, bounce, SURF ? 5 : 2, elem, isMirror, isLens,
                       isEntering, dDotN, nx, ny, nz, dx, dy, dz, ndx, ndy,
                       ndz);
@@ -1037,9 +1534,15 @@ int launchTrace(const float* table, const float* rayIn, float* out0,
   long long blocks = (p.N + kBlock - 1) / kBlock;
   size_t shmem = (size_t)p.tableLen * sizeof(float);
   // ip[21]: the tables' sampler, 0 point source, 1 surface source; ip[22]:
-  // the table has a scatter block
+  // the table has a scatter block; ip[23]: the scene has a kind or trim of
+  // B2 / B3 (widened surface rows)
   const bool surf = ip[21] == 1 && p.mode != MODE_COLUMNS;
-  auto kernel = ip[22]
+  auto kernel = ip[23]
+      ? (ip[22] ? (surf ? traceKernel<OUT, false, true, true, true, true>
+                        : traceKernel<OUT, false, true, false, true, true>)
+                : (surf ? traceKernel<OUT, false, true, true, false, true>
+                        : traceKernel<OUT, false, true, false, false, true>))
+      : ip[22]
       ? (surf ? traceKernel<OUT, false, true, true, true>
               : traceKernel<OUT, false, true, false, true>)
       : needsB4(p)

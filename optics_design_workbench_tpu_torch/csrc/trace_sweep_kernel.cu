@@ -42,10 +42,14 @@ extern "C" int odwTraceSweep(const float* tables, const float* rayIn,
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   p.blocksPerVariant = (int)perVariant;
   size_t shmem = (size_t)p.tableLen * sizeof(float);
-  // ip[22]: the tables have a scatter block
-  auto kernel = ip[22] ? traceKernel<OUT_HIST, true, true, false, true>
-                : needsB4(p) ? traceKernel<OUT_HIST, true, true, false, false>
-                             : traceKernel<OUT_HIST, true, false, false, false>;
+  // ip[22]: the tables have a scatter block; ip[23]: widened surface rows
+  // (a kind or trim of B2 / B3)
+  auto kernel =
+      ip[23] ? (ip[22] ? traceKernel<OUT_HIST, true, true, false, true, true>
+                       : traceKernel<OUT_HIST, true, true, false, false, true>)
+      : ip[22] ? traceKernel<OUT_HIST, true, true, false, true>
+      : needsB4(p) ? traceKernel<OUT_HIST, true, true, false, false>
+                   : traceKernel<OUT_HIST, true, false, false, false>;
   if (int err = allowTable(kernel, shmem)) return err;
   kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
       p, tables, rayIn, histPower, histCounts, counters);

@@ -8,7 +8,10 @@ freecad_elements/surface_source.py):
     (surface_source.py:35-37, 437-457);
   * area-correct position sampling: faces chosen with probability
     proportional to their area, positions drawn in closed form per kind
-    (plane rectangle / disc / annulus, sphere zone, cylinder);
+    (plane rectangle / disc / annulus, sphere zone, cylinder, cone,
+    triangle), aspheres and tori through a tabulated inverse CDF of their
+    radius / tube angle (`rInv`; the kernels' sampler takes its piecewise
+    polynomial fit, `rSpec`);
   * PowerDensity in theta only (default cos(theta)**2, :38-43); phi
     uniform; direction = Rot(normal, phi) Rot(tangent, theta) normal
     (:85-111).
@@ -16,10 +19,9 @@ freecad_elements/surface_source.py):
 This slice ports the device path of the source: `samplerSpec()` (the JAX
 package's `pallasSamplerSpec`, named as the port names the point source's),
 `deviceColumnsGenerator()`, `emissionBound()` and the column maths the trace
-kernels' sampler repeats (`surfaceSampleColumns`). Faces of kind cone,
-asphere, torus or triangle raise NotImplementedError (ROADMAP A.6); the
-host-side modes (`generateRays`: fans, true / pseudo on the host) wait for
-A.10a.
+kernels' sampler repeats (`surfaceSampleColumns`), for faces of every kind.
+The host-side modes (`generateRays`: fans, true / pseudo on the host) wait
+for A.10a.
 '''
 
 import numpy as np
@@ -27,25 +29,41 @@ import torch
 
 from .. import distributions, resolveDevice
 from ..distributions.device_sampler import (buildDeviceTables, deviceDraw,
-                                            fitPiecewisePoly)
+                                            evalPwpoly, fitPiecewisePoly)
 from ..geometry import surfaces as GS
 from ..utils import io
 from .common import parseDomain
 from .generic_source import GenericSource
 
-# the face kinds whose closed-form sampling is ported
-SAMPLED_KINDS = (GS.PLANE, GS.SPHERE, GS.CYLINDER)
 # the in-kernel sampler's face limit (the reference's)
 MAX_SAMPLER_FACES = 32
 
 
-def _refuseKind(kind):
-  if kind not in SAMPLED_KINDS:
-    raise NotImplementedError(
-        f'surface-source faces of kind '
-        f'{GS._KIND_NAMES.get(kind, kind)!r} are not ported to the PyTorch '
-        f'package yet: ROADMAP item A.6 (the rest of the geometry; plane, '
-        f'sphere and cylinder faces are)')
+def _torusTubeAngleCdf(face, quantileRes=257):
+  '''Inverse CDF v(u) of the torus tube-angle area element
+  dA ~ (R + r cos v) dv on the face's v band, tabulated on a uniform
+  quantile grid.'''
+  R0, rT = float(face.params[0]), float(face.params[1])
+  v1 = max(float(face.trim[1]), -np.pi)
+  v2 = min(float(face.trim[2]), np.pi)
+  vGrid = np.linspace(v1, v2, 2001)
+  cdf = R0 * (vGrid - v1) + rT * (np.sin(vGrid) - np.sin(v1))
+  cdf /= cdf[-1]
+  return np.interp(np.linspace(0., 1., quantileRes), cdf, vGrid)
+
+
+def _asphereRadiusCdf(face, quantileRes=257):
+  '''Inverse CDF r(u) of the area element dA(r) of an asphere face,
+  tabulated on a uniform quantile grid.'''
+  t = face.trim
+  r1, r2 = t[1], min(t[2], 1e6)
+  rGrid = np.linspace(r1, r2, 2001)
+  gr = face._sagPrimeOverR(rGrid ** 2) * rGrid
+  dens = 2 * np.pi * rGrid * np.sqrt(1 + gr ** 2)
+  cdf = np.concatenate([[0], np.cumsum((dens[1:] + dens[:-1]) / 2
+                                       * np.diff(rGrid))])
+  cdf /= cdf[-1]
+  return np.interp(np.linspace(0., 1., quantileRes), cdf, rGrid)
 
 
 class _Face:
@@ -61,13 +79,42 @@ class _Face:
 
   def area(self):
     k, p, t = self.kind, self.params, self.trim
-    _refuseKind(k)
     if k == GS.PLANE:
       if t[0] > 0.5:
         return 4 * t[1] * t[2]
       rOut = t[2] if np.isfinite(t[2]) else 0.
       return np.pi * (rOut ** 2 - t[1] ** 2)
-    return 2 * np.pi * p[0] * (t[2] - t[1])  # sphere zone / cylinder
+    if k in (GS.SPHERE, GS.CYLINDER):
+      return 2 * np.pi * p[0] * (t[2] - t[1])     # zone area = 2 pi R dz
+    if k == GS.ASPHERE:
+      r1, r2 = t[1], min(t[2], 1e6)
+      r = np.linspace(r1, r2, 2001)
+      g = self._sagPrimeOverR(r ** 2) * r
+      return float(np.trapezoid(2 * np.pi * r * np.sqrt(1 + g ** 2), r))
+    if k == GS.TRIANGLE:
+      v0, v1, v2 = p[0:3], p[3:6], p[6:9]
+      return 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0))
+    if k == GS.CONE:
+      # dA = 2 pi r(z) sqrt(1 + tanA^2) dz with r(z) = r0 + z tanA
+      r0, tanA = p[0], p[1]
+      z1, z2 = t[1], t[2]
+      return float(2 * np.pi * np.sqrt(1 + tanA ** 2)
+                   * (r0 * (z2 - z1) + tanA * (z2 ** 2 - z1 ** 2) / 2))
+    if k == GS.TORUS:
+      # dA = r (R + r cos v) du dv, u full circle, v band
+      R0, rT = p[0], p[1]
+      v1, v2 = max(t[1], -np.pi), min(t[2], np.pi)
+      return float(2 * np.pi * rT
+                   * (R0 * (v2 - v1) + rT * (np.sin(v2) - np.sin(v1))))
+    raise ValueError(f'unknown surface kind {k}')
+
+  def _sagPrimeOverR(self, r2):
+    c, kk = self.params[0], self.params[1]
+    a4, a6, a8 = self.params[2], self.params[3], self.params[4]
+    root = np.sqrt(np.maximum(1 - (1 + kk) * c * c * r2, 1e-12))
+    return (c * (2 / (1 + root) + (1 + kk) * c * c * r2
+                 / (root * (1 + root) ** 2))
+            + 4 * a4 * r2 + 6 * a6 * r2 * r2 + 8 * a8 * r2 ** 3)
 
 
 class SurfaceSource(GenericSource):
@@ -213,22 +260,30 @@ class SurfaceSource(GenericSource):
 
   def _faceConstants(self):
     '''Per-face python-float constants for the device and kernel samplers:
-    area-CDF windows, placement, kind parameters.'''
+    area-CDF windows, placement, kind parameters, and (aspheres, tori) the
+    tabulated inverse area CDF `rInv`.'''
     faces = self._activeFaces()
     if not faces:
       return []
     areas = np.array([f.area() for f in faces])
     cum = np.concatenate([[0.], np.cumsum(areas / areas.sum())])
     cum[-1] = 1.0 + 1e-7      # catch u == 1 - ulp in the last window
-    return [dict(kind=int(f.kind),
-                 params=tuple(float(x) for x in f.params),
-                 trim=tuple(float(x) for x in f.trim),
-                 orient=float(f.orient),
-                 R=tuple(tuple(float(x) for x in row)
-                         for row in f.transform[:3, :3]),
-                 off=tuple(float(x) for x in f.transform[:3, 3]),
-                 cumLo=float(cum[i]), cumHi=float(cum[i + 1]))
-            for i, f in enumerate(faces)]
+    out = []
+    for i, f in enumerate(faces):
+      d = dict(kind=int(f.kind),
+               params=tuple(float(x) for x in f.params),
+               trim=tuple(float(x) for x in f.trim),
+               orient=float(f.orient),
+               R=tuple(tuple(float(x) for x in row)
+                       for row in f.transform[:3, :3]),
+               off=tuple(float(x) for x in f.transform[:3, 3]),
+               cumLo=float(cum[i]), cumHi=float(cum[i + 1]))
+      if f.kind == GS.ASPHERE:
+        d['rInv'] = _asphereRadiusCdf(f)
+      elif f.kind == GS.TORUS:
+        d['rInv'] = _torusTubeAngleCdf(f)
+      out.append(d)
+    return out
 
   def _thetaSpec(self):
     '''The theta marginal as the kernel's sampler takes it: an affine map
@@ -255,7 +310,16 @@ class SurfaceSource(GenericSource):
     thetaSpec = self._thetaSpec()
     if thetaSpec is None:
       return None
-    return dict(type='surface', faces=tuple(faces), theta=thetaSpec,
+    specFaces = []
+    for f in faces:
+      f = dict(f)
+      if 'rInv' in f:       # tabulated-parameter kinds (asphere r, torus v)
+        rSpec = fitPiecewisePoly(f.pop('rInv'))
+        if rSpec is None:
+          return None
+        f['rSpec'] = rSpec
+      specFaces.append(f)
+    return dict(type='surface', faces=tuple(specFaces), theta=thetaSpec,
                 wavelength=float(self.Wavelength))
 
   def deviceColumnsGenerator(self, device='cuda'):
@@ -317,26 +381,67 @@ def faceSamplingConstants(face):
     plane rectangle  (half-width x, half-width y, 0, 0)
     plane disc       (rOut**2 - rIn**2, rIn**2, 0, 0)
     sphere zone      (z1, z2 - z1, R**2, 1 / R)
-    cylinder         (z1, z2 - z1, R, 0)'''
+    cylinder         (z1, z2 - z1, R, 0)
+    cone             (A1, A2 - A1, r0**2, 2 tanA) with A = r0 z + tanA z^2 / 2
+    other kinds      (0, 0, 0, 0): see `faceExtraConstants`'''
   k, p, t = face['kind'], face['params'], face['trim']
-  _refuseKind(k)
   if k == GS.PLANE:
     if t[0] > 0.5:
       return (t[1], t[2], 0., 0.)
     return (t[2] ** 2 - t[1] ** 2, t[1] ** 2, 0., 0.)
   if k == GS.SPHERE:
     return (t[1], t[2] - t[1], p[0] ** 2, 1.0 / p[0])
-  return (t[1], t[2] - t[1], p[0], 0.)
+  if k == GS.CYLINDER:
+    return (t[1], t[2] - t[1], p[0], 0.)
+  if k == GS.CONE:
+    r0, tanA, z1, z2 = p[0], p[1], t[1], t[2]
+    A1 = r0 * z1 + tanA * z1 * z1 / 2.
+    A2 = r0 * z2 + tanA * z2 * z2 / 2.
+    return (A1, A2 - A1, r0 ** 2, 2. * tanA)
+  return (0., 0., 0., 0.)
 
 
-def localSampleColumns(face, u, v):
+def faceExtraConstants(face):
+  '''The twelve further float32 constants of a face of kind cone,
+  asphere, torus or triangle (the kernel's face row from F_X), each formed
+  in double and rounded once:
+    cone      r0, 1 / tanA, tanA, 1 / sqrt(1 + tanA^2), tanA times that,
+              z1, z2 - z1, 1 where |tanA| < 1e-12 (z is then linear in u)
+    asphere   (offset of its radius marginal), c, (1 + k) c^2, a4, a6, a8,
+              4 a4, 6 a6, 8 a8
+    torus     (offset of its tube-angle marginal), R, r
+    triangle  v0, v1 - v0, v2 - v0, the unit normal'''
+  k, p, t = face['kind'], face['params'], face['trim']
+  out = np.zeros(12)
+  if k == GS.CONE:
+    r0, tanA = p[0], p[1]
+    small = abs(tanA) < 1e-12
+    ninv = 1.0 / np.sqrt(1. + tanA * tanA)
+    out[:8] = (r0, 0. if small else 1.0 / tanA, tanA, ninv, tanA * ninv,
+               t[1], t[2] - t[1], float(small))
+  elif k == GS.ASPHERE:
+    c0, kk, a4, a6, a8 = p[0:5]
+    out[1:9] = (c0, (1. + kk) * c0 * c0, a4, a6, a8, 4. * a4, 6. * a6,
+                8. * a8)
+  elif k == GS.TORUS:
+    out[1:3] = (p[0], p[1])
+  elif k == GS.TRIANGLE:
+    v0, v1, v2 = (np.array(p[i:i + 3], float) for i in (0, 3, 6))
+    nrm = np.cross(v1 - v0, v2 - v0)
+    out[:] = np.concatenate([v0, v1 - v0, v2 - v0, nrm / np.linalg.norm(nrm)])
+  return tuple(float(x) for x in out)
+
+
+def localSampleColumns(face, u, v, rCol=None):
   '''Local position + canonical normal of one face from two float32
   uniform columns, in closed form per kind, in the reference's operation
-  order (`_localSampleColumns`). `face` is a dict of python floats.
-  Returns (lx, ly, lz, nlx, nly, nlz) with the orient flip NOT yet
-  applied.'''
+  order (`_localSampleColumns`); `rCol` is an asphere's radius or a torus's
+  tube angle, drawn from the face's inverse CDF by the caller. `face` is a
+  dict of python floats. Returns (lx, ly, lz, nlx, nly, nlz) with the
+  orient flip NOT yet applied.'''
   k, t = face['kind'], face['trim']
   c0, c1, c2, c3 = (_f32(c) for c in faceSamplingConstants(face))
+  X = [_f32(c) for c in faceExtraConstants(face)]
   one = torch.ones_like(u)
   zero = torch.zeros_like(u)
   a = _f32(2. * np.pi) * v
@@ -345,13 +450,71 @@ def localSampleColumns(face, u, v):
       return ((2. * u - 1.) * c0, (2. * v - 1.) * c1, zero, zero, zero, one)
     r = torch.sqrt(u * c0 + c1)
     return r * torch.cos(a), r * torch.sin(a), zero, zero, zero, one
-  z = c0 + u * c1
-  if k == GS.SPHERE:
-    rr = torch.sqrt(torch.clamp(c2 - z * z, min=0.))
-    lx, ly = rr * torch.cos(a), rr * torch.sin(a)
-    return lx, ly, z, lx * c3, ly * c3, z * c3
-  ca, sa = torch.cos(a), torch.sin(a)
-  return c2 * ca, c2 * sa, z, ca, sa, zero
+  if k in (GS.SPHERE, GS.CYLINDER):
+    z = c0 + u * c1
+    if k == GS.SPHERE:
+      rr = torch.sqrt(torch.clamp(c2 - z * z, min=0.))
+      lx, ly = rr * torch.cos(a), rr * torch.sin(a)
+      return lx, ly, z, lx * c3, ly * c3, z * c3
+    ca, sa = torch.cos(a), torch.sin(a)
+    return c2 * ca, c2 * sa, z, ca, sa, zero
+  if k == GS.CONE:
+    r0, invTan, tanA, ninv, tanNinv, z1, dz, small = X[:8]
+    if small:
+      z = z1 + u * dz
+    else:
+      target = c0 + u * c1
+      disc = torch.fmax(c2 + c3 * target, zero)
+      z = (-r0 + torch.sqrt(disc)) * invTan
+    ca, sa = torch.cos(a), torch.sin(a)
+    rr = r0 + z * tanA
+    return rr * ca, rr * sa, z, ca * ninv, sa * ninv, zero - tanNinv
+  if k == GS.ASPHERE:
+    r = rCol
+    _off, cc, K1, a4, a6, a8, K4, K6, K8 = X[:9]
+    r2 = r * r
+    root = torch.sqrt(torch.fmax(1. - K1 * r2, torch.full_like(r2, 1e-12)))
+    opr = 1. + root
+    sag = cc * r2 / opr + r2 * r2 * (a4 + r2 * (a6 + r2 * a8))
+    g = (cc * (torch.full_like(opr, 2.) / opr + K1 * r2 / (root * (opr * opr)))
+         + K4 * r2 + K6 * r2 * r2 + K8 * (r2 * (r2 * r2)))
+    ca, sa = torch.cos(a), torch.sin(a)
+    ninv = torch.rsqrt(g * g * r2 + 1. + 1e-20)
+    return (r * ca, r * sa, sag, -g * r * ca * ninv, -g * r * sa * ninv,
+            ninv)
+  if k == GS.TORUS:
+    R0, rT = X[1], X[2]
+    ca, sa = torch.cos(a), torch.sin(a)
+    cv, sv = torch.cos(rCol), torch.sin(rCol)
+    rad = R0 + rT * cv
+    return rad * ca, rad * sa, rT * sv, cv * ca, cv * sa, sv
+  if k == GS.TRIANGLE:
+    flip = u + v > 1.
+    aa = torch.where(flip, 1. - u, u)
+    bb = torch.where(flip, 1. - v, v)
+    v0, e1, e2, n = X[0:3], X[3:6], X[6:9], X[9:12]
+    return (v0[0] + aa * e1[0] + bb * e2[0],
+            v0[1] + aa * e1[1] + bb * e2[1],
+            v0[2] + aa * e1[2] + bb * e2[2],
+            n[0] * one, n[1] * one, n[2] * one)
+  raise ValueError(f'unknown surface kind {k}')
+
+
+def faceParameterColumn(face, u):
+  '''An asphere's radius or a torus's tube angle from the uniform `u`:
+  the face's tabulated inverse CDF `rInv` interpolated as the reference's
+  device generator does, or, in a kernel sampler spec, its piecewise
+  polynomial fit `rSpec`. None for the closed-form kinds.'''
+  if face['kind'] not in (GS.ASPHERE, GS.TORUS):
+    return None
+  if 'rInv' in face:
+    tab = torch.as_tensor(np.asarray(face['rInv'], np.float32),
+                          device=u.device)
+    K = tab.shape[0]
+    pos = u * float(K - 1)
+    j = torch.clamp(pos.to(torch.int32), 0, K - 2).to(torch.int64)
+    return tab[j] + (pos - j.to(u.dtype)) * (tab[j + 1] - tab[j])
+  return evalPwpoly(face['rSpec'], u)
 
 
 def rotColumns(vx, vy, vz, ax, ay, az, ang):
@@ -380,7 +543,8 @@ def surfaceSampleColumns(faces, uF, u, v, theta, phi, wavelength):
   nx, ny, nz = zero, zero, zero + 1.
   for f in faces:
     m = (uF >= _f32(f['cumLo'])) & (uF < _f32(f['cumHi']))
-    lx, ly, lz, nlx, nly, nlz = localSampleColumns(f, u, v)
+    lx, ly, lz, nlx, nly, nlz = localSampleColumns(
+        f, u, v, faceParameterColumn(f, u))
     R = [[_f32(x) for x in row] for row in f['R']]
     off = [_f32(x) for x in f['off']]
     orient = _f32(f['orient'])

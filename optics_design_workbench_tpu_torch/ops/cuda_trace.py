@@ -42,7 +42,11 @@ main path uses (a); (b) and (c) exist so that kernel, plain version and the
 JAX package can be fed the same numbers.
 
 Scene coverage of this slice (`ineligibleReason` names what is refused):
-PLANE / SPHERE / CYLINDER with window, annulus and z-band trims;
+every surface kind (plane, sphere, cylinder, asphere, triangle, cone,
+quadric, torus) with window, annulus and band trims, UV bitmap trims and
+hole-primitive trims (a scene with a kind or trim beyond plane / sphere /
+cylinder with window trims widens its surface rows and runs the kernels'
+GEOM instance, `needsGeom`);
 Mirror / Lens / Absorber / Vacuum / Grating (Ludwig line gratings,
 reflective and transmissive); Beer-Lambert absorption; dispersive n(lambda)
 as a fitted polynomial per element; sequential mode (a per-ray stage index
@@ -50,7 +54,7 @@ gating each surface) and per-source surface masks; stochastic scatter
 (the lobe of a mirror or lens and the ray modification, drawn per bounce
 from the fitted constants of `tracing/scatter.scatterConstants`, packed as
 the table's scatter block). In-kernel samplers: the point source and the
-surface source (plane, sphere-zone and cylinder faces, up to 32). Up to 256
+surface source (faces of every kind, up to 32). Up to 256
 surfaces, any number of elements, as long as the table fits a thread
 block's shared memory. The kernels sweep every allowed surface on every
 bounce (the reference's per-bounce culls only skip surfaces that cannot be
@@ -86,17 +90,32 @@ MAX_PWPOLY_SEGMENTS = 12
 MAX_PWPOLY_COEFFS = 13
 MAX_TENT_KNOTS = 257
 MAX_HIT_SLOTS = 6
-# sequential stages: a surface's stage bitmask is held exactly in a float32
-MAX_STAGES = 24
 # n(lambda) fit: degree <= 12 in the scaled wavelength, to 2e-5
 MAX_DISP_COEFFS = 13
 DISP_FIT_TOL = 2e-5
 
 # table layout — keep in step with csrc/trace_common.cuh. A surface row ends
-# with its stage bitmask (column 19); an element row with its dispersion
-# flag (11) and grating columns (12-17); a scene with dispersion adds one
-# block row per element: mid, 1/half, coefficient count, 0, coefficients.
+# with the offset of its stage words (column 19: where a scene with a stage
+# gate keeps, per surface, ceil(stages / 32) uint32 words bit-cast into the
+# float table, bit q of the set allowing stage q); an element row with its
+# dispersion flag (11) and grating columns (12-17); a scene with dispersion
+# adds one block row per element: mid, 1/half, coefficient count, 0,
+# coefficients.
 SURF_COLS = 20
+# A scene with a surface kind or a trim beyond plane / sphere / cylinder
+# with window trims (B2, B3) widens each surface row by GEOM_COLS: the
+# params p0..p4 (G_P), nine kind constants (G_X; triangle: edges e1, e2 and
+# unit normal, each formed in double and rounded once; asphere: (1+k) c^2,
+# 1/c, 1/c^2 and whether the sphere seed applies; torus: (r/R)^2, r^2 and
+# the residual gate), a bitmap's 1/du, 1/dv, the offset of its bit words and
+# its resolution, and the offset and count of its hole-primitive rows
+# (PRIM_COLS each: shape, isAdd, isInverted, cx, cy, p0, p1, cosA, sinA).
+# Bitmaps are bits in uint32 words bit-cast into the table, row-major over
+# (iv, iu), LSB first.
+GEOM_COLS = 20
+G_P, G_X, G_TRIM3, G_TRIM4 = 20, 25, 34, 35
+G_MASKOFF, G_MASKRES, G_PRIMOFF, G_NPRIM = 36, 37, 38, 39
+PRIM_COLS = 9
 ELEM_COLS = 18
 DISP_COLS = 4 + MAX_DISP_COEFFS
 _SEG_STRIDE = 4 + MAX_PWPOLY_COEFFS
@@ -106,8 +125,15 @@ _SAMPLER_GEOM = 16
 # wavelength at 14), the theta marginal, then one row per face: kind,
 # rectangle flag, the four sampling constants of
 # `surface_source.faceSamplingConstants`, the placement R (9, row-major)
-# and offset (3), orient, and the face's area-CDF window [cumLo, cumHi)
-FACE_COLS = 21
+# and offset (3), orient, and the face's area-CDF window [cumLo, cumHi);
+# faces of kind cone, asphere, torus and triangle carry FACE_XCOLS more
+# constants at F_X (`surface_source.faceExtraConstants`), an asphere or
+# torus face also a marginal block of its radius / tube-angle inverse CDF
+# after the face rows, at the offset (from the sampler block's start) its
+# first extra constant holds
+FACE_XCOLS = 12
+F_X = 21
+FACE_COLS = F_X + FACE_XCOLS
 # the in-kernel samplers and the uniforms each draws per ray (the uniform
 # seam's rows): point (first, phi); surface (face, u, v, theta, phi)
 SAMPLER_POINT, SAMPLER_SURFACE = 0, 1
@@ -175,24 +201,30 @@ def ineligibleReason(scene):
             f'polynomial model (degree <= {MAX_DISP_COEFFS - 1} to '
             f'{DISP_FIT_TOL})')
   kinds = _hostArray(scene['surfaces']['kind'])
-  bad = sorted(set(kinds.tolist()) - set(GS.PORTED_KINDS))
-  if bad:
-    names = ', '.join(GS._KIND_NAMES.get(k, str(k)) for k in bad)
-    return (f'surface kinds not ported yet: {names} (plane, sphere and '
-            f'cylinder are)')
-  trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
-  if not np.isin(trims0, (0., 1.)).all():
-    return 'bitmap and hole-primitive trims are not ported yet'
   if len(kinds) > MAX_SURFACES:
     return (f'{len(kinds)} surfaces > the {MAX_SURFACES} the kernel sweeps '
             f'from its surface rows; more need the surface-table sweep '
-            f'(ROADMAP B8)')
-  if 'seqMask' in scene:
-    nStages = _hostArray(scene['seqMask']).shape[0]
-    if nStages > MAX_STAGES:
-      return (f"{nStages} sequential stages > the {MAX_STAGES} of the "
-              f"kernel's stage bitmask")
+            f'(ROADMAP B8) or, for a mesh, the triangle-table sweep (B7)')
+  bad = sorted(set(kinds.tolist()) - set(GS._KIND_NAMES))
+  if bad:
+    return f'unknown surface kinds {bad}'
+  trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
+  if not np.isin(trims0, (0., 1., 2., 3., 4.)).all():
+    return 'unknown trim flags (0 to 4 are defined)'
+  if (trims0 == 2.).any() and 'trimMasks' not in scene['surfaces']:
+    return "bitmap trims (flag 2) without the scene's trimMasks"
+  if (trims0 > 2.5).any() and 'trimPrims' not in scene['surfaces']:
+    return "hole-primitive trims (flags 3, 4) without the scene's trimPrims"
   return None
+
+
+def needsGeom(scene):
+  '''Whether the scene needs the kernels' GEOM instance: a surface kind
+  beyond plane / sphere / cylinder, or a bitmap or hole-primitive trim.'''
+  kinds = _hostArray(scene['surfaces']['kind'])
+  trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
+  return bool(not np.isin(kinds, GS.BASIC_KINDS).all()
+              or not np.isin(trims0, GS.BASIC_TRIMS).all())
 
 
 # scatterConstants per scatter table, keyed by a digest of the tables (the
@@ -371,22 +403,35 @@ def _staticMasks(scene):
   if 'seqMask' in scene:
     seq = _hostArray(scene['seqMask']).astype(bool)
     Q = seq.shape[0]
-    stages = {s: tuple(q for q in range(Q) if seq[q, s]) for s in range(S)}
+    stages = {s: tuple(np.nonzero(seq[:, s])[0].tolist()) for s in range(S)}
     seqSpec = (Q, stages)
-    surfMask &= np.array([len(stages[s]) > 0 for s in range(S)])
+    surfMask &= seq.any(axis=0)
   allowed = None if surfMask.all() \
       else sorted(s for s in range(S) if surfMask[s])
   return allowed, seqSpec
 
 
+def _bitsToInt(indices, n):
+  '''The python int whose bits `indices` (of n) are set.'''
+  bits = np.zeros(n, bool)
+  bits[list(indices)] = True
+  return int.from_bytes(np.packbits(bits, bitorder='little').tobytes(),
+                        'little')
+
+
 def _sceneRows(scene, histSpec):
   '''Extract python-float scene constants (host side). Returns
-  (surfRows, elemRows, nStages): one dict per surface (kind, world->local
-  rotation r00..r22 and offset t0..t2, orient, elemF, p0, trim0..trim2,
-  stage bitmask `stages`) and per element (optF, n, refl, absLen, rec,
-  detF, histogram bounds, grating type / lines per mm / line direction /
-  order, `nPoly` = (mid, half, ascending coefficients) or None), and the
-  number of sequential stages (0 without sequential mode).
+  (surfRows, elemRows, nStages, masks): one dict per surface (kind,
+  world->local rotation r00..r22 and offset t0..t2, orient, elemF, p0..p8,
+  trim0..trim4, stage bitmask `stages`; a triangle's `triE1`, `triE2`,
+  `triN` formed in double from its float32 vertices; a bitmap-trimmed
+  surface's `maskSlot` and `maskRes`; a hole-primitive surface's
+  `holePrims`, its active rows) and per element (optF, n, refl, absLen,
+  rec, detF, histogram bounds, grating type / lines per mm / line
+  direction / order, `nPoly` = (mid, half, ascending coefficients) or
+  None), the number of sequential stages (0 without sequential mode) and
+  the distinct (R, R) bitmaps the surfaces' `maskSlot` index. The JAX
+  package's `_sceneRows`, step for step.
 
   Bit q of `stages` lets a ray whose stage index, clamped to nStages - 1,
   is q hit the surface. Without sequential mode the bitmask is 1 for a
@@ -397,7 +442,13 @@ def _sceneRows(scene, histSpec):
   packed = _hostArray(surf['packed']).astype(float)
   trims = _hostArray(surf['trim']).astype(float)
   kinds = _hostArray(surf['kind'])
+  maskStack = _hostArray(surf['trimMasks']) if 'trimMasks' in surf else None
+  maskIdx = _hostArray(surf['trimMaskIdx']) if 'trimMaskIdx' in surf \
+      else None
+  prims = _hostArray(surf['trimPrims']).astype(float) \
+      if 'trimPrims' in surf else None
   allowed, seqSpec = _staticMasks(scene)
+  masks, maskSlotOf = [], {}
   surfRows = []
   for s in range(numSurfacesStatic(scene)):
     p = packed[s]
@@ -406,16 +457,38 @@ def _sceneRows(scene, histSpec):
     elif seqSpec is None:
       stages = 1
     else:
-      stages = sum(1 << q for q in seqSpec[1][s])
-    surfRows.append(dict(
+      stages = _bitsToInt(seqSpec[1][s], seqSpec[0])
+    row = dict(
         kind=int(kinds[s]),
         r00=float(p[0]), r01=float(p[1]), r02=float(p[2]),
         r10=float(p[3]), r11=float(p[4]), r12=float(p[5]),
         r20=float(p[6]), r21=float(p[7]), r22=float(p[8]),
         t0=float(p[9]), t1=float(p[10]), t2=float(p[11]),
-        orient=float(p[12]), elemF=float(p[13]), p0=float(p[15]),
+        orient=float(p[12]), elemF=float(p[13]),
+        **{f'p{k}': float(p[15 + k]) for k in range(9)},
         trim0=float(trims[s, 0]), trim1=float(trims[s, 1]),
-        trim2=float(min(trims[s, 2], _BIG)), stages=stages))
+        trim2=float(min(trims[s, 2], _BIG)), trim3=float(trims[s, 3]),
+        trim4=float(trims[s, 4]), stages=stages)
+    if row['kind'] == GS.TRIANGLE:
+      v0 = np.array([row['p0'], row['p1'], row['p2']])
+      e1 = np.array([row['p3'], row['p4'], row['p5']]) - v0
+      e2 = np.array([row['p6'], row['p7'], row['p8']]) - v0
+      nT = np.cross(e1, e2)
+      nT = nT / max(np.linalg.norm(nT), 1e-30)
+      row['triE1'] = tuple(float(x) for x in e1)
+      row['triE2'] = tuple(float(x) for x in e2)
+      row['triN'] = tuple(float(x) for x in nT)
+    if row['trim0'] == 2.:
+      mi = int(maskIdx[s])
+      if mi not in maskSlotOf:
+        maskSlotOf[mi] = len(masks)
+        masks.append(np.asarray(maskStack[mi]))
+      row['maskSlot'] = maskSlotOf[mi]
+      row['maskRes'] = int(maskStack[mi].shape[0])
+    elif row['trim0'] in (3., 4.):
+      row['holePrims'] = tuple(tuple(float(x) for x in hole)
+                               for hole in prims[s] if hole[0] > 0.5)
+    surfRows.append(row)
   ep = _hostArray(scene['elements']['packed']).astype(float)
   elemToDet = _hostArray(histSpec['elemToDet'])
   boundsArr = _hostArray(histSpec['bounds'])
@@ -436,7 +509,8 @@ def _sceneRows(scene, histSpec):
         gratDirY=float(ep[e, EP_GRATDIRY]),
         gratDirZ=float(ep[e, EP_GRATDIRZ]),
         gratOrder=float(ep[e, EP_GRATORDER]), nPoly=nPolys.get(e)))
-  return surfRows, elemRows, (seqSpec[0] if seqSpec is not None else 0)
+  return (surfRows, elemRows, (seqSpec[0] if seqSpec is not None else 0),
+          masks)
 
 
 def autoHitSlots(scene, histSpec, maxIntersections):
@@ -511,15 +585,51 @@ def _packMarginal(spec):
   return out.astype(np.float32)
 
 
+def _kindConstants(r):
+  '''The nine kind constants of a surface row (G_X), each formed in double
+  from the row's float32 params and rounded once, as the reference bakes
+  them: triangle (e1, e2, unit normal); asphere ((1+k) c^2, 1/c, 1/c^2,
+  1 where the sphere seed applies); torus ((r/R)^2, r^2, the residual
+  gate 2e-3 r^2 + 1e-6 R^2).'''
+  out = np.zeros(9)
+  if r['kind'] == GS.TRIANGLE:
+    out[:] = r['triE1'] + r['triE2'] + r['triN']
+  elif r['kind'] == GS.ASPHERE:
+    c0, kk = r['p0'], r['p1']
+    out[0] = (1 + kk) * c0 * c0
+    if abs(c0) > 1e-12:
+      R = 1. / c0
+      out[1:4] = (R, R * R, 1.)
+  elif r['kind'] == GS.TORUS:
+    R0, rT = r['p0'], r['p1']
+    out[:3] = ((rT / R0) ** 2, rT * rT, 2e-3 * rT * rT + 1e-6 * R0 * R0)
+  return out
+
+
+def _primRow(hole):
+  '''One hole primitive (flag, cx, cy, p0, p1, cosA, sinA) as the kernel's
+  row: shape, isAdd, isInverted decoded from the flag as the reference
+  decodes it, then the six payload values.'''
+  flag = hole[0]
+  isInv = flag > 15.5
+  rem = flag - 20. if isInv else flag
+  isAdd = rem > 5.5
+  shape = rem - 10. if isAdd else rem
+  return (shape, float(isAdd), float(isInv)) + tuple(hole[1:7])
+
+
 def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   '''The kernel's table of one compiled scene as host numpy, and its static
   facts: (float32 (tableLen,) array, dict(nSurf, nElem, samplerOff, bins,
-  nDet, anyMedium, hasGrating, nStages, gate, dispOff, surfRows, elemRows,
-  samplerSpec, scatter, scatterConsts, scatterRows, lobeRows, modRows)).
+  nDet, anyMedium, hasGrating, nStages, gate, dispOff, geom, surfRows,
+  elemRows, samplerSpec, scatter, scatterConsts, scatterRows, lobeRows,
+  modRows)).
   `gate` says some surface is not always allowed (a masked surface, or
   sequential mode), `dispOff` where the dispersion block starts (-1: no
   dispersive element); these and hasGrating / nStages are the kernel's
-  header flags, so a scene without them skips that code. `scatter` says
+  header flags, so a scene without them skips that code. `geom` says the
+  surface rows are widened by GEOM_COLS (a kind or trim of B2 / B3; the
+  kernels' GEOM instance). `scatter` says
   the table holds a scatter block (right after the element rows), drawn
   from `scatterRows` uniforms per bounce (`lobeRows` for the lobe, then
   `modRows` for MODIFY).
@@ -530,18 +640,26 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   if reason is not None:
     raise ValueError(f'scene is not eligible for the CUDA trace kernel: '
                      f'{reason}')
-  surfRows, elemRows, nStages = _sceneRows(scene, histSpec)
+  surfRows, elemRows, nStages, masks = _sceneRows(scene, histSpec)
   S, E = len(surfRows), len(elemRows)
-  surfT = np.zeros((S, SURF_COLS), np.float64)
+  geom = needsGeom(scene)
+  rowCols = SURF_COLS + (GEOM_COLS if geom else 0)
+  surfT = np.zeros((S, rowCols), np.float64)
   for s, r in enumerate(surfRows):
-    annulus = r['kind'] == GS.PLANE and r['trim0'] != 1.
+    annulus = r['kind'] == GS.PLANE and r['trim0'] in (0., 3.)
     # constants the reference squares in double before rounding to float32
     tA, tB = ((r['trim1'] ** 2, r['trim2'] ** 2) if annulus
               else (r['trim1'], r['trim2']))
-    surfT[s] = [r['kind'], r['r00'], r['r01'], r['r02'], r['r10'], r['r11'],
-                r['r12'], r['r20'], r['r21'], r['r22'], r['t0'], r['t1'],
-                r['t2'], r['orient'], r['elemF'], r['p0'] ** 2, r['trim0'],
-                tA, tB, r['stages']]
+    surfT[s, :SURF_COLS - 1] = [
+        r['kind'], r['r00'], r['r01'], r['r02'], r['r10'], r['r11'],
+        r['r12'], r['r20'], r['r21'], r['r22'], r['t0'], r['t1'], r['t2'],
+        r['orient'], r['elemF'], r['p0'] ** 2, r['trim0'], tA, tB]
+    if geom:
+      surfT[s, G_P:G_P + 5] = [r[f'p{k}'] for k in range(5)]
+      surfT[s, G_X:G_X + 9] = _kindConstants(r)
+      surfT[s, G_TRIM3:G_TRIM4 + 1] = (r['trim3'], r['trim4'])
+      surfT[s, G_MASKRES] = r.get('maskRes', 0)
+      surfT[s, G_NPRIM] = len(r.get('holePrims', ()))
   elemT = np.zeros((E, ELEM_COLS), np.float64)
   dispT = np.zeros((E, DISP_COLS), np.float64)
   for e, r in enumerate(elemRows):
@@ -556,9 +674,7 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
       mid, half, coeffs = r['nPoly']
       dispT[e, :4] = (mid, 1.0 / half, len(coeffs), 0.)
       dispT[e, 4:4 + len(coeffs)] = coeffs
-  with np.errstate(over='ignore'):      # an unbounded radius squares to inf
-    parts = [surfT.astype(np.float32).reshape(-1),
-             elemT.astype(np.float32).reshape(-1)]
+  parts = [elemT.astype(np.float32).reshape(-1)]
   consts = scatterConstantsOf(scene)
   scatFacts = dict(scatterRows=0, lobeRows=0, modRows=0)
   if consts:
@@ -566,22 +682,22 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
     parts.append(block)
   dispOff = -1
   if elemT[:, 11].any():
-    dispOff = sum(len(x) for x in parts)
+    dispOff = S * rowCols + sum(len(x) for x in parts)
     parts.append(dispT.astype(np.float32).reshape(-1))
   samplerOff, samplerKind = -1, SAMPLER_POINT
   if samplerSpec is not None and samplerSpec.get('type') == 'surface':
     samplerKind = SAMPLER_SURFACE
-    samplerOff = sum(len(x) for x in parts)
+    samplerOff = S * rowCols + sum(len(x) for x in parts)
     parts.extend(_packSurfaceSampler(samplerSpec))
   elif samplerSpec is not None:
-    geom = np.zeros(_SAMPLER_GEOM, np.float32)
-    geom[0] = 1. if samplerSpec['finite'] else 0.
-    geom[1] = samplerSpec['f']
-    geom[2:11] = np.asarray(samplerSpec['R'], float).reshape(-1)
-    geom[11:14] = samplerSpec['off']
-    geom[14] = samplerSpec['wavelength']
-    samplerOff = sum(len(x) for x in parts)
-    parts.append(geom)
+    place = np.zeros(_SAMPLER_GEOM, np.float32)
+    place[0] = 1. if samplerSpec['finite'] else 0.
+    place[1] = samplerSpec['f']
+    place[2:11] = np.asarray(samplerSpec['R'], float).reshape(-1)
+    place[11:14] = samplerSpec['off']
+    place[14] = samplerSpec['wavelength']
+    samplerOff = S * rowCols + sum(len(x) for x in parts)
+    parts.append(place)
     for key in ('first', 'phi'):
       spec = samplerSpec[key]
       block = None if marginalCache is None else marginalCache.get(id(spec))
@@ -590,8 +706,40 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
         if marginalCache is not None:
           marginalCache[id(spec)] = block
       parts.append(block)
+  # the blocks the surface rows point into: stage words, bitmap words,
+  # hole-primitive rows
+  gate = any(r['stages'] != (1 << max(nStages, 1)) - 1 for r in surfRows)
+  base = S * rowCols + sum(len(x) for x in parts)
+  tail = []
+  if gate:
+    nWords = max(1, -(-nStages // 32))
+    words = np.zeros((S, nWords), np.uint32)
+    for s, r in enumerate(surfRows):
+      surfT[s, 19] = base + s * nWords
+      words[s] = np.frombuffer(r['stages'].to_bytes(4 * nWords, 'little'),
+                               '<u4')
+    tail.append(words.reshape(-1).view(np.float32))
+    base += words.size
+  maskOff = []
+  for m in masks:
+    maskOff.append(base)
+    bits = np.packbits((np.asarray(m) > 0).reshape(-1), bitorder='little')
+    bits = np.concatenate([bits, np.zeros(-len(bits) % 4, np.uint8)])
+    tail.append(bits.view('<u4').astype(np.uint32).view(np.float32))
+    base += len(tail[-1])
+  for s, r in enumerate(surfRows):
+    if 'maskSlot' in r:
+      surfT[s, G_MASKOFF] = maskOff[r['maskSlot']]
+    if r.get('holePrims'):
+      surfT[s, G_PRIMOFF] = base
+      rows = np.array([_primRow(h) for h in r['holePrims']], np.float64)
+      tail.append(rows.astype(np.float32).reshape(-1))
+      base += len(tail[-1])
+  with np.errstate(over='ignore'):      # an unbounded radius squares to inf
+    parts = [surfT.astype(np.float32).reshape(-1)] + parts + tail
   H, W = histSpec['bins']
   table = np.concatenate(parts)
+  assert len(table) == base
   if table.nbytes > MAX_TABLE_BYTES:
     raise ValueError(f"the kernel's table of {table.nbytes} bytes > the "
                      f'{MAX_TABLE_BYTES} a thread block holds in shared '
@@ -601,8 +749,8 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
       nDet=int(_hostArray(histSpec['bounds']).shape[0]),
       anyMedium=bool(elemT[:, 10].any()),
       hasGrating=bool((elemT[:, 0] == GRATING).any()), nStages=nStages,
-      gate=any(r['stages'] != (1 << max(nStages, 1)) - 1 for r in surfRows),
-      dispOff=dispOff, surfRows=surfRows, elemRows=elemRows,
+      gate=gate, dispOff=dispOff, geom=geom, surfRows=surfRows,
+      elemRows=elemRows,
       samplerSpec=samplerSpec, samplerKind=samplerKind,
       scatter=bool(consts), scatterConsts=consts or None, **scatFacts)
 
@@ -613,6 +761,7 @@ def _packSurfaceSampler(spec):
   (see FACE_COLS). Every constant is formed in double from the spec and
   rounded to float32 once, as the reference bakes its python constants.'''
   from ..models.surface_source import (MAX_SAMPLER_FACES,
+                                      faceExtraConstants,
                                       faceSamplingConstants)
   faces = spec['faces']
   if not 1 <= len(faces) <= MAX_SAMPLER_FACES:
@@ -623,6 +772,8 @@ def _packSurfaceSampler(spec):
   geom[1] = 2. * np.pi
   geom[14] = spec['wavelength']
   rows = np.zeros((len(faces), FACE_COLS), np.float64)
+  margs = []
+  base = _SAMPLER_GEOM + _MARG_LEN + len(faces) * FACE_COLS
   for i, f in enumerate(faces):
     rows[i, 0] = f['kind']
     rows[i, 1] = 1. if f['trim'][0] > 0.5 else 0.
@@ -630,8 +781,13 @@ def _packSurfaceSampler(spec):
     rows[i, 6:15] = np.asarray(f['R'], float).reshape(-1)
     rows[i, 15:18] = f['off']
     rows[i, 18:21] = (f['orient'], f['cumLo'], f['cumHi'])
+    rows[i, F_X:] = faceExtraConstants(f)
+    if f['kind'] in (GS.ASPHERE, GS.TORUS):
+      rows[i, F_X] = base            # its radius / tube-angle marginal
+      margs.append(_packMarginal(f['rSpec']))
+      base += _MARG_LEN
   return [geom.astype(np.float32), _packMarginal(spec['theta']),
-          rows.astype(np.float32).reshape(-1)]
+          rows.astype(np.float32).reshape(-1)] + margs
 
 
 def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
@@ -716,6 +872,10 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
     if f['samplerOff'] != f0['samplerOff'] or f['dispOff'] != f0['dispOff']:
       raise SweepUnavailable('some variants have a sampler or dispersion '
                              'and some none')
+    if f['geom'] != f0['geom'] or len(tables[v]) != len(tables[0]):
+      raise SweepUnavailable(f'table layouts differ (variant {v}: the '
+                             f'surface kinds, trims, bitmap sizes or stage '
+                             f'gate)')
     for s, (a, b) in enumerate(zip(f0['surfRows'], f['surfRows'])):
       if any(a[k] != b[k] for k in ('kind', 'trim0', 'elemF')):
         raise SweepUnavailable(f'surface {s}: kind, trim mode or element '
@@ -735,6 +895,7 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       anyMedium=any(f['anyMedium'] for f in facts),
       hasGrating=f0['hasGrating'], nStages=0,
       gate=any(f['gate'] for f in facts), dispOff=f0['dispOff'],
+      geom=f0['geom'],
       samplerKind=SAMPLER_POINT, scatter=f0['scatter'],
       scatterConsts=f0['scatterConsts'], scatterRows=f0['scatterRows'],
       lobeRows=f0['lobeRows'], modRows=f0['modRows'],
@@ -857,9 +1018,157 @@ def uniformRows(tables, maxIntersections):
       + tables.get('scatterRows', 0) * int(maxIntersections)
 
 
-def _intersectPlain(r, ox, oy, oz, dx, dy, dz, tMin):
-  '''Plain version of the kernel's `intersect` for one float32 surface
-  row `r` (numpy) against all rays.'''
+def _full(like, value):
+  return torch.full_like(like, float(value))
+
+
+def _fmax(x, value):
+  '''fmaxf(x, value): a NaN x gives `value`, as in the kernels.'''
+  return torch.fmax(x, _full(x, value))
+
+
+def _quadRootsPlain(b, c):
+  '''The reference's stable roots of t^2 + b t + c (`_quadraticRoots` with
+  a = 1), sorted; +inf where there are none.'''
+  inf = _full(b, float('inf'))
+  disc = b * b - 4. * c
+  ok = disc >= 0
+  sq = torch.where(ok, torch.sqrt(torch.where(ok, disc, _full(disc, 1.))),
+                   torch.zeros_like(disc))
+  q = -0.5 * (b + torch.sign(b + 1e-30) * sq)
+  qS = torch.where(torch.abs(q) < 1e-20, _full(q, 1e-20), q)
+  t2 = c / qS
+  lo, hi = torch.fmin(q, t2), torch.fmax(q, t2)
+  return torch.where(ok, lo, inf), torch.where(ok, hi, inf)
+
+
+def _cubicLargestRootPlain(B, C, D):
+  '''Largest real root of S^3 + B S^2 + C S + D by 28 damped Newton steps
+  from above the Cauchy bound, the reference's `_cubicLargestRoot`.'''
+  S = 1. + torch.fmax(torch.abs(B), torch.fmax(torch.abs(C), torch.abs(D)))
+  for _ in range(28):
+    f = ((S + B) * S + C) * S + D
+    fp = (3. * S + 2. * B) * S + C
+    fp = torch.where(torch.abs(fp) < 1e-20, _full(fp, 1e-20), fp)
+    step = f / fp
+    lim = torch.abs(S) + 1.
+    S = S - torch.fmin(torch.fmax(step, -torch.abs(S) - 1.), lim)
+  return S
+
+
+def _quarticSmallestRootPlain(b, c, d, e, tMin, validFn):
+  '''Smallest root t > tMin of t^4 + b t^3 + c t^2 + d t + e with
+  validFn(t), else +inf: the reference's `_quarticSmallestRoot` (Ferrari
+  through the resolvent cubic, each candidate polished by three Newton
+  steps), every power written as products.'''
+  inf = _full(b, float('inf'))
+  four, eight = _full(b, 4.), _full(b, 8.)
+  b4 = b / four
+  bb = b * b
+  p = c - 3. * b * b / eight
+  q = d - b * c / _full(b, 2.) + b * bb / eight
+  r = (e - b * d / four + bb * c / _full(b, 16.)
+       - 3. * (bb * bb) / _full(b, 256.))
+  S = _fmax(_cubicLargestRootPlain(2. * p, p * p - 4. * r, -q * q), 0.)
+  biquad = S < 1e-10 * (1. + torch.abs(p))
+  one = _full(S, 1.)
+  s = torch.sqrt(torch.where(biquad, one, S))
+  sSafe = torch.where(biquad, one, s)
+  A = 0.5 * (p + S - q / sSafe)
+  Bb = 0.5 * (p + S + q / sSafe)
+  y1, y2 = _quadRootsPlain(p, r)
+  zero = torch.zeros_like(S)
+  A = torch.where(biquad, torch.where(y1 < inf, -y1, zero), A)
+  Bb = torch.where(biquad, torch.where(y2 < inf, -y2, zero), Bb)
+  sQ = torch.where(biquad, zero, s)
+  u1, u2 = _quadRootsPlain(sQ, A)
+  u3, u4 = _quadRootsPlain(-sQ, Bb)
+  tBest = inf
+  for u in (u1, u2, u3, u4):
+    t = torch.where(u < inf, u - b4, inf)
+    for _ in range(3):
+      f = (((t + b) * t + c) * t + d) * t + e
+      fp = ((4. * t + 3. * b) * t + 2. * c) * t + d
+      fp = torch.where(torch.abs(fp) < 1e-20, _full(fp, 1e-20), fp)
+      t = torch.where(t < inf, t - f / fp, t)
+    ok = (t > tMin) & (t < inf) & validFn(t)
+    tBest = torch.fmin(tBest, torch.where(ok, t, inf))
+  return tBest
+
+
+def _bitmapOkPlain(r, tab, u, v):
+  '''The bitmap trim (flag 2) of surface row `r` at chart coordinates
+  (u, v): the pixel inside the R x R window and its bit set.'''
+  R = int(r[G_MASKRES])
+  pu = (u - float(r[17])) * float(r[G_TRIM3])
+  pv = (v - float(r[18])) * float(r[G_TRIM4])
+  inWin = (pu >= 0) & (pu < float(R)) & (pv >= 0) & (pv < float(R))
+  zero = torch.zeros_like(pu)
+  iu = torch.floor(torch.where(inWin, pu, zero)).to(torch.int64)
+  iv = torch.floor(torch.where(inWin, pv, zero)).to(torch.int64)
+  idx = iv * R + iu
+  off = int(r[G_MASKOFF])
+  words = torch.as_tensor(
+      tab[off:off + -(-R * R // 32)].view(np.uint32).astype(np.int64),
+      device=u.device)
+  bit = (words[idx >> 5] >> (idx & 31)) & 1
+  return inWin & (bit == 1)
+
+
+def _primsPlain(r, tab, x, y, z, baseOk):
+  '''Hole-primitive trims (flags 3, 4) of surface row `r`: (base OR any
+  add-prim) AND NOT any hole-prim, the reference's `_applyPrimsConst`.'''
+  off, n = int(r[G_PRIMOFF]), int(r[G_NPRIM])
+  addHit = holeHit = None
+  for h in range(n):
+    shape, isAdd, isInv, cx, cy, p0, p1, ca, sa = (
+        float(v) for v in tab[off + h * PRIM_COLS:off + (h + 1) * PRIM_COLS])
+    dxp, dyp = x - cx, y - cy
+    if shape > 5.5:
+      inP = x * cx + y * cy + z * p0 >= p1
+    elif shape > 4.5:
+      inP = (cx * x * x + cy * x * y + p0 * y * y
+             + p1 * x + ca * y + sa) <= 0.
+    elif shape > 3.5:
+      xr = ca * dxp + sa * dyp
+      yr = -sa * dxp + ca * dyp
+      inP = yr <= p0 * xr * xr + p1 * xr
+    elif shape > 2.5:
+      inP = dxp * p0 + dyp * p1 >= 0
+    elif shape > 1.5:
+      inP = dxp * dxp + dyp * dyp <= p0
+    else:
+      xr = ca * dxp + sa * dyp
+      yr = -sa * dxp + ca * dyp
+      inP = (torch.abs(xr) <= p0) & (torch.abs(yr) <= p1)
+    if isInv:
+      inP = ~inP
+    if isAdd:
+      addHit = inP if addHit is None else addHit | inP
+    else:
+      holeHit = inP if holeHit is None else holeHit | inP
+  out = baseOk if addHit is None else baseOk | addHit
+  return out if holeHit is None else out & ~holeHit
+
+
+def _quadraticPlain(a, b, c):
+  '''(okD, t1, t2) of a t^2 + b t + c in the kernels' stable form: whether
+  the discriminant is not negative, q / a and c / q.'''
+  disc = b * b - 4. * a * c
+  okD = disc >= 0
+  sqD = torch.sqrt(torch.clamp(disc, min=0.))
+  q = -0.5 * (b + torch.sign(b + 1e-30) * sqD)
+  aS = torch.where(torch.abs(a) < 1e-20, _full(a, 1e-20), a)
+  qS = torch.where(torch.abs(q) < 1e-20, _full(q, 1e-20), q)
+  t1, t2 = q / aS, c / qS
+  return okD, t1, t2
+
+
+def _intersectPlain(r, ox, oy, oz, dx, dy, dz, tMin, tab=None):
+  '''Plain version of the kernels' `intersect` (plane / sphere / cylinder
+  with window trims) and `intersectGeom` (every kind and trim) for one
+  float32 surface row `r` (numpy) against all rays; `tab` is the whole
+  table (bitmap words and hole-primitive rows).'''
   R = [float(x) for x in r[1:10]]
   lox = R[0] * ox + R[1] * oy + R[2] * oz + float(r[10])
   loy = R[3] * ox + R[4] * oy + R[5] * oz + float(r[11])
@@ -868,39 +1177,200 @@ def _intersectPlain(r, ox, oy, oz, dx, dy, dz, tMin):
   ldy = R[3] * dx + R[4] * dy + R[5] * dz
   ldz = R[6] * dx + R[7] * dy + R[8] * dz
   kind = int(r[0])
+  trim0 = float(r[16])
   tA, tB = float(r[17]), float(r[18])
   big = torch.full_like(ox, _BIG)
+  P = [float(x) for x in r[G_P:G_P + 5]] if len(r) > SURF_COLS else None
+  X = [float(x) for x in r[G_X:G_X + 9]] if len(r) > SURF_COLS else None
+
+  def chartOk(xx, yy, z, v, pre=None):
+    '''The trim of a charted kind at the local point (xx, yy, z) whose
+    band coordinate is v, on top of the kind's own test `pre`: the bitmap
+    over (azimuth, v), or the band, with the hole primitives over it.'''
+    if trim0 == 2.:
+      ok = _bitmapOkPlain(r, tab, GS.chartAtan2(yy, xx), v)
+      return ok if pre is None else pre & ok
+    band = (v >= tA) & (v <= tB)
+    if pre is not None:
+      band = pre & band
+    if trim0 == 3.:
+      band = _primsPlain(r, tab, xx, yy, z, band)
+    return band
+
+  if kind == GS.TRIANGLE:
+    p0, p1, p2 = P[0], P[1], P[2]
+    e1x, e1y, e1z, e2x, e2y, e2z = X[:6]
+    pvx = ldy * e2z - ldz * e2y
+    pvy = ldz * e2x - ldx * e2z
+    pvz = ldx * e2y - ldy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    detS = torch.where(torch.abs(det) < 1e-12, _full(det, 1e-12), det)
+    tvx, tvy, tvz = lox - p0, loy - p1, loz - p2
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) / detS
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (ldx * qvx + ldy * qvy + ldz * qvz) / detS
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) / detS
+    ok = ((torch.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1)
+          & (t > tMin))
+    return torch.where(ok, t, big)
   if kind == GS.PLANE:
     dzS = torch.where(torch.abs(ldz) < 1e-12, torch.full_like(ldz, 1e-12),
                       ldz)
     t = -loz / dzS
     x, y = lox + t * ldx, loy + t * ldy
-    if float(r[16]) == 1.:
+    if trim0 == 2.:
+      ok = _bitmapOkPlain(r, tab, x, y)
+    elif trim0 in (1., 4.):
       ok = (torch.abs(x) <= tA) & (torch.abs(y) <= tB)
     else:
       r2 = x * x + y * y
       ok = (r2 >= tA) & (r2 <= tB)
+    if trim0 in (3., 4.):
+      ok = _primsPlain(r, tab, x, y, 0., ok)
     return torch.where((t > tMin) & ok, t, big)
-  if kind == GS.SPHERE:
-    a = ldx * ldx + ldy * ldy + ldz * ldz
-    b = 2. * (lox * ldx + loy * ldy + loz * ldz)
-    c = lox * lox + loy * loy + loz * loz - float(r[15])
-  else:
-    a = ldx * ldx + ldy * ldy
-    b = 2. * (lox * ldx + loy * ldy)
-    c = lox * lox + loy * loy - float(r[15])
-  disc = b * b - 4. * a * c
-  okD = disc >= 0
-  sqD = torch.sqrt(torch.clamp(disc, min=0.))
-  q = -0.5 * (b + torch.sign(b + 1e-30) * sqD)
-  aS = torch.where(torch.abs(a) < 1e-20, torch.full_like(a, 1e-20), a)
-  qS = torch.where(torch.abs(q) < 1e-20, torch.full_like(q, 1e-20), q)
-  t1, t2 = q / aS, c / qS
-  lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
-  zLo, zHi = loz + lo * ldz, loz + hi * ldz
-  loV = torch.where(okD & (lo > tMin) & (zLo >= tA) & (zLo <= tB), lo, big)
-  hiV = torch.where(okD & (hi > tMin) & (zHi >= tA) & (zHi <= tB), hi, big)
-  return torch.fmin(loV, hiV)
+  if kind in (GS.SPHERE, GS.CYLINDER, GS.CONE, GS.QUADRIC):
+    wOk = None
+    if kind == GS.SPHERE:
+      a = ldx * ldx + ldy * ldy + ldz * ldz
+      b = 2. * (lox * ldx + loy * ldy + loz * ldz)
+      c = lox * lox + loy * loy + loz * loz - float(r[15])
+    elif kind == GS.CYLINDER:
+      a = ldx * ldx + ldy * ldy
+      b = 2. * (lox * ldx + loy * ldy)
+      c = lox * lox + loy * loy - float(r[15])
+    elif kind == GS.CONE:
+      r0, tanA = P[0], P[1]
+      w0 = r0 + loz * tanA
+      wd = ldz * tanA
+      a = ldx * ldx + ldy * ldy - wd * wd
+      b = 2. * (lox * ldx + loy * ldy - w0 * wd)
+      c = lox * lox + loy * loy - w0 * w0
+      wOk = lambda t: w0 + t * wd >= 0
+    else:
+      qa, qb, qc, qz, q0 = P
+      a = qa * ldx * ldx + qb * ldy * ldy + qc * ldz * ldz
+      b = 2. * (qa * lox * ldx + qb * loy * ldy + qc * loz * ldz) + qz * ldz
+      c = qa * lox * lox + qb * loy * loy + qc * loz * loz + qz * loz + q0
+    okD, t1, t2 = _quadraticPlain(a, b, c)
+    if kind == GS.QUADRIC:
+      # the linear case: a ~ 0 with b != 0 has the single root -c / b
+      linT = -c / torch.where(torch.abs(b) < 1e-20, _full(b, 1e-20), b)
+      isLin = (torch.abs(a) < 1e-14 * (torch.abs(b) + 1e-20)) \
+          & (torch.abs(b) > 1e-20)
+      t1 = torch.where(isLin, linT, t1)
+      t2 = torch.where(isLin, big, t2)
+      okD = okD | isLin
+    lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
+    out = []
+    for t in (lo, hi):
+      z = loz + t * ldz
+      pre = None if wOk is None else wOk(t)
+      if trim0 in (0., 1.):
+        ok = (z >= tA) & (z <= tB)
+        ok = ok if pre is None else pre & ok
+      else:
+        ok = chartOk(lox + t * ldx, loy + t * ldy, z, z, pre)
+      out.append(torch.where(okD & (t > tMin) & ok, t, big))
+    return torch.fmin(out[0], out[1])
+  if kind == GS.ASPHERE:
+    return _asphereT(P, X, r, tab, lox, loy, loz, ldx, ldy, ldz, tMin,
+                     big, chartOk)
+  return _torusT(P, X, lox, loy, loz, ldx, ldy, ldz, tMin, big, chartOk)
+
+
+def _asphereT(P, X, r, tab, lox, loy, loz, ldx, ldy, ldz, tMin, big,
+              chartOk):
+  '''The asphere's distance: the vertex-plane start, the osculating
+  sphere's nearest positive root where the curvature allows, 16 Newton
+  steps on z - sag(r), then the residual gate (< 1e-4) and the r-band trim
+  (the reference's ASPHERE branch).'''
+  c0, kk, a4, a6, a8 = P
+  K1, Rs, RRs, seed = X[:4]
+  dzS = torch.where(torch.abs(ldz) < 1e-9,
+                    torch.where(ldz >= 0, _full(ldz, 1e-9), _full(ldz, -1e-9)),
+                    ldz)
+  t = _fmax(-loz / dzS, 0.)
+  if seed:
+    ocz = loz - Rs
+    b = 2. * (lox * ldx + loy * ldy + ocz * ldz)
+    cc = lox * lox + loy * loy + ocz * ocz - RRs
+    disc = b * b - 4. * cc
+    okD = disc >= 0
+    sqD = torch.sqrt(torch.clamp(disc, min=0.))
+    q = -0.5 * (b + torch.sign(b + 1e-30) * sqD)
+    t2 = cc / torch.where(torch.abs(q) < 1e-20, _full(q, 1e-20), q)
+    lo, hi = torch.fmin(q, t2), torch.fmax(q, t2)
+    sph = torch.where(okD & (lo > tMin), lo,
+                      torch.where(okD & (hi > tMin), hi, t))
+    t = torch.where(okD, sph, t)
+  K4, K6, K8 = 4. * a4, 6. * a6, 8. * a8
+
+  def sagAt(r2):
+    rootA = torch.sqrt(_fmax(1. - K1 * r2, 1e-12))
+    opr = 1. + rootA
+    return rootA, opr, c0 * r2 / opr + r2 * r2 * (a4 + r2 * (a6 + r2 * a8))
+
+  for _ in range(16):
+    x, y, z = lox + t * ldx, loy + t * ldy, loz + t * ldz
+    r2 = x * x + y * y
+    rootA, opr, sag = sagAt(r2)
+    g = (c0 * (_full(opr, 2.) / opr + K1 * r2 / (rootA * (opr * opr)))
+         + K4 * r2 + K6 * r2 * r2 + K8 * (r2 * (r2 * r2)))
+    f = z - sag
+    slope = -g * x * ldx - g * y * ldy + ldz
+    slope = torch.where(torch.abs(slope) < 1e-12,
+                        torch.where(slope >= 0, _full(slope, 1e-12),
+                                    _full(slope, -1e-12)), slope)
+    t = t - f / slope
+  x, y, z = lox + t * ldx, loy + t * ldy, loz + t * ldz
+  r2 = x * x + y * y
+  _rootA, _opr, sag = sagAt(r2)
+  ok = (t > tMin) & (torch.abs(z - sag) < 1e-4) \
+      & chartOk(x, y, z, torch.sqrt(r2))
+  return torch.where(ok, t, big)
+
+
+def _torusT(P, X, lox, loy, loz, ldx, ldy, ldz, tMin, big, chartOk):
+  '''The torus's distance: the ray re-anchored at its closest approach
+  to the centre and scaled by R, the quartic's smallest valid root
+  (residual gate and tube-angle trim), mapped back (the reference's TORUS
+  branch).'''
+  R0, rT = P[0], P[1]
+  rr2, rT2, resTol = X[:3]
+  dd = ldx * ldx + ldy * ldy + ldz * ldz
+  ddS = torch.where(dd < 1e-20, _full(dd, 1e-20), dd)
+  tMid = -(lox * ldx + loy * ldy + loz * ldz) / ddS
+  R0t = _full(dd, R0)
+  stretch = torch.sqrt(ddS) / R0t
+  osx = (lox + tMid * ldx) / R0t
+  osy = (loy + tMid * ldy) / R0t
+  osz = (loz + tMid * ldz) / R0t
+  invL = torch.rsqrt(ddS)
+  dsx, dsy, dsz = ldx * invL, ldy * invL, ldz * invL
+  K = osx * osx + osy * osy + osz * osz + 1. - rr2
+  bq = 2. * (osx * dsx + osy * dsy + osz * dsz)
+  exy = dsx * dsx + dsy * dsy
+  fxy = osx * dsx + osy * dsy
+  gxy = osx * osx + osy * osy
+  b = 2. * bq
+  c = bq * bq + 2. * K - 4. * exy
+  dL = 2. * bq * K - 8. * fxy
+  e = K * K - 4. * gxy
+
+  def valid(tau):
+    t = tMid + tau / stretch
+    x, y, z = lox + t * ldx, loy + t * ldy, loz + t * ldz
+    sxy = torch.sqrt(x * x + y * y)
+    dr = sxy - R0
+    g = dr * dr + z * z - rT2
+    return (torch.abs(g) < resTol) & chartOk(x, y, z, GS.chartAtan2(z, dr))
+
+  tauMin = (tMin - tMid) * stretch
+  tau = _quarticSmallestRootPlain(b, c, dL, e, tauMin, valid)
+  t = tMid + tau / stretch
+  return torch.where(tau < _BIG, t, big)
 
 
 def _hornerPlain(d, wl):
@@ -1017,9 +1487,10 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
                        f'({rpb * maxIntersections}, {N}) scatterUniforms')
   tab = tables['table'].detach().cpu().numpy()
   S, E = tables['nSurf'], tables['nElem']
-  surfT = tab[:S * SURF_COLS].reshape(S, SURF_COLS)
-  elemT = tab[S * SURF_COLS:S * SURF_COLS + E * ELEM_COLS] \
-      .reshape(E, ELEM_COLS)
+  geom = tables.get('geom', False)
+  rowCols = SURF_COLS + (GEOM_COLS if geom else 0)
+  surfT = tab[:S * rowCols].reshape(S, rowCols)
+  elemT = tab[S * rowCols:S * rowCols + E * ELEM_COLS].reshape(E, ELEM_COLS)
   surfD = torch.as_tensor(surfT, device=dev)
   elemD = torch.as_tensor(elemT, device=dev)
   H, W = tables['bins']
@@ -1053,6 +1524,14 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   canBeMedium = elemD[:, 10] != 0
   one = torch.ones((), dtype=torch.float32, device=dev)
   big = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
+  # the stage words of each surface (a scene with a stage gate): word
+  # stage >> 5, bit stage & 31
+  nWords = max(1, -(-nStages // 32))
+  stageWords = {}
+  if gate:
+    for s in range(S):
+      off = int(surfT[s, 19])
+      stageWords[s] = tab[off:off + nWords].view(np.uint32)
   allStages = (1 << max(nStages, 1)) - 1
 
   for _bounce in range(maxIntersections):
@@ -1061,12 +1540,16 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     sOth = sBest
     stage = torch.clamp(seq, max=max(nStages, 1) - 1)
     for s in range(S):
-      bits = int(surfT[s, 19])
+      bits = allStages
+      if gate:
+        bits = int.from_bytes(stageWords[s].astype('<u4').tobytes(), 'little')
       if bits == 0:
         continue                   # masked: never hit, keeps its index
-      t = _intersectPlain(surfT[s], ox, oy, oz, dx, dy, dz, tMin)
+      t = _intersectPlain(surfT[s], ox, oy, oz, dx, dy, dz, tMin, tab)
       if bits != allStages:        # the stage gate, before both trackers
-        t = torch.where(((bits >> stage) & 1) == 1, t, big)
+        words = torch.as_tensor(stageWords[s].astype(np.int64), device=dev)
+        allowed = (words[stage >> 5] >> (stage & 31)) & 1
+        t = torch.where(allowed == 1, t, big)
       b = t < tBest
       sBest = torch.where(b, s, sBest)
       tBest = torch.where(b, t, tBest)
@@ -1101,6 +1584,8 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     nlx = torch.where(isS, lx * invS, torch.where(isC, lx * invC, zero))
     nly = torch.where(isS, ly * invS, torch.where(isC, ly * invC, zero))
     nlz = torch.where(isS, lz * invS, torch.where(isC, zero, one))
+    if geom:
+      nlx, nly, nlz = _geomNormalPlain(row, kind, lx, ly, lz, nlx, nly, nlz)
     orient = row[:, 13]
     nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient
     nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient
@@ -1255,6 +1740,58 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
       seq = seq + (live & seqInc).to(torch.int64)
     alive = live & (newPw >= pTol)
   return ring, segs, hitN
+
+
+def _geomNormalPlain(row, kind, lx, ly, lz, nlx, nly, nlz):
+  '''The winner's canonical local normal for the kinds of B2, over the
+  plane / sphere / cylinder normals (nlx, nly, nlz), from the winners'
+  (N, rowCols) rows: the reference's `_normalFromCols`, whose param
+  columns are float32 (so (1 + k) c^2 is formed in float32 here).'''
+  P = [row[:, G_P + k] for k in range(5)]
+  tiny = lambda x: torch.where(x < 1e-12, _full(x, 1e-12), x)
+  # triangle: its unit normal, formed in double and rounded once
+  isT = kind == GS.TRIANGLE
+  nlx = torch.where(isT, row[:, G_X + 6], nlx)
+  nly = torch.where(isT, row[:, G_X + 7], nly)
+  nlz = torch.where(isT, row[:, G_X + 8], nlz)
+  # quadric: +grad f
+  n0, n1 = 2. * P[0] * lx, 2. * P[1] * ly
+  n2 = 2. * P[2] * lz + P[3]
+  inv = torch.rsqrt(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20)
+  isQ = kind == GS.QUADRIC
+  nlx = torch.where(isQ, n0 * inv, nlx)
+  nly = torch.where(isQ, n1 * inv, nly)
+  nlz = torch.where(isQ, n2 * inv, nlz)
+  # cone: radial, tipped by -tanA
+  rS = tiny(torch.sqrt(lx * lx + ly * ly))
+  n0, n1, n2 = lx / rS, ly / rS, -P[1]
+  inv = torch.rsqrt(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20)
+  isC = kind == GS.CONE
+  nlx = torch.where(isC, n0 * inv, nlx)
+  nly = torch.where(isC, n1 * inv, nly)
+  nlz = torch.where(isC, n2 * inv, nlz)
+  # asphere: grad(z - sag(r))
+  c0, kk, a4, a6, a8 = P
+  r2 = lx * lx + ly * ly
+  K1 = (1. + kk) * c0 * c0
+  rootA = torch.sqrt(_fmax(1. - K1 * r2, 1e-12))
+  opr = 1. + rootA
+  g = (c0 * (_full(opr, 2.) / opr + K1 * r2 / (rootA * (opr * opr)))
+       + 4. * a4 * r2 + 6. * a6 * r2 * r2 + 8. * a8 * (r2 * (r2 * r2)))
+  inv = torch.rsqrt(g * g * r2 + 1. + 1e-20)
+  isA = kind == GS.ASPHERE
+  nlx = torch.where(isA, -g * lx * inv, nlx)
+  nly = torch.where(isA, -g * ly * inv, nly)
+  nlz = torch.where(isA, inv, nlz)
+  # torus: away from the tube's centre circle
+  scale = P[0] / tiny(torch.sqrt(lx * lx + ly * ly))
+  n0, n1 = lx * (1. - scale), ly * (1. - scale)
+  inv = torch.rsqrt(n0 * n0 + n1 * n1 + lz * lz + 1e-20)
+  isR = kind == GS.TORUS
+  nlx = torch.where(isR, n0 * inv, nlx)
+  nly = torch.where(isR, n1 * inv, nly)
+  nlz = torch.where(isR, lz * inv, nlz)
+  return nlx, nly, nlz
 
 
 def _ringCounters(key, segs, hitN, hitSlots):
@@ -1660,14 +2197,15 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
                          dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
-  ip = (ctypes.c_longlong * 23)(
+  ip = (ctypes.c_longlong * 24)(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
       int(strataTile) if strata is not None else 1, G1, G2, variants,
       histLen, int(tables['hasGrating']), int(tables['nStages']),
       int(tables['gate']), int(tables['dispOff']),
-      int(tables['samplerKind']), int(tables.get('scatter', False)))
+      int(tables['samplerKind']), int(tables.get('scatter', False)),
+      int(tables.get('geom', False)))
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
@@ -1912,7 +2450,7 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
 # the facts of `packSweepTables` that a step is made for
 _SWEEP_STRUCTURE = ('nVariants', 'tableLen', 'nSurf', 'nElem', 'samplerOff',
                     'bins', 'nDet', 'anyMedium', 'hasGrating', 'gate',
-                    'dispOff', 'scatterConsts')
+                    'dispOff', 'geom', 'scatterConsts')
 
 
 def recordsFromRing(ring):

@@ -118,16 +118,22 @@ def test_eligibility_names_what_is_not_ported():
   # scatter tables the kernel cannot read (the reference's gather path)
   bad = dict(dev, scatter={})
   assert 'scatter' in cuda_trace.ineligibleReason(bad)
+  # the other kinds run (B2), in the kernels' GEOM instance
   cone = dict(dev, surfaces=dict(dev['surfaces'],
                                  kind=np.array([0, 0, 0, 1, 5], np.int32)))
-  assert 'cone' in cuda_trace.ineligibleReason(cone)
+  assert cuda_trace.eligible(cone) and cuda_trace.needsGeom(cone)
+  assert not cuda_trace.needsGeom(dev)
+  # trims whose data the scene lacks (B3's bitmaps and primitives)
   bitmap = dict(dev, surfaces=dict(dev['surfaces'],
                                    trim=dev['surfaces']['trim'] + 2.))
   assert 'trims' in cuda_trace.ineligibleReason(bitmap)
+  prims = dict(dev, surfaces=dict(dev['surfaces'],
+                                  trim=dev['surfaces']['trim'] + 3.))
+  assert 'trimPrims' in cuda_trace.ineligibleReason(prims)
   with pytest.raises(ValueError, match='not eligible'):
-    cuda_trace.buildTraceTables(cone, dict(elemToDet=np.array([-1, -1, 0]),
-                                           bounds=np.zeros((1, 4)),
-                                           bins=(8, 8)), device='cpu')
+    cuda_trace.buildTraceTables(bitmap, dict(elemToDet=np.array([-1, -1, 0]),
+                                             bounds=np.zeros((1, 4)),
+                                             bins=(8, 8)), device='cpu')
 
 
 def test_scene_compile_refuses_unported_features():

@@ -175,12 +175,57 @@ def test_sequential_sweep_keeps_the_stage_gate(tmp_path):
 
 
 def test_more_stages_than_the_bitmask_holds_are_refused_by_name():
+  '''More stages than a float32 bitmask held (24) run (ROADMAP C.2): the
+  stage words of each surface are ceil(stages / 32) uint32 words; what is
+  refused by name is a table past a thread block's shared memory.'''
   scene, _, _ = H.buildSequentialBallScene(H.torchNs())
   settings = scene.activeSimulationSettings()
-  settings.SequentialModeElements = [['Ball']] * cuda_trace.MAX_STAGES \
-      + [['Det']]
+  settings.SequentialModeElements = [['Ball']] * 40 + [['Det']]
   dev, _info = scene.compile(device=None)
-  assert dev['seqMask'].shape[0] == cuda_trace.MAX_STAGES + 1
-  assert 'sequential stages' in cuda_trace.ineligibleReason(dev)
-  settings.SequentialModeElements = settings.SequentialModeElements[1:]
-  assert cuda_trace.eligible(scene.compile(device=None)[0])
+  assert dev['seqMask'].shape[0] == 41
+  assert cuda_trace.eligible(dev)
+  spec = dict(elemToDet=np.array([-1, 0]), bounds=np.zeros((1, 4)),
+              bins=(8, 8))
+  tables = cuda_trace.buildTraceTables(dev, spec, device='cpu')
+  S = tables['nSurf']
+  words = tables['table'].numpy()[-2 * S:].view(np.uint32).reshape(S, 2)
+  # the detector (stage 40) and the ball (stages 0-39), sorted by kind
+  assert words.tolist() == [[0, 0x100], [0xffffffff, 0xff]]
+  seq = np.ones((1_000_000, S), bool)
+  seq[0, 0] = False                  # a gate: the words are in the table
+  huge = dict(dev, seqMask=seq)
+  assert cuda_trace.eligible(huge)
+  with pytest.raises(ValueError, match='shared memory'):
+    cuda_trace.buildTraceTables(huge, spec, device='cpu')
+
+
+def test_thirty_stages_match_reference_fused_step():
+  '''30 sequential stages (`buildManyStagesScene`: 29 Vacuum planes, an
+  absorbing strip allowed at stages 3 and 27, the detector last), past the
+  24 of the former float32 bitmask: the plain version against the JAX
+  package's XLA fused step on the same ray columns, counters equal and
+  counts bin for bin; the strip stops the rays at stage 27.'''
+  from optics_design_workbench_tpu_torch import convert
+  from optics_design_workbench_tpu_torch.tracing import fused
+  scene, bounds, maxI = H.buildManyStagesScene(H.jaxNs())
+  H.compileOnce(scene)
+  deviceNp, histNp, spec = H.referenceArrays(scene, bounds)
+  tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,
+                                      device='cpu')
+  assert (tables['nStages'], tables['gate']) == (30, True)
+  n = H.N_RAYS
+  us = torch.as_tensor(np.random.default_rng(30).random((2, n))
+                       .astype(np.float32))
+  cols = cuda_trace.sampleRaysPlain(tables, us[0], us[1])
+  colsT = torch.stack(list(cols) + [torch.full_like(cols[0], 532.)])
+  ref = H.runReferenceColumns(scene, {k: v.numpy() for k, v in
+                                      zip(H.COLS, colsT)}, bounds, maxI,
+                              withPallas=False)['fused']
+  hist = fused.initHistograms(histNp, device='cpu')
+  c = cuda_trace.traceHistogram(tables, hist, n, maxI, H.MAX_RAY_LENGTH,
+                                H.DIST_TOL, hitSlots=1,
+                                columns=colsT.contiguous())
+  assert [int(c[0]), int(c[1])] == [ref['counters']['segments'],
+                                    ref['counters']['hits']]
+  np.testing.assert_array_equal(hist['counts'].numpy(), ref['counts'])
+  assert 0.5 * n < int(c[1]) < 0.9 * n      # the strip took its rays

@@ -1043,3 +1043,215 @@ def marginalsClose(hA, hB, tolL1=0.15, minCount=200):
     if float(np.abs(a / a.sum() - b / b.sum()).sum()) > tolL1:
       return False
   return True
+
+
+def jaxSceneFromPort(scene):
+  '''The JAX package's twin of a port `Scene` (the port's benchmark
+  scenes): every optical group with its surface dicts (copied) and
+  placements, every light source and the active settings, each with the
+  same properties.'''
+  import copy
+  ns = jaxNs()
+  out = ns.Scene(label=scene.label)
+  for g in scene.opticalObjects():
+    out.addOpticalGroup(ns.OpticalGroup(
+        surfaces=[copy.deepcopy(s) for s in g.surfaces],
+        placements=[np.array(p, float) for p in g.placements],
+        **g.propertiesDict()))
+  for src in scene.lightSources():
+    cls = (ns.SurfaceSource if type(src).__name__ == 'SurfaceSource'
+           else ns.PointSource)
+    out.addSource(cls(placement=np.array(src.placement, float),
+                      **src.propertiesDict()))
+  out.addSimulationSettings(**scene.activeSimulationSettings()
+                            .propertiesDict())
+  return out
+
+
+def buildManyStagesScene(ns, nStages=30):
+  '''Sequential mode past the 24 stages a float32 bitmask holds (ROADMAP
+  C.2): a point source under nStages - 1 thin Vacuum planes P0.. (z = 10,
+  13, ... mm) and an absorbing detector at z = 120 mm, stage q allowing
+  plane Pq and the last stage the detector; an absorbing strip (|x| <= 5
+  mm) at z = 89.5 mm, between P26 and P27, is allowed at stages 3 and 27
+  only, so it stops the rays whose stage index is 27 there (at stage 3
+  plane P3 lies nearer). nStages + 1 intersections reach the detector.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='many_stages')
+  nPlanes = nStages - 1
+  for i in range(nPlanes):
+    scene.addOpticalGroup(ns.OpticalGroup(
+        OpticalType='Vacuum', Label=f'P{i}', RecordHits=False,
+        surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(50., 50.))],
+        placements=[T.translation(0, 0, 10. + 3. * i)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Strip', RecordHits=False,
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(5., 50.))],
+      placements=[T.translation(0, 0, 89.5)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(100., 100.))],
+      placements=[T.translation(0, 0, 120.)]))
+  stages = [[f'P{i}'] + (['Strip'] if i in (3, 27) else [])
+            for i in range(nPlanes)] + [['Det']]
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.05)',
+      ThetaDomain='0, 0.3', Wavelength=532.,
+      ThetaResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e4,
+                              MaxIntersections=nStages + 1,
+                              SequentialMode=True,
+                              SequentialModeElements=stages)
+  return scene, (-100., 100., -100., 100.), nStages + 1
+
+
+def fusedStatsOfReference(scene, bounds, maxIntersections, n, seed=0):
+  '''`scatterStats` of the JAX package's fused step (seed `seed`, `n`
+  rays, 128 x 128 bins over `bounds`) on the JAX `scene`.'''
+  import jax
+  from optics_design_workbench_tpu.tracing import fused
+  device, info = scene.compile()
+  device['powerTol'] = 1e-6
+  histSpec = fused.makeHistogramSpec(device, info, bounds=bounds,
+                                     bins=(128, 128))
+  step = fused.makeFusedStep(
+      device, scene.lightSources()[0].deviceGenerator(), histSpec,
+      raysPerStep=n, maxIntersections=maxIntersections,
+      maxRayLength=scene.activeSimulationSettings().maxRayLength(),
+      distTol=1e-4)
+  hist, counters = step(jax.random.PRNGKey(seed),
+                        fused.initHistograms(histSpec))
+  return scatterStats(hist, int(counters['hits']), n, bounds=bounds)
+
+
+def _azimuthBitmap(R, vLo, vHi, keep):
+  '''An (R, R) bitmap over the azimuth chart (u in [-pi, pi), v in [vLo,
+  vHi)) holding the pixels whose centre passes `keep(u, v)`, as a
+  `trimBitmap`.'''
+  u = (np.arange(R) + .5) / R * (2 * np.pi) - np.pi
+  v = (np.arange(R) + .5) / R * (vHi - vLo) + vLo
+  U, V = np.meshgrid(u, v)
+  return dict(mask=keep(U, V).astype(np.uint8), u0=-np.pi, v0=vLo,
+              invDu=R / (2 * np.pi), invDv=R / (vHi - vLo))
+
+
+def buildChartTrimsScene(ns):
+  '''One mirror per (kind, trim) of B2 / B3 that the throughput scenes do
+  not reach, for the per-surface checks: bitmap trims over the azimuth
+  charts of a cylinder (the reference suite's half pipe), a cone, an even
+  asphere (azimuth, r) and a torus (azimuth, tube angle); hole primitives
+  over the bands of a sphere, a cone, a quadric, an asphere and a torus
+  (a rotated slot, a disc and a half-space), and a rectangle with holes
+  (trim 4) carrying an added disc and a poly2 and a conic cut.'''
+  S, T = ns.S, ns.T
+  halfPlane = lambda U, V: np.abs(U) <= np.pi / 2
+  holes = [(1., 0., 0., 100., 1.5, np.cos(0.4), np.sin(0.4)),
+           (2., 5., 5., 4., 0., 0., 0.),
+           (6., 0., 0.3, 1., 7., 0., 0.)]
+  surfs = []
+  cyl = S.cylinder(np.eye(4), elem=0, radius=30., zRange=(-20., 20.))
+  cyl['trimBitmap'] = _azimuthBitmap(
+      64, -20., 20., lambda U, V: halfPlane(U, V) & (np.abs(V) <= 15.))
+  surfs.append(cyl)
+  cone = S.cone(np.eye(4), elem=0, radius=10., tanAngle=0.3,
+                zRange=(0., 20.))
+  cone['trimBitmap'] = _azimuthBitmap(48, 0., 20., lambda U, V:
+                                      np.cos(3 * U) > -0.3)
+  surfs.append(cone)
+  asph = S.asphere(np.eye(4), elem=0, curvature=1. / 40.,
+                   coeffs=(1e-6,), rMax=15.)
+  asph['trimBitmap'] = _azimuthBitmap(32, 0., 16., lambda U, V:
+                                      (V < 12.) | (U > 0.))
+  surfs.append(asph)
+  tor = S.torus(np.eye(4), elem=0, majorRadius=30., minorRadius=8.)
+  tor['trimBitmap'] = _azimuthBitmap(64, -np.pi, np.pi, lambda U, V:
+                                     np.abs(V) < 2.)
+  surfs.append(tor)
+  for s in (S.sphere(np.eye(4), elem=0, radius=20., zRange=(-5., 20.)),
+            S.cone(np.eye(4), elem=0, radius=10., tanAngle=0.3,
+                   zRange=(0., 20.)),
+            S.quadric(np.eye(4), elem=0, coeffs=(0.01, 0.005, 0., -0.1, 0.),
+                      zRange=(0., 60.)),
+            S.asphere(np.eye(4), elem=0, curvature=1. / 40.,
+                      coeffs=(1e-6,), rMax=15.),
+            S.torus(np.eye(4), elem=0, majorRadius=30., minorRadius=8.,
+                    vRange=(-2., 2.))):
+    s['trim'][0] = 3.
+    s['trimPrims'] = dict(holes=holes)
+    surfs.append(s)
+  rect = S.plane(np.eye(4), elem=0, halfExtents=(20., 15.))
+  rect['trim'][0] = 4.
+  rect['trimPrims'] = dict(holes=holes[:2] + [
+      (12., 25., 0., 9., 0., 0., 0.),              # an added disc
+      (4., 0., -10., 0.05, 0.1, 1., 0.),           # poly2
+      (25., 0.01, 0., 0.01, 0., 0., -4.)])         # inverted conic
+  surfs.append(rect)
+  scene = ns.Scene(label='chart_trims')
+  for i, s in enumerate(surfs):
+    scene.addOpticalGroup(ns.OpticalGroup(
+        OpticalType='Mirror', Label=f'M{i}', surfaces=[s],
+        placements=[T.translation(100. * (i % 4), 100. * (i // 4), 0.)]))
+  scene.addSource(ns.PointSource(Label='Src', PowerDensity='1',
+                                 ThetaDomain='0, 0.1',
+                                 ThetaResolutionNumericMode='1e3'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
+  return scene, (-300., 300., -300., 300.), 3
+
+
+def portSceneCase(make, bounds, maxIntersections):
+  '''`runUniformsCase` on the port's scene `make()` and its JAX twin
+  (`jaxSceneFromPort`).'''
+  return runUniformsCase(lambda ns: (jaxSceneFromPort(make()), bounds,
+                                     maxIntersections))
+
+
+def assertBinsMatchHistogram(case):
+  '''The per-ray-bin kernel's plain version on a case's uniforms, binned
+  outside (`binRing`), equals the histogram kernel's plain version on them:
+  counters and counts exactly.'''
+  import torch
+  from optics_design_workbench_tpu_torch.ops import cuda_trace
+  from optics_design_workbench_tpu_torch.tracing import fused
+  tables, us = case['tables'], torch.as_tensor(case['uniforms'])
+  _ref, port = case['hist']
+  ring, c = cuda_trace.traceBins(tables, us.shape[1], case['maxI'],
+                                 MAX_RAY_LENGTH, DIST_TOL, hitSlots=1,
+                                 uniforms=us, strataTile=TILE)
+  hist = fused.initHistograms(dict(bins=tables['bins'],
+                                   bounds=np.zeros((tables['nDet'], 4))),
+                              device='cpu')
+  cuda_trace.binRing(hist, ring)
+  assert [int(c[0]), int(c[1])] == [port['counters']['segments'],
+                                    port['counters']['hits']]
+  np.testing.assert_array_equal(hist['counts'].numpy(), port['counts'])
+
+
+def fusedCountersMatch(make, bounds, maxIntersections, seed, n=N_RAYS):
+  '''The port's plain histogram version and the JAX package's XLA fused
+  step on the same ray columns (the port's sampler fed numpy-seeded
+  uniforms) of the port's scene `make()`: (reference counters, port
+  counters, rays that moved bin).'''
+  import torch
+  from optics_design_workbench_tpu_torch import convert
+  from optics_design_workbench_tpu_torch.ops import cuda_trace
+  from optics_design_workbench_tpu_torch.tracing import fused
+  scene = jaxSceneFromPort(make())
+  compileOnce(scene)
+  deviceNp, histNp, spec = referenceArrays(scene, bounds)
+  tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,
+                                      device='cpu')
+  us = torch.as_tensor(np.random.default_rng(seed).random(
+      (cuda_trace.samplerUniforms(tables), n)).astype(np.float32))
+  cols = cuda_trace.samplerColumnsPlain(tables, us)
+  colsT = torch.stack(list(cols) + [torch.full_like(
+      cols[0], cuda_trace.samplerWavelength(tables))])
+  ref = runReferenceColumns(scene, {k: v.numpy() for k, v in
+                                    zip(COLS, colsT)}, bounds,
+                            maxIntersections, withPallas=False)['fused']
+  hist = fused.initHistograms(histNp, device='cpu')
+  c = cuda_trace.traceHistogram(tables, hist, n, maxIntersections,
+                                MAX_RAY_LENGTH, DIST_TOL, hitSlots=1,
+                                columns=colsT.contiguous())
+  moved = float(np.abs(ref['counts'] - hist['counts'].numpy()).sum()) / 2
+  return ((ref['counters']['segments'], ref['counters']['hits']),
+          (int(c[0]), int(c[1])), moved)
