@@ -213,10 +213,14 @@ FLOPS_INTERSECT = {0: 33 + 12 + 6, 1: 33 + 42 + 6, 2: 33 + 35 + 6,
                    3: 33 + 31 + 16 * 54 + 31 + 6, 4: 33 + 53 + 6,
                    5: 33 + 62 + 6, 6: 33 + 78 + 6,
                    7: 33 + 67 + 22 + 28 * 20 + 36 + 4 * (3 * 21 + 48) + 6}
-# B3 per root tested: the polynomial atan2 and the pixel lookup of a bitmap
-# trim; one hole primitive
-FLOPS_BITMAP = 25 + 12
+# B3 per root tested: a bitmap trim's pixel lookup, and on a charted kind
+# (not a plane) the polynomial atan2 of its azimuth; one hole primitive. The
+# roots a kind tests its trim on: a plane's one, a quadratic's two, the
+# asphere's one, the torus's four candidates; a triangle has no trim.
+FLOPS_PIXEL = 12
+FLOPS_CHART_ATAN2 = 25
 FLOPS_PRIM = 10
+TRIM_ROOTS = {0: 1, 1: 2, 2: 2, 3: 1, 4: 0, 5: 2, 6: 2, 7: 4}
 # the surface sampler's faces of B2: the closed form of a cone face, an
 # asphere's marginal (~80) and sag / slope, a torus's marginal and cos / sin
 FLOPS_GEOM_FACE = {3: 80 + 45, 4: 12, 5: 20, 7: 80 + 10}
@@ -563,10 +567,11 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
   kinds = [r['kind'] for r in rows]
   flopsPerSegment = (sum(FLOPS_INTERSECT[k] for k in kinds) + FLOPS_WINNER
                      + FLOPS_PHYSICS)
-  for r in rows:                       # the trims of B3, both roots tested
-    roots = 1 if r['kind'] == 0 else 2
+  for r in rows:                       # the trims of B3, per root tested
+    roots = TRIM_ROOTS[r['kind']]
     if r['trim0'] == 2.:
-      flopsPerSegment += roots * FLOPS_BITMAP
+      flopsPerSegment += roots * (FLOPS_PIXEL if r['kind'] == 0
+                                  else FLOPS_CHART_ATAN2 + FLOPS_PIXEL)
     flopsPerSegment += roots * FLOPS_PRIM * len(r.get('holePrims', ()))
   if tables['gate']:
     flopsPerSegment += FLOPS_STAGE_GATE * len(kinds)
@@ -2122,21 +2127,19 @@ def geomScenes():
 
 def geomKernelChecks(scenes):
   '''Phase 9's kernel checks: K1, K2 and K4 against their plain versions
-  on every scene of the other kinds and trims (the throughput scenes at a
-  raw iteration's 1 << 20 rays, the kinds scene and the emitter at 1 << 18;
-  modes (b) and (c)) with no ray moved and every ring value equal; the 30-stage
-  sequential scene (ROADMAP C.2) likewise; K3 on three torus heights
-  against its plain version and, in seed mode, against one K1 launch per
-  variant. Returns the worst error per kernel.'''
+  on every scene of the other kinds and trims at the fused step's 1 << 22
+  rays (modes (b) and (c)) with no ray moved and every ring value equal; the
+  30-stage sequential scene (ROADMAP C.2) likewise; K3 on the torus-height
+  sweep's 11 heights x 1 << 20 rays against its plain version and, in seed
+  mode, against one K1 launch per variant. Returns the worst error per
+  kernel.'''
   worst = dict(traceHistogram=0., traceBins=0., traceRaw=0., traceSweep=0.)
-  full = ('torus', 'meshFold', 'bitmapSlot', 'primSlot')
   for name, scene in scenes.items():
     _make, maxI, bounds = GEOM_SCENES[name]
-    n = N_RAW_ITERATION if name in full else N_SMALL
     worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
-        f'geom-{name}', scene, bounds, maxI, n, BINS, budget=0))
-    w = compareRingsWithPlain(f'geom-{name}', scene, bounds, maxI, n, BINS,
-                              budget=0, rawAtol=0.)
+        f'geom-{name}', scene, bounds, maxI, N_MAIN, BINS, budget=0))
+    w = compareRingsWithPlain(f'geom-{name}', scene, bounds, maxI, N_MAIN,
+                              BINS, budget=0, rawAtol=0.)
     for k in ('traceRaw', 'traceBins'):
       worst[k] = max(worst[k], w[k])
   stages, bounds, maxI = helpers.buildManyStagesScene(helpers.torchNs(),
@@ -2146,12 +2149,12 @@ def geomKernelChecks(scenes):
       budget=0))
   _make, maxI, bounds = GEOM_SCENES['torus']
   variants = [benchmarks.buildTorusMirrorScene(height=z)
-              for z in TORUS_HEIGHTS[::5]]
+              for z in TORUS_HEIGHTS]
   worst['traceSweep'] = compareSweepWithPlain(
-      'torus-height', variants, bounds, maxI, N_SMALL, columnsToo=True,
-      budget=0)
-  compareSweepWithSingles('torus-height', variants, bounds, maxI, N_SMALL,
-                          seed=43)
+      'torus-height', variants, bounds, maxI, TORUS_SWEEP_RAYS,
+      columnsToo=True, budget=0)
+  compareSweepWithSingles('torus-height', variants, bounds, maxI,
+                          TORUS_SWEEP_RAYS, seed=43)
   return worst
 
 

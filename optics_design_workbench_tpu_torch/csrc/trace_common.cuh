@@ -701,16 +701,6 @@ __device__ float intersect(const float* r, float ox, float oy, float oz,
   return fminf(loV, hiV);
 }
 
-// The asphere's Newton loop and the torus's quartic are inlined into the
-// surface sweep: on the card that spills less and runs faster than calling
-// them out of line (a build with -DODW_GEOM_OUT_OF_LINE does that:
-// tools/torch_kernel_probe.py geom measures both).
-#ifdef ODW_GEOM_OUT_OF_LINE
-#define ODW_GEOM_ROOT __noinline__
-#else
-#define ODW_GEOM_ROOT __forceinline__
-#endif
-
 // ---- B2 / B3 (GEOM only): the other surface kinds and the trims of CAD
 // faces, in the reference's operation order (`_intersectConst`,
 // `_bitmapOkConst`, `_applyPrimsConst`, geometry/surfaces
@@ -809,8 +799,10 @@ __device__ __forceinline__ void quadRoots(float b, float c, float& lo,
 
 // an asphere: the vertex-plane start, the osculating sphere's nearest
 // positive root where the curvature allows, 16 Newton steps on z - sag(r),
-// then the residual gate and the r-band trim
-__device__ ODW_GEOM_ROOT float intersectAsphere(
+// then the residual gate and the r-band trim (inlined into the surface
+// sweep: on the card that spills less and runs faster than a call out of
+// line, PERF.md §6)
+__device__ __forceinline__ float intersectAsphere(
     const float* r, const float* smem, float lox, float loy, float loz,
     float ldx, float ldy, float ldz, float tMin) {
   const float* P = r + G_P;
@@ -858,8 +850,8 @@ __device__ ODW_GEOM_ROOT float intersectAsphere(
 // a torus: the ray re-anchored at its closest approach to the centre and
 // scaled by R, the quartic's smallest valid root by Ferrari through the
 // resolvent cubic (28 damped Newton steps from above) and three Newton
-// polish steps per candidate, mapped back
-__device__ ODW_GEOM_ROOT float intersectTorus(
+// polish steps per candidate, mapped back (inlined, as the asphere)
+__device__ __forceinline__ float intersectTorus(
     const float* r, const float* smem, float lox, float loy, float loz,
     float ldx, float ldy, float ldz, float tMin) {
   const float R0 = r[G_P];
@@ -940,11 +932,16 @@ __device__ ODW_GEOM_ROOT float intersectTorus(
   return tauBest < kBig ? tMid + tauBest / stretch : kBig;
 }
 
-// Ray-surface distance of every kind and trim (GEOM); plane / sphere /
-// cylinder with window trims compute what `intersect` computes.
+// Ray-surface distance of every kind and trim (GEOM): plane / sphere /
+// cylinder with window trims are `intersect`'s; this adds the trims of B3 on
+// them and the kinds of B2.
 __device__ float intersectGeom(const float* r, const float* smem, float ox,
                                float oy, float oz, float dx, float dy,
                                float dz, float tMin) {
+  const int kind = (int)r[S_KIND];
+  const float trim0 = r[S_TRIM0];
+  if (kind <= KIND_CYLINDER && (trim0 == 0.f || trim0 == 1.f))
+    return intersect(r, ox, oy, oz, dx, dy, dz, tMin);
   const float* R = r + S_ROT;
   const float lox = R[0] * ox + R[1] * oy + R[2] * oz + r[S_OFF];
   const float loy = R[3] * ox + R[4] * oy + R[5] * oz + r[S_OFF + 1];
@@ -952,8 +949,6 @@ __device__ float intersectGeom(const float* r, const float* smem, float ox,
   const float ldx = R[0] * dx + R[1] * dy + R[2] * dz;
   const float ldy = R[3] * dx + R[4] * dy + R[5] * dz;
   const float ldz = R[6] * dx + R[7] * dy + R[8] * dz;
-  const int kind = (int)r[S_KIND];
-  const float trim0 = r[S_TRIM0];
   const float tA = r[S_TRIMA], tB = r[S_TRIMB];
   const float* P = r + G_P;
   if (kind == KIND_TRIANGLE) {     // Moeller-Trumbore
@@ -976,27 +971,27 @@ __device__ float intersectGeom(const float* r, const float* smem, float ox,
                     && (u + v <= 1.f) && (t > tMin);
     return ok ? t : kBig;
   }
-  if (kind == KIND_PLANE) {
+  if (kind == KIND_PLANE) {        // a bitmap, or a window with primitives
     const float dzS = fabsf(ldz) < 1e-12f ? 1e-12f : ldz;
     const float t = -loz / dzS;
     const float x = lox + t * ldx, y = loy + t * ldy;
     bool ok;
     if (trim0 == 2.f) {
       ok = bitmapOk(r, smem, x, y);
-    } else if (trim0 == 1.f || trim0 == 4.f) {
+    } else if (trim0 == 4.f) {
       ok = (fabsf(x) <= tA) && (fabsf(y) <= tB);
     } else {                       // annulus; tA, tB hold the SQUARED radii
       const float r2 = x * x + y * y;
       ok = (r2 >= tA) && (r2 <= tB);
     }
-    if (trim0 == 3.f || trim0 == 4.f) ok = applyPrims(r, smem, x, y, 0.f, ok);
+    if (trim0 != 2.f) ok = applyPrims(r, smem, x, y, 0.f, ok);
     return ((t > tMin) && ok) ? t : kBig;
   }
   if (kind == KIND_ASPHERE)
     return intersectAsphere(r, smem, lox, loy, loz, ldx, ldy, ldz, tMin);
   if (kind == KIND_TORUS)
     return intersectTorus(r, smem, lox, loy, loz, ldx, ldy, ldz, tMin);
-  // sphere, cylinder, cone, quadric: a quadratic in t
+  // sphere and cylinder (their chart trims), cone, quadric: a quadratic in t
   float a, b, c, w0 = 0.f, wd = 0.f;
   if (kind == KIND_SPHERE) {
     a = ldx * ldx + ldy * ldy + ldz * ldz;

@@ -56,6 +56,8 @@ def test_raw_plain_matches_reference_kernel(sceneCase):
   m = refR['recordHit']
   np.testing.assert_array_equal(portR['recordHit'], m)
   np.testing.assert_array_equal(portR['hitElem'][m], refR['hitElem'][m])
+  # the worst gaps measured on these 2,048 rays are 3.35e-5 in direction
+  # and 0.0186 mm in position: a drift shows as a shrinking margin
   np.testing.assert_allclose(portR['direction'][m], refR['direction'][m],
                              rtol=0., atol=1e-4)
   np.testing.assert_allclose(portR['point'][m], refR['point'][m], rtol=0.,

@@ -1,12 +1,10 @@
 #!/usr/bin/env python3
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
-    python3 tools/torch_kernel_probe.py [sweep | spectrometer | geom |
-                                         k1 [ROOT]]
+    python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]]
 
 (`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
-alone, `geom` the GEOM instance's: K1 on the torus mirror and the kinds
-scene with the asphere and torus roots inlined and out of line; `k1 ROOT` times the main-path step of the package in the checkout at
+alone; `k1 ROOT` times the main-path step of the package in the checkout at
 ROOT — another commit's, unpacked — three series of 20 steps by CUDA events,
 and prints the registers of its histogram kernel's instances, so that two
 commits run in one call can be compared in turns) times the port's
@@ -288,44 +286,6 @@ def k1Series():
                         registersInBuildOrder=regs)), flush=True)
 
 
-def geomBreakdown(dev):
-  '''The kernels' GEOM instance (the other surface kinds and trims): K1 at
-  1 << 22 rays on the torus-mirror and the kinds scene, by CUDA events, in
-  the shipped build (asphere and torus roots inlined) and in one that calls
-  them out of line (-DODW_GEOM_OUT_OF_LINE), A B B A, with the registers
-  and spills of each build's instances (printed last, so that the times
-  stay inside a short tail of the output).'''
-  scenes = {'torus': (benchmarks.buildTorusMirrorScene(), 3,
-                      (-200., 200., -200., 200.)),
-            'kinds': (benchmarks.buildKindsScene(), 8,
-                      (-300., 300., -300., 300.))}
-  shipped = _build.NVCC_FLAGS
-  outOfLine = shipped + ('-DODW_GEOM_OUT_OF_LINE',)
-  builds = {}
-  for flags, label in ((shipped, 'inline'), (outOfLine, 'out-of-line'),
-                       (outOfLine, 'out-of-line'), (shipped, 'inline')):
-    _build.NVCC_FLAGS = flags
-    try:
-      _libs, info = _build.buildKernels()
-      regs = [l.strip() for l in info['log'].splitlines()
-              if 'Used' in l or 'spill' in l]
-      for name, (scene, maxI, bounds) in scenes.items():
-        step, hist, _meta = benchmarks.makeBenchStep(
-            scene=scene, raysPerStep=N, maxIntersections=maxI, bins=BINS,
-            histBounds=bounds, device=dev)
-        seeds = iter(range(10 ** 9))
-        step(next(seeds), hist)
-        print(json.dumps(dict(variant=f'geom-{label}', scene=name,
-                              ms=cudaMs(lambda: step(next(seeds), hist)))),
-              flush=True)
-      builds[label] = dict(variant=f'geom-{label}-build',
-                           seconds=info['seconds'], ptxas=regs)
-    finally:
-      _build.NVCC_FLAGS = shipped
-  for row in builds.values():
-    print(json.dumps(row), flush=True)
-
-
 def main():
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
@@ -339,8 +299,6 @@ def main():
     return sweepBreakdown(dev)
   if sys.argv[1:] == ['spectrometer']:
     return spectrometerBreakdown(dev)
-  if sys.argv[1:] == ['geom']:
-    return geomBreakdown(dev)
   if sys.argv[1:2] == ['k1']:
     return k1Series()
 
