@@ -46,6 +46,15 @@ port's paths at full width:
     iterations of 1 << 20 rays) and histogram-first (8 of 1 << 22), the
     detected share and mean detected power against the JAX package's;
 
+  * triangle meshes (phase 10): the kernels against their plain versions on
+    the reference's dishes of 200 to 12800 triangles, its collimated dish,
+    a mesh lens and a tie between two equal table rows, K3 on 11 detector
+    heights under the 1800-triangle dish; every dish's fused step (both
+    binnings) and raw step at 1 << 22 rays timed beside its bound; that
+    dish loaded from an STL file through `runSimulation` raw (4 x 1 << 20)
+    and histogram-first (8 x 1 << 22) and through `evaluateBatched` over
+    its detector height, its share and r^2 against the JAX package's;
+
 (the first three on the lens-and-mirror scene) and checks the physics of
 what comes out. Before those paths it holds the histogram, per-ray-bin and
 raw-record kernels against their plain versions on the surface-source
@@ -76,6 +85,7 @@ sys.path.insert(0, os.path.join(HERE, 'examples'))
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
 import torch_4_spectrometer as example4       # examples/4 on the port
+import torch_mesh_dish as meshExample        # the STL-loaded dish
 from optics_design_workbench_tpu_torch import _build, benchmarks, simulation
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     RawFolder, parameter_sweeper)
@@ -175,6 +185,31 @@ MANY_STAGES = 30
 REF_TORUS_RAYS = 1 << 16
 REF_TORUS = dict(share=0.57965087890625, power=1.0, r2=6995.6086050200065,
                  r4=154135922.72938535)
+
+# triangle meshes (phase 10, B7): the reference's dish scenes (triangles ->
+# rings nQ of `benchmarks.buildMeshDishScene`), its collimated dish, and the
+# check scenes of a closed mesh lens and a tie between two equal rows. The
+# kernels are held against their plain versions at the fused step's
+# 1 << 22 rays where a run of the plain version takes under ~10 s; the
+# plain version sweeps every triangle for every ray (0.16 / 1.2 / 3.3 / 8.6
+# s per run of 1 << 20 rays on 200 / 1800 / 5000 / 12800 triangles), so the
+# 5000- and 12800-triangle dishes are held at 1 << 20.
+MESH_BOUNDS = (-200., 200., -200., 200.)
+MESH_MAX_INTERSECTIONS = 3
+MESH_DISHES = {200: 10, 1800: 30, 5000: 50, 12800: 80}
+MESH_CHECK_RAYS = {'dish200': N_MAIN, 'dish1800': N_MAIN,
+                   'dish5000': 1 << 20, 'dish12800': 1 << 20,
+                   'collimated': N_MAIN, 'meshLens': N_MAIN, 'tie': N_MAIN}
+MESH_HEIGHTS = tuple(np.linspace(-20., 0., 11))   # the detector's z
+MESH_SWEEP_RAYS = 1 << 20
+MESH_RAW_ITERATIONS = 4           # of N_RAW_ITERATION rays
+MESH_HIST_ITERATIONS = 8          # of N_MAIN rays
+# The JAX package's fused step on the 1800-triangle dish at 65,536 rays,
+# seed 0 (tests/test_torch_mesh.py computes them and holds them equal to
+# these): every ray is binned, at power 1, with these r^2 moments.
+REF_DISH_RAYS = 1 << 16
+REF_DISH = dict(share=1.0, power=1.0, r2=3966.9451117515564,
+                r4=35904789.590858854)
 # registers of the instances without B2 / B3 (output mode, sweep, B4,
 # surface sampler, scatter) -> count: as built before B2 / B3 (PERF.md §6),
 # but for the histogram kernel's B4 instances, whose stage gate reads the
@@ -249,6 +284,12 @@ FLOPS_DISPERSION = 2 * (3 + 2 * 12)
 # steps, sqrt: 29), the draw (`scatterEntryFlops`), the lobe axis (20) and
 # two Rodrigues rotations (29 each, sin and cos included) with the lobe
 # normal's sign (3)
+# the triangle table (B7), counted the same way from `sweepTriangles`: a
+# chunk box's slab test (three inverse-direction products per face pair,
+# the min / max tree, the cap) and the Moeller-Trumbore of one triangle
+# (three crosses, three dots, three divides, the tests and the select)
+FLOPS_CHUNK_TEST = 30
+FLOPS_TRIANGLE = 40
 FLOPS_SCATTER_RENORM = 9
 FLOPS_SCATTER_SCAN = 3
 FLOPS_ACOS = 29
@@ -386,9 +427,12 @@ def inputModes(tables, us, strataTile, colsT):
 
 
 def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
-                     tent=False, source=0, budget=COUNT_BUDGET):
+                     tent=False, source=0, budget=COUNT_BUDGET,
+                     triangleStats=None):
   '''Kernel vs plain version on the card, modes (b) and (c), same inputs:
-  counters equal, count bins within `budget` rays, power POWER_RTOL.'''
+  counters equal, count bins within `budget` rays, power POWER_RTOL. A dict
+  `triangleStats` is added what the cull leaves to a mesh's sweep in the
+  plain version's run.'''
   sceneNp, histSpec, tables = buildTables(scene, bounds, bins, tent=tent,
                                           source=source)
   if hitSlots is None:
@@ -399,13 +443,14 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   us, strataTile, cols, scatterU = samplerInputs(tables, n, 1234, maxI)
   colsT = rayColumns(tables, cols)
   worst = 0.
+  # both modes trace the same rays: one run of the plain version serves both
+  hP = fused.initHistograms(histSpec, device=DEV)
+  cP = cuda_trace.traceHistogramPlain(tables, hP, cols, **kw,
+                                      scatterUniforms=scatterU,
+                                      triangleStats=triangleStats)
   for mode, inputs in inputModes(tables, us, strataTile, colsT):
     hK = fused.initHistograms(histSpec, device=DEV)
     cK = cuda_trace.traceHistogram(tables, hK, n, **inputs, **kw)
-    torch.cuda.synchronize()
-    hP = fused.initHistograms(histSpec, device=DEV)
-    cP = cuda_trace.traceHistogramPlain(tables, hP, cols, **kw,
-                                        scatterUniforms=scatterU)
     torch.cuda.synchronize()
     if cK.tolist() != cP.tolist():
       raise AssertionError(f'{label} mode ({mode}): counters differ: kernel '
@@ -487,8 +532,14 @@ def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
               hitSlots=hitSlots, rawCounters=cRawK.tolist(),
               binsCounters=cBinsK.tolist(), maxAbsErrRaw=errRaw,
               movedRays=moved, maxAbsErrBins=errBins))
+  binsAgainstHistogram(label, tables, histSpec, n, us, strataTile, kw)
+  return worst
 
-  # per-ray bins + float64 binning outside against the in-kernel histogram
+
+def binsAgainstHistogram(label, tables, histSpec, n, us, strataTile, kw):
+  '''Per-ray bins + float64 binning outside (`traceBins` + `binRing`)
+  against the in-kernel histogram (`traceHistogram`) on the same uniforms:
+  counters and counts equal bin for bin, power POWER_RTOL.'''
   h1 = fused.initHistograms(histSpec, device=DEV)
   c1 = cuda_trace.traceHistogram(tables, h1, n, uniforms=us,
                                  strataTile=strataTile, **kw)
@@ -507,7 +558,6 @@ def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   emit(dict(phase='bins-vs-histogram', scene=label, rays=n,
             counters=c2.tolist(),
             maxAbsErrPower=float((h1['power'] - h2['power']).abs().max())))
-  return worst
 
 
 def compareSeedMode(scene, bounds, maxI, n, bins):
@@ -556,11 +606,16 @@ def onlyLaunches(**counts):
 
 
 def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
-            scatterPasses=0, inputBytes=0):
+            scatterPasses=0, inputBytes=0, trianglesPerSegment=0.):
   '''Least time the card could take for one step: (ms by operations, ms by
   bytes), from this run's segment count, its passes through a grating and
-  through a scattering element, and the bytes the kernel must move (table,
-  counters and `inputBytes` in, `outputBytes` out).'''
+  through a scattering element, the bytes the kernel must move (table, a
+  mesh's triangle table and boxes, counters and `inputBytes` in,
+  `outputBytes` out) and, for a mesh, per segment the slab test of every
+  chunk box and Moeller-Trumbore on `trianglesPerSegment` triangles (the
+  mean over ray-bounces of the triangles in the boxes the ray's capped
+  segment enters, as the plain version counts them: what the cull cannot
+  skip).'''
   rows = tables['surfRows']
   if 'nVariants' in tables:            # a sweep: every variant, one structure
     rows = rows[0]
@@ -579,6 +634,11 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
     flopsPerSegment += FLOPS_DISPERSION
   if tables['scatter']:
     flopsPerSegment += FLOPS_SCATTER_RENORM
+  if tables.get('nTri'):
+    flopsPerSegment += (FLOPS_CHUNK_TEST * tables['nTriChunks']
+                        + FLOPS_TRIANGLE * trianglesPerSegment)
+    inputBytes += 4 * (tables['triTable'].numel()
+                       + tables['triBoxes'].numel())
   sampler = FLOPS_SAMPLER
   if tables.get('samplerKind') == cuda_trace.SAMPLER_SURFACE:
     faces = tables['samplerSpec']['faces']
@@ -596,7 +656,7 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
 
 
 def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
-                spectro, surface=None, scatter=None, geom=None):
+                spectro, surface=None, scatter=None, geom=None, mesh=None):
   '''One entry of the `kernels` line: the main-path numbers (lens-and-mirror
   scene; the examples/3 sweep for the sweep kernel) and, beside them, the
   kernel on the spectrometer (`spectro`: its launches on that path, ms and
@@ -609,7 +669,10 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
   scenes and the scene of many surfaces), and on the scenes of the other
   surface kinds and trims (`geom`: launches on the torus-mirror path, ms
   and bound on the torus scene, per-scene ms, the worst error over phase
-  9's checks). `max_abs_err` is the worst of all.'''
+  9's checks), and on the triangle meshes (`mesh`: launches on the
+  1800-triangle dish's path, ms and bound there, ms by dish, the worst
+  error over phase 10's checks, `b7_max_abs_err`). `max_abs_err` is the
+  worst of all.'''
   boundOps, boundBytes, _ = bounds
   spOps, spBytes, _ = spectro['bounds']
   surf = dict(surface_launches=None, surface_ms=None, surface_bound_ms=None,
@@ -633,6 +696,12 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
              geom_bound_by='operations' if gOps >= gBytes else 'bytes',
              geom_ms_by_scene=geom.get('byScene'),
              geom_max_abs_err=geom['err'])
+  mOps, mBytes, _ = mesh['bounds']
+  tri = dict(mesh_launches=mesh['launches'], mesh_ms=mesh['ms'],
+             mesh_bound_ms=max(mOps, mBytes),
+             mesh_bound_by='operations' if mOps >= mBytes else 'bytes',
+             mesh_ms_by_scene=mesh.get('byScene'),
+             b7_max_abs_err=mesh['err'])
   return dict(name=name, route='cuda',
               source=f'optics_design_workbench_tpu_torch/csrc/{source}',
               replaces=f'optics_design_workbench_tpu/ops/pallas_trace.py:'
@@ -640,7 +709,8 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
               launches=launches,
               max_abs_err=max(err, spectro['err'],
                               surf['surface_max_abs_err'] or 0.,
-                              scatter['err'], geom['err']), ms=ms,
+                              scatter['err'], geom['err'], mesh['err']),
+              ms=ms,
               plain_ms=plainMs, bound_ms=max(boundOps, boundBytes),
               bound_by='operations' if boundOps >= boundBytes else 'bytes',
               library_ms=None, lens_mirror_max_abs_err=err,
@@ -648,7 +718,7 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
               spectrometer_launches=spectro['launches'],
               spectrometer_ms=spectro['ms'],
               spectrometer_bound_ms=max(spOps, spBytes), **surf, **scat,
-              **geo)
+              **geo, **tri)
 
 
 def timeBenchStep(histPrecision, maxI, **benchKw):
@@ -944,28 +1014,37 @@ def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo,
                                       strataTile)
     colsT = rayColumns(tables0, cols)
     modes.append(('c', dict(columns=colsT), dict(columns=colsT)))
+  # both modes trace the same rays: one run of the plain version serves both
+  plain = {}
   return max(holdSweepAgainstPlain(label, mode, tables, n, inputs,
-                                   plainInputs, kw, budget)[0]
+                                   plainInputs, kw, budget, plain)[0]
              for mode, inputs, plainInputs in modes)
 
 
 def holdSweepAgainstPlain(label, mode, tables, n, inputs, plainInputs, kw,
-                          budget=COUNT_BUDGET):
+                          budget=COUNT_BUDGET, plain=None):
   '''One launch of the sweep kernel and one run of its plain version on the
   same inputs, each into fresh histograms; raises where they disagree.
-  Returns (worst absolute power error, the plain version's ms).'''
+  `plain` (a dict) keeps the plain version's run for a later call on the
+  same rays. Returns (worst absolute power error, the plain version's
+  ms).'''
   V = tables['nVariants']
   shape = (V, tables['nDet']) + tuple(tables['bins'])
   hK = dict(power=torch.zeros(shape, device=DEV),
             counts=torch.zeros(shape, device=DEV))
-  hP = dict(power=torch.zeros(shape, device=DEV),
-            counts=torch.zeros(shape, device=DEV))
   cK = cuda_trace.traceSweep(tables, hK, n, **inputs, **kw)
   torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  cP = cuda_trace.traceSweepPlain(tables, hP, n, **plainInputs, **kw)
-  torch.cuda.synchronize()
-  plainMs = (time.perf_counter() - t0) * 1e3
+  if plain is None or not plain:
+    hP = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+    t0 = time.perf_counter()
+    cP = cuda_trace.traceSweepPlain(tables, hP, n, **plainInputs, **kw)
+    torch.cuda.synchronize()
+    plainMs = (time.perf_counter() - t0) * 1e3
+    if plain is not None:
+      plain.update(hP=hP, cP=cP, plainMs=plainMs)
+  else:
+    hP, cP, plainMs = plain['hP'], plain['cP'], plain['plainMs']
   if cK.tolist() != cP.tolist():
     raise AssertionError(f'{label} sweep mode ({mode}): counters differ: '
                          f'kernel {cK.tolist()} plain {cP.tolist()}')
@@ -2086,7 +2165,7 @@ def scatterSweepPhase():
 def registerCounts(log):
   '''ptxas's registers and spill bytes per instance of the kernel template,
   from the build log: {(output mode, sweep, B4, surface sampler, scatter,
-  GEOM): (registers, spill store bytes)}.'''
+  GEOM, TRI): (registers, spill store bytes)}.'''
   import re
   out, current = {}, None
   for line in log.splitlines():
@@ -2112,7 +2191,7 @@ def registerPhase(log):
   emit(dict(phase='registers', instances=len(regs), byInstance={
       ','.join(map(str, k)): v for k, v in sorted(regs.items())}))
   for key, want in OLD_REGISTERS.items():
-    got = regs.get(key + (0,), (None, None))[0]
+    got = regs.get(key + (0, 0), (None, None))[0]
     if got != want:
       raise AssertionError(f'instance {key} uses {got} registers, '
                            f'{want} before B2 / B3')
@@ -2405,6 +2484,303 @@ def geomPhase(tmp, log):
   emit(dict(phase='geom-total', seconds=time.perf_counter() - t9))
   return out
 
+def meshScenes():
+  '''The scenes of phase 10, built once: name -> (scene, histogram bounds,
+  intersections).'''
+  ns = helpers.torchNs()
+  out = {f'dish{n}': (benchmarks.buildMeshDishScene(nQ), MESH_BOUNDS,
+                      MESH_MAX_INTERSECTIONS)
+         for n, nQ in MESH_DISHES.items()}
+  out['collimated'] = (benchmarks.buildMeshDishCollimatedScene(),
+                       MESH_BOUNDS, MESH_MAX_INTERSECTIONS)
+  out['meshLens'] = helpers.buildMeshLensScene(ns)
+  out['tie'] = helpers.buildTieMeshScene(ns)
+  return out
+
+
+def meshKernelChecks(scenes):
+  '''Phase 10's kernel checks: K1, K2 and K4 against their plain versions
+  on every mesh scene (modes (b) and (c), the gates of phase 2) at
+  MESH_CHECK_RAYS, and K1 against K2 + `binRing` at 1 << 22 rays on every
+  dish; K3 on the 1800-triangle dish's 11 detector heights x 1 << 20 rays
+  against its plain version and, in seed mode, against one K1 launch per
+  variant. Returns (the worst error per kernel, per scene the triangles a
+  segment must test as the plain version counted them).'''
+  worst = dict(traceHistogram=0., traceBins=0., traceRaw=0., traceSweep=0.)
+  perSegment = {}
+  for name, (scene, bounds, maxI) in scenes.items():
+    n = MESH_CHECK_RAYS[name]
+    stats = {}
+    worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+        f'mesh-{name}', scene, bounds, maxI, n, BINS, triangleStats=stats))
+    perSegment[name] = dict(
+        chunks=stats['chunks'] / stats['rayBounces'],
+        triangles=stats['triangles'] / stats['rayBounces'])
+    w = compareRingsWithPlain(f'mesh-{name}', scene, bounds, maxI, n, BINS)
+    for k in ('traceRaw', 'traceBins'):
+      worst[k] = max(worst[k], w[k])
+    if n < N_MAIN:
+      sceneNp, histSpec, tables = buildTables(scene, bounds, BINS)
+      us, strataTile, _cols, _scat = samplerInputs(tables, N_MAIN, 97, maxI)
+      binsAgainstHistogram(f'mesh-{name}', tables, histSpec, N_MAIN, us,
+                           strataTile, dict(
+          maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+          powerTol=1e-6,
+          hitSlots=cuda_trace.autoHitSlots(sceneNp, histSpec, maxI)))
+    emit(dict(phase='mesh-plain-triangles', scene=name, rays=n,
+              nTri=cuda_trace.tableTriangles(compiled(scene)[0]),
+              chunksPerSegment=perSegment[name]['chunks'],
+              trianglesPerSegment=perSegment[name]['triangles']))
+  variants = [benchmarks.buildMeshDishScene(MESH_DISHES[1800], detectorZ=z)
+              for z in MESH_HEIGHTS]
+  worst['traceSweep'] = compareSweepWithPlain(
+      'dish-heights', variants, MESH_BOUNDS, MESH_MAX_INTERSECTIONS,
+      MESH_SWEEP_RAYS, columnsToo=True)
+  compareSweepWithSingles('dish-heights', variants, MESH_BOUNDS,
+                          MESH_MAX_INTERSECTIONS, MESH_SWEEP_RAYS, seed=47)
+  return worst, perSegment
+
+
+def checkDishStats(label, stats, nRays):
+  '''The 1800-triangle dish's detected share and r^2 against the JAX
+  package's (REF_DISH, 3 sigma).'''
+  ok, sigmas = helpers.scatterStatsGate(stats, REF_DISH, nRays,
+                                        REF_DISH_RAYS)
+  emit(dict(phase='dish-statistics', run=label, rays=nRays, **stats,
+            ref=REF_DISH, **sigmas))
+  if not ok:
+    raise AssertionError(f'dish {label}: {stats} against the JAX '
+                         f"package's {REF_DISH}")
+
+
+def meshStepPhase(name, scene, histPrecision, trianglesPerSegment):
+  '''The fused step (`benchmarks.makeBenchStep`, seed mode) on a dish at
+  full width: timed (`timeBenchStep`) with its bound; on the 1800-triangle
+  dish its statistics against the JAX package's.'''
+  t = timeBenchStep(histPrecision, MESH_MAX_INTERSECTIONS, scene=scene,
+                    histBounds=MESH_BOUNDS)
+  step, hist = t['step'], t['hist']
+  segsPerStep = t['segments'] / TIMED_STEPS
+  outBytes = (2 * hist['power'].numel() * 4 * 2 if histPrecision == 'default'
+              else 3 * step.hitSlots * N_MAIN * 4)
+  bounds = boundMs(step.tables, segsPerStep, N_MAIN, outBytes,
+                   trianglesPerSegment=trianglesPerSegment)
+  emit(dict(phase='mesh-step', scene=name, histPrecision=histPrecision,
+            rays=N_MAIN, steps=TIMED_STEPS, stepMs=t['stepMs'],
+            kernelMs=t['kernelMs'], segmentsPerRay=segsPerStep / N_MAIN,
+            hits=t['hits'], launches=t['launches'],
+            nTri=step.tables['nTri'], boundMs=max(bounds[:2]),
+            **bounds[2]))
+  binned = float(hist['counts'].double().sum())
+  if not torch.isfinite(hist['power']).all() or t['hits'] <= 0 \
+      or binned > t['hits']:
+    raise AssertionError(f'mesh step on {name}: {binned} binned of '
+                         f'{t["hits"]} hits, or a non-finite bin')
+  if name == 'dish1800':
+    nRays = N_MAIN * TIMED_STEPS
+    checkDishStats(f'step-{histPrecision}', helpers.scatterStats(
+        hist, binned, nRays, bounds=MESH_BOUNDS), nRays)
+  return dict(launches=t['launches'], ms=t['kernelMs'], bounds=bounds)
+
+
+def meshRawStepPhase(name, scene, trianglesPerSegment):
+  '''`makeRawStep` on a dish at 1 << 22 rays: one launch of the raw
+  kernel, its records, then the kernel alone by CUDA events with its
+  bound.'''
+  sceneNp, info = compiled(scene)
+  sceneNp = dict(sceneNp, powerTol=1e-6)
+  histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=MESH_BOUNDS,
+                                     bins=BINS)
+  src = scene.lightSources()[0]
+  resetLaunchCounts()
+  step = cuda_trace.makeRawStep(
+      sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
+      raysPerStep=N_MAIN, maxIntersections=MESH_MAX_INTERSECTIONS,
+      maxRayLength=1000., distTol=1e-4, sampler=src.samplerSpec())
+  records, counters = step(11)
+  torch.cuda.synchronize()
+  launches = dict(cuda_trace.launchCounts)
+  if launches != onlyLaunches(traceRaw=1):
+    raise AssertionError(f'raw step on {name} launched {launches}')
+  if int(counters['hits']) <= 0 or not bool(torch.isfinite(
+      records['point'][records['recordHit']]).all()):
+    raise AssertionError(f'raw step on {name}: no hits, or a non-finite '
+                         f'point')
+  seeds = iter(range(100, 10 ** 6))
+  kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
+      step.tables, N_MAIN, MESH_MAX_INTERSECTIONS, 1000., 1e-4,
+      hitSlots=step.hitSlots, seed=next(seeds), strataTile=step.strataTile),
+      TIMED_STEPS)
+  bounds = boundMs(step.tables, int(counters['segments']), N_MAIN,
+                   9 * step.hitSlots * N_MAIN * 4,
+                   trianglesPerSegment=trianglesPerSegment)
+  emit(dict(phase='mesh-raw-step', scene=name, rays=N_MAIN,
+            hits=int(counters['hits']), segments=int(counters['segments']),
+            kernelMs=kernelMs, boundMs=max(bounds[:2]), **bounds[2]))
+  return dict(launches=1, ms=kernelMs, bounds=bounds)
+
+
+def meshRunPhases(tmp):
+  '''`runSimulation` on the 1800-triangle dish loaded from an STL file
+  (examples/torch_mesh_dish.py): raw recording (4 x 1 << 20, the raw
+  kernel; rows read back == the run's hits) and histogram-first recording
+  (8 x 1 << 22, the histogram kernel; snapshot counts == the run's hits);
+  the detected share and r^2 against the JAX package's.'''
+  scene, path = meshExample.buildDishFromSTL(tmp, MESH_DISHES[1800])
+  settings = scene.activeSimulationSettings()
+  settings.RaysPerIteration = N_RAW_ITERATION
+  settings.EndAfterIterations = MESH_RAW_ITERATIONS
+  settings.EndAfterRays = 'inf'
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(scene,
+                                                        recording='raw')
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  hits = RawFolder(runPath).loadHits('Det')
+  rows = len(hits['points'])
+  traced = last['totalTracedRays']
+  emit(dict(phase='mesh-run-raw', stl=os.path.basename(path),
+            raysPerIteration=N_RAW_ITERATION,
+            iterations=last['totalIterations'], tracedRays=traced,
+            storedHits=rows, detectedShare=rows / traced, launches=launches,
+            setupAndFirstIterationS=first, laterIterationsS=later,
+            cleanupFlushS=cleanup))
+  if launches != onlyLaunches(traceRaw=MESH_RAW_ITERATIONS) \
+      or traced != N_RAW_ITERATION * MESH_RAW_ITERATIONS \
+      or rows != last['totalRecordedHits'] or rows <= 0:
+    raise AssertionError(f'mesh raw run: {rows} rows, {launches}, {last}')
+  if not np.isfinite(hits['points']).all() \
+      or np.abs(hits['points'][:, 2]).max() > 1e-3:
+    raise AssertionError('mesh raw run: points off the detector plane')
+
+  settings.RaysPerIteration = N_MAIN
+  settings.EndAfterIterations = MESH_HIST_ITERATIONS
+  resetLaunchCounts()
+  runPath, progress, (first, later, cleanup) = timedRun(
+      scene, recording='histogram', histBins=BINS, histBounds=MESH_BOUNDS)
+  launches = dict(cuda_trace.launchCounts)
+  last = progress[-1]
+  snap = results_store.loadHistogramSnapshots(runPath)['Src']['Det']
+  counts = float(snap['counts'].astype(np.float64).sum())
+  nRays = last['totalTracedRays']
+  emit(dict(phase='mesh-run-histogram', raysPerIteration=N_MAIN,
+            iterations=last['totalIterations'], tracedRays=nRays,
+            histCounts=counts, recordedHits=last['totalRecordedHits'],
+            detectedShare=counts / nRays, launches=launches,
+            setupAndFirstPassS=first, laterPassesS=later,
+            cleanupFlushS=cleanup,
+            raysPerSec=nRays / (first + later + cleanup)))
+  # (the run's raw sample of 1 << 13 rays every 8 passes is one raw launch)
+  if nRays != MESH_HIST_ITERATIONS * N_MAIN \
+      or counts != last['totalRecordedHits'] \
+      or launches.get('traceHistogram') != MESH_HIST_ITERATIONS:
+    raise AssertionError(f'mesh histogram run: counts {counts}, '
+                         f'{launches}, {last}')
+  checkDishStats('run-histogram', helpers.scatterStats(
+      dict(power=torch.as_tensor(snap['power'])[None],
+           counts=torch.as_tensor(snap['counts'])[None]), counts, nRays,
+      bounds=MESH_BOUNDS), nRays)
+  return dict(launches=MESH_HIST_ITERATIONS)
+
+
+def meshSweepPhase(trianglesPerSegment):
+  '''`ParameterSweeper.evaluateBatched` on the 1800-triangle dish's
+  detector height (11 heights x 1 << 20 rays): one launch of the sweep
+  kernel per call; the kernel alone by CUDA events, with its bound.'''
+  from optics_design_workbench_tpu_torch.jupyter_utils import (
+      Parameter, ParameterSweeper)
+  nQ = MESH_DISHES[1800]
+  holder = dict(z=0., scene=benchmarks.buildMeshDishScene(nQ))
+
+  def setZ(z):
+    holder['z'] = float(z)
+    holder['scene'] = benchmarks.buildMeshDishScene(nQ, detectorZ=z)
+    sweeper.scene = holder['scene']
+
+  sweeper = ParameterSweeper(
+      lambda sc: dict(z=Parameter(getter=lambda: holder['z'], setter=setZ,
+                                  bounds=(-20., 0.))),
+      scene=holder['scene'], device=DEV)
+  r2 = []
+
+  def metric(power, counts):
+    r2.append(helpers.scatterStats(dict(power=power, counts=counts),
+                                   float(counts.sum()), MESH_SWEEP_RAYS,
+                                   bounds=MESH_BOUNDS)['r2'])
+    return r2[-1]
+
+  resetLaunchCounts()
+  t0 = time.perf_counter()
+  sweeper.evaluateBatched([dict(z=z) for z in MESH_HEIGHTS], metric,
+                          sceneFactory=lambda: holder['scene'],
+                          raysPerScene=MESH_SWEEP_RAYS,
+                          maxIntersections=MESH_MAX_INTERSECTIONS,
+                          histBounds=MESH_BOUNDS, bins=BINS)
+  torch.cuda.synchronize()
+  wallS = time.perf_counter() - t0
+  launches = dict(cuda_trace.launchCounts)
+  route = sweeper.lastBatchedRoute
+  emit(dict(phase='mesh-sweep', variants=len(MESH_HEIGHTS),
+            raysPerVariant=MESH_SWEEP_RAYS, route=route, launches=launches,
+            wallS=wallS, meanR2ByHeight=r2))
+  if route != 'sweep' or launches != onlyLaunches(traceSweep=1):
+    raise AssertionError(f'mesh sweep: route {route}, launches {launches}')
+  if not all(np.isfinite(r2)) or r2[0] == r2[-1]:
+    raise AssertionError(f'mesh sweep: mean r^2 by height {r2}')
+
+  variants = [benchmarks.buildMeshDishScene(nQ, detectorZ=z)
+              for z in MESH_HEIGHTS]
+  tables, host, histSpec, _specs = sweepTablesFor(variants, MESH_BOUNDS)
+  V, n = len(variants), MESH_SWEEP_RAYS
+  shape = (V, tables['nDet']) + SWEEP_BINS
+  hist = dict(power=torch.zeros(shape, device=DEV),
+              counts=torch.zeros(shape, device=DEV))
+  kw = dict(maxIntersections=MESH_MAX_INTERSECTIONS, maxRayLength=1000.,
+            distTol=1e-4, powerTol=1e-6,
+            hitSlots=cuda_trace.autoHitSlots(host[0][0], histSpec,
+                                             MESH_MAX_INTERSECTIONS),
+            strataTile=cuda_trace.DEFAULT_STRATA_TILE)
+  seeds = iter(range(77, 10 ** 6))
+  counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds), **kw)
+  segments = int(counters[:, 0].sum())
+  kernelMs = cudaMs(lambda: cuda_trace.traceSweep(
+      tables, hist, n, seed=next(seeds), **kw), TIMED_STEPS)
+  bounds = boundMs(tables, segments, V * n, 2 * hist['power'].numel() * 4 * 2,
+                   trianglesPerSegment=trianglesPerSegment)
+  emit(dict(phase='mesh-sweep-kernel', variants=V, raysPerVariant=n,
+            kernelMs=kernelMs, boundMs=max(bounds[:2]), **bounds[2]))
+  return dict(launches=launches['traceSweep'], ms=kernelMs, bounds=bounds)
+
+
+def meshPhase(tmp):
+  '''Phase 10, triangle meshes (B7): kernel checks, then the dishes'
+  paths through the port's entry points at full width. Returns, per
+  wrapper, its launches on the 1800-triangle dish's path, ms and bound
+  there, ms by dish, and its worst error.'''
+  t10 = time.perf_counter()
+  scenes = meshScenes()
+  worst, perSegment = meshKernelChecks(scenes)
+  dishes = [f'dish{n}' for n in MESH_DISHES]
+  out = {}
+  for wrapper, precision in (('traceHistogram', 'default'),
+                             ('traceBins', 'highest')):
+    byScene = {name: meshStepPhase(name, scenes[name][0], precision,
+                                   perSegment[name]['triangles'])
+               for name in dishes}
+    out[wrapper] = dict(byScene['dish1800'], byScene={
+        name: r['ms'] for name, r in byScene.items()})
+  rawByScene = {name: meshRawStepPhase(name, scenes[name][0],
+                                       perSegment[name]['triangles'])
+                for name in dishes}
+  out['traceRaw'] = dict(rawByScene['dish1800'], launches=MESH_RAW_ITERATIONS,
+                         byScene={n: r['ms'] for n, r in rawByScene.items()})
+  out['traceHistogram']['launches'] = meshRunPhases(tmp)['launches']
+  out['traceSweep'] = meshSweepPhase(perSegment['dish1800']['triangles'])
+  for name, entry in out.items():
+    entry['err'] = worst[name]
+  emit(dict(phase='mesh-total', seconds=time.perf_counter() - t10))
+  return out
+
 T0 = time.perf_counter()
 
 
@@ -2516,6 +2892,8 @@ def main():
     emit(dict(phase='scatter-total', seconds=time.perf_counter() - t8))
     # ---- phase 9: the other surface kinds and trims ----
     geom = geomPhase(tmp, info['log'])
+    # ---- phase 10: triangle meshes ----
+    mesh = meshPhase(tmp)
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2564,19 +2942,22 @@ def main():
       kernelEntry('traceHistogram', 'trace_kernel.cu', 2776, k1['launches'],
                   worst, k1['kernelMs'], k1['plainMs'], k1['bounds'],
                   spectro['traceHistogram'], surface['traceHistogram'],
-                  scatter['traceHistogram'], geom['traceHistogram']),
+                  scatter['traceHistogram'], geom['traceHistogram'],
+                  mesh['traceHistogram']),
       kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
                   worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
                   rawBounds, spectro['traceRaw'], surface['traceRaw'],
-                  scatter['traceRaw'], geom['traceRaw']),
+                  scatter['traceRaw'], geom['traceRaw'], mesh['traceRaw']),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
                   k2['bounds'], spectro['traceBins'], surface['traceBins'],
-                  scatter['traceBins'], geom['traceBins']),
+                  scatter['traceBins'], geom['traceBins'],
+                  mesh['traceBins']),
       kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
                   sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
                   sweepBounds, spectro['traceSweep'], None,
-                  scatter['traceSweep'], geom['traceSweep'])]))
+                  scatter['traceSweep'], geom['traceSweep'],
+                  mesh['traceSweep'])]))
   print(smi, flush=True)
   print(json.dumps(dict(ok=True, device=dict(
       platform='gpu', kind=torch.cuda.get_device_name(0),

@@ -27,7 +27,10 @@ __version__ = '0.1.0'
 # .cu file becomes one shared library; the header holds their common body.
 _KERNEL_SOURCES = ('csrc/trace_common.cuh', 'csrc/trace_kernel.cu',
                    'csrc/trace_bins_kernel.cu', 'csrc/trace_raw_kernel.cu',
-                   'csrc/trace_sweep_kernel.cu')
+                   'csrc/trace_sweep_kernel.cu', 'csrc/trace_kernel_tri.cu',
+                   'csrc/trace_bins_kernel_tri.cu',
+                   'csrc/trace_raw_kernel_tri.cu',
+                   'csrc/trace_sweep_kernel_tri.cu')
 
 
 def kernelSourceDigest():

@@ -10,8 +10,11 @@ reference's surface-source scene (a Lambertian-like disc emitter), its
 three stochastic-scatter scenes (a diffuser, an ideal-plus-conditioned
 mixture, an astigmatic diffuser), its torus-mirror and mesh-fold throughput
 scenes, the two slotted mirrors of its trim tests, a scene of the other
-surface kinds and an emitter whose faces are of those kinds.
+surface kinds and an emitter whose faces are of those kinds, and its dish
+mirrors of 200 to 12800 triangles (the triangle-table sweep).
 '''
+
+import math
 
 import numpy as np
 
@@ -271,6 +274,65 @@ def buildMeshFoldScene(tmpdir=None):
       ThetaResolutionNumericMode='1e4'))
   scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=3)
   return scene
+
+
+def dishTriangles(nQ, R0=40., z0=60.):
+  '''The (nQ * nQ * 2, 3, 3) vertices of the reference's dish mirror: a
+  paraboloid z = z0 + 0.004 r^2 of radius R0 cut into nQ rings of nQ quads,
+  two triangles each, in the reference's order (the innermost ring's
+  second triangles have zero area).'''
+  def pt(ir, ip):
+    r = R0 * ir / nQ
+    ph = 2 * math.pi * ip / nQ
+    return (r * math.cos(ph), r * math.sin(ph), z0 + 0.004 * r * r)
+
+  tris = []
+  for ir in range(nQ):
+    for ip in range(nQ):
+      a, b = pt(ir, ip), pt(ir + 1, ip)
+      c, d = pt(ir + 1, ip + 1), pt(ir, ip + 1)
+      tris += [(a, b, c), (a, c, d)]
+  return np.array(tris, float)
+
+
+def _dishScene(label, tris, sourceKw, tmpdir):
+  scene = Scene(label=label, path=tmpdir and f'{tmpdir}/{label}')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Dish',
+      surfaces=[S.triangle(*t, elem=0) for t in tris],
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(200., 200.))],
+      placements=[T.translation(0, 0, 0)]))
+  scene.addSource(PointSource(Label='Src', Wavelength=532.,
+                              ThetaResolutionNumericMode='1e3', **sourceKw))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=3)
+  return scene
+
+
+def buildMeshDishScene(nQ=10, tmpdir=None, detectorZ=0.):
+  '''The reference's dish scenes (`_dishScene`): a paraboloid mirror of
+  nQ * nQ * 2 triangles (nQ = 10 / 30 / 50 / 80: 200 / 1800 / 5000 / 12800,
+  `dishTriangles`) over an absorbing 400 x 400 mm detector at z =
+  `detectorZ` (0), lit from 1e-3 mm above it by exp(-theta^2/0.1) over
+  theta in [0, 0.5]; 3 intersections (histograms over +-200 mm).'''
+  scene = _dishScene(f'dish{nQ}_tp', dishTriangles(nQ), dict(
+      PowerDensity='exp(-theta^2/0.1)', ThetaDomain='0, 0.5',
+      placement=T.translation(0, 0, 1e-3)), tmpdir)
+  if detectorZ:
+    scene.getObject('Det').placements = [T.translation(0, 0, detectorZ)]
+  return scene
+
+
+def buildMeshDishCollimatedScene(tmpdir=None):
+  '''The reference's `sceneMeshDishCollimated`: the 200-triangle dish lit
+  by a narrow beam (exp(-theta^2/2e-4) over theta in [0, 0.03]) tilted 24
+  deg about y towards its rim, so the chunk cull skips most of the mesh.'''
+  aim = T.rotation((0., 1., 0.), 24.) @ T.translation(0, 0, 1e-3)
+  return _dishScene('dishcoh_tp', dishTriangles(10), dict(
+      PowerDensity='exp(-theta^2/2e-4)', ThetaDomain='0, 0.03',
+      placement=aim), tmpdir)
 
 
 def _sphereDetector():

@@ -2,15 +2,18 @@
 // the surface sweep, the physics and the bounce loop exist ONCE here, as one
 // `__global__` function templated on its OUTPUT MODE, on whether it traces
 // ONE scene or a variant-major SWEEP of scenes, on B4 (below), on SURF, the
-// sampler (below), and on SCAT, stochastic scatter (below). Each kernel
-// source (trace_kernel.cu, trace_bins_kernel.cu, trace_raw_kernel.cu,
-// trace_sweep_kernel.cu) instantiates one mode, with and without B4, with
-// SCAT on top of B4, GEOM (with and without SCAT) on top of B4, and the
-// single-scene ones with each sampler, behind a plain-C launcher.
+// sampler (below), on SCAT, stochastic scatter (below), on GEOM, the other
+// surface kinds and trims (below), and on TRI, the triangle table (below).
+// Each kernel source (trace_kernel.cu, trace_bins_kernel.cu,
+// trace_raw_kernel.cu, trace_sweep_kernel.cu) instantiates one mode, with
+// and without B4, with SCAT on top of B4, GEOM (with and without SCAT) on
+// top of B4, and the single-scene ones with each sampler, behind a plain-C
+// launcher; its `_tri` twin instantiates the same mode with TRI on top of
+// B4, with and without SCAT and GEOM (and each sampler).
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
-// (optics_design_workbench_tpu/ops/pallas_trace.py), but for its triangle-
-// and surface-table sweeps, histogram layout and per-bounce culls:
+// (optics_design_workbench_tpu/ops/pallas_trace.py), but for its
+// surface-table sweep, histogram layout and per-bounce culls:
 // PLANE / SPHERE / CYLINDER surfaces with window, annulus and z-band trims,
 // and in the GEOM instance every other kind (ASPHERE by 16 Newton steps
 // from its osculating sphere, TRIANGLE by Moeller-Trumbore, CONE and QUADRIC
@@ -21,7 +24,8 @@
 // sequential mode and per-source surface masks; the point-source sampler
 // with affine, piecewise-polynomial and tent marginals and ray-index strata;
 // the surface-source sampler (plane, sphere-zone and cylinder faces); the
-// in-kernel stochastic scatter draw; the per-ray hit-slot ring.
+// in-kernel stochastic scatter draw; the triangle-table sweep of meshes past
+// 128 triangles; the per-ray hit-slot ring.
 //
 // The two samplers are two compile-time instances (SURF), chosen by the
 // launcher from the sampler kind of the tables: the point sampler draws two
@@ -56,6 +60,25 @@
 // plane / sphere / cylinder with window trims runs an instance without that
 // code and reads the rows it read before. The surface sampler's faces of
 // kind cone, asphere, torus and triangle are GEOM's too.
+//
+// The triangle table (TRI, B7, a compile-time instance built on the B4
+// body, whose sources are trace_*_tri.cu): a mesh past the surface rows'
+// 128 triangles is swept after them from a table of world-frame rows [v0,
+// e1, e2, element, orient] in GLOBAL memory (no part of the shared-memory
+// table, no cap on its size), in Morton order of the centroids, chunked by
+// kTriChunk rows with one padded box each. Per chunk the warp votes on the
+// box's slab test (each live lane's segment, capped at its nearest surface
+// row plus the same-medium window) and, if any lane's segment enters the
+// box, the live lanes sweep the chunk's rows together, so each row's loads
+// are broadcasts. The cull only skips triangles no lane can hit, so any
+// culling grain gives the same result; it is as tight as the warp's rays are
+// coherent (the samplers' ray-index strata keep a block's rays in one
+// (theta, phi) cell). Inside the table the strict `<` keeps the lowest row
+// on a tie; the table's winner replaces the surface winner only when
+// strictly nearer, and counts for the other-medium tracker when the medium
+// is not its element. A table winner brings its normal (the unnormalised
+// e1 x e2 times orient / |e1 x e2|, in float32), its element and the world
+// (x, y) as its chart.
 //
 // Stochastic scatter (SCAT, a compile-time instance built on the B4 body,
 // which the launcher picks from its scatter word): after the ideal new
@@ -135,6 +158,9 @@ constexpr int kSamplerGeom = 16;   // finite, f, R(9), off(3), wavelength, pad
 constexpr int kFaceCols = 33;      // one emitting face of a surface sampler
 constexpr int kGeomCols = 20;      // GEOM: the widening of a surface row
 constexpr int kPrimCols = 9;       // one hole primitive of a surface
+constexpr int kTriCols = 11;       // TRI: v0, e1, e2, element, orient
+constexpr int kBoxCols = 6;        // TRI: a chunk's box, lo xyz, hi xyz
+constexpr int kTriChunk = 32;      // TRI: rows per chunk
 constexpr int kBlock = 256;
 
 // surface row columns
@@ -1041,6 +1067,94 @@ __device__ float intersectGeom(const float* r, const float* smem, float ox,
   return out;
 }
 
+// ---- B7 (TRI only): the triangle table ----
+// table and chunk boxes in global memory, with their counts (a sweep's
+// launch offsets them to the block's variant)
+struct TriTable {
+  const float* tri;
+  const float* box;
+  int n, nChunks;
+};
+
+// Moeller-Trumbore of the ray against table row r (the JAX package's
+// `_triBody`, operation for operation); a strictly nearer hit replaces the
+// running winner (tT, its normal, its element)
+__device__ __forceinline__ void triangleTest(
+    const float* __restrict__ r, float ox, float oy, float oz, float dx,
+    float dy, float dz, float tMin, float maxRayLength, float& tT,
+    float& nxT, float& nyT, float& nzT, int& elT) {
+  const float p0x = __ldg(r), p0y = __ldg(r + 1), p0z = __ldg(r + 2);
+  const float e1x = __ldg(r + 3), e1y = __ldg(r + 4), e1z = __ldg(r + 5);
+  const float e2x = __ldg(r + 6), e2y = __ldg(r + 7), e2z = __ldg(r + 8);
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const float detS = fabsf(det) < 1e-12f ? 1e-12f : det;
+  const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) / detS;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v = (dx * qvx + dy * qvy + dz * qvz) / detS;
+  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) / detS;
+  const bool ok = (fabsf(det) > 1e-12f) && (u >= 0.f) && (v >= 0.f)
+                  && (u + v <= 1.f) && (t > tMin) && (t <= maxRayLength);
+  if (ok && t < tT) {
+    tT = t;
+    const float cnx = e1y * e2z - e1z * e2y;
+    const float cny = e1z * e2x - e1x * e2z;
+    const float cnz = e1x * e2y - e1y * e2x;
+    const float inv = __ldg(r + 10)
+                      * rsqrtf(cnx * cnx + cny * cny + cnz * cnz + 1e-30f);
+    nxT = cnx * inv; nyT = cny * inv; nzT = cnz * inv;
+    elT = (int)__ldg(r + 9);
+  }
+}
+
+// The nearest triangle of the table along the ray (tT = kBig, elT = -1
+// where none): the chunks in ascending order, each swept by the live lanes
+// of the warp when the slab test of its box (the JAX package's
+// `_slabSurvives`: sign-preserving inverse direction, |d| clamped at 1e-30,
+// the segment capped at tCap) lets any of them in; a table of one chunk or
+// less (no boxes) is swept flat.
+__device__ void sweepTriangles(const TriTable& tt, float ox, float oy,
+                               float oz, float dx, float dy, float dz,
+                               float tMin, float maxRayLength, float tCap,
+                               float& tT, float& nxT, float& nyT, float& nzT,
+                               int& elT) {
+  tT = kBig;
+  if (tt.nChunks == 0) {
+    for (int k = 0; k < tt.n; ++k)
+      triangleTest(tt.tri + k * kTriCols, ox, oy, oz, dx, dy, dz, tMin,
+                   maxRayLength, tT, nxT, nyT, nzT, elT);
+    return;
+  }
+  const float ivx = (dx < 0.f ? -1.f : 1.f) / fmaxf(fabsf(dx), 1e-30f);
+  const float ivy = (dy < 0.f ? -1.f : 1.f) / fmaxf(fabsf(dy), 1e-30f);
+  const float ivz = (dz < 0.f ? -1.f : 1.f) / fmaxf(fabsf(dz), 1e-30f);
+  // the lanes of the warp still in the bounce loop (the others broke out)
+  const unsigned lanes = __activemask();
+  for (int c = 0; c < tt.nChunks; ++c) {
+    const float* b = tt.box + c * kBoxCols;
+    const float tx1 = (__ldg(b) - ox) * ivx, tx2 = (__ldg(b + 3) - ox) * ivx;
+    const float ty1 = (__ldg(b + 1) - oy) * ivy;
+    const float ty2 = (__ldg(b + 4) - oy) * ivy;
+    const float tz1 = (__ldg(b + 2) - oz) * ivz;
+    const float tz2 = (__ldg(b + 5) - oz) * ivz;
+    const float tN = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
+                           fmaxf(fminf(tz1, tz2), 0.f));
+    const float tF = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
+                           fminf(fmaxf(tz1, tz2), tCap));
+    if (!__any_sync(lanes, tN <= tF)) continue;
+    const int base = c * kTriChunk;
+    const int nIn = min(kTriChunk, tt.n - base);
+    for (int k = 0; k < nIn; ++k)
+      triangleTest(tt.tri + (base + k) * kTriCols, ox, oy, oz, dx, dy, dz,
+                   tMin, maxRayLength, tT, nxT, nyT, nzT, elT);
+  }
+}
+
 // whether a ray at stage `stage` may hit surface row r (a stage gate)
 __device__ __forceinline__ bool stageAllowed(const float* smem,
                                              const float* r, int stage) {
@@ -1094,9 +1208,9 @@ __device__ void geomNormal(const float* r, int kind, float lx, float ly,
 // p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
 // `rayIn` (shared by all variants) has p.N columns.
 template <int OUT, bool SWEEP, bool B4, bool SURF, bool SCAT,
-          bool GEOM = false>
+          bool GEOM = false, bool TRI = false>
 __global__ void __launch_bounds__(kBlock)
-traceKernel(TraceParams p, const float* __restrict__ table,
+traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
             const float* __restrict__ rayIn, float* __restrict__ out0,
             float* __restrict__ out1,
             unsigned long long* __restrict__ counters) {
@@ -1104,6 +1218,7 @@ traceKernel(TraceParams p, const float* __restrict__ table,
   static_assert(!(SWEEP && SURF), "the sweep samples point sources only");
   static_assert(!SCAT || B4, "scatter is built on the B4 body");
   static_assert(!GEOM || B4, "the other kinds and trims are built on B4");
+  static_assert(!TRI || B4, "the triangle table is built on B4");
   // a GEOM table widens every surface row by kGeomCols
   constexpr int kRow = GEOM ? kSurfCols + kGeomCols : kSurfCols;
   long long firstRay = (long long)blockIdx.x * blockDim.x;
@@ -1111,6 +1226,10 @@ traceKernel(TraceParams p, const float* __restrict__ table,
     const long long variant = blockIdx.x / p.blocksPerVariant;
     firstRay = (long long)(blockIdx.x % p.blocksPerVariant) * blockDim.x;
     table += variant * p.tableLen;
+    if constexpr (TRI) {
+      tt.tri += variant * tt.n * kTriCols;
+      tt.box += variant * tt.nChunks * kBoxCols;
+    }
     out0 += variant * p.histLen;
     out1 += variant * p.histLen;
     counters += variant * 3;
@@ -1234,6 +1353,20 @@ traceKernel(TraceParams p, const float* __restrict__ table,
           if (tO < tOth) { tOth = tO; sOth = s; }
         }
       }
+      // ---- B7: the triangle table after the surface rows (index -2) ----
+      float nxT = 0.f, nyT = 0.f, nzT = 0.f;
+      int elT = -1;
+      if constexpr (TRI) {
+        float tT;
+        sweepTriangles(tt, ox, oy, oz, dx, dy, dz, p.tMin, p.maxRayLength,
+                       fminf(tBest, p.mrlEff) + p.window, tT, nxT, nyT, nzT,
+                       elT);
+        if (tT < tBest) { tBest = tT; sBest = -2; }
+        if (p.anyMedium) {
+          const float tO = medium != elT ? tT : kBig;
+          if (tO < tOth) { tOth = tO; sOth = -2; }
+        }
+      }
       bool hasHit = tBest <= p.mrlEff;
       if (!p.anyMedium) { tOth = tBest; sOth = sBest; }
       bool hasPref = (tOth <= p.mrlEff) && (tOth <= tBest + p.window);
@@ -1245,28 +1378,37 @@ traceKernel(TraceParams p, const float* __restrict__ table,
       if (!hasHit) break;          // escaped: the segment counts, the ray ends
 
       // ---- winner attributes: local point, normal by kind, world normal
-      // through the transposed rotation times orient ----
-      const float* r = surfT + sIdx * kRow;
-      const float* R = r + S_ROT;
-      float lx = R[0] * px + R[1] * py + R[2] * pz + r[S_OFF];
-      float ly = R[3] * px + R[4] * py + R[5] * pz + r[S_OFF + 1];
-      float lz = R[6] * px + R[7] * py + R[8] * pz + r[S_OFF + 2];
-      int kind = (int)r[S_KIND];
-      float nlx = 0.f, nly = 0.f, nlz = 1.f;
-      if (kind == KIND_SPHERE) {
-        float inv = rsqrtf(lx * lx + ly * ly + lz * lz + 1e-20f);
-        nlx = lx * inv; nly = ly * inv; nlz = lz * inv;
-      } else if (kind == KIND_CYLINDER) {
-        float inv = rsqrtf(lx * lx + ly * ly + 1e-20f);
-        nlx = lx * inv; nly = ly * inv; nlz = 0.f;
-      } else if constexpr (GEOM) {
-        geomNormal(r, kind, lx, ly, lz, nlx, nly, nlz);
+      // through the transposed rotation times orient; a table triangle's
+      // tracked normal and element, the world (x, y) as its chart ----
+      float lx, ly, nxA, nyA, nzA;
+      int elem;
+      if (TRI && sIdx == -2) {
+        lx = px; ly = py;
+        nxA = nxT; nyA = nyT; nzA = nzT;
+        elem = elT;
+      } else {
+        const float* r = surfT + sIdx * kRow;
+        const float* R = r + S_ROT;
+        lx = R[0] * px + R[1] * py + R[2] * pz + r[S_OFF];
+        ly = R[3] * px + R[4] * py + R[5] * pz + r[S_OFF + 1];
+        float lz = R[6] * px + R[7] * py + R[8] * pz + r[S_OFF + 2];
+        int kind = (int)r[S_KIND];
+        float nlx = 0.f, nly = 0.f, nlz = 1.f;
+        if (kind == KIND_SPHERE) {
+          float inv = rsqrtf(lx * lx + ly * ly + lz * lz + 1e-20f);
+          nlx = lx * inv; nly = ly * inv; nlz = lz * inv;
+        } else if (kind == KIND_CYLINDER) {
+          float inv = rsqrtf(lx * lx + ly * ly + 1e-20f);
+          nlx = lx * inv; nly = ly * inv; nlz = 0.f;
+        } else if constexpr (GEOM) {
+          geomNormal(r, kind, lx, ly, lz, nlx, nly, nlz);
+        }
+        float orient = r[S_ORIENT];
+        nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient;
+        nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient;
+        nzA = (R[2] * nlx + R[5] * nly + R[8] * nlz) * orient;
+        elem = (int)r[S_ELEM];
       }
-      float orient = r[S_ORIENT];
-      float nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient;
-      float nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient;
-      float nzA = (R[2] * nlx + R[5] * nly + R[8] * nlz) * orient;
-      int elem = (int)r[S_ELEM];
       const float* er = elemT + elem * kElemCols;
 
       float cosA = dx * nxA + dy * nyA + dz * nzA;
@@ -1469,6 +1611,12 @@ traceKernel(TraceParams p, const float* __restrict__ table,
 
 // The scalar parameters from the HOST arrays `ip` / `fp` (see
 // ops/cuda_trace.py `_launchKernel` for their order).
+// ip[24] / ip[25]: the triangle table's rows and chunks (TRI)
+inline TriTable triTable(const float* tri, const float* box,
+                         const long long* ip) {
+  return TriTable{tri, box, (int)ip[24], (int)ip[25]};
+}
+
 inline TraceParams traceParams(const long long* ip, const float* fp) {
   TraceParams p;
   p.N = ip[0];
@@ -1518,37 +1666,117 @@ int allowTable(Kernel kernel, size_t shmem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
 }
 
-// Launch one output mode on `stream`; no synchronisation, no allocation.
-// Returns cudaGetLastError().
-template <int OUT>
-int launchTrace(const float* table, const float* rayIn, float* out0,
-                float* out1, unsigned long long* counters,
-                const long long* ip, const float* fp, void* stream) {
+// Launch `kernel` on `stream` with the table allowed its shared memory.
+template <typename Kernel>
+int launch(Kernel kernel, long long blocks, size_t shmem, void* stream,
+           const TraceParams& p, const float* table, const TriTable& tt,
+           const float* rayIn, float* out0, float* out1,
+           unsigned long long* counters) {
+  if (int err = allowTable(kernel, shmem)) return err;
+  kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
+      p, table, tt, rayIn, out0, out1, counters);
+  return (int)cudaGetLastError();
+}
+
+// Launch one output mode on `stream`, from the instances with the triangle
+// table (TRI: ip[24] > 0) or from those without it, as the source that
+// instantiates this asks; no synchronisation, no allocation. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for tables the source's
+// instances do not take.
+template <int OUT, bool TRI>
+int launchTrace(const float* table, const float* tri, const float* box,
+                const float* rayIn, float* out0, float* out1,
+                unsigned long long* counters, const long long* ip,
+                const float* fp, void* stream) {
   TraceParams p = traceParams(ip, fp);
+  if ((ip[24] > 0) != TRI) return (int)cudaErrorInvalidValue;
   if (p.N <= 0) return 0;
-  long long blocks = (p.N + kBlock - 1) / kBlock;
-  size_t shmem = (size_t)p.tableLen * sizeof(float);
+  const long long blocks = (p.N + kBlock - 1) / kBlock;
+  const size_t shmem = (size_t)p.tableLen * sizeof(float);
+  const TriTable tt = triTable(tri, box, ip);
   // ip[21]: the tables' sampler, 0 point source, 1 surface source; ip[22]:
   // the table has a scatter block; ip[23]: the scene has a kind or trim of
   // B2 / B3 (widened surface rows)
   const bool surf = ip[21] == 1 && p.mode != MODE_COLUMNS;
-  auto kernel = ip[23]
-      ? (ip[22] ? (surf ? traceKernel<OUT, false, true, true, true, true>
-                        : traceKernel<OUT, false, true, false, true, true>)
-                : (surf ? traceKernel<OUT, false, true, true, false, true>
-                        : traceKernel<OUT, false, true, false, false, true>))
-      : ip[22]
-      ? (surf ? traceKernel<OUT, false, true, true, true>
-              : traceKernel<OUT, false, true, false, true>)
-      : needsB4(p)
-      ? (surf ? traceKernel<OUT, false, true, true, false>
-              : traceKernel<OUT, false, true, false, false>)
-      : (surf ? traceKernel<OUT, false, false, true, false>
-              : traceKernel<OUT, false, false, false, false>);
-  if (int err = allowTable(kernel, shmem)) return err;
-  kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
-      p, table, rayIn, out0, out1, counters);
-  return (int)cudaGetLastError();
+  const bool scat = ip[22] != 0, geom = ip[23] != 0;
+  constexpr int O = OUT;
+  constexpr bool T = true, F = false;
+  auto go = [&](auto kernel) {
+    return launch(kernel, blocks, shmem, stream, p, table, tt, rayIn, out0,
+                  out1, counters);
+  };
+  if constexpr (TRI) {             // every TRI instance is built on B4
+    if (geom)
+      return scat ? (surf ? go(traceKernel<O, F, T, T, T, T, T>)
+                          : go(traceKernel<O, F, T, F, T, T, T>))
+                  : (surf ? go(traceKernel<O, F, T, T, F, T, T>)
+                          : go(traceKernel<O, F, T, F, F, T, T>));
+    return scat ? (surf ? go(traceKernel<O, F, T, T, T, F, T>)
+                        : go(traceKernel<O, F, T, F, T, F, T>))
+                : (surf ? go(traceKernel<O, F, T, T, F, F, T>)
+                        : go(traceKernel<O, F, T, F, F, F, T>));
+  } else {
+    if (geom)
+      return scat ? (surf ? go(traceKernel<O, F, T, T, T, T>)
+                          : go(traceKernel<O, F, T, F, T, T>))
+                  : (surf ? go(traceKernel<O, F, T, T, F, T>)
+                          : go(traceKernel<O, F, T, F, F, T>));
+    if (scat)
+      return surf ? go(traceKernel<O, F, T, T, T>)
+                  : go(traceKernel<O, F, T, F, T>);
+    if (needsB4(p))
+      return surf ? go(traceKernel<O, F, T, T, F>)
+                  : go(traceKernel<O, F, T, F, F>);
+    return surf ? go(traceKernel<O, F, F, T, F>)
+                : go(traceKernel<O, F, F, F, F>);
+  }
+}
+
+// The sweep's launch (OUT_HIST, variant-major), TRI as for launchTrace:
+// ip[15] variants of ip[0] rays each, ip[16] floats per variant's histogram
+// (the other parameters as for the single-scene launchers). The grid is
+// variants x ceil(rays / block) blocks; threads past a variant's last ray
+// are masked like the last block of a single-scene launch. No
+// synchronisation, no allocation; returns cudaGetLastError().
+template <bool TRI>
+int launchSweep(const float* tables, const float* tri, const float* box,
+                const float* rayIn, float* histPower, float* histCounts,
+                unsigned long long* counters, const long long* ip,
+                const float* fp, void* stream) {
+  TraceParams p = traceParams(ip, fp);
+  if ((ip[24] > 0) != TRI) return (int)cudaErrorInvalidValue;
+  const long long variants = ip[15];
+  p.histLen = ip[16];
+  if (p.N <= 0 || variants <= 0) return 0;
+  const long long perVariant = (p.N + kBlock - 1) / kBlock;
+  const long long blocks = variants * perVariant;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  p.blocksPerVariant = (int)perVariant;
+  const size_t shmem = (size_t)p.tableLen * sizeof(float);
+  const TriTable tt = triTable(tri, box, ip);
+  // ip[22]: the tables have a scatter block; ip[23]: widened surface rows
+  // (a kind or trim of B2 / B3)
+  const bool scat = ip[22] != 0, geom = ip[23] != 0;
+  constexpr int O = OUT_HIST;
+  constexpr bool T = true, F = false;
+  auto go = [&](auto kernel) {
+    return launch(kernel, blocks, shmem, stream, p, tables, tt, rayIn,
+                  histPower, histCounts, counters);
+  };
+  if constexpr (TRI) {
+    if (geom)
+      return scat ? go(traceKernel<O, T, T, F, T, T, T>)
+                  : go(traceKernel<O, T, T, F, F, T, T>);
+    return scat ? go(traceKernel<O, T, T, F, T, F, T>)
+                : go(traceKernel<O, T, T, F, F, F, T>);
+  } else {
+    if (geom)
+      return scat ? go(traceKernel<O, T, T, F, T, T>)
+                  : go(traceKernel<O, T, T, F, F, T>);
+    if (scat) return go(traceKernel<O, T, T, F, T>);
+    return needsB4(p) ? go(traceKernel<O, T, T, F, F>)
+                      : go(traceKernel<O, T, F, F, F>);
+  }
 }
 
 }  // namespace

@@ -23,35 +23,14 @@
 
 #include "trace_common.cuh"
 
-// ip[15] variants of ip[0] rays each, ip[16] floats per variant's histogram
-// (the other parameters as for the single-scene launchers). The grid is
-// variants x ceil(rays / block) blocks; threads past a variant's last ray
-// are masked like the last block of a single-scene launch. No
-// synchronisation, no allocation; returns cudaGetLastError().
-extern "C" int odwTraceSweep(const float* tables, const float* rayIn,
+// The launch: trace_common.cuh `launchSweep` (no synchronisation, no
+// allocation; returns cudaGetLastError()).
+extern "C" int odwTraceSweep(const float* tables, const float* tri,
+                             const float* box, const float* rayIn,
                              float* histPower, float* histCounts,
                              unsigned long long* counters,
                              const long long* ip, const float* fp,
                              void* stream) {
-  TraceParams p = traceParams(ip, fp);
-  const long long variants = ip[15];
-  p.histLen = ip[16];
-  if (p.N <= 0 || variants <= 0) return 0;
-  const long long perVariant = (p.N + kBlock - 1) / kBlock;
-  const long long blocks = variants * perVariant;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  p.blocksPerVariant = (int)perVariant;
-  size_t shmem = (size_t)p.tableLen * sizeof(float);
-  // ip[22]: the tables have a scatter block; ip[23]: widened surface rows
-  // (a kind or trim of B2 / B3)
-  auto kernel =
-      ip[23] ? (ip[22] ? traceKernel<OUT_HIST, true, true, false, true, true>
-                       : traceKernel<OUT_HIST, true, true, false, false, true>)
-      : ip[22] ? traceKernel<OUT_HIST, true, true, false, true>
-      : needsB4(p) ? traceKernel<OUT_HIST, true, true, false, false>
-                   : traceKernel<OUT_HIST, true, false, false, false>;
-  if (int err = allowTable(kernel, shmem)) return err;
-  kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
-      p, tables, rayIn, histPower, histCounts, counters);
-  return (int)cudaGetLastError();
+  return launchSweep<false>(tables, tri, box, rayIn, histPower, histCounts,
+                            counters, ip, fp, stream);
 }

@@ -1,2 +1,3 @@
 from . import transforms
 from . import surfaces
+from . import mesh

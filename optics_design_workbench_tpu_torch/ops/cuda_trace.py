@@ -86,6 +86,17 @@ _BIG = 3.0e38
 # kernel's own reduction needs.
 MAX_SURFACES = 256
 MAX_TABLE_BYTES = 227 * 1024 - 1024
+# Meshes past TABLE_TRIANGLES triangles leave the surface rows (ROADMAP B7):
+# each triangle becomes a world-frame row of the TRIANGLE TABLE, [v0, e1,
+# e2, elemF, orient] (TRI_COLS floats), Morton-ordered by centroid into
+# chunks of _TRI_CHUNK rows with one padded world AABB each (BOX_COLS:
+# lo xyz, hi xyz). Table and boxes are device tensors of their own, read
+# from global memory (no part of the shared-memory table, no cap on their
+# size); the kernels sweep them after the surface rows.
+TABLE_TRIANGLES = 128
+_TRI_CHUNK = 32
+TRI_COLS = 11
+BOX_COLS = 6
 MAX_PWPOLY_SEGMENTS = 12
 MAX_PWPOLY_COEFFS = 13
 MAX_TENT_KNOTS = 257
@@ -166,7 +177,11 @@ MODE_SEED, MODE_UNIFORMS, MODE_COLUMNS = 0, 1, 2
 # per (theta, phi) cell — the finest strata whose rays still share a block
 DEFAULT_STRATA_TILE = 256
 
-# wrapper -> (library stem under csrc/, C launcher, number of output tensors)
+# wrapper -> (library stem under csrc/, C launcher, number of output tensors).
+# The instances with the triangle table (B7) live in a source of their own
+# per wrapper, stem + '_tri' with the launcher + 'Tri', so that they build in
+# parallel with the rest; a wrapper launches from it when its tables have a
+# triangle table.
 _KERNELS = {'traceHistogram': ('trace_kernel', 'odwTraceHistogram', 2),
             'traceBins': ('trace_bins_kernel', 'odwTraceBins', 1),
             'traceRaw': ('trace_raw_kernel', 'odwTraceRaw', 1),
@@ -201,10 +216,25 @@ def ineligibleReason(scene):
             f'polynomial model (degree <= {MAX_DISP_COEFFS - 1} to '
             f'{DISP_FIT_TOL})')
   kinds = _hostArray(scene['surfaces']['kind'])
-  if len(kinds) > MAX_SURFACES:
-    return (f'{len(kinds)} surfaces > the {MAX_SURFACES} the kernel sweeps '
-            f'from its surface rows; more need the surface-table sweep '
-            f'(ROADMAP B8) or, for a mesh, the triangle-table sweep (B7)')
+  nTri = tableTriangles(scene)
+  if nTri:
+    # the JAX package's own refusals for meshes past its immediates: its
+    # stage gates and per-source masks are per-surface constants; the
+    # record tracer (ROADMAP A.4) will take these scenes (C.2)
+    if 'seqMask' in scene:
+      return (f'{nTri} mesh triangles with sequential mode: stage gates '
+              f'are per-surface immediates (<=128 tris)')
+    if 'surfMask' in scene:
+      triMask = _hostArray(scene['surfMask']).astype(bool)[
+          kinds == GS.TRIANGLE]
+      if not triMask.all():
+        return (f'{nTri} mesh triangles with a per-source ignore mask on '
+                f'mesh surfaces (<=128 tris for masked meshes)')
+  nRows = len(kinds) - nTri
+  if nRows > MAX_SURFACES:
+    return (f'{nRows} surface rows > the {MAX_SURFACES} the kernel sweeps '
+            f'from its surface rows; more analytic surfaces need the '
+            f'surface-table sweep (ROADMAP B8)')
   bad = sorted(set(kinds.tolist()) - set(GS._KIND_NAMES))
   if bad:
     return f'unknown surface kinds {bad}'
@@ -218,13 +248,24 @@ def ineligibleReason(scene):
   return None
 
 
+def tableTriangles(scene):
+  '''How many of the scene's triangles ride the triangle table: all of
+  them past TABLE_TRIANGLES (as the JAX package switches its mesh sweep
+  on), else none.'''
+  nTri = int((_hostArray(scene['surfaces']['kind']) == GS.TRIANGLE).sum())
+  return nTri if nTri > TABLE_TRIANGLES else 0
+
+
 def needsGeom(scene):
-  '''Whether the scene needs the kernels' GEOM instance: a surface kind
-  beyond plane / sphere / cylinder, or a bitmap or hole-primitive trim.'''
+  '''Whether the scene's surface ROWS need the kernels' GEOM instance: a
+  surface kind beyond plane / sphere / cylinder, or a bitmap or
+  hole-primitive trim (triangles of the triangle table are not rows).'''
   kinds = _hostArray(scene['surfaces']['kind'])
   trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
-  return bool(not np.isin(kinds, GS.BASIC_KINDS).all()
-              or not np.isin(trims0, GS.BASIC_TRIMS).all())
+  rows = kinds != GS.TRIANGLE if tableTriangles(scene) \
+      else np.ones(len(kinds), bool)
+  return bool(not np.isin(kinds[rows], GS.BASIC_KINDS).all()
+              or not np.isin(trims0[rows], GS.BASIC_TRIMS).all())
 
 
 # scatterConstants per scatter table, keyed by a digest of the tables (the
@@ -421,7 +462,7 @@ def _bitsToInt(indices, n):
 
 def _sceneRows(scene, histSpec):
   '''Extract python-float scene constants (host side). Returns
-  (surfRows, elemRows, nStages, masks): one dict per surface (kind,
+  (surfRows, elemRows, nStages, masks, triRows): one dict per surface row (kind,
   world->local rotation r00..r22 and offset t0..t2, orient, elemF, p0..p8,
   trim0..trim4, stage bitmask `stages`; a triangle's `triE1`, `triE2`,
   `triN` formed in double from its float32 vertices; a bitmap-trimmed
@@ -430,8 +471,12 @@ def _sceneRows(scene, histSpec):
   rec, detF, histogram bounds, grating type / lines per mm / line
   direction / order, `nPoly` = (mid, half, ascending coefficients) or
   None), the number of sequential stages (0 without sequential mode) and
-  the distinct (R, R) bitmaps the surfaces' `maskSlot` index. The JAX
-  package's `_sceneRows`, step for step.
+  the distinct (R, R) bitmaps the surfaces' `maskSlot` index, and the
+  rows of the triangle table (`tableTriangles`; else empty): per triangle,
+  in scene order, [v0, e1, e2, elemF, orient] in the WORLD frame as float64,
+  its vertices mapped out of a non-identity row transform through
+  R^T (v - t) in double. The JAX package's `_sceneRows` (with
+  `smemTris` where it switches that on), step for step.
 
   Bit q of `stages` lets a ray whose stage index, clamped to nStages - 1,
   is q hit the surface. Without sequential mode the bitmask is 1 for a
@@ -449,7 +494,8 @@ def _sceneRows(scene, histSpec):
       if 'trimPrims' in surf else None
   allowed, seqSpec = _staticMasks(scene)
   masks, maskSlotOf = [], {}
-  surfRows = []
+  surfRows, triRows = [], []
+  toTable = tableTriangles(scene) > 0
   for s in range(numSurfacesStatic(scene)):
     p = packed[s]
     if allowed is not None and s not in allowed:
@@ -469,6 +515,19 @@ def _sceneRows(scene, histSpec):
         trim0=float(trims[s, 0]), trim1=float(trims[s, 1]),
         trim2=float(min(trims[s, 2], _BIG)), trim3=float(trims[s, 3]),
         trim4=float(trims[s, 4]), stages=stages)
+    if row['kind'] == GS.TRIANGLE and toTable:
+      v = np.array([row[f'p{k}'] for k in range(9)]).reshape(3, 3)
+      ident = (np.allclose(p[0:9], np.eye(3).reshape(-1), atol=1e-12)
+               and np.allclose(p[9:12], 0., atol=1e-12))
+      if not ident:
+        Rm = np.array([row[k] for k in ('r00', 'r01', 'r02', 'r10', 'r11',
+                                        'r12', 'r20', 'r21', 'r22')])
+        Rm = Rm.reshape(3, 3)
+        tv = np.array([row['t0'], row['t1'], row['t2']])
+        v = np.stack([Rm.T @ (vk - tv) for vk in v])
+      triRows.append(np.concatenate([v[0], v[1] - v[0], v[2] - v[0],
+                                     [row['elemF'], row['orient']]]))
+      continue
     if row['kind'] == GS.TRIANGLE:
       v0 = np.array([row['p0'], row['p1'], row['p2']])
       e1 = np.array([row['p3'], row['p4'], row['p5']]) - v0
@@ -510,7 +569,54 @@ def _sceneRows(scene, histSpec):
         gratDirZ=float(ep[e, EP_GRATDIRZ]),
         gratOrder=float(ep[e, EP_GRATORDER]), nPoly=nPolys.get(e)))
   return (surfRows, elemRows, (seqSpec[0] if seqSpec is not None else 0),
-          masks)
+          masks, triRows)
+
+
+def _mortonOrder(cen):
+  '''Stable Morton (Z-curve) order of (n, 3) points: rows close in space
+  land in one chunk, so the chunks' boxes stay tight. The JAX package's
+  `_mortonOrder`.'''
+  cen = np.asarray(cen, np.float64)
+  lo, hi = cen.min(0), cen.max(0)
+  span = np.maximum(hi - lo, 1e-12)
+  q = np.clip(((cen - lo) / span * 1023.).astype(np.int64), 0, 1023)
+
+  def spread(x):
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+  code = (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
+  return np.argsort(code, kind='stable')
+
+
+def _chunkTriangles(triTable):
+  '''The float32 (nTri, TRI_COLS) triangle table in Morton order of its
+  centroids, and its (nChunks, BOX_COLS) float32 chunk boxes [lo xyz, hi
+  xyz]: the world AABB of each _TRI_CHUNK rows, padded by 1e-5 of the
+  largest coordinate (at least 1e-5). A table of one chunk or less keeps its
+  order and gets no boxes (it is swept flat). The JAX package's
+  `_chunkTriangles`.'''
+  n = len(triTable)
+  if n <= _TRI_CHUNK:
+    return triTable, np.zeros((0, BOX_COLS), np.float32)
+  v0 = triTable[:, 0:3].astype(np.float64)
+  v1 = v0 + triTable[:, 3:6]
+  v2 = v0 + triTable[:, 6:9]
+  order = _mortonOrder((v0 + v1 + v2) / 3.)
+  triTable = triTable[order]
+  v0, v1, v2 = v0[order], v1[order], v2[order]
+  nChunks = -(-n // _TRI_CHUNK)
+  boxes = np.zeros((nChunks, BOX_COLS), np.float64)
+  for c in range(nChunks):
+    sl = slice(c * _TRI_CHUNK, min((c + 1) * _TRI_CHUNK, n))
+    pts = np.concatenate([v0[sl], v1[sl], v2[sl]])
+    pad = 1e-5 * max(1., float(np.abs(pts).max()))
+    boxes[c, :3] = pts.min(0) - pad
+    boxes[c, 3:] = pts.max(0) + pad
+  return triTable, boxes.astype(np.float32)
 
 
 def autoHitSlots(scene, histSpec, maxIntersections):
@@ -620,10 +726,13 @@ def _primRow(hole):
 
 def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   '''The kernel's table of one compiled scene as host numpy, and its static
-  facts: (float32 (tableLen,) array, dict(nSurf, nElem, samplerOff, bins,
-  nDet, anyMedium, hasGrating, nStages, gate, dispOff, geom, surfRows,
-  elemRows, samplerSpec, scatter, scatterConsts, scatterRows, lobeRows,
-  modRows)).
+  facts: (float32 (tableLen,) array, dict(nSurf, nElem, nTri, nTriChunks,
+  triTable, triBoxes, samplerOff, bins, nDet, anyMedium, hasGrating,
+  nStages, gate, dispOff, geom, surfRows, elemRows, samplerSpec, scatter,
+  scatterConsts, scatterRows, lobeRows, modRows)).
+  `triTable` / `triBoxes` are the float32 triangle table and its chunk
+  boxes (`_chunkTriangles`) of a mesh past TABLE_TRIANGLES, else None; they
+  are not part of `table`.
   `gate` says some surface is not always allowed (a masked surface, or
   sequential mode), `dispOff` where the dispersion block starts (-1: no
   dispersive element); these and hasGrating / nStages are the kernel's
@@ -640,8 +749,11 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   if reason is not None:
     raise ValueError(f'scene is not eligible for the CUDA trace kernel: '
                      f'{reason}')
-  surfRows, elemRows, nStages, masks = _sceneRows(scene, histSpec)
+  surfRows, elemRows, nStages, masks, triRows = _sceneRows(scene, histSpec)
   S, E = len(surfRows), len(elemRows)
+  triTable = triBoxes = None
+  if triRows:
+    triTable, triBoxes = _chunkTriangles(np.asarray(triRows, np.float32))
   geom = needsGeom(scene)
   rowCols = SURF_COLS + (GEOM_COLS if geom else 0)
   surfT = np.zeros((S, rowCols), np.float64)
@@ -745,7 +857,10 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
                      f'{MAX_TABLE_BYTES} a thread block holds in shared '
                      f'memory')
   return table, dict(
-      nSurf=S, nElem=E, samplerOff=samplerOff, bins=(int(H), int(W)),
+      nSurf=S, nElem=E, nTri=len(triRows),
+      nTriChunks=0 if triBoxes is None else len(triBoxes),
+      triTable=triTable, triBoxes=triBoxes,
+      samplerOff=samplerOff, bins=(int(H), int(W)),
       nDet=int(_hostArray(histSpec['bounds']).shape[0]),
       anyMedium=bool(elemT[:, 10].any()),
       hasGrating=bool((elemT[:, 0] == GRATING).any()), nStages=nStages,
@@ -794,12 +909,22 @@ def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
   '''Pack a compiled scene (+ optionally a point- or surface-source
   sampler spec) into the kernel's tables. Returns a dict with the float32
   `table` tensor on `device` (surface rows, element rows, sampler block),
-  the host rows, and the static facts the step needs (bins, detector count,
-  anyMedium, samplerKind).
+  the `triTable` and `triBoxes` tensors of a mesh past TABLE_TRIANGLES (or
+  None), the host rows, and the static facts the step needs (bins,
+  detector count, anyMedium, samplerKind).
   Raises ValueError for scenes the kernel does not cover.'''
   dev = resolveDevice(device)
   table, facts = _packTable(scene, histSpec, samplerSpec)
-  return dict(facts, table=torch.as_tensor(table, device=dev))
+  return dict(facts, table=torch.as_tensor(table, device=dev),
+              **_triTensors(facts, dev))
+
+
+def _triTensors(facts, dev):
+  '''The triangle table and chunk boxes of packed `facts` as float32
+  tensors on `dev` (None where the scene has no triangle table).'''
+  return {k: None if facts[k] is None
+          else torch.as_tensor(np.ascontiguousarray(facts[k]), device=dev)
+          for k in ('triTable', 'triBoxes')}
 
 
 def samplerSpecWithGeom(samplerSpec, geomRow):
@@ -823,7 +948,9 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   spec per variant (the source's placement and wavelength may differ from
   variant to variant: they are part of each table), or None for a sweep fed
   ray columns. Returns (float32 (V, tableLen) numpy array, facts) with the
-  facts of `_packTable` for the sweep as a whole plus `nVariants`,
+  facts of `_packTable` for the sweep as a whole (a mesh's `triTable` and
+  `triBoxes` stacked per variant, (V, nTri, TRI_COLS) and (V, nTriChunks,
+  BOX_COLS)) plus `nVariants`,
   `tableLen`, `sameSource` (no variant moves or recolours the source) and
   the per-variant `surfRows` / `elemRows` lists.
 
@@ -867,6 +994,8 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       raise SweepUnavailable(f'surface counts differ (variant {v})')
     if f['nElem'] != f0['nElem']:
       raise SweepUnavailable(f'element counts differ (variant {v})')
+    if f['nTri'] != f0['nTri']:
+      raise SweepUnavailable(f'triangle-table sizes differ (variant {v})')
     if f['scatterConsts'] != f0['scatterConsts']:
       raise SweepUnavailable(f'scatter constants differ (variant {v})')
     if f['samplerOff'] != f0['samplerOff'] or f['dispOff'] != f0['dispOff']:
@@ -885,12 +1014,15 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
         raise SweepUnavailable(f'element {e}: optical type, recording flag '
                                f'or detector differs (variant {v})')
   stacked = np.stack(tables)
+  tri = {k: None if f0[k] is None else np.stack([f[k] for f in facts])
+         for k in ('triTable', 'triBoxes')}
   off = f0['samplerOff']
   geom = stacked[:, off:off + _SAMPLER_GEOM]
   sameSource = off < 0 or bool((geom == geom[0]).all())
   return stacked, dict(
       nVariants=V, sameSource=sameSource, tableLen=int(stacked.shape[1]),
-      nSurf=f0['nSurf'], nElem=f0['nElem'], samplerOff=f0['samplerOff'],
+      nSurf=f0['nSurf'], nElem=f0['nElem'], nTri=f0['nTri'],
+      nTriChunks=f0['nTriChunks'], **tri, samplerOff=f0['samplerOff'],
       bins=f0['bins'], nDet=f0['nDet'],
       anyMedium=any(f['anyMedium'] for f in facts),
       hasGrating=f0['hasGrating'], nStages=0,
@@ -908,7 +1040,8 @@ def buildSweepTables(scenes, histSpec, samplerSpecs, device='cuda'):
   tensor on `device`: what `traceSweep` reads.'''
   dev = resolveDevice(device)
   stacked, facts = packSweepTables(scenes, histSpec, samplerSpecs)
-  return dict(facts, table=torch.as_tensor(stacked, device=dev))
+  return dict(facts, table=torch.as_tensor(stacked, device=dev),
+              **_triTensors(facts, dev))
 
 
 def variantTables(sweepTables, v):
@@ -917,7 +1050,9 @@ def variantTables(sweepTables, v):
   wrappers and plain versions take.'''
   return dict(sweepTables, table=sweepTables['table'][v],
               surfRows=sweepTables['surfRows'][v],
-              elemRows=sweepTables['elemRows'][v])
+              elemRows=sweepTables['elemRows'][v],
+              **{k: None if sweepTables[k] is None else sweepTables[k][v]
+                 for k in ('triTable', 'triBoxes')})
 
 
 # --------------------------------------------------------- plain PyTorch path
@@ -1451,7 +1586,7 @@ def _scatterPlain(consts, rows, lobeRows, elem, isMirror, isLens,
 
 def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
                      distTol, powerTol, hitSlots, output,
-                     scatterUniforms=None):
+                     scatterUniforms=None, triangleStats=None):
   '''The kernels' bounce loop as column-wise tensor ops, step by step in the
   kernels' operation order: nearest hit over the surfaces the ray's stage
   allows, with the other-medium tracker and same-medium window, winner
@@ -1470,7 +1605,10 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   `columns` are ox, oy, oz, dx, dy, dz, pw and, optionally, the wavelength
   (without it every ray has the sampler's wavelength). A scene with
   scatter needs `scatterUniforms`: float32 (scatterRows * maxIntersections,
-  N), bounce-major (the rows after the sampler's in `uniformRows`).
+  N), bounce-major (the rows after the sampler's in `uniformRows`). A
+  mesh's triangle table is swept after the surface rows; `triangleStats`, a
+  dict, is added the work the kernels' cull leaves to that sweep
+  (`_TriangleTablePlain.sweep`).
 
   Returns (ring, segments, hitN): ring a list of (hitSlots, N) tensors, one
   per slot field, the first -1 and the others 0 where a slot was never
@@ -1491,8 +1629,14 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   rowCols = SURF_COLS + (GEOM_COLS if geom else 0)
   surfT = tab[:S * rowCols].reshape(S, rowCols)
   elemT = tab[S * rowCols:S * rowCols + E * ELEM_COLS].reshape(E, ELEM_COLS)
-  surfD = torch.as_tensor(surfT, device=dev)
+  # (a scene of triangle-table rows only gathers its never-used surface
+  # attributes from one zero row)
+  surfD = torch.as_tensor(surfT if S else np.zeros((1, rowCols), np.float32),
+                          device=dev)
   elemD = torch.as_tensor(elemT, device=dev)
+  tri = None
+  if tables.get('nTri', 0):
+    tri = _TriangleTablePlain(tables['triTable'], tables['triBoxes'], dev)
   H, W = tables['bins']
   anyMedium = tables['anyMedium']
   hasGrating, dispOff = tables['hasGrating'], tables['dispOff']
@@ -1559,12 +1703,29 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
         bO = tO < tOth
         sOth = torch.where(bO, s, sOth)
         tOth = torch.where(bO, tO, tOth)
+    if tri is not None:
+      # B7: the triangle table after the surface rows; its nearest triangle
+      # replaces the surface winner only when strictly nearer (index -2),
+      # and counts for the other-medium tracker when the medium is not ITS
+      # element
+      tCap = torch.clamp(tBest, max=mrlEff) + window
+      tT, nT, elT = tri.sweep(ox, oy, oz, dx, dy, dz, tMin, mrl, tCap, alive,
+                              triangleStats)
+      b = tT < tBest
+      sBest = torch.where(b, -2, sBest)
+      tBest = torch.where(b, tT, tBest)
+      if anyMedium:
+        tO = torch.where(medium != elT, tT, big)
+        bO = tO < tOth
+        sOth = torch.where(bO, -2, sOth)
+        tOth = torch.where(bO, tO, tOth)
     hasHit = tBest <= mrlEff
     if not anyMedium:
       tOth, sOth = tBest, sBest
     hasPref = (tOth <= mrlEff) & (tOth <= tBest + window)
     tSel = torch.where(hasPref, tOth, tBest)
-    sIdx = torch.where(hasPref, sOth, sBest).clamp(min=0)
+    sRaw = torch.where(hasPref, sOth, sBest)
+    sIdx = sRaw.clamp(min=0)
     tSeg = torch.where(hasHit, tSel, torch.full_like(tSel, mrl))
     px, py, pz = ox + tSeg * dx, oy + tSeg * dy, oz + tSeg * dz
     segs = segs + alive.sum()
@@ -1591,6 +1752,16 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient
     nzA = (R[2] * nlx + R[5] * nly + R[8] * nlz) * orient
     elem = row[:, 14].to(torch.int64)
+    if tri is not None:
+      # a table winner: its tracked normal and element, the world (x, y)
+      # as its chart
+      isTri = sRaw == -2
+      nxA = torch.where(isTri, nT[0], nxA)
+      nyA = torch.where(isTri, nT[1], nyA)
+      nzA = torch.where(isTri, nT[2], nzA)
+      lx = torch.where(isTri, px, lx)
+      ly = torch.where(isTri, py, ly)
+      elem = torch.where(isTri, elT, elem)
     er = elemD[elem]
 
     cosA = dx * nxA + dy * nyA + dz * nzA
@@ -1742,6 +1913,98 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   return ring, segs, hitN
 
 
+class _TriangleTablePlain:
+  '''The triangle table (B7) of the plain version: the table's rows on
+  the device, each triangle's oriented unit normal, and the sweep.'''
+
+  def __init__(self, triTable, triBoxes, dev):
+    self.rows = torch.as_tensor(triTable, device=dev).reshape(-1, TRI_COLS)
+    self.boxes = None if triBoxes is None or not len(triBoxes) \
+        else torch.as_tensor(triBoxes, device=dev).reshape(-1, BOX_COLS)
+    r = self.rows
+    e1x, e1y, e1z, e2x, e2y, e2z = (r[:, k] for k in range(3, 9))
+    cnx = e1y * e2z - e1z * e2y
+    cny = e1z * e2x - e1x * e2z
+    cnz = e1x * e2y - e1y * e2x
+    inv = r[:, 10] * torch.rsqrt(cnx * cnx + cny * cny + cnz * cnz + 1e-30)
+    self.normals = torch.stack([cnx * inv, cny * inv, cnz * inv])
+    self.elems = r[:, 9].to(torch.int64)
+
+  def sweep(self, ox, oy, oz, dx, dy, dz, tMin, maxRayLength, tCap, alive,
+            stats=None):
+    '''(tT, (nx, ny, nz), elT) of the nearest triangle of every ray:
+    Moeller-Trumbore on the world-frame rows in the kernels' operation
+    order, swept in blocks of one chunk's rows as (rays x rows) tensors; the
+    first row wins a tie inside a block (`torch.min`), a strict `<` across
+    blocks, so the lowest table row wins. No cull (it changes no result):
+    with a `stats` dict the chunk boxes only count what the cull of the
+    kernels leaves to sweep (what their bound is computed from): to
+    `rayBounces` the live rays, to `chunks` and `triangles` those of the
+    boxes each one's segment, capped at `tCap`, enters.'''
+    nTri = self.rows.shape[0]
+    step = _TRI_CHUNK if self.boxes is not None else nTri
+    big = torch.full_like(ox, _BIG)
+    tT, idx = big, torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
+    o = [x[:, None] for x in (ox, oy, oz)]
+    d = [x[:, None] for x in (dx, dy, dz)]
+    for base in range(0, nTri, step):
+      r = self.rows[base:base + step]
+      p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (r[None, :, k]
+                                                     for k in range(9))
+      pvx = d[1] * e2z - d[2] * e2y
+      pvy = d[2] * e2x - d[0] * e2z
+      pvz = d[0] * e2y - d[1] * e2x
+      det = e1x * pvx + e1y * pvy + e1z * pvz
+      detS = torch.where(torch.abs(det) < 1e-12, _full(det, 1e-12), det)
+      tvx, tvy, tvz = o[0] - p0x, o[1] - p0y, o[2] - p0z
+      u = (tvx * pvx + tvy * pvy + tvz * pvz) / detS
+      qvx = tvy * e1z - tvz * e1y
+      qvy = tvz * e1x - tvx * e1z
+      qvz = tvx * e1y - tvy * e1x
+      v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) / detS
+      t = (e2x * qvx + e2y * qvy + e2z * qvz) / detS
+      ok = ((torch.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1)
+            & (t > tMin) & (t <= maxRayLength))
+      tBlock, k = torch.min(torch.where(ok, t, _full(t, _BIG)), dim=1)
+      better = tBlock < tT
+      tT = torch.where(better, tBlock, tT)
+      idx = torch.where(better, k + base, idx)
+    if stats is not None:
+      self._count(stats, ox, oy, oz, dx, dy, dz, tCap, alive)
+    hit = tT < _BIG
+    nT = self.normals[:, idx]
+    return tT, nT, torch.where(hit, self.elems[idx], -1)
+
+  def _count(self, stats, ox, oy, oz, dx, dy, dz, tCap, alive):
+    nTri = self.rows.shape[0]
+    nAlive = int(alive.sum())
+    for k in ('rayBounces', 'chunks', 'triangles'):
+      stats.setdefault(k, 0)
+    stats['rayBounces'] += nAlive
+    if self.boxes is None:
+      stats['triangles'] += nAlive * nTri
+    else:
+      inv = [torch.where(x < 0, -1., 1.) / torch.clamp(torch.abs(x), min=1e-30)
+             for x in (dx, dy, dz)]
+      chunks = triangles = torch.zeros((), dtype=torch.int64, device=ox.device)
+      for c in range(self.boxes.shape[0]):
+        b = self.boxes[c]
+        t1 = [(b[k] - x) * iv for k, x, iv in zip(range(3), (ox, oy, oz), inv)]
+        t2 = [(b[3 + k] - x) * iv
+              for k, x, iv in zip(range(3), (ox, oy, oz), inv)]
+        tN = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]),
+                                         torch.minimum(t1[1], t2[1])),
+                           torch.clamp(torch.minimum(t1[2], t2[2]), min=0.))
+        tF = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]),
+                                         torch.maximum(t1[1], t2[1])),
+                           torch.minimum(torch.maximum(t1[2], t2[2]), tCap))
+        n = ((tN <= tF) & alive).sum()
+        chunks = chunks + n
+        triangles = triangles + n * min(_TRI_CHUNK, nTri - c * _TRI_CHUNK)
+      stats['chunks'] += int(chunks)
+      stats['triangles'] += int(triangles)
+
+
 def _geomNormalPlain(row, kind, lx, ly, lz, nlx, nly, nlz):
   '''The winner's canonical local normal for the kinds of B2, over the
   plane / sphere / cylinder normals (nlx, nly, nlz), from the winners'
@@ -1802,14 +2065,15 @@ def _ringCounters(key, segs, hitN, hitSlots):
 
 def traceHistogramPlain(tables, histograms, columns, maxIntersections,
                         maxRayLength, distTol, powerTol, hitSlots,
-                        scatterUniforms=None):
+                        scatterUniforms=None, triangleStats=None):
   '''Plain version of the histogram kernel: `_bounceLoopPlain` + float32
   `index_add_` binning into a fresh zero delta, which is then added into
   `histograms` IN PLACE. Returns an int64 (3,) tensor (segments, hits,
-  hitOverflow). `scatterUniforms`: see `_bounceLoopPlain`.'''
+  hitOverflow). `scatterUniforms`, `triangleStats`: see
+  `_bounceLoopPlain`.'''
   (ringBin, ringW), segs, hitN = _bounceLoopPlain(
       tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
-      hitSlots, 'hist', scatterUniforms)
+      hitSlots, 'hist', scatterUniforms, triangleStats)
   delta = torch.zeros((2, histograms['power'].numel()), dtype=torch.float32,
                       device=ringW.device)
   for k in range(hitSlots):
@@ -1906,14 +2170,17 @@ def binRing(histograms, ring):
 
 # ------------------------------------------------------------------ wrappers
 
-def _kernelFunction(name):
+def _kernelFunction(name, tri):
   from .._build import buildKernels
   libs, _info = buildKernels()
   stem, symbol, nOut = _KERNELS[name]
+  if tri:
+    stem, symbol = stem + '_tri', symbol + 'Tri'
   fn = getattr(libs[stem], symbol)
   if fn.argtypes is None:
-    # table, rayIn, the outputs, counters | ip, fp | stream
-    fn.argtypes = [ctypes.c_void_p] * (3 + nOut) + [
+    # table, triangle table, chunk boxes, rayIn, the outputs, counters |
+    # ip, fp | stream
+    fn.argtypes = [ctypes.c_void_p] * (5 + nOut) + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -2187,17 +2454,24 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   before anything is built.'''
   table = tables['table']
   dev = table.device
-  for t in (table, rayIn) + tuple(outs):
+  tri, boxes = tables.get('triTable'), tables.get('triBoxes')
+  for t in (table, tri, boxes, rayIn) + tuple(outs):
     if t is not None and t.device.type != 'cuda':
       raise ValueError(f'the CUDA kernel takes CUDA tensors only, got a '
                        f'tensor on {t.device}')
-  fn = _kernelFunction(name)
+  nTri, nChunks = tables.get('nTri', 0), tables.get('nTriChunks', 0)
+  if nTri:
+    _checkTensor('triTable', tri, dev,
+                 tuple(table.shape[:-1]) + (nTri, TRI_COLS))
+    _checkTensor('triBoxes', boxes, dev,
+                 tuple(table.shape[:-1]) + (nChunks, BOX_COLS))
+  fn = _kernelFunction(name, nTri > 0)
   variants, histLen = sweep if sweep is not None else (1, 0)
   counters = torch.zeros((3,) if sweep is None else (variants, 3),
                          dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
-  ip = (ctypes.c_longlong * 24)(
+  ip = (ctypes.c_longlong * 26)(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
@@ -2205,14 +2479,16 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
       histLen, int(tables['hasGrating']), int(tables['nStages']),
       int(tables['gate']), int(tables['dispOff']),
       int(tables['samplerKind']), int(tables.get('scatter', False)),
-      int(tables.get('geom', False)))
+      int(tables.get('geom', False)), nTri, nChunks)
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
       1.0 / max(G1, 1), 1.0 / G2)
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(table.data_ptr(), rayIn.data_ptr() if rayIn is not None else None,
+    err = fn(table.data_ptr(), tri.data_ptr() if nTri else None,
+             boxes.data_ptr() if nChunks else None,
+             rayIn.data_ptr() if rayIn is not None else None,
              *(t.data_ptr() for t in outs), counters.data_ptr(), ip, fp,
              stream)
   if err != 0:
@@ -2377,7 +2653,10 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
 
   Returns (step, packTables):
     packTables(hostScenesNow, geomRows=None) -> float32 (V, tableLen) numpy
-        table for the CURRENT variant values (structure checked again);
+        table for the CURRENT variant values (structure checked again); a
+        mesh's stacked triangle table and chunk boxes of these values go to
+        `step.facts` (`triTable`, `triBoxes`, on the device), which the
+        next `step` call traces;
     step(seed, table) -> (power (V, D, H, W), counts (V, D, H, W),
         segments): ONE launch on fresh histograms. The two histograms are
         views of `step.histograms`, a (2, V, D, H, W) tensor, so a caller
@@ -2422,6 +2701,7 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
     if any(facts[k] != step.facts[k] for k in _SWEEP_STRUCTURE):
       raise SweepUnavailable('scene structure differs from the variants the '
                              'step was made for')
+    step.facts.update(_triTensors(facts, dev))
     return table
 
   def step(seed, table):
@@ -2438,6 +2718,7 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
 
   _table0, step.facts = packSweepTables(
       [h for h, _info in hostScenes], histSpec, [samplerSpec] * V)
+  step.facts.update(_triTensors(step.facts, dev))
   step.facts['sameSource'] = not geomMode
   step.histSpec = histSpec
   step.histShape = (step.facts['nDet'],) + step.facts['bins']
@@ -2448,7 +2729,8 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
 
 
 # the facts of `packSweepTables` that a step is made for
-_SWEEP_STRUCTURE = ('nVariants', 'tableLen', 'nSurf', 'nElem', 'samplerOff',
+_SWEEP_STRUCTURE = ('nVariants', 'tableLen', 'nSurf', 'nElem', 'nTri',
+                    'nTriChunks', 'samplerOff',
                     'bins', 'nDet', 'anyMedium', 'hasGrating', 'gate',
                     'dispOff', 'geom', 'scatterConsts')
 

@@ -28,6 +28,7 @@ from optics_design_workbench_tpu_torch import (benchmarks, convert, _build,
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     document, histogram, hits, parameter_sweeper, progress, retries,
     transforms)
+from optics_design_workbench_tpu_torch.geometry import mesh
 from optics_design_workbench_tpu_torch.models import surface_source
 from optics_design_workbench_tpu_torch.simulation import (lifecycle,
                                                           results_store,
@@ -41,6 +42,11 @@ step, hist, meta = benchmarks.makeBenchStep(
     raysPerStep=4096, maxIntersections=4, histBounds=(-120., 120., -120., 120.))
 hist, counters = step(0, hist)
 assert step.tables['samplerKind'] == 1 and int(counters['hits']) > 2500
+step, hist, meta = benchmarks.makeBenchStep(
+    scene=benchmarks.buildMeshDishScene(), device='cpu', raysPerStep=1024,
+    maxIntersections=3, histBounds=(-200., 200., -200., 200.))
+hist, counters = step(0, hist)
+assert step.tables['nTri'] == 200 and int(counters['hits']) > 1000
 import tempfile
 with tempfile.TemporaryDirectory() as tmp:
   scene = benchmarks.buildSourceDetectorScene(tmpdir=tmp)

@@ -779,7 +779,7 @@ def runReferenceColumns(jaxScene, colsNp, bounds, maxIntersections,
   from optics_design_workbench_tpu.tracing import fused
   device, info = jaxScene.compile()
   device['powerTol'] = 1e-6
-  assert pallas_trace.pallasEligible(device)
+  assert pallas_trace.pallasEligible(device) or not withPallas
   histSpec = fused.makeHistogramSpec(device, info, bounds=bounds, bins=bins)
   n = len(colsNp['ox'])
 
@@ -1196,6 +1196,93 @@ def buildChartTrimsScene(ns):
                                  ThetaResolutionNumericMode='1e3'))
   scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
   return scene, (-300., 300., -300., 300.), 3
+
+
+def uvSphereTriangles(radius, nLat=8, nLon=16):
+  '''The (F, 3, 3) vertices of a UV sphere about the origin: nLon
+  triangles in each polar cap and two per quad in the nLat - 2 bands
+  between (224 for 8 x 16), wound so that every normal points out.'''
+  import math
+
+  def ring(k):
+    th = math.pi * k / nLat
+    return [(radius * math.sin(th) * math.cos(2 * math.pi * j / nLon),
+             radius * math.sin(th) * math.sin(2 * math.pi * j / nLon),
+             radius * math.cos(th)) for j in range(nLon + 1)]
+
+  top, bottom = (0., 0., radius), (0., 0., -radius)
+  tris = []
+  first, last = ring(1), ring(nLat - 1)
+  for j in range(nLon):
+    tris.append((top, first[j], first[j + 1]))
+    tris.append((last[j], bottom, last[j + 1]))
+  for k in range(1, nLat - 1):
+    hi, lo = ring(k), ring(k + 1)
+    for j in range(nLon):
+      tris.append((hi[j], lo[j], lo[j + 1]))
+      tris.append((hi[j], lo[j + 1], hi[j + 1]))
+  return np.array(tris, float)
+
+
+MESH_BOUNDS = (-200., 200., -200., 200.)
+
+
+def buildMeshLensScene(ns):
+  '''A closed mesh lens: a UV sphere of radius 10 mm (224 triangles, so
+  it rides the triangle table) of n = 1.5, placed at z = 50 mm by its
+  group's placement, under a point source at the origin (exp(-theta^2 /
+  0.01) over theta in [0, 0.15]) in front of an absorbing 200 x 200 mm
+  plane at z = 100 mm; 4 intersections. Inside the lens every triangle is
+  of the ray's medium, so the other-medium tracker sees the plane only.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='mesh_lens')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Lens', Label='Ball', RefractiveIndex=1.5,
+      surfaces=[S.triangle(*t, elem=0) for t in uvSphereTriangles(10.)],
+      placements=[T.translation(0, 0, 50)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(100., 100.))],
+      placements=[T.translation(0, 0, 100)]))
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.01)', ThetaDomain='0, 0.15',
+      Wavelength=532., ThetaResolutionNumericMode='1e3'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=4)
+  return scene, MESH_BOUNDS, 4
+
+
+# the dish triangle the tie mesh duplicates: ring 1, first quad, first
+# triangle (4-8 mm off the axis, where the source is bright)
+TIE_TRIANGLE = 20
+
+
+def buildTieMeshScene(ns):
+  '''The reference's 200-triangle dish (`benchmarks.buildMeshDishScene`)
+  with one of its triangles duplicated exactly as an Absorber of its own:
+  the two rows tie on every ray that meets them, and the table's order
+  (the dish's row first) decides that the ray reflects.'''
+  from optics_design_workbench_tpu_torch.benchmarks import dishTriangles
+  S, T = ns.S, ns.T
+  tris = dishTriangles(10)
+  scene = ns.Scene(label='tie_mesh')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Dish',
+      surfaces=[S.triangle(*t, elem=0) for t in tris],
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Tie',
+      surfaces=[S.triangle(*tris[TIE_TRIANGLE], elem=0)],
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(200., 200.))],
+      placements=[T.translation(0, 0, 0)]))
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.1)', ThetaDomain='0, 0.5',
+      Wavelength=532., ThetaResolutionNumericMode='1e3',
+      placement=T.translation(0, 0, 1e-3)))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
+  return scene, MESH_BOUNDS, 3
 
 
 def portSceneCase(make, bounds, maxIntersections):

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
-    python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]]
+    python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]
+                                         | mesh [ROOT]]
 
 (`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
 alone; `k1 ROOT` times the main-path step of the package in the checkout at
 ROOT — another commit's, unpacked — three series of 20 steps by CUDA events,
 and prints the registers of its histogram kernel's instances, so that two
-commits run in one call can be compared in turns) times the port's
+commits run in one call can be compared in turns; `mesh ROOT` likewise
+times K1, K2 and K4 at 1 << 22 rays on the reference's dishes of 200, 1800,
+5000 and 12800 triangles, with and without ray-index strata, beside the
+main-path step) times the port's
 main-path step
 (lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
 warm-up, interleaved A B B A so that clock drift cancels:
@@ -63,7 +67,7 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, 'tests'))
-if sys.argv[1:2] == ['k1'] and len(sys.argv) > 2:
+if sys.argv[1:2] in (['k1'], ['mesh']) and len(sys.argv) > 2:
   sys.path.insert(0, os.path.abspath(sys.argv[2]))   # the package measured
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
@@ -286,6 +290,37 @@ def k1Series():
                         registersInBuildOrder=regs)), flush=True)
 
 
+def meshSeries():
+  '''K1, K2 and K4 (ms by CUDA events, 1 << 22 rays, 3 intersections) on
+  the dishes of 200 to 12800 triangles of the package on the path: with the
+  samplers' ray-index strata (one (theta, phi) cell a block, as the steps
+  run) and without (every warp's rays spread over the source), beside the
+  main-path step.'''
+  import optics_design_workbench_tpu_torch as port
+  seeds = iter(range(10, 10 ** 9))
+  step, hist, _meta = benchmarks.makeBenchStep(raysPerStep=N, bins=BINS)
+  out = dict(variant='mesh', package=port.__file__,
+             digest=port.kernelSourceDigest(),
+             lensK1=cudaMs(lambda: step(next(seeds), hist)))
+  bounds = (-200., 200., -200., 200.)
+  for nQ in (10, 30, 50, 80):
+    step, hist, _meta = benchmarks.makeBenchStep(
+        scene=benchmarks.buildMeshDishScene(nQ), raysPerStep=N,
+        maxIntersections=3, histBounds=bounds, bins=BINS)
+    t = step.tables
+    for strata in (step.strataTile, 0):
+      kw = dict(maxIntersections=3, maxRayLength=1000., distTol=1e-4,
+                hitSlots=step.hitSlots, strataTile=strata)
+      k1 = cudaMs(lambda: cuda_trace.traceHistogram(
+          t, hist, N, seed=next(seeds), **kw), 10)
+      k2 = cudaMs(lambda: cuda_trace.traceBins(t, N, seed=next(seeds), **kw),
+                  10)
+      k4 = cudaMs(lambda: cuda_trace.traceRaw(t, N, seed=next(seeds), **kw),
+                  10)
+      out[f'dish{2 * nQ * nQ}/strata{strata}'] = [k1, k2, k4]
+  print(json.dumps(out), flush=True)
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
@@ -301,6 +336,8 @@ def main():
     return spectrometerBreakdown(dev)
   if sys.argv[1:2] == ['k1']:
     return k1Series()
+  if sys.argv[1:2] == ['mesh']:
+    return meshSeries()
 
   scene = benchmarks.buildLensMirrorScene()
   sceneNp, info = scene.compile(device=None)
