@@ -54,6 +54,15 @@ port's paths at full width:
     dish loaded from an STL file through `runSimulation` raw (4 x 1 << 20)
     and histogram-first (8 x 1 << 22) and through `evaluateBatched` over
     its detector height, its share and r^2 against the JAX package's;
+  * the surface table (phase 11): the kernels against their plain versions
+    on the reference's walls of 522 and 5,071 analytic surfaces and on the
+    check scenes of the table (a slab array for its medium rule, every
+    table kind, ties, a dish beside a surface table), K3 on 11 detector
+    heights under the 522-surface wall; both walls' fused step (both
+    binnings) and raw step at 1 << 22 rays timed beside their bounds; the
+    522-surface wall through `runSimulation` raw (4 x 1 << 20) and
+    histogram-first (8 x 1 << 22) and through `evaluateBatched` over its
+    detector height, its share and r^2 against the JAX package's;
 
 (the first three on the lens-and-mirror scene) and checks the physics of
 what comes out. Before those paths it holds the histogram, per-ray-bin and
@@ -210,6 +219,29 @@ MESH_HIST_ITERATIONS = 8          # of N_MAIN rays
 REF_DISH_RAYS = 1 << 16
 REF_DISH = dict(share=1.0, power=1.0, r2=3966.9451117515564,
                 r4=35904789.590858854)
+
+# the surface table (phase 11, B8): the reference's walls of 522 and 5,071
+# analytic surfaces (`benchmarks.buildSurfWallScene`, `buildSurfWall5kScene`)
+# and the check scenes of the surface table (tests/torch_port_helpers.py
+# SURFACE_TABLE_SCENES: a slab array for the table's medium rule, every
+# table kind, ties, both tables at once). The kernels are held against
+# their plain versions at the fused step's 1 << 22 rays where a run of the
+# plain version takes under ~10 s; it sweeps every table row for every ray,
+# so the 5,071-surface wall is held at 1 << 20.
+WALL_BOUNDS = (-300., 300., -300., 300.)
+WALL_MAX_INTERSECTIONS = 3
+WALLS = {'wall522': 'buildSurfWallScene', 'wall5071': 'buildSurfWall5kScene'}
+WALL_CHECK_RAYS = {'wall522': N_MAIN, 'wall5071': 1 << 20}
+WALL_HEIGHTS = tuple(np.linspace(-20., 0., 11))   # the detector's z
+WALL_SWEEP_RAYS = 1 << 20
+WALL_RAW_ITERATIONS = 4           # of N_RAW_ITERATION rays
+WALL_HIST_ITERATIONS = 8          # of N_MAIN rays
+# The JAX package's fused step on the 522-surface wall at 65,536 rays, seed
+# 0 (tests/test_torch_surface_table.py computes them and holds them equal to
+# these).
+REF_WALL_RAYS = 1 << 16
+REF_WALL = dict(share=0.8999786376953125, power=1.0, r2=8371.303931728278,
+                r4=139473323.46917462)
 # registers of the instances without B2 / B3 (output mode, sweep, B4,
 # surface sampler, scatter) -> count: as built before B2 / B3 (PERF.md §6),
 # but for the histogram kernel's B4 instances, whose stage gate reads the
@@ -290,6 +322,14 @@ FLOPS_DISPERSION = 2 * (3 + 2 * 12)
 # (three crosses, three dots, three divides, the tests and the select)
 FLOPS_CHUNK_TEST = 30
 FLOPS_TRIANGLE = 40
+# the surface table (B8), counted the same way from `tableRow`: per row the
+# ray into its frame (33), per kind its root and trim tests (a plane's
+# window or annulus; the quadratic of a sphere, cylinder, cone or quadric
+# with its two band tests, the cone's nappe test, the quadric's linear
+# case) and the winner test (3); a chunk box's slab test is
+# FLOPS_CHUNK_TEST
+FLOPS_TABLE_ROW = {0: 33 + 20 + 3, 1: 33 + 60 + 3, 2: 33 + 54 + 3,
+                   5: 33 + 68 + 3, 6: 33 + 86 + 3}
 FLOPS_SCATTER_RENORM = 9
 FLOPS_SCATTER_SCAN = 3
 FLOPS_ACOS = 29
@@ -428,11 +468,11 @@ def inputModes(tables, us, strataTile, colsT):
 
 def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
                      tent=False, source=0, budget=COUNT_BUDGET,
-                     triangleStats=None):
+                     triangleStats=None, surfaceStats=None):
   '''Kernel vs plain version on the card, modes (b) and (c), same inputs:
-  counters equal, count bins within `budget` rays, power POWER_RTOL. A dict
-  `triangleStats` is added what the cull leaves to a mesh's sweep in the
-  plain version's run.'''
+  counters equal, count bins within `budget` rays, power POWER_RTOL. Dicts
+  `triangleStats` / `surfaceStats` are added what the cull leaves to a
+  mesh's / a surface table's sweep in the plain version's run.'''
   sceneNp, histSpec, tables = buildTables(scene, bounds, bins, tent=tent,
                                           source=source)
   if hitSlots is None:
@@ -447,7 +487,8 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   hP = fused.initHistograms(histSpec, device=DEV)
   cP = cuda_trace.traceHistogramPlain(tables, hP, cols, **kw,
                                       scatterUniforms=scatterU,
-                                      triangleStats=triangleStats)
+                                      triangleStats=triangleStats,
+                                      surfaceStats=surfaceStats)
   for mode, inputs in inputModes(tables, us, strataTile, colsT):
     hK = fused.initHistograms(histSpec, device=DEV)
     cK = cuda_trace.traceHistogram(tables, hK, n, **inputs, **kw)
@@ -606,7 +647,8 @@ def onlyLaunches(**counts):
 
 
 def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
-            scatterPasses=0, inputBytes=0, trianglesPerSegment=0.):
+            scatterPasses=0, inputBytes=0, trianglesPerSegment=0.,
+            tableRowsPerSegment=None):
   '''Least time the card could take for one step: (ms by operations, ms by
   bytes), from this run's segment count, its passes through a grating and
   through a scattering element, the bytes the kernel must move (table, a
@@ -615,7 +657,10 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
   chunk box and Moeller-Trumbore on `trianglesPerSegment` triangles (the
   mean over ray-bounces of the triangles in the boxes the ray's capped
   segment enters, as the plain version counts them: what the cull cannot
-  skip).'''
+  skip) and, for a surface table, per segment the slab test of every chunk
+  box and the rows of `tableRowsPerSegment` ({kind: the mean over
+  ray-bounces of the rows of that kind in the plain runs and in the boxes
+  the ray's capped segment enters}).'''
   rows = tables['surfRows']
   if 'nVariants' in tables:            # a sweep: every variant, one structure
     rows = rows[0]
@@ -639,6 +684,12 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
                         + FLOPS_TRIANGLE * trianglesPerSegment)
     inputBytes += 4 * (tables['triTable'].numel()
                        + tables['triBoxes'].numel())
+  if tables.get('nSurfTable'):
+    flopsPerSegment += (FLOPS_CHUNK_TEST * tables['nSurfChunks']
+                        + sum(FLOPS_TABLE_ROW[k] * n
+                              for k, n in tableRowsPerSegment.items()))
+    inputBytes += 4 * (tables['surfTable'].numel()
+                       + tables['surfBoxes'].numel())
   sampler = FLOPS_SAMPLER
   if tables.get('samplerKind') == cuda_trace.SAMPLER_SURFACE:
     faces = tables['samplerSpec']['faces']
@@ -656,7 +707,8 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
 
 
 def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
-                spectro, surface=None, scatter=None, geom=None, mesh=None):
+                spectro, surface=None, scatter=None, geom=None, mesh=None,
+                wall=None):
   '''One entry of the `kernels` line: the main-path numbers (lens-and-mirror
   scene; the examples/3 sweep for the sweep kernel) and, beside them, the
   kernel on the spectrometer (`spectro`: its launches on that path, ms and
@@ -671,8 +723,10 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
   and bound on the torus scene, per-scene ms, the worst error over phase
   9's checks), and on the triangle meshes (`mesh`: launches on the
   1800-triangle dish's path, ms and bound there, ms by dish, the worst
-  error over phase 10's checks, `b7_max_abs_err`). `max_abs_err` is the
-  worst of all.'''
+  error over phase 10's checks, `b7_max_abs_err`), and on the walls of the
+  surface table (`wall`: launches on the 522-surface wall's path, ms and
+  bound there, ms by wall, the worst error over phase 11's checks,
+  `b8_max_abs_err`). `max_abs_err` is the worst of all.'''
   boundOps, boundBytes, _ = bounds
   spOps, spBytes, _ = spectro['bounds']
   surf = dict(surface_launches=None, surface_ms=None, surface_bound_ms=None,
@@ -701,7 +755,15 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
              mesh_bound_ms=max(mOps, mBytes),
              mesh_bound_by='operations' if mOps >= mBytes else 'bytes',
              mesh_ms_by_scene=mesh.get('byScene'),
+             mesh_bound_ms_by_scene=mesh.get('boundByScene'),
              b7_max_abs_err=mesh['err'])
+  wOps, wBytes, _ = wall['bounds']
+  tab = dict(wall_launches=wall['launches'], wall_ms=wall['ms'],
+             wall_bound_ms=max(wOps, wBytes),
+             wall_bound_by='operations' if wOps >= wBytes else 'bytes',
+             wall_ms_by_scene=wall.get('byScene'),
+             wall_bound_ms_by_scene=wall.get('boundByScene'),
+             b8_max_abs_err=wall['err'])
   return dict(name=name, route='cuda',
               source=f'optics_design_workbench_tpu_torch/csrc/{source}',
               replaces=f'optics_design_workbench_tpu/ops/pallas_trace.py:'
@@ -709,7 +771,8 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
               launches=launches,
               max_abs_err=max(err, spectro['err'],
                               surf['surface_max_abs_err'] or 0.,
-                              scatter['err'], geom['err'], mesh['err']),
+                              scatter['err'], geom['err'], mesh['err'],
+                              wall['err']),
               ms=ms,
               plain_ms=plainMs, bound_ms=max(boundOps, boundBytes),
               bound_by='operations' if boundOps >= boundBytes else 'bytes',
@@ -718,7 +781,7 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
               spectrometer_launches=spectro['launches'],
               spectrometer_ms=spectro['ms'],
               spectrometer_bound_ms=max(spOps, spBytes), **surf, **scat,
-              **geo, **tri)
+              **geo, **tri, **tab)
 
 
 def timeBenchStep(histPrecision, maxI, **benchKw):
@@ -2165,7 +2228,7 @@ def scatterSweepPhase():
 def registerCounts(log):
   '''ptxas's registers and spill bytes per instance of the kernel template,
   from the build log: {(output mode, sweep, B4, surface sampler, scatter,
-  GEOM, TRI): (registers, spill store bytes)}.'''
+  GEOM, TRI, STAB): (registers, spill store bytes)}.'''
   import re
   out, current = {}, None
   for line in log.splitlines():
@@ -2191,7 +2254,7 @@ def registerPhase(log):
   emit(dict(phase='registers', instances=len(regs), byInstance={
       ','.join(map(str, k)): v for k, v in sorted(regs.items())}))
   for key, want in OLD_REGISTERS.items():
-    got = regs.get(key + (0, 0), (None, None))[0]
+    got = regs.get(key + (0, 0, 0), (None, None))[0]
     if got != want:
       raise AssertionError(f'instance {key} uses {got} registers, '
                            f'{want} before B2 / B3')
@@ -2541,62 +2604,81 @@ def meshKernelChecks(scenes):
   return worst, perSegment
 
 
-def checkDishStats(label, stats, nRays):
-  '''The 1800-triangle dish's detected share and r^2 against the JAX
-  package's (REF_DISH, 3 sigma).'''
-  ok, sigmas = helpers.scatterStatsGate(stats, REF_DISH, nRays,
-                                        REF_DISH_RAYS)
-  emit(dict(phase='dish-statistics', run=label, rays=nRays, **stats,
-            ref=REF_DISH, **sigmas))
+# what phases 10 and 11 drive their paths with: the prefix of their phase
+# names, the histogram bounds and intersections, the scene whose share and
+# r^2 are held to the JAX package's (3 sigma) and those numbers, the
+# recording run's iterations, the detector heights of the sweep
+MESH_PATH = dict(prefix='mesh', stats='dish-statistics', bounds=MESH_BOUNDS,
+                 maxI=MESH_MAX_INTERSECTIONS, refScene='dish1800',
+                 ref=REF_DISH, refRays=REF_DISH_RAYS,
+                 rawIterations=MESH_RAW_ITERATIONS,
+                 histIterations=MESH_HIST_ITERATIONS, heights=MESH_HEIGHTS,
+                 sweepRays=MESH_SWEEP_RAYS)
+WALL_PATH = dict(prefix='wall', stats='wall-statistics', bounds=WALL_BOUNDS,
+                 maxI=WALL_MAX_INTERSECTIONS, refScene='wall522',
+                 ref=REF_WALL, refRays=REF_WALL_RAYS,
+                 rawIterations=WALL_RAW_ITERATIONS,
+                 histIterations=WALL_HIST_ITERATIONS, heights=WALL_HEIGHTS,
+                 sweepRays=WALL_SWEEP_RAYS)
+
+
+def checkPathStats(path, label, stats, nRays):
+  '''The path's scene's detected share and r^2 against the JAX package's
+  (`path['ref']`, 3 sigma).'''
+  ok, sigmas = helpers.scatterStatsGate(stats, path['ref'], nRays,
+                                        path['refRays'])
+  emit(dict(phase=path['stats'], run=label, rays=nRays, **stats,
+            ref=path['ref'], **sigmas))
   if not ok:
-    raise AssertionError(f'dish {label}: {stats} against the JAX '
-                         f"package's {REF_DISH}")
+    raise AssertionError(f"{path['refScene']} {label}: {stats} against the "
+                         f"JAX package's {path['ref']}")
 
 
-def meshStepPhase(name, scene, histPrecision, trianglesPerSegment):
-  '''The fused step (`benchmarks.makeBenchStep`, seed mode) on a dish at
-  full width: timed (`timeBenchStep`) with its bound; on the 1800-triangle
-  dish its statistics against the JAX package's.'''
-  t = timeBenchStep(histPrecision, MESH_MAX_INTERSECTIONS, scene=scene,
-                    histBounds=MESH_BOUNDS)
+def pathStepPhase(path, name, scene, histPrecision, boundKw):
+  '''The fused step (`benchmarks.makeBenchStep`, seed mode) on a scene of
+  the path at full width: timed (`timeBenchStep`) with its bound
+  (`boundMs(..., **boundKw)`); on the path's reference scene its
+  statistics against the JAX package's.'''
+  t = timeBenchStep(histPrecision, path['maxI'], scene=scene,
+                    histBounds=path['bounds'])
   step, hist = t['step'], t['hist']
   segsPerStep = t['segments'] / TIMED_STEPS
   outBytes = (2 * hist['power'].numel() * 4 * 2 if histPrecision == 'default'
               else 3 * step.hitSlots * N_MAIN * 4)
-  bounds = boundMs(step.tables, segsPerStep, N_MAIN, outBytes,
-                   trianglesPerSegment=trianglesPerSegment)
-  emit(dict(phase='mesh-step', scene=name, histPrecision=histPrecision,
-            rays=N_MAIN, steps=TIMED_STEPS, stepMs=t['stepMs'],
-            kernelMs=t['kernelMs'], segmentsPerRay=segsPerStep / N_MAIN,
-            hits=t['hits'], launches=t['launches'],
-            nTri=step.tables['nTri'], boundMs=max(bounds[:2]),
+  bounds = boundMs(step.tables, segsPerStep, N_MAIN, outBytes, **boundKw)
+  emit(dict(phase=f"{path['prefix']}-step", scene=name,
+            histPrecision=histPrecision, rays=N_MAIN, steps=TIMED_STEPS,
+            stepMs=t['stepMs'], kernelMs=t['kernelMs'],
+            segmentsPerRay=segsPerStep / N_MAIN, hits=t['hits'],
+            launches=t['launches'], nTri=step.tables['nTri'],
+            nSurfTable=step.tables['nSurfTable'], boundMs=max(bounds[:2]),
             **bounds[2]))
   binned = float(hist['counts'].double().sum())
   if not torch.isfinite(hist['power']).all() or t['hits'] <= 0 \
       or binned > t['hits']:
-    raise AssertionError(f'mesh step on {name}: {binned} binned of '
+    raise AssertionError(f'step on {name}: {binned} binned of '
                          f'{t["hits"]} hits, or a non-finite bin')
-  if name == 'dish1800':
+  if name == path['refScene']:
     nRays = N_MAIN * TIMED_STEPS
-    checkDishStats(f'step-{histPrecision}', helpers.scatterStats(
-        hist, binned, nRays, bounds=MESH_BOUNDS), nRays)
+    checkPathStats(path, f'step-{histPrecision}', helpers.scatterStats(
+        hist, binned, nRays, bounds=path['bounds']), nRays)
   return dict(launches=t['launches'], ms=t['kernelMs'], bounds=bounds)
 
 
-def meshRawStepPhase(name, scene, trianglesPerSegment):
-  '''`makeRawStep` on a dish at 1 << 22 rays: one launch of the raw
-  kernel, its records, then the kernel alone by CUDA events with its
-  bound.'''
+def pathRawStepPhase(path, name, scene, boundKw):
+  '''`makeRawStep` on a scene of the path at 1 << 22 rays: one launch of
+  the raw kernel, its records, then the kernel alone by CUDA events with
+  its bound.'''
   sceneNp, info = compiled(scene)
   sceneNp = dict(sceneNp, powerTol=1e-6)
-  histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=MESH_BOUNDS,
+  histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=path['bounds'],
                                      bins=BINS)
   src = scene.lightSources()[0]
   resetLaunchCounts()
   step = cuda_trace.makeRawStep(
       sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
-      raysPerStep=N_MAIN, maxIntersections=MESH_MAX_INTERSECTIONS,
-      maxRayLength=1000., distTol=1e-4, sampler=src.samplerSpec())
+      raysPerStep=N_MAIN, maxIntersections=path['maxI'], maxRayLength=1000.,
+      distTol=1e-4, sampler=src.samplerSpec())
   records, counters = step(11)
   torch.cuda.synchronize()
   launches = dict(cuda_trace.launchCounts)
@@ -2608,28 +2690,29 @@ def meshRawStepPhase(name, scene, trianglesPerSegment):
                          f'point')
   seeds = iter(range(100, 10 ** 6))
   kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
-      step.tables, N_MAIN, MESH_MAX_INTERSECTIONS, 1000., 1e-4,
+      step.tables, N_MAIN, path['maxI'], 1000., 1e-4,
       hitSlots=step.hitSlots, seed=next(seeds), strataTile=step.strataTile),
       TIMED_STEPS)
   bounds = boundMs(step.tables, int(counters['segments']), N_MAIN,
-                   9 * step.hitSlots * N_MAIN * 4,
-                   trianglesPerSegment=trianglesPerSegment)
-  emit(dict(phase='mesh-raw-step', scene=name, rays=N_MAIN,
+                   9 * step.hitSlots * N_MAIN * 4, **boundKw)
+  emit(dict(phase=f"{path['prefix']}-raw-step", scene=name, rays=N_MAIN,
             hits=int(counters['hits']), segments=int(counters['segments']),
             kernelMs=kernelMs, boundMs=max(bounds[:2]), **bounds[2]))
   return dict(launches=1, ms=kernelMs, bounds=bounds)
 
 
-def meshRunPhases(tmp):
-  '''`runSimulation` on the 1800-triangle dish loaded from an STL file
-  (examples/torch_mesh_dish.py): raw recording (4 x 1 << 20, the raw
-  kernel; rows read back == the run's hits) and histogram-first recording
-  (8 x 1 << 22, the histogram kernel; snapshot counts == the run's hits);
-  the detected share and r^2 against the JAX package's.'''
-  scene, path = meshExample.buildDishFromSTL(tmp, MESH_DISHES[1800])
+def pathRunPhases(path, scene, **extra):
+  '''`runSimulation` on the path's reference scene (its detector
+  'Det' at z = 0, its source 'Src'): raw recording (`rawIterations` x
+  1 << 20, the raw kernel; rows read back == the run's hits, every point on
+  the detector plane) and histogram-first recording (`histIterations` x
+  1 << 22, the histogram kernel; snapshot counts == the run's hits); the
+  detected share and r^2 against the JAX package's. `extra` goes into the
+  raw run's line.'''
+  prefix, rawIterations = path['prefix'], path['rawIterations']
   settings = scene.activeSimulationSettings()
   settings.RaysPerIteration = N_RAW_ITERATION
-  settings.EndAfterIterations = MESH_RAW_ITERATIONS
+  settings.EndAfterIterations = rawIterations
   settings.EndAfterRays = 'inf'
   resetLaunchCounts()
   runPath, progress, (first, later, cleanup) = timedRun(scene,
@@ -2639,31 +2722,32 @@ def meshRunPhases(tmp):
   hits = RawFolder(runPath).loadHits('Det')
   rows = len(hits['points'])
   traced = last['totalTracedRays']
-  emit(dict(phase='mesh-run-raw', stl=os.path.basename(path),
+  emit(dict(phase=f'{prefix}-run-raw', **extra,
             raysPerIteration=N_RAW_ITERATION,
             iterations=last['totalIterations'], tracedRays=traced,
             storedHits=rows, detectedShare=rows / traced, launches=launches,
             setupAndFirstIterationS=first, laterIterationsS=later,
             cleanupFlushS=cleanup))
-  if launches != onlyLaunches(traceRaw=MESH_RAW_ITERATIONS) \
-      or traced != N_RAW_ITERATION * MESH_RAW_ITERATIONS \
+  if launches != onlyLaunches(traceRaw=rawIterations) \
+      or traced != N_RAW_ITERATION * rawIterations \
       or rows != last['totalRecordedHits'] or rows <= 0:
-    raise AssertionError(f'mesh raw run: {rows} rows, {launches}, {last}')
+    raise AssertionError(f'{prefix} raw run: {rows} rows, {launches}, '
+                         f'{last}')
   if not np.isfinite(hits['points']).all() \
       or np.abs(hits['points'][:, 2]).max() > 1e-3:
-    raise AssertionError('mesh raw run: points off the detector plane')
+    raise AssertionError(f'{prefix} raw run: points off the detector plane')
 
   settings.RaysPerIteration = N_MAIN
-  settings.EndAfterIterations = MESH_HIST_ITERATIONS
+  settings.EndAfterIterations = path['histIterations']
   resetLaunchCounts()
   runPath, progress, (first, later, cleanup) = timedRun(
-      scene, recording='histogram', histBins=BINS, histBounds=MESH_BOUNDS)
+      scene, recording='histogram', histBins=BINS, histBounds=path['bounds'])
   launches = dict(cuda_trace.launchCounts)
   last = progress[-1]
   snap = results_store.loadHistogramSnapshots(runPath)['Src']['Det']
   counts = float(snap['counts'].astype(np.float64).sum())
   nRays = last['totalTracedRays']
-  emit(dict(phase='mesh-run-histogram', raysPerIteration=N_MAIN,
+  emit(dict(phase=f'{prefix}-run-histogram', raysPerIteration=N_MAIN,
             iterations=last['totalIterations'], tracedRays=nRays,
             histCounts=counts, recordedHits=last['totalRecordedHits'],
             detectedShare=counts / nRays, launches=launches,
@@ -2671,74 +2755,76 @@ def meshRunPhases(tmp):
             cleanupFlushS=cleanup,
             raysPerSec=nRays / (first + later + cleanup)))
   # (the run's raw sample of 1 << 13 rays every 8 passes is one raw launch)
-  if nRays != MESH_HIST_ITERATIONS * N_MAIN \
+  if nRays != path['histIterations'] * N_MAIN \
       or counts != last['totalRecordedHits'] \
-      or launches.get('traceHistogram') != MESH_HIST_ITERATIONS:
-    raise AssertionError(f'mesh histogram run: counts {counts}, '
+      or launches.get('traceHistogram') != path['histIterations']:
+    raise AssertionError(f'{prefix} histogram run: counts {counts}, '
                          f'{launches}, {last}')
-  checkDishStats('run-histogram', helpers.scatterStats(
+  checkPathStats(path, 'run-histogram', helpers.scatterStats(
       dict(power=torch.as_tensor(snap['power'])[None],
            counts=torch.as_tensor(snap['counts'])[None]), counts, nRays,
-      bounds=MESH_BOUNDS), nRays)
-  return dict(launches=MESH_HIST_ITERATIONS)
+      bounds=path['bounds']), nRays)
+  return dict(launches=path['histIterations'])
 
 
-def meshSweepPhase(trianglesPerSegment):
-  '''`ParameterSweeper.evaluateBatched` on the 1800-triangle dish's
-  detector height (11 heights x 1 << 20 rays): one launch of the sweep
-  kernel per call; the kernel alone by CUDA events, with its bound.'''
+def pathSweepPhase(path, make, boundKw, variants=None):
+  '''`ParameterSweeper.evaluateBatched` on the detector height of the
+  scene `make(z)` builds (`path['heights']` x `path['sweepRays']` rays):
+  one launch of the sweep kernel per call; then the kernel alone on those
+  heights (`variants`, where the checks compiled them) by CUDA events, with
+  its bound.'''
   from optics_design_workbench_tpu_torch.jupyter_utils import (
       Parameter, ParameterSweeper)
-  nQ = MESH_DISHES[1800]
-  holder = dict(z=0., scene=benchmarks.buildMeshDishScene(nQ))
+  prefix, heights, n = path['prefix'], path['heights'], path['sweepRays']
+  holder = dict(z=0., scene=make(0.))
 
   def setZ(z):
     holder['z'] = float(z)
-    holder['scene'] = benchmarks.buildMeshDishScene(nQ, detectorZ=z)
+    holder['scene'] = make(z)
     sweeper.scene = holder['scene']
 
   sweeper = ParameterSweeper(
       lambda sc: dict(z=Parameter(getter=lambda: holder['z'], setter=setZ,
-                                  bounds=(-20., 0.))),
+                                  bounds=(min(heights), max(heights)))),
       scene=holder['scene'], device=DEV)
   r2 = []
 
   def metric(power, counts):
     r2.append(helpers.scatterStats(dict(power=power, counts=counts),
-                                   float(counts.sum()), MESH_SWEEP_RAYS,
-                                   bounds=MESH_BOUNDS)['r2'])
+                                   float(counts.sum()), n,
+                                   bounds=path['bounds'])['r2'])
     return r2[-1]
 
   resetLaunchCounts()
   t0 = time.perf_counter()
-  sweeper.evaluateBatched([dict(z=z) for z in MESH_HEIGHTS], metric,
+  sweeper.evaluateBatched([dict(z=z) for z in heights], metric,
                           sceneFactory=lambda: holder['scene'],
-                          raysPerScene=MESH_SWEEP_RAYS,
-                          maxIntersections=MESH_MAX_INTERSECTIONS,
-                          histBounds=MESH_BOUNDS, bins=BINS)
+                          raysPerScene=n, maxIntersections=path['maxI'],
+                          histBounds=path['bounds'], bins=BINS)
   torch.cuda.synchronize()
   wallS = time.perf_counter() - t0
   launches = dict(cuda_trace.launchCounts)
   route = sweeper.lastBatchedRoute
-  emit(dict(phase='mesh-sweep', variants=len(MESH_HEIGHTS),
-            raysPerVariant=MESH_SWEEP_RAYS, route=route, launches=launches,
-            wallS=wallS, meanR2ByHeight=r2))
+  emit(dict(phase=f'{prefix}-sweep', variants=len(heights),
+            raysPerVariant=n, route=route, launches=launches, wallS=wallS,
+            meanR2ByHeight=r2))
   if route != 'sweep' or launches != onlyLaunches(traceSweep=1):
-    raise AssertionError(f'mesh sweep: route {route}, launches {launches}')
+    raise AssertionError(f'{prefix} sweep: route {route}, launches '
+                         f'{launches}')
   if not all(np.isfinite(r2)) or r2[0] == r2[-1]:
-    raise AssertionError(f'mesh sweep: mean r^2 by height {r2}')
+    raise AssertionError(f'{prefix} sweep: mean r^2 by height {r2}')
 
-  variants = [benchmarks.buildMeshDishScene(nQ, detectorZ=z)
-              for z in MESH_HEIGHTS]
-  tables, host, histSpec, _specs = sweepTablesFor(variants, MESH_BOUNDS)
-  V, n = len(variants), MESH_SWEEP_RAYS
+  if variants is None:
+    variants = [make(z) for z in heights]
+  tables, host, histSpec, _specs = sweepTablesFor(variants, path['bounds'])
+  V = len(variants)
   shape = (V, tables['nDet']) + SWEEP_BINS
   hist = dict(power=torch.zeros(shape, device=DEV),
               counts=torch.zeros(shape, device=DEV))
-  kw = dict(maxIntersections=MESH_MAX_INTERSECTIONS, maxRayLength=1000.,
-            distTol=1e-4, powerTol=1e-6,
+  kw = dict(maxIntersections=path['maxI'], maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6,
             hitSlots=cuda_trace.autoHitSlots(host[0][0], histSpec,
-                                             MESH_MAX_INTERSECTIONS),
+                                             path['maxI']),
             strataTile=cuda_trace.DEFAULT_STRATA_TILE)
   seeds = iter(range(77, 10 ** 6))
   counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds), **kw)
@@ -2746,39 +2832,136 @@ def meshSweepPhase(trianglesPerSegment):
   kernelMs = cudaMs(lambda: cuda_trace.traceSweep(
       tables, hist, n, seed=next(seeds), **kw), TIMED_STEPS)
   bounds = boundMs(tables, segments, V * n, 2 * hist['power'].numel() * 4 * 2,
-                   trianglesPerSegment=trianglesPerSegment)
-  emit(dict(phase='mesh-sweep-kernel', variants=V, raysPerVariant=n,
+                   **boundKw)
+  emit(dict(phase=f'{prefix}-sweep-kernel', variants=V, raysPerVariant=n,
             kernelMs=kernelMs, boundMs=max(bounds[:2]), **bounds[2]))
   return dict(launches=launches['traceSweep'], ms=kernelMs, bounds=bounds)
+
+
+def pathTimings(path, scenes, names, boundKwOf):
+  '''K1 and K2 (the fused step, both binnings) and K4 (the raw step) on
+  the path's scenes `names`, each with its bound: per wrapper, the
+  reference scene's numbers with ms and bound by scene.'''
+  out = {}
+  for wrapper, precision in (('traceHistogram', 'default'),
+                             ('traceBins', 'highest')):
+    byScene = {name: pathStepPhase(path, name, scenes[name][0], precision,
+                                   boundKwOf(name)) for name in names}
+    out[wrapper] = byScene
+  out['traceRaw'] = {name: pathRawStepPhase(path, name, scenes[name][0],
+                                            boundKwOf(name))
+                     for name in names}
+  return {w: dict(byScene[path['refScene']],
+                  byScene={n: r['ms'] for n, r in byScene.items()},
+                  boundByScene={n: max(r['bounds'][:2])
+                                for n, r in byScene.items()})
+          for w, byScene in out.items()}
 
 
 def meshPhase(tmp):
   '''Phase 10, triangle meshes (B7): kernel checks, then the dishes'
   paths through the port's entry points at full width. Returns, per
   wrapper, its launches on the 1800-triangle dish's path, ms and bound
-  there, ms by dish, and its worst error.'''
+  there, ms and bound by dish, and its worst error.'''
   t10 = time.perf_counter()
   scenes = meshScenes()
   worst, perSegment = meshKernelChecks(scenes)
-  dishes = [f'dish{n}' for n in MESH_DISHES]
-  out = {}
-  for wrapper, precision in (('traceHistogram', 'default'),
-                             ('traceBins', 'highest')):
-    byScene = {name: meshStepPhase(name, scenes[name][0], precision,
-                                   perSegment[name]['triangles'])
-               for name in dishes}
-    out[wrapper] = dict(byScene['dish1800'], byScene={
-        name: r['ms'] for name, r in byScene.items()})
-  rawByScene = {name: meshRawStepPhase(name, scenes[name][0],
-                                       perSegment[name]['triangles'])
-                for name in dishes}
-  out['traceRaw'] = dict(rawByScene['dish1800'], launches=MESH_RAW_ITERATIONS,
-                         byScene={n: r['ms'] for n, r in rawByScene.items()})
-  out['traceHistogram']['launches'] = meshRunPhases(tmp)['launches']
-  out['traceSweep'] = meshSweepPhase(perSegment['dish1800']['triangles'])
+  boundKwOf = lambda name: dict(
+      trianglesPerSegment=perSegment[name]['triangles'])
+  out = pathTimings(MESH_PATH, scenes, [f'dish{n}' for n in MESH_DISHES],
+                    boundKwOf)
+  out['traceRaw']['launches'] = MESH_RAW_ITERATIONS
+  scene, path = meshExample.buildDishFromSTL(tmp, MESH_DISHES[1800])
+  out['traceHistogram']['launches'] = pathRunPhases(
+      MESH_PATH, scene, stl=os.path.basename(path))['launches']
+  out['traceSweep'] = pathSweepPhase(
+      MESH_PATH, lambda z: benchmarks.buildMeshDishScene(MESH_DISHES[1800],
+                                                         detectorZ=z),
+      boundKwOf('dish1800'))
   for name, entry in out.items():
     entry['err'] = worst[name]
   emit(dict(phase='mesh-total', seconds=time.perf_counter() - t10))
+  return out
+
+
+def wallScenes():
+  '''The scenes of phase 11, built once: name -> (scene, histogram bounds,
+  intersections).'''
+  out = {name: (getattr(benchmarks, make)(), WALL_BOUNDS,
+                WALL_MAX_INTERSECTIONS) for name, make in WALLS.items()}
+  ns = helpers.torchNs()
+  for name, build in helpers.SURFACE_TABLE_SCENES.items():
+    if name != 'wall':
+      out[name] = build(ns)
+  return out
+
+
+def wallKernelChecks(scenes):
+  '''Phase 11's kernel checks: K1, K2 and K4 against their plain versions
+  on both walls and every check scene of the surface table (modes (b) and
+  (c)) with no ray moved and every ring value equal, at WALL_CHECK_RAYS
+  (1 << 22 by default), and K1 against K2 + `binRing` at 1 << 22 rays on the
+  5,071-surface wall; K3 on the 522-surface wall's 11 detector heights x
+  1 << 20 rays against its plain version and, in seed mode, against one K1
+  launch per variant. Returns (the worst error per kernel, per scene the
+  table rows a segment must test, by kind, as the plain version counted
+  them, the 11 height variants).'''
+  worst = dict(traceHistogram=0., traceBins=0., traceRaw=0., traceSweep=0.)
+  perSegment = {}
+  for name, (scene, bounds, maxI) in scenes.items():
+    n = WALL_CHECK_RAYS.get(name, N_MAIN)
+    stats = {}
+    worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+        f'table-{name}', scene, bounds, maxI, n, BINS, budget=0,
+        surfaceStats=stats))
+    perSegment[name] = {k: v / stats['rayBounces']
+                        for k, v in stats['rows'].items()}
+    w = compareRingsWithPlain(f'table-{name}', scene, bounds, maxI, n, BINS,
+                              budget=0, rawAtol=0.)
+    for k in ('traceRaw', 'traceBins'):
+      worst[k] = max(worst[k], w[k])
+    if n < N_MAIN:
+      sceneNp, histSpec, tables = buildTables(scene, bounds, BINS)
+      us, strataTile, _cols, _scat = samplerInputs(tables, N_MAIN, 97, maxI)
+      binsAgainstHistogram(f'table-{name}', tables, histSpec, N_MAIN, us,
+                           strataTile, dict(
+          maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+          powerTol=1e-6,
+          hitSlots=cuda_trace.autoHitSlots(sceneNp, histSpec, maxI)))
+    emit(dict(phase='table-plain-rows', scene=name, rays=n,
+              nSurfTable=int(cuda_trace.tableSurfaces(
+                  compiled(scene)[0]).sum()),
+              chunksPerSegment=stats['chunks'] / stats['rayBounces'],
+              rowsPerSegmentByKind=perSegment[name]))
+  variants = [benchmarks.buildSurfWallScene(detectorZ=z)
+              for z in WALL_HEIGHTS]
+  worst['traceSweep'] = compareSweepWithPlain(
+      'wall-heights', variants, WALL_BOUNDS, WALL_MAX_INTERSECTIONS,
+      WALL_SWEEP_RAYS, columnsToo=True, budget=0)
+  compareSweepWithSingles('wall-heights', variants, WALL_BOUNDS,
+                          WALL_MAX_INTERSECTIONS, WALL_SWEEP_RAYS, seed=53)
+  return worst, perSegment, variants
+
+
+def wallPhase(tmp):
+  '''Phase 11, the surface table (B8): kernel checks, then the walls'
+  paths through the port's entry points at full width. Returns, per
+  wrapper, its launches on the 522-surface wall's path, ms and bound there,
+  ms and bound by wall, and its worst error.'''
+  t11 = time.perf_counter()
+  scenes = wallScenes()
+  worst, perSegment, variants = wallKernelChecks(scenes)
+  boundKwOf = lambda name: dict(tableRowsPerSegment=perSegment[name])
+  out = pathTimings(WALL_PATH, scenes, list(WALLS), boundKwOf)
+  out['traceRaw']['launches'] = WALL_RAW_ITERATIONS
+  out['traceHistogram']['launches'] = pathRunPhases(
+      WALL_PATH, benchmarks.buildSurfWallScene(tmpdir=tmp))['launches']
+  out['traceSweep'] = pathSweepPhase(
+      WALL_PATH, lambda z: benchmarks.buildSurfWallScene(detectorZ=z),
+      boundKwOf('wall522'), variants)
+  for name, entry in out.items():
+    entry['err'] = worst[name]
+  emit(dict(phase='wall-total', seconds=time.perf_counter() - t11))
   return out
 
 T0 = time.perf_counter()
@@ -2894,6 +3077,8 @@ def main():
     geom = geomPhase(tmp, info['log'])
     # ---- phase 10: triangle meshes ----
     mesh = meshPhase(tmp)
+    # ---- phase 11: the surface table ----
+    wall = wallPhase(tmp)
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2943,21 +3128,22 @@ def main():
                   worst, k1['kernelMs'], k1['plainMs'], k1['bounds'],
                   spectro['traceHistogram'], surface['traceHistogram'],
                   scatter['traceHistogram'], geom['traceHistogram'],
-                  mesh['traceHistogram']),
+                  mesh['traceHistogram'], wall['traceHistogram']),
       kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
                   worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
                   rawBounds, spectro['traceRaw'], surface['traceRaw'],
-                  scatter['traceRaw'], geom['traceRaw'], mesh['traceRaw']),
+                  scatter['traceRaw'], geom['traceRaw'], mesh['traceRaw'],
+                  wall['traceRaw']),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
                   k2['bounds'], spectro['traceBins'], surface['traceBins'],
                   scatter['traceBins'], geom['traceBins'],
-                  mesh['traceBins']),
+                  mesh['traceBins'], wall['traceBins']),
       kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
                   sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
                   sweepBounds, spectro['traceSweep'], None,
                   scatter['traceSweep'], geom['traceSweep'],
-                  mesh['traceSweep'])]))
+                  mesh['traceSweep'], wall['traceSweep'])]))
   print(smi, flush=True)
   print(json.dumps(dict(ok=True, device=dict(
       platform='gpu', kind=torch.cuda.get_device_name(0),

@@ -10,8 +10,9 @@ reference's surface-source scene (a Lambertian-like disc emitter), its
 three stochastic-scatter scenes (a diffuser, an ideal-plus-conditioned
 mixture, an astigmatic diffuser), its torus-mirror and mesh-fold throughput
 scenes, the two slotted mirrors of its trim tests, a scene of the other
-surface kinds and an emitter whose faces are of those kinds, and its dish
-mirrors of 200 to 12800 triangles (the triangle-table sweep).
+surface kinds and an emitter whose faces are of those kinds, its dish
+mirrors of 200 to 12800 triangles (the triangle-table sweep) and its walls
+of 522 and 5,071 analytic surfaces (the surface-table sweep).
 '''
 
 import math
@@ -333,6 +334,65 @@ def buildMeshDishCollimatedScene(tmpdir=None):
   return _dishScene('dishcoh_tp', dishTriangles(10), dict(
       PowerDensity='exp(-theta^2/2e-4)', ThetaDomain='0, 0.03',
       placement=aim), tmpdir)
+
+
+def _wallScene(label, nx, ny, pitch, radius, tiltY, cap, tmpdir,
+               detectorZ):
+  '''The reference's mirror walls: nx x ny small mirror discs of `radius`
+  on a `pitch` grid about z = 80 mm (each lifted by 2 sin(0.7 ix + iy) mm,
+  tilted by 3 cos(ix + iy / 2) deg about x and, with `tiltY`, by
+  3 sin(0.3 ix) deg about y), with `cap` a spherical mirror zone of radius
+  60 mm about (0, 0, 140) over z in [-60, -40], over an absorbing
+  600 x 600 mm detector at z = `detectorZ`, lit from 1e-3 mm above it by
+  exp(-theta^2/0.3) over theta in [0, 0.9]; 3 intersections (histograms over
+  +-300 mm).'''
+  scene = Scene(label=label, path=tmpdir and f'{tmpdir}/{label}')
+  mirrors = []
+  for iy in range(ny):
+    for ix in range(nx):
+      cx = (ix - (nx - 1) / 2.) * pitch
+      cy = (iy - (ny - 1) / 2.) * pitch
+      parts = [T.translation(cx, cy, 80. + 2. * math.sin(ix * 0.7 + iy)),
+               T.rotation((1, 0, 0), 3. * math.cos(ix + iy * 0.5))]
+      if tiltY:
+        parts.append(T.rotation((0, 1, 0), 3. * math.sin(ix * 0.3)))
+      mirrors.append(S.plane(T.compose(*parts), elem=0, radius=radius,
+                             orient=-1))
+  if cap:
+    mirrors.append(S.sphere(T.translation(0, 0, 140.), elem=0, radius=60.,
+                            zRange=(-60., -40.), orient=+1))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Wall', surfaces=mirrors,
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(300., 300.))],
+      placements=[T.translation(0, 0, detectorZ)]))
+  scene.addSource(PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.3)', ThetaDomain='0, 0.9',
+      Wavelength=532., ThetaResolutionNumericMode='1e3',
+      placement=T.translation(0, 0, 1e-3)))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=3)
+  return scene
+
+
+def buildSurfWallScene(tmpdir=None, detectorZ=0.):
+  '''The reference's `sceneSurfWall`: 522 analytic surfaces, a 26 x 20
+  wall of tilted mirror discs (radius 5.6 mm, 8 mm pitch), a spherical
+  mirror cap and the detector (`_wallScene`): past the 256 analytic
+  surfaces of the surface rows, so every surface rides the surface table
+  (a chunked run of 520 discs, a plain run of the cap, one of the
+  detector).'''
+  return _wallScene('surfwall_tp', 26, 20, 8., 0.7 * 8., True, True, tmpdir,
+                    detectorZ)
+
+
+def buildSurfWall5kScene(tmpdir=None, detectorZ=0.):
+  '''The reference's `sceneFallbackSurf5k`: 5,071 analytic surfaces, a
+  78 x 65 wall of mirror discs (radius 1.8 mm, 3 mm pitch, tilted about x
+  only) and the detector (`_wallScene`).'''
+  return _wallScene('surf5k_tp', 78, 65, 3., 0.6 * 3., False, False, tmpdir,
+                    detectorZ)
 
 
 def _sphereDetector():

@@ -1,15 +1,19 @@
 // Sample + trace kernel with per-ray bins for NVIDIA Hopper (sm_90a), for
-// scenes with a triangle table: trace_bins_kernel.cu's instances with TRI, in
-// a source of their own so that they build in parallel with the rest.
+// scenes with a table in device memory (a triangle table, a surface table or
+// both): trace_bins_kernel.cu's instances with TRI, in a source of their own
+// so that they build in parallel with the rest.
 //
 // Replaces: as trace_bins_kernel.cu (makePallasTraceStep, per-ray outputs),
-// with the triangle-table sweep of the body `_makeKernel` (the JAX package's
-// nTriSMEM / nTriChunks branches): see trace_common.cuh for the design.
+// with the triangle-table and surface-table sweeps of the body `_makeKernel`
+// (the JAX package's nTriSMEM / nTriChunks and nSurfSMEM / surfChunkRuns
+// branches): see trace_common.cuh for the design.
 //
 // What bounds it on this card: operations, as for trace_bins_kernel.cu, plus
-// per segment ~30 for each chunk box tested and ~40 for each triangle of the
-// chunks the warp's lanes enter; the table is read from global memory through
-// the read-only path (11 floats a triangle, broadcast to the warp).
+// per segment ~30 for each chunk box tested, ~40 for each triangle of the
+// triangle chunks the warp's lanes enter and 50-110 (by kind) for each row of
+// the plain surface runs and of the surface chunks they enter; the tables are
+// read from global memory through the read-only path (11 floats a triangle, 21
+// a surface row, broadcast to the warp).
 //
 // Interface: one plain-C launcher, `odwTraceBinsTri`, loaded with ctypes; the
 // arguments of `odwTraceBins`.
@@ -17,10 +21,12 @@
 #include "trace_common.cuh"
 
 extern "C" int odwTraceBinsTri(const float* table, const float* tri,
-                               const float* box, const float* rayIn,
-                               float* ring, unsigned long long* counters,
+                               const float* box, const float* surf,
+                               const float* surfBox, const float* rayIn,
+                               float* ring,
+                               unsigned long long* counters,
                                const long long* ip, const float* fp,
                                void* stream) {
-  return launchTrace<OUT_BINS, true>(table, tri, box, rayIn, ring, nullptr,
-                                     counters, ip, fp, stream);
+  return launchTrace<OUT_BINS, true>(table, tri, box, surf, surfBox, rayIn,
+                                     ring, nullptr, counters, ip, fp, stream);
 }

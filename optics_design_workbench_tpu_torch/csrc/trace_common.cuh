@@ -3,17 +3,18 @@
 // `__global__` function templated on its OUTPUT MODE, on whether it traces
 // ONE scene or a variant-major SWEEP of scenes, on B4 (below), on SURF, the
 // sampler (below), on SCAT, stochastic scatter (below), on GEOM, the other
-// surface kinds and trims (below), and on TRI, the triangle table (below).
+// surface kinds and trims (below), on TRI, the triangle table in device
+// memory, and on STAB, the surface table in device memory (below).
 // Each kernel source (trace_kernel.cu, trace_bins_kernel.cu,
 // trace_raw_kernel.cu, trace_sweep_kernel.cu) instantiates one mode, with
 // and without B4, with SCAT on top of B4, GEOM (with and without SCAT) on
 // top of B4, and the single-scene ones with each sampler, behind a plain-C
 // launcher; its `_tri` twin instantiates the same mode with TRI on top of
-// B4, with and without SCAT and GEOM (and each sampler).
+// B4, with and without SCAT, GEOM and STAB (and each sampler).
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
-// (optics_design_workbench_tpu/ops/pallas_trace.py), but for its
-// surface-table sweep, histogram layout and per-bounce culls:
+// (optics_design_workbench_tpu/ops/pallas_trace.py), but for its histogram
+// layout and per-bounce culls:
 // PLANE / SPHERE / CYLINDER surfaces with window, annulus and z-band trims,
 // and in the GEOM instance every other kind (ASPHERE by 16 Newton steps
 // from its osculating sphere, TRIANGLE by Moeller-Trumbore, CONE and QUADRIC
@@ -25,7 +26,8 @@
 // with affine, piecewise-polynomial and tent marginals and ray-index strata;
 // the surface-source sampler (plane, sphere-zone and cylinder faces); the
 // in-kernel stochastic scatter draw; the triangle-table sweep of meshes past
-// 128 triangles; the per-ray hit-slot ring.
+// 128 triangles; the surface-table sweep of assemblies past 256 analytic
+// surfaces; the per-ray hit-slot ring.
 //
 // The two samplers are two compile-time instances (SURF), chosen by the
 // launcher from the sampler kind of the tables: the point sampler draws two
@@ -79,6 +81,27 @@
 // is not its element. A table winner brings its normal (the unnormalised
 // e1 x e2 times orient / |e1 x e2|, in float32), its element and the world
 // (x, y) as its chart.
+//
+// The surface table (STAB, B8, a compile-time instance built on TRI, in the
+// same `_tri` sources; the launcher picks the TRI instances when either
+// table is there, STAB ones when the surface table is, and a STAB instance
+// skips the triangle sweep when there is no triangle table; a flag of its
+// own because sweeping it in every TRI instance cost those 18 registers,
+// PERF.md §6): past 256 analytic surfaces every plane / sphere / cylinder / cone
+// / quadric with a window trim leaves the surface rows for a table of rows
+// [rotation, offset, orient, element, p0..p4, trim1, trim2] in GLOBAL
+// memory, swept after the triangle table in runs of one (kind, trim) each,
+// the kind a switch outside the run's row loop. A run is plain (swept row by
+// row) or chunked (Morton-ordered, kSurfChunk rows a chunk with one padded
+// box each, culled by the warp's vote on the slab test as the triangle
+// table, the segment capped at min(nearest so far, the plain runs' winner,
+// mrlEff) plus the same-medium window); the plain runs come first. Each row
+// is intersected from the ray in its frame in the reference's table form;
+// the running winner keeps its distance, oriented world normal, element and
+// local (x, y) chart. It replaces the winner so far only when strictly
+// nearer (index -3) and enters the other-medium tracker only as that one
+// winner, when the medium is not its element; a detector that is a table
+// row bins the winner's local chart.
 //
 // Stochastic scatter (SCAT, a compile-time instance built on the B4 body,
 // which the launcher picks from its scatter word): after the ideal new
@@ -145,6 +168,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kBig = 3.0e38f;
@@ -161,6 +186,10 @@ constexpr int kPrimCols = 9;       // one hole primitive of a surface
 constexpr int kTriCols = 11;       // TRI: v0, e1, e2, element, orient
 constexpr int kBoxCols = 6;        // TRI: a chunk's box, lo xyz, hi xyz
 constexpr int kTriChunk = 32;      // TRI: rows per chunk
+constexpr int kSurfTableCols = 21; // STAB: a surface-table row (below)
+constexpr int kSurfChunk = 16;     // STAB: surface-table rows per chunk
+constexpr int kMaxSurfRuns = 10;   // STAB: one run per (kind, window trim)
+constexpr int kRunCols = 6;
 constexpr int kBlock = 256;
 
 // surface row columns
@@ -218,6 +247,9 @@ enum { SPEC_PWPOLY = 1, SPEC_PWPOLY2D = 3, SPEC_LOWRANK = 4 };
 enum { FN_CONST = 0, FN_POLY1D = 1, FN_FOURIER = 2 };
 enum { SCAT_REFLECT = 0, SCAT_REFRACT_ENTER = 1, SCAT_REFRACT_EXIT = 2,
        SCAT_MODIFY = 3 };
+// a surface-table run (ops/cuda_trace.py `surfaceRuns`)
+enum { RUN_KIND = 0, RUN_TRIM0 = 1, RUN_FIRST = 2, RUN_LAST = 3, RUN_ROW0 = 4,
+       RUN_CHUNKED = 5 };
 enum { KIND_PLANE = 0, KIND_SPHERE = 1, KIND_CYLINDER = 2, KIND_ASPHERE = 3,
        KIND_TRIANGLE = 4, KIND_CONE = 5, KIND_QUADRIC = 6, KIND_TORUS = 7 };
 enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_GRATING = 2, OPT_ABSORBER = 3,
@@ -1112,6 +1144,24 @@ __device__ __forceinline__ void triangleTest(
   }
 }
 
+// The slab test of chunk box b against the ray's segment [0, tCap] (the
+// JAX package's `_slabSurvives`; iv: the sign-preserving inverse direction,
+// |d| clamped at 1e-30), voted by the warp's live lanes.
+__device__ __forceinline__ bool anyLaneEnters(
+    const float* __restrict__ b, unsigned lanes, float ox, float oy,
+    float oz, float ivx, float ivy, float ivz, float tCap) {
+  const float tx1 = (__ldg(b) - ox) * ivx, tx2 = (__ldg(b + 3) - ox) * ivx;
+  const float ty1 = (__ldg(b + 1) - oy) * ivy;
+  const float ty2 = (__ldg(b + 4) - oy) * ivy;
+  const float tz1 = (__ldg(b + 2) - oz) * ivz;
+  const float tz2 = (__ldg(b + 5) - oz) * ivz;
+  const float tN = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
+                         fmaxf(fminf(tz1, tz2), 0.f));
+  const float tF = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
+                         fminf(fmaxf(tz1, tz2), tCap));
+  return __any_sync(lanes, tN <= tF);
+}
+
 // The nearest triangle of the table along the ray (tT = kBig, elT = -1
 // where none): the chunks in ascending order, each swept by the live lanes
 // of the warp when the slab test of its box (the JAX package's
@@ -1136,22 +1186,223 @@ __device__ void sweepTriangles(const TriTable& tt, float ox, float oy,
   // the lanes of the warp still in the bounce loop (the others broke out)
   const unsigned lanes = __activemask();
   for (int c = 0; c < tt.nChunks; ++c) {
-    const float* b = tt.box + c * kBoxCols;
-    const float tx1 = (__ldg(b) - ox) * ivx, tx2 = (__ldg(b + 3) - ox) * ivx;
-    const float ty1 = (__ldg(b + 1) - oy) * ivy;
-    const float ty2 = (__ldg(b + 4) - oy) * ivy;
-    const float tz1 = (__ldg(b + 2) - oz) * ivz;
-    const float tz2 = (__ldg(b + 5) - oz) * ivz;
-    const float tN = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
-                           fmaxf(fminf(tz1, tz2), 0.f));
-    const float tF = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
-                           fminf(fmaxf(tz1, tz2), tCap));
-    if (!__any_sync(lanes, tN <= tF)) continue;
+    if (!anyLaneEnters(tt.box + c * kBoxCols, lanes, ox, oy, oz, ivx, ivy,
+                       ivz, tCap))
+      continue;
     const int base = c * kTriChunk;
     const int nIn = min(kTriChunk, tt.n - base);
     for (int k = 0; k < nIn; ++k)
       triangleTest(tt.tri + (base + k) * kTriCols, ox, oy, oz, dx, dy, dz,
                    tMin, maxRayLength, tT, nxT, nyT, nzT, elT);
+  }
+}
+
+// ---- B8 (STAB only): the surface table ----
+// its runs, as the launcher passes them (ops/cuda_trace.py `surfaceRuns`):
+// plain runs first, then chunked runs; rows [first, last) of a plain run,
+// chunks [first, last) of a chunked run, whose chunk c covers the kSurfChunk
+// rows from rowStart + (c - first) * kSurfChunk
+struct SurfTable {
+  int n, nChunks, nRuns;
+  int run[kMaxSurfRuns][kRunCols];
+};
+
+// the running winner of the surface table: distance, oriented world normal,
+// local (x, y) chart, element (-1: none)
+struct TableHit {
+  float t, nx, ny, nz, lx, ly;
+  int el;
+};
+
+// Surface-table row r (kind KIND; `window`: trim flag 1, else 0) against
+// the ray, in the JAX package's operation order (`_surfBody`: the ray into
+// the row's frame, `_intersectConst(localCoords=...)`, `_normalConst`, the
+// normal out through the transposed rotation times orient): a row's values
+// are float32, so the squares of its radius and annulus radii are formed in
+// float32 here, where the surface rows carry them formed in double. A hit
+// strictly nearer than the running winner and within mrlEff replaces it.
+template <int KIND>
+__device__ __forceinline__ void tableRow(
+    const float* __restrict__ r, bool window, float ox, float oy, float oz,
+    float dx, float dy, float dz, float tMin, float mrlEff, TableHit& w) {
+  const float r00 = __ldg(r), r01 = __ldg(r + 1), r02 = __ldg(r + 2);
+  const float r10 = __ldg(r + 3), r11 = __ldg(r + 4), r12 = __ldg(r + 5);
+  const float r20 = __ldg(r + 6), r21 = __ldg(r + 7), r22 = __ldg(r + 8);
+  const float lox = r00 * ox + r01 * oy + r02 * oz + __ldg(r + 9);
+  const float loy = r10 * ox + r11 * oy + r12 * oz + __ldg(r + 10);
+  const float loz = r20 * ox + r21 * oy + r22 * oz + __ldg(r + 11);
+  const float ldx = r00 * dx + r01 * dy + r02 * dz;
+  const float ldy = r10 * dx + r11 * dy + r12 * dz;
+  const float ldz = r20 * dx + r21 * dy + r22 * dz;
+  const float tA = __ldg(r + 19), tB = __ldg(r + 20);
+  float t;
+  if constexpr (KIND == KIND_PLANE) {
+    const float dzS = fabsf(ldz) < 1e-12f ? 1e-12f : ldz;
+    t = -loz / dzS;
+    const float x = lox + t * ldx, y = loy + t * ldy;
+    bool ok;
+    if (window) {
+      ok = (fabsf(x) <= tA) && (fabsf(y) <= tB);
+    } else {
+      const float r2 = x * x + y * y;
+      ok = (r2 >= tA * tA) && (r2 <= tB * tB);
+    }
+    if (!((t > tMin) && ok)) t = kBig;
+  } else {
+    const float p0 = __ldg(r + 14), p1 = __ldg(r + 15);
+    float a, b, c, w0 = 0.f, wd = 0.f;
+    if constexpr (KIND == KIND_SPHERE) {
+      a = ldx * ldx + ldy * ldy + ldz * ldz;
+      b = 2.f * (lox * ldx + loy * ldy + loz * ldz);
+      c = lox * lox + loy * loy + loz * loz - p0 * p0;
+    } else if constexpr (KIND == KIND_CYLINDER) {
+      a = ldx * ldx + ldy * ldy;
+      b = 2.f * (lox * ldx + loy * ldy);
+      c = lox * lox + loy * loy - p0 * p0;
+    } else if constexpr (KIND == KIND_CONE) {
+      w0 = p0 + loz * p1;
+      wd = ldz * p1;
+      a = ldx * ldx + ldy * ldy - wd * wd;
+      b = 2.f * (lox * ldx + loy * ldy - w0 * wd);
+      c = lox * lox + loy * loy - w0 * w0;
+    } else {                       // principal-axis quadric
+      const float p2 = __ldg(r + 16), p3 = __ldg(r + 17), p4 = __ldg(r + 18);
+      a = p0 * ldx * ldx + p1 * ldy * ldy + p2 * ldz * ldz;
+      b = 2.f * (p0 * lox * ldx + p1 * loy * ldy + p2 * loz * ldz) + p3 * ldz;
+      c = p0 * lox * lox + p1 * loy * loy + p2 * loz * loz + p3 * loz + p4;
+    }
+    const float disc = b * b - 4.f * a * c;
+    bool okD = disc >= 0.f;
+    const float sqD = sqrtf(fmaxf(disc, 0.f));
+    const float q = -0.5f * (b + signf(b + 1e-30f) * sqD);
+    const float aS = fabsf(a) < 1e-20f ? 1e-20f : a;
+    const float qS = fabsf(q) < 1e-20f ? 1e-20f : q;
+    float t1 = q / aS, t2 = c / qS;
+    if constexpr (KIND == KIND_QUADRIC) {  // the linear case: root -c / b
+      const float linT = -c / (fabsf(b) < 1e-20f ? 1e-20f : b);
+      const bool isLin = (fabsf(a) < 1e-14f * (fabsf(b) + 1e-20f))
+                         && (fabsf(b) > 1e-20f);
+      if (isLin) { t1 = linT; t2 = kBig; okD = true; }
+    }
+    const float lo = fminf(t1, t2), hi = fmaxf(t1, t2);
+    t = kBig;
+    for (int k = 0; k < 2; ++k) {
+      const float tk = k == 0 ? lo : hi;
+      const float z = loz + tk * ldz;
+      bool ok = okD && (tk > tMin) && (z >= tA) && (z <= tB);
+      if constexpr (KIND == KIND_CONE) ok = ok && (w0 + tk * wd >= 0.f);
+      t = fminf(t, ok ? tk : kBig);
+    }
+  }
+  if (!(t < w.t && t <= mrlEff)) return;
+  w.t = t;
+  const float lx = lox + t * ldx, ly = loy + t * ldy, lz = loz + t * ldz;
+  float nlx = 0.f, nly = 0.f, nlz = 1.f;
+  if constexpr (KIND == KIND_SPHERE) {
+    const float inv = rsqrtf(lx * lx + ly * ly + lz * lz + 1e-20f);
+    nlx = lx * inv; nly = ly * inv; nlz = lz * inv;
+  } else if constexpr (KIND == KIND_CYLINDER) {
+    const float inv = rsqrtf(lx * lx + ly * ly + 1e-20f);
+    nlx = lx * inv; nly = ly * inv; nlz = 0.f;
+  } else if constexpr (KIND == KIND_QUADRIC) {
+    const float n0 = 2.f * __ldg(r + 14) * lx, n1 = 2.f * __ldg(r + 15) * ly;
+    const float n2 = 2.f * __ldg(r + 16) * lz + __ldg(r + 17);
+    const float inv = rsqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
+    nlx = n0 * inv; nly = n1 * inv; nlz = n2 * inv;
+  } else if constexpr (KIND == KIND_CONE) {
+    float rr = sqrtf(lx * lx + ly * ly);
+    if (rr < 1e-12f) rr = 1e-12f;
+    const float n0 = lx / rr, n1 = ly / rr, n2 = -__ldg(r + 15);
+    const float inv = rsqrtf(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20f);
+    nlx = n0 * inv; nly = n1 * inv; nlz = n2 * inv;
+  }
+  const float orient = __ldg(r + 12);
+  w.nx = (r00 * nlx + r10 * nly + r20 * nlz) * orient;
+  w.ny = (r01 * nlx + r11 * nly + r21 * nlz) * orient;
+  w.nz = (r02 * nlx + r12 * nly + r22 * nlz) * orient;
+  w.lx = lx;
+  w.ly = ly;
+  w.el = (int)__ldg(r + 13);
+}
+
+// One run of the surface table: a plain run row by row; a chunked run
+// chunk by chunk, each chunk's rows swept by the live lanes together when
+// its box lets any of them in.
+template <int KIND>
+__device__ void sweepRun(const int* run, const float* __restrict__ rows,
+                         const float* __restrict__ box, unsigned lanes,
+                         float ox, float oy, float oz, float dx, float dy,
+                         float dz, float ivx, float ivy, float ivz,
+                         float tMin, float mrlEff, float tCap, TableHit& w) {
+  const bool window = run[RUN_TRIM0] != 0;
+  if (!run[RUN_CHUNKED]) {
+    for (int k = run[RUN_FIRST]; k < run[RUN_LAST]; ++k)
+      tableRow<KIND>(rows + k * kSurfTableCols, window, ox, oy, oz, dx, dy,
+                     dz, tMin, mrlEff, w);
+    return;
+  }
+  for (int c = run[RUN_FIRST]; c < run[RUN_LAST]; ++c) {
+    if (!anyLaneEnters(box + c * kBoxCols, lanes, ox, oy, oz, ivx, ivy, ivz,
+                       tCap))
+      continue;
+    const float* base = rows + (run[RUN_ROW0] + (c - run[RUN_FIRST])
+                                * kSurfChunk) * kSurfTableCols;
+    for (int k = 0; k < kSurfChunk; ++k)
+      tableRow<KIND>(base + k * kSurfTableCols, window, ox, oy, oz, dx, dy,
+                     dz, tMin, mrlEff, w);
+  }
+}
+
+// The surface table's winner along the ray (w.t = kBig, w.el = -1 where
+// none), the JAX package's sweep: the plain runs, then the chunked runs,
+// whose boxes are tested against the segment capped at min(tBest, the plain
+// runs' winner, mrlEff) + window (the cull only skips rows that could not
+// win the bounce, so any culling grain gives the same result). The kind is
+// a switch per run, outside its row loop. Inside the table the strict `<`
+// keeps the first row swept on a tie.
+__device__ void sweepSurfaceTable(const SurfTable& st,
+                                  const float* __restrict__ rows,
+                                  const float* __restrict__ box, float ox,
+                                  float oy, float oz, float dx, float dy,
+                                  float dz, float tMin, float mrlEff,
+                                  float tBest, float window, TableHit& w) {
+  w.t = kBig;
+  w.el = -1;
+  w.nx = w.ny = w.nz = w.lx = w.ly = 0.f;
+  // the lanes of the warp still in the bounce loop (the others broke out)
+  const unsigned lanes = __activemask();
+  const float ivx = (dx < 0.f ? -1.f : 1.f) / fmaxf(fabsf(dx), 1e-30f);
+  const float ivy = (dy < 0.f ? -1.f : 1.f) / fmaxf(fabsf(dy), 1e-30f);
+  const float ivz = (dz < 0.f ? -1.f : 1.f) / fmaxf(fabsf(dz), 1e-30f);
+  float tCap = 0.f;
+  bool capped = false;             // the plain runs come first
+  for (int k = 0; k < st.nRuns; ++k) {
+    const int* run = st.run[k];
+    if (run[RUN_CHUNKED] && !capped) {
+      tCap = fminf(fminf(tBest, w.t), mrlEff) + window;
+      capped = true;
+    }
+    switch (run[RUN_KIND]) {
+      case KIND_PLANE:
+        sweepRun<KIND_PLANE>(run, rows, box, lanes, ox, oy, oz, dx, dy, dz,
+                             ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        break;
+      case KIND_SPHERE:
+        sweepRun<KIND_SPHERE>(run, rows, box, lanes, ox, oy, oz, dx, dy, dz,
+                              ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        break;
+      case KIND_CYLINDER:
+        sweepRun<KIND_CYLINDER>(run, rows, box, lanes, ox, oy, oz, dx, dy,
+                                dz, ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        break;
+      case KIND_CONE:
+        sweepRun<KIND_CONE>(run, rows, box, lanes, ox, oy, oz, dx, dy, dz,
+                            ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        break;
+      default:
+        sweepRun<KIND_QUADRIC>(run, rows, box, lanes, ox, oy, oz, dx, dy,
+                               dz, ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+    }
   }
 }
 
@@ -1208,9 +1459,11 @@ __device__ void geomNormal(const float* r, int kind, float lx, float ly,
 // p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
 // `rayIn` (shared by all variants) has p.N columns.
 template <int OUT, bool SWEEP, bool B4, bool SURF, bool SCAT,
-          bool GEOM = false, bool TRI = false>
+          bool GEOM = false, bool TRI = false, bool STAB = false>
 __global__ void __launch_bounds__(kBlock)
 traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
+            const SurfTable stab, const float* __restrict__ surfRows,
+            const float* __restrict__ surfBox,
             const float* __restrict__ rayIn, float* __restrict__ out0,
             float* __restrict__ out1,
             unsigned long long* __restrict__ counters) {
@@ -1219,6 +1472,7 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
   static_assert(!SCAT || B4, "scatter is built on the B4 body");
   static_assert(!GEOM || B4, "the other kinds and trims are built on B4");
   static_assert(!TRI || B4, "the triangle table is built on B4");
+  static_assert(!STAB || TRI, "the surface table is built on TRI");
   // a GEOM table widens every surface row by kGeomCols
   constexpr int kRow = GEOM ? kSurfCols + kGeomCols : kSurfCols;
   long long firstRay = (long long)blockIdx.x * blockDim.x;
@@ -1229,6 +1483,10 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
     if constexpr (TRI) {
       tt.tri += variant * tt.n * kTriCols;
       tt.box += variant * tt.nChunks * kBoxCols;
+    }
+    if constexpr (STAB) {
+      surfRows += variant * stab.n * kSurfTableCols;
+      surfBox += variant * stab.nChunks * kBoxCols;
     }
     out0 += variant * p.histLen;
     out1 += variant * p.histLen;
@@ -1356,15 +1614,31 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
       // ---- B7: the triangle table after the surface rows (index -2) ----
       float nxT = 0.f, nyT = 0.f, nzT = 0.f;
       int elT = -1;
+      TableHit sw;
       if constexpr (TRI) {
-        float tT;
-        sweepTriangles(tt, ox, oy, oz, dx, dy, dz, p.tMin, p.maxRayLength,
-                       fminf(tBest, p.mrlEff) + p.window, tT, nxT, nyT, nzT,
-                       elT);
-        if (tT < tBest) { tBest = tT; sBest = -2; }
-        if (p.anyMedium) {
-          const float tO = medium != elT ? tT : kBig;
-          if (tO < tOth) { tOth = tO; sOth = -2; }
+        if (!STAB || tt.n > 0) {
+          float tT;
+          sweepTriangles(tt, ox, oy, oz, dx, dy, dz, p.tMin, p.maxRayLength,
+                         fminf(tBest, p.mrlEff) + p.window, tT, nxT, nyT,
+                         nzT, elT);
+          if (tT < tBest) { tBest = tT; sBest = -2; }
+          if (p.anyMedium) {
+            const float tO = medium != elT ? tT : kBig;
+            if (tO < tOth) { tOth = tO; sOth = -2; }
+          }
+        }
+      }
+      // ---- B8: the surface table after that (index -3); its winner
+      // enters the other-medium tracker as that one winner ----
+      if constexpr (STAB) {
+        if (stab.nRuns > 0) {
+          sweepSurfaceTable(stab, surfRows, surfBox, ox, oy, oz, dx, dy, dz,
+                            p.tMin, p.mrlEff, tBest, p.window, sw);
+          if (sw.t < tBest) { tBest = sw.t; sBest = -3; }
+          if (p.anyMedium) {
+            const float tO = medium != sw.el ? sw.t : kBig;
+            if (tO < tOth) { tOth = tO; sOth = -3; }
+          }
         }
       }
       bool hasHit = tBest <= p.mrlEff;
@@ -1379,13 +1653,18 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
 
       // ---- winner attributes: local point, normal by kind, world normal
       // through the transposed rotation times orient; a table triangle's
-      // tracked normal and element, the world (x, y) as its chart ----
+      // tracked normal and element, the world (x, y) as its chart; a
+      // surface-table winner's tracked normal, element and local chart ----
       float lx, ly, nxA, nyA, nzA;
       int elem;
       if (TRI && sIdx == -2) {
         lx = px; ly = py;
         nxA = nxT; nyA = nyT; nzA = nzT;
         elem = elT;
+      } else if (STAB && sIdx == -3) {
+        lx = sw.lx; ly = sw.ly;
+        nxA = sw.nx; nyA = sw.ny; nzA = sw.nz;
+        elem = sw.el;
       } else {
         const float* r = surfT + sIdx * kRow;
         const float* R = r + S_ROT;
@@ -1617,6 +1896,21 @@ inline TriTable triTable(const float* tri, const float* box,
   return TriTable{tri, box, (int)ip[24], (int)ip[25]};
 }
 
+// ip[26] / ip[27] / ip[28]: the surface table's rows, chunks and runs, then
+// kMaxSurfRuns runs of kRunCols words (STAB)
+inline SurfTable surfTable(const long long* ip) {
+  SurfTable st{(int)ip[26], (int)ip[27], (int)ip[28], {}};
+  for (int k = 0; k < kMaxSurfRuns; ++k)
+    for (int j = 0; j < kRunCols; ++j)
+      st.run[k][j] = (int)ip[29 + k * kRunCols + j];
+  return st;
+}
+
+// whether the tables have a table in device memory (the TRI instances)
+inline bool hasGlobalTables(const long long* ip) {
+  return ip[24] > 0 || ip[26] > 0;
+}
+
 inline TraceParams traceParams(const long long* ip, const float* fp) {
   TraceParams p;
   p.N = ip[0];
@@ -1670,30 +1964,32 @@ int allowTable(Kernel kernel, size_t shmem) {
 template <typename Kernel>
 int launch(Kernel kernel, long long blocks, size_t shmem, void* stream,
            const TraceParams& p, const float* table, const TriTable& tt,
+           const SurfTable& st, const float* surfTab, const float* surfBox,
            const float* rayIn, float* out0, float* out1,
            unsigned long long* counters) {
   if (int err = allowTable(kernel, shmem)) return err;
   kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
-      p, table, tt, rayIn, out0, out1, counters);
+      p, table, tt, st, surfTab, surfBox, rayIn, out0, out1, counters);
   return (int)cudaGetLastError();
 }
 
-// Launch one output mode on `stream`, from the instances with the triangle
-// table (TRI: ip[24] > 0) or from those without it, as the source that
-// instantiates this asks; no synchronisation, no allocation. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for tables the source's
-// instances do not take.
+// Launch one output mode on `stream`, from the instances with the tables in
+// device memory (TRI: a triangle table, ip[24] > 0, or a surface table,
+// ip[26] > 0) or from those without them, as the source that instantiates
+// this asks; no synchronisation, no allocation. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for tables the source's instances do not take.
 template <int OUT, bool TRI>
 int launchTrace(const float* table, const float* tri, const float* box,
-                const float* rayIn, float* out0, float* out1,
-                unsigned long long* counters, const long long* ip,
-                const float* fp, void* stream) {
+                const float* surfTab, const float* surfBox, const float* rayIn,
+                float* out0, float* out1, unsigned long long* counters,
+                const long long* ip, const float* fp, void* stream) {
   TraceParams p = traceParams(ip, fp);
-  if ((ip[24] > 0) != TRI) return (int)cudaErrorInvalidValue;
+  if (hasGlobalTables(ip) != TRI) return (int)cudaErrorInvalidValue;
   if (p.N <= 0) return 0;
   const long long blocks = (p.N + kBlock - 1) / kBlock;
   const size_t shmem = (size_t)p.tableLen * sizeof(float);
   const TriTable tt = triTable(tri, box, ip);
+  const SurfTable st = surfTable(ip);
   // ip[21]: the tables' sampler, 0 point source, 1 surface source; ip[22]:
   // the table has a scatter block; ip[23]: the scene has a kind or trim of
   // B2 / B3 (widened surface rows)
@@ -1702,19 +1998,24 @@ int launchTrace(const float* table, const float* tri, const float* box,
   constexpr int O = OUT;
   constexpr bool T = true, F = false;
   auto go = [&](auto kernel) {
-    return launch(kernel, blocks, shmem, stream, p, table, tt, rayIn, out0,
-                  out1, counters);
+    return launch(kernel, blocks, shmem, stream, p, table, tt, st, surfTab,
+                  surfBox, rayIn, out0, out1, counters);
   };
   if constexpr (TRI) {             // every TRI instance is built on B4
-    if (geom)
-      return scat ? (surf ? go(traceKernel<O, F, T, T, T, T, T>)
-                          : go(traceKernel<O, F, T, F, T, T, T>))
-                  : (surf ? go(traceKernel<O, F, T, T, F, T, T>)
-                          : go(traceKernel<O, F, T, F, F, T, T>));
-    return scat ? (surf ? go(traceKernel<O, F, T, T, T, F, T>)
-                        : go(traceKernel<O, F, T, F, T, F, T>))
-                : (surf ? go(traceKernel<O, F, T, T, F, F, T>)
-                        : go(traceKernel<O, F, T, F, F, F, T>));
+    // STAB (S): the instances that also sweep a surface table (ip[26] > 0)
+    auto pick = [&](auto stab) {
+      constexpr bool S = decltype(stab)::value;
+      if (geom)
+        return scat ? (surf ? go(traceKernel<O, F, T, T, T, T, T, S>)
+                            : go(traceKernel<O, F, T, F, T, T, T, S>))
+                    : (surf ? go(traceKernel<O, F, T, T, F, T, T, S>)
+                            : go(traceKernel<O, F, T, F, F, T, T, S>));
+      return scat ? (surf ? go(traceKernel<O, F, T, T, T, F, T, S>)
+                          : go(traceKernel<O, F, T, F, T, F, T, S>))
+                  : (surf ? go(traceKernel<O, F, T, T, F, F, T, S>)
+                          : go(traceKernel<O, F, T, F, F, F, T, S>));
+    };
+    return ip[26] > 0 ? pick(std::true_type{}) : pick(std::false_type{});
   } else {
     if (geom)
       return scat ? (surf ? go(traceKernel<O, F, T, T, T, T>)
@@ -1740,11 +2041,12 @@ int launchTrace(const float* table, const float* tri, const float* box,
 // synchronisation, no allocation; returns cudaGetLastError().
 template <bool TRI>
 int launchSweep(const float* tables, const float* tri, const float* box,
-                const float* rayIn, float* histPower, float* histCounts,
+                const float* surfTab, const float* surfBox, const float* rayIn,
+                float* histPower, float* histCounts,
                 unsigned long long* counters, const long long* ip,
                 const float* fp, void* stream) {
   TraceParams p = traceParams(ip, fp);
-  if ((ip[24] > 0) != TRI) return (int)cudaErrorInvalidValue;
+  if (hasGlobalTables(ip) != TRI) return (int)cudaErrorInvalidValue;
   const long long variants = ip[15];
   p.histLen = ip[16];
   if (p.N <= 0 || variants <= 0) return 0;
@@ -1754,21 +2056,26 @@ int launchSweep(const float* tables, const float* tri, const float* box,
   p.blocksPerVariant = (int)perVariant;
   const size_t shmem = (size_t)p.tableLen * sizeof(float);
   const TriTable tt = triTable(tri, box, ip);
+  const SurfTable st = surfTable(ip);
   // ip[22]: the tables have a scatter block; ip[23]: widened surface rows
   // (a kind or trim of B2 / B3)
   const bool scat = ip[22] != 0, geom = ip[23] != 0;
   constexpr int O = OUT_HIST;
   constexpr bool T = true, F = false;
   auto go = [&](auto kernel) {
-    return launch(kernel, blocks, shmem, stream, p, tables, tt, rayIn,
-                  histPower, histCounts, counters);
+    return launch(kernel, blocks, shmem, stream, p, tables, tt, st, surfTab,
+                  surfBox, rayIn, histPower, histCounts, counters);
   };
   if constexpr (TRI) {
-    if (geom)
-      return scat ? go(traceKernel<O, T, T, F, T, T, T>)
-                  : go(traceKernel<O, T, T, F, F, T, T>);
-    return scat ? go(traceKernel<O, T, T, F, T, F, T>)
-                : go(traceKernel<O, T, T, F, F, F, T>);
+    auto pick = [&](auto stab) {
+      constexpr bool S = decltype(stab)::value;
+      if (geom)
+        return scat ? go(traceKernel<O, T, T, F, T, T, T, S>)
+                    : go(traceKernel<O, T, T, F, F, T, T, S>);
+      return scat ? go(traceKernel<O, T, T, F, T, F, T, S>)
+                  : go(traceKernel<O, T, T, F, F, F, T, S>);
+    };
+    return ip[26] > 0 ? pick(std::true_type{}) : pick(std::false_type{});
   } else {
     if (geom)
       return scat ? go(traceKernel<O, T, T, F, T, T>)

@@ -19,11 +19,13 @@
 #include "trace_common.cuh"
 
 extern "C" int odwTraceHistogram(const float* table, const float* tri,
-                                 const float* box, const float* rayIn,
+                                 const float* box, const float* surf,
+                                 const float* surfBox, const float* rayIn,
                                  float* histPower, float* histCounts,
                                  unsigned long long* counters,
                                  const long long* ip, const float* fp,
                                  void* stream) {
-  return launchTrace<OUT_HIST, false>(table, tri, box, rayIn, histPower,
-                                      histCounts, counters, ip, fp, stream);
+  return launchTrace<OUT_HIST, false>(table, tri, box, surf, surfBox, rayIn,
+                                      histPower, histCounts, counters, ip, fp,
+                                      stream);
 }

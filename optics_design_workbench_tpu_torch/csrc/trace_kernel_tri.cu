@@ -1,27 +1,33 @@
 // Fused sample + trace + histogram kernel for NVIDIA Hopper (sm_90a), for
-// scenes with a triangle table: trace_kernel.cu's instances with TRI, in a
-// source of their own so that they build in parallel with the rest.
+// scenes with a table in device memory (a triangle table, a surface table or
+// both): trace_kernel.cu's instances with TRI, in a source of their own so
+// that they build in parallel with the rest.
 //
 // Replaces: as trace_kernel.cu (makePallasTraceStep, in-kernel histogram),
-// with the triangle-table sweep of the body `_makeKernel` (the JAX package's
-// nTriSMEM / nTriChunks branches): see trace_common.cuh for the design.
+// with the triangle-table and surface-table sweeps of the body `_makeKernel`
+// (the JAX package's nTriSMEM / nTriChunks and nSurfSMEM / surfChunkRuns
+// branches): see trace_common.cuh for the design.
 //
 // What bounds it on this card: operations, as for trace_kernel.cu, plus per
-// segment ~30 for each chunk box tested and ~40 for each triangle of the
-// chunks the warp's lanes enter; the table is read from global memory through
-// the read-only path (11 floats a triangle, broadcast to the warp).
+// segment ~30 for each chunk box tested, ~40 for each triangle of the triangle
+// chunks the warp's lanes enter and 50-110 (by kind) for each row of the plain
+// surface runs and of the surface chunks they enter; the tables are read from
+// global memory through the read-only path (11 floats a triangle, 21 a surface
+// row, broadcast to the warp).
 //
-// Interface: one plain-C launcher, `odwTraceHistogramTri`, loaded with
-// ctypes; the arguments of `odwTraceHistogram`.
+// Interface: one plain-C launcher, `odwTraceHistogramTri`, loaded with ctypes;
+// the arguments of `odwTraceHistogram`.
 
 #include "trace_common.cuh"
 
 extern "C" int odwTraceHistogramTri(const float* table, const float* tri,
-                                    const float* box, const float* rayIn,
+                                    const float* box, const float* surf,
+                                    const float* surfBox, const float* rayIn,
                                     float* histPower, float* histCounts,
                                     unsigned long long* counters,
                                     const long long* ip, const float* fp,
                                     void* stream) {
-  return launchTrace<OUT_HIST, true>(table, tri, box, rayIn, histPower,
-                                     histCounts, counters, ip, fp, stream);
+  return launchTrace<OUT_HIST, true>(table, tri, box, surf, surfBox, rayIn,
+                                     histPower, histCounts, counters, ip, fp,
+                                     stream);
 }

@@ -19,10 +19,12 @@
 #include "trace_common.cuh"
 
 extern "C" int odwTraceRaw(const float* table, const float* tri,
-                           const float* box, const float* rayIn,
-                           float* ring, unsigned long long* counters,
+                           const float* box, const float* surf,
+                           const float* surfBox, const float* rayIn,
+                           float* ring,
+                           unsigned long long* counters,
                            const long long* ip, const float* fp,
                            void* stream) {
-  return launchTrace<OUT_RAW, false>(table, tri, box, rayIn, ring, nullptr,
-                                     counters, ip, fp, stream);
+  return launchTrace<OUT_RAW, false>(table, tri, box, surf, surfBox, rayIn,
+                                     ring, nullptr, counters, ip, fp, stream);
 }

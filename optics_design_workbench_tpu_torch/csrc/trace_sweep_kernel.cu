@@ -26,11 +26,12 @@
 // The launch: trace_common.cuh `launchSweep` (no synchronisation, no
 // allocation; returns cudaGetLastError()).
 extern "C" int odwTraceSweep(const float* tables, const float* tri,
-                             const float* box, const float* rayIn,
+                             const float* box, const float* surf,
+                             const float* surfBox, const float* rayIn,
                              float* histPower, float* histCounts,
                              unsigned long long* counters,
                              const long long* ip, const float* fp,
                              void* stream) {
-  return launchSweep<false>(tables, tri, box, rayIn, histPower, histCounts,
-                            counters, ip, fp, stream);
+  return launchSweep<false>(tables, tri, box, surf, surfBox, rayIn, histPower,
+                            histCounts, counters, ip, fp, stream);
 }

@@ -1,27 +1,32 @@
 // Variant-major parameter-sweep kernel for NVIDIA Hopper (sm_90a), for scenes
-// with a triangle table: trace_sweep_kernel.cu's instances with TRI, in a
-// source of their own so that they build in parallel with the rest.
+// with a table in device memory (a triangle table, a surface table or both):
+// trace_sweep_kernel.cu's instances with TRI, in a source of their own so that
+// they build in parallel with the rest.
 //
-// Replaces: as trace_sweep_kernel.cu (makePallasSweepStep), with the
-// triangle-table sweep of the body `_makeKernel` (the JAX package's nTriSMEM
-// / nTriChunks branches): see trace_common.cuh for the design.
+// Replaces: as trace_sweep_kernel.cu (makePallasSweepStep), with the triangle-
+// table and surface-table sweeps of the body `_makeKernel` (the JAX package's
+// nTriSMEM / nTriChunks and nSurfSMEM / surfChunkRuns branches): see
+// trace_common.cuh for the design.
 //
 // What bounds it on this card: operations, as for trace_sweep_kernel.cu, plus
-// per segment ~30 for each chunk box tested and ~40 for each triangle of the
-// chunks the warp's lanes enter; the table is read from global memory through
-// the read-only path (11 floats a triangle, broadcast to the warp).
+// per segment ~30 for each chunk box tested, ~40 for each triangle of the
+// triangle chunks the warp's lanes enter and 50-110 (by kind) for each row of
+// the plain surface runs and of the surface chunks they enter; the tables are
+// read from global memory through the read-only path (11 floats a triangle, 21
+// a surface row, broadcast to the warp).
 //
-// Interface: one plain-C launcher, `odwTraceSweepTri`, loaded with ctypes;
-// the arguments of `odwTraceSweep`.
+// Interface: one plain-C launcher, `odwTraceSweepTri`, loaded with ctypes; the
+// arguments of `odwTraceSweep`.
 
 #include "trace_common.cuh"
 
 extern "C" int odwTraceSweepTri(const float* tables, const float* tri,
-                                const float* box, const float* rayIn,
+                                const float* box, const float* surf,
+                                const float* surfBox, const float* rayIn,
                                 float* histPower, float* histCounts,
                                 unsigned long long* counters,
                                 const long long* ip, const float* fp,
                                 void* stream) {
-  return launchSweep<true>(tables, tri, box, rayIn, histPower, histCounts,
-                           counters, ip, fp, stream);
+  return launchSweep<true>(tables, tri, box, surf, surfBox, rayIn, histPower,
+                           histCounts, counters, ip, fp, stream);
 }

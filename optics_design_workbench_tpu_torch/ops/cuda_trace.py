@@ -54,11 +54,16 @@ gating each surface) and per-source surface masks; stochastic scatter
 (the lobe of a mirror or lens and the ray modification, drawn per bounce
 from the fitted constants of `tracing/scatter.scatterConstants`, packed as
 the table's scatter block). In-kernel samplers: the point source and the
-surface source (faces of every kind, up to 32). Up to 256
-surfaces, any number of elements, as long as the table fits a thread
-block's shared memory. The kernels sweep every allowed surface on every
-bounce (the reference's per-bounce culls only skip surfaces that cannot be
-hit).
+surface source (faces of every kind, up to 32). Any number of surfaces and
+elements, as long as the shared-memory table fits a thread block: past 256
+analytic surfaces every plane / sphere / cylinder / cone / quadric with a
+window trim leaves the surface rows for the surface table in device memory
+(`tableSurfaces`), past 128 triangles every triangle for the triangle table
+(`tableTriangles`); what stays a surface row (bitmap and hole-primitive
+trims, aspheres, tori) is capped at 256, and sequential mode and source
+masks keep a scene to 256 analytic surfaces, as in the reference. The
+kernels sweep every allowed surface on every bounce (the reference's
+per-bounce culls only skip surfaces that cannot be hit).
 '''
 
 import ctypes
@@ -80,12 +85,32 @@ from ..tracing.element_table import (MIRROR, LENS, GRATING, ABSORBER,
 _BIG = 3.0e38
 
 # table capacities of the one compiled kernel (the wrapper raises beyond).
-# Surfaces: the reference keeps up to 256 analytic surfaces as immediates
-# and sweeps more from a table (ROADMAP B8). The whole table lives in a
-# thread block's shared memory: up to 227 KB on Hopper, less what the
-# kernel's own reduction needs.
+# Surfaces: the reference keeps up to MAX_SURFACES analytic surfaces as
+# immediates; past them its closed-form kinds with window trims ride its
+# surface table (below) and at most MAX_SURFACES others stay. The
+# shared-memory table lives in a thread block's shared memory: up to 227 KB
+# on Hopper, less what the kernel's own reduction needs.
 MAX_SURFACES = 256
 MAX_TABLE_BYTES = 227 * 1024 - 1024
+# Past MAX_SURFACES analytic surfaces (ROADMAP B8) every surface of a kind of
+# TABLE_SURF_KINDS with a window trim (flag 0 or 1) leaves the surface rows
+# for the SURFACE TABLE: rows of SURF_TABLE_COLS float32 [rot (9), off (3),
+# orient, elemF, p0..p4, trim1, trim2], sorted stably by (kind, trim0) into
+# runs; a run longer than _SURF_CHUNK whose members all have a bounding
+# sphere is Morton-ordered by its centres, cut into chunks of _SURF_CHUNK
+# rows with one padded world AABB each (the last padded with never-hit rows),
+# the other runs are swept in full. Table and boxes are device tensors of
+# their own (no part of the shared-memory table, no cap on their size); the
+# kernels sweep them after the triangle table.
+TABLE_SURF_KINDS = (GS.PLANE, GS.SPHERE, GS.CYLINDER, GS.CONE, GS.QUADRIC)
+_SURF_CHUNK = 16
+SURF_TABLE_COLS = 21
+# runs of the surface table: one per (kind, trim0), plain runs first, each
+# (kind, trim0, first, last, rowStart, chunked) for the kernels: rows
+# [first, last) of a plain run, chunks [first, last) of a chunked run, whose
+# chunk c covers rows rowStart + (c - first) * _SURF_CHUNK on
+MAX_SURF_RUNS = 2 * len(TABLE_SURF_KINDS)
+RUN_COLS = 6
 # Meshes past TABLE_TRIANGLES triangles leave the surface rows (ROADMAP B7):
 # each triangle becomes a world-frame row of the TRIANGLE TABLE, [v0, e1,
 # e2, elemF, orient] (TRI_COLS floats), Morton-ordered by centroid into
@@ -178,10 +203,10 @@ MODE_SEED, MODE_UNIFORMS, MODE_COLUMNS = 0, 1, 2
 DEFAULT_STRATA_TILE = 256
 
 # wrapper -> (library stem under csrc/, C launcher, number of output tensors).
-# The instances with the triangle table (B7) live in a source of their own
-# per wrapper, stem + '_tri' with the launcher + 'Tri', so that they build in
-# parallel with the rest; a wrapper launches from it when its tables have a
-# triangle table.
+# The instances with the tables in device memory (the triangle table, B7,
+# and the surface table, B8) live in a source of their own per wrapper,
+# stem + '_tri' with the launcher + 'Tri', so that they build in parallel
+# with the rest; a wrapper launches from it when its tables have either.
 _KERNELS = {'traceHistogram': ('trace_kernel', 'odwTraceHistogram', 2),
             'traceBins': ('trace_bins_kernel', 'odwTraceBins', 1),
             'traceRaw': ('trace_raw_kernel', 'odwTraceRaw', 1),
@@ -230,15 +255,24 @@ def ineligibleReason(scene):
       if not triMask.all():
         return (f'{nTri} mesh triangles with a per-source ignore mask on '
                 f'mesh surfaces (<=128 tris for masked meshes)')
-  nRows = len(kinds) - nTri
-  if nRows > MAX_SURFACES:
-    return (f'{nRows} surface rows > the {MAX_SURFACES} the kernel sweeps '
-            f'from its surface rows; more analytic surfaces need the '
-            f'surface-table sweep (ROADMAP B8)')
+  trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
+  nOther = len(kinds) - int((kinds == GS.TRIANGLE).sum())
+  if nOther > MAX_SURFACES:
+    # the JAX package's own refusals past its immediates: what stays a
+    # surface row is capped, and stage gates and per-source masks are
+    # per-surface constants there
+    nComplex = nOther - int(_tableSurfaceMask(kinds, trims0).sum())
+    if nComplex > MAX_SURFACES:
+      return (f'{nComplex} analytic surfaces with bitmap/prim trims or '
+              f'iterative kinds > the {MAX_SURFACES}-surface immediates '
+              f'budget (simple window-trimmed surfaces ride the SMEM table)')
+    if 'seqMask' in scene or 'surfMask' in scene:
+      return (f'{nOther} analytic surfaces with sequential mode or a '
+              f'per-source ignore mask: stage/mask gates are per-surface '
+              f'immediates (<={MAX_SURFACES} surfaces for masked scenes)')
   bad = sorted(set(kinds.tolist()) - set(GS._KIND_NAMES))
   if bad:
     return f'unknown surface kinds {bad}'
-  trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
   if not np.isin(trims0, (0., 1., 2., 3., 4.)).all():
     return 'unknown trim flags (0 to 4 are defined)'
   if (trims0 == 2.).any() and 'trimMasks' not in scene['surfaces']:
@@ -256,14 +290,33 @@ def tableTriangles(scene):
   return nTri if nTri > TABLE_TRIANGLES else 0
 
 
+def _tableSurfaceMask(kinds, trims0):
+  '''Which surfaces are of a kind and trim the surface table takes.'''
+  return np.isin(kinds, TABLE_SURF_KINDS) & np.isin(trims0, (0., 1.))
+
+
+def tableSurfaces(scene):
+  '''Boolean mask of the surfaces that ride the surface table: past
+  MAX_SURFACES analytic (non-triangle) surfaces every one of a kind of
+  TABLE_SURF_KINDS with a window trim (as the JAX package switches its
+  surface table on), else none.'''
+  kinds = _hostArray(scene['surfaces']['kind'])
+  trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
+  if len(kinds) - int((kinds == GS.TRIANGLE).sum()) <= MAX_SURFACES:
+    return np.zeros(len(kinds), bool)
+  return _tableSurfaceMask(kinds, trims0)
+
+
 def needsGeom(scene):
   '''Whether the scene's surface ROWS need the kernels' GEOM instance: a
   surface kind beyond plane / sphere / cylinder, or a bitmap or
-  hole-primitive trim (triangles of the triangle table are not rows).'''
+  hole-primitive trim (triangles of the triangle table and surfaces of the
+  surface table are not rows).'''
   kinds = _hostArray(scene['surfaces']['kind'])
   trims0 = _hostArray(scene['surfaces']['trim'])[:, 0]
   rows = kinds != GS.TRIANGLE if tableTriangles(scene) \
       else np.ones(len(kinds), bool)
+  rows &= ~tableSurfaces(scene)
   return bool(not np.isin(kinds[rows], GS.BASIC_KINDS).all()
               or not np.isin(trims0[rows], GS.BASIC_TRIMS).all())
 
@@ -475,8 +528,11 @@ def _sceneRows(scene, histSpec):
   rows of the triangle table (`tableTriangles`; else empty): per triangle,
   in scene order, [v0, e1, e2, elemF, orient] in the WORLD frame as float64,
   its vertices mapped out of a non-identity row transform through
-  R^T (v - t) in double. The JAX package's `_sceneRows` (with
-  `smemTris` where it switches that on), step for step.
+  R^T (v - t) in double, and the entries of the surface table
+  (`tableSurfaces`; else empty): per surface, in scene order, (kind, trim0,
+  its float32 SURF_TABLE_COLS row, its `_boundingSphere`). The JAX
+  package's `_sceneRows` (with `smemTris` and `smemSurfs` where it switches
+  them on), step for step.
 
   Bit q of `stages` lets a ray whose stage index, clamped to nStages - 1,
   is q hit the surface. Without sequential mode the bitmask is 1 for a
@@ -494,8 +550,9 @@ def _sceneRows(scene, histSpec):
       if 'trimPrims' in surf else None
   allowed, seqSpec = _staticMasks(scene)
   masks, maskSlotOf = [], {}
-  surfRows, triRows = [], []
+  surfRows, triRows, surfEntries = [], [], []
   toTable = tableTriangles(scene) > 0
+  toSurfTable = tableSurfaces(scene)
   for s in range(numSurfacesStatic(scene)):
     p = packed[s]
     if allowed is not None and s not in allowed:
@@ -514,12 +571,12 @@ def _sceneRows(scene, histSpec):
         **{f'p{k}': float(p[15 + k]) for k in range(9)},
         trim0=float(trims[s, 0]), trim1=float(trims[s, 1]),
         trim2=float(min(trims[s, 2], _BIG)), trim3=float(trims[s, 3]),
-        trim4=float(trims[s, 4]), stages=stages)
+        trim4=float(trims[s, 4]), stages=stages,
+        ident=bool(np.allclose(p[0:9], np.eye(3).reshape(-1), atol=1e-12)
+                   and np.allclose(p[9:12], 0., atol=1e-12)))
     if row['kind'] == GS.TRIANGLE and toTable:
       v = np.array([row[f'p{k}'] for k in range(9)]).reshape(3, 3)
-      ident = (np.allclose(p[0:9], np.eye(3).reshape(-1), atol=1e-12)
-               and np.allclose(p[9:12], 0., atol=1e-12))
-      if not ident:
+      if not row['ident']:
         Rm = np.array([row[k] for k in ('r00', 'r01', 'r02', 'r10', 'r11',
                                         'r12', 'r20', 'r21', 'r22')])
         Rm = Rm.reshape(3, 3)
@@ -527,6 +584,12 @@ def _sceneRows(scene, histSpec):
         v = np.stack([Rm.T @ (vk - tv) for vk in v])
       triRows.append(np.concatenate([v[0], v[1] - v[0], v[2] - v[0],
                                      [row['elemF'], row['orient']]]))
+      continue
+    if toSurfTable[s]:
+      row['_rawTrim'] = (float(trims[s, 1]), float(trims[s, 2]))
+      surfEntries.append((row['kind'], row['trim0'], np.array(
+          [row[k] for k in _SURF_TABLE_KEYS], dtype=np.float32),
+          _boundingSphere(row)))
       continue
     if row['kind'] == GS.TRIANGLE:
       v0 = np.array([row['p0'], row['p1'], row['p2']])
@@ -569,7 +632,138 @@ def _sceneRows(scene, histSpec):
         gratDirZ=float(ep[e, EP_GRATDIRZ]),
         gratOrder=float(ep[e, EP_GRATORDER]), nPoly=nPolys.get(e)))
   return (surfRows, elemRows, (seqSpec[0] if seqSpec is not None else 0),
-          masks, triRows)
+          masks, triRows, surfEntries)
+
+
+# the columns of a surface-table row, from a `_sceneRows` row dict
+_SURF_TABLE_KEYS = ('r00', 'r01', 'r02', 'r10', 'r11', 'r12', 'r20', 'r21',
+                    'r22', 't0', 't1', 't2', 'orient', 'elemF', 'p0', 'p1',
+                    'p2', 'p3', 'p4', 'trim1', 'trim2')
+
+
+def _boundingSphere(row):
+  '''Conservative world-frame bounding sphere (centre, radius) of a surface
+  of the surface table, or None where the surface is unbounded (an infinite
+  trim): the JAX package's `_boundingSphere` for the kinds and trims of
+  TABLE_SURF_KINDS.'''
+  kind = row['kind']
+  t1, t2 = row['_rawTrim']        # UNclamped (trim2 may be +inf)
+  c = np.zeros(3)
+  if kind == GS.PLANE:
+    rho = float(np.hypot(t1, t2)) if row['trim0'] == 1. else t2
+  elif kind == GS.SPHERE:
+    rho = row['p0']
+  elif kind == GS.CYLINDER:
+    if not (np.isfinite(t1) and np.isfinite(t2)):
+      return None
+    c[2] = (t1 + t2) / 2.
+    rho = float(np.hypot(row['p0'], (t2 - t1) / 2.))
+  elif kind == GS.CONE:
+    if not (np.isfinite(t1) and np.isfinite(t2)):
+      return None
+    c[2] = (t1 + t2) / 2.
+    rMax = max(abs(row['p0'] + t1 * row['p1']),
+               abs(row['p0'] + t2 * row['p1']))
+    rho = float(np.hypot(rMax, (t2 - t1) / 2.))
+  else:                           # a quadric
+    if not (np.isfinite(t1) and np.isfinite(t2)):
+      return None
+    qa, qb = row['p0'], row['p1']
+    if qa <= 0 or qb <= 0:
+      return None
+    # w(z) = -(p2 z^2 + p3 z + p4) is quadratic: its largest value on
+    # [t1, t2] is at an end or at the vertex
+    zs = [t1, t2]
+    if abs(row['p2']) > 0:
+      zv = -row['p3'] / (2. * row['p2'])
+      if t1 < zv < t2:
+        zs.append(zv)
+    w = [-(row['p2'] * z * z + row['p3'] * z + row['p4']) for z in zs]
+    rMax = float(np.sqrt(max(max(w), 0.) / min(qa, qb)))
+    c[2] = (t1 + t2) / 2.
+    rho = float(np.hypot(rMax, (t2 - t1) / 2.))
+  if not np.isfinite(rho):
+    return None
+  if row['ident']:
+    return c, rho
+  R = np.array([[row['r00'], row['r01'], row['r02']],
+                [row['r10'], row['r11'], row['r12']],
+                [row['r20'], row['r21'], row['r22']]])
+  tv = np.array([row['t0'], row['t1'], row['t2']])
+  # local = R world + t, so the world point of local c is R^T (c - t)
+  return R.T @ (c - tv), rho
+
+
+def _dummySurfRow(kind, trim0):
+  '''A surface-table row that no ray hits (an empty trim window, well-
+  conditioned params): what pads a chunked run's last chunk to _SURF_CHUNK
+  rows. The JAX package's `_dummySurfRow`.'''
+  t1, t2 = (-1., -1.) if trim0 == 1. else (2., 1.)
+  return np.array([1., 0., 0., 0., 1., 0., 0., 0., 1.,   # identity rotation
+                   0., 0., 0., 1., 0.,                    # off, orient, elem
+                   1., 1., 0., 0., 0.,                    # p0..p4
+                   t1, t2], dtype=np.float32)
+
+
+def _chunkSurfRows(entries):
+  '''The surface table of `_sceneRows`' entries (kind, trim0, row, bounding
+  sphere) and its sweep structure, as the JAX package's `_chunkSurfRows`
+  makes them: the entries sorted stably by (kind, trim0) into runs; a run
+  longer than _SURF_CHUNK whose members all have a bounding sphere in Morton
+  order of the centres, cut into chunks of _SURF_CHUNK rows (the last padded
+  with `_dummySurfRow`), each with the world AABB of its members' spheres
+  padded by 1e-5 of its largest coordinate (at least 1e-5); the other runs
+  as they are. Returns (float32 (nRows, SURF_TABLE_COLS) table, plain runs
+  ((kind, trim0, rowStart, rowStop), ...), float32 (nChunks, BOX_COLS)
+  boxes, chunked runs ((kind, trim0, chunkStart, chunkStop, rowStart),
+  ...)).'''
+  entries = sorted(entries, key=lambda e: (e[0], e[1]))
+  grouped = []
+  for ent in entries:
+    if grouped and grouped[-1][0] == ent[0] and grouped[-1][1] == ent[1]:
+      grouped[-1][2].append(ent)
+    else:
+      grouped.append((ent[0], ent[1], [ent]))
+  tableRows, plainRuns, chunkBoxes, chunkRuns = [], [], [], []
+  for kind, trim0, run in grouped:
+    spheres = [e[3] for e in run]
+    if len(run) > _SURF_CHUNK and all(b is not None for b in spheres):
+      cen = np.array([b[0] for b in spheres], np.float64)
+      rho = np.array([b[1] for b in spheres], np.float64)
+      order = _mortonOrder(cen)
+      run = [run[i] for i in order]
+      cen, rho = cen[order], rho[order]
+      rowStart, c0 = len(tableRows), len(chunkBoxes)
+      nCh = -(-len(run) // _SURF_CHUNK)
+      for c in range(nCh):
+        sl = slice(c * _SURF_CHUNK, min((c + 1) * _SURF_CHUNK, len(run)))
+        lo = (cen[sl] - rho[sl, None]).min(0)
+        hi = (cen[sl] + rho[sl, None]).max(0)
+        pad = 1e-5 * max(1., float(np.abs(np.stack([lo, hi])).max()))
+        chunkBoxes.append(np.concatenate([lo - pad, hi + pad]))
+        rows = [e[2] for e in run[sl]]
+        rows += [_dummySurfRow(kind, trim0)] * (_SURF_CHUNK - len(rows))
+        tableRows += rows
+      chunkRuns.append((kind, trim0, c0, c0 + nCh, rowStart))
+    else:
+      rowStart = len(tableRows)
+      tableRows += [e[2] for e in run]
+      plainRuns.append((kind, trim0, rowStart, rowStart + len(run)))
+  table = (np.stack(tableRows).astype(np.float32) if tableRows
+           else np.zeros((0, SURF_TABLE_COLS), np.float32))
+  boxes = (np.stack(chunkBoxes).astype(np.float32) if chunkBoxes
+           else np.zeros((0, BOX_COLS), np.float32))
+  return table, tuple(plainRuns), boxes, tuple(chunkRuns)
+
+
+def surfaceRuns(plainRuns, chunkRuns):
+  '''The runs of a surface table in the kernels' sweep order and form
+  (plain runs, then chunked runs; MAX_SURF_RUNS rows of RUN_COLS ints: kind,
+  trim0, first, last, rowStart, chunked).'''
+  runs = [(k, int(t0), a, b, a, 0) for k, t0, a, b in plainRuns]
+  runs += [(k, int(t0), c0, c1, r0, 1) for k, t0, c0, c1, r0 in chunkRuns]
+  assert len(runs) <= MAX_SURF_RUNS
+  return runs
 
 
 def _mortonOrder(cen):
@@ -727,12 +921,16 @@ def _primRow(hole):
 def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   '''The kernel's table of one compiled scene as host numpy, and its static
   facts: (float32 (tableLen,) array, dict(nSurf, nElem, nTri, nTriChunks,
-  triTable, triBoxes, samplerOff, bins, nDet, anyMedium, hasGrating,
+  triTable, triBoxes, nSurfTable, nSurfChunks, surfTable, surfBoxes,
+  surfPlainRuns, surfChunkRuns, samplerOff, bins, nDet, anyMedium, hasGrating,
   nStages, gate, dispOff, geom, surfRows, elemRows, samplerSpec, scatter,
   scatterConsts, scatterRows, lobeRows, modRows)).
   `triTable` / `triBoxes` are the float32 triangle table and its chunk
-  boxes (`_chunkTriangles`) of a mesh past TABLE_TRIANGLES, else None; they
-  are not part of `table`.
+  boxes (`_chunkTriangles`) of a mesh past TABLE_TRIANGLES, else None;
+  `surfTable` / `surfBoxes` the float32 surface table and its chunk boxes,
+  `surfPlainRuns` / `surfChunkRuns` its runs (`_chunkSurfRows`) of a scene
+  past MAX_SURFACES analytic surfaces, else None and (); none of them is
+  part of `table`, and `nSurf` counts the surface rows only.
   `gate` says some surface is not always allowed (a masked surface, or
   sequential mode), `dispOff` where the dispersion block starts (-1: no
   dispersive element); these and hasGrating / nStages are the kernel's
@@ -749,11 +947,16 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
   if reason is not None:
     raise ValueError(f'scene is not eligible for the CUDA trace kernel: '
                      f'{reason}')
-  surfRows, elemRows, nStages, masks, triRows = _sceneRows(scene, histSpec)
+  surfRows, elemRows, nStages, masks, triRows, surfEntries = _sceneRows(
+      scene, histSpec)
   S, E = len(surfRows), len(elemRows)
   triTable = triBoxes = None
   if triRows:
     triTable, triBoxes = _chunkTriangles(np.asarray(triRows, np.float32))
+  surfTable = surfBoxes = None
+  plainRuns = chunkRuns = ()
+  if surfEntries:
+    surfTable, plainRuns, surfBoxes, chunkRuns = _chunkSurfRows(surfEntries)
   geom = needsGeom(scene)
   rowCols = SURF_COLS + (GEOM_COLS if geom else 0)
   surfT = np.zeros((S, rowCols), np.float64)
@@ -860,6 +1063,10 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
       nSurf=S, nElem=E, nTri=len(triRows),
       nTriChunks=0 if triBoxes is None else len(triBoxes),
       triTable=triTable, triBoxes=triBoxes,
+      nSurfTable=0 if surfTable is None else len(surfTable),
+      nSurfChunks=0 if surfBoxes is None else len(surfBoxes),
+      surfTable=surfTable, surfBoxes=surfBoxes, surfPlainRuns=plainRuns,
+      surfChunkRuns=chunkRuns,
       samplerOff=samplerOff, bins=(int(H), int(W)),
       nDet=int(_hostArray(histSpec['bounds']).shape[0]),
       anyMedium=bool(elemT[:, 10].any()),
@@ -909,22 +1116,28 @@ def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
   '''Pack a compiled scene (+ optionally a point- or surface-source
   sampler spec) into the kernel's tables. Returns a dict with the float32
   `table` tensor on `device` (surface rows, element rows, sampler block),
-  the `triTable` and `triBoxes` tensors of a mesh past TABLE_TRIANGLES (or
-  None), the host rows, and the static facts the step needs (bins,
-  detector count, anyMedium, samplerKind).
+  the `triTable` and `triBoxes` tensors of a mesh past TABLE_TRIANGLES and
+  the `surfTable` and `surfBoxes` tensors of a scene past MAX_SURFACES
+  analytic surfaces (or None), the host rows, and the static facts the
+  step needs (bins, detector count, anyMedium, samplerKind).
   Raises ValueError for scenes the kernel does not cover.'''
   dev = resolveDevice(device)
   table, facts = _packTable(scene, histSpec, samplerSpec)
   return dict(facts, table=torch.as_tensor(table, device=dev),
-              **_triTensors(facts, dev))
+              **_globalTensors(facts, dev))
 
 
-def _triTensors(facts, dev):
-  '''The triangle table and chunk boxes of packed `facts` as float32
-  tensors on `dev` (None where the scene has no triangle table).'''
+# the tables the kernels read from device memory, beside the shared-memory
+# table
+_GLOBAL_TABLES = ('triTable', 'triBoxes', 'surfTable', 'surfBoxes')
+
+
+def _globalTensors(facts, dev):
+  '''The triangle table, the surface table and their chunk boxes of packed
+  `facts` as float32 tensors on `dev` (None where the scene has none).'''
   return {k: None if facts[k] is None
           else torch.as_tensor(np.ascontiguousarray(facts[k]), device=dev)
-          for k in ('triTable', 'triBoxes')}
+          for k in _GLOBAL_TABLES}
 
 
 def samplerSpecWithGeom(samplerSpec, geomRow):
@@ -950,14 +1163,16 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   ray columns. Returns (float32 (V, tableLen) numpy array, facts) with the
   facts of `_packTable` for the sweep as a whole (a mesh's `triTable` and
   `triBoxes` stacked per variant, (V, nTri, TRI_COLS) and (V, nTriChunks,
-  BOX_COLS)) plus `nVariants`,
+  BOX_COLS), a surface table's `surfTable` and `surfBoxes` likewise, (V,
+  nSurfTable, SURF_TABLE_COLS) and (V, nSurfChunks, BOX_COLS)) plus
+  `nVariants`,
   `tableLen`, `sameSource` (no variant moves or recolours the source) and
   the per-variant `surfRows` / `elemRows` lists.
 
   Raises SweepUnavailable unless the variants have the same STRUCTURE: the
-  same numbers of surfaces and elements, per surface the same kind, trim
-  mode and element, per element the same optical type, recording flag and
-  detector, and dispersion in all variants or in none. Everything else is
+  same numbers of surfaces and elements, per surface row the same kind,
+  trim mode and element, the same runs of the surface table, per element
+  the same optical type, recording flag and detector, and dispersion in all variants or in none. Everything else is
   data and may differ: each variant's element rows, grating constants,
   n(lambda) polynomials and surface masks are its own. Scatter constants
   must be equal in every variant: they are not swept (the reference's
@@ -996,6 +1211,9 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       raise SweepUnavailable(f'element counts differ (variant {v})')
     if f['nTri'] != f0['nTri']:
       raise SweepUnavailable(f'triangle-table sizes differ (variant {v})')
+    if any(f[k] != f0[k] for k in ('nSurfTable', 'surfPlainRuns',
+                                   'surfChunkRuns')):
+      raise SweepUnavailable(f'surface-table runs differ (variant {v})')
     if f['scatterConsts'] != f0['scatterConsts']:
       raise SweepUnavailable(f'scatter constants differ (variant {v})')
     if f['samplerOff'] != f0['samplerOff'] or f['dispOff'] != f0['dispOff']:
@@ -1015,14 +1233,16 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
                                f'or detector differs (variant {v})')
   stacked = np.stack(tables)
   tri = {k: None if f0[k] is None else np.stack([f[k] for f in facts])
-         for k in ('triTable', 'triBoxes')}
+         for k in _GLOBAL_TABLES}
   off = f0['samplerOff']
   geom = stacked[:, off:off + _SAMPLER_GEOM]
   sameSource = off < 0 or bool((geom == geom[0]).all())
   return stacked, dict(
       nVariants=V, sameSource=sameSource, tableLen=int(stacked.shape[1]),
       nSurf=f0['nSurf'], nElem=f0['nElem'], nTri=f0['nTri'],
-      nTriChunks=f0['nTriChunks'], **tri, samplerOff=f0['samplerOff'],
+      nTriChunks=f0['nTriChunks'], nSurfTable=f0['nSurfTable'],
+      nSurfChunks=f0['nSurfChunks'], surfPlainRuns=f0['surfPlainRuns'],
+      surfChunkRuns=f0['surfChunkRuns'], **tri, samplerOff=f0['samplerOff'],
       bins=f0['bins'], nDet=f0['nDet'],
       anyMedium=any(f['anyMedium'] for f in facts),
       hasGrating=f0['hasGrating'], nStages=0,
@@ -1041,7 +1261,7 @@ def buildSweepTables(scenes, histSpec, samplerSpecs, device='cuda'):
   dev = resolveDevice(device)
   stacked, facts = packSweepTables(scenes, histSpec, samplerSpecs)
   return dict(facts, table=torch.as_tensor(stacked, device=dev),
-              **_triTensors(facts, dev))
+              **_globalTensors(facts, dev))
 
 
 def variantTables(sweepTables, v):
@@ -1052,7 +1272,7 @@ def variantTables(sweepTables, v):
               surfRows=sweepTables['surfRows'][v],
               elemRows=sweepTables['elemRows'][v],
               **{k: None if sweepTables[k] is None else sweepTables[k][v]
-                 for k in ('triTable', 'triBoxes')})
+                 for k in _GLOBAL_TABLES})
 
 
 # --------------------------------------------------------- plain PyTorch path
@@ -1586,7 +1806,8 @@ def _scatterPlain(consts, rows, lobeRows, elem, isMirror, isLens,
 
 def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
                      distTol, powerTol, hitSlots, output,
-                     scatterUniforms=None, triangleStats=None):
+                     scatterUniforms=None, triangleStats=None,
+                     surfaceStats=None):
   '''The kernels' bounce loop as column-wise tensor ops, step by step in the
   kernels' operation order: nearest hit over the surfaces the ray's stage
   allows, with the other-medium tracker and same-medium window, winner
@@ -1606,9 +1827,10 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   (without it every ray has the sampler's wavelength). A scene with
   scatter needs `scatterUniforms`: float32 (scatterRows * maxIntersections,
   N), bounce-major (the rows after the sampler's in `uniformRows`). A
-  mesh's triangle table is swept after the surface rows; `triangleStats`, a
-  dict, is added the work the kernels' cull leaves to that sweep
-  (`_TriangleTablePlain.sweep`).
+  mesh's triangle table is swept after the surface rows, a surface table
+  after that; `triangleStats` and `surfaceStats`, dicts, are added the work
+  the kernels' cull leaves to those sweeps (`_TriangleTablePlain.sweep`,
+  `_SurfaceTablePlain.sweep`).
 
   Returns (ring, segments, hitN): ring a list of (hitSlots, N) tensors, one
   per slot field, the first -1 and the others 0 where a slot was never
@@ -1634,9 +1856,11 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   surfD = torch.as_tensor(surfT if S else np.zeros((1, rowCols), np.float32),
                           device=dev)
   elemD = torch.as_tensor(elemT, device=dev)
-  tri = None
+  tri = surfTab = None
   if tables.get('nTri', 0):
     tri = _TriangleTablePlain(tables['triTable'], tables['triBoxes'], dev)
+  if tables.get('nSurfTable', 0):
+    surfTab = _SurfaceTablePlain(tables, dev)
   H, W = tables['bins']
   anyMedium = tables['anyMedium']
   hasGrating, dispOff = tables['hasGrating'], tables['dispOff']
@@ -1719,6 +1943,21 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
         bO = tO < tOth
         sOth = torch.where(bO, -2, sOth)
         tOth = torch.where(bO, tO, tOth)
+    if surfTab is not None:
+      # B8: the surface table after the triangle table; its winner replaces
+      # the winner so far only when strictly nearer (index -3), and enters
+      # the other-medium tracker only as that one winner, when the medium
+      # is not ITS element
+      tS, nS, elS, lS = surfTab.sweep(ox, oy, oz, dx, dy, dz, tMin, mrlEff,
+                                      tBest, window, alive, surfaceStats)
+      b = tS < tBest
+      sBest = torch.where(b, -3, sBest)
+      tBest = torch.where(b, tS, tBest)
+      if anyMedium:
+        tO = torch.where(medium != elS, tS, big)
+        bO = tO < tOth
+        sOth = torch.where(bO, -3, sOth)
+        tOth = torch.where(bO, tO, tOth)
     hasHit = tBest <= mrlEff
     if not anyMedium:
       tOth, sOth = tBest, sBest
@@ -1762,6 +2001,16 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
       lx = torch.where(isTri, px, lx)
       ly = torch.where(isTri, py, ly)
       elem = torch.where(isTri, elT, elem)
+    if surfTab is not None:
+      # a surface-table winner: its tracked normal, element and local
+      # (x, y) chart
+      isTab = sRaw == -3
+      nxA = torch.where(isTab, nS[0], nxA)
+      nyA = torch.where(isTab, nS[1], nyA)
+      nzA = torch.where(isTab, nS[2], nzA)
+      lx = torch.where(isTab, lS[0], lx)
+      ly = torch.where(isTab, lS[1], ly)
+      elem = torch.where(isTab, elS, elem)
     er = elemD[elem]
 
     cosA = dx * nxA + dy * nyA + dz * nzA
@@ -1984,25 +2233,213 @@ class _TriangleTablePlain:
     if self.boxes is None:
       stats['triangles'] += nAlive * nTri
     else:
-      inv = [torch.where(x < 0, -1., 1.) / torch.clamp(torch.abs(x), min=1e-30)
-             for x in (dx, dy, dz)]
-      chunks = triangles = torch.zeros((), dtype=torch.int64, device=ox.device)
-      for c in range(self.boxes.shape[0]):
-        b = self.boxes[c]
-        t1 = [(b[k] - x) * iv for k, x, iv in zip(range(3), (ox, oy, oz), inv)]
-        t2 = [(b[3 + k] - x) * iv
-              for k, x, iv in zip(range(3), (ox, oy, oz), inv)]
-        tN = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]),
-                                         torch.minimum(t1[1], t2[1])),
-                           torch.clamp(torch.minimum(t1[2], t2[2]), min=0.))
-        tF = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]),
-                                         torch.maximum(t1[1], t2[1])),
-                           torch.minimum(torch.maximum(t1[2], t2[2]), tCap))
-        n = ((tN <= tF) & alive).sum()
-        chunks = chunks + n
-        triangles = triangles + n * min(_TRI_CHUNK, nTri - c * _TRI_CHUNK)
-      stats['chunks'] += int(chunks)
-      stats['triangles'] += int(triangles)
+      enters = _slabEnters(self.boxes, ox, oy, oz, dx, dy, dz, tCap, alive)
+      sizes = [min(_TRI_CHUNK, nTri - c * _TRI_CHUNK)
+               for c in range(len(enters))]
+      stats['chunks'] += int(enters.sum())
+      stats['triangles'] += int((enters.cpu() * torch.tensor(sizes)).sum())
+
+
+def _tableIntersectPlain(kind, trim0, r, ox, oy, oz, dx, dy, dz, tMin):
+  '''Distances of the rays (columns (N, 1)) to surface-table rows `r`
+  ((1, n) per column) of one run's kind and trim: the kernels'
+  `tableIntersect`, the JAX package's `_intersectConst(localCoords=...)` on
+  float32 row values, so a square of a row value is formed in float32.
+  Returns (t (N, n), lox, loy, loz, ldx, ldy, ldz).'''
+  r00, r01, r02, r10, r11, r12, r20, r21, r22 = (r[k] for k in range(9))
+  lox = r00 * ox + r01 * oy + r02 * oz + r[9]
+  loy = r10 * ox + r11 * oy + r12 * oz + r[10]
+  loz = r20 * ox + r21 * oy + r22 * oz + r[11]
+  ldx = r00 * dx + r01 * dy + r02 * dz
+  ldy = r10 * dx + r11 * dy + r12 * dz
+  ldz = r20 * dx + r21 * dy + r22 * dz
+  p0, p1, p2, p3, p4, tA, tB = (r[k] for k in range(14, 21))
+  local = (lox, loy, loz, ldx, ldy, ldz)
+  if kind == GS.PLANE:
+    dzS = torch.where(torch.abs(ldz) < 1e-12, _full(ldz, 1e-12), ldz)
+    t = -loz / dzS
+    x, y = lox + t * ldx, loy + t * ldy
+    if trim0 == 1.:
+      ok = (torch.abs(x) <= tA) & (torch.abs(y) <= tB)
+    else:
+      r2 = x * x + y * y
+      ok = (r2 >= tA * tA) & (r2 <= tB * tB)
+    return (torch.where((t > tMin) & ok, t, _full(t, _BIG)),) + local
+  wd = None
+  if kind == GS.SPHERE:
+    a = ldx * ldx + ldy * ldy + ldz * ldz
+    b = 2. * (lox * ldx + loy * ldy + loz * ldz)
+    c = lox * lox + loy * loy + loz * loz - p0 * p0
+  elif kind == GS.CYLINDER:
+    a = ldx * ldx + ldy * ldy
+    b = 2. * (lox * ldx + loy * ldy)
+    c = lox * lox + loy * loy - p0 * p0
+  elif kind == GS.CONE:
+    w0 = p0 + loz * p1
+    wd = ldz * p1
+    a = ldx * ldx + ldy * ldy - wd * wd
+    b = 2. * (lox * ldx + loy * ldy - w0 * wd)
+    c = lox * lox + loy * loy - w0 * w0
+  else:
+    a = p0 * ldx * ldx + p1 * ldy * ldy + p2 * ldz * ldz
+    b = 2. * (p0 * lox * ldx + p1 * loy * ldy + p2 * loz * ldz) + p3 * ldz
+    c = p0 * lox * lox + p1 * loy * loy + p2 * loz * loz + p3 * loz + p4
+  okD, t1, t2 = _quadraticPlain(a, b, c)
+  if kind == GS.QUADRIC:
+    # the linear case: a ~ 0 with b != 0 has the single root -c / b
+    linT = -c / torch.where(torch.abs(b) < 1e-20, _full(b, 1e-20), b)
+    isLin = (torch.abs(a) < 1e-14 * (torch.abs(b) + 1e-20)) \
+        & (torch.abs(b) > 1e-20)
+    t1 = torch.where(isLin, linT, t1)
+    t2 = torch.where(isLin, _full(t2, _BIG), t2)
+    okD = okD | isLin
+  lo, hi = torch.fmin(t1, t2), torch.fmax(t1, t2)
+  out = []
+  for t in (lo, hi):
+    z = loz + t * ldz
+    ok = okD & (t > tMin) & (z >= tA) & (z <= tB)
+    if wd is not None:
+      ok = ok & (w0 + t * wd >= 0)
+    out.append(torch.where(ok, t, _full(t, _BIG)))
+  return (torch.fmin(out[0], out[1]),) + local
+
+
+def _tableNormalPlain(kind, r, lx, ly, lz):
+  '''The canonical local normal of a surface-table row's kind at local
+  point l (`_normalConst` on float32 row values); `r` its (N,) columns.'''
+  zero = torch.zeros_like(lx)
+  if kind == GS.PLANE:
+    return zero, zero, torch.ones_like(lx)
+  if kind == GS.SPHERE:
+    inv = torch.rsqrt(lx * lx + ly * ly + lz * lz + 1e-20)
+    return lx * inv, ly * inv, lz * inv
+  if kind == GS.CYLINDER:
+    inv = torch.rsqrt(lx * lx + ly * ly + 1e-20)
+    return lx * inv, ly * inv, zero
+  if kind == GS.QUADRIC:
+    n0, n1 = 2. * r[14] * lx, 2. * r[15] * ly
+    n2 = 2. * r[16] * lz + r[17]
+  else:                                 # a cone
+    rr = torch.sqrt(lx * lx + ly * ly)
+    rS = torch.where(rr < 1e-12, _full(rr, 1e-12), rr)
+    n0, n1, n2 = lx / rS, ly / rS, -r[15]
+  inv = torch.rsqrt(n0 * n0 + n1 * n1 + n2 * n2 + 1e-20)
+  return n0 * inv, n1 * inv, n2 * inv
+
+
+class _SurfaceTablePlain:
+  '''The surface table (B8) of the plain version: the table's rows and
+  chunk boxes on the device, and the sweep.'''
+
+  def __init__(self, tables, dev):
+    self.rows = torch.as_tensor(tables['surfTable'], device=dev).reshape(
+        -1, SURF_TABLE_COLS)
+    self.boxes = None
+    if tables['nSurfChunks']:
+      self.boxes = torch.as_tensor(tables['surfBoxes'], device=dev).reshape(
+          -1, BOX_COLS)
+    # blocks in the kernels' sweep order, (kind, trim0, first row, rows,
+    # chunk or None): the plain runs by _SURF_CHUNK rows, then each chunk
+    self.plain = [(k, t0, a, min(_SURF_CHUNK, b - a), None)
+                  for k, t0, a0, b in tables['surfPlainRuns']
+                  for a in range(a0, b, _SURF_CHUNK)]
+    self.chunked = [(k, t0, r0 + (c - c0) * _SURF_CHUNK, _SURF_CHUNK, c)
+                    for k, t0, c0, c1, r0 in tables['surfChunkRuns']
+                    for c in range(c0, c1)]
+
+  def sweep(self, ox, oy, oz, dx, dy, dz, tMin, mrlEff, tBest, window,
+            alive, stats=None):
+    '''(tS, (nx, ny, nz), elS, (lx, ly)) of the table's winner for every
+    ray: the nearest row at most `mrlEff` away, its oriented world normal,
+    element (-1 where none) and local (x, y) chart, each block of rows
+    swept as (rays x rows) tensors in the kernels' order and operation
+    order; the first row wins a tie inside a block (`torch.min`), a strict
+    `<` across blocks, as the kernels' row by row sweep. No cull (it
+    changes no winner that could win the bounce): with a `stats` dict the
+    chunk boxes only count what the kernels' cull leaves to sweep (what
+    their bound is computed from): to `rayBounces` the live rays, to
+    `chunks` the boxes each one's segment, capped at min(tBest, the plain
+    runs' winner, mrlEff) + window, enters, to `rows` (a dict by kind) the
+    rows of the plain runs and of those chunks.'''
+    big = torch.full_like(ox, _BIG)
+    zero = torch.zeros_like(ox)
+    tS, nx, ny, nz, lx, ly = big, zero, zero, zero, zero, zero
+    el = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+    o = [x[:, None] for x in (ox, oy, oz)]
+    d = [x[:, None] for x in (dx, dy, dz)]
+    tPlain = big
+    for i, (kind, trim0, a, n, _c) in enumerate(self.plain + self.chunked):
+      if i == len(self.plain):
+        tPlain = tS
+      r = self.rows[a:a + n]
+      t = _tableIntersectPlain(kind, trim0, [r[None, :, k] for k in
+                                             range(SURF_TABLE_COLS)],
+                               *o, *d, tMin)[0]
+      t = torch.where(t <= mrlEff, t, _full(t, _BIG))
+      tBlock, k = torch.min(t, dim=1)
+      better = tBlock < tS
+      # the winner's attributes, from its row, in the kernels' order
+      rk = [x for x in self.rows[a + k].T]
+      _t, lox, loy, loz, ldx, ldy, ldz = _tableIntersectPlain(
+          kind, trim0, rk, ox, oy, oz, dx, dy, dz, tMin)
+      lxH, lyH, lzH = lox + tBlock * ldx, loy + tBlock * ldy, \
+          loz + tBlock * ldz
+      nlx, nly, nlz = _tableNormalPlain(kind, rk, lxH, lyH, lzH)
+      orn = rk[12]
+      tS = torch.where(better, tBlock, tS)
+      nx = torch.where(better, (rk[0] * nlx + rk[3] * nly + rk[6] * nlz)
+                       * orn, nx)
+      ny = torch.where(better, (rk[1] * nlx + rk[4] * nly + rk[7] * nlz)
+                       * orn, ny)
+      nz = torch.where(better, (rk[2] * nlx + rk[5] * nly + rk[8] * nlz)
+                       * orn, nz)
+      el = torch.where(better, rk[13].to(torch.int64), el)
+      lx = torch.where(better, lxH, lx)
+      ly = torch.where(better, lyH, ly)
+    if not self.chunked:
+      tPlain = tS
+    if stats is not None:
+      tCap = torch.clamp(torch.minimum(tBest, tPlain), max=mrlEff) + window
+      self._count(stats, ox, oy, oz, dx, dy, dz, tCap, alive)
+    return tS, (nx, ny, nz), el, (lx, ly)
+
+  def _count(self, stats, ox, oy, oz, dx, dy, dz, tCap, alive):
+    nAlive = int(alive.sum())
+    for k in ('rayBounces', 'chunks'):
+      stats.setdefault(k, 0)
+    rows = stats.setdefault('rows', {})
+    stats['rayBounces'] += nAlive
+    for kind, _t0, _a, n, _c in self.plain:
+      rows[kind] = rows.get(kind, 0) + nAlive * n
+    if self.boxes is None:
+      return
+    enters = _slabEnters(self.boxes, ox, oy, oz, dx, dy, dz, tCap,
+                         alive).tolist()
+    stats['chunks'] += sum(enters)
+    for kind, _t0, _a, n, c in self.chunked:
+      rows[kind] = rows.get(kind, 0) + enters[c] * n
+
+
+def _slabEnters(boxes, ox, oy, oz, dx, dy, dz, tCap, alive):
+  '''Per chunk box, how many of the live rays the kernels' slab test lets
+  in (the ray's segment, capped at `tCap`, enters the box): an int64
+  (nBoxes,) tensor.'''
+  inv = [torch.where(x < 0, -1., 1.) / torch.clamp(torch.abs(x), min=1e-30)
+         for x in (dx, dy, dz)]
+  counts = []
+  for c in range(boxes.shape[0]):
+    b = boxes[c]
+    t1 = [(b[k] - x) * iv for k, x, iv in zip(range(3), (ox, oy, oz), inv)]
+    t2 = [(b[3 + k] - x) * iv
+          for k, x, iv in zip(range(3), (ox, oy, oz), inv)]
+    tN = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]),
+                                     torch.minimum(t1[1], t2[1])),
+                       torch.clamp(torch.minimum(t1[2], t2[2]), min=0.))
+    tF = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]),
+                                     torch.maximum(t1[1], t2[1])),
+                       torch.minimum(torch.maximum(t1[2], t2[2]), tCap))
+    counts.append(((tN <= tF) & alive).sum())
+  return torch.stack(counts)
 
 
 def _geomNormalPlain(row, kind, lx, ly, lz, nlx, nly, nlz):
@@ -2065,15 +2502,16 @@ def _ringCounters(key, segs, hitN, hitSlots):
 
 def traceHistogramPlain(tables, histograms, columns, maxIntersections,
                         maxRayLength, distTol, powerTol, hitSlots,
-                        scatterUniforms=None, triangleStats=None):
+                        scatterUniforms=None, triangleStats=None,
+                        surfaceStats=None):
   '''Plain version of the histogram kernel: `_bounceLoopPlain` + float32
   `index_add_` binning into a fresh zero delta, which is then added into
   `histograms` IN PLACE. Returns an int64 (3,) tensor (segments, hits,
-  hitOverflow). `scatterUniforms`, `triangleStats`: see
+  hitOverflow). `scatterUniforms`, `triangleStats`, `surfaceStats`: see
   `_bounceLoopPlain`.'''
   (ringBin, ringW), segs, hitN = _bounceLoopPlain(
       tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
-      hitSlots, 'hist', scatterUniforms, triangleStats)
+      hitSlots, 'hist', scatterUniforms, triangleStats, surfaceStats)
   delta = torch.zeros((2, histograms['power'].numel()), dtype=torch.float32,
                       device=ringW.device)
   for k in range(hitSlots):
@@ -2178,9 +2616,9 @@ def _kernelFunction(name, tri):
     stem, symbol = stem + '_tri', symbol + 'Tri'
   fn = getattr(libs[stem], symbol)
   if fn.argtypes is None:
-    # table, triangle table, chunk boxes, rayIn, the outputs, counters |
-    # ip, fp | stream
-    fn.argtypes = [ctypes.c_void_p] * (5 + nOut) + [
+    # table, triangle table and its boxes, surface table and its boxes,
+    # rayIn, the outputs, counters | ip, fp | stream
+    fn.argtypes = [ctypes.c_void_p] * (7 + nOut) + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -2454,24 +2892,32 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   before anything is built.'''
   table = tables['table']
   dev = table.device
-  tri, boxes = tables.get('triTable'), tables.get('triBoxes')
-  for t in (table, tri, boxes, rayIn) + tuple(outs):
+  glob = {k: tables.get(k) for k in _GLOBAL_TABLES}
+  for t in (table, rayIn, *glob.values()) + tuple(outs):
     if t is not None and t.device.type != 'cuda':
       raise ValueError(f'the CUDA kernel takes CUDA tensors only, got a '
                        f'tensor on {t.device}')
   nTri, nChunks = tables.get('nTri', 0), tables.get('nTriChunks', 0)
-  if nTri:
-    _checkTensor('triTable', tri, dev,
-                 tuple(table.shape[:-1]) + (nTri, TRI_COLS))
-    _checkTensor('triBoxes', boxes, dev,
-                 tuple(table.shape[:-1]) + (nChunks, BOX_COLS))
-  fn = _kernelFunction(name, nTri > 0)
+  nSurfT, nSurfChunks = (tables.get('nSurfTable', 0),
+                         tables.get('nSurfChunks', 0))
+  lead = tuple(table.shape[:-1])
+  for key, n, cols in (('triTable', nTri, TRI_COLS),
+                       ('triBoxes', nChunks if nTri else 0, BOX_COLS),
+                       ('surfTable', nSurfT, SURF_TABLE_COLS),
+                       ('surfBoxes', nSurfChunks, BOX_COLS)):
+    if n:
+      _checkTensor(key, glob[key], dev, lead + (n, cols))
+  runs = surfaceRuns(tables.get('surfPlainRuns', ()),
+                     tables.get('surfChunkRuns', ())) if nSurfT else []
+  fn = _kernelFunction(name, nTri > 0 or nSurfT > 0)
   variants, histLen = sweep if sweep is not None else (1, 0)
   counters = torch.zeros((3,) if sweep is None else (variants, 3),
                          dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
-  ip = (ctypes.c_longlong * 26)(
+  runWords = [x for run in runs for x in run]
+  runWords += [0] * (MAX_SURF_RUNS * RUN_COLS - len(runWords))
+  ip = (ctypes.c_longlong * (29 + MAX_SURF_RUNS * RUN_COLS))(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
@@ -2479,15 +2925,18 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
       histLen, int(tables['hasGrating']), int(tables['nStages']),
       int(tables['gate']), int(tables['dispOff']),
       int(tables['samplerKind']), int(tables.get('scatter', False)),
-      int(tables.get('geom', False)), nTri, nChunks)
+      int(tables.get('geom', False)), nTri, nChunks, nSurfT, nSurfChunks,
+      len(runs), *runWords)
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
       1.0 / max(G1, 1), 1.0 / G2)
+  ptr = lambda key, n: glob[key].data_ptr() if n else None
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(table.data_ptr(), tri.data_ptr() if nTri else None,
-             boxes.data_ptr() if nChunks else None,
+    err = fn(table.data_ptr(), ptr('triTable', nTri),
+             ptr('triBoxes', nTri and nChunks), ptr('surfTable', nSurfT),
+             ptr('surfBoxes', nSurfChunks),
              rayIn.data_ptr() if rayIn is not None else None,
              *(t.data_ptr() for t in outs), counters.data_ptr(), ip, fp,
              stream)
@@ -2654,9 +3103,10 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
   Returns (step, packTables):
     packTables(hostScenesNow, geomRows=None) -> float32 (V, tableLen) numpy
         table for the CURRENT variant values (structure checked again); a
-        mesh's stacked triangle table and chunk boxes of these values go to
-        `step.facts` (`triTable`, `triBoxes`, on the device), which the
-        next `step` call traces;
+        mesh's stacked triangle table, a surface table and their chunk
+        boxes of these values go to `step.facts` (`triTable`, `triBoxes`,
+        `surfTable`, `surfBoxes`, on the device), which the next `step`
+        call traces;
     step(seed, table) -> (power (V, D, H, W), counts (V, D, H, W),
         segments): ONE launch on fresh histograms. The two histograms are
         views of `step.histograms`, a (2, V, D, H, W) tensor, so a caller
@@ -2701,7 +3151,7 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
     if any(facts[k] != step.facts[k] for k in _SWEEP_STRUCTURE):
       raise SweepUnavailable('scene structure differs from the variants the '
                              'step was made for')
-    step.facts.update(_triTensors(facts, dev))
+    step.facts.update(_globalTensors(facts, dev))
     return table
 
   def step(seed, table):
@@ -2718,7 +3168,7 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
 
   _table0, step.facts = packSweepTables(
       [h for h, _info in hostScenes], histSpec, [samplerSpec] * V)
-  step.facts.update(_triTensors(step.facts, dev))
+  step.facts.update(_globalTensors(step.facts, dev))
   step.facts['sameSource'] = not geomMode
   step.histSpec = histSpec
   step.histShape = (step.facts['nDet'],) + step.facts['bins']
@@ -2730,7 +3180,8 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
 
 # the facts of `packSweepTables` that a step is made for
 _SWEEP_STRUCTURE = ('nVariants', 'tableLen', 'nSurf', 'nElem', 'nTri',
-                    'nTriChunks', 'samplerOff',
+                    'nTriChunks', 'nSurfTable', 'nSurfChunks',
+                    'surfPlainRuns', 'surfChunkRuns', 'samplerOff',
                     'bins', 'nDet', 'anyMedium', 'hasGrating', 'gate',
                     'dispOff', 'geom', 'scatterConsts')
 

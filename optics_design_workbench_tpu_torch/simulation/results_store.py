@@ -160,6 +160,7 @@ class SimulationResults:
         + dumpProgressEverySeconds * random.random()
     self._masterProgressDumpIdx = 0
     self._lastMasterDump = 0.0
+    self._lastStamp = 0
     self.t0 = time.time()
 
     self.endAfterIterations = endAfterIterations
@@ -209,7 +210,10 @@ class SimulationResults:
       raise RuntimeError('this storage was already cleaned up')
 
   def _fingerprint(self):
-    return (f'{int(time.time()*1e3)}-pid{os.getpid()}'
+    # the millisecond stamp goes up on every call, so two flushes within one
+    # millisecond write two files instead of the second overwriting the first
+    self._lastStamp = max(int(time.time() * 1e3), self._lastStamp + 1)
+    return (f'{self._lastStamp}-pid{os.getpid()}'
             f'-thread{threading.get_ident()}')
 
   # ----------------------------------------------------------------- adding
@@ -424,8 +428,8 @@ class SimulationResults:
                        [str(l) for l in histMeta['detLabels']]))
     ownKey = f'pid{os.getpid()}-thread{threading.get_ident()}'
     path = os.path.join(folder, f'{self._fingerprint()}-histograms.npz')
-    # a snapshot written in the same millisecond as the one before has the
-    # same name: it replaces that file, and must not be deleted with it
+    # (should a snapshot get the name of the one before, it replaces that
+    # file and must not be deleted with it)
     old = [f for f in glob.glob(os.path.join(folder, '*-histograms.npz'))
            if _histogramWorkerKey(os.path.basename(f)) == ownKey
            and f != path]

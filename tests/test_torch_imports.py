@@ -162,9 +162,13 @@ def test_table_capacities_are_enforced(setup):
   with pytest.raises(ValueError, match='segments'):
     cuda_trace.buildTraceTables(dummy, histSpec, samplerSpec=spec,
                                 device='cpu')
+  # more than 256 surfaces that stay surface rows (hole-primitive trims;
+  # plain discs would ride the surface table)
+  n = cuda_trace.MAX_SURFACES + 1
+  trim = np.zeros((n, 6), np.float32)
+  trim[:, 0] = 3.
   many = dict(dummy, surfaces=dict(
-      packed=np.zeros((cuda_trace.MAX_SURFACES + 1, 24), np.float32),
-      trim=np.zeros((cuda_trace.MAX_SURFACES + 1, 6), np.float32),
-      kind=np.zeros(cuda_trace.MAX_SURFACES + 1, np.int32)))
+      packed=np.zeros((n, 24), np.float32), trim=trim,
+      kind=np.zeros(n, np.int32), trimPrims=np.zeros((n, 4, 7), np.float32)))
   with pytest.raises(ValueError, match='surfaces'):
     cuda_trace.buildTraceTables(many, histSpec, device='cpu')

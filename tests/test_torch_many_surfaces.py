@@ -1,7 +1,8 @@
-'''ROADMAP C.2, the part that is lifted: more than 64 surfaces and 16
-elements in one scene, held against the JAX package on the same ray
-columns; the caps that remain (256 surfaces, a table that fits a block's
-shared memory) refuse by name.'''
+'''ROADMAP C.2: more than 64 surfaces and 16 elements in one scene, held
+against the JAX package on the same ray columns; 257 plain discs are
+eligible (the surface table), and the caps that remain (256 surfaces that
+stay surface rows, stage gates and source masks past 256 analytic surfaces,
+a table that fits a block's shared memory) refuse by name.'''
 
 import numpy as np
 import pytest
@@ -55,11 +56,25 @@ def test_remaining_caps_refuse_by_name():
                          optType=np.full(E, 3, np.int32),
                          recordHits=np.zeros(E, bool))
   S = cuda_trace.MAX_SURFACES + 1
-  many = dict(surfaces=dict(packed=np.zeros((S, 24), np.float32),
-                            trim=np.zeros((S, 6), np.float32),
-                            kind=np.zeros(S, np.int32)),
-              elements=elems(1))
-  assert 'B8' in cuda_trace.ineligibleReason(many)
+  planes = lambda trim0: dict(
+      packed=np.zeros((S, 24), np.float32),
+      trim=np.tile(np.float32([trim0, 0., 1., 0., 0., 0.]), (S, 1)),
+      kind=np.zeros(S, np.int32), trimPrims=np.zeros((S, 4, 7), np.float32))
+  # 257 plain discs ride the surface table (ROADMAP B8)
+  many = dict(surfaces=planes(0.), elements=elems(1))
+  assert cuda_trace.ineligibleReason(many) is None
+  assert cuda_trace.tableSurfaces(many).all()
+  # what the reference refuses past 256 analytic surfaces: more than 256
+  # rows that stay surface rows, and stage gates or source masks
+  complexRows = dict(many, surfaces=planes(3.))
+  assert ('257 analytic surfaces with bitmap/prim trims or iterative kinds '
+          '> the 256-surface immediates budget'
+          in cuda_trace.ineligibleReason(complexRows))
+  for key, mask in (('surfMask', np.ones(S, bool)),
+                    ('seqMask', np.ones((2, S), bool))):
+    assert ('257 analytic surfaces with sequential mode or a per-source '
+            'ignore mask' in cuda_trace.ineligibleReason(
+                dict(many, **{key: mask})))
   E = cuda_trace.MAX_TABLE_BYTES // (4 * cuda_trace.ELEM_COLS) + 1
   huge = dict(surfaces=dict(packed=np.zeros((1, 24), np.float32),
                             trim=np.zeros((1, 6), np.float32),

@@ -220,15 +220,22 @@ def test_large_meshes_are_eligible_and_analytic_rows_stay_capped():
   small = dict(big, surfaces={k: v[:129] for k, v in big['surfaces'].items()})
   assert (small["surfaces"]["kind"] == S.TRIANGLE).sum() == 128
   assert cuda_trace.tableTriangles(small) == 0 and cuda_trace.needsGeom(small)
-  # 257 analytic rows beside a table mesh are refused, naming B8
+  # 257 analytic rows beside a table mesh ride the surface table (ROADMAP
+  # B8); 257 that stay surface rows are refused with the reference's words
   S_ = cuda_trace.MAX_SURFACES + 1
-  planes = dict(packed=np.zeros((S_, 24), np.float32),
-                trim=np.zeros((S_, 6), np.float32),
-                kind=np.zeros(S_, np.int32))
-  many = dict(big, surfaces={k: np.concatenate([big['surfaces'][k], planes[k]])
-                             for k in ('packed', 'trim', 'kind')})
-  reason = cuda_trace.ineligibleReason(many)
-  assert f'{S_ + 1} surface rows' in reason and 'B8' in reason
+  planes = lambda trim0: dict(
+      packed=np.zeros((S_, 24), np.float32),
+      trim=np.tile(np.float32([trim0, 0., 1., 0., 0., 0.]), (S_, 1)),
+      kind=np.zeros(S_, np.int32))
+  many = lambda trim0: dict(big, surfaces={
+      k: np.concatenate([big['surfaces'][k], planes(trim0)[k]])
+      for k in ('packed', 'trim', 'kind')})
+  assert cuda_trace.ineligibleReason(many(0.)) is None
+  assert cuda_trace.tableSurfaces(many(0.)).sum() == S_ + 1
+  reason = cuda_trace.ineligibleReason(dict(
+      many(3.), surfaces=dict(many(3.)['surfaces'],
+                              trimPrims=np.zeros((12800 + S_ + 1, 4, 7)))))
+  assert f'{S_} analytic surfaces with bitmap/prim trims' in reason
 
 
 # chip_smoke.py REF_DISH: the JAX package's fused step on the 1800-triangle

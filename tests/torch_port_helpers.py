@@ -957,7 +957,7 @@ def runUniformsCase(build, source=0, n=N_RAYS, tile=TILE, maxI=None):
   portR = convert.recordsToNumpy(cuda_trace.recordsFromRing(ring))
   portRC = dict(segments=int(cR[0]), hits=int(cR[1]), hitOverflow=int(cR[2]))
   return dict(hist=(ref, port), raw=((refR, refRC), (portR, portRC)),
-              tables=tables, maxI=maxI, uniforms=us)
+              tables=tables, maxI=maxI, uniforms=us, tile=tile)
 
 
 def assertHistogramsMatch(case):
@@ -1303,7 +1303,7 @@ def assertBinsMatchHistogram(case):
   _ref, port = case['hist']
   ring, c = cuda_trace.traceBins(tables, us.shape[1], case['maxI'],
                                  MAX_RAY_LENGTH, DIST_TOL, hitSlots=1,
-                                 uniforms=us, strataTile=TILE)
+                                 uniforms=us, strataTile=case['tile'])
   hist = fused.initHistograms(dict(bins=tables['bins'],
                                    bounds=np.zeros((tables['nDet'], 4))),
                               device='cpu')
@@ -1342,3 +1342,208 @@ def fusedCountersMatch(make, bounds, maxIntersections, seed, n=N_RAYS):
   moved = float(np.abs(ref['counts'] - hist['counts'].numpy()).sum()) / 2
   return ((ref['counters']['segments'], ref['counters']['hits']),
           (int(c[0]), int(c[1])), moved)
+
+
+WALL_BOUNDS = (-300., 300., -300., 300.)
+
+
+def _wallDiscs(S, T, nx, ny, pitch, radius, z):
+  '''The reference wall's tilted mirror discs (`benchmarks._wallScene`):
+  nx x ny discs of `radius` on a `pitch` grid about height `z`.'''
+  import math
+  out = []
+  for iy in range(ny):
+    for ix in range(nx):
+      cx = (ix - (nx - 1) / 2.) * pitch
+      cy = (iy - (ny - 1) / 2.) * pitch
+      out.append(S.plane(T.compose(
+          T.translation(cx, cy, z + 2. * math.sin(ix * 0.7 + iy)),
+          T.rotation((1, 0, 0), 3. * math.cos(ix + iy * 0.5)),
+          T.rotation((0, 1, 0), 3. * math.sin(ix * 0.3))), elem=0,
+          radius=radius, orient=-1))
+  return out
+
+
+def _wallSource(ns, scene, theta='0, 0.9'):
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.3)', ThetaDomain=theta,
+      Wavelength=532., ThetaResolutionNumericMode='1e3',
+      placement=ns.T.translation(0, 0, 1e-3)))
+
+
+def _absorbingPlane(ns, label, half, z):
+  return ns.OpticalGroup(
+      OpticalType='Absorber', Label=label,
+      surfaces=[ns.S.plane(np.eye(4), elem=0, halfExtents=(half, half))],
+      placements=[ns.T.translation(0, 0, z)])
+
+
+def buildSlabArrayScene(ns):
+  '''The surface table's medium rule (B8): 88 glass slabs (n = 1.5, radius
+  2.5 mm, 3 mm thick: front disc, back disc, barrel; 264 surfaces, one lens
+  element under 88 placements) on an 11 x 8 grid of 6 mm pitch at z =
+  20 mm, all rows of the surface table, under a collimated beam (radius
+  30 mm), an absorbing detector at z = 100 mm; behind the back faces of the central
+  slabs, 5e-5 mm away (inside the same-medium window), an absorbing patch
+  (radius 8 mm with a hole of radius 1.5 mm about the axis: a hole-
+  primitive trim, so a surface row). A ray inside a slab meets the slab's
+  back face first, a table row of its medium: the table's winner enters the
+  other-medium tracker only when the medium is not its element, so the
+  patch (a row of another element) is preferred and absorbs the ray; a ray
+  through the hole leaves the glass. 3 intersections.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='slab_array')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Lens', Label='Slabs', RefractiveIndex=1.5,
+      surfaces=[S.plane(np.eye(4), elem=0, radius=2.5, orient=-1),
+                S.plane(T.translation(0, 0, 3), elem=0, radius=2.5,
+                        orient=+1),
+                S.cylinder(T.translation(0, 0, 1.5), elem=0, radius=2.5,
+                           zRange=(-1.5, 1.5), orient=+1)],
+      placements=[T.translation(6. * (ix - 5), 6. * iy - 21., 20)
+                  for ix in range(11) for iy in range(8)]))
+  patch = S.plane(np.eye(4), elem=0, radius=8.)
+  patch['trim'][0] = 3.
+  patch['trimPrims'] = dict(holes=[(2., 0., 3., 2.25, 0., 0., 0.)])
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Patch', surfaces=[patch],
+      placements=[T.translation(0, 0, 23. + 5e-5)]))
+  scene.addOpticalGroup(_absorbingPlane(ns, 'Det', 60., 100.))
+  scene.addSource(ns.PointSource(Label='Src', PowerDensity='exp(-r^2/400)',
+                                 FocalLength='inf', RadiusDomain='0, 30',
+                                 RadiusResolutionNumericMode='1e4'))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
+  return scene, (-60., 60., -60., 60.), 3
+
+
+def buildConeQuadricWallScene(ns):
+  '''Every kind of the surface table in its runs (B8): a wall of 210
+  tilted mirror discs (radius 3.2 mm, 8 mm pitch, 21 x 10, z about 80 mm)
+  above 23 mirror cones (radius 1.2 + 0.5 z over z in [0, 1.5] mm) at z =
+  8 mm and 23 half-ellipsoid mirror caps (semi-axes 1.5, 1.8, 1.2 mm) at
+  z = 11 mm on a 5.5 mm grid close over the source (20 of each a chunked
+  run, 3 with trim flag 1 a plain run), a cylinder mirror (radius 45 mm, z
+  in [40, 50] mm) round the beam, the wall's spherical cap and the
+  absorbing detector at z = 0 (plain runs), lit from just above the
+  detector by exp(-theta^2/0.3) over theta in [0, 0.9]; 3 intersections.
+  A cone's or a quadric's discriminant cancels as (distance / size)^2 (the
+  ray's distance from the surface over its size), so the JAX package's
+  contractions of a * b + c move its roots by up to ~1e-4 mm here, where
+  the port's formulas equal the reference's operation for operation.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='cone_quadric_wall')
+  surfs = _wallDiscs(S, T, 21, 10, 8., 3.2, 80.)
+  q = np.array([1. / 2.25, 1. / 3.24, 1. / 1.44, 0., -1.])
+  q = tuple(q / q[:3].max())
+  for i in range(23):
+    x, y = 5.5 * (i % 6) - 13.75, 5.5 * (i // 6) - 8.25
+    cone = S.cone(T.translation(x, y, 8.), elem=0, radius=1.2,
+                  tanAngle=0.5, zRange=(0., 1.5))
+    quad = S.quadric(T.translation(x + 2.75, y + 2.75, 11.), elem=0,
+                     coeffs=q, zRange=(-1.2, 0.))
+    if i >= 20:
+      cone['trim'][0] = quad['trim'][0] = 1.
+    surfs += [cone, quad]
+  surfs.append(S.cylinder(T.translation(0, 0, 45.), elem=0, radius=45.,
+                          zRange=(-5., 5.), orient=-1))
+  surfs.append(S.sphere(T.translation(0, 0, 140.), elem=0, radius=60.,
+                        zRange=(-60., -40.), orient=+1))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Wall', surfaces=surfs,
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(_absorbingPlane(ns, 'Det', 300., 0.))
+  _wallSource(ns, scene)
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
+  return scene, WALL_BOUNDS, 3
+
+
+# the wall disc the tie scene duplicates (ix 12, iy 11: lit directly, clear
+# of the patch's shadow)
+TIE_DISC = 11 * 16 + 12
+
+
+def buildTieTableScene(ns):
+  '''Ties on the surface table (B8): a 16 x 16 wall of the reference
+  wall's tilted mirror discs with disc TIE_DISC duplicated exactly as an
+  Absorber of its own (two equal table rows: the first in the table's
+  order, the wall's, wins), and an untilted mirror disc of radius 6 mm at z = 40 mm (a table
+  row) under an absorbing plane at the same place trimmed by a 64 x 64
+  bitmap (a disc of radius 5 mm with a 1 mm slot: a surface row), so the
+  two tie on every ray that meets the bitmap's set pixels and the surface
+  row, which comes first, wins; the absorbing detector at z = 0 and the
+  wall's source; 2 intersections.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='tie_table')
+  discs = _wallDiscs(S, T, 16, 16, 8., 5.6, 80.)
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Wall', surfaces=discs,
+      placements=[np.eye(4)]))
+  import copy
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Dup',
+      surfaces=[copy.deepcopy(discs[TIE_DISC])], placements=[np.eye(4)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Patch',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=6.)],
+      placements=[T.translation(0, 0, 40.)]))
+  slot = S.plane(np.eye(4), elem=0, halfExtents=(6., 6.))
+  ax = (np.arange(64) + .5) / 64 * 12. - 6.
+  X, Y = np.meshgrid(ax, ax)
+  slot['trimBitmap'] = dict(
+      mask=((X ** 2 + Y ** 2 <= 25.) & (np.abs(X) >= 0.5)).astype(np.uint8),
+      u0=-6., v0=-6., invDu=64 / 12., invDv=64 / 12.)
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Slot', surfaces=[slot],
+      placements=[T.translation(0, 0, 40.)]))
+  scene.addOpticalGroup(_absorbingPlane(ns, 'Det', 300., 0.))
+  _wallSource(ns, scene)
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=2)
+  return scene, WALL_BOUNDS, 2
+
+
+def buildBothTablesScene(ns):
+  '''Both tables in device memory at once (B7 and B8): the reference's
+  200-triangle dish (the triangle table) over 256 absorbing discs of
+  radius 1 mm on a 16 x 16 grid of 4 mm pitch at z = 30 mm and the
+  absorbing detector at z = 0 (the surface table: 257 analytic surfaces),
+  lit from just above the detector as the dish scene is; 2 intersections.'''
+  from optics_design_workbench_tpu_torch.benchmarks import dishTriangles
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='both_tables')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Dish',
+      surfaces=[S.triangle(*t, elem=0) for t in dishTriangles(10)],
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Dots',
+      surfaces=[S.plane(T.translation(4. * (i % 16) - 30., 4. * (i // 16)
+                                      - 30., 30.), elem=0, radius=1.)
+                for i in range(256)],
+      placements=[np.eye(4)]))
+  scene.addOpticalGroup(_absorbingPlane(ns, 'Det', 200., 0.))
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.1)', ThetaDomain='0, 0.5',
+      Wavelength=532., ThetaResolutionNumericMode='1e3',
+      placement=T.translation(0, 0, 1e-3)))
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=2)
+  return scene, MESH_BOUNDS, 2
+
+
+def buildWallScene(ns):
+  '''The reference's 522-surface wall (`benchmarks.buildSurfWallScene`) in
+  `ns`'s package.'''
+  from optics_design_workbench_tpu_torch import benchmarks
+  scene = benchmarks.buildSurfWallScene()
+  return (scene if ns.Scene.__module__.startswith(
+      'optics_design_workbench_tpu_torch') else jaxSceneFromPort(scene),
+          WALL_BOUNDS, 3)
+
+
+# the check scenes of the surface table: name -> scene function
+SURFACE_TABLE_SCENES = {
+    'wall': buildWallScene,
+    'slabArray': buildSlabArrayScene,
+    'coneQuadric': buildConeQuadricWallScene,
+    'tie': buildTieTableScene,
+    'bothTables': buildBothTablesScene,
+}

@@ -2,7 +2,7 @@
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
     python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]
-                                         | mesh [ROOT]]
+                                         | mesh [ROOT] | table]
 
 (`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
 alone; `k1 ROOT` times the main-path step of the package in the checkout at
@@ -11,7 +11,10 @@ and prints the registers of its histogram kernel's instances, so that two
 commits run in one call can be compared in turns; `mesh ROOT` likewise
 times K1, K2 and K4 at 1 << 22 rays on the reference's dishes of 200, 1800,
 5000 and 12800 triangles, with and without ray-index strata, beside the
-main-path step) times the port's
+main-path step; `table` times K1, K2 and K4 at 1 << 22 rays on the
+reference's walls of 522 and 5,071 analytic surfaces (the surface table),
+with and without strata, beside the main-path step and the 1800-triangle
+dish, and prints the registers of every instance) times the port's
 main-path step
 (lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
 warm-up, interleaved A B B A so that clock drift cancels:
@@ -321,6 +324,52 @@ def meshSeries():
   print(json.dumps(out), flush=True)
 
 
+def tableSeries():
+  '''K1, K2 and K4 (ms by CUDA events, 1 << 22 rays, 3 intersections) on
+  the walls of 522 and 5,071 analytic surfaces, with the samplers'
+  ray-index strata and without, beside the main-path step and K1 on the
+  1800-triangle dish; the registers of every instance (ptxas), keyed by
+  its output mode and template flags.'''
+  import re
+  seeds = iter(range(10, 10 ** 9))
+  step, hist, _meta = benchmarks.makeBenchStep(raysPerStep=N, bins=BINS)
+  out = dict(variant='table', lensK1=cudaMs(lambda: step(next(seeds), hist)))
+  dish, dishHist, _meta = benchmarks.makeBenchStep(
+      scene=benchmarks.buildMeshDishScene(30), raysPerStep=N,
+      maxIntersections=3, histBounds=(-200., 200., -200., 200.), bins=BINS)
+  out['dish1800K1'] = cudaMs(lambda: dish(next(seeds), dishHist), 10)
+  bounds = (-300., 300., -300., 300.)
+  for name, make in (('wall522', benchmarks.buildSurfWallScene),
+                     ('wall5071', benchmarks.buildSurfWall5kScene)):
+    step, hist, _meta = benchmarks.makeBenchStep(
+        scene=make(), raysPerStep=N, maxIntersections=3, histBounds=bounds,
+        bins=BINS)
+    t = step.tables
+    for strata in (step.strataTile, 0):
+      kw = dict(maxIntersections=3, maxRayLength=1000., distTol=1e-4,
+                hitSlots=step.hitSlots, strataTile=strata)
+      k1 = cudaMs(lambda: cuda_trace.traceHistogram(
+          t, hist, N, seed=next(seeds), **kw), 10)
+      k2 = cudaMs(lambda: cuda_trace.traceBins(t, N, seed=next(seeds), **kw),
+                  10)
+      k4 = cudaMs(lambda: cuda_trace.traceRaw(t, N, seed=next(seeds), **kw),
+                  10)
+      out[f'{name}/strata{strata}'] = [k1, k2, k4]
+  _libs, info = _build.buildKernels()
+  regs, current = {}, None
+  for line in info['log'].splitlines():
+    m = re.search(r'traceKernelILi(\d)E((?:Lb[01]E)+)', line)
+    if 'Compiling entry function' in line and m:
+      current = m.group(1) + ''.join(re.findall(r'Lb([01])E', m.group(2)))
+    m = re.search(r'Used (\d+) registers', line)
+    if m and current:
+      regs[current] = int(m.group(1))
+      current = None
+  out['registers'] = regs
+  out['buildSeconds'] = info['seconds']
+  print(json.dumps(out), flush=True)
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
@@ -338,6 +387,8 @@ def main():
     return k1Series()
   if sys.argv[1:2] == ['mesh']:
     return meshSeries()
+  if sys.argv[1:] == ['table']:
+    return tableSeries()
 
   scene = benchmarks.buildLensMirrorScene()
   sceneNp, info = scene.compile(device=None)
