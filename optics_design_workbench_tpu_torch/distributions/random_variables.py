@@ -124,6 +124,37 @@ class _Timeout:
     return False
 
 
+_MEIJER_FORMULAS = []      # formulas of a complete Meijer-G table, once
+
+
+def ensureMeijerTable():
+  '''Fill sympy's Meijer-G lookup table (`meijerint._lookup_table`) now,
+  outside any compile guard, or replace it when it is partial. sympy fills
+  the table on the first integral that needs it and refills only an EMPTY
+  one, so a `_Timeout` interrupt that lands inside that fill would leave a
+  partial table for the rest of the process, and every DiracDelta density
+  compiled later would fail (ROADMAP C.3). A table with fewer formulas than
+  a fresh `_create_lookup_table` gives is swapped for the fresh one, and
+  sympy's cache is cleared with it: it may hold integrals worked out with
+  the partial table.'''
+  from sympy.core.cache import clear_cache
+  from sympy.integrals import meijerint
+
+  def formulas(table):
+    return sum(len(v) for v in (table or {}).values())
+
+  current = meijerint._lookup_table
+  if _MEIJER_FORMULAS and formulas(current) >= _MEIJER_FORMULAS[0]:
+    return
+  fresh = {}
+  meijerint._create_lookup_table(fresh)
+  _MEIJER_FORMULAS[:] = [formulas(fresh)]
+  if formulas(current) < _MEIJER_FORMULAS[0]:
+    meijerint._lookup_table = fresh
+    if current:
+      clear_cache()
+
+
 def _lambdify(args, expr):
   return sy.lambdify(args, expr, modules=['numpy', 'scipy'])
 
@@ -260,6 +291,9 @@ class VectorRandomVariable:
     within `timeout` seconds, else a tabulated numeric fallback
     (reference: random_number_generator.py:72-119).
     '''
+    # sympy's Meijer-G table is filled before the guarded region starts,
+    # so no interrupt can leave it partial
+    ensureMeijerTable()
     # CPU-time budget (load-independent: concurrent processes cannot flip
     # the compile mode) with a 10x wall-clock ceiling for true hangs
     self._deadline = time.thread_time() + timeout

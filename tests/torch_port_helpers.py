@@ -26,6 +26,17 @@ def jaxNs():
                          benchmarks=benchmarks)
 
 
+def freshSympyState():
+  '''Put sympy's Meijer-G lookup table back in a fresh process's state
+  before a JAX compile of a scatter density: an earlier compile on this
+  worker whose time guard fired inside sympy's one-time fill leaves the
+  table partial, and the JAX package never repairs it (ROADMAP C.3). The
+  port's own repair does it.'''
+  from optics_design_workbench_tpu_torch.distributions.random_variables \
+      import ensureMeijerTable
+  ensureMeijerTable()
+
+
 def torchNs():
   from optics_design_workbench_tpu_torch import benchmarks
   from optics_design_workbench_tpu_torch.models import (
@@ -199,6 +210,29 @@ def buildPlacementScene(ns, xOffset=0., path=None, wavelength=532.):
   scene.addSimulationSettings(RaysPerIteration=5000, MaxIntersections=2,
                               EnableStoreSingleShotData=True)
   return scene, (-80., 80., -80., 80.), 2
+
+
+PILEUP_BOUNDS = (-40., 40., -40., 40.)
+
+
+def buildPileUpScene(ns, offset=0.):
+  '''A pile-up of detector hits (B11): a point source at (offset, offset,
+  1e-3) whose narrow cone (theta <= 2 mrad) meets an absorbing detector at
+  z = 60 within 0.12 mm of (offset, offset), every ray with power 1. Over
+  PILEUP_BOUNDS every ray lands in the bins around that point: at 0 the four
+  bins that meet there, at a bin's centre the one bin.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='pileup')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Detector',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(80., 80.))],
+      placements=[T.translation(0, 0, 60.)]))
+  scene.addSource(ns.PointSource(
+      Label='Source', PowerDensity='exp(-theta^2/1e-6)',
+      ThetaDomain='0, 0.002', ThetaResolutionNumericMode='1e3',
+      placement=T.translation(offset, offset, 1e-3)))
+  scene.addSimulationSettings(RaysPerIteration=5000, MaxIntersections=2)
+  return scene, PILEUP_BOUNDS, 2
 
 
 def buildDocScene(ns, path, lensRadius=60.):
@@ -572,6 +606,7 @@ def scatterStatsOfReference(name, n, scene=None, seed=0):
   from optics_design_workbench_tpu.tracing import fused
   if scene is None:
     scene, _b, _m = buildScatterScene(jaxNs(), name)
+  freshSympyState()
   device, info = scene.compile()
   device['powerTol'] = 1e-6
   histSpec = fused.makeHistogramSpec(device, info, bounds=SCATTER_BOUNDS,
@@ -726,6 +761,7 @@ def compileOnce(jaxScene):
 
   def compile(devicePut=True):
     if not memo:
+      freshSympyState()
       memo.append(first())
     device, info = memo[0]
     if not devicePut:
@@ -1110,6 +1146,7 @@ def fusedStatsOfReference(scene, bounds, maxIntersections, n, seed=0):
   rays, 128 x 128 bins over `bounds`) on the JAX `scene`.'''
   import jax
   from optics_design_workbench_tpu.tracing import fused
+  freshSympyState()
   device, info = scene.compile()
   device['powerTol'] = 1e-6
   histSpec = fused.makeHistogramSpec(device, info, bounds=bounds,

@@ -2,7 +2,7 @@
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
     python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]
-                                         | mesh [ROOT] | table]
+                                         | mesh [ROOT] | table | hist [ROOT]]
 
 (`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
 alone; `k1 ROOT` times the main-path step of the package in the checkout at
@@ -14,7 +14,16 @@ times K1, K2 and K4 at 1 << 22 rays on the reference's dishes of 200, 1800,
 main-path step; `table` times K1, K2 and K4 at 1 << 22 rays on the
 reference's walls of 522 and 5,071 analytic surfaces (the surface table),
 with and without strata, beside the main-path step and the 1800-triangle
-dish, and prints the registers of every instance) times the port's
+dish, and prints the registers of every instance; `hist ROOT` times the two
+histogram kernels of the package at ROOT on the scenes whose binning B11
+redesigned — K1 on the lens-and-mirror main path, the spectrometer, the
+diffuse scatter scene, the mesh fold, the 1800-triangle dish, the
+522-surface wall, a pile-up of every ray in one bin, the surface source,
+the torus mirror, the kinds scene and the emitter of those kinds, K3 on the
+examples/3
+radius sweep and the spectrometer's wavelength sweep at 64 x 1 << 20 rays —
+and, where the package plans its binning, again in every binning mode that
+fits, forced, each held against its plain version) times the port's
 main-path step
 (lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
 warm-up, interleaved A B B A so that clock drift cancels:
@@ -70,7 +79,7 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, 'tests'))
-if sys.argv[1:2] in (['k1'], ['mesh']) and len(sys.argv) > 2:
+if sys.argv[1:2] in (['k1'], ['mesh'], ['hist']) and len(sys.argv) > 2:
   sys.path.insert(0, os.path.abspath(sys.argv[2]))   # the package measured
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
@@ -330,7 +339,6 @@ def tableSeries():
   ray-index strata and without, beside the main-path step and K1 on the
   1800-triangle dish; the registers of every instance (ptxas), keyed by
   its output mode and template flags.'''
-  import re
   seeds = iter(range(10, 10 ** 9))
   step, hist, _meta = benchmarks.makeBenchStep(raysPerStep=N, bins=BINS)
   out = dict(variant='table', lensK1=cudaMs(lambda: step(next(seeds), hist)))
@@ -355,19 +363,198 @@ def tableSeries():
       k4 = cudaMs(lambda: cuda_trace.traceRaw(t, N, seed=next(seeds), **kw),
                   10)
       out[f'{name}/strata{strata}'] = [k1, k2, k4]
+  out['registers'], out['buildSeconds'] = instanceRegisters()
+  print(json.dumps(out), flush=True)
+
+
+def instanceRegisters():
+  '''({instance: [registers, spill store bytes]}, build seconds) of the
+  package on the path, from ptxas's output; an instance is its output mode
+  and template flags (sweep, B4, surface sampler, scatter, GEOM, TRI,
+  STAB), as digits.'''
+  import re
   _libs, info = _build.buildKernels()
   regs, current = {}, None
   for line in info['log'].splitlines():
-    m = re.search(r'traceKernelILi(\d)E((?:Lb[01]E)+)', line)
+    m = re.search(r'trace(Hist)?KernelI(?:Li(\d)E)?((?:Lb[01]E)+)', line)
     if 'Compiling entry function' in line and m:
-      current = m.group(1) + ''.join(re.findall(r'Lb([01])E', m.group(2)))
+      current = ('0' if m.group(1) else m.group(2)) + ''.join(
+          re.findall(r'Lb([01])E', m.group(3)))
+      regs[current] = [None, 0]
+    m = re.search(r'(\d+) bytes spill stores', line)
+    if m and current:
+      regs[current][1] = int(m.group(1))
     m = re.search(r'Used (\d+) registers', line)
     if m and current:
-      regs[current] = int(m.group(1))
+      regs[current][0] = int(m.group(1))
       current = None
-  out['registers'] = regs
-  out['buildSeconds'] = info['seconds']
-  print(json.dumps(out), flush=True)
+  return regs, info['seconds']
+
+
+HIST_CHECK_RAYS = 1 << 20
+
+
+def histSeries(dev):
+  '''B11: K1's step (1 << 22 rays, 128 x 128 bins) and K3 (64 variants x
+  1 << 20 rays) by CUDA events on the scenes whose binning the redesign
+  touches, with the binning mode each launch took. Where the package plans
+  its binning (`cuda_trace.histogramPlan`), every mode that fits the
+  launch is then forced in turn (`modes=`), timed, and held against the
+  plain version on the same uniforms (HIST_CHECK_RAYS rays, K3 at 8
+  variants): counters equal, rays that changed bins, worst relative power
+  error on the bins both agree on.'''
+  import functools
+  import numpy as np
+  import optics_design_workbench_tpu_torch as port
+  planned = hasattr(cuda_trace, 'histogramPlan')
+  seeds = iter(range(100, 10 ** 9))
+  regs, buildSeconds = instanceRegisters()
+  print(json.dumps(dict(variant='hist', package=port.__file__,
+                        digest=port.kernelSourceDigest(), planned=planned,
+                        buildSeconds=buildSeconds, registers=regs)),
+        flush=True)
+
+  def modeOf(wrapper):
+    plan = getattr(cuda_trace, 'lastLaunch', {}).get(wrapper)
+    return plan and dict(mode=plan['mode'], blocks=plan['blocks'],
+                         sharedBytes=plan['sharedBytes'],
+                         registers=plan['registers'])
+
+  def forcing(mode):
+    '''Context: the planner restricted to `mode` (None: as shipped).'''
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+      if mode is None:
+        yield
+        return
+      orig = cuda_trace.histogramPlan
+      cuda_trace.histogramPlan = functools.partial(orig, modes=(mode,))
+      try:
+        yield
+      finally:
+        cuda_trace.histogramPlan = orig
+    return ctx()
+
+  def compare(hK, hP, cK, cP):
+    moved = float((hK['counts'] - hP['counts']).abs().sum()) / 2
+    same = (hK['counts'] == hP['counts']) & (hP['counts'] > 0)
+    pK, pP = hK['power'][same], hP['power'][same]
+    rel = float(((pK - pP).abs() / pP).max()) if pP.numel() else 0.
+    return dict(countersEqual=cK.tolist() == cP.tolist(), movedRays=moved,
+                maxRelErrPower=rel)
+
+  modes = cuda_trace.HIST_MODES if planned else ()
+  k1Scenes = (
+      ('lensMirror', benchmarks.buildLensMirrorScene, 6, (-60., 60., -60., 60.)),
+      ('spectrometer', benchmarks.buildSpectrometerScene, 3, SPECTRO_BOUNDS),
+      ('diffuse', benchmarks.buildDiffuseScatterScene, 4,
+       (-100., 100., -100., 100.)),
+      ('meshFold', benchmarks.buildMeshFoldScene, 3,
+       (-300., 300., -300., 300.)),
+      ('dish1800', lambda: benchmarks.buildMeshDishScene(30), 3,
+       (-200., 200., -200., 200.)),
+      ('wall522', benchmarks.buildSurfWallScene, 3,
+       (-300., 300., -300., 300.)),
+      ('pileUp', lambda: helpers.buildPileUpScene(
+          helpers.torchNs(), 80. / BINS[0] / 2)[0], 2, helpers.PILEUP_BOUNDS),
+      ('surface', benchmarks.buildSurfaceSourceScene, 4,
+       (-120., 120., -120., 120.)),
+      ('torus', benchmarks.buildTorusMirrorScene, 3,
+       (-200., 200., -200., 200.)),
+      ('kinds', benchmarks.buildKindsScene, 8, (-300., 300., -300., 300.)),
+      ('emitter', benchmarks.buildEmitterKindsScene, 4,
+       (-200., 200., -200., 200.)))
+  for label, make, maxI, bounds in k1Scenes:
+    step, hist, _meta = benchmarks.makeBenchStep(
+        scene=make(), raysPerStep=N, maxIntersections=maxI,
+        histBounds=bounds, bins=BINS)
+    row = dict(variant=f'k1-{label}', rays=N,
+               ms=cudaMs(lambda: step(next(seeds), hist)),
+               plan=modeOf('traceHistogram'))
+    t = step.tables
+    kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+              powerTol=1e-6, hitSlots=step.hitSlots)
+    n = HIST_CHECK_RAYS
+    if modes:
+      us = torch.rand((cuda_trace.uniformRows(t, maxI), n), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5))
+      tile = cuda_trace.DEFAULT_STRATA_TILE
+      cols = cuda_trace.samplerColumnsPlain(t, us, cuda_trace.tileStrata(
+          n, tile), tile)
+      hP = fused.initHistograms(_meta['histSpec'], device=dev)
+      cP = cuda_trace.traceHistogramPlain(
+          t, hP, cols, **kw,
+          scatterUniforms=us[cuda_trace.samplerUniforms(t):]
+          if t['scatter'] else None)
+    for mode in modes:
+      try:
+        with forcing(mode):
+          row[f'{mode}Ms'] = cudaMs(lambda: step(next(seeds), hist))
+          hK = fused.initHistograms(_meta['histSpec'], device=dev)
+          cK = cuda_trace.traceHistogram(t, hK, n, uniforms=us,
+                                         strataTile=tile, **kw)
+          torch.cuda.synchronize()
+          row[f'{mode}Plan'] = modeOf('traceHistogram')
+          row[f'{mode}VsPlain'] = compare(hK, hP, cK, cP)
+      except ValueError as e:            # the mode does not fit
+        row[f'{mode}Ms'] = str(e)
+    print(json.dumps(row), flush=True)
+
+  # K3: the examples/3 radius sweep (64 x 64 bins) and the spectrometer's
+  # wavelength sweep (128 x 128 bins)
+  V, n = 64, 1 << 20
+  k3Cases = (
+      ('examples3', [benchmarks.buildSweepLensScene(float(r))
+                     for r in np.linspace(45., 95., V)], 6, SWEEP_BOUNDS,
+       SWEEP_BINS),
+      ('spectrometer', [benchmarks.buildSpectrometerScene(wavelength=float(w))
+                        for w in np.linspace(400., 700., V)], 3,
+       SPECTRO_BOUNDS, BINS))
+  for label, scenes, maxI, bounds, bins in k3Cases:
+    host = [sc.compile(device=None) for sc in scenes]
+    histSpec = fused.makeHistogramSpec(*host[0], bounds=bounds, bins=bins)
+    specs = [sc.lightSources()[0].samplerSpec() for sc in scenes]
+    tables = cuda_trace.buildSweepTables([h for h, _i in host], histSpec,
+                                         specs, device=dev)
+    shape = (V, 1) + bins
+    hist = dict(power=torch.zeros(shape, device=dev),
+                counts=torch.zeros(shape, device=dev))
+    tile = cuda_trace.DEFAULT_STRATA_TILE
+    kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+              powerTol=1e-6, hitSlots=1)
+    sweep = lambda: cuda_trace.traceSweep(tables, hist, n, seed=next(seeds),
+                                          strataTile=tile, **kw)
+    row = dict(variant=f'k3-{label}', variants=V, raysPerVariant=n,
+               ms=cudaMs(sweep, 5), plan=modeOf('traceSweep'))
+    if modes:
+      nC, vC = HIST_CHECK_RAYS, 8
+      few = cuda_trace.buildSweepTables(
+          [h for h, _i in host[::V // vC]], histSpec, specs[::V // vC],
+          device=dev)
+      us = torch.rand((2, nC), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(6))
+      fewShape = (vC, 1) + bins
+      hP = dict(power=torch.zeros(fewShape, device=dev),
+                counts=torch.zeros(fewShape, device=dev))
+      cP = cuda_trace.traceSweepPlain(
+          few, hP, nC, uniforms=us, strata=cuda_trace.tileStrata(nC, tile),
+          strataTile=tile, **kw)
+    for mode in modes:
+      try:
+        with forcing(mode):
+          row[f'{mode}Ms'] = cudaMs(sweep, 5)
+          hK = dict(power=torch.zeros(fewShape, device=dev),
+                    counts=torch.zeros(fewShape, device=dev))
+          cK = cuda_trace.traceSweep(few, hK, nC, uniforms=us,
+                                     strataTile=tile, **kw)
+          torch.cuda.synchronize()
+          row[f'{mode}Plan'] = modeOf('traceSweep')
+          row[f'{mode}VsPlain'] = compare(hK, hP, cK, cP)
+      except ValueError as e:
+        row[f'{mode}Ms'] = str(e)
+    print(json.dumps(row), flush=True)
 
 
 def main():
@@ -389,6 +576,8 @@ def main():
     return meshSeries()
   if sys.argv[1:] == ['table']:
     return tableSeries()
+  if sys.argv[1:2] == ['hist']:
+    return histSeries(dev)
 
   scene = benchmarks.buildLensMirrorScene()
   sceneNp, info = scene.compile(device=None)
