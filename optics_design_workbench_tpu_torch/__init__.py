@@ -25,8 +25,7 @@ __version__ = '0.1.0'
 # sources that shape the compiled kernels: the build directory is keyed by
 # a digest of these, so an edited kernel can never load a stale binary. Each
 # .cu file becomes one shared library; the header holds their common body.
-_KERNEL_SOURCES = ('csrc/trace_common.cuh', 'csrc/trace_ray.inc',
-                   'csrc/trace_kernel.cu',
+_KERNEL_SOURCES = ('csrc/trace_common.cuh', 'csrc/trace_kernel.cu',
                    'csrc/trace_bins_kernel.cu', 'csrc/trace_raw_kernel.cu',
                    'csrc/trace_sweep_kernel.cu', 'csrc/trace_kernel_tri.cu',
                    'csrc/trace_bins_kernel_tri.cu',

@@ -13,9 +13,8 @@
 // B4, with and without SCAT, GEOM and STAB (and each sampler).
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
-// (optics_design_workbench_tpu/ops/pallas_trace.py), but for its per-bounce
-// culls, with its one-hot matrix binning redesigned for this card (B11,
-// below):
+// (optics_design_workbench_tpu/ops/pallas_trace.py), but for its histogram
+// layout and per-bounce culls:
 // PLANE / SPHERE / CYLINDER surfaces with window, annulus and z-band trims,
 // and in the GEOM instance every other kind (ASPHERE by 16 Newton steps
 // from its osculating sphere, TRIANGLE by Moeller-Trumbore, CONE and QUADRIC
@@ -126,12 +125,13 @@
 //
 // Output modes (what happens to a hit-ring slot):
 //   OUT_HIST  the slot is added to the (D, H, W) power + count histograms
-//             through the block's binning mode (HIST_*, below). Only the
-//             LAST slot lives in registers:
+//             with float32 atomics. Only the LAST slot lives in registers:
 //             an earlier slot is final once written and is added at once,
 //             the last slot is the one an overflow overwrites and is flushed
 //             after the loop, so histogram and overflow count equal those of
-//             a full ring.
+//             a full ring. That flush groups the warp's lanes by bin first
+//             (`addGrouped`), so a warp whose rays pile into one bin issues
+//             one atomic pair where it issued 32.
 //   OUT_BINS  the ring is delivered per ray, (3, hitSlots, N): bin (-1 =
 //             empty), power, count, gated exactly like OUT_HIST.
 //   OUT_RAW   the ring is delivered per ray, (9, hitSlots, N): element (-1 =
@@ -148,9 +148,8 @@
 // SWEEP (a compile-time flag, only with OUT_HIST): V scene tables of equal
 // layout lie stacked in device memory and the grid is variant-major —
 // blockIdx.x / blocksPerVariant is the block's variant, so a block never
-// straddles two variants, copies exactly its own variant's table into
-// shared memory and traces that variant's rays only. The ray index, and
-// with it the Philox counter, the stratum
+// straddles two variants and copies exactly its own variant's table into
+// shared memory. The ray index, and with it the Philox counter, the stratum
 // cell and the uniform / column inputs, is the index WITHIN the variant:
 // every variant traces the same rays (common random numbers), and variant v
 // of a sweep launch computes what the single-scene kernel computes for
@@ -162,14 +161,9 @@
 // surface / element / sampler table copied once per block into shared
 // memory), so one binary serves every eligible scene; segment / hit /
 // overflow totals are reduced per block and added with one 64-bit atomic
-// each. The ray's body is written once, in trace_ray.inc, and included by
-// the per-ray modes' kernel (`traceKernel`, one 256-ray tile per block) and
-// by the histogram modes' (`traceHistKernel`, B11: a fixed grid of resident
-// blocks whose warps claim 32-ray tiles, each ray keeping the index it has
-// as one tile's block, binning into a block-private region of shared memory
-// that is flushed once). Float contraction is switched off at build time
-// (-fmad=false) so that the arithmetic is the plain PyTorch version's,
-// operation for operation.
+// each. Float contraction is switched off at build time (-fmad=false) so
+// that the arithmetic is the plain PyTorch version's, operation for
+// operation.
 
 #pragma once
 
@@ -1461,36 +1455,13 @@ __device__ void geomNormal(const float* r, int kind, float lx, float ly,
   }
 }
 
-// OUT_HIST (B11): how a block bins the pass of a ray's last ring slot, after
-// its bounce loop, where the warp's lanes meet again (an earlier slot, inside
-// the loop, is added straight to the output). First the lanes that bin
-// together (__activemask) group by bin (__match_any_sync), and one lane per
-// group adds the group's summed power and its lane count, so a warp whose
-// rays pile into one bin issues one add where it issued 32. Where that lane
-// adds is the block's mode, chosen per launch by the host from the shapes
-// alone (ops/cuda_trace.py `histogramPlan`):
-//   HIST_SHARED  a block-private (power, count) histogram of histLen bins each
-//                in dynamic shared memory after the table; shared-memory
-//                atomics, and at the end the block adds its non-zero bins
-//                into the output with one global atomic pair each;
-//   HIST_CACHE   a block-private cache of kCacheSlots hot bins (tag, power,
-//                count; Fibonacci-hashed, a slot claimed once by atomicCAS and
-//                never evicted) for histograms too large to keep whole; a
-//                group whose slot holds another bin adds straight to the
-//                output, the cached bins are flushed at the end as above;
-//   HIST_WARP    no shared memory beyond the table: the group's lane adds
-//                straight to the output.
-enum { HIST_SHARED = 0, HIST_CACHE = 1, HIST_WARP = 2 };
-constexpr int kCacheLog2 = 11;
-constexpr int kCacheSlots = 1 << kCacheLog2;
-
-// Add one detector pass (bin b, power w) under the block's mode: `hist` is
-// the block's shared-memory region after the table, out0 / out1 the power
-// and count output.
-__device__ __forceinline__ void binPass(const int mode, float* hist,
-                                        const int histLen, float* out0,
-                                        float* out1, const int b,
-                                        const float w) {
+// OUT_HIST's flush of a ray's last ring slot (bin b, power w), after the
+// bounce loop: the lanes that flush together (__activemask) group by bin
+// (__match_any_sync), and one lane of each group adds the group's summed
+// power and its lane count to the output. Only the order of the float
+// additions differs from one atomic pair a lane.
+__device__ __forceinline__ void addGrouped(float* out0, float* out1,
+                                           const int b, const float w) {
   const int lane = threadIdx.x & 31;
   const unsigned lanes = __activemask();
   const unsigned peers = __match_any_sync(lanes, b);
@@ -1510,73 +1481,15 @@ __device__ __forceinline__ void binPass(const int mode, float* hist,
     }
   }
   if (lane != __ffs(peers) - 1) return;
-  const float n = (float)__popc(peers);
-  if (mode == HIST_SHARED) {
-    atomicAdd(hist + b, sum);
-    atomicAdd(hist + histLen + b, n);
-    return;
-  }
-  if (mode == HIST_CACHE) {
-    int* tag = reinterpret_cast<int*>(hist);
-    const int slot = (int)(((unsigned)b * 2654435769u) >> (32 - kCacheLog2));
-    int t = reinterpret_cast<volatile int*>(tag)[slot];
-    if (t == -1) {
-      t = atomicCAS(tag + slot, -1, b);
-      if (t == -1) t = b;
-    }
-    if (t == b) {
-      atomicAdd(hist + kCacheSlots + slot, sum);
-      atomicAdd(hist + 2 * kCacheSlots + slot, n);
-      return;
-    }
-  }
   atomicAdd(out0 + b, sum);
-  atomicAdd(out1 + b, n);
+  atomicAdd(out1 + b, (float)__popc(peers));
 }
 
-// Zero the block's histogram region (HIST_SHARED: 2 histLen floats;
-// HIST_CACHE: empty tags, zero sums); the caller synchronises.
-__device__ __forceinline__ void clearBins(const int mode, float* hist,
-                                          const int histLen) {
-  if (mode == HIST_SHARED) {
-    for (int k = threadIdx.x; k < 2 * histLen; k += kBlock) hist[k] = 0.f;
-  } else if (mode == HIST_CACHE) {
-    int* tag = reinterpret_cast<int*>(hist);
-    for (int k = threadIdx.x; k < kCacheSlots; k += kBlock) {
-      tag[k] = -1;
-      hist[kCacheSlots + k] = 0.f;
-      hist[2 * kCacheSlots + k] = 0.f;
-    }
-  }
-}
-
-// Add the block's non-zero bins into the output (after a __syncthreads).
-__device__ __forceinline__ void flushBins(const int mode, const float* hist,
-                                          const int histLen, float* out0,
-                                          float* out1) {
-  if (mode == HIST_SHARED) {
-    for (int k = threadIdx.x; k < histLen; k += kBlock) {
-      const float c = hist[histLen + k];
-      if (c != 0.f) {
-        atomicAdd(out0 + k, hist[k]);
-        atomicAdd(out1 + k, c);
-      }
-    }
-  } else if (mode == HIST_CACHE) {
-    const int* tag = reinterpret_cast<const int*>(hist);
-    for (int k = threadIdx.x; k < kCacheSlots; k += kBlock) {
-      const int b = tag[k];
-      if (b >= 0) {
-        atomicAdd(out0 + b, hist[kCacheSlots + k]);
-        atomicAdd(out1 + b, hist[2 * kCacheSlots + k]);
-      }
-    }
-  }
-}
-
-// The per-ray modes (OUT_BINS, OUT_RAW): one ray per thread, one 256-ray
-// tile per block; out0 is the (rows, hitSlots, N) ring, out1 is unused. (The
-// histogram modes run `traceHistKernel`; SWEEP is theirs.)
+// OUT_HIST: out0 / out1 are the power / count histograms. OUT_BINS and
+// OUT_RAW: out0 is the (rows, hitSlots, N) ring, out1 is unused. SWEEP:
+// `table` holds V tables of p.tableLen floats, out0 / out1 V histograms of
+// p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
+// `rayIn` (shared by all variants) has p.N columns.
 template <int OUT, bool SWEEP, bool B4, bool SURF, bool SCAT,
           bool GEOM = false, bool TRI = false, bool STAB = false>
 __global__ void __launch_bounds__(kBlock)
@@ -1586,7 +1499,8 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
             const float* __restrict__ rayIn, float* __restrict__ out0,
             float* __restrict__ out1,
             unsigned long long* __restrict__ counters) {
-  static_assert(OUT != OUT_HIST && !SWEEP, "the histograms: traceHistKernel");
+  static_assert(!SWEEP || OUT == OUT_HIST, "the sweep bins in the kernel");
+  static_assert(!(SWEEP && SURF), "the sweep samples point sources only");
   static_assert(!SCAT || B4, "scatter is built on the B4 body");
   static_assert(!GEOM || B4, "the other kinds and trims are built on B4");
   static_assert(!TRI || B4, "the triangle table is built on B4");
@@ -1594,6 +1508,22 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
   // a GEOM table widens every surface row by kGeomCols
   constexpr int kRow = GEOM ? kSurfCols + kGeomCols : kSurfCols;
   long long firstRay = (long long)blockIdx.x * blockDim.x;
+  if constexpr (SWEEP) {
+    const long long variant = blockIdx.x / p.blocksPerVariant;
+    firstRay = (long long)(blockIdx.x % p.blocksPerVariant) * blockDim.x;
+    table += variant * p.tableLen;
+    if constexpr (TRI) {
+      tt.tri += variant * tt.n * kTriCols;
+      tt.box += variant * tt.nChunks * kBoxCols;
+    }
+    if constexpr (STAB) {
+      surfRows += variant * stab.n * kSurfTableCols;
+      surfBox += variant * stab.nChunks * kBoxCols;
+    }
+    out0 += variant * p.histLen;
+    out1 += variant * p.histLen;
+    counters += variant * 3;
+  }
   extern __shared__ float smem[];
   for (int k = threadIdx.x; k < p.tableLen; k += blockDim.x)
     smem[k] = table[k];
@@ -1611,15 +1541,358 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
   float* ring = out0 + i;
 
   if (i < p.N) {
-#define TRACE_ADD_HIT(b, w) \
-  do {                      \
-    atomicAdd(out0 + (b), (w)); \
-    atomicAdd(out1 + (b), 1.f); \
-  } while (0)
-#define TRACE_ADD_LAST TRACE_ADD_HIT
-#include "trace_ray.inc"
-#undef TRACE_ADD_LAST
-#undef TRACE_ADD_HIT
+    float ox, oy, oz, dx, dy, dz, pw, wl;
+    if (p.mode == MODE_COLUMNS) {
+      ox = rayIn[i];             oy = rayIn[p.N + i];
+      oz = rayIn[2 * p.N + i];   dx = rayIn[3 * p.N + i];
+      dy = rayIn[4 * p.N + i];   dz = rayIn[5 * p.N + i];
+      pw = rayIn[6 * p.N + i];   wl = rayIn[7 * p.N + i];
+    } else if constexpr (SURF) {
+      // ---- in-kernel surface-source sampler: five uniforms per ray; in
+      // seed mode the second Philox call takes counter word 2 = 1 ----
+      float uF, u, v, uT, uP;
+      if (p.mode == MODE_UNIFORMS) {
+        uF = rayIn[i];            u = rayIn[p.N + i];
+        v = rayIn[2 * p.N + i];   uT = rayIn[3 * p.N + i];
+        uP = rayIn[4 * p.N + i];
+      } else {
+        const uint32_t lo = (uint32_t)i;
+        const uint32_t hi = (uint32_t)((unsigned long long)i >> 32);
+        const uint32_t k0 = (uint32_t)p.seed;
+        const uint32_t k1 = (uint32_t)(p.seed >> 32);
+        uint32_t rnd[4];
+        philox4x32(lo, hi, 0u, 0u, k0, k1, rnd);
+        uF = bitsToUniform(rnd[0]);
+        u = bitsToUniform(rnd[1]);
+        v = bitsToUniform(rnd[2]);
+        uT = bitsToUniform(rnd[3]);
+        philox4x32(lo, hi, 1u, 0u, k0, k1, rnd);
+        uP = bitsToUniform(rnd[0]);
+      }
+      const float* sg = smem + p.samplerOff;
+      sampleSurface<GEOM>(sg, uF, u, v, uT, uP, ox, oy, oz, dx, dy, dz);
+      pw = 1.f;
+      wl = sg[14];
+    } else {
+      // ---- in-kernel point-source sampler ----
+      float u1, u2;
+      if (p.mode == MODE_UNIFORMS) {
+        u1 = rayIn[i];
+        u2 = rayIn[p.N + i];
+      } else {
+        uint32_t rnd[4];
+        philox4x32((uint32_t)i, (uint32_t)((unsigned long long)i >> 32), 0u,
+                   0u, (uint32_t)p.seed, (uint32_t)(p.seed >> 32), rnd);
+        u1 = bitsToUniform(rnd[0]);
+        u2 = bitsToUniform(rnd[1]);
+      }
+      if (p.G1 > 0) {              // strata: a property of the ray index
+        long long cell = i / p.strataTile;
+        float i1 = (float)(cell / p.G2), i2 = (float)(cell % p.G2);
+        u1 = (i1 + u1) * p.invG1;
+        u2 = (i2 + u2) * p.invG2;
+      }
+      const float* sg = smem + p.samplerOff;
+      float t = marginal(sg + kSamplerGeom, u1);
+      float ph = marginal(sg + kSamplerGeom + kMargLen, u2);
+      float sp = sinf(ph), cp = cosf(ph);
+      float ldx, ldy, ldz, lox, loy, loz;
+      if (sg[0] != 0.f) {          // finite focal length
+        float f = sg[1];
+        float st = sinf(t), ct = cosf(t);
+        ldx = st * sp; ldy = -st * cp; ldz = ct;
+        lox = -f * ldx; loy = -f * ldy; loz = f * (1.f - ldz);
+      } else {                     // collimated: t is the radius
+        ldx = 0.f; ldy = 0.f; ldz = 1.f;
+        lox = t * cp; loy = -t * sp; loz = 0.f;
+      }
+      const float* R = sg + 2;
+      ox = R[0] * lox + R[1] * loy + R[2] * loz + sg[11];
+      oy = R[3] * lox + R[4] * loy + R[5] * loz + sg[12];
+      oz = R[6] * lox + R[7] * loy + R[8] * loz + sg[13];
+      dx = R[0] * ldx + R[1] * ldy + R[2] * ldz;
+      dy = R[3] * ldx + R[4] * ldy + R[5] * ldz;
+      dz = R[6] * ldx + R[7] * ldy + R[8] * ldz;
+      pw = 1.f;
+      wl = sg[14];
+    }
+
+    int medium = -1;               // element id of the medium, -1 = vacuum
+    int seq = 0;                   // sequential mode: the ray's stage index
+    for (int bounce = 0; bounce < p.maxIntersections; ++bounce) {
+      // ---- nearest hit: online argmin (strict <: lowest index wins ties)
+      // plus the nearest surface NOT of the current medium, over the
+      // surfaces the ray's stage allows (a skipped surface is one whose
+      // distance is kBig: it changes no other surface's index) ----
+      float tBest = kBig, tOth = kBig;
+      int sBest = -1, sOth = -1;
+      const int stage = B4 ? min(seq, max(p.nStages, 1) - 1) : 0;
+      for (int s = 0; s < p.nSurf; ++s) {
+        const float* r = surfT + s * kRow;
+        if (B4 && p.gate && !stageAllowed(smem, r, stage)) continue;
+        float t;
+        if constexpr (GEOM)
+          t = intersectGeom(r, smem, ox, oy, oz, dx, dy, dz, p.tMin);
+        else
+          t = intersect(r, ox, oy, oz, dx, dy, dz, p.tMin);
+        if (t < tBest) { tBest = t; sBest = s; }
+        if (p.anyMedium) {
+          int e = (int)r[S_ELEM];
+          float tO = (elemT[e * kElemCols + E_MEDIUM] != 0.f && medium == e)
+                         ? kBig : t;
+          if (tO < tOth) { tOth = tO; sOth = s; }
+        }
+      }
+      // ---- B7: the triangle table after the surface rows (index -2) ----
+      float nxT = 0.f, nyT = 0.f, nzT = 0.f;
+      int elT = -1;
+      TableHit sw;
+      if constexpr (TRI) {
+        if (!STAB || tt.n > 0) {
+          float tT;
+          sweepTriangles(tt, ox, oy, oz, dx, dy, dz, p.tMin, p.maxRayLength,
+                         fminf(tBest, p.mrlEff) + p.window, tT, nxT, nyT,
+                         nzT, elT);
+          if (tT < tBest) { tBest = tT; sBest = -2; }
+          if (p.anyMedium) {
+            const float tO = medium != elT ? tT : kBig;
+            if (tO < tOth) { tOth = tO; sOth = -2; }
+          }
+        }
+      }
+      // ---- B8: the surface table after that (index -3); its winner
+      // enters the other-medium tracker as that one winner ----
+      if constexpr (STAB) {
+        if (stab.nRuns > 0) {
+          sweepSurfaceTable(stab, surfRows, surfBox, ox, oy, oz, dx, dy, dz,
+                            p.tMin, p.mrlEff, tBest, p.window, sw);
+          if (sw.t < tBest) { tBest = sw.t; sBest = -3; }
+          if (p.anyMedium) {
+            const float tO = medium != sw.el ? sw.t : kBig;
+            if (tO < tOth) { tOth = tO; sOth = -3; }
+          }
+        }
+      }
+      bool hasHit = tBest <= p.mrlEff;
+      if (!p.anyMedium) { tOth = tBest; sOth = sBest; }
+      bool hasPref = (tOth <= p.mrlEff) && (tOth <= tBest + p.window);
+      float tSel = hasPref ? tOth : tBest;
+      int sIdx = hasPref ? sOth : sBest;
+      float tSeg = hasHit ? tSel : p.maxRayLength;
+      float px = ox + tSeg * dx, py = oy + tSeg * dy, pz = oz + tSeg * dz;
+      ++segs;
+      if (!hasHit) break;          // escaped: the segment counts, the ray ends
+
+      // ---- winner attributes: local point, normal by kind, world normal
+      // through the transposed rotation times orient; a table triangle's
+      // tracked normal and element, the world (x, y) as its chart; a
+      // surface-table winner's tracked normal, element and local chart ----
+      float lx, ly, nxA, nyA, nzA;
+      int elem;
+      if (TRI && sIdx == -2) {
+        lx = px; ly = py;
+        nxA = nxT; nyA = nyT; nzA = nzT;
+        elem = elT;
+      } else if (STAB && sIdx == -3) {
+        lx = sw.lx; ly = sw.ly;
+        nxA = sw.nx; nyA = sw.ny; nzA = sw.nz;
+        elem = sw.el;
+      } else {
+        const float* r = surfT + sIdx * kRow;
+        const float* R = r + S_ROT;
+        lx = R[0] * px + R[1] * py + R[2] * pz + r[S_OFF];
+        ly = R[3] * px + R[4] * py + R[5] * pz + r[S_OFF + 1];
+        float lz = R[6] * px + R[7] * py + R[8] * pz + r[S_OFF + 2];
+        int kind = (int)r[S_KIND];
+        float nlx = 0.f, nly = 0.f, nlz = 1.f;
+        if (kind == KIND_SPHERE) {
+          float inv = rsqrtf(lx * lx + ly * ly + lz * lz + 1e-20f);
+          nlx = lx * inv; nly = ly * inv; nlz = lz * inv;
+        } else if (kind == KIND_CYLINDER) {
+          float inv = rsqrtf(lx * lx + ly * ly + 1e-20f);
+          nlx = lx * inv; nly = ly * inv; nlz = 0.f;
+        } else if constexpr (GEOM) {
+          geomNormal(r, kind, lx, ly, lz, nlx, nly, nlz);
+        }
+        float orient = r[S_ORIENT];
+        nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient;
+        nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient;
+        nzA = (R[2] * nlx + R[5] * nly + R[8] * nlz) * orient;
+        elem = (int)r[S_ELEM];
+      }
+      const float* er = elemT + elem * kElemCols;
+
+      float cosA = dx * nxA + dy * nyA + dz * nzA;
+      bool isEntering = cosA < 0.f;
+      float sgn = isEntering ? -1.f : 1.f;
+      float nx = nxA * sgn, ny = nyA * sgn, nz = nzA * sgn;
+
+      float nElem = er[E_N];
+      if (B4 && p.dispOff >= 0 && er[E_DISP] != 0.f)
+        nElem = dispersionN(smem + p.dispOff + elem * kDispCols, wl);
+
+      // ---- Beer-Lambert along the segment, before the interaction ----
+      bool inMedium = medium >= 0;
+      float nMed = 1.f, absLenMed = kBig;
+      if (inMedium) {
+        const float* mr = elemT + medium * kElemCols;
+        nMed = mr[E_N];
+        if (B4 && p.dispOff >= 0 && mr[E_DISP] != 0.f)
+          nMed = dispersionN(smem + p.dispOff + medium * kDispCols, wl);
+        absLenMed = mr[E_ABSLEN];
+        float factor = absLenMed <= 0.f ? 0.f
+                       : (absLenMed >= kBig ? 1.f : expf(-tSeg / absLenMed));
+        pw = pw * factor;
+      }
+
+      // ---- interactions ----
+      float dDotN = dx * nx + dy * ny + dz * nz;
+      float mxD = dx - 2.f * nx * dDotN;
+      float myD = dy - 2.f * ny * dDotN;
+      float mzD = dz - 2.f * nz * dDotN;
+      float n1 = inMedium ? nMed : 1.f;
+      float n2 = isEntering ? nElem : 1.f;
+      float mu = n1 / n2;
+      float sin2 = fmaxf(1.f - dDotN * dDotN, 0.f);
+      float root = 1.f - mu * mu * sin2;
+      bool tir = root < 0.f;
+      float sq = sqrtf(fmaxf(root, 0.f));
+      float tx = dx - nx * dDotN, ty = dy - ny * dDotN, tz = dz - nz * dDotN;
+      float snx = tir ? mxD : mu * tx + nx * sq;
+      float sny = tir ? myD : mu * ty + ny * sq;
+      float snz = tir ? mzD : mu * tz + nz * sq;
+
+      int opt = (int)er[E_OPT];
+      bool isMirror = opt == OPT_MIRROR, isLens = opt == OPT_LENS;
+      bool isAbsorber = opt == OPT_ABSORBER;
+      float ndx = isMirror ? mxD : (isLens ? snx : dx);
+      float ndy = isMirror ? myD : (isLens ? sny : dy);
+      float ndz = isMirror ? mzD : (isLens ? snz : dz);
+      bool lensExit = isLens && !isEntering && !tir && (medium == elem);
+      int newMedium = (isLens && isEntering) ? elem
+                      : (lensExit ? -1 : medium);
+      float newPw = isMirror ? pw * er[E_REFL] : (isAbsorber ? 0.f : pw);
+      bool seqInc = isMirror || isAbsorber || opt == OPT_VACUUM || lensExit;
+
+      if (B4 && p.hasGrating && opt == OPT_GRATING) {
+        // ---- Ludwig-1970 line grating with the incidence-side normal: the
+        // line direction (world frame) and the normal span the grating
+        // frame; the diffracted direction solves a quadratic whose negative
+        // discriminant is an evanescent order ----
+        bool isReflG = er[E_GTYPE] == 0.f;
+        float gn1 = isReflG ? n1 : 1.f;
+        float gn2 = isReflG ? n1 : nElem;
+        float gmu = gn1 / gn2;
+        float gdx = er[E_GDIR], gdy = er[E_GDIR + 1], gdz = er[E_GDIR + 2];
+        float nix = -nx, niy = -ny, niz = -nz;
+        float pgx = gdy * niz - gdz * niy;
+        float pgy = gdz * nix - gdx * niz;
+        float pgz = gdx * niy - gdy * nix;
+        float pinv = rsqrtf(pgx * pgx + pgy * pgy + pgz * pgz + 1e-20f);
+        pgx *= pinv; pgy *= pinv; pgz *= pinv;
+        float dgx = niy * pgz - niz * pgy;
+        float dgy = niz * pgx - nix * pgz;
+        float dgz = nix * pgy - niy * pgx;
+        float dinv = rsqrtf(dgx * dgx + dgy * dgy + dgz * dgz + 1e-20f);
+        dgx *= dinv; dgy *= dinv; dgz *= dinv;
+        float lamUm = wl / 1000.f;
+        float spacing = 1000.f / er[E_GLPM];
+        float Tt = er[E_GORDER] * lamUm / (gn1 * spacing);
+        float Vg = gmu * (dx * nix + dy * niy + dz * niz);
+        float Wg = gmu * gmu - 1.f + Tt * Tt
+                   - 2.f * gmu * Tt * (dx * dgx + dy * dgy + dz * dgz);
+        float discG = Vg * Vg - Wg;
+        float gsq = sqrtf(fmaxf(discG, 0.f));
+        float qg = isReflG ? -Vg + gsq : -Vg - gsq;
+        if (isEntering) {
+          float ggx = gmu * dx - Tt * dgx + qg * nix;
+          float ggy = gmu * dy - Tt * dgy + qg * niy;
+          float ggz = gmu * dz - Tt * dgz + qg * niz;
+          float ginv = rsqrtf(ggx * ggx + ggy * ggy + ggz * ggz + 1e-20f);
+          ndx = ggx * ginv; ndy = ggy * ginv; ndz = ggz * ginv;
+          if (discG < 0.f) newPw = 0.f;        // evanescent order
+        } else if (!isReflG) {
+          // a transmissive grating exiting its substrate refracts like a
+          // lens; a reflective one passes non-entering rays through
+          ndx = snx; ndy = sny; ndz = snz;
+        }
+        bool transExit = !isReflG && !isEntering && !tir;
+        if (!isReflG) newMedium = isEntering ? elem : (transExit ? -1 : medium);
+        seqInc = (isReflG && isEntering) || transExit;
+      }
+      float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
+      ndx *= inv; ndy *= inv; ndz *= inv;
+      if constexpr (SCAT)
+        scatterBounce(smem + p.nSurf * kRow + p.nElem * kElemCols, p,
+                      rayIn, i, bounce, SURF ? 5 : 2, elem, isMirror, isLens,
+                      isEntering, dDotN, nx, ny, nz, dx, dy, dz, ndx, ndy,
+                      ndz);
+      // the stage advances on every interaction but a lens or
+      // transmission-grating ENTRY
+      if (B4 && p.nStages > 0 && seqInc) ++seq;
+
+      // ---- record the detector pass (power AFTER absorption, BEFORE the
+      // interaction) into the hit ring; slot = min(hitN, hitSlots - 1), so
+      // an overflow overwrites the last slot ----
+      if constexpr (OUT == OUT_RAW) {
+        // every hit on a recording element: no bounds gate, no detector map
+        if (er[E_REC] > 0.5f) {
+          float* o = ring + (long long)min(hitN, p.hitSlots - 1) * p.N;
+          o[0] = (float)elem;
+          o[rowStride] = pw;
+          o[2 * rowStride] = isEntering ? 1.f : 0.f;
+          o[3 * rowStride] = px;
+          o[4 * rowStride] = py;
+          o[5 * rowStride] = pz;
+          o[6 * rowStride] = dx;   // the INCOMING direction
+          o[7 * rowStride] = dy;
+          o[8 * rowStride] = dz;
+          ++hitN;
+        }
+      } else {
+        float bx0 = er[E_BX0], by0 = er[E_BY0];
+        float fx = (lx - bx0) / (er[E_BX1] - bx0);
+        float fy = (ly - by0) / (er[E_BY1] - by0);
+        int det = (int)er[E_DET];
+        bool inside = (fx >= 0.f) && (fx < 1.f) && (fy >= 0.f) && (fy < 1.f)
+                      && (er[E_REC] > 0.5f) && (det >= 0);
+        if (inside) {
+          int ix = (int)floorf(fx * (float)p.W);
+          int iy = (int)floorf(fy * (float)p.H);
+          int bin = (det * p.H + iy) * p.W + ix;
+          if constexpr (OUT == OUT_BINS) {
+            float* o = ring + (long long)min(hitN, p.hitSlots - 1) * p.N;
+            o[0] = (float)bin;
+            o[rowStride] = pw;
+            o[2 * rowStride] = 1.f;
+          } else if (hitN < p.hitSlots - 1) {
+            atomicAdd(out0 + bin, pw);
+            atomicAdd(out1 + bin, 1.f);
+          } else {                 // the last slot: an overflow overwrites it
+            lastBin = bin;
+            lastW = pw;
+          }
+          ++hitN;
+        }
+      }
+
+      if (!(newPw >= p.powerTol)) break;
+      ox = px; oy = py; oz = pz;
+      dx = ndx; dy = ndy; dz = ndz;
+      pw = newPw;
+      medium = newMedium;
+    }
+    if constexpr (OUT == OUT_HIST) {
+      if (lastBin >= 0) addGrouped(out0, out1, lastBin, lastW);
+    } else {
+      // the slots this ray never reached: -1 in the key row, 0 elsewhere
+      constexpr int ringRows = OUT == OUT_RAW ? 9 : 3;
+      for (int s = min(hitN, p.hitSlots); s < p.hitSlots; ++s) {
+        float* o = ring + (long long)s * p.N;
+        o[0] = -1.f;
+        for (int k = 1; k < ringRows; ++k) o[k * rowStride] = 0.f;
+      }
+    }
   }
 
   // ---- per-block totals: segments, filled ring slots (= recorded hits),
@@ -1639,136 +1912,6 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
   if (threadIdx.x < 3) {
     unsigned long long total = 0;
     for (int w = 0; w < kBlock / 32; ++w) total += red[threadIdx.x][w];
-    if (total) atomicAdd(counters + threadIdx.x, total);
-  }
-}
-
-// A warp's next 32-ray warp-tile, claimed by lane 0 from the launch's
-// counter (in device memory, zeroed by the wrapper) and shared with the warp.
-__device__ __forceinline__ long long claimWarpTile(unsigned long long* next) {
-  long long wt = 0;
-  if ((threadIdx.x & 31) == 0) wt = (long long)atomicAdd(next, 1ull);
-  return __shfl_sync(0xffffffffu, wt, 0);
-}
-
-// The histogram modes (OUT_HIST; K1, and K3 with SWEEP), B11: a fixed grid of
-// resident blocks whose warps claim 32-ray warp-tiles from a counter until
-// the rays run out. Ray i = warpTile * 32 + lane is the index it has in a
-// grid of one 256-ray tile per block, so every ray draws what it drew there
-// and a warp holds the same 32 rays; a block copies its table once and
-// keeps its histogram region (HIST_SHARED / HIST_CACHE) across all its
-// warp-tiles, so its flush is paid once per block, and no warp idles while
-// another still has rays. out0 / out1 are the power / count histograms;
-// `counters` holds V (segments, hits, overflow) triples and then V
-// warp-tile counters, all zeroed by the wrapper. SWEEP: `table` holds V
-// tables of p.tableLen floats, out0 / out1 V histograms of p.histLen floats;
-// each variant has p.blocksPerVariant blocks and its own warp-tile counter,
-// and a block never leaves its variant; p.N is the rays PER VARIANT and
-// `rayIn` (shared by all variants) has p.N columns. Each instance is held
-// to the blocks an SM that its one-tile-per-block form reached (PERF.md §6:
-// 40 registers without B4, 56-64 with it, 80 with the scatter draw of a
-// point source or the surface table), which the warp-tile loop's state
-// would otherwise cost it.
-template <bool SWEEP, bool B4, bool SURF, bool SCAT, bool GEOM, bool TRI,
-          bool STAB>
-constexpr int histMinBlocks() {
-  if (!B4) return 6;                        // 40 registers
-  if (STAB) return GEOM && !SCAT ? 4 : 3;   // 64 / 80
-  if (SCAT && !SURF && !(GEOM && !TRI) && !(SWEEP && !TRI)) return 3;  // 80
-  return 4;                                 // 56-64
-}
-
-template <bool SWEEP, bool B4, bool SURF, bool SCAT, bool GEOM = false,
-          bool TRI = false, bool STAB = false>
-__global__ void __launch_bounds__(
-    kBlock, (histMinBlocks<SWEEP, B4, SURF, SCAT, GEOM, TRI, STAB>()))
-traceHistKernel(TraceParams p, const int histMode,
-                const float* __restrict__ table, TriTable tt,
-                const SurfTable stab, const float* __restrict__ surfRows,
-                const float* __restrict__ surfBox,
-                const float* __restrict__ rayIn, float* __restrict__ out0,
-                float* __restrict__ out1,
-                unsigned long long* __restrict__ counters) {
-  static_assert(!(SWEEP && SURF), "the sweep samples point sources only");
-  static_assert(!SCAT || B4, "scatter is built on the B4 body");
-  static_assert(!GEOM || B4, "the other kinds and trims are built on B4");
-  static_assert(!TRI || B4, "the triangle table is built on B4");
-  static_assert(!STAB || TRI, "the surface table is built on TRI");
-  constexpr int OUT = OUT_HIST;
-  // a GEOM table widens every surface row by kGeomCols
-  constexpr int kRow = GEOM ? kSurfCols + kGeomCols : kSurfCols;
-  long long variant = 0, nVar = 1;
-  if constexpr (SWEEP) {
-    variant = blockIdx.x / p.blocksPerVariant;
-    nVar = gridDim.x / p.blocksPerVariant;
-  }
-  unsigned long long* next = counters + 3 * nVar + variant;
-  if constexpr (SWEEP) {
-    table += variant * p.tableLen;
-    if constexpr (TRI) {
-      tt.tri += variant * tt.n * kTriCols;
-      tt.box += variant * tt.nChunks * kBoxCols;
-    }
-    if constexpr (STAB) {
-      surfRows += variant * stab.n * kSurfTableCols;
-      surfBox += variant * stab.nChunks * kBoxCols;
-    }
-    out0 += variant * p.histLen;
-    out1 += variant * p.histLen;
-    counters += variant * 3;
-  }
-  extern __shared__ float smem[];
-  // per-warp totals of segments, filled slots and overflow
-  __shared__ unsigned long long tot[3][kBlock / 32];
-  for (int k = threadIdx.x; k < p.tableLen; k += blockDim.x)
-    smem[k] = table[k];
-  clearBins(histMode, smem + p.tableLen, (int)p.histLen);
-  if (threadIdx.x < 3 * (kBlock / 32)) (&tot[0][0])[threadIdx.x] = 0ull;
-  __syncthreads();
-  const float* surfT = smem;
-  const float* elemT = smem + p.nSurf * kRow;
-
-  const int lane = threadIdx.x & 31;
-  for (long long wt = claimWarpTile(next); wt * 32 < p.N;
-       wt = claimWarpTile(next)) {
-    const long long i = wt * 32 + lane;
-    int segs = 0, hitN = 0;
-    int lastBin = -1;              // the ring's last slot
-    float lastW = 0.f;
-    const long long rowStride = 0;  // (the per-ray modes' ring)
-    float* ring = out0;
-    if (i < p.N) {
-// an earlier ring slot, inside the bounce loop where the ray's whole
-// state is live: straight to the output, as few registers as that takes
-// (it runs only where a ray may pass a detector more than once)
-#define TRACE_ADD_HIT(b, w)     \
-  do {                          \
-    atomicAdd(out0 + (b), (w)); \
-    atomicAdd(out1 + (b), 1.f); \
-  } while (0)
-// the last slot, after the loop: through the block's binning mode
-#define TRACE_ADD_LAST(b, w) \
-  binPass(histMode, smem + p.tableLen, (int)p.histLen, out0, out1, (b), (w))
-#include "trace_ray.inc"
-#undef TRACE_ADD_LAST
-#undef TRACE_ADD_HIT
-    }
-    const unsigned v0 = __reduce_add_sync(0xffffffffu, (unsigned)segs);
-    const unsigned v1 =
-        __reduce_add_sync(0xffffffffu, (unsigned)min(hitN, p.hitSlots));
-    const unsigned v2 =
-        __reduce_add_sync(0xffffffffu, (unsigned)max(hitN - p.hitSlots, 0));
-    if (lane == 0) {
-      tot[0][threadIdx.x >> 5] += v0;
-      tot[1][threadIdx.x >> 5] += v1;
-      tot[2][threadIdx.x >> 5] += v2;
-    }
-  }
-  __syncthreads();
-  flushBins(histMode, smem + p.tableLen, (int)p.histLen, out0, out1);
-  if (threadIdx.x < 3) {
-    unsigned long long total = 0;
-    for (int w = 0; w < kBlock / 32; ++w) total += tot[threadIdx.x][w];
     if (total) atomicAdd(counters + threadIdx.x, total);
   }
 }
@@ -1836,10 +1979,9 @@ inline bool needsB4(const TraceParams& p) {
   return p.hasGrating || p.nStages > 0 || p.gate || p.dispOff >= 0;
 }
 
-// The table (and, in the histogram modes, the block's bins) live in dynamic
-// shared memory: past the default 48 KB an instance has to be allowed more
-// (up to what a block may hold on the card; the wrapper refuses larger
-// tables, and plans no larger histogram region, before they get here).
+// The table lives in dynamic shared memory: past the default 48 KB an
+// instance has to be allowed more (up to what a block may hold on the
+// card; the wrapper refuses larger tables before they get here).
 template <typename Kernel>
 int allowTable(Kernel kernel, size_t shmem) {
   if (shmem <= 48 * 1024) return 0;
@@ -1848,141 +1990,23 @@ int allowTable(Kernel kernel, size_t shmem) {
 }
 
 // Launch `kernel` on `stream` with the table allowed its shared memory.
-// `carveout` >= 0: the share of the SM's 228 KB to set aside as shared
-// memory, in percent (the histogram modes: what their planned blocks per SM
-// need, the rest stays L1 for the tables in device memory and for spills).
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, long long blocks, size_t shmem, int carveout,
-           void* stream, const Args&... args) {
+template <typename Kernel>
+int launch(Kernel kernel, long long blocks, size_t shmem, void* stream,
+           const TraceParams& p, const float* table, const TriTable& tt,
+           const SurfTable& st, const float* surfTab, const float* surfBox,
+           const float* rayIn, float* out0, float* out1,
+           unsigned long long* counters) {
   if (int err = allowTable(kernel, shmem)) return err;
-  if (carveout >= 0)
-    if (int err = (int)cudaFuncSetAttribute(
-            kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-            carveout))
-      return err;
-  kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(args...);
+  kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
+      p, table, tt, st, surfTab, surfBox, rayIn, out0, out1, counters);
   return (int)cudaGetLastError();
 }
 
-// ptxas's registers per thread of `kernel` (the host's histogram plan reads
-// them), or minus a CUDA error.
-template <typename Kernel>
-int registersOf(Kernel kernel) {
-  cudaFuncAttributes a;
-  const int err = (int)cudaFuncGetAttributes(&a, kernel);
-  return err ? -err : a.numRegs;
-}
-
-// The kernel instance of output mode OUT with these flags: traceHistKernel
-// for the histograms, traceKernel for the per-ray modes.
-template <int OUT, bool SWEEP, bool B4, bool SURF, bool SCAT,
-          bool GEOM = false, bool TRI = false, bool STAB = false>
-auto kernelOf() {
-  if constexpr (OUT == OUT_HIST)
-    return &traceHistKernel<SWEEP, B4, SURF, SCAT, GEOM, TRI, STAB>;
-  else
-    return &traceKernel<OUT, SWEEP, B4, SURF, SCAT, GEOM, TRI, STAB>;
-}
-
-// Call go(instance) with the kernel instance of output mode OUT that a
-// launch with these parameters runs, from the instances with the tables in
+// Launch one output mode on `stream`, from the instances with the tables in
 // device memory (TRI: a triangle table, ip[24] > 0, or a surface table,
 // ip[26] > 0) or from those without them, as the source that instantiates
-// this asks.
-template <int OUT, bool TRI, typename Go>
-int pickTrace(const TraceParams& p, const long long* ip, Go go) {
-  // ip[21]: the tables' sampler, 0 point source, 1 surface source; ip[22]:
-  // the table has a scatter block; ip[23]: the scene has a kind or trim of
-  // B2 / B3 (widened surface rows)
-  const bool surf = ip[21] == 1 && p.mode != MODE_COLUMNS;
-  const bool scat = ip[22] != 0, geom = ip[23] != 0;
-  constexpr int O = OUT;
-  constexpr bool T = true, F = false;
-  if constexpr (TRI) {             // every TRI instance is built on B4
-    // STAB (S): the instances that also sweep a surface table (ip[26] > 0)
-    auto pick = [&](auto stab) {
-      constexpr bool S = decltype(stab)::value;
-      if (geom)
-        return scat ? (surf ? go(kernelOf<O, F, T, T, T, T, T, S>())
-                            : go(kernelOf<O, F, T, F, T, T, T, S>()))
-                    : (surf ? go(kernelOf<O, F, T, T, F, T, T, S>())
-                            : go(kernelOf<O, F, T, F, F, T, T, S>()));
-      return scat ? (surf ? go(kernelOf<O, F, T, T, T, F, T, S>())
-                          : go(kernelOf<O, F, T, F, T, F, T, S>()))
-                  : (surf ? go(kernelOf<O, F, T, T, F, F, T, S>())
-                          : go(kernelOf<O, F, T, F, F, F, T, S>()));
-    };
-    return ip[26] > 0 ? pick(std::true_type{}) : pick(std::false_type{});
-  } else {
-    if (geom)
-      return scat ? (surf ? go(kernelOf<O, F, T, T, T, T>())
-                          : go(kernelOf<O, F, T, F, T, T>()))
-                  : (surf ? go(kernelOf<O, F, T, T, F, T>())
-                          : go(kernelOf<O, F, T, F, F, T>()));
-    if (scat)
-      return surf ? go(kernelOf<O, F, T, T, T>())
-                  : go(kernelOf<O, F, T, F, T>());
-    if (needsB4(p))
-      return surf ? go(kernelOf<O, F, T, T, F>())
-                  : go(kernelOf<O, F, T, F, F>());
-    return surf ? go(kernelOf<O, F, F, T, F>())
-                : go(kernelOf<O, F, F, F, F>());
-  }
-}
-
-// The sweep's instance (OUT_HIST, variant-major), TRI as for pickTrace.
-template <bool TRI, typename Go>
-int pickSweep(const TraceParams& p, const long long* ip, Go go) {
-  // ip[22]: the tables have a scatter block; ip[23]: widened surface rows
-  // (a kind or trim of B2 / B3)
-  const bool scat = ip[22] != 0, geom = ip[23] != 0;
-  constexpr int O = OUT_HIST;
-  constexpr bool T = true, F = false;
-  if constexpr (TRI) {
-    auto pick = [&](auto stab) {
-      constexpr bool S = decltype(stab)::value;
-      if (geom)
-        return scat ? go(kernelOf<O, T, T, F, T, T, T, S>())
-                    : go(kernelOf<O, T, T, F, F, T, T, S>());
-      return scat ? go(kernelOf<O, T, T, F, T, F, T, S>())
-                  : go(kernelOf<O, T, T, F, F, F, T, S>());
-    };
-    return ip[26] > 0 ? pick(std::true_type{}) : pick(std::false_type{});
-  } else {
-    if (geom)
-      return scat ? go(kernelOf<O, T, T, F, T, T>())
-                  : go(kernelOf<O, T, T, F, F, T>());
-    if (scat) return go(kernelOf<O, T, T, F, T>());
-    return needsB4(p) ? go(kernelOf<O, T, T, F, F>())
-                      : go(kernelOf<O, T, F, F, F>());
-  }
-}
-
-// The histogram modes' launch shape from the host's plan (ops/cuda_trace.py
-// `histogramPlan`): ip[89] the binning mode, ip[90] the blocks (of the grid;
-// per variant in the sweep), ip[91] the dynamic shared bytes, which must
-// hold the table and the mode's bins, ip[92] the shared-memory carveout in
-// percent. False for a plan that cannot run.
-inline bool histShape(const TraceParams& p, const long long* ip,
-                      long long& blocks, size_t& shmem) {
-  blocks = ip[90];
-  shmem = (size_t)ip[91];
-  size_t need = (size_t)p.tableLen * sizeof(float);
-  if (ip[89] == HIST_SHARED)
-    need += 2 * (size_t)p.histLen * sizeof(float);
-  else if (ip[89] == HIST_CACHE)
-    need += 3 * (size_t)kCacheSlots * sizeof(float);
-  else if (ip[89] != HIST_WARP)
-    return false;
-  return blocks > 0 && blocks <= 2147483647LL && shmem >= need &&
-         ip[92] >= 0 && ip[92] <= 100;
-}
-
-// Launch one output mode on `stream` (see pickTrace for TRI); no
-// synchronisation, no allocation. The per-ray modes run ceil(N / 256)
-// blocks with the table in shared memory; the histogram mode runs the host's
-// plan (histShape). Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for tables the source's instances do not take or a plan that cannot run.
+// this asks; no synchronisation, no allocation. Returns cudaGetLastError(),
+// or cudaErrorInvalidValue for tables the source's instances do not take.
 template <int OUT, bool TRI>
 int launchTrace(const float* table, const float* tri, const float* box,
                 const float* surfTab, const float* surfBox, const float* rayIn,
@@ -1991,40 +2015,59 @@ int launchTrace(const float* table, const float* tri, const float* box,
   TraceParams p = traceParams(ip, fp);
   if (hasGlobalTables(ip) != TRI) return (int)cudaErrorInvalidValue;
   if (p.N <= 0) return 0;
-  long long blocks = (p.N + kBlock - 1) / kBlock;
-  size_t shmem = (size_t)p.tableLen * sizeof(float);
-  if (OUT == OUT_HIST) {
-    p.histLen = ip[16];
-    if (!histShape(p, ip, blocks, shmem)) return (int)cudaErrorInvalidValue;
-  }
+  const long long blocks = (p.N + kBlock - 1) / kBlock;
+  const size_t shmem = (size_t)p.tableLen * sizeof(float);
   const TriTable tt = triTable(tri, box, ip);
   const SurfTable st = surfTable(ip);
-  return pickTrace<OUT, TRI>(p, ip, [&](auto kernel) {
-    if constexpr (OUT == OUT_HIST)
-      return launch(kernel, blocks, shmem, (int)ip[92], stream, p,
-                    (int)ip[89], table, tt, st, surfTab, surfBox, rayIn,
-                    out0, out1, counters);
-    else
-      return launch(kernel, blocks, shmem, -1, stream, p, table, tt, st,
-                    surfTab, surfBox, rayIn, out0, out1, counters);
-  });
-}
-
-// The registers of the instance launchTrace<OUT, TRI> would run.
-template <int OUT, bool TRI>
-int traceRegisters(const long long* ip, const float* fp) {
-  const TraceParams p = traceParams(ip, fp);
-  if (hasGlobalTables(ip) != TRI) return -(int)cudaErrorInvalidValue;
-  return pickTrace<OUT, TRI>(p, ip,
-                             [](auto kernel) { return registersOf(kernel); });
+  // ip[21]: the tables' sampler, 0 point source, 1 surface source; ip[22]:
+  // the table has a scatter block; ip[23]: the scene has a kind or trim of
+  // B2 / B3 (widened surface rows)
+  const bool surf = ip[21] == 1 && p.mode != MODE_COLUMNS;
+  const bool scat = ip[22] != 0, geom = ip[23] != 0;
+  constexpr int O = OUT;
+  constexpr bool T = true, F = false;
+  auto go = [&](auto kernel) {
+    return launch(kernel, blocks, shmem, stream, p, table, tt, st, surfTab,
+                  surfBox, rayIn, out0, out1, counters);
+  };
+  if constexpr (TRI) {             // every TRI instance is built on B4
+    // STAB (S): the instances that also sweep a surface table (ip[26] > 0)
+    auto pick = [&](auto stab) {
+      constexpr bool S = decltype(stab)::value;
+      if (geom)
+        return scat ? (surf ? go(traceKernel<O, F, T, T, T, T, T, S>)
+                            : go(traceKernel<O, F, T, F, T, T, T, S>))
+                    : (surf ? go(traceKernel<O, F, T, T, F, T, T, S>)
+                            : go(traceKernel<O, F, T, F, F, T, T, S>));
+      return scat ? (surf ? go(traceKernel<O, F, T, T, T, F, T, S>)
+                          : go(traceKernel<O, F, T, F, T, F, T, S>))
+                  : (surf ? go(traceKernel<O, F, T, T, F, F, T, S>)
+                          : go(traceKernel<O, F, T, F, F, F, T, S>));
+    };
+    return ip[26] > 0 ? pick(std::true_type{}) : pick(std::false_type{});
+  } else {
+    if (geom)
+      return scat ? (surf ? go(traceKernel<O, F, T, T, T, T>)
+                          : go(traceKernel<O, F, T, F, T, T>))
+                  : (surf ? go(traceKernel<O, F, T, T, F, T>)
+                          : go(traceKernel<O, F, T, F, F, T>));
+    if (scat)
+      return surf ? go(traceKernel<O, F, T, T, T>)
+                  : go(traceKernel<O, F, T, F, T>);
+    if (needsB4(p))
+      return surf ? go(traceKernel<O, F, T, T, F>)
+                  : go(traceKernel<O, F, T, F, F>);
+    return surf ? go(traceKernel<O, F, F, T, F>)
+                : go(traceKernel<O, F, F, F, F>);
+  }
 }
 
 // The sweep's launch (OUT_HIST, variant-major), TRI as for launchTrace:
 // ip[15] variants of ip[0] rays each, ip[16] floats per variant's histogram
 // (the other parameters as for the single-scene launchers). The grid is
-// variants x ip[90] blocks, each claiming its variant's warp-tiles
-// (threads past a variant's last ray are masked). No synchronisation, no
-// allocation; returns cudaGetLastError().
+// variants x ceil(rays / block) blocks; threads past a variant's last ray
+// are masked like the last block of a single-scene launch. No
+// synchronisation, no allocation; returns cudaGetLastError().
 template <bool TRI>
 int launchSweep(const float* tables, const float* tri, const float* box,
                 const float* surfTab, const float* surfBox, const float* rayIn,
@@ -2036,28 +2079,40 @@ int launchSweep(const float* tables, const float* tri, const float* box,
   const long long variants = ip[15];
   p.histLen = ip[16];
   if (p.N <= 0 || variants <= 0) return 0;
-  long long perVariant;
-  size_t shmem;
-  if (!histShape(p, ip, perVariant, shmem)) return (int)cudaErrorInvalidValue;
+  const long long perVariant = (p.N + kBlock - 1) / kBlock;
   const long long blocks = variants * perVariant;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   p.blocksPerVariant = (int)perVariant;
+  const size_t shmem = (size_t)p.tableLen * sizeof(float);
   const TriTable tt = triTable(tri, box, ip);
   const SurfTable st = surfTable(ip);
-  return pickSweep<TRI>(p, ip, [&](auto kernel) {
-    return launch(kernel, blocks, shmem, (int)ip[92], stream, p, (int)ip[89],
-                  tables, tt, st, surfTab, surfBox, rayIn, histPower,
-                  histCounts, counters);
-  });
-}
-
-// The registers of the instance launchSweep<TRI> would run.
-template <bool TRI>
-int sweepRegisters(const long long* ip, const float* fp) {
-  const TraceParams p = traceParams(ip, fp);
-  if (hasGlobalTables(ip) != TRI) return -(int)cudaErrorInvalidValue;
-  return pickSweep<TRI>(p, ip,
-                        [](auto kernel) { return registersOf(kernel); });
+  // ip[22]: the tables have a scatter block; ip[23]: widened surface rows
+  // (a kind or trim of B2 / B3)
+  const bool scat = ip[22] != 0, geom = ip[23] != 0;
+  constexpr int O = OUT_HIST;
+  constexpr bool T = true, F = false;
+  auto go = [&](auto kernel) {
+    return launch(kernel, blocks, shmem, stream, p, tables, tt, st, surfTab,
+                  surfBox, rayIn, histPower, histCounts, counters);
+  };
+  if constexpr (TRI) {
+    auto pick = [&](auto stab) {
+      constexpr bool S = decltype(stab)::value;
+      if (geom)
+        return scat ? go(traceKernel<O, T, T, F, T, T, T, S>)
+                    : go(traceKernel<O, T, T, F, F, T, T, S>);
+      return scat ? go(traceKernel<O, T, T, F, T, F, T, S>)
+                  : go(traceKernel<O, T, T, F, F, F, T, S>);
+    };
+    return ip[26] > 0 ? pick(std::true_type{}) : pick(std::false_type{});
+  } else {
+    if (geom)
+      return scat ? go(traceKernel<O, T, T, F, T, T>)
+                  : go(traceKernel<O, T, T, F, F, T>);
+    if (scat) return go(traceKernel<O, T, T, F, T>);
+    return needsB4(p) ? go(traceKernel<O, T, T, F, F>)
+                      : go(traceKernel<O, T, F, F, F>);
+  }
 }
 
 }  // namespace

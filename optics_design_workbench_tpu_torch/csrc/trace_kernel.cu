@@ -11,18 +11,13 @@
 // histogram that stays in L2, so device memory is idle; the work is a few
 // hundred float32 operations per ray segment (one intersection test per
 // surface, the winner's normal, Snell / mirror physics) plus a handful of
-// sqrt / divide / sin / cos / exp calls per ray. What the TPU kernel's
-// one-hot matrix binning becomes here (B11, `traceHistKernel`): a fixed grid
-// of resident blocks whose warps claim 32-ray tiles until the rays run out;
-// the lanes of a warp that land in one bin add once, into the block's own
-// shared-memory histogram (or a cache of its hot bins, or the output, as
-// the host's `histogramPlan` picks from the shapes), flushed into the
-// float32 output once per block, so thousands of rays landing in a few bins
-// no longer queue on the same L2 addresses.
+// sqrt / divide / sin / cos / exp calls per ray. Power is added in float32
+// with atomicAdd straight to global memory; where the TPU kernel bins a tile
+// with a one-hot matrix product, the lanes of a warp that land in one bin
+// here add once, their power summed by shuffles (`addGrouped`), so a focused
+// spot or line does not queue 32 atomics a warp on one L2 address.
 //
-// Interface: one plain-C launcher, `odwTraceHistogram`, and the registers of
-// the instance it would run, `odwTraceHistogramRegisters`, loaded with
-// ctypes.
+// Interface: one plain-C launcher, `odwTraceHistogram`, loaded with ctypes.
 
 #include "trace_common.cuh"
 
@@ -36,9 +31,4 @@ extern "C" int odwTraceHistogram(const float* table, const float* tri,
   return launchTrace<OUT_HIST, false>(table, tri, box, surf, surfBox, rayIn,
                                       histPower, histCounts, counters, ip, fp,
                                       stream);
-}
-
-extern "C" int odwTraceHistogramRegisters(const long long* ip,
-                                          const float* fp) {
-  return traceRegisters<OUT_HIST, false>(ip, fp);
 }

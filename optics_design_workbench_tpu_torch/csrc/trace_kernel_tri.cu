@@ -16,8 +16,7 @@
 // row, broadcast to the warp).
 //
 // Interface: one plain-C launcher, `odwTraceHistogramTri`, loaded with ctypes;
-// the arguments of `odwTraceHistogram`; `odwTraceHistogramTriRegisters` as
-// `odwTraceHistogramRegisters`.
+// the arguments of `odwTraceHistogram`.
 
 #include "trace_common.cuh"
 
@@ -31,9 +30,4 @@ extern "C" int odwTraceHistogramTri(const float* table, const float* tri,
   return launchTrace<OUT_HIST, true>(table, tri, box, surf, surfBox, rayIn,
                                      histPower, histCounts, counters, ip, fp,
                                      stream);
-}
-
-extern "C" int odwTraceHistogramTriRegisters(const long long* ip,
-                                             const float* fp) {
-  return traceRegisters<OUT_HIST, true>(ip, fp);
 }

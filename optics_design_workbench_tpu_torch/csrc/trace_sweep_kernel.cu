@@ -13,18 +13,14 @@
 // placement are the same case.
 //
 // What bounds it on this card: operations, as for the single-scene kernel.
-// It reads V small tables (a few KB each, once per block) and writes V
-// histograms that together stay in L2; the work per ray segment is the
-// single-scene kernel's. One launch for V variants saves V - 1 launches and
-// V - 1 fetches, and fills the card when one variant's rays alone would not.
-// The binning (B11, `traceHistKernel`): each variant gets a share of the
-// resident blocks, whose warps claim that variant's 32-ray tiles and bin
-// (the lanes of a warp that land in one bin adding once) into the block's
-// own shared-memory histogram of that variant where it fits (a 64 x 64
-// detector is 32 KB), added to the variant's histogram once per block.
+// It reads V small tables (a few KB each, once per block) and writes two
+// float32 atomics per recorded hit into V histograms that together stay in
+// L2 (one pair per group of a warp's lanes in one bin, `addGrouped`); the
+// work per ray segment is the single-scene kernel's. One launch for
+// V variants saves V - 1 launches and V - 1 fetches, and fills the card when
+// one variant's rays alone would not.
 //
-// Interface: one plain-C launcher, `odwTraceSweep`, and the registers of the
-// instance it would run, `odwTraceSweepRegisters`, loaded with ctypes.
+// Interface: one plain-C launcher, `odwTraceSweep`, loaded with ctypes.
 
 #include "trace_common.cuh"
 
@@ -39,8 +35,4 @@ extern "C" int odwTraceSweep(const float* tables, const float* tri,
                              void* stream) {
   return launchSweep<false>(tables, tri, box, surf, surfBox, rayIn, histPower,
                             histCounts, counters, ip, fp, stream);
-}
-
-extern "C" int odwTraceSweepRegisters(const long long* ip, const float* fp) {
-  return sweepRegisters<false>(ip, fp);
 }

@@ -16,8 +16,7 @@
 // a surface row, broadcast to the warp).
 //
 // Interface: one plain-C launcher, `odwTraceSweepTri`, loaded with ctypes; the
-// arguments of `odwTraceSweep`; `odwTraceSweepTriRegisters` as
-// `odwTraceSweepRegisters`.
+// arguments of `odwTraceSweep`.
 
 #include "trace_common.cuh"
 
@@ -30,9 +29,4 @@ extern "C" int odwTraceSweepTri(const float* tables, const float* tri,
                                 void* stream) {
   return launchSweep<true>(tables, tri, box, surf, surfBox, rayIn, histPower,
                            histCounts, counters, ip, fp, stream);
-}
-
-extern "C" int odwTraceSweepTriRegisters(const long long* ip,
-                                         const float* fp) {
-  return sweepRegisters<true>(ip, fp);
 }

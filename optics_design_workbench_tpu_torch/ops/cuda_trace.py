@@ -26,11 +26,8 @@ in its in-kernel-histogram and per-ray-output modes, `makePallasRawStep`,
     tensors (counting launches in `launchCounts`), and runs its plain
     version for CPU tensors — and only for those: on a CUDA tensor it
     launches the kernel or raises;
-  * `histogramPlan`, which picks from the shapes alone how the two
-    histogram kernels bin (B11: a block-private shared-memory histogram, a
-    shared-memory cache of hot bins, or the output itself, each after the
-    lanes of a warp that land in one bin have grouped) and how many resident
-    blocks share out the rays; each launch's plan is kept in `lastLaunch`;
+  * `lastLaunch`, each wrapper's last launch (grid, shared bytes and the
+    histogram kernels' binning, HIST_MODE);
   * the plain PyTorch versions `traceHistogramPlain`, `traceBinsPlain`,
     `traceRawPlain`, `traceSweepPlain`: one bounce loop of column-wise
     tensor ops (`_bounceLoopPlain`) that follows the kernels step by step,
@@ -220,23 +217,13 @@ _KERNELS = {'traceHistogram': ('trace_kernel', 'odwTraceHistogram', 2),
 # number of kernel launches made through each wrapper (one is added where
 # the wrapper launches its kernel, and nowhere else)
 launchCounts = {name: 0 for name in _KERNELS}
-# the launch record of each wrapper: the histogram kernels' last plan
-# (`histogramPlan`, with the registers it was made for), None before a launch
+# how the histogram kernels bin a detector pass (B11): the lanes of a warp
+# that land in one bin add once, straight into the output
+HIST_MODE = 'warp'
+KERNEL_BLOCK = 256               # csrc kBlock: threads (= rays) of a block
+# each wrapper's last launch: its grid, dynamic shared bytes and, for the
+# histogram kernels, HIST_MODE (None before a launch)
 lastLaunch = {name: None for name in _KERNELS}
-
-# ---- B11: how the histogram kernels bin (`histogramPlan`). Per-SM limits
-# of Hopper (sm_90) and what a block of the kernels holds beside its dynamic
-# shared memory.
-SM_SHARED_BYTES = 233472         # 228 KB of shared memory per SM
-BLOCK_SHARED_BYTES = 232448      # at most 227 KB per block
-SHARED_RESERVED_BYTES = 1024     # per block, kept by the CUDA runtime
-STATIC_SHARED_BYTES = 192        # the per-warp totals, 3 x 8 uint64
-SM_REGISTERS = 65536
-SM_THREADS = 2048
-KERNEL_BLOCK = 256               # csrc kBlock: threads (= rays) of a tile
-# csrc HIST_SHARED / HIST_CACHE / HIST_WARP, in that order
-HIST_MODES = ('shared', 'cache', 'warp')
-HIST_CACHE_SLOTS = 2048          # csrc kCacheSlots: (tag, power, count)
 
 
 def numSurfacesStatic(scene):
@@ -2628,120 +2615,23 @@ def binRing(histograms, ring):
   histograms['counts'].copy_(counts.view(shape))
 
 
-# ------------------------------------------------------- histogram plan (B11)
-
-def blocksPerSM(registers, sharedBytes):
-  '''Blocks of the trace kernels (256 threads each) one SM holds at once,
-  by its registers (allocated 8 a thread at a time), its shared memory
-  (dynamic `sharedBytes` plus the static and runtime-reserved bytes) and
-  its 2048 threads.'''
-  regs = -(-max(int(registers), 1) // 8) * 8
-  byRegisters = SM_REGISTERS // (regs * KERNEL_BLOCK)
-  byShared = SM_SHARED_BYTES // (int(sharedBytes) + STATIC_SHARED_BYTES
-                                 + SHARED_RESERVED_BYTES)
-  return min(SM_THREADS // KERNEL_BLOCK, byRegisters, byShared)
-
-
-def histogramPlan(D, H, W, tableBytes, nRays, variants=1, registers=64,
-                  sms=132, modes=HIST_MODES):
-  '''How the histogram kernels (`traceHistogram`: variants=1; `traceSweep`)
-  bin a launch, from its shapes alone: the detectors' D x H x W bins, the
-  table's bytes in shared memory, the rays (per variant), the variants, the
-  kernel instance's registers per thread and the card's SMs. Returns dict(
-  mode, modeCode, sharedBytes, blocksPerSM, blocksPerVariant, blocks,
-  carveout, histLen, registers).
-
-  The first of `modes` whose block still reaches the occupancy of the table
-  alone (`blocksPerSM`) is taken, else the last of them: 'shared', a
-  block-private (power, count) histogram of all D x H x W bins in shared
-  memory; 'cache', a HIST_CACHE_SLOTS-slot cache of the block's hot bins,
-  its misses added straight to the output; 'warp', the table alone in
-  shared memory and every pass added straight to the output (it always
-  fits). In every mode the lanes of a warp that bin together group by bin
-  first, and one lane adds for the group. Then as many blocks as the card
-  holds at once share out the rays' warp-tiles, the blocks spread evenly
-  over the variants (at least one a variant, at most one a 256-ray tile),
-  so a block never leaves its variant. `carveout` is the share of the SM's
-  shared memory, in percent, that those blocks need: the rest stays L1
-  cache. (`modes` other than all three is for measuring one mode against
-  another.)'''
-  histLen = int(D) * int(H) * int(W)
-  tableBytes = int(tableBytes)
-  want = blocksPerSM(registers, tableBytes)
-  if want < 1:
-    raise ValueError(f'a table of {tableBytes} bytes leaves no room for a '
-                     f'block on an SM')
-  extra = dict(shared=8 * histLen, cache=12 * HIST_CACHE_SLOTS, warp=0)
-  for mode in modes:
-    shared = tableBytes + extra[mode]
-    if blocksPerSM(registers, shared) >= want:
-      break
-  if shared + STATIC_SHARED_BYTES > BLOCK_SHARED_BYTES:
-    raise ValueError(f'{mode!r} binning needs {shared} bytes of shared '
-                     f'memory a block, more than the card gives one')
-  perSM = blocksPerSM(registers, shared)
-  tiles = -(-int(nRays) // KERNEL_BLOCK)
-  perVariant = max(1, min(tiles, (int(sms) * perSM) // int(variants)))
-  carveout = -(-100 * perSM * (shared + STATIC_SHARED_BYTES
-                               + SHARED_RESERVED_BYTES) // SM_SHARED_BYTES)
-  return dict(mode=mode, modeCode=HIST_MODES.index(mode), sharedBytes=shared,
-              blocksPerSM=perSM, blocksPerVariant=perVariant,
-              blocks=int(variants) * perVariant, carveout=min(carveout, 100),
-              histLen=histLen, registers=int(registers))
-
-
 # ------------------------------------------------------------------ wrappers
 
-def _kernelFunction(name, tri, registers=False):
-  '''The C launcher of wrapper `name` (from its `_tri` library for tables
-  in device memory), or with `registers` its query of the registers of the
-  instance a launch would run (the histogram kernels only).'''
+def _kernelFunction(name, tri):
   from .._build import buildKernels
   libs, _info = buildKernels()
   stem, symbol, nOut = _KERNELS[name]
   if tri:
     stem, symbol = stem + '_tri', symbol + 'Tri'
-  fn = getattr(libs[stem], symbol + ('Registers' if registers else ''))
+  fn = getattr(libs[stem], symbol)
   if fn.argtypes is None:
-    # ip, fp; a launch first takes the table, triangle table and its boxes,
-    # surface table and its boxes, rayIn, the outputs, counters and last
-    # the stream
-    ipFp = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float)]
-    fn.argtypes = ipFp if registers else (
-        [ctypes.c_void_p] * (7 + nOut) + ipFp + [ctypes.c_void_p])
+    # table, triangle table and its boxes, surface table and its boxes,
+    # rayIn, the outputs, counters | ip, fp | stream
+    fn.argtypes = [ctypes.c_void_p] * (7 + nOut) + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
   return fn
-
-
-_REGISTERS = {}
-_SMS = {}
-
-
-def _planLaunch(name, tri, ip, fp, tables, nRays, variants, dev):
-  '''`histogramPlan` for a launch of histogram kernel `name` whose scalar
-  words `ip` / `fp` are filled but for the plan's; writes the plan into
-  ip[89:93] (mode, blocks of the grid or per variant, shared bytes,
-  carveout) and returns it. The registers come
-  from the instance the launch will run (asked once per instance choice),
-  the SMs from the card.'''
-  key = (name, tri, ip[6] == MODE_COLUMNS, tuple(ip[17:24]), ip[26] > 0)
-  if key not in _REGISTERS:
-    regs = _kernelFunction(name, tri, registers=True)(ip, fp)
-    if regs <= 0:
-      raise KernelError(f'{name}: registers of the kernel instance not '
-                        f'readable: CUDA error {-regs}')
-    _REGISTERS[key] = regs
-  if dev not in _SMS:
-    _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-  H, W = tables['bins']
-  plan = histogramPlan(tables['nDet'], H, W, 4 * int(ip[2]), nRays,
-                       variants=variants, registers=_REGISTERS[key],
-                       sms=_SMS[dev])
-  ip[89] = plan['modeCode']
-  ip[90] = plan['blocksPerVariant']
-  ip[91] = plan['sharedBytes']
-  ip[92] = plan['carveout']
-  return plan
 
 
 def _checkTensor(name, x, dev, shape, dtype=torch.float32):
@@ -2996,20 +2886,19 @@ def traceSweep(sweepTables, histograms, raysPerVariant, maxIntersections,
                        (histograms['power'], histograms['counts']),
                        raysPerVariant, mode, rayIn, int(seed or 0), strata,
                        strataTile, maxIntersections, maxRayLength, distTol,
-                       powerTol, hitSlots, variants=V)
+                       powerTol, hitSlots, sweep=(V, D * H * W))
 
 
 def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
                   strataTile, maxIntersections, maxRayLength, distTol,
-                  powerTol, hitSlots, variants=None):
+                  powerTol, hitSlots, sweep=None):
   '''Launch kernel `name` (a key of `_KERNELS`) on PyTorch's current stream
   with the output tensors `outs` (inputs already validated by the wrapper),
-  and add one to its launch count. `variants` for the sweep kernel, whose
-  `tables` are stacked, whose `nRays` are per variant and whose counters
-  come back per variant. The histogram kernels launch as `histogramPlan`
-  plans them (kept in `lastLaunch`). CUDA tensors only: a CPU tensor's
-  address means nothing to the card, so it is refused before anything is
-  built.'''
+  and add one to its launch count. `sweep` = (variants, floats per variant's
+  histogram) for the sweep kernel, whose `tables` are stacked, whose `nRays`
+  are per variant and whose counters come back per variant. CUDA tensors
+  only: a CPU tensor's address means nothing to the card, so it is refused
+  before anything is built.'''
   table = tables['table']
   dev = table.device
   glob = {k: tables.get(k) for k in _GLOBAL_TABLES}
@@ -3029,26 +2918,19 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
       _checkTensor(key, glob[key], dev, lead + (n, cols))
   runs = surfaceRuns(tables.get('surfPlainRuns', ()),
                      tables.get('surfChunkRuns', ())) if nSurfT else []
-  tri = nTri > 0 or nSurfT > 0
-  fn = _kernelFunction(name, tri)
-  hist = name in ('traceHistogram', 'traceSweep')
-  # the histogram kernels' warps claim their rays from one counter a
-  # variant, zeroed with the (segments, hits, overflow) counters
-  V = variants or 1
-  words = torch.zeros(4 * V if hist else 3, dtype=torch.int64, device=dev)
-  counters = words[:3] if variants is None else words[:3 * V].view(V, 3)
+  fn = _kernelFunction(name, nTri > 0 or nSurfT > 0)
+  variants, histLen = sweep if sweep is not None else (1, 0)
+  counters = torch.zeros((3,) if sweep is None else (variants, 3),
+                         dtype=torch.int64, device=dev)
   H, W = tables['bins']
-  histLen = tables['nDet'] * H * W
   G1, G2 = strata if strata is not None else (0, 1)
   runWords = [x for run in runs for x in run]
   runWords += [0] * (MAX_SURF_RUNS * RUN_COLS - len(runWords))
-  # ... then the histogram plan's four words (mode, blocks, shared bytes,
-  # carveout)
-  ip = (ctypes.c_longlong * (29 + MAX_SURF_RUNS * RUN_COLS + 4))(
-      int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // V,
+  ip = (ctypes.c_longlong * (29 + MAX_SURF_RUNS * RUN_COLS))(
+      int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
-      int(strataTile) if strata is not None else 1, G1, G2, V,
+      int(strataTile) if strata is not None else 1, G1, G2, variants,
       histLen, int(tables['hasGrating']), int(tables['nStages']),
       int(tables['gate']), int(tables['dispOff']),
       int(tables['samplerKind']), int(tables.get('scatter', False)),
@@ -3058,8 +2940,6 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
       1.0 / max(G1, 1), 1.0 / G2)
-  if hist:
-    lastLaunch[name] = _planLaunch(name, tri, ip, fp, tables, nRays, V, dev)
   ptr = lambda key, n: glob[key].data_ptr() if n else None
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -3067,11 +2947,16 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
              ptr('triBoxes', nTri and nChunks), ptr('surfTable', nSurfT),
              ptr('surfBoxes', nSurfChunks),
              rayIn.data_ptr() if rayIn is not None else None,
-             *(t.data_ptr() for t in outs), words.data_ptr(), ip, fp,
+             *(t.data_ptr() for t in outs), counters.data_ptr(), ip, fp,
              stream)
   if err != 0:
     raise KernelError(f'{name} kernel launch failed: CUDA error {err}')
   launchCounts[name] += 1
+  lastLaunch[name] = dict(
+      blocks=variants * (-(-int(nRays) // KERNEL_BLOCK)),
+      sharedBytes=4 * (int(table.numel()) // variants),
+      histMode=HIST_MODE if name in ('traceHistogram', 'traceSweep')
+      else None)
   return counters
 
 

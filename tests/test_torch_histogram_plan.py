@@ -1,20 +1,16 @@
-'''B11: how the port's two histogram kernels bin (`cuda_trace.histogramPlan`)
-and what they must compute where thousands of rays pile into a few bins.
+'''B11: what the port's two histogram kernels must compute where thousands
+of rays pile into a few bins (the kernels group a warp's lanes by bin and
+add once a group; `cuda_trace.HIST_MODE`).
 
-  * The plan, from the shapes alone: the binning mode, the blocks and the
-    shared bytes for a 64 x 64 detector alone and stacked 64 deep, for
-    128 x 128, for three detectors of 256 x 256 and for tables near the
-    limit; the shared bytes never pass what a block may hold (232,448), and
-    the sweep's grid, walked as the kernel walks it, keeps every block in
-    one variant and traces every (variant, tile) once.
-  * A pile-up (`torch_port_helpers.buildPileUpScene`: every ray within 0.12
-    mm of the corner where four 1.25 mm bins meet) through the plain
-    versions of K1 (`traceHistogram` on the CPU) and K3 (`traceSweep`, two
-    source placements) against the JAX package's Pallas kernel in interpret
-    mode, fed the same uniforms: counters equal, counts EQUAL (no ray lies
-    near a bin edge but at the corner, 2 mrad cones of power-1 rays), power
-    per bin within rtol 1e-4 (each ray carries power 1, so the sums are
-    exact integers on both sides).
+A pile-up (`torch_port_helpers.buildPileUpScene`: every ray within 0.12 mm
+of the corner where four bins meet) at 64 x 64 and at 128 x 128 bins over
++-40 mm, through the plain versions of K1 (`traceHistogram` on the CPU, at
+each of two source placements) and K3 (`traceSweep`, the two placements as
+variants) against the JAX package's Pallas kernel in interpret mode, fed
+the same uniforms: counters equal, counts EQUAL (no ray lies near a bin
+edge but at the corner, 2 mrad cones of power-1 rays), power per bin within
+rtol 1e-4 (each ray carries power 1, so the sums are exact integers on both
+sides).
 '''
 
 import numpy as np
@@ -32,125 +28,27 @@ from optics_design_workbench_tpu_torch.tracing import fused
 
 torch.set_num_threads(1)
 
-TABLE = 2328                      # the pile-up scene's table, bytes
 N = 1 << 11
-BINS = (64, 64)
 OFFSETS = (0., 10.)               # the sweep's two source placements (mm)
-
-
-def _walk(plan, nRays):
-  '''The histogram kernels' walk over the rays (trace_common.cuh
-  `traceHistKernel`), played out on the host: the blocks of variant v are
-  blocks v * blocksPerVariant ... of the grid; warp w of the variant's block
-  b first takes warp-tile b * 8 + w, then warp-tiles from the variant's
-  counter, which hands out the ones after the blocks' first tiles, here in
-  turn to the variant's warps. Returns {variant: sorted 256-ray tiles, one
-  entry per warp-tile traced}.'''
-  per = plan['blocksPerVariant']
-  warpTiles = -(-nRays // 32)
-  out = {}
-  for block in range(plan['blocks']):
-    v, b = divmod(block, per)
-    out.setdefault(v, []).extend(t for t in range(b * 8, b * 8 + 8)
-                                 if t < warpTiles)
-  for v in out:
-    out[v].extend(range(per * 8, warpTiles))      # the counter's share
-  return {v: sorted(t // 8 for t in ts) for v, ts in out.items()}
-
-
-@pytest.mark.parametrize(
-    'shape,table,nRays,variants,registers,mode,perSM', [
-        ((1, 64, 64), TABLE, 1 << 22, 1, 40, 'shared', 6),
-        ((1, 64, 64), TABLE, 1 << 22, 1, 80, 'shared', 3),
-        ((1, 64, 64), TABLE, 1 << 20, 64, 56, 'shared', 4),
-        ((1, 64, 64), 9000, 1 << 20, 64, 80, 'shared', 3),
-        ((1, 128, 128), TABLE, 1 << 22, 1, 40, 'cache', 6),
-        ((1, 128, 128), TABLE, 1 << 20, 64, 64, 'cache', 4),
-        ((3, 256, 256), TABLE, 1 << 22, 1, 40, 'cache', 6),
-        ((1, 64, 64), 102400 + TABLE, 1 << 22, 1, 40, 'warp', 2),
-        ((1, 128, 128), 200000, 1 << 22, 1, 80, 'cache', 1),
-        ((1, 128, 128), C.MAX_TABLE_BYTES, 1 << 22, 1, 80, 'warp', 1),
-    ])
-def test_plan_by_shape(shape, table, nRays, variants, registers, mode,
-                       perSM):
-  plan = C.histogramPlan(*shape, table, nRays, variants=variants,
-                         registers=registers)
-  histLen = int(np.prod(shape))
-  extra = dict(shared=8 * histLen, cache=12 * C.HIST_CACHE_SLOTS, warp=0)
-  assert plan['mode'] == mode
-  assert plan['modeCode'] == C.HIST_MODES.index(mode)
-  assert plan['sharedBytes'] == table + extra[mode]
-  assert plan['sharedBytes'] + C.STATIC_SHARED_BYTES <= 232448
-  assert plan['blocksPerSM'] == perSM
-  assert plan['histLen'] == histLen
-  tiles = -(-nRays // 256)
-  assert plan['blocksPerVariant'] == min(tiles, 132 * perSM // variants)
-  assert plan['blocks'] == variants * plan['blocksPerVariant']
-  assert plan['blocks'] <= max(132 * perSM, variants)
-  # the carveout holds the planned blocks' shared memory and no more than
-  # one percent beyond it
-  need = perSM * (plan['sharedBytes'] + C.STATIC_SHARED_BYTES
-                  + C.SHARED_RESERVED_BYTES)
-  assert need <= plan['carveout'] / 100 * C.SM_SHARED_BYTES
-  assert plan['carveout'] == 100 or \
-      (plan['carveout'] - 1) / 100 * C.SM_SHARED_BYTES < need
-
-
-def test_plan_never_exceeds_a_block_and_keeps_occupancy():
-  '''Random shapes: the shared bytes always fit a block, and a mode that
-  keeps a histogram region never costs occupancy the table alone has.'''
-  rng = np.random.default_rng(11)
-  for _ in range(400):
-    D = int(rng.integers(1, 5))
-    H_, W = (int(x) for x in rng.choice([16, 32, 64, 128, 256, 512], 2))
-    table = int(rng.integers(400, C.MAX_TABLE_BYTES))
-    regs = int(rng.integers(24, 129))
-    V = int(rng.choice([1, 3, 11, 64, 500]))
-    plan = C.histogramPlan(D, H_, W, table, int(rng.integers(1, 1 << 24)),
-                           variants=V, registers=regs)
-    assert plan['sharedBytes'] + C.STATIC_SHARED_BYTES <= 232448
-    assert plan['blocksPerSM'] >= 1
-    if plan['mode'] != 'warp':
-      assert plan['blocksPerSM'] == C.blocksPerSM(regs, table)
-
-
-@pytest.mark.parametrize('nRays,variants,registers', [
-    (1 << 20, 64, 56), (200_000, 11, 80), (1 << 20, 500, 40), (300, 3, 64),
-    (1 << 22, 1, 40)])
-def test_sweep_blocks_stay_in_their_variant(nRays, variants, registers):
-  plan = C.histogramPlan(1, 64, 64, TABLE, nRays, variants=variants,
-                         registers=registers)
-  walk = _walk(plan, nRays)
-  warpTiles = -(-nRays // 32)
-  tiles = sorted(t // 8 for t in range(warpTiles))
-  assert sorted(walk) == list(range(variants))
-  for v in range(variants):
-    assert walk[v] == tiles     # every warp-tile once, in its own variant
-
-
-def test_forced_mode_that_cannot_fit_is_refused():
-  with pytest.raises(ValueError, match='shared memory'):
-    C.histogramPlan(1, 512, 512, TABLE, 1 << 22, registers=40,
-                    modes=('shared',))
-  warp = C.histogramPlan(1, 512, 512, TABLE, 1 << 22, registers=40,
-                         modes=('warp',))
-  assert warp['mode'] == 'warp' and warp['sharedBytes'] == TABLE
 
 
 # ------------------------------------------------------------------ pile-up
 
-@pytest.fixture(scope='module')
-def pileUp():
+@pytest.fixture(scope='module', params=[(64, 64), (128, 128)],
+                ids=['64', '128'])
+def pileUp(request):
   '''The pile-up at both placements through the JAX Pallas kernel
-  (interpret mode) fed uniforms, and the port's tables of each.'''
+  (interpret mode) fed uniforms, at this many bins, and the port's tables of
+  each.'''
+  bins = request.param
   ns = H.jaxNs()
   scenes = [H.buildPileUpScene(ns, x) for x in OFFSETS]
   bounds, maxI = scenes[0][1], scenes[0][2]
-  refs = [H.runReferenceUniforms(sc, bounds, maxI, n=N, bins=BINS)
+  refs = [H.runReferenceUniforms(sc, bounds, maxI, n=N, bins=bins)
           for sc, _b, _m in scenes]
-  arrays = [H.referenceArrays(sc, bounds, bins=BINS) for sc, _b, _m in scenes]
+  arrays = [H.referenceArrays(sc, bounds, bins=bins) for sc, _b, _m in scenes]
   return dict(scenes=[sc for sc, _b, _m in scenes], bounds=bounds,
-              maxI=maxI, refs=refs, arrays=arrays)
+              maxI=maxI, refs=refs, arrays=arrays, bins=bins)
 
 
 def _assertPileUp(counters, counts, power, ref):
@@ -163,8 +61,10 @@ def _assertPileUp(counters, counts, power, ref):
   np.testing.assert_allclose(power[filled], ref['power'][filled], rtol=1e-4)
 
 
-def test_pile_up_k1_plain_against_reference(pileUp):
-  (ref, us), (deviceNp, histNp, spec) = pileUp['refs'][0], pileUp['arrays'][0]
+@pytest.mark.parametrize('placement', range(len(OFFSETS)))
+def test_pile_up_k1_plain_against_reference(pileUp, placement):
+  ref, us = pileUp['refs'][placement]
+  deviceNp, histNp, spec = pileUp['arrays'][placement]
   assert np.count_nonzero(ref['counts']) == 4      # the four-bin corner
   tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,
                                       device='cpu')
@@ -188,8 +88,8 @@ def test_pile_up_k3_plain_against_reference(pileUp):
   tables = convert.sweepFromReference(hostScenes, histNp, spec,
                                       geomRows=geoms, device='cpu')
   V = len(OFFSETS)
-  hist = dict(power=torch.zeros((V, 1) + BINS),
-              counts=torch.zeros((V, 1) + BINS))
+  hist = dict(power=torch.zeros((V, 1) + pileUp['bins']),
+              counts=torch.zeros((V, 1) + pileUp['bins']))
   us = pileUp['refs'][0][1]
   for ref, usV in pileUp['refs']:
     np.testing.assert_array_equal(usV, us)          # common random numbers

@@ -22,8 +22,8 @@ diffuse scatter scene, the mesh fold, the 1800-triangle dish, the
 the torus mirror, the kinds scene and the emitter of those kinds, K3 on the
 examples/3
 radius sweep and the spectrometer's wavelength sweep at 64 x 1 << 20 rays —
-and, where the package plans its binning, again in every binning mode that
-fits, forced, each held against its plain version) times the port's
+each with its launch record and held against its plain version) times
+the port's
 main-path step
 (lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
 warm-up, interleaved A B B A so that clock drift cancels:
@@ -376,10 +376,9 @@ def instanceRegisters():
   _libs, info = _build.buildKernels()
   regs, current = {}, None
   for line in info['log'].splitlines():
-    m = re.search(r'trace(Hist)?KernelI(?:Li(\d)E)?((?:Lb[01]E)+)', line)
+    m = re.search(r'traceKernelILi(\d)E((?:Lb[01]E)+)', line)
     if 'Compiling entry function' in line and m:
-      current = ('0' if m.group(1) else m.group(2)) + ''.join(
-          re.findall(r'Lb([01])E', m.group(3)))
+      current = m.group(1) + ''.join(re.findall(r'Lb([01])E', m.group(2)))
       regs[current] = [None, 0]
     m = re.search(r'(\d+) bytes spill stores', line)
     if m and current:
@@ -397,45 +396,22 @@ HIST_CHECK_RAYS = 1 << 20
 def histSeries(dev):
   '''B11: K1's step (1 << 22 rays, 128 x 128 bins) and K3 (64 variants x
   1 << 20 rays) by CUDA events on the scenes whose binning the redesign
-  touches, with the binning mode each launch took. Where the package plans
-  its binning (`cuda_trace.histogramPlan`), every mode that fits the
-  launch is then forced in turn (`modes=`), timed, and held against the
-  plain version on the same uniforms (HIST_CHECK_RAYS rays, K3 at 8
-  variants): counters equal, rays that changed bins, worst relative power
-  error on the bins both agree on.'''
-  import functools
+  touches, with each launch's record (`cuda_trace.lastLaunch`, where the
+  package keeps one), each held against its plain version on the same
+  uniforms (HIST_CHECK_RAYS rays, K3 at 8 variants): counters equal, rays
+  that changed bins, worst relative power error on the bins both agree
+  on.'''
   import numpy as np
   import optics_design_workbench_tpu_torch as port
-  planned = hasattr(cuda_trace, 'histogramPlan')
   seeds = iter(range(100, 10 ** 9))
   regs, buildSeconds = instanceRegisters()
   print(json.dumps(dict(variant='hist', package=port.__file__,
-                        digest=port.kernelSourceDigest(), planned=planned,
+                        digest=port.kernelSourceDigest(),
                         buildSeconds=buildSeconds, registers=regs)),
         flush=True)
 
-  def modeOf(wrapper):
-    plan = getattr(cuda_trace, 'lastLaunch', {}).get(wrapper)
-    return plan and dict(mode=plan['mode'], blocks=plan['blocks'],
-                         sharedBytes=plan['sharedBytes'],
-                         registers=plan['registers'])
-
-  def forcing(mode):
-    '''Context: the planner restricted to `mode` (None: as shipped).'''
-    import contextlib
-
-    @contextlib.contextmanager
-    def ctx():
-      if mode is None:
-        yield
-        return
-      orig = cuda_trace.histogramPlan
-      cuda_trace.histogramPlan = functools.partial(orig, modes=(mode,))
-      try:
-        yield
-      finally:
-        cuda_trace.histogramPlan = orig
-    return ctx()
+  def record(wrapper):
+    return getattr(cuda_trace, 'lastLaunch', {}).get(wrapper)
 
   def compare(hK, hP, cK, cP):
     moved = float((hK['counts'] - hP['counts']).abs().sum()) / 2
@@ -445,7 +421,6 @@ def histSeries(dev):
     return dict(countersEqual=cK.tolist() == cP.tolist(), movedRays=moved,
                 maxRelErrPower=rel)
 
-  modes = cuda_trace.HIST_MODES if planned else ()
   k1Scenes = (
       ('lensMirror', benchmarks.buildLensMirrorScene, 6, (-60., 60., -60., 60.)),
       ('spectrometer', benchmarks.buildSpectrometerScene, 3, SPECTRO_BOUNDS),
@@ -467,39 +442,29 @@ def histSeries(dev):
       ('emitter', benchmarks.buildEmitterKindsScene, 4,
        (-200., 200., -200., 200.)))
   for label, make, maxI, bounds in k1Scenes:
-    step, hist, _meta = benchmarks.makeBenchStep(
+    step, hist, meta = benchmarks.makeBenchStep(
         scene=make(), raysPerStep=N, maxIntersections=maxI,
         histBounds=bounds, bins=BINS)
     row = dict(variant=f'k1-{label}', rays=N,
                ms=cudaMs(lambda: step(next(seeds), hist)),
-               plan=modeOf('traceHistogram'))
-    t = step.tables
+               launch=record('traceHistogram'))
+    t, n = step.tables, HIST_CHECK_RAYS
     kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
               powerTol=1e-6, hitSlots=step.hitSlots)
-    n = HIST_CHECK_RAYS
-    if modes:
-      us = torch.rand((cuda_trace.uniformRows(t, maxI), n), device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(5))
-      tile = cuda_trace.DEFAULT_STRATA_TILE
-      cols = cuda_trace.samplerColumnsPlain(t, us, cuda_trace.tileStrata(
-          n, tile), tile)
-      hP = fused.initHistograms(_meta['histSpec'], device=dev)
-      cP = cuda_trace.traceHistogramPlain(
-          t, hP, cols, **kw,
-          scatterUniforms=us[cuda_trace.samplerUniforms(t):]
-          if t['scatter'] else None)
-    for mode in modes:
-      try:
-        with forcing(mode):
-          row[f'{mode}Ms'] = cudaMs(lambda: step(next(seeds), hist))
-          hK = fused.initHistograms(_meta['histSpec'], device=dev)
-          cK = cuda_trace.traceHistogram(t, hK, n, uniforms=us,
-                                         strataTile=tile, **kw)
-          torch.cuda.synchronize()
-          row[f'{mode}Plan'] = modeOf('traceHistogram')
-          row[f'{mode}VsPlain'] = compare(hK, hP, cK, cP)
-      except ValueError as e:            # the mode does not fit
-        row[f'{mode}Ms'] = str(e)
+    us = torch.rand((cuda_trace.uniformRows(t, maxI), n), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    tile = cuda_trace.DEFAULT_STRATA_TILE
+    cols = cuda_trace.samplerColumnsPlain(t, us, cuda_trace.tileStrata(
+        n, tile), tile)
+    hP = fused.initHistograms(meta['histSpec'], device=dev)
+    cP = cuda_trace.traceHistogramPlain(
+        t, hP, cols, **kw,
+        scatterUniforms=us[cuda_trace.samplerUniforms(t):]
+        if t['scatter'] else None)
+    hK = fused.initHistograms(meta['histSpec'], device=dev)
+    cK = cuda_trace.traceHistogram(t, hK, n, uniforms=us, strataTile=tile,
+                                   **kw)
+    row['vsPlain'] = compare(hK, hP, cK, cP)
     print(json.dumps(row), flush=True)
 
   # K3: the examples/3 radius sweep (64 x 64 bins) and the spectrometer's
@@ -527,33 +492,24 @@ def histSeries(dev):
     sweep = lambda: cuda_trace.traceSweep(tables, hist, n, seed=next(seeds),
                                           strataTile=tile, **kw)
     row = dict(variant=f'k3-{label}', variants=V, raysPerVariant=n,
-               ms=cudaMs(sweep, 5), plan=modeOf('traceSweep'))
-    if modes:
-      nC, vC = HIST_CHECK_RAYS, 8
-      few = cuda_trace.buildSweepTables(
-          [h for h, _i in host[::V // vC]], histSpec, specs[::V // vC],
-          device=dev)
-      us = torch.rand((2, nC), device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(6))
-      fewShape = (vC, 1) + bins
-      hP = dict(power=torch.zeros(fewShape, device=dev),
-                counts=torch.zeros(fewShape, device=dev))
-      cP = cuda_trace.traceSweepPlain(
-          few, hP, nC, uniforms=us, strata=cuda_trace.tileStrata(nC, tile),
-          strataTile=tile, **kw)
-    for mode in modes:
-      try:
-        with forcing(mode):
-          row[f'{mode}Ms'] = cudaMs(sweep, 5)
-          hK = dict(power=torch.zeros(fewShape, device=dev),
-                    counts=torch.zeros(fewShape, device=dev))
-          cK = cuda_trace.traceSweep(few, hK, nC, uniforms=us,
-                                     strataTile=tile, **kw)
-          torch.cuda.synchronize()
-          row[f'{mode}Plan'] = modeOf('traceSweep')
-          row[f'{mode}VsPlain'] = compare(hK, hP, cK, cP)
-      except ValueError as e:
-        row[f'{mode}Ms'] = str(e)
+               ms=cudaMs(sweep, 5), launch=record('traceSweep'))
+    nC, vC = HIST_CHECK_RAYS, 8
+    few = cuda_trace.buildSweepTables(
+        [h for h, _i in host[::V // vC]], histSpec, specs[::V // vC],
+        device=dev)
+    us = torch.rand((2, nC), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    fewShape = (vC, 1) + bins
+    hP = dict(power=torch.zeros(fewShape, device=dev),
+              counts=torch.zeros(fewShape, device=dev))
+    cP = cuda_trace.traceSweepPlain(
+        few, hP, nC, uniforms=us, strata=cuda_trace.tileStrata(nC, tile),
+        strataTile=tile, **kw)
+    hK = dict(power=torch.zeros(fewShape, device=dev),
+              counts=torch.zeros(fewShape, device=dev))
+    cK = cuda_trace.traceSweep(few, hK, nC, uniforms=us, strataTile=tile,
+                               **kw)
+    row['vsPlain'] = compare(hK, hP, cK, cP)
     print(json.dumps(row), flush=True)
 
 
