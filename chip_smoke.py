@@ -63,6 +63,15 @@ port's paths at full width:
     522-surface wall through `runSimulation` raw (4 x 1 << 20) and
     histogram-first (8 x 1 << 22) and through `evaluateBatched` over its
     detector height, its share and r^2 against the JAX package's;
+  * the per-bounce surface culls (phase 12, B12): K1, K2 and K4 with the
+    source's emission bound against their plain versions and against the
+    same kernels without it (0 rays moved) on the decoy scene
+    (`benchmarks.buildCullDecoyScene`: a fold beside 32 aspheres and tori
+    no ray reaches) and the JAX suite's fold, reflect-back and ball-lens
+    cull scenes; the decoy scene through `makeBenchStep` (both binnings)
+    and `makeRawStep`, each kernel timed with and without the culls beside
+    its bound. Every other check builds its tables with the source's bound
+    too, as the port's steps do;
 
 (the first three on the lens-and-mirror scene) and checks the physics of
 what comes out. Before those paths it holds the histogram, per-ray-bin and
@@ -253,16 +262,19 @@ PILEUP_BINS_OFF = (0, 4, -8, 16)
 # registers of the instances without B2 / B3 (output mode, sweep, B4,
 # surface sampler, scatter) -> count: as built before B2 / B3 (PERF.md §6),
 # but for the histogram kernel's B4 instances, whose stage gate reads the
-# stage words of ROADMAP C.2 (58 before)
+# stage words of ROADMAP C.2 (58 before), and for five per-ray instances
+# that B12's row test moved (PERF.md §6): K2 without B4 42 -> 40 and
+# 44 -> 40 (surface sampler), K4 with B4 54 -> 56 (both samplers), K4 with
+# scatter 79 -> 64 (12 spill bytes)
 OLD_REGISTERS = {
-    (0, 0, 0, 0, 0): 40, (1, 0, 0, 0, 0): 42, (2, 0, 0, 0, 0): 40,
-    (0, 1, 0, 0, 0): 40, (0, 0, 0, 1, 0): 40, (1, 0, 0, 1, 0): 44,
+    (0, 0, 0, 0, 0): 40, (1, 0, 0, 0, 0): 40, (2, 0, 0, 0, 0): 40,
+    (0, 1, 0, 0, 0): 40, (0, 0, 0, 1, 0): 40, (1, 0, 0, 1, 0): 40,
     (2, 0, 0, 1, 0): 40,
-    (0, 0, 1, 0, 0): 56, (1, 0, 1, 0, 0): 57, (2, 0, 1, 0, 0): 54,
+    (0, 0, 1, 0, 0): 56, (1, 0, 1, 0, 0): 57, (2, 0, 1, 0, 0): 56,
     (0, 1, 1, 0, 0): 56, (0, 0, 1, 1, 0): 56, (1, 0, 1, 1, 0): 57,
-    (2, 0, 1, 1, 0): 54,
+    (2, 0, 1, 1, 0): 56,
     (0, 0, 1, 0, 1): 79, (0, 0, 1, 1, 1): 64, (1, 0, 1, 0, 1): 64,
-    (1, 0, 1, 1, 1): 64, (2, 0, 1, 0, 1): 79, (2, 0, 1, 1, 1): 64,
+    (1, 0, 1, 1, 1): 64, (2, 0, 1, 0, 1): 64, (2, 0, 1, 1, 1): 64,
     (0, 1, 1, 0, 1): 64,
 }
 
@@ -416,11 +428,12 @@ def compiled(scene):
   return _COMPILED[id(scene)][1]
 
 
-def buildTables(scene, bounds, bins, tent=False, source=0):
+def buildTables(scene, bounds, bins, maxI, tent=False, source=0, cull=True):
   '''Kernel tables of a scene as the runner traces light source `source`
-  (with its surface mask); tent=True swaps the sampler's first marginal for
-  the source's 257-knot tent table (the kernel's third marginal kind, which
-  no source's own spec selects).'''
+  (with its surface mask and, unless cull=False, the per-bounce culls of
+  its emission bound over `maxI` bounces); tent=True swaps the sampler's
+  first marginal for the source's 257-knot tent table (the kernel's third
+  marginal kind, which no source's own spec selects).'''
   sceneNp, info = compiled(scene)
   histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds, bins=bins)
   src = scene.lightSources()[source]
@@ -432,8 +445,10 @@ def buildTables(scene, bounds, bins, tent=False, source=0):
     drawTables = src._getDeviceTables()
     knots = drawTables['tables'][drawTables['order'][0]]['invCdfSmall']
     spec = dict(spec, first=('table', tuple(float(v) for v in knots)))
-  tables = cuda_trace.buildTraceTables(sceneNp, histSpec, samplerSpec=spec,
-                                       device=DEV)
+  tables = cuda_trace.buildTraceTables(
+      sceneNp, histSpec, samplerSpec=spec, device=DEV,
+      emissionBound=src.emissionBound() if cull else None,
+      maxIntersections=maxI)
   return sceneNp, histSpec, tables
 
 
@@ -481,8 +496,8 @@ def compareWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   counters equal, count bins within `budget` rays, power POWER_RTOL. Dicts
   `triangleStats` / `surfaceStats` are added what the cull leaves to a
   mesh's / a surface table's sweep in the plain version's run.'''
-  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, tent=tent,
-                                          source=source)
+  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, maxI,
+                                          tent=tent, source=source)
   if hitSlots is None:
     hitSlots = cuda_trace.autoHitSlots(sceneNp, histSpec, maxI)
   settings = scene.activeSimulationSettings()
@@ -533,7 +548,8 @@ def compareRingsWithPlain(label, scene, bounds, maxI, n, bins, hitSlots=None,
   bin, power and count equal where the bin is. Then traceBins + float64
   binning against traceHistogram on the same uniforms: counts equal bin for
   bin, power POWER_RTOL. Returns the worst absolute error per kernel.'''
-  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, source=source)
+  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, maxI,
+                                          source=source)
   if hitSlots is None:
     hitSlots = cuda_trace.autoHitSlots(sceneNp, histSpec, maxI)
   settings = scene.activeSimulationSettings()
@@ -612,7 +628,7 @@ def binsAgainstHistogram(label, tables, histSpec, n, us, strataTile, kw):
 def compareSeedMode(scene, bounds, maxI, n, bins):
   '''Mode (a): the kernel's own Philox draws vs the plain version fed torch
   uniforms — independent numbers, so compared by histogram marginals.'''
-  sceneNp, histSpec, tables = buildTables(scene, bounds, bins)
+  sceneNp, histSpec, tables = buildTables(scene, bounds, bins, maxI)
   settings = scene.activeSimulationSettings()
   kw = dict(maxIntersections=maxI, maxRayLength=settings.maxRayLength(),
             distTol=1e-4, powerTol=1e-6, hitSlots=1)
@@ -656,7 +672,7 @@ def onlyLaunches(**counts):
 
 def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
             scatterPasses=0, inputBytes=0, trianglesPerSegment=0.,
-            tableRowsPerSegment=None):
+            tableRowsPerSegment=None, cullStats=None):
   '''Least time the card could take for one step: (ms by operations, ms by
   bytes), from this run's segment count, its passes through a grating and
   through a scattering element, the bytes the kernel must move (table, a
@@ -668,21 +684,32 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
   skip) and, for a surface table, per segment the slab test of every chunk
   box and the rows of `tableRowsPerSegment` ({kind: the mean over
   ray-bounces of the rows of that kind in the plain runs and in the boxes
-  the ray's capped segment enters}).'''
+  the ray's capped segment enters}). Per segment the surface rows it
+  sweeps: every row, or on tables with a cull block (B12) the rows of each
+  bounce's set weighted by the segments that bounce traces (`cullStats` of
+  a plain run of the same rays, `_bounceLoopPlain`).'''
   rows = tables['surfRows']
   if 'nVariants' in tables:            # a sweep: every variant, one structure
     rows = rows[0]
-  kinds = [r['kind'] for r in rows]
-  flopsPerSegment = (sum(FLOPS_INTERSECT[k] for k in kinds) + FLOPS_WINNER
-                     + FLOPS_PHYSICS)
-  for r in rows:                       # the trims of B3, per root tested
+
+  def rowFlops(r):                     # its test, the trims of B3 per root
     roots = TRIM_ROOTS[r['kind']]
+    flops = FLOPS_INTERSECT[r['kind']]
     if r['trim0'] == 2.:
-      flopsPerSegment += roots * (FLOPS_PIXEL if r['kind'] == 0
-                                  else FLOPS_CHART_ATAN2 + FLOPS_PIXEL)
-    flopsPerSegment += roots * FLOPS_PRIM * len(r.get('holePrims', ()))
-  if tables['gate']:
-    flopsPerSegment += FLOPS_STAGE_GATE * len(kinds)
+      flops += roots * (FLOPS_PIXEL if r['kind'] == 0
+                        else FLOPS_CHART_ATAN2 + FLOPS_PIXEL)
+    flops += roots * FLOPS_PRIM * len(r.get('holePrims', ()))
+    return flops + (FLOPS_STAGE_GATE if tables['gate'] else 0)
+
+  everyRow = sum(rowFlops(r) for r in rows)
+  if tables.get('cullOff', -1) >= 0:
+    segs, sets = cullStats['segmentsByBounce'], cullStats['sets']
+    swept = sum(n * (everyRow if ss is None
+                     else sum(rowFlops(rows[s]) for s in ss))
+                for n, ss in zip(segs, sets)) / max(sum(segs), 1)
+  else:
+    swept = everyRow
+  flopsPerSegment = swept + FLOPS_WINNER + FLOPS_PHYSICS
   if tables['dispOff'] >= 0:
     flopsPerSegment += FLOPS_DISPERSION
   if tables['scatter']:
@@ -716,7 +743,7 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
 
 def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
                 spectro, surface=None, scatter=None, geom=None, mesh=None,
-                wall=None):
+                wall=None, cull=None):
   '''One entry of the `kernels` line: the main-path numbers (lens-and-mirror
   scene; the examples/3 sweep for the sweep kernel) and, beside them, the
   kernel on the spectrometer (`spectro`: its launches on that path, ms and
@@ -734,8 +761,12 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
   error over phase 10's checks, `b7_max_abs_err`), and on the walls of the
   surface table (`wall`: launches on the 522-surface wall's path, ms and
   bound there, ms by wall, the worst error over phase 11's checks,
-  `b8_max_abs_err`). `max_abs_err` is the worst of all. `hist_mode`: how the
-  histogram kernels bin (B11), None for the per-ray kernels.'''
+  `b8_max_abs_err`), and on the decoy scene of the per-bounce culls
+  (`cull`: launches on its path, ms with and without the culls, bounds
+  with and without them, the worst error of the b12 phase,
+  `b12_max_abs_err`; None for the sweep kernel, which never culls).
+  `max_abs_err` is the worst of all. `hist_mode`: how the histogram
+  kernels bin (B11), None for the per-ray kernels.'''
   boundOps, boundBytes, _ = bounds
   spOps, spBytes, _ = spectro['bounds']
   surf = dict(surface_launches=None, surface_ms=None, surface_bound_ms=None,
@@ -773,6 +804,15 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
              wall_ms_by_scene=wall.get('byScene'),
              wall_bound_ms_by_scene=wall.get('boundByScene'),
              b8_max_abs_err=wall['err'])
+  b12 = dict(b12_launches=None, b12_ms=None, b12_unculled_ms=None,
+             b12_bound_ms=None, b12_unculled_bound_ms=None,
+             b12_max_abs_err=None)
+  if cull is not None:
+    b12 = dict(b12_launches=cull['launches'], b12_ms=cull['ms'],
+               b12_unculled_ms=cull['unculledMs'],
+               b12_bound_ms=max(cull['bounds'][:2]),
+               b12_unculled_bound_ms=max(cull['unculledBounds'][:2]),
+               b12_max_abs_err=cull['err'])
   return dict(name=name, route='cuda',
               source=f'optics_design_workbench_tpu_torch/csrc/{source}',
               replaces=f'optics_design_workbench_tpu/ops/pallas_trace.py:'
@@ -781,7 +821,7 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
               max_abs_err=max(err, spectro['err'],
                               surf['surface_max_abs_err'] or 0.,
                               scatter['err'], geom['err'], mesh['err'],
-                              wall['err']),
+                              wall['err'], b12['b12_max_abs_err'] or 0.),
               ms=ms,
               plain_ms=plainMs, bound_ms=max(boundOps, boundBytes),
               bound_by='operations' if boundOps >= boundBytes else 'bytes',
@@ -792,7 +832,7 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
               spectrometer_launches=spectro['launches'],
               spectrometer_ms=spectro['ms'],
               spectrometer_bound_ms=max(spOps, spBytes), **surf, **scat,
-              **geo, **tri, **tab)
+              **geo, **tri, **tab, **b12)
 
 
 def timeBenchStep(histPrecision, maxI, **benchKw):
@@ -941,7 +981,7 @@ def recordingRunPhases(tmp):
         sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
         raysPerStep=n, maxIntersections=6,
         maxRayLength=settings.maxRayLength(), distTol=1e-4,
-        sampler=src.samplerSpec())
+        sampler=src.samplerSpec(), emissionBound=src.emissionBound())
     seeds = iter(range(10 ** 6))
     records, counters = step(next(seeds))
     kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
@@ -1566,7 +1606,7 @@ def spectroRunPhases(tmp):
       sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
       raysPerStep=N_RAW_ITERATION, maxIntersections=SPECTRO_MAX_INTERSECTIONS,
       maxRayLength=settings.maxRayLength(), distTol=1e-4,
-      sampler=src.samplerSpec())
+      sampler=src.samplerSpec(), emissionBound=src.emissionBound())
   seeds = iter(range(10 ** 6))
   _records, counters = step(next(seeds))
   kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
@@ -1723,7 +1763,7 @@ def surfaceSeedPhase(n):
   `deviceColumnsGenerator` (torch's generator): face fractions, theta,
   phi and position marginals within L1 MARGINAL_L1, rows within 5e-3.'''
   scene, bounds, maxI = helpers.buildSurfaceSensorScene(helpers.torchNs())
-  sceneNp, histSpec, tables = buildTables(scene, bounds, BINS)
+  sceneNp, histSpec, tables = buildTables(scene, bounds, BINS, maxI)
   kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
             powerTol=1e-6, hitSlots=1)
   ringK, cK = cuda_trace.traceRaw(tables, n, seed=20261017, **kw)
@@ -1778,7 +1818,7 @@ def manySurfacesPhase():
       'many-surfaces', scene, bounds, maxI, N_SMALL, BINS))
   worst.update(compareRingsWithPlain('many-surfaces', scene, bounds, maxI,
                                      N_SMALL, BINS))
-  sceneNp, histSpec, tables = buildTables(scene, bounds, BINS)
+  sceneNp, histSpec, tables = buildTables(scene, bounds, BINS, maxI)
   us, strataTile, _cols, _scatterU = samplerInputs(tables, N_SMALL, 99, maxI)
   kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
             powerTol=1e-6, hitSlots=1, uniforms=us, strataTile=strataTile)
@@ -1924,7 +1964,7 @@ def surfaceRunPhases(tmp):
       sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
       raysPerStep=N_RAW_ITERATION, maxIntersections=SURFACE_MAX_INTERSECTIONS,
       maxRayLength=settings.maxRayLength(), distTol=1e-4,
-      sampler=src.samplerSpec())
+      sampler=src.samplerSpec(), emissionBound=src.emissionBound())
   seeds = iter(range(10 ** 6))
   _records, counters = step(next(seeds))
   kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
@@ -2122,7 +2162,7 @@ def scatterRunPhases(tmp):
       sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
       raysPerStep=N_RAW_ITERATION, maxIntersections=SCATTER_MAX_INTERSECTIONS,
       maxRayLength=settings.maxRayLength(), distTol=1e-4,
-      sampler=src.samplerSpec())
+      sampler=src.samplerSpec(), emissionBound=src.emissionBound())
   seeds = iter(range(10 ** 6))
   _records, counters = step(next(seeds))
   kernelMs = cudaMs(lambda: cuda_trace.traceRaw(
@@ -2376,7 +2416,7 @@ def geomRawIteration(name, scene):
       sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
       raysPerStep=N_RAW_ITERATION, maxIntersections=maxI,
       maxRayLength=settings.maxRayLength(), distTol=1e-4,
-      sampler=src.samplerSpec())
+      sampler=src.samplerSpec(), emissionBound=src.emissionBound())
   records, counters = step(11)
   torch.cuda.synchronize()
   launches = dict(cuda_trace.launchCounts)
@@ -2595,7 +2635,7 @@ def meshKernelChecks(scenes):
     for k in ('traceRaw', 'traceBins'):
       worst[k] = max(worst[k], w[k])
     if n < N_MAIN:
-      sceneNp, histSpec, tables = buildTables(scene, bounds, BINS)
+      sceneNp, histSpec, tables = buildTables(scene, bounds, BINS, maxI)
       us, strataTile, _cols, _scat = samplerInputs(tables, N_MAIN, 97, maxI)
       binsAgainstHistogram(f'mesh-{name}', tables, histSpec, N_MAIN, us,
                            strataTile, dict(
@@ -2690,7 +2730,8 @@ def pathRawStepPhase(path, name, scene, boundKw):
   step = cuda_trace.makeRawStep(
       sceneNp, histSpec, src.deviceColumnsGenerator(device=DEV),
       raysPerStep=N_MAIN, maxIntersections=path['maxI'], maxRayLength=1000.,
-      distTol=1e-4, sampler=src.samplerSpec())
+      distTol=1e-4, sampler=src.samplerSpec(),
+      emissionBound=src.emissionBound())
   records, counters = step(11)
   torch.cuda.synchronize()
   launches = dict(cuda_trace.launchCounts)
@@ -2933,7 +2974,7 @@ def wallKernelChecks(scenes):
     for k in ('traceRaw', 'traceBins'):
       worst[k] = max(worst[k], w[k])
     if n < N_MAIN:
-      sceneNp, histSpec, tables = buildTables(scene, bounds, BINS)
+      sceneNp, histSpec, tables = buildTables(scene, bounds, BINS, maxI)
       us, strataTile, _cols, _scat = samplerInputs(tables, N_MAIN, 97, maxI)
       binsAgainstHistogram(f'table-{name}', tables, histSpec, N_MAIN, us,
                            strataTile, dict(
@@ -3005,6 +3046,193 @@ def b11Phase():
   emit(dict(phase='b11', seconds=time.perf_counter() - t0,
             maxAbsErr=worst))
   return worst
+
+
+B12_SCENES = ('decoy', 'fold', 'reflectBack', 'ballLens')
+B12_DECOY_BOUNDS = (-300., 300., -300., 300.)
+B12_DECOY_MAX_INTERSECTIONS = 4
+B12_TIMED_TURNS = 2          # culled, unculled, ... of TIMED_STEPS each
+
+
+def cullAgainstUnculled(label, scene, bounds, maxI):
+  '''B12 on one scene, mode (b): K2 at 1 << 22 rays and K4 at 1 << 20
+  with the source's per-bounce culls against their plain versions (which
+  sweep the same sets) and against the same kernels on tables without the
+  culls, equal bit for bit; K1 with the culls against K1 without them:
+  counters and counts equal, power within POWER_RTOL (the atomics add in a
+  run-to-run order).'''
+  sceneNp, histSpec, culled = buildTables(scene, bounds, BINS, maxI)
+  full = buildTables(scene, bounds, BINS, maxI, cull=False)[2]
+  settings = scene.activeSimulationSettings()
+  kw = dict(maxIntersections=maxI, maxRayLength=settings.maxRayLength(),
+            distTol=1e-4, powerTol=1e-6,
+            hitSlots=cuda_trace.autoHitSlots(sceneNp, histSpec, maxI))
+  us, strataTile, cols, _scat = samplerInputs(culled, N_MAIN, 2468, maxI)
+  hists = []
+  for tables in (culled, full):
+    hists.append(fused.initHistograms(histSpec, device=DEV))
+    hists[-1]['counters'] = cuda_trace.traceHistogram(
+        tables, hists[-1], N_MAIN, uniforms=us, strataTile=strataTile, **kw)
+  binsC, c2C = cuda_trace.traceBins(culled, N_MAIN, uniforms=us,
+                                    strataTile=strataTile, **kw)
+  binsF, c2F = cuda_trace.traceBins(full, N_MAIN, uniforms=us,
+                                    strataTile=strataTile, **kw)
+  binsP, c2P = cuda_trace.traceBinsPlain(culled, cols, **kw)
+  usR, _t, colsR, _s = samplerInputs(culled, N_RAW_ITERATION, 1357, maxI)
+  rawC, c4C = cuda_trace.traceRaw(culled, N_RAW_ITERATION, uniforms=usR,
+                                  strataTile=strataTile, **kw)
+  rawF, c4F = cuda_trace.traceRaw(full, N_RAW_ITERATION, uniforms=usR,
+                                  strataTile=strataTile, **kw)
+  rawP, c4P = cuda_trace.traceRawPlain(culled, colsR, **kw)
+  torch.cuda.synchronize()
+  hC, hF = hists
+  if hC['counters'].tolist() != hF['counters'].tolist() \
+      or not torch.equal(hC['counts'], hF['counts']):
+    raise AssertionError(f'b12 {label}: K1 with the culls counts '
+                         f'{hC["counters"].tolist()}, without '
+                         f'{hF["counters"].tolist()}, or its bins differ')
+  if not torch.allclose(hC['power'], hF['power'], rtol=POWER_RTOL, atol=0.):
+    raise AssertionError(f'b12 {label}: K1 power with and without the '
+                         f'culls beyond rtol {POWER_RTOL}')
+  for name, k, f, p, ck, cf, cp in (
+      ('traceBins', binsC, binsF, binsP, c2C, c2F, c2P),
+      ('traceRaw', rawC, rawF, rawP, c4C, c4F, c4P)):
+    if not ck.tolist() == cf.tolist() == cp.tolist() or int(ck[1]) <= 0:
+      raise AssertionError(f'b12 {label} {name}: counters culled '
+                           f'{ck.tolist()}, unculled {cf.tolist()}, plain '
+                           f'{cp.tolist()}')
+    if not torch.equal(k, f) or not torch.equal(k, p):
+      raise AssertionError(f'b12 {label} {name}: the culled ring differs '
+                           f'from the unculled kernel\'s or the plain '
+                           f'version\'s')
+  emit(dict(phase='b12-vs-unculled', scene=label, rays=N_MAIN,
+            rawRays=N_RAW_ITERATION, cullOff=culled['cullOff'],
+            sets=cuda_trace.tableCullSets(culled, maxI),
+            counters=hC['counters'].tolist(), rawCounters=c4C.tolist(),
+            movedRays=0, maxAbsErrBins=0., maxAbsErrRaw=0.,
+            maxAbsErrPowerVsUnculled=float(
+                (hC['power'] - hF['power']).abs().max())))
+
+
+def decoyPathPhase():
+  '''The decoy scene (`benchmarks.buildCullDecoyScene`) through the
+  port's entry points with its source's bound: the sets on the host first
+  (no decoy in any), then the fused step with both binnings (1 << 22 rays,
+  `makeBenchStep`; launches == steps) and a raw step (`makeRawStep`,
+  1 << 20 rays, one launch), each kernel then timed by CUDA events with
+  and without the culls in turns (B12_TIMED_TURNS x TIMED_STEPS calls
+  each), beside its bound with and without them. Returns, per wrapper, the
+  launches, ms, unculled ms and bounds.'''
+  scene = benchmarks.buildCullDecoyScene()
+  maxI, bounds = B12_DECOY_MAX_INTERSECTIONS, B12_DECOY_BOUNDS
+  sceneNp, info = compiled(scene)
+  histSpec = fused.makeHistogramSpec(sceneNp, info, bounds=bounds, bins=BINS)
+  src = scene.lightSources()[0]
+  full = cuda_trace.buildTraceTables(sceneNp, histSpec,
+                                     samplerSpec=src.samplerSpec(),
+                                     device=DEV)
+  decoys = info['elementLabels'].index('Decoys')
+  out = {}
+  for precision, wrapper in (('default', 'traceHistogram'),
+                             ('highest', 'traceBins')):
+    t = timeBenchStep(precision, maxI, scene=scene, histBounds=bounds)
+    out[wrapper] = dict(launches=t['launches'], tables=t['step'].tables,
+                        segments=t['segments'] / TIMED_STEPS, kw=t['kw'],
+                        strataTile=t['step'].strataTile, n=N_MAIN,
+                        hits=t['hits'] / TIMED_STEPS)
+  culled = out['traceHistogram']['tables']
+  sets = cuda_trace.tableCullSets(culled, maxI)
+  rows = culled['surfRows']
+  if any(ss is None or any(rows[s]['elemF'] == decoys for s in ss)
+         for ss in sets) or full['cullOff'] != -1:
+    raise AssertionError(f'decoy scene: sets {sets} hold a decoy or a '
+                         f'full sweep')
+  resetLaunchCounts()
+  rawStep = cuda_trace.makeRawStep(
+      dict(sceneNp, powerTol=1e-6), histSpec,
+      src.deviceColumnsGenerator(device=DEV), raysPerStep=N_RAW_ITERATION,
+      maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+      sampler=src.samplerSpec(), emissionBound=src.emissionBound())
+  records, counters = rawStep(11)
+  torch.cuda.synchronize()
+  if dict(cuda_trace.launchCounts) != onlyLaunches(traceRaw=1) \
+      or int(counters['hits']) < 0.9 * N_RAW_ITERATION:
+    raise AssertionError(f'decoy raw step: {cuda_trace.launchCounts}, '
+                         f'{int(counters["hits"])} hits')
+  out['traceRaw'] = dict(launches=1, tables=rawStep.tables,
+                         segments=int(counters['segments']),
+                         kw=dict(out['traceHistogram']['kw'],
+                                 hitSlots=rawStep.hitSlots),
+                         strataTile=rawStep.strataTile, n=N_RAW_ITERATION,
+                         hits=int(counters['hits']))
+  # the segments each bounce traces, for the culled bound
+  stats = {}
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(3)
+  us = torch.rand((2, N_MAIN), generator=gen, device=DEV)
+  st = out['traceHistogram']['strataTile']
+  cols = cuda_trace.sampleRaysPlain(culled, us[0], us[1],
+                                    cuda_trace.tileStrata(N_MAIN, st), st)
+  cuda_trace.traceHistogramPlain(culled, fused.initHistograms(
+      histSpec, device=DEV), cols, cullStats=stats,
+      **out['traceHistogram']['kw'])
+  scratch = fused.initHistograms(histSpec, device=DEV)
+  seeds = iter(range(7000, 10 ** 6))
+  for wrapper, r in out.items():
+    n, kw = r['n'], dict(r['kw'], strataTile=r['strataTile'])
+    if wrapper == 'traceHistogram':
+      call = lambda tb: cuda_trace.traceHistogram(tb, scratch, n,
+                                                  seed=next(seeds), **kw)
+      outBytes = 2 * scratch['power'].numel() * 4 * 2
+    else:
+      fn = getattr(cuda_trace, wrapper)
+      call = lambda tb, fn=fn: fn(tb, n, seed=next(seeds), **kw)
+      outBytes = (3 if wrapper == 'traceBins' else 9) * kw['hitSlots'] \
+          * n * 4
+    times = dict(culled=[], unculled=[])
+    for _turn in range(B12_TIMED_TURNS):
+      for which, tb in (('culled', r['tables']), ('unculled', full)):
+        call(tb)
+        times[which].append(cudaMs(lambda: call(tb), TIMED_STEPS))
+    r['ms'] = float(np.mean(times['culled']))
+    r['unculledMs'] = float(np.mean(times['unculled']))
+    segs = r['segments']
+    r['bounds'] = boundMs(r['tables'], segs, n, outBytes, cullStats=stats)
+    r['unculledBounds'] = boundMs(full, segs, n, outBytes)
+    emit(dict(phase='b12-decoy', wrapper=wrapper, rays=n, sets=sets,
+              launches=r['launches'], hits=r['hits'], segments=segs,
+              segmentsByBounce=stats['segmentsByBounce'],
+              culledMs=times['culled'], unculledMs=times['unculled'],
+              speedUp=r['unculledMs'] / r['ms'],
+              boundMs=max(r['bounds'][:2]),
+              unculledBoundMs=max(r['unculledBounds'][:2]),
+              flopsPerSegment=r['bounds'][2]['flopsPerSegment'],
+              unculledFlopsPerSegment=r['unculledBounds'][2][
+                  'flopsPerSegment']))
+  return out
+
+
+def b12Phase():
+  '''B12, the per-bounce surface culls, on the card: K1 against its plain
+  version (the gates of phase 2, 0 rays moved) and K1, K2 and K4 against
+  the same kernels without the culls (`cullAgainstUnculled`) on the decoy,
+  fold, reflect-back and ball-lens scenes, then the decoy scene's path
+  (`decoyPathPhase`). Returns (the worst error per kernel, the decoy
+  path's numbers).'''
+  t0 = time.perf_counter()
+  ns = helpers.torchNs()
+  worst = dict(traceHistogram=0., traceBins=0., traceRaw=0.)
+  for name in B12_SCENES:
+    scene, bounds, maxI = helpers.CULL_SCENES[name](ns)
+    worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+        f'b12-{name}', scene, bounds, maxI, N_MAIN, BINS, budget=0))
+    cullAgainstUnculled(name, scene, bounds, maxI)   # K2 / K4 equal: 0.0
+  decoy = decoyPathPhase()
+  for wrapper, r in decoy.items():
+    r['err'] = worst[wrapper]
+  emit(dict(phase='b12', seconds=time.perf_counter() - t0,
+            maxAbsErr=worst))
+  return decoy
 
 
 def main():
@@ -3123,6 +3351,8 @@ def main():
     mesh = meshPhase(tmp)
     # ---- phase 11: the surface table ----
     wall = wallPhase(tmp)
+    # ---- phase 12: the per-bounce surface culls ----
+    cull = b12Phase()
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3172,17 +3402,18 @@ def main():
                   worst, k1['kernelMs'], k1['plainMs'], k1['bounds'],
                   spectro['traceHistogram'], surface['traceHistogram'],
                   scatter['traceHistogram'], geom['traceHistogram'],
-                  mesh['traceHistogram'], wall['traceHistogram']),
+                  mesh['traceHistogram'], wall['traceHistogram'],
+                  cull['traceHistogram']),
       kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
                   worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
                   rawBounds, spectro['traceRaw'], surface['traceRaw'],
                   scatter['traceRaw'], geom['traceRaw'], mesh['traceRaw'],
-                  wall['traceRaw']),
+                  wall['traceRaw'], cull['traceRaw']),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
                   k2['bounds'], spectro['traceBins'], surface['traceBins'],
                   scatter['traceBins'], geom['traceBins'],
-                  mesh['traceBins'], wall['traceBins']),
+                  mesh['traceBins'], wall['traceBins'], cull['traceBins']),
       kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
                   sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
                   sweepBounds, spectro['traceSweep'], None,

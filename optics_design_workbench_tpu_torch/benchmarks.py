@@ -11,8 +11,9 @@ three stochastic-scatter scenes (a diffuser, an ideal-plus-conditioned
 mixture, an astigmatic diffuser), its torus-mirror and mesh-fold throughput
 scenes, the two slotted mirrors of its trim tests, a scene of the other
 surface kinds and an emitter whose faces are of those kinds, its dish
-mirrors of 200 to 12800 triangles (the triangle-table sweep) and its walls
-of 522 and 5,071 analytic surfaces (the surface-table sweep).
+mirrors of 200 to 12800 triangles (the triangle-table sweep), its walls
+of 522 and 5,071 analytic surfaces (the surface-table sweep) and a fold
+beside 32 mirrors no ray can reach (the per-bounce culls).
 '''
 
 import math
@@ -514,6 +515,52 @@ def buildKindsScene(tmpdir=None):
   return scene
 
 
+CULL_DECOYS = 32
+CULL_DECOY_RING = 400.
+
+
+def buildCullDecoyScene(tmpdir=None):
+  '''The per-bounce culls' check scene (B12): the reference's fold scene of
+  its cull tests with decoys no beam reaches. A point source at z = 1e-3 mm
+  (exp(-theta^2/0.01) over theta in [0, 0.2], 532 nm) lights a 45 deg plane
+  fold mirror of radius 60 mm at z = 100 mm, which sends the beam to an
+  absorbing, recording 100 x 100 mm detector at (0, 200, 100) facing it;
+  CULL_DECOYS mirrors, alternately even aspheres (c = 1/100, a4 = 1e-6,
+  r <= 20 mm) and tori (R = 20, r = 5 mm), stand on a ring of radius
+  CULL_DECOY_RING mm in the plane z = -300 mm, behind the source and out
+  of every beam. 4 intersections (histograms over +-300 mm). Without the
+  culls every segment sweeps all 34 surface rows; with them only the fold
+  and the detector.'''
+  scene = Scene(label='cull_decoy', path=tmpdir and f'{tmpdir}/cull_decoy')
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Fold',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=60.)],
+      placements=[T.placement((0, 0, 100.), axis=(1, 0, 0), angleDeg=45.)]))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Absorber', Label='Det', RecordHits=True,
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(50., 50.))],
+      placements=[T.placement((0, 200., 100.), axis=(1, 0, 0),
+                              angleDeg=-90.)]))
+  decoys = []
+  for k in range(CULL_DECOYS):
+    phi = 2. * np.pi * k / CULL_DECOYS
+    at = T.translation(CULL_DECOY_RING * np.cos(phi),
+                       CULL_DECOY_RING * np.sin(phi), -300.)
+    decoys.append(
+        S.asphere(at, elem=0, curvature=1. / 100., coeffs=(1e-6,), rMax=20.)
+        if k % 2 == 0 else
+        S.torus(at, elem=0, majorRadius=20., minorRadius=5.))
+  scene.addOpticalGroup(OpticalGroup(
+      OpticalType='Mirror', Label='Decoys', surfaces=decoys,
+      placements=[np.eye(4)]))
+  scene.addSource(PointSource(
+      Label='Src', PowerDensity='exp(-theta^2/0.01)', ThetaDomain='0, 0.2',
+      Wavelength=532., ThetaResolutionNumericMode='1e3',
+      placement=T.translation(0, 0, 1e-3)))
+  scene.addSimulationSettings(RaysPerIteration=1e6, MaxIntersections=4)
+  return scene
+
+
 def buildEmitterKindsScene(tmpdir=None):
   '''A surface source whose four emitting faces are of the kinds of B2:
   a cone (radius 10 + 0.3 z over z in [0, 10] mm) at x = -60 mm, an even
@@ -594,7 +641,8 @@ def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,
       maxRayLength=settings.maxRayLength(),
       distTol=max(settings.distanceTolerance(), 1e-4), powerTol=1e-6,
       stratified=stratified, histPrecision=histPrecision,
-      sampler=src.samplerSpec(), device=dev)
+      sampler=src.samplerSpec(), emissionBound=src.emissionBound(),
+      device=dev)
   return step, hist, dict(scene=scene, device=sceneHost, info=info,
                           histSpec=histSpec,
                           backend='cuda' if dev.type == 'cuda' else 'plain')

@@ -12,7 +12,8 @@ from . import resolveDevice
 from .ops import cuda_trace
 
 
-def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
+def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda',
+                       emissionBound=None, maxIntersections=0):
   '''Build the trace kernel's tables from the JAX package's outputs:
 
     deviceNp     the dict of numpy arrays from
@@ -28,13 +29,17 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda'):
                  packages fit the same tables). Other keys are ignored;
     histSpecNp   the histogram spec: `elemToDet`, `bounds`, `bins`;
     samplerSpec  optionally the dict from `pallasSamplerSpec()` of a point
-                 or a surface source (`samplerSpecFromReference`).
+                 or a surface source (`samplerSpecFromReference`);
+    emissionBound, maxIntersections
+                 optionally the source's `emissionBound()` and the bounces
+                 its per-bounce culls cover.
 
   Returns what `ops.cuda_trace.buildTraceTables` returns, on `device`.'''
   scene, histSpec = _sceneAndSpec(deviceNp, histSpecNp)
   return cuda_trace.buildTraceTables(
       scene, histSpec, samplerSpec=samplerSpecFromReference(samplerSpec),
-      device=device)
+      device=device, emissionBound=emissionBound,
+      maxIntersections=maxIntersections)
 
 
 def _plain(x):

@@ -14,7 +14,7 @@
 //
 // Replaces: the body `_makeKernel` of the JAX package's Pallas trace kernels
 // (optics_design_workbench_tpu/ops/pallas_trace.py), but for its histogram
-// layout and per-bounce culls:
+// layout:
 // PLANE / SPHERE / CYLINDER surfaces with window, annulus and z-band trims,
 // and in the GEOM instance every other kind (ASPHERE by 16 Newton steps
 // from its osculating sphere, TRIANGLE by Moeller-Trumbore, CONE and QUADRIC
@@ -27,7 +27,18 @@
 // the surface-source sampler (plane, sphere-zone and cylinder faces); the
 // in-kernel stochastic scatter draw; the triangle-table sweep of meshes past
 // 128 triangles; the surface-table sweep of assemblies past 256 analytic
-// surfaces; the per-ray hit-slot ring.
+// surfaces; the per-bounce surface culls; the per-ray hit-slot ring.
+//
+// The per-bounce culls (B12): where the source has an emission bound the
+// host works out, per bounce, the surface rows some ray can reach there
+// (ops/beam_cull.py) and appends a cull block to the table, its offset a
+// launch parameter (cullOff, -1 without one; `inBounceSet` says the
+// layout). The row loop skips a row outside the bounce's set before its
+// intersection test, in the rows' order, so the lowest index still wins a
+// tie; every lane of a warp is at the same bounce, so the test is
+// warp-uniform. The triangle and surface tables are swept as before, and
+// the sweep instances have no cull code, as the reference's sweep never
+// culls.
 //
 // The two samplers are two compile-time instances (SURF), chosen by the
 // launcher from the sampler kind of the tables: the point sampler draws two
@@ -267,8 +278,11 @@ struct TraceParams {
   long long strataTile;
   int G1, G2;
   float mrlEff, maxRayLength, tMin, window, powerTol, invG1, invG2;
-  // SWEEP only: blocks per variant, floats per variant's histogram
-  int blocksPerVariant;
+  // SWEEP only: blocks per variant, floats per variant's histogram; a
+  // single-scene launch keeps in the same word the offset of the cull block
+  // (B12; -1: every bounce sweeps every row). A field of its own took the
+  // instances without B4 from 40 to 44 registers (PERF.md §6).
+  union { int blocksPerVariant; int cullOff; };
   long long histLen;
   // header flags of the scene: any grating; sequential stages (0: none);
   // some surface not always allowed; offset of the dispersion block (-1:
@@ -1408,6 +1422,23 @@ __device__ void sweepSurfaceTable(const SurfTable& st,
   }
 }
 
+// B12: whether surface row s is in the set that bounce `bounce` sweeps:
+// the cull block at cullOff holds the bounce count B, then per bounce the
+// offset of its set's words (-1: every row), each set ceil(nSurf / 32)
+// uint32 words, bit s for row s (int32 / uint32 bit-cast into the table).
+// A test in the row loop rather than a loop over the set's rows: the
+// per-bounce list and count held in registers took the instances without
+// B4 from 40 to 46-48 registers (PERF.md §6); this test holds nothing.
+__device__ __forceinline__ bool inBounceSet(const float* smem, int cullOff,
+                                            int bounce, int s) {
+  const float* c = smem + cullOff;
+  if (bounce >= __float_as_int(c[0])) return true;
+  const int off = __float_as_int(c[1 + bounce]);
+  if (off < 0) return true;
+  const float* w = smem + off;
+  return ((__float_as_uint(w[s >> 5]) >> (s & 31)) & 1u) != 0u;
+}
+
 // whether a ray at stage `stage` may hit surface row r (a stage gate)
 __device__ __forceinline__ bool stageAllowed(const float* smem,
                                              const float* r, int stage) {
@@ -1629,6 +1660,9 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
       const int stage = B4 ? min(seq, max(p.nStages, 1) - 1) : 0;
       for (int s = 0; s < p.nSurf; ++s) {
         const float* r = surfT + s * kRow;
+        // B12: a row outside this bounce's set (the sweep never culls)
+        if (!SWEEP && p.cullOff >= 0
+            && !inBounceSet(smem, p.cullOff, bounce, s)) continue;
         if (B4 && p.gate && !stageAllowed(smem, r, stage)) continue;
         float t;
         if constexpr (GEOM)
@@ -1964,12 +1998,13 @@ inline TraceParams traceParams(const long long* ip, const float* fp) {
   p.powerTol = fp[4];
   p.invG1 = fp[5];
   p.invG2 = fp[6];
-  p.blocksPerVariant = 0;
   p.histLen = 0;
   p.hasGrating = (int)ip[17];
   p.nStages = (int)ip[18];
   p.gate = (int)ip[19];
   p.dispOff = (int)ip[20];
+  // the word after the surface table's runs: the cull block's offset (B12)
+  p.cullOff = (int)ip[29 + kMaxSurfRuns * kRunCols];
   return p;
 }
 

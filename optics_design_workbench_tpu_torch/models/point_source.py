@@ -86,8 +86,8 @@ class PointSource(GenericSource):
     `axis`. Matches deviceColumnsGenerator's exact origin math: f = 0 emits
     from the point, finite f from the |lo| = 2|f| sin(theta/2) cap, f = inf
     collimated from the theta-radius disc. Returns None when no finite
-    bound exists. (Input of the per-bounce surface culls, which this slice
-    does not port yet.)'''
+    bound exists. The input of the trace steps' per-bounce surface culls
+    (`cuda_trace.makeTraceStep(..., emissionBound=)`).'''
     try:
       t1, t2 = self.parsedThetaDomain()
       f = self.focalLength()

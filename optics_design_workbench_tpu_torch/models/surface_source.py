@@ -161,8 +161,7 @@ class SurfaceSource(GenericSource):
     Only flat emitters (plane faces: constant normal) are bounded; curved
     faces return None. The direction cone is the cone around the mean face
     normal widened by the per-face normal spread plus the theta-domain
-    maximum. (Input of the per-bounce surface culls, which the port does
-    not have yet.)'''
+    maximum. The input of the trace steps' per-bounce surface culls.'''
     try:
       faces = self._activeFaces()
       _t1, t2 = self.parsedThetaDomain()

@@ -63,9 +63,11 @@ window trim leaves the surface rows for the surface table in device memory
 (`tableSurfaces`), past 128 triangles every triangle for the triangle table
 (`tableTriangles`); what stays a surface row (bitmap and hole-primitive
 trims, aspheres, tori) is capped at 256, and sequential mode and source
-masks keep a scene to 256 analytic surfaces, as in the reference. The
-kernels sweep every allowed surface on every bounce (the reference's
-per-bounce culls only skip surfaces that cannot be hit).
+masks keep a scene to 256 analytic surfaces, as in the reference. Given
+the source's emission bound, the histogram, per-ray-bin and raw kernels
+sweep on each bounce only the surface rows some ray can reach there (the
+reference's per-bounce culls, `_cullSets`: the table's cull block); the
+sweep kernel, like the reference's, sweeps every row on every bounce.
 '''
 
 import ctypes
@@ -83,6 +85,7 @@ from ..tracing.element_table import (MIRROR, LENS, GRATING, ABSORBER,
                                      VACUUM, EP_GRATTYPE, EP_GRATLPM,
                                      EP_GRATDIRX, EP_GRATDIRY, EP_GRATDIRZ,
                                      EP_GRATORDER)
+from . import beam_cull
 
 _BIG = 3.0e38
 
@@ -526,7 +529,8 @@ def _sceneRows(scene, histSpec):
   '''Extract python-float scene constants (host side). Returns
   (surfRows, elemRows, nStages, masks, triRows): one dict per surface row (kind,
   world->local rotation r00..r22 and offset t0..t2, orient, elemF, p0..p8,
-  trim0..trim4, stage bitmask `stages`; a triangle's `triE1`, `triE2`,
+  trim0..trim4, the unclamped (trim1, trim2) `_rawTrim`, stage bitmask
+  `stages`; a triangle's `triE1`, `triE2`,
   `triN` formed in double from its float32 vertices; a bitmap-trimmed
   surface's `maskSlot` and `maskRes`; a hole-primitive surface's
   `holePrims`, its active rows) and per element (optF, n, refl, absLen,
@@ -581,6 +585,8 @@ def _sceneRows(scene, histSpec):
         trim0=float(trims[s, 0]), trim1=float(trims[s, 1]),
         trim2=float(min(trims[s, 2], _BIG)), trim3=float(trims[s, 3]),
         trim4=float(trims[s, 4]), stages=stages,
+        # the unclamped window, for the host's bounding spheres and culls
+        _rawTrim=(float(trims[s, 1]), float(trims[s, 2])),
         ident=bool(np.allclose(p[0:9], np.eye(3).reshape(-1), atol=1e-12)
                    and np.allclose(p[9:12], 0., atol=1e-12)))
     if row['kind'] == GS.TRIANGLE and toTable:
@@ -595,7 +601,6 @@ def _sceneRows(scene, histSpec):
                                      [row['elemF'], row['orient']]]))
       continue
     if toSurfTable[s]:
-      row['_rawTrim'] = (float(trims[s, 1]), float(trims[s, 2]))
       surfEntries.append((row['kind'], row['trim0'], np.array(
           [row[k] for k in _SURF_TABLE_KEYS], dtype=np.float32),
           _boundingSphere(row)))
@@ -651,15 +656,24 @@ _SURF_TABLE_KEYS = ('r00', 'r01', 'r02', 'r10', 'r11', 'r12', 'r20', 'r21',
 
 
 def _boundingSphere(row):
-  '''Conservative world-frame bounding sphere (centre, radius) of a surface
-  of the surface table, or None where the surface is unbounded (an infinite
-  trim): the JAX package's `_boundingSphere` for the kinds and trims of
-  TABLE_SURF_KINDS.'''
+  '''Conservative world-frame bounding sphere (centre, radius) of a
+  surface row or surface-table entry, or None where the surface is
+  unbounded (an infinite trim), carries a bitmap trim (its trim columns are
+  a UV chart, not a window) or a boolean-ADD hole primitive (area beyond the
+  base window): such a surface is never culled. The JAX package's
+  `_boundingSphere`.'''
+  for hole in row.get('holePrims', ()):
+    flag = float(hole[0])
+    if flag > 0.5 and 5.5 < (flag - 20. if flag > 15.5 else flag) < 15.5:
+      return None                   # an ADD primitive
+  if row.get('trim0') == 2.:
+    return None                     # a bitmap trim
   kind = row['kind']
-  t1, t2 = row['_rawTrim']        # UNclamped (trim2 may be +inf)
+  t1, t2 = row['_rawTrim']          # UNclamped (trim2 may be +inf)
   c = np.zeros(3)
   if kind == GS.PLANE:
-    rho = float(np.hypot(t1, t2)) if row['trim0'] == 1. else t2
+    # window (1) and primitive-trimmed window (4): the half-diagonal
+    rho = float(np.hypot(t1, t2)) if row['trim0'] in (1., 4.) else t2
   elif kind == GS.SPHERE:
     rho = row['p0']
   elif kind == GS.CYLINDER:
@@ -674,7 +688,16 @@ def _boundingSphere(row):
     rMax = max(abs(row['p0'] + t1 * row['p1']),
                abs(row['p0'] + t2 * row['p1']))
     rho = float(np.hypot(rMax, (t2 - t1) / 2.))
-  else:                           # a quadric
+  elif kind == GS.ASPHERE:
+    if not np.isfinite(t2):
+      return None
+    c0, kk = row['p0'], row['p1']
+    r2 = t2 * t2
+    root = np.sqrt(max(1. - (1. + kk) * c0 * c0 * r2, 1e-12))
+    sag = c0 * r2 / (1. + root) + r2 * r2 * (
+        row['p2'] + r2 * (row['p3'] + r2 * row['p4']))
+    rho = float(t2 + abs(sag))
+  elif kind == GS.QUADRIC:
     if not (np.isfinite(t1) and np.isfinite(t2)):
       return None
     qa, qb = row['p0'], row['p1']
@@ -691,6 +714,14 @@ def _boundingSphere(row):
     rMax = float(np.sqrt(max(max(w), 0.) / min(qa, qb)))
     c[2] = (t1 + t2) / 2.
     rho = float(np.hypot(rMax, (t2 - t1) / 2.))
+  elif kind == GS.TORUS:
+    rho = row['p0'] + row['p1']
+  elif kind == GS.TRIANGLE:
+    v = np.array([row[f'p{k}'] for k in range(9)]).reshape(3, 3)
+    c = v.mean(0)
+    rho = float(max(np.linalg.norm(vk - c) for vk in v))
+  else:
+    return None
   if not np.isfinite(rho):
     return None
   if row['ident']:
@@ -701,6 +732,102 @@ def _boundingSphere(row):
   tv = np.array([row['t0'], row['t1'], row['t2']])
   # local = R world + t, so the world point of local c is R^T (c - t)
   return R.T @ (c - tv), rho
+
+
+def _firstBounceSurfs(surfRows, bound):
+  '''Indices (into surfRows) of the rows REACHABLE at bounce 0 from the
+  source's emission envelope `bound` (originCenter, axis, cosAlpha,
+  originRadius: `PointSource.emissionBound`): a row whose bounding sphere
+  lies wholly outside the cone fattened by the origin radius cannot be the
+  first hit of any ray. Rows without a bounding sphere always stay. The JAX
+  package's `_firstBounceSurfs`.'''
+  o, axis, cosA, rO = bound
+  o = np.asarray(o, float)
+  axis = np.asarray(axis, float)
+  axis = axis / max(np.linalg.norm(axis), 1e-30)
+  alpha = float(np.arccos(np.clip(cosA, -1., 1.)))
+  keep = []
+  for s, row in enumerate(surfRows):
+    bs = _boundingSphere(row)
+    if bs is None:
+      keep.append(s)
+      continue
+    cw, rho = bs
+    rho = rho + rO
+    d = cw - o
+    dist = float(np.linalg.norm(d))
+    if dist <= rho:
+      keep.append(s)
+      continue
+    beta = float(np.arccos(np.clip(float(d @ axis) / dist, -1., 1.)))
+    if beta <= alpha + np.arcsin(min(rho / dist, 1.)) + 1e-6:
+      keep.append(s)
+  return keep
+
+
+def _cullSets(surfRows, elemRows, scatterConsts, emissionBound,
+              maxIntersections, surfAllowed, triRows, surfEntries):
+  '''The surface rows each bounce sweeps (ROADMAP B12): a list of
+  `maxIntersections` entries, each the ascending row positions that can be
+  that bounce's hit (ascending, so the lowest index still wins a tie), or
+  None for a full sweep. `surfAllowed` is the sorted row positions the
+  source's mask and the stage sets admit (None: every row); a set equal to
+  it is full. The sets come from `beam_cull.propagateBounceSets`, bounce 0's
+  cut further to `_firstBounceSurfs`; where the triangle or surface table
+  (`triRows`, `surfEntries`, which the propagation cannot see) holds a
+  mirror, lens, grating or scattering element, only bounce 0 culls. The
+  JAX package's `_beamCullSets` without the unrolled prefix and the tail
+  union of its Mosaic loop: each bounce here sweeps its own set, which
+  never holds a row that the reference's set for that bounce lacks.'''
+  tableElems = {int(r[9]) for r in triRows}
+  tableElems |= {int(e[2][13]) for e in surfEntries}
+  scatterElems = {int(c[0]) for c in (scatterConsts or ())}
+  unsafe = any(elemRows[e]['optF'] not in (float(ABSORBER), float(VACUUM))
+               or e in scatterElems for e in tableElems)
+  sets = beam_cull.propagateBounceSets(
+      surfRows, elemRows, scatterConsts, emissionBound, maxIntersections,
+      allowed=surfAllowed, unsafeAfterBounce0=unsafe,
+      boundingSphere=_boundingSphere)
+  if sets and sets[0] is not None:
+    first = set(_firstBounceSurfs(surfRows, emissionBound))
+    sets[0] = [s for s in sets[0] if s in first]
+  everyRow = (list(range(len(surfRows))) if surfAllowed is None
+              else sorted(surfAllowed))
+  return [None if ss is None or ss == everyRow else ss for ss in sets]
+
+
+def _cullBlock(sets, nRows, base, room):
+  '''The cull block of the kernels' table for the per-bounce `sets` of
+  `_cullSets` over `nRows` surface rows, as int32 words bit-cast into
+  float32, to be placed at table offset `base` with `room` words to spare;
+  or None where no bounce culls. Layout: the bounce count B, then per
+  bounce the table offset of its set (-1 for a full sweep), then the sets,
+  each ceil(nRows / 32) uint32 words with bit s for row s, a set stored
+  once however many bounces sweep it. A set that does not fit in `room` is
+  swept in full instead (never wrong, only not culled), so the block never
+  pushes the table past MAX_TABLE_BYTES: at maxIntersections 100 and 256
+  rows the offsets take 101 words and each distinct set 8.'''
+  B, nWords = len(sets), -(-nRows // 32)
+  if all(ss is None for ss in sets) or 1 + B > room:
+    return None
+  words = [B] + [-1] * B
+  offsetOf = {}
+  for b, ss in enumerate(sets):
+    if ss is None:
+      continue
+    key = tuple(ss)
+    if key not in offsetOf:
+      if len(words) + nWords > room:
+        continue                    # no room: this bounce sweeps in full
+      bits = np.zeros(32 * nWords, bool)
+      bits[list(key)] = True
+      offsetOf[key] = base + len(words)
+      words += np.packbits(bits, bitorder='little').view('<u4') \
+          .view(np.int32).tolist()
+    words[1 + b] = offsetOf[key]
+  if all(w < 0 for w in words[1:1 + B]):
+    return None
+  return np.asarray(words, np.int32).view(np.float32)
 
 
 def _dummySurfRow(kind, trim0):
@@ -927,13 +1054,17 @@ def _primRow(hole):
   return (shape, float(isAdd), float(isInv)) + tuple(hole[1:7])
 
 
-def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
+def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
+               emissionBound=None, maxIntersections=0):
   '''The kernel's table of one compiled scene as host numpy, and its static
   facts: (float32 (tableLen,) array, dict(nSurf, nElem, nTri, nTriChunks,
   triTable, triBoxes, nSurfTable, nSurfChunks, surfTable, surfBoxes,
   surfPlainRuns, surfChunkRuns, samplerOff, bins, nDet, anyMedium, hasGrating,
-  nStages, gate, dispOff, geom, surfRows, elemRows, samplerSpec, scatter,
-  scatterConsts, scatterRows, lobeRows, modRows)).
+  nStages, gate, dispOff, cullOff, geom, surfRows, elemRows, samplerSpec,
+  scatter, scatterConsts, scatterRows, lobeRows, modRows)).
+  With the source's `emissionBound` (see `_cullSets`) the table ends with
+  the cull block of the first `maxIntersections` bounces (`_cullBlock`) at
+  `cullOff`; -1 where there is no bound or no bounce culls anything.
   `triTable` / `triBoxes` are the float32 triangle table and its chunk
   boxes (`_chunkTriangles`) of a mesh past TABLE_TRIANGLES, else None;
   `surfTable` / `surfBoxes` the float32 surface table and its chunk boxes,
@@ -1059,6 +1190,18 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
       rows = np.array([_primRow(h) for h in r['holePrims']], np.float64)
       tail.append(rows.astype(np.float32).reshape(-1))
       base += len(tail[-1])
+  cullOff = -1
+  if emissionBound is not None and maxIntersections > 0:
+    allowed = [s for s, r in enumerate(surfRows) if r['stages'] != 0]
+    sets = _cullSets(surfRows, elemRows, consts, emissionBound,
+                     int(maxIntersections),
+                     None if len(allowed) == S else allowed, triRows,
+                     surfEntries)
+    block = _cullBlock(sets, S, base, MAX_TABLE_BYTES // 4 - base)
+    if block is not None:
+      cullOff = base
+      tail.append(block)
+      base += len(block)
   with np.errstate(over='ignore'):      # an unbounded radius squares to inf
     parts = [surfT.astype(np.float32).reshape(-1)] + parts + tail
   H, W = histSpec['bins']
@@ -1080,8 +1223,8 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None):
       nDet=int(_hostArray(histSpec['bounds']).shape[0]),
       anyMedium=bool(elemT[:, 10].any()),
       hasGrating=bool((elemT[:, 0] == GRATING).any()), nStages=nStages,
-      gate=gate, dispOff=dispOff, geom=geom, surfRows=surfRows,
-      elemRows=elemRows,
+      gate=gate, dispOff=dispOff, cullOff=cullOff, geom=geom,
+      surfRows=surfRows, elemRows=elemRows,
       samplerSpec=samplerSpec, samplerKind=samplerKind,
       scatter=bool(consts), scatterConsts=consts or None, **scatFacts)
 
@@ -1121,17 +1264,22 @@ def _packSurfaceSampler(spec):
           rows.astype(np.float32).reshape(-1)] + margs
 
 
-def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda'):
+def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda',
+                     emissionBound=None, maxIntersections=0):
   '''Pack a compiled scene (+ optionally a point- or surface-source
   sampler spec) into the kernel's tables. Returns a dict with the float32
-  `table` tensor on `device` (surface rows, element rows, sampler block),
-  the `triTable` and `triBoxes` tensors of a mesh past TABLE_TRIANGLES and
+  `table` tensor on `device` (surface rows, element rows, sampler block,
+  the per-bounce culls of the source's `emissionBound` over
+  `maxIntersections` bounces where it has one: `tableCullSets`), the
+  `triTable` and `triBoxes` tensors of a mesh past TABLE_TRIANGLES and
   the `surfTable` and `surfBoxes` tensors of a scene past MAX_SURFACES
   analytic surfaces (or None), the host rows, and the static facts the
   step needs (bins, detector count, anyMedium, samplerKind).
   Raises ValueError for scenes the kernel does not cover.'''
   dev = resolveDevice(device)
-  table, facts = _packTable(scene, histSpec, samplerSpec)
+  table, facts = _packTable(scene, histSpec, samplerSpec,
+                            emissionBound=emissionBound,
+                            maxIntersections=maxIntersections)
   return dict(facts, table=torch.as_tensor(table, device=dev),
               **_globalTensors(facts, dev))
 
@@ -1147,6 +1295,28 @@ def _globalTensors(facts, dev):
   return {k: None if facts[k] is None
           else torch.as_tensor(np.ascontiguousarray(facts[k]), device=dev)
           for k in _GLOBAL_TABLES}
+
+
+def tableCullSets(tables, maxIntersections):
+  '''The rows each of `maxIntersections` bounces sweeps, read back from the
+  tables' cull block (`_cullBlock`): per bounce the ascending row
+  positions, or None for a full sweep (every bounce of tables without a
+  block, and every bounce past the block's own count).'''
+  off = tables.get('cullOff', -1)
+  if off < 0:
+    return [None] * maxIntersections
+  words = tables['table'].detach().cpu().numpy().view(np.int32)
+  nWords = -(-tables['nSurf'] // 32)
+  sets = []
+  for b in range(maxIntersections):
+    at = words[off + 1 + b] if b < words[off] else -1
+    if at < 0:
+      sets.append(None)
+      continue
+    bits = np.unpackbits(words[at:at + nWords].astype('<u4').view(np.uint8),
+                         bitorder='little')[:tables['nSurf']]
+    sets.append(np.flatnonzero(bits).tolist())
+  return sets
 
 
 def samplerSpecWithGeom(samplerSpec, geomRow):
@@ -1187,7 +1357,9 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   must be equal in every variant: they are not swept (the reference's
   sweep step bakes variant 0's into every variant; ROADMAP C), so variants
   whose densities differ raise SweepUnavailable and are traced one by one.
-  Sequential mode
+  The stacked tables carry no cull block (`cullOff` -1): the sweep
+  kernel sweeps every row on every bounce, as the reference's sweep step
+  takes no emission bound. Sequential mode
   raises SweepUnavailable, as the reference's sweep step refuses it
   (`makePallasSweepStep`); the sweeper then traces the variants one launch
   each, with the stage gate.'''
@@ -1255,7 +1427,7 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       bins=f0['bins'], nDet=f0['nDet'],
       anyMedium=any(f['anyMedium'] for f in facts),
       hasGrating=f0['hasGrating'], nStages=0,
-      gate=any(f['gate'] for f in facts), dispOff=f0['dispOff'],
+      gate=any(f['gate'] for f in facts), dispOff=f0['dispOff'], cullOff=-1,
       geom=f0['geom'],
       samplerKind=SAMPLER_POINT, scatter=f0['scatter'],
       scatterConsts=f0['scatterConsts'], scatterRows=f0['scatterRows'],
@@ -1816,12 +1988,14 @@ def _scatterPlain(consts, rows, lobeRows, elem, isMirror, isLens,
 def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
                      distTol, powerTol, hitSlots, output,
                      scatterUniforms=None, triangleStats=None,
-                     surfaceStats=None):
+                     surfaceStats=None, cullStats=None):
   '''The kernels' bounce loop as column-wise tensor ops, step by step in the
-  kernels' operation order: nearest hit over the surfaces the ray's stage
-  allows, with the other-medium tracker and same-medium window, winner
-  normal, n(lambda) of the winner and of the medium, Beer-Lambert, mirror /
-  Snell / TIR / grating, medium, power and stage updates, and the hit ring
+  kernels' operation order: nearest hit over the surface rows of the
+  bounce's set (`tableCullSets`: the rows the tables' cull block leaves,
+  every row without one) that the ray's stage allows, with the
+  other-medium tracker and same-medium window, winner normal, n(lambda) of
+  the winner and of the medium, Beer-Lambert, mirror / Snell / TIR /
+  grating, medium, power and stage updates, and the hit ring
   (slot = min(hitN, hitSlots-1): an overflow overwrites the last slot). ONE
   loop for the three output modes; `output` selects the record gate and
   what a ring slot holds:
@@ -1839,7 +2013,9 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   mesh's triangle table is swept after the surface rows, a surface table
   after that; `triangleStats` and `surfaceStats`, dicts, are added the work
   the kernels' cull leaves to those sweeps (`_TriangleTablePlain.sweep`,
-  `_SurfaceTablePlain.sweep`).
+  `_SurfaceTablePlain.sweep`). `cullStats`, a dict, gets the per-bounce
+  row sets (`sets`) and is added the segments each bounce traces
+  (`segmentsByBounce`): what the bound's count of swept rows weighs.
 
   Returns (ring, segments, hitN): ring a list of (hitSlots, N) tensors, one
   per slot field, the first -1 and the others 0 where a slot was never
@@ -1910,13 +2086,20 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
       off = int(surfT[s, 19])
       stageWords[s] = tab[off:off + nWords].view(np.uint32)
   allStages = (1 << max(nStages, 1)) - 1
+  sets = tableCullSets(tables, maxIntersections)
+  if cullStats is not None:
+    cullStats['sets'] = sets
+    byBounce = cullStats.setdefault('segmentsByBounce',
+                                    [0] * maxIntersections)
 
-  for _bounce in range(maxIntersections):
+  for bounce in range(maxIntersections):
     tBest, tOth = big, big
     sBest = torch.full((N,), -1, dtype=torch.int64, device=dev)
     sOth = sBest
     stage = torch.clamp(seq, max=max(nStages, 1) - 1)
-    for s in range(S):
+    if cullStats is not None:
+      byBounce[bounce] += int(alive.sum())
+    for s in (range(S) if sets[bounce] is None else sets[bounce]):
       bits = allStages
       if gate:
         bits = int.from_bytes(stageWords[s].astype('<u4').tobytes(), 'little')
@@ -2115,7 +2298,7 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
     ndx, ndy, ndz = ndx * inv, ndy * inv, ndz * inv
     if consts:
       ndx, ndy, ndz = _scatterPlain(
-          consts, scatterUniforms[_bounce * rpb:(_bounce + 1) * rpb],
+          consts, scatterUniforms[bounce * rpb:(bounce + 1) * rpb],
           tables['lobeRows'], elem, isMirror, isLens, isEntering, dDotN, nx,
           ny, nz, dx, dy, dz, ndx, ndy, ndz)
 
@@ -2512,15 +2695,16 @@ def _ringCounters(key, segs, hitN, hitSlots):
 def traceHistogramPlain(tables, histograms, columns, maxIntersections,
                         maxRayLength, distTol, powerTol, hitSlots,
                         scatterUniforms=None, triangleStats=None,
-                        surfaceStats=None):
+                        surfaceStats=None, cullStats=None):
   '''Plain version of the histogram kernel: `_bounceLoopPlain` + float32
   `index_add_` binning into a fresh zero delta, which is then added into
   `histograms` IN PLACE. Returns an int64 (3,) tensor (segments, hits,
-  hitOverflow). `scatterUniforms`, `triangleStats`, `surfaceStats`: see
-  `_bounceLoopPlain`.'''
+  hitOverflow). `scatterUniforms`, `triangleStats`, `surfaceStats`,
+  `cullStats`: see `_bounceLoopPlain`.'''
   (ringBin, ringW), segs, hitN = _bounceLoopPlain(
       tables, columns, maxIntersections, maxRayLength, distTol, powerTol,
-      hitSlots, 'hist', scatterUniforms, triangleStats, surfaceStats)
+      hitSlots, 'hist', scatterUniforms, triangleStats, surfaceStats,
+      cullStats)
   delta = torch.zeros((2, histograms['power'].numel()), dtype=torch.float32,
                       device=ringW.device)
   for k in range(hitSlots):
@@ -2926,7 +3110,7 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   G1, G2 = strata if strata is not None else (0, 1)
   runWords = [x for run in runs for x in run]
   runWords += [0] * (MAX_SURF_RUNS * RUN_COLS - len(runWords))
-  ip = (ctypes.c_longlong * (29 + MAX_SURF_RUNS * RUN_COLS))(
+  ip = (ctypes.c_longlong * (30 + MAX_SURF_RUNS * RUN_COLS))(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
@@ -2935,7 +3119,7 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
       int(tables['gate']), int(tables['dispOff']),
       int(tables['samplerKind']), int(tables.get('scatter', False)),
       int(tables.get('geom', False)), nTri, nChunks, nSurfT, nSurfChunks,
-      len(runs), *runWords)
+      len(runs), *runWords, int(tables.get('cullOff', -1)))
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
@@ -2966,8 +3150,9 @@ _COLUMN_KEYS = ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw', 'wl')
 
 
 def _stepSetup(scene, histSpec, generator, raysPerStep, maxIntersections,
-               hitSlots, sampler, strataTile, device):
-  '''What the step factories share: the kernel tables, the resolved slot
+               hitSlots, sampler, strataTile, device, emissionBound):
+  '''What the step factories share: the kernel tables (with the cull block
+  of `emissionBound` over `maxIntersections` bounces), the resolved slot
   count and stratum size, and `inputsFor(seed)`, which turns a step's `seed`
   (python int or torch.Generator) into the wrapper's input keywords — a
   seed for the in-kernel sampler, or the eight ray columns drawn by
@@ -2975,7 +3160,9 @@ def _stepSetup(scene, histSpec, generator, raysPerStep, maxIntersections,
   dev = resolveDevice(device)
   if sampler is None and generator is None:
     raise ValueError('need a sampler spec or a column generator')
-  tables = buildTraceTables(scene, histSpec, samplerSpec=sampler, device=dev)
+  tables = buildTraceTables(scene, histSpec, samplerSpec=sampler, device=dev,
+                            emissionBound=emissionBound,
+                            maxIntersections=maxIntersections)
   if hitSlots == 'auto':
     hitSlots = autoHitSlots(scene, histSpec, maxIntersections)
   if strataTile == 'auto':
@@ -3008,13 +3195,17 @@ def _stepSetup(scene, histSpec, generator, raysPerStep, maxIntersections,
 def makeTraceStep(scene, histSpec, generator, raysPerStep, maxIntersections,
                   maxRayLength, distTol, powerTol=1e-6, stratified=False,
                   histPrecision='default', hitSlots='auto', sampler=None,
-                  strataTile='auto', device='cuda'):
+                  strataTile='auto', emissionBound=None, device='cuda'):
   '''Build the fused sample + trace + histogram step
   `step(seed, histograms) -> (histograms, counters)`; the signature of the
   JAX package's `makePallasTraceStep` minus the TPU-only knobs (tile,
-  innerSteps, jitWrap, interpret, emissionBound) and the uniform-input seam
-  (here an input mode of `traceHistogram` itself), plus `device`, and with
-  `strataTile` in place of `tileStratified`.
+  innerSteps, jitWrap, interpret) and the uniform-input seam (here an input
+  mode of `traceHistogram` itself), plus `device`, and with `strataTile` in
+  place of `tileStratified`.
+
+  emissionBound: the source's `emissionBound()` (None: no cull). With it
+  each bounce sweeps only the surface rows some ray can reach there
+  (`_cullSets`, ROADMAP B12); the result is the same as without.
 
   histPrecision: 'default' bins inside the kernel with float32 atomics (one
   launch, nothing ray-shaped in device memory); 'highest' runs the
@@ -3045,7 +3236,7 @@ def makeTraceStep(scene, histSpec, generator, raysPerStep, maxIntersections,
       lambda gen, n: generator(gen, n, stratified=stratified))
   tables, hitSlots, strataTile, inputsFor = _stepSetup(
       scene, histSpec, columnsOf, raysPerStep, maxIntersections, hitSlots,
-      sampler, strataTile, device)
+      sampler, strataTile, device, emissionBound)
   kw = dict(maxIntersections=maxIntersections, maxRayLength=maxRayLength,
             distTol=distTol, powerTol=powerTol, hitSlots=hitSlots,
             strataTile=strataTile)
@@ -3067,25 +3258,25 @@ def makeTraceStep(scene, histSpec, generator, raysPerStep, maxIntersections,
 
 def makeRawStep(scene, histSpec, generator, raysPerStep, maxIntersections,
                 maxRayLength, distTol, hitSlots='auto', sampler=None,
-                strataTile='auto', device='cuda'):
+                strataTile='auto', emissionBound=None, device='cuda'):
   '''Build `step(seed) -> (records, counters)`: RAW per-hit rows from the
   raw-record kernel's hit ring, in the reference's records form — the
   counterpart of the JAX package's `makePallasRawStep` minus tile /
-  interpret / uniformProvider / emissionBound, plus `device` and
-  `strataTile`. `records` is a dict of tensors on the device, slot-major:
-  `recordHit` bool (hitSlots, N), `hitElem` int32, `power` float32,
-  `isEntering` bool, `point` (hitSlots, N, 3), `direction` (hitSlots, N, 3)
-  — EVERY recording-element hit (no histogram-bounds gate), the INCOMING
+  interpret / uniformProvider, plus `device` and `strataTile`. `records`
+  is a dict of tensors on the device, slot-major: `recordHit` bool
+  (hitSlots, N), `hitElem` int32, `power` float32, `isEntering` bool,
+  `point` (hitSlots, N, 3), `direction` (hitSlots, N, 3) — EVERY
+  recording-element hit (no histogram-bounds gate), the INCOMING
   direction, the pre-interaction power. `counters`: 0-d int64 tensors
   `segments`, `hits`, `hitOverflow` on the device. The output feeds
   simulation.runner.compactRecordsToHits -> SimulationResults.addHitBatch.
 
-  `seed`, `sampler`, `generator(torchGenerator, N)` and the strata as in
-  `makeTraceStep`; the power cut-off is the scene's `powerTol` (1e-6 when
-  the scene dict has none).'''
+  `seed`, `sampler`, `generator(torchGenerator, N)`, the strata and
+  `emissionBound` as in `makeTraceStep`; the power cut-off is the scene's
+  `powerTol` (1e-6 when the scene dict has none).'''
   tables, hitSlots, strataTile, inputsFor = _stepSetup(
       scene, histSpec, generator, raysPerStep, maxIntersections, hitSlots,
-      sampler, strataTile, device)
+      sampler, strataTile, device, emissionBound)
   kw = dict(maxIntersections=maxIntersections, maxRayLength=maxRayLength,
             distTol=distTol, powerTol=float(scene.get('powerTol', 1e-6)),
             hitSlots=hitSlots, strataTile=strataTile)

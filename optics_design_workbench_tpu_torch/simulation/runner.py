@@ -333,6 +333,7 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
           run.sceneFor(src), histSpec,
           src.deviceColumnsGenerator(device=dev), sampler=src.samplerSpec(),
           stratified=(mode == 'pseudo'), distTol=distTol,
+          emissionBound=src.emissionBound(),
           **run.stepKwargs(src, nPad)), nPad
 
     def buildRawStep(src, n):
@@ -345,7 +346,8 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
         sampler = src.samplerSpec()
       return cuda_trace.makeRawStep(
           run.sceneFor(src), histSpec, columns, sampler=sampler,
-          distTol=distTol, **run.stepKwargs(src, nPad)), nPad
+          distTol=distTol, emissionBound=src.emissionBound(),
+          **run.stepKwargs(src, nPad)), nPad
 
     def stepSeed():
       '''What a step is handed as its seed: a python int for the in-kernel

@@ -846,10 +846,11 @@ def runReferenceColumns(jaxScene, colsNp, bounds, maxIntersections,
 
 def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
                          seed=77, bins=BINS, source=0, prefill=None,
-                         tile=TILE):
+                         tile=TILE, cull=False):
   '''Mode (b) on the JAX side: in-kernel sampler of light source `source`
   fed uniforms through the `uniformProvider='input'` seam, onto fresh
-  histograms (or histograms whose every bin holds `prefill`). Returns the
+  histograms (or histograms whose every bin holds `prefill`); cull=True
+  passes the source's `emissionBound()` (the per-bounce culls). Returns the
   kernel's result and the very uniforms the step drew, as a (draws, n)
   numpy array in ray order (`samplerDraws`).'''
   import jax
@@ -864,7 +865,7 @@ def runReferenceUniforms(jaxScene, bounds, maxIntersections, n=N_RAYS,
       device, histSpec, src.deviceColumnsGenerator(), sampler=spec,
       uniformProvider='input', interpret=True, tile=tile, raysPerStep=n,
       maxIntersections=maxIntersections, maxRayLength=MAX_RAY_LENGTH,
-      distTol=DIST_TOL)
+      distTol=DIST_TOL, emissionBound=src.emissionBound() if cull else None)
   key = jax.random.PRNGKey(seed)
   hist = fused.initHistograms(histSpec)
   if prefill is not None:
@@ -909,12 +910,13 @@ def referenceUniforms(key, spec, n, rows=None):
 
 def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
                     colsNp=None, n=N_RAYS, seed=77, bins=BINS, source=0,
-                    tile=TILE):
+                    tile=TILE, cull=False):
   '''The JAX package's raw-record step (`makePallasRawStep`, Mosaic
   interpret mode). With `colsNp` (mode (c)) a test-local generator feeds it
   the numpy ray columns; without (mode (b)) its in-kernel sampler is fed
   uniforms through `uniformProvider='input'` (no tile strata on this step).
-  `source` picks the light source (and its `surfMask`). Returns (records as
+  `source` picks the light source (and its `surfMask`); cull=True passes
+  its `emissionBound()` (the per-bounce culls). Returns (records as
   numpy, counters as ints, uniforms (draws, n) or None, element labels).'''
   import jax
   import jax.numpy as jnp
@@ -925,7 +927,8 @@ def runReferenceRaw(jaxScene, bounds, maxIntersections, hitSlots='auto',
   histSpec = fused.makeHistogramSpec(device, info, bounds=bounds, bins=bins)
   kw = dict(raysPerStep=n, maxIntersections=maxIntersections,
             maxRayLength=MAX_RAY_LENGTH, distTol=DIST_TOL, hitSlots=hitSlots,
-            interpret=True, tile=tile)
+            interpret=True, tile=tile,
+            emissionBound=src.emissionBound() if cull else None)
   key = jax.random.PRNGKey(seed)
   us = None
   if colsNp is not None:
@@ -954,7 +957,8 @@ def runB4Case(name, n=N_RAYS):
   return runUniformsCase(build, source, n)
 
 
-def runUniformsCase(build, source=0, n=N_RAYS, tile=TILE, maxI=None):
+def runUniformsCase(build, source=0, n=N_RAYS, tile=TILE, maxI=None,
+                    cull=False):
   '''The scene `build(ns)` makes through both packages in mode (b): the JAX
   Pallas kernel in interpret mode (histogram step and raw-record step, each
   fed the uniforms it draws for its `uniformProvider='input'` seam; `tile`
@@ -962,7 +966,9 @@ def runUniformsCase(build, source=0, n=N_RAYS, tile=TILE, maxI=None):
   on the traced source's own scene (its `surfMask` included; a scene's
   scatter tables carried over from the JAX package), `maxI` bounces (by
   default the scene's), strata by `tile` (the reference's by-tile
-  strata). The JAX scene compiles once (`compileOnce`). Returns
+  strata). cull=True gives both packages the traced source's
+  `emissionBound()` (the per-bounce culls; the port's tables then carry
+  its cull block). The JAX scene compiles once (`compileOnce`). Returns
   dict(hist=(ref, port), raw=((records, counters) of the reference, of the
   port), tables, uniforms (the histogram step's)).'''
   import torch
@@ -973,10 +979,12 @@ def runUniformsCase(build, source=0, n=N_RAYS, tile=TILE, maxI=None):
   maxI = sceneMaxI if maxI is None else maxI
   compileOnce(scene)
   deviceNp, histNp, spec = referenceArrays(scene, bounds, source=source)
+  bound = scene.lightSources()[source].emissionBound() if cull else None
   tables = convert.sceneFromReference(deviceNp, histNp, samplerSpec=spec,
-                                      device='cpu')
+                                      device='cpu', emissionBound=bound,
+                                      maxIntersections=maxI)
   ref, us = runReferenceUniforms(scene, bounds, maxI, n=n, source=source,
-                                 tile=tile)
+                                 tile=tile, cull=cull)
   hist = torchFused.initHistograms(histNp, device='cpu')
   c = cuda_trace.traceHistogram(
       tables, hist, n, maxI, MAX_RAY_LENGTH, DIST_TOL, hitSlots=1,
@@ -986,7 +994,8 @@ def runUniformsCase(build, source=0, n=N_RAYS, tile=TILE, maxI=None):
                             hitOverflow=int(c[2])))
   hitSlots = cuda_trace.autoHitSlots(deviceNp, histNp, maxI)
   refR, refRC, usR, _labels = runReferenceRaw(scene, bounds, maxI, n=n,
-                                              source=source, tile=tile)
+                                              source=source, tile=tile,
+                                              cull=cull)
   ring, cR = cuda_trace.traceRaw(tables, n, maxI, MAX_RAY_LENGTH, DIST_TOL,
                                  hitSlots=hitSlots,
                                  uniforms=torch.as_tensor(usR))
@@ -1583,4 +1592,145 @@ SURFACE_TABLE_SCENES = {
     'coneQuadric': buildConeQuadricWallScene,
     'tie': buildTieTableScene,
     'bothTables': buildBothTablesScene,
+}
+
+
+# ---------------------------------------------------- per-bounce culls (B12)
+
+def _cullSource(ns, scene, density, theta):
+  scene.addSource(ns.PointSource(
+      Label='Src', PowerDensity=density, ThetaDomain=theta, Wavelength=532.,
+      ThetaResolutionNumericMode='1e3',
+      placement=ns.T.translation(0, 0, 1e-3)))
+
+
+def buildFirstBounceCullScene(ns):
+  '''The JAX suite's first-bounce cull scene: a narrow source aimed at one
+  of two mirrors (the other 500 mm to the side), over an absorbing
+  detector; the side mirror leaves bounce 0's set.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='fbcull')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Target',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=30., orient=-1)],
+      placements=[T.translation(0, 0, 100.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Decoy',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=30.)],
+      placements=[T.translation(500., 0, 100.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det',
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(200., 200.))],
+      placements=[T.translation(0, 0, 0)]))
+  _cullSource(ns, scene, 'exp(-theta^2/0.01)', '0, 0.25')
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
+  return scene, (-200., 200., -200., 200.), 3
+
+
+def buildFoldCullScene(ns):
+  '''The JAX suite's per-bounce cull scene: a 45 deg fold mirror sends the
+  beam to a side detector; two decoy mirrors (behind the source, below the
+  fold) stay out of every bounce's set.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='bcull')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Fold',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=60.)],
+      placements=[T.placement((0, 0, 100.), axis=(1, 0, 0), angleDeg=45.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det', RecordHits=True,
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(50., 50.))],
+      placements=[T.placement((0, 200., 100.), axis=(1, 0, 0),
+                              angleDeg=-90.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='DecoyBehind',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=40.)],
+      placements=[T.translation(0, 0, -300.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='DecoyBelow',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=40.)],
+      placements=[T.placement((0, -200., 100.), axis=(1, 0, 0),
+                              angleDeg=-90.)]))
+  _cullSource(ns, scene, 'exp(-theta^2/0.01)', '0, 0.2')
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=4)
+  return scene, (-300., 300., -300., 300.), 4
+
+
+def buildReflectBackScene(ns):
+  '''The JAX suite's scene against an optimistic cull: a concave spherical
+  cap (R = 40 mm about z = 140) reflects the beam back past the source onto
+  a detector behind it, which a forward-only cull would drop.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='bcullback')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Concave',
+      surfaces=[S.sphere(np.eye(4), elem=0, radius=40.,
+                         zRange=(-40., -36.))],
+      placements=[T.translation(0, 0, 140.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='DetBehind', RecordHits=True,
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(200., 200.))],
+      placements=[T.translation(0, 0, -50.)]))
+  _cullSource(ns, scene, 'exp(-theta^2/0.01)', '0, 0.15')
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=3)
+  return scene, (-200., 200., -200., 200.), 3
+
+
+def buildBallLensCullScene(ns):
+  '''The JAX suite's refraction cull scene: a full ball lens (n = 1.5,
+  R = 10 mm; entry, exit, possible TIR) before a detector, and a decoy
+  mirror far outside every refraction cone.'''
+  S, T = ns.S, ns.T
+  scene = ns.Scene(label='bculllens')
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Lens', Label='Ball', RefractiveIndex=1.5,
+      surfaces=[S.sphere(np.eye(4), elem=0, radius=10.)],
+      placements=[T.translation(0, 0, 30.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Absorber', Label='Det', RecordHits=True,
+      surfaces=[S.plane(np.eye(4), elem=0, halfExtents=(80., 80.))],
+      placements=[T.translation(0, 0, 80.)]))
+  scene.addOpticalGroup(ns.OpticalGroup(
+      OpticalType='Mirror', Label='Decoy',
+      surfaces=[S.plane(np.eye(4), elem=0, radius=30.)],
+      placements=[T.translation(0, 0, -400.)]))
+  _cullSource(ns, scene, 'exp(-theta^2/0.02)', '0, 0.3')
+  scene.addSimulationSettings(RaysPerIteration=1e4, MaxIntersections=6)
+  return scene, (-100., 100., -100., 100.), 6
+
+
+def _isPort(ns):
+  return ns.Scene.__module__.startswith('optics_design_workbench_tpu_torch')
+
+
+def buildCullDecoyScene(ns):
+  '''The port's `benchmarks.buildCullDecoyScene` (a fold beside 32 aspheric
+  and toroidal decoys no beam reaches), or its JAX twin.'''
+  scene = torchNs().benchmarks.buildCullDecoyScene()
+  return (scene if _isPort(ns) else jaxSceneFromPort(scene),
+          (-300., 300., -300., 300.), 4)
+
+
+def buildMeshCullScene(ns):
+  '''The 200-triangle dish mirror (its triangles in the triangle table,
+  which the propagation cannot see) with a decoy mirror behind the source:
+  bounce 0 culls the decoy, every later bounce sweeps in full.'''
+  port = torchNs()
+  scene = port.benchmarks.buildMeshDishScene()
+  scene.addOpticalGroup(port.OpticalGroup(
+      OpticalType='Mirror', Label='Decoy',
+      surfaces=[port.S.plane(np.eye(4), elem=0, radius=30.)],
+      placements=[port.T.translation(0, 0, -300.)]))
+  return (scene if _isPort(ns) else jaxSceneFromPort(scene),
+          (-200., 200., -200., 200.), 3)
+
+
+# the scenes built to punish a cull that is too tight (the JAX suite's
+# tests/test_pallas_interpret.py) and the decoy scene
+CULL_SCENES = {
+    'firstBounce': buildFirstBounceCullScene,
+    'fold': buildFoldCullScene,
+    'reflectBack': buildReflectBackScene,
+    'ballLens': buildBallLensCullScene,
+    'decoy': buildCullDecoyScene,
 }

@@ -2,7 +2,8 @@
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
     python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]
-                                         | mesh [ROOT] | table | hist [ROOT]]
+                                         | mesh [ROOT] | table | hist [ROOT]
+                                         | cull [ROOT]]
 
 (`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
 alone; `k1 ROOT` times the main-path step of the package in the checkout at
@@ -22,7 +23,11 @@ diffuse scatter scene, the mesh fold, the 1800-triangle dish, the
 the torus mirror, the kinds scene and the emitter of those kinds, K3 on the
 examples/3
 radius sweep and the spectrometer's wavelength sweep at 64 x 1 << 20 rays —
-each with its launch record and held against its plain version) times
+each with its launch record and held against its plain version; `cull
+ROOT` times K1, K2 and K4 of the package at ROOT through its step
+factories on the port's timed scenes, which the per-bounce culls (B12) do
+not prune, and on the decoy scene of those culls with and without them,
+and prints the registers of every instance) times
 the port's
 main-path step
 (lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
@@ -79,7 +84,8 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, 'tests'))
-if sys.argv[1:2] in (['k1'], ['mesh'], ['hist']) and len(sys.argv) > 2:
+if sys.argv[1:2] in (['k1'], ['mesh'], ['hist'], ['cull']) \
+    and len(sys.argv) > 2:
   sys.path.insert(0, os.path.abspath(sys.argv[2]))   # the package measured
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
@@ -390,6 +396,61 @@ def instanceRegisters():
   return regs, info['seconds']
 
 
+# the port's timed scenes: name -> (benchmarks function, intersections,
+# histogram bounds)
+CULL_SCENES = {
+    'lens': ('buildLensMirrorScene', 6, (-60., 60., -60., 60.)),
+    'spectrometer': ('buildSpectrometerScene', 3, (-80., 80., -80., 80.)),
+    'surface': ('buildSurfaceSourceScene', 4, (-120., 120., -120., 120.)),
+    'diffuse': ('buildDiffuseScatterScene', 4, (-100., 100., -100., 100.)),
+    'torus': ('buildTorusMirrorScene', 3, (-200., 200., -200., 200.)),
+    'kinds': ('buildKindsScene', 8, (-300., 300., -300., 300.)),
+    'emitter': ('buildEmitterKindsScene', 4, (-200., 200., -200., 200.)),
+    'meshFold': ('buildMeshFoldScene', 3, (-300., 300., -300., 300.)),
+    'dish1800': ('buildMeshDishScene', 3, (-200., 200., -200., 200.)),
+    'wall522': ('buildSurfWallScene', 3, (-300., 300., -300., 300.)),
+    'decoy': ('buildCullDecoyScene', 4, (-300., 300., -300., 300.)),
+}
+
+
+def cullSeries():
+  '''B12: K1 (the step, with its delta's memset and add), K2 (1 << 22 rays)
+  and K4 (1 << 20) by CUDA events, 10 calls each, through the step
+  factories of the package on the path (`makeBenchStep`, which gives a
+  package with the culls the source's emission bound) on every scene of
+  CULL_SCENES it has; where the tables carry a cull block, the same
+  kernels on tables without it beside them; then the registers of every
+  instance.'''
+  import optics_design_workbench_tpu_torch as port
+  seeds = iter(range(10, 10 ** 9))
+  out = dict(variant='cull', package=port.__file__,
+             digest=port.kernelSourceDigest())
+  for name, (make, maxI, bounds) in CULL_SCENES.items():
+    if not hasattr(benchmarks, make):
+      continue
+    scene = getattr(benchmarks, make)(*((30,) if name == 'dish1800' else ()))
+    step, hist, meta = benchmarks.makeBenchStep(
+        scene=scene, raysPerStep=N, maxIntersections=maxI, histBounds=bounds,
+        bins=BINS)
+    kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+              hitSlots=step.hitSlots, strataTile=step.strataTile)
+    variants = [('', step.tables)]
+    if step.tables.get('cullOff', -1) >= 0:
+      variants.append(('/unculled', cuda_trace.buildTraceTables(
+          meta['device'], meta['histSpec'],
+          samplerSpec=scene.lightSources()[0].samplerSpec(), device='cuda')))
+    for suffix, t in variants:
+      out[name + suffix] = [
+          cudaMs(lambda: cuda_trace.traceHistogram(
+              t, hist, N, seed=next(seeds), **kw), 10),
+          cudaMs(lambda: cuda_trace.traceBins(t, N, seed=next(seeds), **kw),
+                 10),
+          cudaMs(lambda: cuda_trace.traceRaw(t, N >> 2, seed=next(seeds),
+                                             **kw), 10)]
+  out['registers'], out['buildSeconds'] = instanceRegisters()
+  print(json.dumps(out), flush=True)
+
+
 HIST_CHECK_RAYS = 1 << 20
 
 
@@ -534,6 +595,8 @@ def main():
     return tableSeries()
   if sys.argv[1:2] == ['hist']:
     return histSeries(dev)
+  if sys.argv[1:2] == ['cull']:
+    return cullSeries()
 
   scene = benchmarks.buildLensMirrorScene()
   sceneNp, info = scene.compile(device=None)
