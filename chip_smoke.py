@@ -50,7 +50,9 @@ port's paths at full width:
     the reference's dishes of 200 to 12800 triangles, its collimated dish,
     a mesh lens and a tie between two equal table rows, K3 on 11 detector
     heights under the 1800-triangle dish; every dish's fused step (both
-    binnings) and raw step at 1 << 22 rays timed beside its bound; that
+    binnings) and raw step at 1 << 22 rays timed beside its bound, counted
+    for the one-level table sweep and for the two-level sweep with the
+    shrinking cap (`tableWork`); that
     dish loaded from an STL file through `runSimulation` raw (4 x 1 << 20)
     and histogram-first (8 x 1 << 22) and through `evaluateBatched` over
     its detector height, its share and r^2 against the JAX package's;
@@ -59,7 +61,8 @@ port's paths at full width:
     check scenes of the table (a slab array for its medium rule, every
     table kind, ties, a dish beside a surface table), K3 on 11 detector
     heights under the 522-surface wall; both walls' fused step (both
-    binnings) and raw step at 1 << 22 rays timed beside their bounds; the
+    binnings) and raw step at 1 << 22 rays timed beside their bounds (both
+    counts, as the dishes'); the
     522-surface wall through `runSimulation` raw (4 x 1 << 20) and
     histogram-first (8 x 1 << 22) and through `evaluateBatched` over its
     detector height, its share and r^2 against the JAX package's;
@@ -672,7 +675,7 @@ def onlyLaunches(**counts):
 
 def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
             scatterPasses=0, inputBytes=0, trianglesPerSegment=0.,
-            tableRowsPerSegment=None, cullStats=None):
+            tableRowsPerSegment=None, cullStats=None, twoLevel=None):
   '''Least time the card could take for one step: (ms by operations, ms by
   bytes), from this run's segment count, its passes through a grating and
   through a scattering element, the bytes the kernel must move (table, a
@@ -687,7 +690,13 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
   the ray's capped segment enters}). Per segment the surface rows it
   sweeps: every row, or on tables with a cull block (B12) the rows of each
   bounce's set weighted by the segments that bounce traces (`cullStats` of
-  a plain run of the same rays, `_bounceLoopPlain`).'''
+  a plain run of the same rays, `_bounceLoopPlain`). The tables' part is
+  counted again for the two-level sweep with the shrinking cap
+  (`twoLevel`: per segment the group and chunk boxes a ray tests,
+  `boxTests`, and what it sweeps under that cap, `triangles` or `rows` by
+  kind, as the plain version counts them), whose operations and bound the
+  returned dict gives as `flopsPerSegmentTwoLevel` and
+  `boundOpsTwoLevelMs`, beside the one-level count above.'''
   rows = tables['surfRows']
   if 'nVariants' in tables:            # a sweep: every variant, one structure
     rows = rows[0]
@@ -714,15 +723,23 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
     flopsPerSegment += FLOPS_DISPERSION
   if tables['scatter']:
     flopsPerSegment += FLOPS_SCATTER_RENORM
+  rowFlopsOf = lambda rows: sum(FLOPS_TABLE_ROW[k] * n
+                                for k, n in rows.items())
+  flopsTwoLevel = flopsPerSegment
   if tables.get('nTri'):
     flopsPerSegment += (FLOPS_CHUNK_TEST * tables['nTriChunks']
                         + FLOPS_TRIANGLE * trianglesPerSegment)
+    if twoLevel is not None:
+      flopsTwoLevel += (FLOPS_CHUNK_TEST * twoLevel['boxTests']
+                        + FLOPS_TRIANGLE * twoLevel['triangles'])
     inputBytes += 4 * (tables['triTable'].numel()
                        + tables['triBoxes'].numel())
   if tables.get('nSurfTable'):
     flopsPerSegment += (FLOPS_CHUNK_TEST * tables['nSurfChunks']
-                        + sum(FLOPS_TABLE_ROW[k] * n
-                              for k, n in tableRowsPerSegment.items()))
+                        + rowFlopsOf(tableRowsPerSegment))
+    if twoLevel is not None:
+      flopsTwoLevel += (FLOPS_CHUNK_TEST * twoLevel['boxTests']
+                        + rowFlopsOf(twoLevel['rows']))
     inputBytes += 4 * (tables['surfTable'].numel()
                        + tables['surfBoxes'].numel())
   sampler = FLOPS_SAMPLER
@@ -730,15 +747,20 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
     faces = tables['samplerSpec']['faces']
     sampler = (FLOPS_SURFACE_SAMPLER + FLOPS_FACE_SCAN * len(faces)
                + max(FLOPS_GEOM_FACE.get(f['kind'], 0) for f in faces))
-  flops = (segmentsPerStep * flopsPerSegment + nRays * sampler
-           + gratingPasses * FLOPS_GRATING)
+  rest = nRays * sampler + gratingPasses * FLOPS_GRATING
   if scatterPasses:
-    flops += scatterPasses * scatterPassFlops(tables)
+    rest += scatterPasses * scatterPassFlops(tables)
+  flops = segmentsPerStep * flopsPerSegment + rest
   nbytes = (outputBytes + inputBytes + tables['table'].numel() * 4
             + 3 * 8)
+  extra = {}
+  if twoLevel is not None:
+    extra = dict(flopsPerSegmentTwoLevel=flopsTwoLevel,
+                 boundOpsTwoLevelMs=(segmentsPerStep * flopsTwoLevel + rest)
+                 / PEAK_F32_FLOPS * 1e3)
   return (flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3,
           dict(flopsPerSegment=flopsPerSegment, flopsPerStep=flops,
-               bytesPerStep=nbytes))
+               bytesPerStep=nbytes, **extra))
 
 
 def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
@@ -761,7 +783,9 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
   error over phase 10's checks, `b7_max_abs_err`), and on the walls of the
   surface table (`wall`: launches on the 522-surface wall's path, ms and
   bound there, ms by wall, the worst error over phase 11's checks,
-  `b8_max_abs_err`), and on the decoy scene of the per-bounce culls
+  `b8_max_abs_err`), with, by dish and by wall, the operations a segment
+  and the bound of the one-level count and of the two-level sweep with the
+  shrinking cap (`tableWork`), and on the decoy scene of the per-bounce culls
   (`cull`: launches on its path, ms with and without the culls, bounds
   with and without them, the worst error of the b12 phase,
   `b12_max_abs_err`; None for the sweep kernel, which never culls).
@@ -796,6 +820,7 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
              mesh_bound_by='operations' if mOps >= mBytes else 'bytes',
              mesh_ms_by_scene=mesh.get('byScene'),
              mesh_bound_ms_by_scene=mesh.get('boundByScene'),
+             mesh_work_by_scene=mesh.get('workByScene'),
              b7_max_abs_err=mesh['err'])
   wOps, wBytes, _ = wall['bounds']
   tab = dict(wall_launches=wall['launches'], wall_ms=wall['ms'],
@@ -803,6 +828,7 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
              wall_bound_by='operations' if wOps >= wBytes else 'bytes',
              wall_ms_by_scene=wall.get('byScene'),
              wall_bound_ms_by_scene=wall.get('boundByScene'),
+             wall_work_by_scene=wall.get('workByScene'),
              b8_max_abs_err=wall['err'])
   b12 = dict(b12_launches=None, b12_ms=None, b12_unculled_ms=None,
              b12_bound_ms=None, b12_unculled_bound_ms=None,
@@ -2628,9 +2654,13 @@ def meshKernelChecks(scenes):
     stats = {}
     worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
         f'mesh-{name}', scene, bounds, maxI, n, BINS, triangleStats=stats))
+    rb = stats['rayBounces']
     perSegment[name] = dict(
-        chunks=stats['chunks'] / stats['rayBounces'],
-        triangles=stats['triangles'] / stats['rayBounces'])
+        chunks=stats['chunks'] / rb, triangles=stats['triangles'] / rb,
+        twoLevel=dict(boxTests=(stats.get('groupTests', 0)
+                                + stats.get('chunkTests', 0)) / rb,
+                      triangles=stats.get('capTriangles',
+                                          stats['triangles']) / rb))
     w = compareRingsWithPlain(f'mesh-{name}', scene, bounds, maxI, n, BINS)
     for k in ('traceRaw', 'traceBins'):
       worst[k] = max(worst[k], w[k])
@@ -2645,7 +2675,11 @@ def meshKernelChecks(scenes):
     emit(dict(phase='mesh-plain-triangles', scene=name, rays=n,
               nTri=cuda_trace.tableTriangles(compiled(scene)[0]),
               chunksPerSegment=perSegment[name]['chunks'],
-              trianglesPerSegment=perSegment[name]['triangles']))
+              trianglesPerSegment=perSegment[name]['triangles'],
+              twoLevelBoxTestsPerSegment=perSegment[name]['twoLevel'][
+                  'boxTests'],
+              twoLevelTrianglesPerSegment=perSegment[name]['twoLevel'][
+                  'triangles']))
   variants = [benchmarks.buildMeshDishScene(MESH_DISHES[1800], detectorZ=z)
               for z in MESH_HEIGHTS]
   worst['traceSweep'] = compareSweepWithPlain(
@@ -2907,8 +2941,22 @@ def pathTimings(path, scenes, names, boundKwOf):
   return {w: dict(byScene[path['refScene']],
                   byScene={n: r['ms'] for n, r in byScene.items()},
                   boundByScene={n: max(r['bounds'][:2])
-                                for n, r in byScene.items()})
+                                for n, r in byScene.items()},
+                  workByScene={n: tableWork(r['bounds'])
+                               for n, r in byScene.items()})
           for w, byScene in out.items()}
+
+
+def tableWork(bounds):
+  '''The operations a segment and the bound of a step on a table scene, as
+  `boundMs` counts them for the one-level sweep (every chunk box, the rows
+  of the boxes entered at the entry cap) and for the two-level sweep with
+  the shrinking cap.'''
+  ops, nbytes, info = bounds
+  return dict(flopsPerSegment=info['flopsPerSegment'],
+              boundMs=max(ops, nbytes),
+              flopsPerSegmentTwoLevel=info['flopsPerSegmentTwoLevel'],
+              boundTwoLevelMs=max(info['boundOpsTwoLevelMs'], nbytes))
 
 
 def meshPhase(tmp):
@@ -2920,7 +2968,8 @@ def meshPhase(tmp):
   scenes = meshScenes()
   worst, perSegment = meshKernelChecks(scenes)
   boundKwOf = lambda name: dict(
-      trianglesPerSegment=perSegment[name]['triangles'])
+      trianglesPerSegment=perSegment[name]['triangles'],
+      twoLevel=perSegment[name]['twoLevel'])
   out = pathTimings(MESH_PATH, scenes, [f'dish{n}' for n in MESH_DISHES],
                     boundKwOf)
   out['traceRaw']['launches'] = MESH_RAW_ITERATIONS
@@ -2967,8 +3016,12 @@ def wallKernelChecks(scenes):
     worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
         f'table-{name}', scene, bounds, maxI, n, BINS, budget=0,
         surfaceStats=stats))
-    perSegment[name] = {k: v / stats['rayBounces']
-                        for k, v in stats['rows'].items()}
+    rb = stats['rayBounces']
+    perSegment[name] = dict(
+        rows={k: v / rb for k, v in stats['rows'].items()},
+        twoLevel=dict(boxTests=(stats.get('groupTests', 0)
+                                + stats.get('chunkTests', 0)) / rb,
+                      rows={k: v / rb for k, v in stats['capRows'].items()}))
     w = compareRingsWithPlain(f'table-{name}', scene, bounds, maxI, n, BINS,
                               budget=0, rawAtol=0.)
     for k in ('traceRaw', 'traceBins'):
@@ -2985,7 +3038,11 @@ def wallKernelChecks(scenes):
               nSurfTable=int(cuda_trace.tableSurfaces(
                   compiled(scene)[0]).sum()),
               chunksPerSegment=stats['chunks'] / stats['rayBounces'],
-              rowsPerSegmentByKind=perSegment[name]))
+              rowsPerSegmentByKind=perSegment[name]['rows'],
+              twoLevelBoxTestsPerSegment=perSegment[name]['twoLevel'][
+                  'boxTests'],
+              twoLevelRowsPerSegmentByKind=perSegment[name]['twoLevel'][
+                  'rows']))
   variants = [benchmarks.buildSurfWallScene(detectorZ=z)
               for z in WALL_HEIGHTS]
   worst['traceSweep'] = compareSweepWithPlain(
@@ -3004,7 +3061,9 @@ def wallPhase(tmp):
   t11 = time.perf_counter()
   scenes = wallScenes()
   worst, perSegment, variants = wallKernelChecks(scenes)
-  boundKwOf = lambda name: dict(tableRowsPerSegment=perSegment[name])
+  boundKwOf = lambda name: dict(
+      tableRowsPerSegment=perSegment[name]['rows'],
+      twoLevel=perSegment[name]['twoLevel'])
   out = pathTimings(WALL_PATH, scenes, list(WALLS), boundKwOf)
   out['traceRaw']['launches'] = WALL_RAW_ITERATIONS
   out['traceHistogram']['launches'] = pathRunPhases(

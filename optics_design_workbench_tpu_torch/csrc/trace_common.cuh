@@ -79,19 +79,27 @@
 // 128 triangles is swept after them from a table of world-frame rows [v0,
 // e1, e2, element, orient] in GLOBAL memory (no part of the shared-memory
 // table, no cap on its size), in Morton order of the centroids, chunked by
-// kTriChunk rows with one padded box each. Per chunk the warp votes on the
-// box's slab test (each live lane's segment, capped at its nearest surface
-// row plus the same-medium window) and, if any lane's segment enters the
-// box, the live lanes sweep the chunk's rows together, so each row's loads
-// are broadcasts. The cull only skips triangles no lane can hit, so any
-// culling grain gives the same result; it is as tight as the warp's rays are
-// coherent (the samplers' ray-index strata keep a block's rays in one
-// (theta, phi) cell). Inside the table the strict `<` keeps the lowest row
-// on a tie; the table's winner replaces the surface winner only when
-// strictly nearer, and counts for the other-medium tracker when the medium
-// is not its element. A table winner brings its normal (the unnormalised
-// e1 x e2 times orient / |e1 x e2|, in float32), its element and the world
-// (x, y) as its chart.
+// kTriChunk rows with one padded box each, and every kGroupChunks chunks
+// with one group box, the union of theirs. The sweep has two levels: per
+// group the warp votes on the group box's slab test and, in a group that
+// any lane's segment enters, per chunk on the chunk box's; if any lane's
+// segment enters a chunk's box, the live lanes sweep its rows together, so
+// each row's loads are broadcasts. A lane's segment is capped at its
+// nearest surface row plus the same-medium window, and below that, as the
+// sweep goes on, at its nearest triangle so far plus the window (the cap
+// shrinks with the lane's winner: a row beyond it cannot replace the
+// table's one result). The cull only skips triangles no lane can hit, so
+// any culling grain gives the same result; it is as tight as the warp's
+// rays are coherent (the samplers' ray-index strata keep a block's rays in
+// one (theta, phi) cell). The boxes are read as a pack in device memory
+// (group boxes, then chunk boxes, kBoxStride floats each: two 16-byte loads
+// through the read-only path; a copy in each block's shared memory was
+// measured no faster, PERF.md §6). Inside the table the strict `<` keeps
+// the lowest row on a tie; the table's winner replaces the surface winner
+// only when strictly nearer, and counts for the other-medium tracker when
+// the medium is not its element. A table winner brings its normal (the
+// unnormalised e1 x e2 times orient / |e1 x e2|, in float32), its element
+// and the world (x, y) as its chart.
 //
 // The surface table (STAB, B8, a compile-time instance built on TRI, in the
 // same `_tri` sources; the launcher picks the TRI instances when either
@@ -104,10 +112,12 @@
 // memory, swept after the triangle table in runs of one (kind, trim) each,
 // the kind a switch outside the run's row loop. A run is plain (swept row by
 // row) or chunked (Morton-ordered, kSurfChunk rows a chunk with one padded
-// box each, culled by the warp's vote on the slab test as the triangle
-// table, the segment capped at min(nearest so far, the plain runs' winner,
-// mrlEff) plus the same-medium window); the plain runs come first. Each row
-// is intersected from the ray in its frame in the reference's table form;
+// box each and a group box every kGroupChunks chunks of the run, culled in
+// two levels by the warp's votes on the slab tests as the triangle table,
+// the segment capped at min(nearest so far, the plain runs' winner,
+// mrlEff) plus the same-medium window, and below that at the table's winner
+// so far plus the window); the plain runs come first. Each row is
+// intersected from the ray in its frame in the reference's table form;
 // the running winner keeps its distance, oriented world normal, element and
 // local (x, y) chart. It replaces the winner so far only when strictly
 // nearer (index -3) and enters the other-medium tracker only as that one
@@ -197,13 +207,18 @@ constexpr int kFaceCols = 33;      // one emitting face of a surface sampler
 constexpr int kGeomCols = 20;      // GEOM: the widening of a surface row
 constexpr int kPrimCols = 9;       // one hole primitive of a surface
 constexpr int kTriCols = 11;       // TRI: v0, e1, e2, element, orient
-constexpr int kBoxCols = 6;        // TRI: a chunk's box, lo xyz, hi xyz
+constexpr int kBoxStride = 8;      // TRI: a box of a pack, lo xyz, 0, hi xyz, 0
 constexpr int kTriChunk = 32;      // TRI: rows per chunk
+constexpr int kGroupChunks = 8;    // TRI: chunks per group box
 constexpr int kSurfTableCols = 21; // STAB: a surface-table row (below)
 constexpr int kSurfChunk = 16;     // STAB: surface-table rows per chunk
 constexpr int kMaxSurfRuns = 10;   // STAB: one run per (kind, window trim)
-constexpr int kRunCols = 6;
+constexpr int kRunCols = 7;
 constexpr int kBlock = 256;
+// the launch words after the surface table's runs (ops/cuda_trace.py
+// `_launchKernel`): the cull block's offset, the group boxes of the
+// triangle and of the surface table
+constexpr int kIpTail = 29 + kMaxSurfRuns * kRunCols;
 
 // surface row columns
 // S_STAGES: the offset of the surface's stage words, read only where the
@@ -262,7 +277,7 @@ enum { SCAT_REFLECT = 0, SCAT_REFRACT_ENTER = 1, SCAT_REFRACT_EXIT = 2,
        SCAT_MODIFY = 3 };
 // a surface-table run (ops/cuda_trace.py `surfaceRuns`)
 enum { RUN_KIND = 0, RUN_TRIM0 = 1, RUN_FIRST = 2, RUN_LAST = 3, RUN_ROW0 = 4,
-       RUN_CHUNKED = 5 };
+       RUN_CHUNKED = 5, RUN_GROUP0 = 6 };
 enum { KIND_PLANE = 0, KIND_SPHERE = 1, KIND_CYLINDER = 2, KIND_ASPHERE = 3,
        KIND_TRIANGLE = 4, KIND_CONE = 5, KIND_QUADRIC = 6, KIND_TORUS = 7 };
 enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_GRATING = 2, OPT_ABSORBER = 3,
@@ -1116,12 +1131,13 @@ __device__ float intersectGeom(const float* r, const float* smem, float ox,
 }
 
 // ---- B7 (TRI only): the triangle table ----
-// table and chunk boxes in global memory, with their counts (a sweep's
-// launch offsets them to the block's variant)
+// table and box pack in global memory (the pack: nGroups group boxes, then
+// nChunks chunk boxes, kBoxStride floats each), with their counts (a
+// sweep's launch offsets them to the block's variant)
 struct TriTable {
   const float* tri;
   const float* box;
-  int n, nChunks;
+  int n, nChunks, nGroups;
 };
 
 // Moeller-Trumbore of the ray against table row r (the JAX package's
@@ -1160,35 +1176,40 @@ __device__ __forceinline__ void triangleTest(
   }
 }
 
-// The slab test of chunk box b against the ray's segment [0, tCap] (the
-// JAX package's `_slabSurvives`; iv: the sign-preserving inverse direction,
-// |d| clamped at 1e-30), voted by the warp's live lanes.
+// The slab test of box b of a pack (lo xyz, 0, hi xyz, 0: two 16-byte
+// loads) against the ray's segment [0, cap] (the JAX package's
+// `_slabSurvives`; iv: the sign-preserving inverse direction, |d| clamped
+// at 1e-30), voted by the warp's live lanes.
 __device__ __forceinline__ bool anyLaneEnters(
     const float* __restrict__ b, unsigned lanes, float ox, float oy,
-    float oz, float ivx, float ivy, float ivz, float tCap) {
-  const float tx1 = (__ldg(b) - ox) * ivx, tx2 = (__ldg(b + 3) - ox) * ivx;
-  const float ty1 = (__ldg(b + 1) - oy) * ivy;
-  const float ty2 = (__ldg(b + 4) - oy) * ivy;
-  const float tz1 = (__ldg(b + 2) - oz) * ivz;
-  const float tz2 = (__ldg(b + 5) - oz) * ivz;
+    float oz, float ivx, float ivy, float ivz, float cap) {
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(b));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(b + 4));
+  const float tx1 = (lo.x - ox) * ivx, tx2 = (hi.x - ox) * ivx;
+  const float ty1 = (lo.y - oy) * ivy, ty2 = (hi.y - oy) * ivy;
+  const float tz1 = (lo.z - oz) * ivz, tz2 = (hi.z - oz) * ivz;
   const float tN = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)),
                          fmaxf(fminf(tz1, tz2), 0.f));
   const float tF = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)),
-                         fminf(fmaxf(tz1, tz2), tCap));
+                         fminf(fmaxf(tz1, tz2), cap));
   return __any_sync(lanes, tN <= tF);
 }
 
 // The nearest triangle of the table along the ray (tT = kBig, elT = -1
-// where none): the chunks in ascending order, each swept by the live lanes
-// of the warp when the slab test of its box (the JAX package's
-// `_slabSurvives`: sign-preserving inverse direction, |d| clamped at 1e-30,
-// the segment capped at tCap) lets any of them in; a table of one chunk or
-// less (no boxes) is swept flat.
+// where none), a table of one chunk or less (no boxes) swept flat, else in
+// two levels: the group boxes in ascending order, and in a group that the
+// slab test (the JAX package's `_slabSurvives`: sign-preserving inverse
+// direction, |d| clamped at 1e-30) lets any of the warp's live lanes into,
+// its chunks in ascending order, each swept by the live lanes together when
+// its box lets any of them in. A lane tests a box against its segment
+// capped at min(tCap, its nearest triangle so far + window): a row past
+// that cannot replace the nearest triangle, the table's one result, so no
+// result moves (rows keep their order and the strict `<`).
 __device__ void sweepTriangles(const TriTable& tt, float ox, float oy,
                                float oz, float dx, float dy, float dz,
                                float tMin, float maxRayLength, float tCap,
-                               float& tT, float& nxT, float& nyT, float& nzT,
-                               int& elT) {
+                               float window, float& tT, float& nxT,
+                               float& nyT, float& nzT, int& elT) {
   tT = kBig;
   if (tt.nChunks == 0) {
     for (int k = 0; k < tt.n; ++k)
@@ -1201,15 +1222,23 @@ __device__ void sweepTriangles(const TriTable& tt, float ox, float oy,
   const float ivz = (dz < 0.f ? -1.f : 1.f) / fmaxf(fabsf(dz), 1e-30f);
   // the lanes of the warp still in the bounce loop (the others broke out)
   const unsigned lanes = __activemask();
-  for (int c = 0; c < tt.nChunks; ++c) {
-    if (!anyLaneEnters(tt.box + c * kBoxCols, lanes, ox, oy, oz, ivx, ivy,
-                       ivz, tCap))
+  const float* groups = tt.box;
+  const float* chunks = tt.box + tt.nGroups * kBoxStride;
+  for (int g = 0; g < tt.nGroups; ++g) {
+    if (!anyLaneEnters(groups + g * kBoxStride, lanes, ox, oy, oz, ivx, ivy,
+                       ivz, fminf(tCap, tT + window)))
       continue;
-    const int base = c * kTriChunk;
-    const int nIn = min(kTriChunk, tt.n - base);
-    for (int k = 0; k < nIn; ++k)
-      triangleTest(tt.tri + (base + k) * kTriCols, ox, oy, oz, dx, dy, dz,
-                   tMin, maxRayLength, tT, nxT, nyT, nzT, elT);
+    const int cEnd = min((g + 1) * kGroupChunks, tt.nChunks);
+    for (int c = g * kGroupChunks; c < cEnd; ++c) {
+      if (!anyLaneEnters(chunks + c * kBoxStride, lanes, ox, oy, oz, ivx,
+                         ivy, ivz, fminf(tCap, tT + window)))
+        continue;
+      const int base = c * kTriChunk;
+      const int nIn = min(kTriChunk, tt.n - base);
+      for (int k = 0; k < nIn; ++k)
+        triangleTest(tt.tri + (base + k) * kTriCols, ox, oy, oz, dx, dy, dz,
+                     tMin, maxRayLength, tT, nxT, nyT, nzT, elT);
+    }
   }
 }
 
@@ -1217,9 +1246,10 @@ __device__ void sweepTriangles(const TriTable& tt, float ox, float oy,
 // its runs, as the launcher passes them (ops/cuda_trace.py `surfaceRuns`):
 // plain runs first, then chunked runs; rows [first, last) of a plain run,
 // chunks [first, last) of a chunked run, whose chunk c covers the kSurfChunk
-// rows from rowStart + (c - first) * kSurfChunk
+// rows from rowStart + (c - first) * kSurfChunk and whose groups of
+// kGroupChunks chunks are the group boxes from group0 on
 struct SurfTable {
-  int n, nChunks, nRuns;
+  int n, nChunks, nGroups, nRuns;
   int run[kMaxSurfRuns][kRunCols];
 };
 
@@ -1341,30 +1371,49 @@ __device__ __forceinline__ void tableRow(
   w.el = (int)__ldg(r + 13);
 }
 
-// One run of the surface table: a plain run row by row; a chunked run
-// chunk by chunk, each chunk's rows swept by the live lanes together when
-// its box lets any of them in.
+// One run of the surface table: a plain run row by row; a chunked run in
+// two levels, its group boxes and, in a group that lets any live lane in,
+// its chunks, each chunk's rows swept by the live lanes together when its
+// box lets any of them in; a lane's segment capped at min(tCap, the table's
+// winner so far + window), as in `sweepTriangles`.
 template <int KIND>
 __device__ void sweepRun(const int* run, const float* __restrict__ rows,
-                         const float* __restrict__ box, unsigned lanes,
+                         const float* __restrict__ groups,
+                         const float* __restrict__ chunks, unsigned lanes,
                          float ox, float oy, float oz, float dx, float dy,
                          float dz, float ivx, float ivy, float ivz,
-                         float tMin, float mrlEff, float tCap, TableHit& w) {
-  const bool window = run[RUN_TRIM0] != 0;
+                         float tMin, float mrlEff, float tCap, float window,
+                         TableHit& w) {
+  const bool window1 = run[RUN_TRIM0] != 0;
   if (!run[RUN_CHUNKED]) {
     for (int k = run[RUN_FIRST]; k < run[RUN_LAST]; ++k)
-      tableRow<KIND>(rows + k * kSurfTableCols, window, ox, oy, oz, dx, dy,
+      tableRow<KIND>(rows + k * kSurfTableCols, window1, ox, oy, oz, dx, dy,
                      dz, tMin, mrlEff, w);
     return;
   }
-  for (int c = run[RUN_FIRST]; c < run[RUN_LAST]; ++c) {
-    if (!anyLaneEnters(box + c * kBoxCols, lanes, ox, oy, oz, ivx, ivy, ivz,
-                       tCap))
+  // one loop over the run's chunks, the group box tested where a group
+  // starts and its chunks skipped where no lane enters it (two nested
+  // loops held more registers: 236 bytes of spills in K1's instance,
+  // PERF.md §6)
+  const int first = run[RUN_FIRST], last = run[RUN_LAST];
+  const float* g = groups + run[RUN_GROUP0] * kBoxStride;
+  for (int c = first; c < last; ++c) {
+    if ((c - first) % kGroupChunks == 0) {
+      const bool in = anyLaneEnters(g, lanes, ox, oy, oz, ivx, ivy, ivz,
+                                    fminf(tCap, w.t + window));
+      g += kBoxStride;
+      if (!in) {
+        c += kGroupChunks - 1;
+        continue;
+      }
+    }
+    if (!anyLaneEnters(chunks + c * kBoxStride, lanes, ox, oy, oz, ivx, ivy,
+                       ivz, fminf(tCap, w.t + window)))
       continue;
-    const float* base = rows + (run[RUN_ROW0] + (c - run[RUN_FIRST])
-                                * kSurfChunk) * kSurfTableCols;
+    const float* base = rows + (run[RUN_ROW0] + (c - first) * kSurfChunk)
+                               * kSurfTableCols;
     for (int k = 0; k < kSurfChunk; ++k)
-      tableRow<KIND>(base + k * kSurfTableCols, window, ox, oy, oz, dx, dy,
+      tableRow<KIND>(base + k * kSurfTableCols, window1, ox, oy, oz, dx, dy,
                      dz, tMin, mrlEff, w);
   }
 }
@@ -1372,16 +1421,20 @@ __device__ void sweepRun(const int* run, const float* __restrict__ rows,
 // The surface table's winner along the ray (w.t = kBig, w.el = -1 where
 // none), the JAX package's sweep: the plain runs, then the chunked runs,
 // whose boxes are tested against the segment capped at min(tBest, the plain
-// runs' winner, mrlEff) + window (the cull only skips rows that could not
-// win the bounce, so any culling grain gives the same result). The kind is
-// a switch per run, outside its row loop. Inside the table the strict `<`
-// keeps the first row swept on a tie.
+// runs' winner, mrlEff) + window, and below that at the table's winner so
+// far + window (the cull only skips rows that could not win the bounce, so
+// any culling grain gives the same result). The kind is a switch per run,
+// outside its row loop. Inside the table the strict `<` keeps the first row
+// swept on a tie.
+// `box`: the table's box pack (its group boxes, then its chunk boxes).
 __device__ void sweepSurfaceTable(const SurfTable& st,
                                   const float* __restrict__ rows,
                                   const float* __restrict__ box, float ox,
                                   float oy, float oz, float dx, float dy,
                                   float dz, float tMin, float mrlEff,
                                   float tBest, float window, TableHit& w) {
+  const float* groups = box;
+  const float* chunks = box + st.nGroups * kBoxStride;
   w.t = kBig;
   w.el = -1;
   w.nx = w.ny = w.nz = w.lx = w.ly = 0.f;
@@ -1400,24 +1453,29 @@ __device__ void sweepSurfaceTable(const SurfTable& st,
     }
     switch (run[RUN_KIND]) {
       case KIND_PLANE:
-        sweepRun<KIND_PLANE>(run, rows, box, lanes, ox, oy, oz, dx, dy, dz,
-                             ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        sweepRun<KIND_PLANE>(run, rows, groups, chunks, lanes, ox, oy, oz,
+                             dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff, tCap,
+                             window, w);
         break;
       case KIND_SPHERE:
-        sweepRun<KIND_SPHERE>(run, rows, box, lanes, ox, oy, oz, dx, dy, dz,
-                              ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        sweepRun<KIND_SPHERE>(run, rows, groups, chunks, lanes, ox, oy, oz,
+                              dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff, tCap,
+                              window, w);
         break;
       case KIND_CYLINDER:
-        sweepRun<KIND_CYLINDER>(run, rows, box, lanes, ox, oy, oz, dx, dy,
-                                dz, ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        sweepRun<KIND_CYLINDER>(run, rows, groups, chunks, lanes, ox, oy, oz,
+                                dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff,
+                                tCap, window, w);
         break;
       case KIND_CONE:
-        sweepRun<KIND_CONE>(run, rows, box, lanes, ox, oy, oz, dx, dy, dz,
-                            ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        sweepRun<KIND_CONE>(run, rows, groups, chunks, lanes, ox, oy, oz, dx,
+                            dy, dz, ivx, ivy, ivz, tMin, mrlEff, tCap,
+                            window, w);
         break;
       default:
-        sweepRun<KIND_QUADRIC>(run, rows, box, lanes, ox, oy, oz, dx, dy,
-                               dz, ivx, ivy, ivz, tMin, mrlEff, tCap, w);
+        sweepRun<KIND_QUADRIC>(run, rows, groups, chunks, lanes, ox, oy, oz,
+                               dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff, tCap,
+                               window, w);
     }
   }
 }
@@ -1545,11 +1603,11 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
     table += variant * p.tableLen;
     if constexpr (TRI) {
       tt.tri += variant * tt.n * kTriCols;
-      tt.box += variant * tt.nChunks * kBoxCols;
+      tt.box += variant * (tt.nGroups + tt.nChunks) * kBoxStride;
     }
     if constexpr (STAB) {
       surfRows += variant * stab.n * kSurfTableCols;
-      surfBox += variant * stab.nChunks * kBoxCols;
+      surfBox += variant * (stab.nGroups + stab.nChunks) * kBoxStride;
     }
     out0 += variant * p.histLen;
     out1 += variant * p.histLen;
@@ -1685,8 +1743,8 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
         if (!STAB || tt.n > 0) {
           float tT;
           sweepTriangles(tt, ox, oy, oz, dx, dy, dz, p.tMin, p.maxRayLength,
-                         fminf(tBest, p.mrlEff) + p.window, tT, nxT, nyT,
-                         nzT, elT);
+                         fminf(tBest, p.mrlEff) + p.window, p.window, tT,
+                         nxT, nyT, nzT, elT);
           if (tT < tBest) { tBest = tT; sBest = -2; }
           if (p.anyMedium) {
             const float tO = medium != elT ? tT : kBig;
@@ -1953,16 +2011,19 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
 
 // The scalar parameters from the HOST arrays `ip` / `fp` (see
 // ops/cuda_trace.py `_launchKernel` for their order).
-// ip[24] / ip[25]: the triangle table's rows and chunks (TRI)
+// ip[24] / ip[25]: the triangle table's rows and chunks (TRI); past the
+// runs and the cull block's offset, its group boxes (ip[kIpTail + 1])
 inline TriTable triTable(const float* tri, const float* box,
                          const long long* ip) {
-  return TriTable{tri, box, (int)ip[24], (int)ip[25]};
+  return TriTable{tri, box, (int)ip[24], (int)ip[25], (int)ip[kIpTail + 1]};
 }
 
 // ip[26] / ip[27] / ip[28]: the surface table's rows, chunks and runs, then
-// kMaxSurfRuns runs of kRunCols words (STAB)
+// kMaxSurfRuns runs of kRunCols words (STAB); its group boxes at
+// ip[kIpTail + 2]
 inline SurfTable surfTable(const long long* ip) {
-  SurfTable st{(int)ip[26], (int)ip[27], (int)ip[28], {}};
+  SurfTable st{(int)ip[26], (int)ip[27], (int)ip[kIpTail + 2], (int)ip[28],
+               {}};
   for (int k = 0; k < kMaxSurfRuns; ++k)
     for (int j = 0; j < kRunCols; ++j)
       st.run[k][j] = (int)ip[29 + k * kRunCols + j];
@@ -2004,7 +2065,7 @@ inline TraceParams traceParams(const long long* ip, const float* fp) {
   p.gate = (int)ip[19];
   p.dispOff = (int)ip[20];
   // the word after the surface table's runs: the cull block's offset (B12)
-  p.cullOff = (int)ip[29 + kMaxSurfRuns * kRunCols];
+  p.cullOff = (int)ip[kIpTail];
   return p;
 }
 
@@ -2051,9 +2112,9 @@ int launchTrace(const float* table, const float* tri, const float* box,
   if (hasGlobalTables(ip) != TRI) return (int)cudaErrorInvalidValue;
   if (p.N <= 0) return 0;
   const long long blocks = (p.N + kBlock - 1) / kBlock;
-  const size_t shmem = (size_t)p.tableLen * sizeof(float);
   const TriTable tt = triTable(tri, box, ip);
   const SurfTable st = surfTable(ip);
+  const size_t shmem = (size_t)p.tableLen * sizeof(float);
   // ip[21]: the tables' sampler, 0 point source, 1 surface source; ip[22]:
   // the table has a scatter block; ip[23]: the scene has a kind or trim of
   // B2 / B3 (widened surface rows)
@@ -2118,9 +2179,9 @@ int launchSweep(const float* tables, const float* tri, const float* box,
   const long long blocks = variants * perVariant;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
   p.blocksPerVariant = (int)perVariant;
-  const size_t shmem = (size_t)p.tableLen * sizeof(float);
   const TriTable tt = triTable(tri, box, ip);
   const SurfTable st = surfTable(ip);
+  const size_t shmem = (size_t)p.tableLen * sizeof(float);
   // ip[22]: the tables have a scatter block; ip[23]: widened surface rows
   // (a kind or trim of B2 / B3)
   const bool scat = ip[22] != 0, geom = ip[23] != 0;

@@ -111,11 +111,12 @@ TABLE_SURF_KINDS = (GS.PLANE, GS.SPHERE, GS.CYLINDER, GS.CONE, GS.QUADRIC)
 _SURF_CHUNK = 16
 SURF_TABLE_COLS = 21
 # runs of the surface table: one per (kind, trim0), plain runs first, each
-# (kind, trim0, first, last, rowStart, chunked) for the kernels: rows
+# (kind, trim0, first, last, rowStart, chunked, group0) for the kernels: rows
 # [first, last) of a plain run, chunks [first, last) of a chunked run, whose
-# chunk c covers rows rowStart + (c - first) * _SURF_CHUNK on
+# chunk c covers rows rowStart + (c - first) * _SURF_CHUNK on and whose
+# groups of SWEEP_GROUP chunks (below) start at group box group0
 MAX_SURF_RUNS = 2 * len(TABLE_SURF_KINDS)
-RUN_COLS = 6
+RUN_COLS = 7
 # Meshes past TABLE_TRIANGLES triangles leave the surface rows (ROADMAP B7):
 # each triangle becomes a world-frame row of the TRIANGLE TABLE, [v0, e1,
 # e2, elemF, orient] (TRI_COLS floats), Morton-ordered by centroid into
@@ -127,6 +128,14 @@ TABLE_TRIANGLES = 128
 _TRI_CHUNK = 32
 TRI_COLS = 11
 BOX_COLS = 6
+# The kernels' two-level sweep of both tables: a GROUP box is the union of
+# SWEEP_GROUP consecutive chunk boxes (of one run, in the surface table);
+# a warp tests a group's chunk boxes only when it enters the group. The
+# kernels read the boxes as a PACK per table in device memory, the group
+# boxes then the chunk boxes, BOX_STRIDE floats each (lo xyz, 0, hi xyz, 0:
+# two 16-byte loads).
+SWEEP_GROUP = 8
+BOX_STRIDE = 8
 MAX_PWPOLY_SEGMENTS = 12
 MAX_PWPOLY_COEFFS = 13
 MAX_TENT_KNOTS = 257
@@ -895,11 +904,47 @@ def _chunkSurfRows(entries):
 def surfaceRuns(plainRuns, chunkRuns):
   '''The runs of a surface table in the kernels' sweep order and form
   (plain runs, then chunked runs; MAX_SURF_RUNS rows of RUN_COLS ints: kind,
-  trim0, first, last, rowStart, chunked).'''
-  runs = [(k, int(t0), a, b, a, 0) for k, t0, a, b in plainRuns]
-  runs += [(k, int(t0), c0, c1, r0, 1) for k, t0, c0, c1, r0 in chunkRuns]
+  trim0, first, last, rowStart, chunked, group0: a chunked run's first
+  group box, `groupSpans`).'''
+  runs = [(k, int(t0), a, b, a, 0, 0) for k, t0, a, b in plainRuns]
+  g0 = 0
+  for k, t0, c0, c1, r0 in chunkRuns:
+    runs.append((k, int(t0), c0, c1, r0, 1, g0))
+    g0 += -(-(c1 - c0) // SWEEP_GROUP)
   assert len(runs) <= MAX_SURF_RUNS
   return runs
+
+
+def groupSpans(spans):
+  '''The chunk ranges [first, last) of the group boxes over chunk ranges
+  `spans` ((first, last), ...: the whole triangle table, or each chunked
+  run of the surface table): each span cut into SWEEP_GROUP chunks a group,
+  the last group shorter, so that no group spans two runs.'''
+  return [(c, min(c + SWEEP_GROUP, c1)) for c0, c1 in spans
+          for c in range(c0, c1, SWEEP_GROUP)]
+
+
+def _groupBoxes(boxes, spans):
+  '''float32 (nGroups, BOX_COLS) group boxes of float32 chunk `boxes` over
+  chunk ranges `spans` (`groupSpans`): each the union of its chunks' boxes
+  (the least lo, the largest hi; no padding of its own), so a segment that
+  enters a chunk's box, tested in the same float32 operations, enters its
+  group's.'''
+  out = [np.concatenate([boxes[a:b, :3].min(0), boxes[a:b, 3:].max(0)])
+         for a, b in groupSpans(spans)]
+  return (np.stack(out).astype(np.float32) if out
+          else np.zeros((0, BOX_COLS), np.float32))
+
+
+def _boxPack(groups, boxes):
+  '''The kernels' box pack of a table (numpy, any leading dimensions): its
+  group boxes, then its chunk boxes, each widened to BOX_STRIDE floats
+  (lo xyz, 0, hi xyz, 0).'''
+  both = np.concatenate([groups, boxes], axis=-2)
+  pack = np.zeros(both.shape[:-1] + (BOX_STRIDE,), np.float32)
+  pack[..., 0:3] = both[..., 0:3]
+  pack[..., 4:7] = both[..., 3:6]
+  return pack
 
 
 def _mortonOrder(cen):
@@ -1058,8 +1103,9 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
                emissionBound=None, maxIntersections=0):
   '''The kernel's table of one compiled scene as host numpy, and its static
   facts: (float32 (tableLen,) array, dict(nSurf, nElem, nTri, nTriChunks,
-  triTable, triBoxes, nSurfTable, nSurfChunks, surfTable, surfBoxes,
-  surfPlainRuns, surfChunkRuns, samplerOff, bins, nDet, anyMedium, hasGrating,
+  nTriGroups, triTable, triBoxes, triGroups, nSurfTable, nSurfChunks,
+  nSurfGroups, surfTable, surfBoxes, surfGroups, surfPlainRuns,
+  surfChunkRuns, samplerOff, bins, nDet, anyMedium, hasGrating,
   nStages, gate, dispOff, cullOff, geom, surfRows, elemRows, samplerSpec,
   scatter, scatterConsts, scatterRows, lobeRows, modRows)).
   With the source's `emissionBound` (see `_cullSets`) the table ends with
@@ -1069,7 +1115,8 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
   boxes (`_chunkTriangles`) of a mesh past TABLE_TRIANGLES, else None;
   `surfTable` / `surfBoxes` the float32 surface table and its chunk boxes,
   `surfPlainRuns` / `surfChunkRuns` its runs (`_chunkSurfRows`) of a scene
-  past MAX_SURFACES analytic surfaces, else None and (); none of them is
+  past MAX_SURFACES analytic surfaces, else None and (); `triGroups` /
+  `surfGroups` their group boxes (`_groupBoxes`); none of them is
   part of `table`, and `nSurf` counts the surface rows only.
   `gate` says some surface is not always allowed (a masked surface, or
   sequential mode), `dispOff` where the dispersion block starts (-1: no
@@ -1090,13 +1137,15 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
   surfRows, elemRows, nStages, masks, triRows, surfEntries = _sceneRows(
       scene, histSpec)
   S, E = len(surfRows), len(elemRows)
-  triTable = triBoxes = None
+  triTable = triBoxes = triGroups = None
   if triRows:
     triTable, triBoxes = _chunkTriangles(np.asarray(triRows, np.float32))
-  surfTable = surfBoxes = None
+    triGroups = _groupBoxes(triBoxes, [(0, len(triBoxes))])
+  surfTable = surfBoxes = surfGroups = None
   plainRuns = chunkRuns = ()
   if surfEntries:
     surfTable, plainRuns, surfBoxes, chunkRuns = _chunkSurfRows(surfEntries)
+    surfGroups = _groupBoxes(surfBoxes, [r[2:4] for r in chunkRuns])
   geom = needsGeom(scene)
   rowCols = SURF_COLS + (GEOM_COLS if geom else 0)
   surfT = np.zeros((S, rowCols), np.float64)
@@ -1214,10 +1263,13 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
   return table, dict(
       nSurf=S, nElem=E, nTri=len(triRows),
       nTriChunks=0 if triBoxes is None else len(triBoxes),
-      triTable=triTable, triBoxes=triBoxes,
+      nTriGroups=0 if triGroups is None else len(triGroups),
+      triTable=triTable, triBoxes=triBoxes, triGroups=triGroups,
       nSurfTable=0 if surfTable is None else len(surfTable),
       nSurfChunks=0 if surfBoxes is None else len(surfBoxes),
-      surfTable=surfTable, surfBoxes=surfBoxes, surfPlainRuns=plainRuns,
+      nSurfGroups=0 if surfGroups is None else len(surfGroups),
+      surfTable=surfTable, surfBoxes=surfBoxes, surfGroups=surfGroups,
+      surfPlainRuns=plainRuns,
       surfChunkRuns=chunkRuns,
       samplerOff=samplerOff, bins=(int(H), int(W)),
       nDet=int(_hostArray(histSpec['bounds']).shape[0]),
@@ -1285,16 +1337,25 @@ def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda',
 
 
 # the tables the kernels read from device memory, beside the shared-memory
-# table
-_GLOBAL_TABLES = ('triTable', 'triBoxes', 'surfTable', 'surfBoxes')
+# table, and their box packs (`_boxPack`: pack -> (group boxes, chunk
+# boxes)), which the kernels read in place of the boxes
+_GLOBAL_TABLES = ('triTable', 'triBoxes', 'triGroups', 'surfTable',
+                  'surfBoxes', 'surfGroups')
+_BOX_PACKS = {'triBoxPack': ('triGroups', 'triBoxes'),
+              'surfBoxPack': ('surfGroups', 'surfBoxes')}
 
 
 def _globalTensors(facts, dev):
-  '''The triangle table, the surface table and their chunk boxes of packed
-  `facts` as float32 tensors on `dev` (None where the scene has none).'''
-  return {k: None if facts[k] is None
-          else torch.as_tensor(np.ascontiguousarray(facts[k]), device=dev)
-          for k in _GLOBAL_TABLES}
+  '''The triangle table, the surface table, their chunk and group boxes and
+  their box packs of packed `facts` as float32 tensors on `dev` (None where
+  the scene has none).'''
+  out = {k: None if facts[k] is None
+         else torch.as_tensor(np.ascontiguousarray(facts[k]), device=dev)
+         for k in _GLOBAL_TABLES}
+  for k, (groups, boxes) in _BOX_PACKS.items():
+    out[k] = None if facts[boxes] is None else torch.as_tensor(
+        _boxPack(facts[groups], facts[boxes]), device=dev)
+  return out
 
 
 def tableCullSets(tables, maxIntersections):
@@ -1343,7 +1404,8 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   facts of `_packTable` for the sweep as a whole (a mesh's `triTable` and
   `triBoxes` stacked per variant, (V, nTri, TRI_COLS) and (V, nTriChunks,
   BOX_COLS), a surface table's `surfTable` and `surfBoxes` likewise, (V,
-  nSurfTable, SURF_TABLE_COLS) and (V, nSurfChunks, BOX_COLS)) plus
+  nSurfTable, SURF_TABLE_COLS) and (V, nSurfChunks, BOX_COLS), and the
+  group boxes of both likewise) plus
   `nVariants`,
   `tableLen`, `sameSource` (no variant moves or recolours the source) and
   the per-variant `surfRows` / `elemRows` lists.
@@ -1421,8 +1483,9 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   return stacked, dict(
       nVariants=V, sameSource=sameSource, tableLen=int(stacked.shape[1]),
       nSurf=f0['nSurf'], nElem=f0['nElem'], nTri=f0['nTri'],
-      nTriChunks=f0['nTriChunks'], nSurfTable=f0['nSurfTable'],
-      nSurfChunks=f0['nSurfChunks'], surfPlainRuns=f0['surfPlainRuns'],
+      nTriChunks=f0['nTriChunks'], nTriGroups=f0['nTriGroups'],
+      nSurfTable=f0['nSurfTable'], nSurfChunks=f0['nSurfChunks'],
+      nSurfGroups=f0['nSurfGroups'], surfPlainRuns=f0['surfPlainRuns'],
       surfChunkRuns=f0['surfChunkRuns'], **tri, samplerOff=f0['samplerOff'],
       bins=f0['bins'], nDet=f0['nDet'],
       anyMedium=any(f['anyMedium'] for f in facts),
@@ -1453,7 +1516,7 @@ def variantTables(sweepTables, v):
               surfRows=sweepTables['surfRows'][v],
               elemRows=sweepTables['elemRows'][v],
               **{k: None if sweepTables[k] is None else sweepTables[k][v]
-                 for k in _GLOBAL_TABLES})
+                 for k in _GLOBAL_TABLES + tuple(_BOX_PACKS)})
 
 
 # --------------------------------------------------------- plain PyTorch path
@@ -2043,7 +2106,8 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   elemD = torch.as_tensor(elemT, device=dev)
   tri = surfTab = None
   if tables.get('nTri', 0):
-    tri = _TriangleTablePlain(tables['triTable'], tables['triBoxes'], dev)
+    tri = _TriangleTablePlain(tables['triTable'], tables['triBoxes'],
+                              tables['triGroups'], dev)
   if tables.get('nSurfTable', 0):
     surfTab = _SurfaceTablePlain(tables, dev)
   H, W = tables['bins']
@@ -2126,7 +2190,7 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
       # element
       tCap = torch.clamp(tBest, max=mrlEff) + window
       tT, nT, elT = tri.sweep(ox, oy, oz, dx, dy, dz, tMin, mrl, tCap, alive,
-                              triangleStats)
+                              triangleStats, window)
       b = tT < tBest
       sBest = torch.where(b, -2, sBest)
       tBest = torch.where(b, tT, tBest)
@@ -2358,10 +2422,13 @@ class _TriangleTablePlain:
   '''The triangle table (B7) of the plain version: the table's rows on
   the device, each triangle's oriented unit normal, and the sweep.'''
 
-  def __init__(self, triTable, triBoxes, dev):
+  def __init__(self, triTable, triBoxes, triGroups, dev):
     self.rows = torch.as_tensor(triTable, device=dev).reshape(-1, TRI_COLS)
-    self.boxes = None if triBoxes is None or not len(triBoxes) \
-        else torch.as_tensor(triBoxes, device=dev).reshape(-1, BOX_COLS)
+    self.boxes = self.groups = None
+    if triBoxes is not None and len(triBoxes):
+      self.boxes = torch.as_tensor(triBoxes, device=dev).reshape(-1, BOX_COLS)
+      self.groups = torch.as_tensor(triGroups, device=dev).reshape(
+          -1, BOX_COLS)
     r = self.rows
     e1x, e1y, e1z, e2x, e2y, e2z = (r[:, k] for k in range(3, 9))
     cnx = e1y * e2z - e1z * e2y
@@ -2372,49 +2439,68 @@ class _TriangleTablePlain:
     self.elems = r[:, 9].to(torch.int64)
 
   def sweep(self, ox, oy, oz, dx, dy, dz, tMin, maxRayLength, tCap, alive,
-            stats=None):
+            stats=None, window=0.):
     '''(tT, (nx, ny, nz), elT) of the nearest triangle of every ray:
     Moeller-Trumbore on the world-frame rows in the kernels' operation
     order, swept in blocks of one chunk's rows as (rays x rows) tensors; the
     first row wins a tie inside a block (`torch.min`), a strict `<` across
     blocks, so the lowest table row wins. No cull (it changes no result):
-    with a `stats` dict the chunk boxes only count what the cull of the
-    kernels leaves to sweep (what their bound is computed from): to
-    `rayBounces` the live rays, to `chunks` and `triangles` those of the
-    boxes each one's segment, capped at `tCap`, enters.'''
+    with a `stats` dict the boxes only count what the cull of the kernels
+    leaves to sweep (what their bound is computed from): to `rayBounces`
+    the live rays, to `chunks` and `triangles` those of the chunk boxes
+    each one's segment, capped at `tCap`, enters; and what the two-level
+    sweep with the shrinking cap leaves (`_CapCount`, the ray alone, with
+    the `window`).'''
     nTri = self.rows.shape[0]
     step = _TRI_CHUNK if self.boxes is not None else nTri
     big = torch.full_like(ox, _BIG)
     tT, idx = big, torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
     o = [x[:, None] for x in (ox, oy, oz)]
     d = [x[:, None] for x in (dx, dy, dz)]
+    count = None
+    if stats is not None and self.boxes is not None:
+      count = _CapCount(stats, 'capTriangles', ox, oy, oz, dx, dy, dz, tCap,
+                        window, alive, big)
     for base in range(0, nTri, step):
       r = self.rows[base:base + step]
-      p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (r[None, :, k]
-                                                     for k in range(9))
-      pvx = d[1] * e2z - d[2] * e2y
-      pvy = d[2] * e2x - d[0] * e2z
-      pvz = d[0] * e2y - d[1] * e2x
-      det = e1x * pvx + e1y * pvy + e1z * pvz
-      detS = torch.where(torch.abs(det) < 1e-12, _full(det, 1e-12), det)
-      tvx, tvy, tvz = o[0] - p0x, o[1] - p0y, o[2] - p0z
-      u = (tvx * pvx + tvy * pvy + tvz * pvz) / detS
-      qvx = tvy * e1z - tvz * e1y
-      qvy = tvz * e1x - tvx * e1z
-      qvz = tvx * e1y - tvy * e1x
-      v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) / detS
-      t = (e2x * qvx + e2y * qvy + e2z * qvz) / detS
-      ok = ((torch.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1)
-            & (t > tMin) & (t <= maxRayLength))
-      tBlock, k = torch.min(torch.where(ok, t, _full(t, _BIG)), dim=1)
+      tBlock, k = torch.min(self.distances(r, o, d, tMin, maxRayLength),
+                            dim=1)
       better = tBlock < tT
       tT = torch.where(better, tBlock, tT)
       idx = torch.where(better, k + base, idx)
+      if count is not None:
+        c = base // _TRI_CHUNK
+        if c % SWEEP_GROUP == 0:
+          count.group(self.groups[c // SWEEP_GROUP])
+        count.chunk(self.boxes[c], tBlock, r.shape[0])
     if stats is not None:
       self._count(stats, ox, oy, oz, dx, dy, dz, tCap, alive)
     hit = tT < _BIG
     nT = self.normals[:, idx]
     return tT, nT, torch.where(hit, self.elems[idx], -1)
+
+  @staticmethod
+  def distances(r, o, d, tMin, maxRayLength):
+    '''Moeller-Trumbore of the rays (origins `o`, directions `d`: (N, 1)
+    columns) against table rows `r`, in the kernels' operation order: the
+    (N, rows) distances, _BIG where a row is missed.'''
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (r[None, :, k]
+                                                   for k in range(9))
+    pvx = d[1] * e2z - d[2] * e2y
+    pvy = d[2] * e2x - d[0] * e2z
+    pvz = d[0] * e2y - d[1] * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    detS = torch.where(torch.abs(det) < 1e-12, _full(det, 1e-12), det)
+    tvx, tvy, tvz = o[0] - p0x, o[1] - p0y, o[2] - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) / detS
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) / detS
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) / detS
+    ok = ((torch.abs(det) > 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1)
+          & (t > tMin) & (t <= maxRayLength))
+    return torch.where(ok, t, _full(t, _BIG))
 
   def _count(self, stats, ox, oy, oz, dx, dy, dz, tCap, alive):
     nTri = self.rows.shape[0]
@@ -2526,10 +2612,12 @@ class _SurfaceTablePlain:
   def __init__(self, tables, dev):
     self.rows = torch.as_tensor(tables['surfTable'], device=dev).reshape(
         -1, SURF_TABLE_COLS)
-    self.boxes = None
+    self.boxes = self.groups = None
     if tables['nSurfChunks']:
       self.boxes = torch.as_tensor(tables['surfBoxes'], device=dev).reshape(
           -1, BOX_COLS)
+      self.groups = torch.as_tensor(tables['surfGroups'], device=dev) \
+          .reshape(-1, BOX_COLS)
     # blocks in the kernels' sweep order, (kind, trim0, first row, rows,
     # chunk or None): the plain runs by _SURF_CHUNK rows, then each chunk
     self.plain = [(k, t0, a, min(_SURF_CHUNK, b - a), None)
@@ -2538,6 +2626,9 @@ class _SurfaceTablePlain:
     self.chunked = [(k, t0, r0 + (c - c0) * _SURF_CHUNK, _SURF_CHUNK, c)
                     for k, t0, c0, c1, r0 in tables['surfChunkRuns']
                     for c in range(c0, c1)]
+    # the group box each chunk that opens a group opens (`groupSpans`)
+    self.opens = {a: g for g, (a, _b) in enumerate(groupSpans(
+        [r[2:4] for r in tables['surfChunkRuns']]))}
 
   def sweep(self, ox, oy, oz, dx, dy, dz, tMin, mrlEff, tBest, window,
             alive, stats=None):
@@ -2552,23 +2643,39 @@ class _SurfaceTablePlain:
     their bound is computed from): to `rayBounces` the live rays, to
     `chunks` the boxes each one's segment, capped at min(tBest, the plain
     runs' winner, mrlEff) + window, enters, to `rows` (a dict by kind) the
-    rows of the plain runs and of those chunks.'''
+    rows of the plain runs and of those chunks; and what the two-level
+    sweep with the shrinking cap leaves (`_CapCount`, the ray alone: its
+    `capRows` by kind count the plain runs' rows too).'''
     big = torch.full_like(ox, _BIG)
     zero = torch.zeros_like(ox)
     tS, nx, ny, nz, lx, ly = big, zero, zero, zero, zero, zero
     el = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
     o = [x[:, None] for x in (ox, oy, oz)]
     d = [x[:, None] for x in (dx, dy, dz)]
-    tPlain = big
-    for i, (kind, trim0, a, n, _c) in enumerate(self.plain + self.chunked):
+    tPlain, count = big, None
+    if stats is not None:
+      capRows = stats.setdefault('capRows', {})
+      nAlive = int(alive.sum())
+      for kind, _t0, _a, n, _c in self.plain:
+        capRows[kind] = capRows.get(kind, 0) + nAlive * n
+    for i, (kind, trim0, a, n, c) in enumerate(self.plain + self.chunked):
       if i == len(self.plain):
         tPlain = tS
+        if stats is not None:
+          tCap = torch.clamp(torch.minimum(tBest, tPlain), max=mrlEff) \
+              + window
+          count = _CapCount(stats, 'capRows', ox, oy, oz, dx, dy, dz, tCap,
+                            window, alive, tPlain)
       r = self.rows[a:a + n]
       t = _tableIntersectPlain(kind, trim0, [r[None, :, k] for k in
                                              range(SURF_TABLE_COLS)],
                                *o, *d, tMin)[0]
       t = torch.where(t <= mrlEff, t, _full(t, _BIG))
       tBlock, k = torch.min(t, dim=1)
+      if count is not None:
+        if c in self.opens:
+          count.group(self.groups[self.opens[c]])
+        count.chunk(self.boxes[c], tBlock, n, kind)
       better = tBlock < tS
       # the winner's attributes, from its row, in the kernels' order
       rk = [x for x in self.rows[a + k].T]
@@ -2612,26 +2719,74 @@ class _SurfaceTablePlain:
       rows[kind] = rows.get(kind, 0) + enters[c] * n
 
 
+def _inverseDirections(dx, dy, dz):
+  '''The kernels' sign-preserving inverse direction (|d| clamped at
+  1e-30).'''
+  return [torch.where(x < 0, -1., 1.) / torch.clamp(torch.abs(x), min=1e-30)
+          for x in (dx, dy, dz)]
+
+
+def _slabIn(b, o, inv, tCap):
+  '''Whether each ray's segment [0, tCap] from origins `o` enters box `b`
+  (lo xyz, hi xyz): the kernels' slab test, operation for operation.'''
+  t1 = [(b[k] - x) * iv for k, x, iv in zip(range(3), o, inv)]
+  t2 = [(b[3 + k] - x) * iv for k, x, iv in zip(range(3), o, inv)]
+  tN = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]),
+                                   torch.minimum(t1[1], t2[1])),
+                     torch.clamp(torch.minimum(t1[2], t2[2]), min=0.))
+  tF = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]),
+                                   torch.maximum(t1[1], t2[1])),
+                     torch.minimum(torch.maximum(t1[2], t2[2]), tCap))
+  return tN <= tF
+
+
 def _slabEnters(boxes, ox, oy, oz, dx, dy, dz, tCap, alive):
   '''Per chunk box, how many of the live rays the kernels' slab test lets
   in (the ray's segment, capped at `tCap`, enters the box): an int64
   (nBoxes,) tensor.'''
-  inv = [torch.where(x < 0, -1., 1.) / torch.clamp(torch.abs(x), min=1e-30)
-         for x in (dx, dy, dz)]
-  counts = []
-  for c in range(boxes.shape[0]):
-    b = boxes[c]
-    t1 = [(b[k] - x) * iv for k, x, iv in zip(range(3), (ox, oy, oz), inv)]
-    t2 = [(b[3 + k] - x) * iv
-          for k, x, iv in zip(range(3), (ox, oy, oz), inv)]
-    tN = torch.maximum(torch.maximum(torch.minimum(t1[0], t2[0]),
-                                     torch.minimum(t1[1], t2[1])),
-                       torch.clamp(torch.minimum(t1[2], t2[2]), min=0.))
-    tF = torch.minimum(torch.minimum(torch.maximum(t1[0], t2[0]),
-                                     torch.maximum(t1[1], t2[1])),
-                       torch.minimum(torch.maximum(t1[2], t2[2]), tCap))
-    counts.append(((tN <= tF) & alive).sum())
-  return torch.stack(counts)
+  inv = _inverseDirections(dx, dy, dz)
+  return torch.stack([(_slabIn(boxes[c], (ox, oy, oz), inv, tCap)
+                       & alive).sum() for c in range(boxes.shape[0])])
+
+
+class _CapCount:
+  '''What the kernels' two-level sweep of a table leaves to each live ray
+  alone, added to `stats`: a group box is tested, and the chunk boxes of
+  an entered group (`groupTests`, `chunkTests`), each against the segment
+  capped at min(`tCap`, the ray's running winner + `window`), the winner
+  over the chunks it entered so far (from `tRun`); the chunks entered
+  (`capChunks`) and their rows (`stats[rowsKey]`, by kind where a `kind`
+  is given).'''
+
+  def __init__(self, stats, rowsKey, ox, oy, oz, dx, dy, dz, tCap, window,
+               alive, tRun):
+    self.stats, self.rowsKey = stats, rowsKey
+    self.o, self.inv = (ox, oy, oz), _inverseDirections(dx, dy, dz)
+    self.tCap, self.window, self.alive, self.tRun = tCap, window, alive, tRun
+    self.inGroup = alive
+    for k in ('groupTests', 'chunkTests', 'capChunks'):
+      stats.setdefault(k, 0)
+    if rowsKey not in stats:
+      stats[rowsKey] = 0
+
+  def _cap(self):
+    return torch.minimum(self.tCap, self.tRun + self.window)
+
+  def group(self, box):
+    self.stats['groupTests'] += int(self.alive.sum())
+    self.inGroup = _slabIn(box, self.o, self.inv, self._cap()) & self.alive
+
+  def chunk(self, box, tBlock, nRows, kind=None):
+    self.stats['chunkTests'] += int(self.inGroup.sum())
+    enters = _slabIn(box, self.o, self.inv, self._cap()) & self.inGroup
+    n = int(enters.sum())
+    self.stats['capChunks'] += n
+    if kind is None:
+      self.stats[self.rowsKey] += n * nRows
+    else:
+      rows = self.stats[self.rowsKey]
+      rows[kind] = rows.get(kind, 0) + n * nRows
+    self.tRun = torch.where(enters & (tBlock < self.tRun), tBlock, self.tRun)
 
 
 def _geomNormalPlain(row, kind, lx, ly, lz, nlx, nly, nlz):
@@ -3085,19 +3240,24 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   before anything is built.'''
   table = tables['table']
   dev = table.device
-  glob = {k: tables.get(k) for k in _GLOBAL_TABLES}
+  glob = {k: tables.get(k) for k in ('triTable', 'surfTable') + tuple(
+      _BOX_PACKS)}
   for t in (table, rayIn, *glob.values()) + tuple(outs):
     if t is not None and t.device.type != 'cuda':
       raise ValueError(f'the CUDA kernel takes CUDA tensors only, got a '
                        f'tensor on {t.device}')
   nTri, nChunks = tables.get('nTri', 0), tables.get('nTriChunks', 0)
+  nGroups = tables.get('nTriGroups', 0) if nTri else 0
   nSurfT, nSurfChunks = (tables.get('nSurfTable', 0),
                          tables.get('nSurfChunks', 0))
+  nSurfGroups = tables.get('nSurfGroups', 0)
   lead = tuple(table.shape[:-1])
   for key, n, cols in (('triTable', nTri, TRI_COLS),
-                       ('triBoxes', nChunks if nTri else 0, BOX_COLS),
+                       ('triBoxPack', nGroups + nChunks if nTri else 0,
+                        BOX_STRIDE),
                        ('surfTable', nSurfT, SURF_TABLE_COLS),
-                       ('surfBoxes', nSurfChunks, BOX_COLS)):
+                       ('surfBoxPack', nSurfGroups + nSurfChunks,
+                        BOX_STRIDE)):
     if n:
       _checkTensor(key, glob[key], dev, lead + (n, cols))
   runs = surfaceRuns(tables.get('surfPlainRuns', ()),
@@ -3110,7 +3270,7 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   G1, G2 = strata if strata is not None else (0, 1)
   runWords = [x for run in runs for x in run]
   runWords += [0] * (MAX_SURF_RUNS * RUN_COLS - len(runWords))
-  ip = (ctypes.c_longlong * (30 + MAX_SURF_RUNS * RUN_COLS))(
+  ip = (ctypes.c_longlong * (32 + MAX_SURF_RUNS * RUN_COLS))(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
@@ -3119,7 +3279,8 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
       int(tables['gate']), int(tables['dispOff']),
       int(tables['samplerKind']), int(tables.get('scatter', False)),
       int(tables.get('geom', False)), nTri, nChunks, nSurfT, nSurfChunks,
-      len(runs), *runWords, int(tables.get('cullOff', -1)))
+      len(runs), *runWords, int(tables.get('cullOff', -1)), nGroups,
+      nSurfGroups)
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
@@ -3128,8 +3289,8 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(table.data_ptr(), ptr('triTable', nTri),
-             ptr('triBoxes', nTri and nChunks), ptr('surfTable', nSurfT),
-             ptr('surfBoxes', nSurfChunks),
+             ptr('triBoxPack', nTri and nChunks), ptr('surfTable', nSurfT),
+             ptr('surfBoxPack', nSurfChunks),
              rayIn.data_ptr() if rayIn is not None else None,
              *(t.data_ptr() for t in outs), counters.data_ptr(), ip, fp,
              stream)
@@ -3309,9 +3470,9 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
     packTables(hostScenesNow, geomRows=None) -> float32 (V, tableLen) numpy
         table for the CURRENT variant values (structure checked again); a
         mesh's stacked triangle table, a surface table and their chunk
-        boxes of these values go to `step.facts` (`triTable`, `triBoxes`,
-        `surfTable`, `surfBoxes`, on the device), which the next `step`
-        call traces;
+        and group boxes of these values go to `step.facts` (`triTable`,
+        `triBoxes`, `surfTable`, `surfBoxes`, ..., on the device), which
+        the next `step` call traces;
     step(seed, table) -> (power (V, D, H, W), counts (V, D, H, W),
         segments): ONE launch on fresh histograms. The two histograms are
         views of `step.histograms`, a (2, V, D, H, W) tensor, so a caller

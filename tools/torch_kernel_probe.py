@@ -2,8 +2,8 @@
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
     python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]
-                                         | mesh [ROOT] | table | hist [ROOT]
-                                         | cull [ROOT]]
+                                         | mesh [ROOT] | table [ROOT]
+                                         | hist [ROOT] | cull [ROOT]]
 
 (`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
 alone; `k1 ROOT` times the main-path step of the package in the checkout at
@@ -12,10 +12,13 @@ and prints the registers of its histogram kernel's instances, so that two
 commits run in one call can be compared in turns; `mesh ROOT` likewise
 times K1, K2 and K4 at 1 << 22 rays on the reference's dishes of 200, 1800,
 5000 and 12800 triangles, with and without ray-index strata, beside the
-main-path step; `table` times K1, K2 and K4 at 1 << 22 rays on the
-reference's walls of 522 and 5,071 analytic surfaces (the surface table),
-with and without strata, beside the main-path step and the 1800-triangle
-dish, and prints the registers of every instance; `hist ROOT` times the two
+main-path step; `table ROOT` times K1, K2 and K4 of the package at ROOT at
+1 << 22 rays on those dishes and on the reference's walls of 522 and 5,071
+analytic surfaces (the triangle and the surface table), with and without
+strata, beside the main-path step, K3 on 11 detector heights under the
+1800-triangle dish and the 522-surface wall, and prints each launch's
+record and the registers of every instance (run the parent's unpacked
+`_parent/` and the change in turns); `hist ROOT` times the two
 histogram kernels of the package at ROOT on the scenes whose binning B11
 redesigned — K1 on the lens-and-mirror main path, the spectrometer, the
 diffuse scatter scene, the mesh fold, the 1800-triangle dish, the
@@ -79,12 +82,13 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, 'tests'))
-if sys.argv[1:2] in (['k1'], ['mesh'], ['hist'], ['cull']) \
+if sys.argv[1:2] in (['k1'], ['mesh'], ['table'], ['hist'], ['cull']) \
     and len(sys.argv) > 2:
   sys.path.insert(0, os.path.abspath(sys.argv[2]))   # the package measured
 
@@ -120,7 +124,6 @@ SWEEP_BOUNDS = (-40., 40., -40., 40.)
 
 
 def sweepBreakdown(dev):
-  import numpy as np
   seeds = iter(range(10 ** 9))
   kw = dict(maxIntersections=6, maxRayLength=1000., distTol=1e-4, hitSlots=1)
 
@@ -339,36 +342,69 @@ def meshSeries():
   print(json.dumps(out), flush=True)
 
 
+# the scenes of the table sweeps (B7, B8): name -> (benchmarks function,
+# its arguments, histogram bounds); 3 intersections each
+TABLE_SCENES = {
+    'dish200': ('buildMeshDishScene', (10,), (-200., 200., -200., 200.)),
+    'dish1800': ('buildMeshDishScene', (30,), (-200., 200., -200., 200.)),
+    'dish5000': ('buildMeshDishScene', (50,), (-200., 200., -200., 200.)),
+    'dish12800': ('buildMeshDishScene', (80,), (-200., 200., -200., 200.)),
+    'wall522': ('buildSurfWallScene', (), (-300., 300., -300., 300.)),
+    'wall5071': ('buildSurfWall5kScene', (), (-300., 300., -300., 300.)),
+}
+
+
 def tableSeries():
-  '''K1, K2 and K4 (ms by CUDA events, 1 << 22 rays, 3 intersections) on
-  the walls of 522 and 5,071 analytic surfaces, with the samplers'
-  ray-index strata and without, beside the main-path step and K1 on the
-  1800-triangle dish; the registers of every instance (ptxas), keyed by
-  its output mode and template flags.'''
+  """K1, K2 and K4 (ms by CUDA events, 1 << 22 rays, 3 intersections, 10
+  launches each) of the package on the path on the reference's dishes of
+  200 to 12800 triangles and its walls of 522 and 5,071 analytic surfaces
+  (the triangle and the surface table), with the samplers' ray-index
+  strata (one (theta, phi) cell a block, as the steps run) and without
+  (every warp's rays spread over the source), beside the main-path step,
+  with each launch's record (`cuda_trace.lastLaunch`); K3 on 11 detector
+  heights x 1 << 20 rays under the 1800-triangle dish and the 522-surface
+  wall; then the registers of every instance."""
+  import optics_design_workbench_tpu_torch as port
   seeds = iter(range(10, 10 ** 9))
   step, hist, _meta = benchmarks.makeBenchStep(raysPerStep=N, bins=BINS)
-  out = dict(variant='table', lensK1=cudaMs(lambda: step(next(seeds), hist)))
-  dish, dishHist, _meta = benchmarks.makeBenchStep(
-      scene=benchmarks.buildMeshDishScene(30), raysPerStep=N,
-      maxIntersections=3, histBounds=(-200., 200., -200., 200.), bins=BINS)
-  out['dish1800K1'] = cudaMs(lambda: dish(next(seeds), dishHist), 10)
-  bounds = (-300., 300., -300., 300.)
-  for name, make in (('wall522', benchmarks.buildSurfWallScene),
-                     ('wall5071', benchmarks.buildSurfWall5kScene)):
+  out = dict(variant='table', package=port.__file__,
+             digest=port.kernelSourceDigest(),
+             lensK1=cudaMs(lambda: step(next(seeds), hist)))
+  for name, (make, args, bounds) in TABLE_SCENES.items():
     step, hist, _meta = benchmarks.makeBenchStep(
-        scene=make(), raysPerStep=N, maxIntersections=3, histBounds=bounds,
-        bins=BINS)
+        scene=getattr(benchmarks, make)(*args), raysPerStep=N,
+        maxIntersections=3, histBounds=bounds, bins=BINS)
     t = step.tables
     for strata in (step.strataTile, 0):
       kw = dict(maxIntersections=3, maxRayLength=1000., distTol=1e-4,
                 hitSlots=step.hitSlots, strataTile=strata)
-      k1 = cudaMs(lambda: cuda_trace.traceHistogram(
-          t, hist, N, seed=next(seeds), **kw), 10)
-      k2 = cudaMs(lambda: cuda_trace.traceBins(t, N, seed=next(seeds), **kw),
-                  10)
-      k4 = cudaMs(lambda: cuda_trace.traceRaw(t, N, seed=next(seeds), **kw),
-                  10)
-      out[f'{name}/strata{strata}'] = [k1, k2, k4]
+      out[f'{name}/strata{strata}'] = [
+          cudaMs(lambda: cuda_trace.traceHistogram(
+              t, hist, N, seed=next(seeds), **kw), 10),
+          cudaMs(lambda: cuda_trace.traceBins(t, N, seed=next(seeds), **kw),
+                 10),
+          cudaMs(lambda: cuda_trace.traceRaw(t, N, seed=next(seeds), **kw),
+                 10)]
+      out[f'{name}/strata{strata}/lastLaunch'] = \
+          cuda_trace.lastLaunch['traceHistogram']
+  for name, make, bounds in (
+      ('dish1800', lambda z: benchmarks.buildMeshDishScene(30, detectorZ=z),
+       TABLE_SCENES['dish1800'][2]),
+      ('wall522', lambda z: benchmarks.buildSurfWallScene(detectorZ=z),
+       TABLE_SCENES['wall522'][2])):
+    scenes = [make(float(z)) for z in np.linspace(-20., 0., 11)]
+    host = [sc.compile(device=None) for sc in scenes]
+    histSpec = fused.makeHistogramSpec(*host[0], bounds=bounds, bins=BINS)
+    tables = cuda_trace.buildSweepTables(
+        [h for h, _i in host], histSpec,
+        [scenes[0].lightSources()[0].samplerSpec()] * len(scenes))
+    power = torch.zeros((len(scenes), tables['nDet']) + BINS,
+                        device='cuda')
+    counts = torch.zeros_like(power)
+    out[f'{name}/k3'] = cudaMs(lambda: cuda_trace.traceSweep(
+        tables, dict(power=power, counts=counts), 1 << 20, 3, 1000., 1e-4,
+        hitSlots=cuda_trace.autoHitSlots(host[0][0], histSpec, 3),
+        seed=next(seeds), strataTile=256), 5)
   out['registers'], out['buildSeconds'] = instanceRegisters()
   print(json.dumps(out), flush=True)
 
@@ -462,7 +498,6 @@ def histSeries(dev):
   uniforms (HIST_CHECK_RAYS rays, K3 at 8 variants): counters equal, rays
   that changed bins, worst relative power error on the bins both agree
   on.'''
-  import numpy as np
   import optics_design_workbench_tpu_torch as port
   seeds = iter(range(100, 10 ** 9))
   regs, buildSeconds = instanceRegisters()
@@ -591,7 +626,7 @@ def main():
     return k1Series()
   if sys.argv[1:2] == ['mesh']:
     return meshSeries()
-  if sys.argv[1:] == ['table']:
+  if sys.argv[1:2] == ['table']:
     return tableSeries()
   if sys.argv[1:2] == ['hist']:
     return histSeries(dev)
