@@ -9,7 +9,11 @@ card: the in-kernel-histogram kernel in all three input modes, the
 per-ray-bin and raw-record kernels in modes (b) and (c) on scenes with one,
 two and four live ring slots and with a ring that overflows, the sweep
 kernel on a surface sweep and a source-placement sweep and, in seed mode,
-against one launch of the histogram kernel per variant; then the same on
+against one launch of the histogram kernel per variant, and again where its
+variant groups (`cuda_trace.sweepVariantGroup`) leave a shorter last group
+or hold more variants than the sweep has, and where it traces one variant a
+block: too few rays for a group, variants that do not share the sampler's
+draw, ray columns; then the same on
 the scenes of gratings, dispersion, sequential mode and per-source masks
 (a reflection and a transmission grating, a Cauchy lens, the sequential
 ball lens, a source that ignores a mirror; the spectrometer at full width
@@ -268,7 +272,8 @@ PILEUP_BINS_OFF = (0, 4, -8, 16)
 # stage words of ROADMAP C.2 (58 before), and for five per-ray instances
 # that B12's row test moved (PERF.md §6): K2 without B4 42 -> 40 and
 # 44 -> 40 (surface sampler), K4 with B4 54 -> 56 (both samplers), K4 with
-# scatter 79 -> 64 (12 spill bytes)
+# scatter 79 -> 64 (12 spill bytes); the K3 instances here are those that
+# trace one variant a block
 OLD_REGISTERS = {
     (0, 0, 0, 0, 0): 40, (1, 0, 0, 0, 0): 40, (2, 0, 0, 0, 0): 40,
     (0, 1, 0, 0, 0): 40, (0, 0, 0, 1, 0): 40, (1, 0, 0, 1, 0): 40,
@@ -280,6 +285,9 @@ OLD_REGISTERS = {
     (1, 0, 1, 1, 1): 64, (2, 0, 1, 0, 1): 64, (2, 0, 1, 1, 1): 64,
     (0, 1, 1, 0, 1): 64,
 }
+# the two K3 instances that trace groups of variants (GROUPED, PR 14:
+# the variant loop around the bounce loop), without B4 and with it
+GROUPED_REGISTERS = {(0, 1, 0, 0, 0): 48, (0, 1, 1, 0, 0): 62}
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
@@ -1131,11 +1139,13 @@ def sweepTablesFor(scenes, bounds, source=0, bins=SWEEP_BINS):
 
 
 def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo,
-                          source=0, budget=COUNT_BUDGET, bins=SWEEP_BINS):
+                          source=0, budget=COUNT_BUDGET, bins=SWEEP_BINS,
+                          launches=None):
   '''The sweep kernel vs its plain version on the card, same uniforms (and,
   where the source is the same in every variant, the same ray columns):
   per-variant counters equal, at most COUNT_BUDGET rays per variant in
-  another bin, power POWER_RTOL. Returns the worst absolute power error.'''
+  another bin, power POWER_RTOL. `launches` (a dict) gets each mode's
+  launch record. Returns the worst absolute power error.'''
   tables, host, histSpec, _specs = sweepTablesFor(scenes, bounds, source,
                                                   bins)
   hitSlots = cuda_trace.autoHitSlots(host[0][0], histSpec, maxI)
@@ -1156,10 +1166,14 @@ def compareSweepWithPlain(label, scenes, bounds, maxI, n, columnsToo,
     colsT = rayColumns(tables0, cols)
     modes.append(('c', dict(columns=colsT), dict(columns=colsT)))
   # both modes trace the same rays: one run of the plain version serves both
-  plain = {}
-  return max(holdSweepAgainstPlain(label, mode, tables, n, inputs,
-                                   plainInputs, kw, budget, plain)[0]
-             for mode, inputs, plainInputs in modes)
+  plain, worst = {}, 0.
+  for mode, inputs, plainInputs in modes:
+    worst = max(worst, holdSweepAgainstPlain(label, mode, tables, n, inputs,
+                                             plainInputs, kw, budget,
+                                             plain)[0])
+    if launches is not None:
+      launches[mode] = dict(cuda_trace.lastLaunch['traceSweep'])
+  return worst
 
 
 def holdSweepAgainstPlain(label, mode, tables, n, inputs, plainInputs, kw,
@@ -1339,6 +1353,7 @@ def sweepPathPhase(V, n):
   seeds = iter(range(7000, 10 ** 6))
   counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds), **kw)
   segments = int(counters[:, 0].sum())
+  launch = dict(cuda_trace.lastLaunch['traceSweep'])
   reps = 20 if V * n < 1 << 24 else 5
   sweepMs = cudaMs(lambda: cuda_trace.traceSweep(
       tables, hist, n, seed=next(seeds), **kw), reps)
@@ -1368,7 +1383,10 @@ def sweepPathPhase(V, n):
             perVariantLoopSteadyS=loopS, perVariantLoopCalls=loop,
             perVariantLoopKernelsMs=loopMs,
             sweepOverLoopKernels=sweepMs / loopMs,
-            sweepOverLoopWall=steadyS / loopS))
+            sweepOverLoopWall=steadyS / loopS,
+            variantGroup=launch['variantGroup'],
+            sharedDraws=launch['sharedDraws'], blocks=launch['blocks'],
+            sharedBytes=launch['sharedBytes']))
 
   # the kernel against its plain version at this shape, same uniforms
   gen = torch.Generator(device=DEV)
@@ -1381,7 +1399,7 @@ def sweepPathPhase(V, n):
       {k: v for k, v in kw.items() if k != 'strataTile'})
   return dict(launches=launches['traceSweep'], ms=sweepMs, plainMs=plainMs,
               maxAbsErr=err, tables=tables, segments=segments,
-              histBytes=2 * hist['power'].numel() * 4)
+              histBytes=2 * hist['power'].numel() * 4, launch=launch)
 
 
 def sweepOptimizePhase(tmp):
@@ -1450,6 +1468,61 @@ def compareSweepWithSingles(label, scenes, bounds, maxI, n, seed, source=0):
              for (h, _i), spec in zip(host, specs)]
   holdSweepAgainstSingles(label, hist['power'], hist['counts'], counters,
                           singles, histSpec, n, kw, seed)
+
+
+def beamWidthScenes(widths=(50., 20., 35.)):
+  '''examples/3's lens at R = 60 mm under Gaussian beams of these widths
+  (exp(-r^2 / w)): the sources' radius marginals differ, so the variants
+  do not share the sampler's draw.'''
+  scenes = []
+  for w in widths:
+    scene = benchmarks.buildSweepLensScene(60.)
+    scene.lightSources()[0].PowerDensity = f'exp(-r^2/{w:g})'
+    scenes.append(scene)
+  return scenes
+
+
+def variantGroupChecks():
+  '''K3's variant groups (`cuda_trace.sweepVariantGroup`): the sweep kernel
+  against its plain version (uniforms; and ray columns, which take one
+  variant a block) and, in seed mode, against one launch of the histogram
+  kernel per variant, on the examples/3 lens where the last group is
+  shorter (11 radii x 1 << 18 rays), where the group holds more variants
+  than the sweep (3 radii x 1 << 20), and where the kernel traces one
+  variant a block: too few rays for a group (4 radii x 100,000, the
+  sweeper's default rays) and variants whose beams differ, so that they do
+  not share the draw (3 widths x 1 << 20). Each launch's group is checked
+  to be the case named. Returns the worst absolute power error.'''
+  t0 = time.perf_counter()
+  worst = 0.
+  cases = (('groups-shorter-last', sweepScenes(np.linspace(45., 95., 11)),
+            1 << 18, True, lambda V, g, shared: V % g != 0 and shared),
+           ('groups-larger-than-sweep', sweepScenes((50., 60., 70.)),
+            1 << 20, True, lambda V, g, shared: g > V and shared),
+           ('one-a-block-few-rays', sweepScenes((50., 60., 70., 80.)),
+            100_000, True, lambda V, g, shared: g == 1 and shared),
+           ('one-a-block-own-draws', beamWidthScenes(), 1 << 20, False,
+            lambda V, g, shared: g == 1 and not shared))
+  records = {}
+  for label, scenes, n, columnsToo, wanted in cases:
+    launches = {}
+    worst = max(worst, compareSweepWithPlain(
+        label, scenes, SWEEP_BOUNDS, SWEEP_MAX_INTERSECTIONS, n, columnsToo,
+        launches=launches))
+    compareSweepWithSingles(label, scenes, SWEEP_BOUNDS,
+                            SWEEP_MAX_INTERSECTIONS, n, seed=41)
+    launches['a'] = dict(cuda_trace.lastLaunch['traceSweep'])
+    for mode, record in launches.items():
+      ok = (record['variantGroup'] == 1 if mode == 'c'
+            else wanted(len(scenes), record['variantGroup'],
+                        record['sharedDraws']))
+      if not ok:
+        raise AssertionError(f'{label}: launch {record} in mode ({mode}) is '
+                             f'not the case this check is for')
+    records[label] = dict(variants=len(scenes), rays=n, launches=launches)
+  emit(dict(phase='variant-groups', seconds=time.perf_counter() - t0,
+            cases=records, maxAbsErrPower=worst))
+  return worst
 
 
 def b4KernelChecks():
@@ -1735,6 +1808,7 @@ def spectroSweepPhase():
   counters = cuda_trace.traceSweep(tables, hist, n, seed=next(seeds),
                                    strataTile=tile, **kw)
   segments = int(counters[:, 0].sum())
+  launch = dict(cuda_trace.lastLaunch['traceSweep'])
   sweepMs = cudaMs(lambda: cuda_trace.traceSweep(
       tables, hist, n, seed=next(seeds), strataTile=tile, **kw), 5)
   gen = torch.Generator(device=DEV)
@@ -1756,9 +1830,11 @@ def spectroSweepPhase():
             segmentsPerCall=segments,
             raySegmentsPerSecKernel=segments / (sweepMs * 1e-3),
             worstCentroidOffMm=worstMm, binMm=BIN_MM, plainMs=plainMs,
-            maxAbsErrPower=err, boundMs=max(bounds[:2]), **bounds[2]))
+            maxAbsErrPower=err, variantGroup=launch['variantGroup'],
+            sharedDraws=launch['sharedDraws'], boundMs=max(bounds[:2]),
+            **bounds[2]))
   return dict(launches=launches['traceSweep'], ms=sweepMs, err=err,
-              bounds=bounds)
+              bounds=bounds, launch=launch)
 
 
 def sensorStatistics(records, n):
@@ -2306,7 +2382,7 @@ def scatterSweepPhase():
 def registerCounts(log):
   '''ptxas's registers and spill bytes per instance of the kernel template,
   from the build log: {(output mode, sweep, B4, surface sampler, scatter,
-  GEOM, TRI, STAB): (registers, spill store bytes)}.'''
+  GEOM, TRI, STAB, GROUPED): (registers, spill store bytes)}.'''
   import re
   out, current = {}, None
   for line in log.splitlines():
@@ -2327,15 +2403,17 @@ def registerCounts(log):
 
 def registerPhase(log):
   '''The registers of every instance (phase 9's first gate): the instances
-  without B2 / B3 keep OLD_REGISTERS.'''
+  without B2 / B3 keep OLD_REGISTERS, the grouped K3 instances
+  GROUPED_REGISTERS.'''
   regs = registerCounts(log)
   emit(dict(phase='registers', instances=len(regs), byInstance={
       ','.join(map(str, k)): v for k, v in sorted(regs.items())}))
-  for key, want in OLD_REGISTERS.items():
-    got = regs.get(key + (0, 0, 0), (None, None))[0]
-    if got != want:
-      raise AssertionError(f'instance {key} uses {got} registers, '
-                           f'{want} before B2 / B3')
+  for grouped, counts in ((0, OLD_REGISTERS), (1, GROUPED_REGISTERS)):
+    for key, want in counts.items():
+      got = regs.get(key + (0, 0, 0, grouped), (None, None))[0]
+      if got != want:
+        raise AssertionError(f'instance {key} (grouped {grouped}) uses '
+                             f'{got} registers, {want} before B2 / B3')
   return regs
 
 
@@ -3350,6 +3428,9 @@ def main():
   worstSweep = max(worstSweep, compareSweepWithPlain(
       'placement', scenes, bounds, maxI, N_SMALL, columnsToo=False))
   compareSweepWithSingle(*SWEEPS[0])
+  # ... and where the variant groups meet a shorter last group, more room
+  # than variants, variants with draws of their own and ray columns
+  worstSweep = max(worstSweep, variantGroupChecks())
 
   # the same gates on the scenes of gratings, dispersion, sequential mode
   # and per-source masks, and on the spectrometer
@@ -3421,6 +3502,8 @@ def main():
   sweepBounds = boundMs(sweep['tables'], sweep['segments'], V * n,
                         2 * sweep['histBytes'])
   emit(dict(phase='sweep-kernel-bound', variants=V, raysPerVariant=n,
+            variantGroup=sweep['launch']['variantGroup'],
+            sharedDraws=sweep['launch']['sharedDraws'],
             kernelMs=sweep['ms'], plainMs=plainSweepMs,
             boundOpsMs=sweepBounds[0], boundBytesMs=sweepBounds[1],
             **sweepBounds[2]))
@@ -3473,11 +3556,15 @@ def main():
                   k2['bounds'], spectro['traceBins'], surface['traceBins'],
                   scatter['traceBins'], geom['traceBins'],
                   mesh['traceBins'], wall['traceBins'], cull['traceBins']),
-      kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
-                  sweep['launches'], worstSweep, sweep['ms'], plainSweepMs,
-                  sweepBounds, spectro['traceSweep'], None,
-                  scatter['traceSweep'], geom['traceSweep'],
-                  mesh['traceSweep'], wall['traceSweep'])]))
+      dict(kernelEntry('traceSweep', 'trace_sweep_kernel.cu', 3067,
+                       sweep['launches'], worstSweep, sweep['ms'],
+                       plainSweepMs, sweepBounds, spectro['traceSweep'],
+                       None, scatter['traceSweep'], geom['traceSweep'],
+                       mesh['traceSweep'], wall['traceSweep']),
+           variant_group=sweep['launch']['variantGroup'],
+           shared_draws=sweep['launch']['sharedDraws'],
+           spectrometer_variant_group=spectro['traceSweep']['launch'][
+               'variantGroup'])]))
   print(smi, flush=True)
   print(json.dumps(dict(ok=True, device=dict(
       platform='gpu', kind=torch.cuda.get_device_name(0),

@@ -167,15 +167,34 @@
 // with torch.empty), and a warp's 32 stores to one row are one 128-byte line.
 //
 // SWEEP (a compile-time flag, only with OUT_HIST): V scene tables of equal
-// layout lie stacked in device memory and the grid is variant-major —
-// blockIdx.x / blocksPerVariant is the block's variant, so a block never
-// straddles two variants and copies exactly its own variant's table into
-// shared memory. The ray index, and with it the Philox counter, the stratum
-// cell and the uniform / column inputs, is the index WITHIN the variant:
-// every variant traces the same rays (common random numbers), and variant v
-// of a sweep launch computes what the single-scene kernel computes for
-// N = raysPerVariant on variant v's table. Histograms and counters have one
-// block per variant. The single-scene instantiations read none of this.
+// layout lie stacked in device memory and the grid is two-dimensional:
+// blockIdx.x is the tile of rays, blockIdx.y a GROUP of Vb consecutive
+// variants (the last group may be shorter; the launcher's Vb comes from the
+// host, ops/cuda_trace.py `sweepVariantGroup`). A block copies its group's
+// tables into shared memory together, behind one barrier, and each thread
+// traces its ray through every variant of the group in turn: placement,
+// the bounce loop and the flush against that variant's table, tables in
+// device memory and histograms. The ray index, and with it the Philox
+// counter, the stratum cell and the uniform / column inputs, is the index
+// WITHIN the variant: every variant traces the same rays (common random
+// numbers), and variant v of a sweep launch computes what the single-scene
+// kernel computes for N = raysPerVariant on variant v's table, operation
+// for operation. So where the host found the variants' marginals and
+// focal words equal (`sharedDraws`) and the kernel samples (seed or uniform
+// inputs), a thread draws its ray ONCE per group: the uniforms (Philox, the
+// stratum) and the ray in the source's frame, kept in a per-thread slot of
+// shared memory that each variant places by its own rotation, offset and
+// wavelength. A group's counters are summed per variant (warp shuffles, one
+// shared-memory pass) and added with one 64-bit atomic per nonzero total.
+// Only the GROUPED instances (plain and B4) trace groups of more than one
+// variant; a group of one, ray columns, variants with draws of their own,
+// and the instances with scatter, the other kinds and trims (GEOM) or a
+// table in device memory (TRI) take the other sweep instances, one variant
+// a block (their variant loop is one pass: on the dish and wall sweeps the
+// loop cost more in registers than the shared draw saved, and a group of
+// one in the grouped plain instance ran 6 % slower than one variant a
+// block, PERF.md §6). The single-scene instantiations read none of this:
+// their variant loop is one pass.
 //
 // Common design: one thread per ray, all ray state in registers, a `for`
 // over bounces that `break`s when the ray dies; the scene is DATA (a small
@@ -285,6 +304,12 @@ enum { OPT_MIRROR = 0, OPT_LENS = 1, OPT_GRATING = 2, OPT_ABSORBER = 3,
 enum { MODE_SEED = 0, MODE_UNIFORMS = 1, MODE_COLUMNS = 2 };
 enum { OUT_HIST = 0, OUT_BINS = 1, OUT_RAW = 2 };
 
+// SWEEP: the most variants a block traces (its group), and the floats a
+// thread of a GROUPED block keeps of its ray for them (its origin and
+// direction in the source's frame)
+constexpr int kMaxVariantGroup = 16;
+constexpr int kSlotFloats = 6;
+
 struct TraceParams {
   long long N;
   unsigned long long seed;
@@ -293,12 +318,13 @@ struct TraceParams {
   long long strataTile;
   int G1, G2;
   float mrlEff, maxRayLength, tMin, window, powerTol, invG1, invG2;
-  // SWEEP only: blocks per variant, floats per variant's histogram; a
-  // single-scene launch keeps in the same word the offset of the cull block
-  // (B12; -1: every bounce sweeps every row). A field of its own took the
-  // instances without B4 from 40 to 44 registers (PERF.md §6).
-  union { int blocksPerVariant; int cullOff; };
-  long long histLen;
+  // SWEEP only: the variants a block traces (its group); a single-scene
+  // launch keeps in the same word the offset of the cull block (B12; -1:
+  // every bounce sweeps every row). A field of its own took the instances
+  // without B4 from 40 to 44 registers (PERF.md §6).
+  union { int cullOff; int groupSize; };
+  // SWEEP only: floats per variant's histogram, variants of the launch
+  int histLen, nVariants;
   // header flags of the scene: any grating; sequential stages (0: none);
   // some surface not always allowed; offset of the dispersion block (-1:
   // no dispersive element)
@@ -1574,14 +1600,110 @@ __device__ __forceinline__ void addGrouped(float* out0, float* out1,
   atomicAdd(out1 + b, (float)__popc(peers));
 }
 
+// The point sampler's two uniforms of ray i: read (uniform mode) or drawn
+// by Philox (counter = ray index, key = seed), then stratified by the ray's
+// cell where the launch has strata (a property of the ray index). `narrow`:
+// the ray index and the cell fit 32 bits, and the cell comes from 32-bit
+// divisions (the same integers, so the same floats).
+__device__ __forceinline__ void pointUniforms(const TraceParams& p,
+                                              const float* rayIn,
+                                              long long i, bool narrow,
+                                              float& u1, float& u2) {
+  if (p.mode == MODE_UNIFORMS) {
+    u1 = rayIn[i];
+    u2 = rayIn[p.N + i];
+  } else {
+    uint32_t rnd[4];
+    philox4x32((uint32_t)i, (uint32_t)((unsigned long long)i >> 32), 0u,
+               0u, (uint32_t)p.seed, (uint32_t)(p.seed >> 32), rnd);
+    u1 = bitsToUniform(rnd[0]);
+    u2 = bitsToUniform(rnd[1]);
+  }
+  if (p.G1 > 0) {
+    float i1, i2;
+    if (narrow) {
+      const unsigned cell = (unsigned)i / (unsigned)p.strataTile;
+      i1 = (float)(cell / (unsigned)p.G2);
+      i2 = (float)(cell % (unsigned)p.G2);
+    } else {
+      const long long cell = i / p.strataTile;
+      i1 = (float)(cell / p.G2);
+      i2 = (float)(cell % p.G2);
+    }
+    u1 = (i1 + u1) * p.invG1;
+    u2 = (i2 + u2) * p.invG2;
+  }
+}
+
+// The point sampler's ray in the source's own frame from its two uniforms
+// and sampler block `sg`: the two marginals, then the focal geometry.
+__device__ __forceinline__ void pointLocal(const float* sg, float u1,
+                                           float u2, float& lox, float& loy,
+                                           float& loz, float& ldx, float& ldy,
+                                           float& ldz) {
+  float t = marginal(sg + kSamplerGeom, u1);
+  float ph = marginal(sg + kSamplerGeom + kMargLen, u2);
+  float sp = sinf(ph), cp = cosf(ph);
+  if (sg[0] != 0.f) {          // finite focal length
+    float f = sg[1];
+    float st = sinf(t), ct = cosf(t);
+    ldx = st * sp; ldy = -st * cp; ldz = ct;
+    lox = -f * ldx; loy = -f * ldy; loz = f * (1.f - ldz);
+  } else {                     // collimated: t is the radius
+    ldx = 0.f; ldy = 0.f; ldz = 1.f;
+    lox = t * cp; loy = -t * sp; loz = 0.f;
+  }
+}
+
+// SWEEP: the ray index (blockIdx.x * kBlock + threadIdx.x) and the block's
+// row of groups (blockIdx.y) read anew from the special registers where the
+// variant loop needs them: a volatile read is neither hoisted nor kept, so
+// no register holds them across the bounce loop.
+__device__ __forceinline__ long long freshRayIndex() {
+  unsigned b, t;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(b));
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return (long long)b * kBlock + t;
+}
+
+__device__ __forceinline__ long long freshFirstVariant(const TraceParams& p) {
+  unsigned g;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(g));
+  return (long long)g * p.groupSize;
+}
+
+// The sweep instances' blocks an SM, which their sources
+// (trace_sweep_kernel*.cu, which define ODW_SWEEP_SOURCE) ask of ptxas as a
+// launch bound: one variant a block keeps the occupancy of the
+// variant-major kernel it replaces (PERF.md §6: without the bound the
+// scatter instance went from 64 to 79 registers, 3 blocks an SM, and the
+// diffuser's heights ran 9 % slower), the GROUPED instances that of their
+// registers (48 and 62).
+constexpr int sweepMinBlocks(bool B4, bool SCAT, bool GEOM, bool TRI,
+                             bool STAB, bool GROUPED) {
+  return !B4 ? (GROUPED ? 5 : 6) : !(SCAT || GEOM || TRI) ? 4
+         : !TRI || !(SCAT || GEOM || STAB) ? 4 : 3;
+}
+#ifdef ODW_SWEEP_SOURCE
+#define ODW_KERNEL_BOUNDS                                             \
+  __launch_bounds__(kBlock,                                           \
+                    sweepMinBlocks(B4, SCAT, GEOM, TRI, STAB, GROUPED))
+#else
+#define ODW_KERNEL_BOUNDS __launch_bounds__(kBlock)
+#endif
+
 // OUT_HIST: out0 / out1 are the power / count histograms. OUT_BINS and
 // OUT_RAW: out0 is the (rows, hitSlots, N) ring, out1 is unused. SWEEP:
 // `table` holds V tables of p.tableLen floats, out0 / out1 V histograms of
 // p.histLen floats, `counters` V triples; p.N is the rays PER VARIANT and
-// `rayIn` (shared by all variants) has p.N columns.
+// `rayIn` (shared by all variants) has p.N columns; blockIdx.x is the ray
+// tile, blockIdx.y the variant or, in the GROUPED instances, the group of
+// p.groupSize > 1 variants (the last group may be shorter) that share the
+// draw.
 template <int OUT, bool SWEEP, bool B4, bool SURF, bool SCAT,
-          bool GEOM = false, bool TRI = false, bool STAB = false>
-__global__ void __launch_bounds__(kBlock)
+          bool GEOM = false, bool TRI = false, bool STAB = false,
+          bool GROUPED = false>
+__global__ void ODW_KERNEL_BOUNDS
 traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
             const SurfTable stab, const float* __restrict__ surfRows,
             const float* __restrict__ surfBox,
@@ -1594,417 +1716,490 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
   static_assert(!GEOM || B4, "the other kinds and trims are built on B4");
   static_assert(!TRI || B4, "the triangle table is built on B4");
   static_assert(!STAB || TRI, "the surface table is built on TRI");
+  static_assert(!GROUPED || (SWEEP && !SCAT && !GEOM && !TRI),
+                "groups of variants in the plain and B4 sweeps only");
   // a GEOM table widens every surface row by kGeomCols
   constexpr int kRow = GEOM ? kSurfCols + kGeomCols : kSurfCols;
-  long long firstRay = (long long)blockIdx.x * blockDim.x;
-  if constexpr (SWEEP) {
-    const long long variant = blockIdx.x / p.blocksPerVariant;
-    firstRay = (long long)(blockIdx.x % p.blocksPerVariant) * blockDim.x;
-    table += variant * p.tableLen;
+  // SWEEP: the instances that trace a group of more than one variant a
+  // block; the other sweep instances trace one variant a block, whose
+  // variant loop is one pass
+  constexpr bool kGroups = GROUPED;
+  const long long firstRay = (long long)blockIdx.x * blockDim.x;
+  // SWEEP: the block's variants, variant0 .. variant0 + nVar - 1, whose
+  // tables lie one after the other in `table` and are copied together
+  int nVar = 1;
+  long long variant0 = 0;
+  if constexpr (kGroups) {
+    variant0 = (long long)blockIdx.y * p.groupSize;
+    table += variant0 * p.tableLen;
+    nVar = min(p.groupSize, p.nVariants - (int)variant0);
+  } else if constexpr (SWEEP) {
+    // one variant a block: its table, tables in device memory, histograms
+    // and counters once, as the single-scene kernel reads them
+    variant0 = blockIdx.y;
+    table += variant0 * p.tableLen;
     if constexpr (TRI) {
-      tt.tri += variant * tt.n * kTriCols;
-      tt.box += variant * (tt.nGroups + tt.nChunks) * kBoxStride;
+      tt.tri += variant0 * tt.n * kTriCols;
+      tt.box += variant0 * (tt.nGroups + tt.nChunks) * kBoxStride;
     }
     if constexpr (STAB) {
-      surfRows += variant * stab.n * kSurfTableCols;
-      surfBox += variant * (stab.nGroups + stab.nChunks) * kBoxStride;
+      surfRows += variant0 * stab.n * kSurfTableCols;
+      surfBox += variant0 * (stab.nGroups + stab.nChunks) * kBoxStride;
     }
-    out0 += variant * p.histLen;
-    out1 += variant * p.histLen;
-    counters += variant * 3;
+    out0 += variant0 * p.histLen;
+    out1 += variant0 * p.histLen;
+    counters += variant0 * 3;
   }
   extern __shared__ float smem[];
-  for (int k = threadIdx.x; k < p.tableLen; k += blockDim.x)
+  for (int k = threadIdx.x; k < nVar * p.tableLen; k += blockDim.x)
     smem[k] = table[k];
   __syncthreads();
-  const float* surfT = smem;
-  const float* elemT = smem + p.nSurf * kRow;
 
   const long long i = firstRay + threadIdx.x;
-  int segs = 0, hitN = 0;
-  int lastBin = -1;                // OUT_HIST: the ring's last slot
-  float lastW = 0.f;
-  // per-ray modes: distance between two rows of the ring, and this ray's
-  // column in it
+  // GROUPED: after the tables, the variants' per-warp totals (3 per
+  // variant and warp), then a slot of kSlotFloats floats per thread
+  // (column-major, one column a thread) that holds ray i in the source's
+  // frame, the draw every variant of the group shares (`sharedDraws`: the
+  // same marginals and focal words; the launcher takes seed and uniform
+  // inputs only). It is filled once per ray and read once per variant.
+  const int held = kGroups ? min(p.groupSize, p.nVariants) : 1;
+  int* groupRed = reinterpret_cast<int*>(smem + held * p.tableLen);
+  volatile float* const slots =
+      smem + held * p.tableLen + held * 3 * (kBlock / 32);
+  if (kGroups && i < p.N) {
+    volatile float* slot = slots + threadIdx.x;
+    float u1, u2, lo[3], ld[3];
+    pointUniforms(p, rayIn, i,
+                  p.N <= 0xffffffffLL && p.strataTile <= 0xffffffffLL, u1,
+                  u2);
+    pointLocal(smem + p.samplerOff, u1, u2, lo[0], lo[1], lo[2], ld[0],
+               ld[1], ld[2]);
+    for (int k = 0; k < 3; ++k) {
+      slot[k * kBlock] = lo[k];
+      slot[(3 + k) * kBlock] = ld[k];
+    }
+  }
+
+  // per-ray modes: distance between two rows of the ring
   const long long rowStride = (long long)p.hitSlots * p.N;
-  float* ring = out0 + i;
-
-  if (i < p.N) {
-    float ox, oy, oz, dx, dy, dz, pw, wl;
-    if (p.mode == MODE_COLUMNS) {
-      ox = rayIn[i];             oy = rayIn[p.N + i];
-      oz = rayIn[2 * p.N + i];   dx = rayIn[3 * p.N + i];
-      dy = rayIn[4 * p.N + i];   dz = rayIn[5 * p.N + i];
-      pw = rayIn[6 * p.N + i];   wl = rayIn[7 * p.N + i];
-    } else if constexpr (SURF) {
-      // ---- in-kernel surface-source sampler: five uniforms per ray; in
-      // seed mode the second Philox call takes counter word 2 = 1 ----
-      float uF, u, v, uT, uP;
-      if (p.mode == MODE_UNIFORMS) {
-        uF = rayIn[i];            u = rayIn[p.N + i];
-        v = rayIn[2 * p.N + i];   uT = rayIn[3 * p.N + i];
-        uP = rayIn[4 * p.N + i];
-      } else {
-        const uint32_t lo = (uint32_t)i;
-        const uint32_t hi = (uint32_t)((unsigned long long)i >> 32);
-        const uint32_t k0 = (uint32_t)p.seed;
-        const uint32_t k1 = (uint32_t)(p.seed >> 32);
-        uint32_t rnd[4];
-        philox4x32(lo, hi, 0u, 0u, k0, k1, rnd);
-        uF = bitsToUniform(rnd[0]);
-        u = bitsToUniform(rnd[1]);
-        v = bitsToUniform(rnd[2]);
-        uT = bitsToUniform(rnd[3]);
-        philox4x32(lo, hi, 1u, 0u, k0, k1, rnd);
-        uP = bitsToUniform(rnd[0]);
-      }
-      const float* sg = smem + p.samplerOff;
-      sampleSurface<GEOM>(sg, uF, u, v, uT, uP, ox, oy, oz, dx, dy, dz);
-      pw = 1.f;
-      wl = sg[14];
-    } else {
-      // ---- in-kernel point-source sampler ----
-      float u1, u2;
-      if (p.mode == MODE_UNIFORMS) {
-        u1 = rayIn[i];
-        u2 = rayIn[p.N + i];
-      } else {
-        uint32_t rnd[4];
-        philox4x32((uint32_t)i, (uint32_t)((unsigned long long)i >> 32), 0u,
-                   0u, (uint32_t)p.seed, (uint32_t)(p.seed >> 32), rnd);
-        u1 = bitsToUniform(rnd[0]);
-        u2 = bitsToUniform(rnd[1]);
-      }
-      if (p.G1 > 0) {              // strata: a property of the ray index
-        long long cell = i / p.strataTile;
-        float i1 = (float)(cell / p.G2), i2 = (float)(cell % p.G2);
-        u1 = (i1 + u1) * p.invG1;
-        u2 = (i2 + u2) * p.invG2;
-      }
-      const float* sg = smem + p.samplerOff;
-      float t = marginal(sg + kSamplerGeom, u1);
-      float ph = marginal(sg + kSamplerGeom + kMargLen, u2);
-      float sp = sinf(ph), cp = cosf(ph);
-      float ldx, ldy, ldz, lox, loy, loz;
-      if (sg[0] != 0.f) {          // finite focal length
-        float f = sg[1];
-        float st = sinf(t), ct = cosf(t);
-        ldx = st * sp; ldy = -st * cp; ldz = ct;
-        lox = -f * ldx; loy = -f * ldy; loz = f * (1.f - ldz);
-      } else {                     // collimated: t is the radius
-        ldx = 0.f; ldy = 0.f; ldz = 1.f;
-        lox = t * cp; loy = -t * sp; loz = 0.f;
-      }
-      const float* R = sg + 2;
-      ox = R[0] * lox + R[1] * loy + R[2] * loz + sg[11];
-      oy = R[3] * lox + R[4] * loy + R[5] * loz + sg[12];
-      oz = R[6] * lox + R[7] * loy + R[8] * loz + sg[13];
-      dx = R[0] * ldx + R[1] * ldy + R[2] * ldz;
-      dy = R[3] * ldx + R[4] * ldy + R[5] * ldz;
-      dz = R[6] * ldx + R[7] * ldy + R[8] * ldz;
-      pw = 1.f;
-      wl = sg[14];
+  int segs = 0, hitN = 0;
+  // one pass for each of the block's variants (one pass without SWEEP)
+  for (int var = 0; var < nVar; ++var) {
+    const long long ray = kGroups ? freshRayIndex() : i;
+    // this variant's table in shared memory and its histograms (the
+    // grouped instances have no tables in device memory)
+    const float* tab = smem;
+    float* o0 = out0;
+    float* o1 = out1;
+    if constexpr (kGroups) {
+      const long long variant = freshFirstVariant(p) + var;
+      tab = smem + var * p.tableLen;
+      o0 += variant * p.histLen;
+      o1 += variant * p.histLen;
     }
+    const float* surfT = tab;
+    const float* elemT = tab + p.nSurf * kRow;
+    segs = 0;
+    hitN = 0;
+    int lastBin = -1;              // OUT_HIST: the ring's last slot
+    float lastW = 0.f;
+    float* ring = o0 + ray;        // per-ray modes: this ray's column
 
-    int medium = -1;               // element id of the medium, -1 = vacuum
-    int seq = 0;                   // sequential mode: the ray's stage index
-    for (int bounce = 0; bounce < p.maxIntersections; ++bounce) {
-      // ---- nearest hit: online argmin (strict <: lowest index wins ties)
-      // plus the nearest surface NOT of the current medium, over the
-      // surfaces the ray's stage allows (a skipped surface is one whose
-      // distance is kBig: it changes no other surface's index) ----
-      float tBest = kBig, tOth = kBig;
-      int sBest = -1, sOth = -1;
-      const int stage = B4 ? min(seq, max(p.nStages, 1) - 1) : 0;
-      for (int s = 0; s < p.nSurf; ++s) {
-        const float* r = surfT + s * kRow;
-        // B12: a row outside this bounce's set (the sweep never culls)
-        if (!SWEEP && p.cullOff >= 0
-            && !inBounceSet(smem, p.cullOff, bounce, s)) continue;
-        if (B4 && p.gate && !stageAllowed(smem, r, stage)) continue;
-        float t;
-        if constexpr (GEOM)
-          t = intersectGeom(r, smem, ox, oy, oz, dx, dy, dz, p.tMin);
-        else
-          t = intersect(r, ox, oy, oz, dx, dy, dz, p.tMin);
-        if (t < tBest) { tBest = t; sBest = s; }
-        if (p.anyMedium) {
-          int e = (int)r[S_ELEM];
-          float tO = (elemT[e * kElemCols + E_MEDIUM] != 0.f && medium == e)
-                         ? kBig : t;
-          if (tO < tOth) { tOth = tO; sOth = s; }
+    if (ray < p.N) {
+      float ox, oy, oz, dx, dy, dz, pw, wl;
+      if (!kGroups && p.mode == MODE_COLUMNS) {
+        ox = rayIn[ray];             oy = rayIn[p.N + ray];
+        oz = rayIn[2 * p.N + ray];   dx = rayIn[3 * p.N + ray];
+        dy = rayIn[4 * p.N + ray];   dz = rayIn[5 * p.N + ray];
+        pw = rayIn[6 * p.N + ray];   wl = rayIn[7 * p.N + ray];
+      } else if constexpr (SURF) {
+        // ---- in-kernel surface-source sampler: five uniforms per ray; in
+        // seed mode the second Philox call takes counter word 2 = 1 ----
+        float uF, u, v, uT, uP;
+        if (p.mode == MODE_UNIFORMS) {
+          uF = rayIn[ray];            u = rayIn[p.N + ray];
+          v = rayIn[2 * p.N + ray];   uT = rayIn[3 * p.N + ray];
+          uP = rayIn[4 * p.N + ray];
+        } else {
+          const uint32_t lo = (uint32_t)ray;
+          const uint32_t hi = (uint32_t)((unsigned long long)ray >> 32);
+          const uint32_t k0 = (uint32_t)p.seed;
+          const uint32_t k1 = (uint32_t)(p.seed >> 32);
+          uint32_t rnd[4];
+          philox4x32(lo, hi, 0u, 0u, k0, k1, rnd);
+          uF = bitsToUniform(rnd[0]);
+          u = bitsToUniform(rnd[1]);
+          v = bitsToUniform(rnd[2]);
+          uT = bitsToUniform(rnd[3]);
+          philox4x32(lo, hi, 1u, 0u, k0, k1, rnd);
+          uP = bitsToUniform(rnd[0]);
         }
+        const float* sg = tab + p.samplerOff;
+        sampleSurface<GEOM>(sg, uF, u, v, uT, uP, ox, oy, oz, dx, dy, dz);
+        pw = 1.f;
+        wl = sg[14];
+      } else {
+        // ---- in-kernel point-source sampler: the ray in the source's
+        // frame (drawn, or the group's shared draw), then this variant's
+        // placement ----
+        const float* sg = tab + p.samplerOff;
+        float lox, loy, loz, ldx, ldy, ldz;
+        if (kGroups) {
+          volatile float* slot = slots + (ray & (kBlock - 1));
+          lox = slot[0];            loy = slot[kBlock];
+          loz = slot[2 * kBlock];   ldx = slot[3 * kBlock];
+          ldy = slot[4 * kBlock];   ldz = slot[5 * kBlock];
+        } else {
+          float u1, u2;
+          pointUniforms(p, rayIn, ray, false, u1, u2);
+          pointLocal(sg, u1, u2, lox, loy, loz, ldx, ldy, ldz);
+        }
+        const float* R = sg + 2;
+        ox = R[0] * lox + R[1] * loy + R[2] * loz + sg[11];
+        oy = R[3] * lox + R[4] * loy + R[5] * loz + sg[12];
+        oz = R[6] * lox + R[7] * loy + R[8] * loz + sg[13];
+        dx = R[0] * ldx + R[1] * ldy + R[2] * ldz;
+        dy = R[3] * ldx + R[4] * ldy + R[5] * ldz;
+        dz = R[6] * ldx + R[7] * ldy + R[8] * ldz;
+        pw = 1.f;
+        wl = sg[14];
       }
-      // ---- B7: the triangle table after the surface rows (index -2) ----
-      float nxT = 0.f, nyT = 0.f, nzT = 0.f;
-      int elT = -1;
-      TableHit sw;
-      if constexpr (TRI) {
-        if (!STAB || tt.n > 0) {
-          float tT;
-          sweepTriangles(tt, ox, oy, oz, dx, dy, dz, p.tMin, p.maxRayLength,
-                         fminf(tBest, p.mrlEff) + p.window, p.window, tT,
-                         nxT, nyT, nzT, elT);
-          if (tT < tBest) { tBest = tT; sBest = -2; }
+      int medium = -1;               // element id of the medium, -1 = vacuum
+      int seq = 0;                   // sequential mode: the ray's stage index
+      for (int bounce = 0; bounce < p.maxIntersections; ++bounce) {
+        // ---- nearest hit: online argmin (strict <: lowest index wins ties)
+        // plus the nearest surface NOT of the current medium, over the
+        // surfaces the ray's stage allows (a skipped surface is one whose
+        // distance is kBig: it changes no other surface's index) ----
+        float tBest = kBig, tOth = kBig;
+        int sBest = -1, sOth = -1;
+        const int stage = B4 ? min(seq, max(p.nStages, 1) - 1) : 0;
+        for (int s = 0; s < p.nSurf; ++s) {
+          const float* r = surfT + s * kRow;
+          // B12: a row outside this bounce's set (the sweep never culls)
+          if (!SWEEP && p.cullOff >= 0
+              && !inBounceSet(tab, p.cullOff, bounce, s)) continue;
+          if (B4 && p.gate && !stageAllowed(tab, r, stage)) continue;
+          float t;
+          if constexpr (GEOM)
+            t = intersectGeom(r, tab, ox, oy, oz, dx, dy, dz, p.tMin);
+          else
+            t = intersect(r, ox, oy, oz, dx, dy, dz, p.tMin);
+          if (t < tBest) { tBest = t; sBest = s; }
           if (p.anyMedium) {
-            const float tO = medium != elT ? tT : kBig;
-            if (tO < tOth) { tOth = tO; sOth = -2; }
+            int e = (int)r[S_ELEM];
+            float tO = (elemT[e * kElemCols + E_MEDIUM] != 0.f && medium == e)
+                           ? kBig : t;
+            if (tO < tOth) { tOth = tO; sOth = s; }
           }
         }
-      }
-      // ---- B8: the surface table after that (index -3); its winner
-      // enters the other-medium tracker as that one winner ----
-      if constexpr (STAB) {
-        if (stab.nRuns > 0) {
-          sweepSurfaceTable(stab, surfRows, surfBox, ox, oy, oz, dx, dy, dz,
-                            p.tMin, p.mrlEff, tBest, p.window, sw);
-          if (sw.t < tBest) { tBest = sw.t; sBest = -3; }
-          if (p.anyMedium) {
-            const float tO = medium != sw.el ? sw.t : kBig;
-            if (tO < tOth) { tOth = tO; sOth = -3; }
+        // ---- B7: the triangle table after the surface rows (index -2) ----
+        float nxT = 0.f, nyT = 0.f, nzT = 0.f;
+        int elT = -1;
+        TableHit sw;
+        if constexpr (TRI) {
+          if (!STAB || tt.n > 0) {
+            float tT;
+            sweepTriangles(tt, ox, oy, oz, dx, dy, dz, p.tMin, p.maxRayLength,
+                           fminf(tBest, p.mrlEff) + p.window, p.window, tT,
+                           nxT, nyT, nzT, elT);
+            if (tT < tBest) { tBest = tT; sBest = -2; }
+            if (p.anyMedium) {
+              const float tO = medium != elT ? tT : kBig;
+              if (tO < tOth) { tOth = tO; sOth = -2; }
+            }
           }
         }
-      }
-      bool hasHit = tBest <= p.mrlEff;
-      if (!p.anyMedium) { tOth = tBest; sOth = sBest; }
-      bool hasPref = (tOth <= p.mrlEff) && (tOth <= tBest + p.window);
-      float tSel = hasPref ? tOth : tBest;
-      int sIdx = hasPref ? sOth : sBest;
-      float tSeg = hasHit ? tSel : p.maxRayLength;
-      float px = ox + tSeg * dx, py = oy + tSeg * dy, pz = oz + tSeg * dz;
-      ++segs;
-      if (!hasHit) break;          // escaped: the segment counts, the ray ends
-
-      // ---- winner attributes: local point, normal by kind, world normal
-      // through the transposed rotation times orient; a table triangle's
-      // tracked normal and element, the world (x, y) as its chart; a
-      // surface-table winner's tracked normal, element and local chart ----
-      float lx, ly, nxA, nyA, nzA;
-      int elem;
-      if (TRI && sIdx == -2) {
-        lx = px; ly = py;
-        nxA = nxT; nyA = nyT; nzA = nzT;
-        elem = elT;
-      } else if (STAB && sIdx == -3) {
-        lx = sw.lx; ly = sw.ly;
-        nxA = sw.nx; nyA = sw.ny; nzA = sw.nz;
-        elem = sw.el;
-      } else {
-        const float* r = surfT + sIdx * kRow;
-        const float* R = r + S_ROT;
-        lx = R[0] * px + R[1] * py + R[2] * pz + r[S_OFF];
-        ly = R[3] * px + R[4] * py + R[5] * pz + r[S_OFF + 1];
-        float lz = R[6] * px + R[7] * py + R[8] * pz + r[S_OFF + 2];
-        int kind = (int)r[S_KIND];
-        float nlx = 0.f, nly = 0.f, nlz = 1.f;
-        if (kind == KIND_SPHERE) {
-          float inv = rsqrtf(lx * lx + ly * ly + lz * lz + 1e-20f);
-          nlx = lx * inv; nly = ly * inv; nlz = lz * inv;
-        } else if (kind == KIND_CYLINDER) {
-          float inv = rsqrtf(lx * lx + ly * ly + 1e-20f);
-          nlx = lx * inv; nly = ly * inv; nlz = 0.f;
-        } else if constexpr (GEOM) {
-          geomNormal(r, kind, lx, ly, lz, nlx, nly, nlz);
+        // ---- B8: the surface table after that (index -3); its winner
+        // enters the other-medium tracker as that one winner ----
+        if constexpr (STAB) {
+          if (stab.nRuns > 0) {
+            sweepSurfaceTable(stab, surfRows, surfBox, ox, oy, oz, dx, dy, dz,
+                              p.tMin, p.mrlEff, tBest, p.window, sw);
+            if (sw.t < tBest) { tBest = sw.t; sBest = -3; }
+            if (p.anyMedium) {
+              const float tO = medium != sw.el ? sw.t : kBig;
+              if (tO < tOth) { tOth = tO; sOth = -3; }
+            }
+          }
         }
-        float orient = r[S_ORIENT];
-        nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient;
-        nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient;
-        nzA = (R[2] * nlx + R[5] * nly + R[8] * nlz) * orient;
-        elem = (int)r[S_ELEM];
-      }
-      const float* er = elemT + elem * kElemCols;
+        bool hasHit = tBest <= p.mrlEff;
+        if (!p.anyMedium) { tOth = tBest; sOth = sBest; }
+        bool hasPref = (tOth <= p.mrlEff) && (tOth <= tBest + p.window);
+        float tSel = hasPref ? tOth : tBest;
+        int sIdx = hasPref ? sOth : sBest;
+        float tSeg = hasHit ? tSel : p.maxRayLength;
+        float px = ox + tSeg * dx, py = oy + tSeg * dy, pz = oz + tSeg * dz;
+        ++segs;
+        if (!hasHit) break;        // escaped: the segment counts, the ray ends
 
-      float cosA = dx * nxA + dy * nyA + dz * nzA;
-      bool isEntering = cosA < 0.f;
-      float sgn = isEntering ? -1.f : 1.f;
-      float nx = nxA * sgn, ny = nyA * sgn, nz = nzA * sgn;
-
-      float nElem = er[E_N];
-      if (B4 && p.dispOff >= 0 && er[E_DISP] != 0.f)
-        nElem = dispersionN(smem + p.dispOff + elem * kDispCols, wl);
-
-      // ---- Beer-Lambert along the segment, before the interaction ----
-      bool inMedium = medium >= 0;
-      float nMed = 1.f, absLenMed = kBig;
-      if (inMedium) {
-        const float* mr = elemT + medium * kElemCols;
-        nMed = mr[E_N];
-        if (B4 && p.dispOff >= 0 && mr[E_DISP] != 0.f)
-          nMed = dispersionN(smem + p.dispOff + medium * kDispCols, wl);
-        absLenMed = mr[E_ABSLEN];
-        float factor = absLenMed <= 0.f ? 0.f
-                       : (absLenMed >= kBig ? 1.f : expf(-tSeg / absLenMed));
-        pw = pw * factor;
-      }
-
-      // ---- interactions ----
-      float dDotN = dx * nx + dy * ny + dz * nz;
-      float mxD = dx - 2.f * nx * dDotN;
-      float myD = dy - 2.f * ny * dDotN;
-      float mzD = dz - 2.f * nz * dDotN;
-      float n1 = inMedium ? nMed : 1.f;
-      float n2 = isEntering ? nElem : 1.f;
-      float mu = n1 / n2;
-      float sin2 = fmaxf(1.f - dDotN * dDotN, 0.f);
-      float root = 1.f - mu * mu * sin2;
-      bool tir = root < 0.f;
-      float sq = sqrtf(fmaxf(root, 0.f));
-      float tx = dx - nx * dDotN, ty = dy - ny * dDotN, tz = dz - nz * dDotN;
-      float snx = tir ? mxD : mu * tx + nx * sq;
-      float sny = tir ? myD : mu * ty + ny * sq;
-      float snz = tir ? mzD : mu * tz + nz * sq;
-
-      int opt = (int)er[E_OPT];
-      bool isMirror = opt == OPT_MIRROR, isLens = opt == OPT_LENS;
-      bool isAbsorber = opt == OPT_ABSORBER;
-      float ndx = isMirror ? mxD : (isLens ? snx : dx);
-      float ndy = isMirror ? myD : (isLens ? sny : dy);
-      float ndz = isMirror ? mzD : (isLens ? snz : dz);
-      bool lensExit = isLens && !isEntering && !tir && (medium == elem);
-      int newMedium = (isLens && isEntering) ? elem
-                      : (lensExit ? -1 : medium);
-      float newPw = isMirror ? pw * er[E_REFL] : (isAbsorber ? 0.f : pw);
-      bool seqInc = isMirror || isAbsorber || opt == OPT_VACUUM || lensExit;
-
-      if (B4 && p.hasGrating && opt == OPT_GRATING) {
-        // ---- Ludwig-1970 line grating with the incidence-side normal: the
-        // line direction (world frame) and the normal span the grating
-        // frame; the diffracted direction solves a quadratic whose negative
-        // discriminant is an evanescent order ----
-        bool isReflG = er[E_GTYPE] == 0.f;
-        float gn1 = isReflG ? n1 : 1.f;
-        float gn2 = isReflG ? n1 : nElem;
-        float gmu = gn1 / gn2;
-        float gdx = er[E_GDIR], gdy = er[E_GDIR + 1], gdz = er[E_GDIR + 2];
-        float nix = -nx, niy = -ny, niz = -nz;
-        float pgx = gdy * niz - gdz * niy;
-        float pgy = gdz * nix - gdx * niz;
-        float pgz = gdx * niy - gdy * nix;
-        float pinv = rsqrtf(pgx * pgx + pgy * pgy + pgz * pgz + 1e-20f);
-        pgx *= pinv; pgy *= pinv; pgz *= pinv;
-        float dgx = niy * pgz - niz * pgy;
-        float dgy = niz * pgx - nix * pgz;
-        float dgz = nix * pgy - niy * pgx;
-        float dinv = rsqrtf(dgx * dgx + dgy * dgy + dgz * dgz + 1e-20f);
-        dgx *= dinv; dgy *= dinv; dgz *= dinv;
-        float lamUm = wl / 1000.f;
-        float spacing = 1000.f / er[E_GLPM];
-        float Tt = er[E_GORDER] * lamUm / (gn1 * spacing);
-        float Vg = gmu * (dx * nix + dy * niy + dz * niz);
-        float Wg = gmu * gmu - 1.f + Tt * Tt
-                   - 2.f * gmu * Tt * (dx * dgx + dy * dgy + dz * dgz);
-        float discG = Vg * Vg - Wg;
-        float gsq = sqrtf(fmaxf(discG, 0.f));
-        float qg = isReflG ? -Vg + gsq : -Vg - gsq;
-        if (isEntering) {
-          float ggx = gmu * dx - Tt * dgx + qg * nix;
-          float ggy = gmu * dy - Tt * dgy + qg * niy;
-          float ggz = gmu * dz - Tt * dgz + qg * niz;
-          float ginv = rsqrtf(ggx * ggx + ggy * ggy + ggz * ggz + 1e-20f);
-          ndx = ggx * ginv; ndy = ggy * ginv; ndz = ggz * ginv;
-          if (discG < 0.f) newPw = 0.f;        // evanescent order
-        } else if (!isReflG) {
-          // a transmissive grating exiting its substrate refracts like a
-          // lens; a reflective one passes non-entering rays through
-          ndx = snx; ndy = sny; ndz = snz;
+        // ---- winner attributes: local point, normal by kind, world normal
+        // through the transposed rotation times orient; a table triangle's
+        // tracked normal and element, the world (x, y) as its chart; a
+        // surface-table winner's tracked normal, element and local chart ----
+        float lx, ly, nxA, nyA, nzA;
+        int elem;
+        if (TRI && sIdx == -2) {
+          lx = px; ly = py;
+          nxA = nxT; nyA = nyT; nzA = nzT;
+          elem = elT;
+        } else if (STAB && sIdx == -3) {
+          lx = sw.lx; ly = sw.ly;
+          nxA = sw.nx; nyA = sw.ny; nzA = sw.nz;
+          elem = sw.el;
+        } else {
+          const float* r = surfT + sIdx * kRow;
+          const float* R = r + S_ROT;
+          lx = R[0] * px + R[1] * py + R[2] * pz + r[S_OFF];
+          ly = R[3] * px + R[4] * py + R[5] * pz + r[S_OFF + 1];
+          float lz = R[6] * px + R[7] * py + R[8] * pz + r[S_OFF + 2];
+          int kind = (int)r[S_KIND];
+          float nlx = 0.f, nly = 0.f, nlz = 1.f;
+          if (kind == KIND_SPHERE) {
+            float inv = rsqrtf(lx * lx + ly * ly + lz * lz + 1e-20f);
+            nlx = lx * inv; nly = ly * inv; nlz = lz * inv;
+          } else if (kind == KIND_CYLINDER) {
+            float inv = rsqrtf(lx * lx + ly * ly + 1e-20f);
+            nlx = lx * inv; nly = ly * inv; nlz = 0.f;
+          } else if constexpr (GEOM) {
+            geomNormal(r, kind, lx, ly, lz, nlx, nly, nlz);
+          }
+          float orient = r[S_ORIENT];
+          nxA = (R[0] * nlx + R[3] * nly + R[6] * nlz) * orient;
+          nyA = (R[1] * nlx + R[4] * nly + R[7] * nlz) * orient;
+          nzA = (R[2] * nlx + R[5] * nly + R[8] * nlz) * orient;
+          elem = (int)r[S_ELEM];
         }
-        bool transExit = !isReflG && !isEntering && !tir;
-        if (!isReflG) newMedium = isEntering ? elem : (transExit ? -1 : medium);
-        seqInc = (isReflG && isEntering) || transExit;
-      }
-      float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
-      ndx *= inv; ndy *= inv; ndz *= inv;
-      if constexpr (SCAT)
-        scatterBounce(smem + p.nSurf * kRow + p.nElem * kElemCols, p,
-                      rayIn, i, bounce, SURF ? 5 : 2, elem, isMirror, isLens,
-                      isEntering, dDotN, nx, ny, nz, dx, dy, dz, ndx, ndy,
-                      ndz);
-      // the stage advances on every interaction but a lens or
-      // transmission-grating ENTRY
-      if (B4 && p.nStages > 0 && seqInc) ++seq;
+        const float* er = elemT + elem * kElemCols;
 
-      // ---- record the detector pass (power AFTER absorption, BEFORE the
-      // interaction) into the hit ring; slot = min(hitN, hitSlots - 1), so
-      // an overflow overwrites the last slot ----
-      if constexpr (OUT == OUT_RAW) {
-        // every hit on a recording element: no bounds gate, no detector map
-        if (er[E_REC] > 0.5f) {
-          float* o = ring + (long long)min(hitN, p.hitSlots - 1) * p.N;
-          o[0] = (float)elem;
-          o[rowStride] = pw;
-          o[2 * rowStride] = isEntering ? 1.f : 0.f;
-          o[3 * rowStride] = px;
-          o[4 * rowStride] = py;
-          o[5 * rowStride] = pz;
-          o[6 * rowStride] = dx;   // the INCOMING direction
-          o[7 * rowStride] = dy;
-          o[8 * rowStride] = dz;
-          ++hitN;
+        float cosA = dx * nxA + dy * nyA + dz * nzA;
+        bool isEntering = cosA < 0.f;
+        float sgn = isEntering ? -1.f : 1.f;
+        float nx = nxA * sgn, ny = nyA * sgn, nz = nzA * sgn;
+
+        float nElem = er[E_N];
+        if (B4 && p.dispOff >= 0 && er[E_DISP] != 0.f)
+          nElem = dispersionN(tab + p.dispOff + elem * kDispCols, wl);
+
+        // ---- Beer-Lambert along the segment, before the interaction ----
+        bool inMedium = medium >= 0;
+        float nMed = 1.f, absLenMed = kBig;
+        if (inMedium) {
+          const float* mr = elemT + medium * kElemCols;
+          nMed = mr[E_N];
+          if (B4 && p.dispOff >= 0 && mr[E_DISP] != 0.f)
+            nMed = dispersionN(tab + p.dispOff + medium * kDispCols, wl);
+          absLenMed = mr[E_ABSLEN];
+          float factor = absLenMed <= 0.f ? 0.f
+                         : (absLenMed >= kBig ? 1.f : expf(-tSeg / absLenMed));
+          pw = pw * factor;
         }
-      } else {
-        float bx0 = er[E_BX0], by0 = er[E_BY0];
-        float fx = (lx - bx0) / (er[E_BX1] - bx0);
-        float fy = (ly - by0) / (er[E_BY1] - by0);
-        int det = (int)er[E_DET];
-        bool inside = (fx >= 0.f) && (fx < 1.f) && (fy >= 0.f) && (fy < 1.f)
-                      && (er[E_REC] > 0.5f) && (det >= 0);
-        if (inside) {
-          int ix = (int)floorf(fx * (float)p.W);
-          int iy = (int)floorf(fy * (float)p.H);
-          int bin = (det * p.H + iy) * p.W + ix;
-          if constexpr (OUT == OUT_BINS) {
+
+        // ---- interactions ----
+        float dDotN = dx * nx + dy * ny + dz * nz;
+        float mxD = dx - 2.f * nx * dDotN;
+        float myD = dy - 2.f * ny * dDotN;
+        float mzD = dz - 2.f * nz * dDotN;
+        float n1 = inMedium ? nMed : 1.f;
+        float n2 = isEntering ? nElem : 1.f;
+        float mu = n1 / n2;
+        float sin2 = fmaxf(1.f - dDotN * dDotN, 0.f);
+        float root = 1.f - mu * mu * sin2;
+        bool tir = root < 0.f;
+        float sq = sqrtf(fmaxf(root, 0.f));
+        float tx = dx - nx * dDotN, ty = dy - ny * dDotN, tz = dz - nz * dDotN;
+        float snx = tir ? mxD : mu * tx + nx * sq;
+        float sny = tir ? myD : mu * ty + ny * sq;
+        float snz = tir ? mzD : mu * tz + nz * sq;
+
+        int opt = (int)er[E_OPT];
+        bool isMirror = opt == OPT_MIRROR, isLens = opt == OPT_LENS;
+        bool isAbsorber = opt == OPT_ABSORBER;
+        float ndx = isMirror ? mxD : (isLens ? snx : dx);
+        float ndy = isMirror ? myD : (isLens ? sny : dy);
+        float ndz = isMirror ? mzD : (isLens ? snz : dz);
+        bool lensExit = isLens && !isEntering && !tir && (medium == elem);
+        int newMedium = (isLens && isEntering) ? elem
+                        : (lensExit ? -1 : medium);
+        float newPw = isMirror ? pw * er[E_REFL] : (isAbsorber ? 0.f : pw);
+        bool seqInc = isMirror || isAbsorber || opt == OPT_VACUUM || lensExit;
+
+        if (B4 && p.hasGrating && opt == OPT_GRATING) {
+          // ---- Ludwig-1970 line grating with the incidence-side normal: the
+          // line direction (world frame) and the normal span the grating
+          // frame; the diffracted direction solves a quadratic whose negative
+          // discriminant is an evanescent order ----
+          bool isReflG = er[E_GTYPE] == 0.f;
+          float gn1 = isReflG ? n1 : 1.f;
+          float gn2 = isReflG ? n1 : nElem;
+          float gmu = gn1 / gn2;
+          float gdx = er[E_GDIR], gdy = er[E_GDIR + 1], gdz = er[E_GDIR + 2];
+          float nix = -nx, niy = -ny, niz = -nz;
+          float pgx = gdy * niz - gdz * niy;
+          float pgy = gdz * nix - gdx * niz;
+          float pgz = gdx * niy - gdy * nix;
+          float pinv = rsqrtf(pgx * pgx + pgy * pgy + pgz * pgz + 1e-20f);
+          pgx *= pinv; pgy *= pinv; pgz *= pinv;
+          float dgx = niy * pgz - niz * pgy;
+          float dgy = niz * pgx - nix * pgz;
+          float dgz = nix * pgy - niy * pgx;
+          float dinv = rsqrtf(dgx * dgx + dgy * dgy + dgz * dgz + 1e-20f);
+          dgx *= dinv; dgy *= dinv; dgz *= dinv;
+          float lamUm = wl / 1000.f;
+          float spacing = 1000.f / er[E_GLPM];
+          float Tt = er[E_GORDER] * lamUm / (gn1 * spacing);
+          float Vg = gmu * (dx * nix + dy * niy + dz * niz);
+          float Wg = gmu * gmu - 1.f + Tt * Tt
+                     - 2.f * gmu * Tt * (dx * dgx + dy * dgy + dz * dgz);
+          float discG = Vg * Vg - Wg;
+          float gsq = sqrtf(fmaxf(discG, 0.f));
+          float qg = isReflG ? -Vg + gsq : -Vg - gsq;
+          if (isEntering) {
+            float ggx = gmu * dx - Tt * dgx + qg * nix;
+            float ggy = gmu * dy - Tt * dgy + qg * niy;
+            float ggz = gmu * dz - Tt * dgz + qg * niz;
+            float ginv = rsqrtf(ggx * ggx + ggy * ggy + ggz * ggz + 1e-20f);
+            ndx = ggx * ginv; ndy = ggy * ginv; ndz = ggz * ginv;
+            if (discG < 0.f) newPw = 0.f;        // evanescent order
+          } else if (!isReflG) {
+            // a transmissive grating exiting its substrate refracts like a
+            // lens; a reflective one passes non-entering rays through
+            ndx = snx; ndy = sny; ndz = snz;
+          }
+          bool transExit = !isReflG && !isEntering && !tir;
+          if (!isReflG)
+            newMedium = isEntering ? elem : (transExit ? -1 : medium);
+          seqInc = (isReflG && isEntering) || transExit;
+        }
+        float inv = rsqrtf(ndx * ndx + ndy * ndy + ndz * ndz + 1e-20f);
+        ndx *= inv; ndy *= inv; ndz *= inv;
+        if constexpr (SCAT)
+          scatterBounce(tab + p.nSurf * kRow + p.nElem * kElemCols, p,
+                        rayIn, ray, bounce, SURF ? 5 : 2, elem, isMirror, isLens,
+                        isEntering, dDotN, nx, ny, nz, dx, dy, dz, ndx, ndy,
+                        ndz);
+        // the stage advances on every interaction but a lens or
+        // transmission-grating ENTRY
+        if (B4 && p.nStages > 0 && seqInc) ++seq;
+
+        // ---- record the detector pass (power AFTER absorption, BEFORE the
+        // interaction) into the hit ring; slot = min(hitN, hitSlots - 1), so
+        // an overflow overwrites the last slot ----
+        if constexpr (OUT == OUT_RAW) {
+          // every hit on a recording element: no bounds gate, no detector map
+          if (er[E_REC] > 0.5f) {
             float* o = ring + (long long)min(hitN, p.hitSlots - 1) * p.N;
-            o[0] = (float)bin;
+            o[0] = (float)elem;
             o[rowStride] = pw;
-            o[2 * rowStride] = 1.f;
-          } else if (hitN < p.hitSlots - 1) {
-            atomicAdd(out0 + bin, pw);
-            atomicAdd(out1 + bin, 1.f);
-          } else {                 // the last slot: an overflow overwrites it
-            lastBin = bin;
-            lastW = pw;
+            o[2 * rowStride] = isEntering ? 1.f : 0.f;
+            o[3 * rowStride] = px;
+            o[4 * rowStride] = py;
+            o[5 * rowStride] = pz;
+            o[6 * rowStride] = dx;   // the INCOMING direction
+            o[7 * rowStride] = dy;
+            o[8 * rowStride] = dz;
+            ++hitN;
           }
-          ++hitN;
+        } else {
+          float bx0 = er[E_BX0], by0 = er[E_BY0];
+          float fx = (lx - bx0) / (er[E_BX1] - bx0);
+          float fy = (ly - by0) / (er[E_BY1] - by0);
+          int det = (int)er[E_DET];
+          bool inside = (fx >= 0.f) && (fx < 1.f) && (fy >= 0.f) && (fy < 1.f)
+                        && (er[E_REC] > 0.5f) && (det >= 0);
+          if (inside) {
+            int ix = (int)floorf(fx * (float)p.W);
+            int iy = (int)floorf(fy * (float)p.H);
+            int bin = (det * p.H + iy) * p.W + ix;
+            if constexpr (OUT == OUT_BINS) {
+              float* o = ring + (long long)min(hitN, p.hitSlots - 1) * p.N;
+              o[0] = (float)bin;
+              o[rowStride] = pw;
+              o[2 * rowStride] = 1.f;
+            } else if (hitN < p.hitSlots - 1) {
+              atomicAdd(o0 + bin, pw);
+              atomicAdd(o1 + bin, 1.f);
+            } else {                 // the last slot: an overflow overwrites it
+              lastBin = bin;
+              lastW = pw;
+            }
+            ++hitN;
+          }
+        }
+
+        if (!(newPw >= p.powerTol)) break;
+        ox = px; oy = py; oz = pz;
+        dx = ndx; dy = ndy; dz = ndz;
+        pw = newPw;
+        medium = newMedium;
+      }
+      if constexpr (OUT == OUT_HIST) {
+        if (lastBin >= 0) addGrouped(o0, o1, lastBin, lastW);
+      } else {
+        // the slots this ray never reached: -1 in the key row, 0 elsewhere
+        constexpr int ringRows = OUT == OUT_RAW ? 9 : 3;
+        for (int s = min(hitN, p.hitSlots); s < p.hitSlots; ++s) {
+          float* o = ring + (long long)s * p.N;
+          o[0] = -1.f;
+          for (int k = 1; k < ringRows; ++k) o[k * rowStride] = 0.f;
         }
       }
-
-      if (!(newPw >= p.powerTol)) break;
-      ox = px; oy = py; oz = pz;
-      dx = ndx; dy = ndy; dz = ndz;
-      pw = newPw;
-      medium = newMedium;
     }
-    if constexpr (OUT == OUT_HIST) {
-      if (lastBin >= 0) addGrouped(out0, out1, lastBin, lastW);
-    } else {
-      // the slots this ray never reached: -1 in the key row, 0 elsewhere
-      constexpr int ringRows = OUT == OUT_RAW ? 9 : 3;
-      for (int s = min(hitN, p.hitSlots); s < p.hitSlots; ++s) {
-        float* o = ring + (long long)s * p.N;
-        o[0] = -1.f;
-        for (int k = 1; k < ringRows; ++k) o[k * rowStride] = 0.f;
+
+    // a group's variant: its totals (segments, filled ring slots, ring
+    // overflow), summed over the warp and kept per warp
+    if constexpr (kGroups) {
+      int c0 = segs, c1 = min(hitN, p.hitSlots);
+      int c2 = max(hitN - p.hitSlots, 0);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        c0 += __shfl_down_sync(0xffffffffu, c0, o);
+        c1 += __shfl_down_sync(0xffffffffu, c1, o);
+        c2 += __shfl_down_sync(0xffffffffu, c2, o);
+      }
+      const int t = (int)(freshRayIndex() & (kBlock - 1));
+      if ((t & 31) == 0) {
+        int* r = groupRed + var * 3 * (kBlock / 32) + (t >> 5);
+        r[0] = c0;
+        r[kBlock / 32] = c1;
+        r[2 * (kBlock / 32)] = c2;
       }
     }
   }
 
-  // ---- per-block totals: segments, filled ring slots (= recorded hits),
-  // ring overflow ----
-  int ovf = max(hitN - p.hitSlots, 0);
-  __shared__ int red[3][kBlock / 32];
-  int v0 = segs, v1 = min(hitN, p.hitSlots), v2 = ovf;
+  if constexpr (kGroups) {
+    // ---- the group's totals: thread 3 v + k adds total k of variant v
+    // over the warps, one 64-bit atomic where it is not 0 ----
+    __syncthreads();
+    if ((int)threadIdx.x < 3 * nVar) {
+      unsigned long long total = 0;
+      for (int w = 0; w < kBlock / 32; ++w)
+        total += groupRed[threadIdx.x * (kBlock / 32) + w];
+      if (total)
+        atomicAdd(counters + freshFirstVariant(p) * 3 + threadIdx.x, total);
+    }
+  } else {
+    // ---- per-block totals: segments, filled ring slots (= recorded hits),
+    // ring overflow ----
+    int ovf = max(hitN - p.hitSlots, 0);
+    __shared__ int red[3][kBlock / 32];
+    int v0 = segs, v1 = min(hitN, p.hitSlots), v2 = ovf;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v0 += __shfl_down_sync(0xffffffffu, v0, o);
-    v1 += __shfl_down_sync(0xffffffffu, v1, o);
-    v2 += __shfl_down_sync(0xffffffffu, v2, o);
-  }
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) { red[0][warp] = v0; red[1][warp] = v1; red[2][warp] = v2; }
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    unsigned long long total = 0;
-    for (int w = 0; w < kBlock / 32; ++w) total += red[threadIdx.x][w];
-    if (total) atomicAdd(counters + threadIdx.x, total);
+    for (int o = 16; o > 0; o >>= 1) {
+      v0 += __shfl_down_sync(0xffffffffu, v0, o);
+      v1 += __shfl_down_sync(0xffffffffu, v1, o);
+      v2 += __shfl_down_sync(0xffffffffu, v2, o);
+    }
+    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) {
+      red[0][warp] = v0; red[1][warp] = v1; red[2][warp] = v2;
+    }
+    __syncthreads();
+    if (threadIdx.x < 3) {
+      unsigned long long total = 0;
+      for (int w = 0; w < kBlock / 32; ++w) total += red[threadIdx.x][w];
+      if (total) atomicAdd(counters + threadIdx.x, total);
+    }
   }
 }
 
@@ -2060,6 +2255,7 @@ inline TraceParams traceParams(const long long* ip, const float* fp) {
   p.invG1 = fp[5];
   p.invG2 = fp[6];
   p.histLen = 0;
+  p.nVariants = 0;
   p.hasGrating = (int)ip[17];
   p.nStages = (int)ip[18];
   p.gate = (int)ip[19];
@@ -2087,13 +2283,13 @@ int allowTable(Kernel kernel, size_t shmem) {
 
 // Launch `kernel` on `stream` with the table allowed its shared memory.
 template <typename Kernel>
-int launch(Kernel kernel, long long blocks, size_t shmem, void* stream,
+int launch(Kernel kernel, dim3 grid, size_t shmem, void* stream,
            const TraceParams& p, const float* table, const TriTable& tt,
            const SurfTable& st, const float* surfTab, const float* surfBox,
            const float* rayIn, float* out0, float* out1,
            unsigned long long* counters) {
   if (int err = allowTable(kernel, shmem)) return err;
-  kernel<<<(unsigned)blocks, kBlock, shmem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kBlock, shmem, (cudaStream_t)stream>>>(
       p, table, tt, st, surfTab, surfBox, rayIn, out0, out1, counters);
   return (int)cudaGetLastError();
 }
@@ -2123,8 +2319,8 @@ int launchTrace(const float* table, const float* tri, const float* box,
   constexpr int O = OUT;
   constexpr bool T = true, F = false;
   auto go = [&](auto kernel) {
-    return launch(kernel, blocks, shmem, stream, p, table, tt, st, surfTab,
-                  surfBox, rayIn, out0, out1, counters);
+    return launch(kernel, dim3((unsigned)blocks), shmem, stream, p, table,
+                  tt, st, surfTab, surfBox, rayIn, out0, out1, counters);
   };
   if constexpr (TRI) {             // every TRI instance is built on B4
     // STAB (S): the instances that also sweep a surface table (ip[26] > 0)
@@ -2158,39 +2354,51 @@ int launchTrace(const float* table, const float* tri, const float* box,
   }
 }
 
-// The sweep's launch (OUT_HIST, variant-major), TRI as for launchTrace:
-// ip[15] variants of ip[0] rays each, ip[16] floats per variant's histogram
-// (the other parameters as for the single-scene launchers). The grid is
-// variants x ceil(rays / block) blocks; threads past a variant's last ray
-// are masked like the last block of a single-scene launch. No
-// synchronisation, no allocation; returns cudaGetLastError().
+// A sweep block's dynamic shared memory: one variant a block, its table
+// (as the single-scene kernel); a group of more than one variant, the
+// tables of min(group, variants) variants, their per-warp totals and the
+// per-thread slot (kernel above).
+inline size_t sweepSharedBytes(long long tableLen, long long variants,
+                               long long group) {
+  if (group == 1) return (size_t)tableLen * sizeof(float);
+  const long long held = group < variants ? group : variants;
+  return (size_t)(held * (tableLen + 3 * (kBlock / 32))
+                  + kSlotFloats * kBlock) * sizeof(float);
+}
+
+// The sweep's scalar parameters, TRI as for launchTrace: ip[15] variants of
+// ip[0] rays each, ip[16] floats per variant's histogram, past the words of
+// launchTrace the variants of a group (ip[kIpTail + 3]) and whether they
+// share the sampler's draw (ip[kIpTail + 4]). Returns cudaErrorInvalidValue
+// for a group the tables cannot take: more than one variant needs the plain
+// or B4 instance (no table in device memory, no scatter, no GEOM), a shared
+// draw and seed or uniform inputs.
 template <bool TRI>
-int launchSweep(const float* tables, const float* tri, const float* box,
-                const float* surfTab, const float* surfBox, const float* rayIn,
-                float* histPower, float* histCounts,
-                unsigned long long* counters, const long long* ip,
-                const float* fp, void* stream) {
-  TraceParams p = traceParams(ip, fp);
+int sweepParams(const long long* ip, const float* fp, TraceParams& p) {
+  p = traceParams(ip, fp);
   if (hasGlobalTables(ip) != TRI) return (int)cudaErrorInvalidValue;
-  const long long variants = ip[15];
-  p.histLen = ip[16];
-  if (p.N <= 0 || variants <= 0) return 0;
-  const long long perVariant = (p.N + kBlock - 1) / kBlock;
-  const long long blocks = variants * perVariant;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  p.blocksPerVariant = (int)perVariant;
-  const TriTable tt = triTable(tri, box, ip);
-  const SurfTable st = surfTable(ip);
-  const size_t shmem = (size_t)p.tableLen * sizeof(float);
-  // ip[22]: the tables have a scatter block; ip[23]: widened surface rows
-  // (a kind or trim of B2 / B3)
+  const long long variants = ip[15], group = ip[kIpTail + 3];
+  if (group < 1 || group > kMaxVariantGroup || ip[16] > 2147483647LL
+      || variants > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  if (group > 1 && (TRI || ip[22] != 0 || ip[23] != 0
+                    || ip[kIpTail + 4] == 0 || p.mode == MODE_COLUMNS))
+    return (int)cudaErrorInvalidValue;
+  p.histLen = (int)ip[16];
+  p.nVariants = (int)variants;
+  p.groupSize = (int)group;
+  return 0;
+}
+
+// Call go(kernel) with the sweep instance for these tables: ip[22] a
+// scatter block, ip[23] widened surface rows (a kind or trim of B2 / B3),
+// ip[26] > 0 a surface table (TRI's STAB); the GROUPED instances for a
+// group of more than one variant.
+template <bool TRI, typename Go>
+int pickSweep(const long long* ip, const TraceParams& p, Go go) {
   const bool scat = ip[22] != 0, geom = ip[23] != 0;
   constexpr int O = OUT_HIST;
   constexpr bool T = true, F = false;
-  auto go = [&](auto kernel) {
-    return launch(kernel, blocks, shmem, stream, p, tables, tt, st, surfTab,
-                  surfBox, rayIn, histPower, histCounts, counters);
-  };
   if constexpr (TRI) {
     auto pick = [&](auto stab) {
       constexpr bool S = decltype(stab)::value;
@@ -2206,9 +2414,65 @@ int launchSweep(const float* tables, const float* tri, const float* box,
       return scat ? go(traceKernel<O, T, T, F, T, T>)
                   : go(traceKernel<O, T, T, F, F, T>);
     if (scat) return go(traceKernel<O, T, T, F, T>);
+    if (p.groupSize > 1)
+      return needsB4(p) ? go(traceKernel<O, T, T, F, F, F, F, F, T>)
+                        : go(traceKernel<O, T, F, F, F, F, F, F, T>);
     return needsB4(p) ? go(traceKernel<O, T, T, F, F>)
                       : go(traceKernel<O, T, F, F, F>);
   }
+}
+
+// The sweep's launch (OUT_HIST; sweepParams for ip): the grid is
+// ceil(rays / block) x ceil(variants / group) blocks; threads past a
+// variant's last ray are masked like the last block of a single-scene
+// launch. No synchronisation, no allocation; returns cudaGetLastError().
+template <bool TRI>
+int launchSweep(const float* tables, const float* tri, const float* box,
+                const float* surfTab, const float* surfBox, const float* rayIn,
+                float* histPower, float* histCounts,
+                unsigned long long* counters, const long long* ip,
+                const float* fp, void* stream) {
+  TraceParams p;
+  if (int err = sweepParams<TRI>(ip, fp, p)) return err;
+  if (p.N <= 0 || p.nVariants <= 0) return 0;
+  const long long tiles = (p.N + kBlock - 1) / kBlock;
+  const long long groups = (p.nVariants + p.groupSize - 1) / p.groupSize;
+  if (tiles > 2147483647LL || groups > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const size_t shmem = sweepSharedBytes(p.tableLen, p.nVariants, p.groupSize);
+  const dim3 grid((unsigned)tiles, (unsigned)groups);
+  const TriTable tt = triTable(tri, box, ip);
+  const SurfTable st = surfTable(ip);
+  return pickSweep<TRI>(ip, p, [&](auto kernel) {
+    return launch(kernel, grid, shmem, stream, p, tables, tt, st, surfTab,
+                  surfBox, rayIn, histPower, histCounts, counters);
+  });
+}
+
+// What the host's group rule (ops/cuda_trace.py `sweepVariantGroup`) reads
+// of the launch that launchSweep would make for ip: out[0] its dynamic
+// shared bytes, out[1] the blocks of its instance an SM holds with them,
+// out[2] the blocks an SM that instance's registers and threads allow.
+// Returns a CUDA error, or sweepParams's.
+template <bool TRI>
+int planSweep(const long long* ip, const float* fp, long long* out) {
+  TraceParams p;
+  if (int err = sweepParams<TRI>(ip, fp, p)) return err;
+  const size_t shmem = sweepSharedBytes(p.tableLen, p.nVariants, p.groupSize);
+  return pickSweep<TRI>(ip, p, [&](auto kernel) {
+    int blocks = 0, regBlocks = 0;
+    if (int err = allowTable(kernel, shmem)) return err;
+    if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, kernel, kBlock, shmem))
+      return err;
+    if (int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &regBlocks, kernel, kBlock, 0))
+      return err;
+    out[0] = (long long)shmem;
+    out[1] = blocks;
+    out[2] = regBlocks;
+    return 0;
+  });
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
-// Variant-major parameter-sweep kernel for NVIDIA Hopper (sm_90a): sample +
-// trace + histogram for V scene variants in ONE launch.
+// Parameter-sweep kernel for NVIDIA Hopper (sm_90a): sample + trace +
+// histogram for V scene variants in ONE launch, a block tracing its tile of
+// rays through a group of consecutive variants.
 //
 // Replaces: the sweep call of the JAX package's Pallas trace kernel
 // (optics_design_workbench_tpu/ops/pallas_trace.py, `makePallasSweepStep` and
@@ -13,15 +14,22 @@
 // placement are the same case.
 //
 // What bounds it on this card: operations, as for the single-scene kernel.
-// It reads V small tables (a few KB each, once per block) and writes two
-// float32 atomics per recorded hit into V histograms that together stay in
-// L2 (one pair per group of a warp's lanes in one bin, `addGrouped`); the
-// work per ray segment is the single-scene kernel's. One launch for
-// V variants saves V - 1 launches and V - 1 fetches, and fills the card when
-// one variant's rays alone would not.
+// Every variant traces the same rays (common random numbers), so where the
+// variants share the draw the work that does not depend on the variant is
+// done once per ray for a block's group (ops/cuda_trace.py
+// `sweepVariantGroup`): the group's tables are copied into shared memory
+// behind one barrier, and each ray is drawn once (Philox, the stratum, the
+// marginals and sin / cos) and then placed, traced and binned per variant;
+// the counters are added once per variant and block. Two float32 atomics
+// per recorded hit go into V histograms that together stay in L2 (one pair
+// per group of a warp's lanes in one bin, `addGrouped`).
 //
-// Interface: one plain-C launcher, `odwTraceSweep`, loaded with ctypes.
+// Interface: plain-C functions loaded with ctypes: the launcher,
+// `odwTraceSweep`, and `odwSweepPlan`, what the host's group rule reads of
+// a launch.
 
+// the sweep instances' launch bounds (trace_common.cuh `sweepMinBlocks`)
+#define ODW_SWEEP_SOURCE
 #include "trace_common.cuh"
 
 // The launch: trace_common.cuh `launchSweep` (no synchronisation, no
@@ -35,4 +43,11 @@ extern "C" int odwTraceSweep(const float* tables, const float* tri,
                              void* stream) {
   return launchSweep<false>(tables, tri, box, surf, surfBox, rayIn, histPower,
                             histCounts, counters, ip, fp, stream);
+}
+
+// trace_common.cuh `planSweep`: out[0] the launch's dynamic shared bytes,
+// out[1] / out[2] the blocks an SM its instance holds with them / alone.
+extern "C" int odwSweepPlan(const long long* ip, const float* fp,
+                            long long* out) {
+  return planSweep<false>(ip, fp, out);
 }

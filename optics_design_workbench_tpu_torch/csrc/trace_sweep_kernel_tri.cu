@@ -1,7 +1,9 @@
-// Variant-major parameter-sweep kernel for NVIDIA Hopper (sm_90a), for scenes
-// with a table in device memory (a triangle table, a surface table or both):
+// Parameter-sweep kernel for NVIDIA Hopper (sm_90a), for scenes with a
+// table in device memory (a triangle table, a surface table or both):
 // trace_sweep_kernel.cu's instances with TRI, in a source of their own so that
-// they build in parallel with the rest.
+// they build in parallel with the rest. These instances trace one variant a
+// block (on the dish and wall sweeps a variant loop cost more in registers
+// than the shared draw saved, PERF.md §6).
 //
 // Replaces: as trace_sweep_kernel.cu (makePallasSweepStep), with the triangle-
 // table and surface-table sweeps of the body `_makeKernel` (the JAX package's
@@ -20,6 +22,8 @@
 // Interface: one plain-C launcher, `odwTraceSweepTri`, loaded with ctypes; the
 // arguments of `odwTraceSweep`.
 
+// the sweep instances' launch bounds (trace_common.cuh `sweepMinBlocks`)
+#define ODW_SWEEP_SOURCE
 #include "trace_common.cuh"
 
 extern "C" int odwTraceSweepTri(const float* tables, const float* tri,

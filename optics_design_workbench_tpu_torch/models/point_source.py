@@ -239,6 +239,13 @@ def pointColumns(t, p, finite, f, R, off, wavelength):
   placement as component multiply-adds with host-scalar entries, in the
   reference's operation order (deviceColumnsGenerator / the in-kernel
   sampler share this maths).'''
+  return placeColumns(pointLocal(t, p, finite, f), R, off, wavelength)
+
+
+def pointLocal(t, p, finite, f):
+  '''The first half of `pointColumns`: the ray in the source's own frame,
+  (lox, loy, loz, ldx, ldy, ldz) float32 tensors, from the two drawn
+  coordinates and the focal words.'''
   f32 = lambda x: float(np.float32(x))
   sp, cp = torch.sin(p), torch.cos(p)
   if finite:
@@ -250,6 +257,15 @@ def pointColumns(t, p, finite, f, R, off, wavelength):
     ldy = torch.zeros_like(t)
     ldz = torch.ones_like(t)
     lox, loy, loz = t * cp, -t * sp, torch.zeros_like(t)
+  return lox, loy, loz, ldx, ldy, ldz
+
+
+def placeColumns(local, R, off, wavelength):
+  '''The second half of `pointColumns`: the ray of `pointLocal` placed by
+  the source's rotation `R` and offset `off` (component multiply-adds with
+  host-scalar entries), with unit power and `wavelength`.'''
+  lox, loy, loz, ldx, ldy, ldz = local
+  f32 = lambda x: float(np.float32(x))
   r = [[f32(R[i][j]) for j in range(3)] for i in range(3)]
   o = [f32(x) for x in off]
   ox = r[0][0] * lox + r[0][1] * loy + r[0][2] * loz + o[0]
@@ -259,5 +275,5 @@ def pointColumns(t, p, finite, f, R, off, wavelength):
   dy = r[1][0] * ldx + r[1][1] * ldy + r[1][2] * ldz
   dz = r[2][0] * ldx + r[2][1] * ldy + r[2][2] * ldz
   return dict(ox=ox, oy=oy, oz=oz, dx=dx, dy=dy, dz=dz,
-              pw=torch.ones_like(t),
-              wl=torch.full_like(t, wavelength))
+              pw=torch.ones_like(lox),
+              wl=torch.full_like(lox, wavelength))

@@ -11,7 +11,10 @@ shared body (csrc/trace_common.cuh) and a variant-major sweep of the first:
                   power, isEntering, point, incoming direction) for storage
   traceSweep      `traceHistogram` for V scene variants in one launch: V
                   stacked tables in, V histograms out, the same rays in
-                  every variant (common random numbers)
+                  every variant (common random numbers); a block traces
+                  its rays through a group of variants
+                  (`sweepVariantGroup`), drawing each ray once where the
+                  variants share the draw
 
 Counterpart of the JAX package's ops/pallas_trace.py (`makePallasTraceStep`
 in its in-kernel-histogram and per-ray-output modes, `makePallasRawStep`,
@@ -234,8 +237,25 @@ launchCounts = {name: 0 for name in _KERNELS}
 HIST_MODE = 'warp'
 KERNEL_BLOCK = 256               # csrc kBlock: threads (= rays) of a block
 # each wrapper's last launch: its grid, dynamic shared bytes and, for the
-# histogram kernels, HIST_MODE (None before a launch)
+# histogram kernels, HIST_MODE; for the sweep kernel also its variant group
+# and whether the group's variants shared the draw (None before a launch)
 lastLaunch = {name: None for name in _KERNELS}
+
+# The sweep kernel's variant groups (csrc/trace_common.cuh, SWEEP): a block
+# traces its tile of rays through up to MAX_VARIANT_GROUP variants (csrc
+# kMaxVariantGroup) that share the draw, their tables together in its
+# shared memory. `sweepVariantGroup` takes the largest group whose launch
+# keeps every block an SM that its instance's registers allow and fills the
+# card SWEEP_WAVES times over, so that long blocks do not leave the last
+# wave's SMs idle (PERF.md §6: at 8 variants x 100,000 rays two waves of
+# groups of two ran 1.8 % slower than one variant a block); the launch
+# facts come from the kernel library (`_sweepPlan`). Ray columns, variants with draws of their own, and tables
+# with scatter, another surface kind or trim (GEOM) or a table in device
+# memory take groups of one (`sweepGroupsAllowed`; PERF.md §6: a variant
+# loop cost the 1800-triangle dish and the 522-surface wall 3-16 % at every
+# group size).
+MAX_VARIANT_GROUP = 16
+SWEEP_WAVES = 3
 
 
 def numSurfacesStatic(scene):
@@ -1407,8 +1427,11 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   nSurfTable, SURF_TABLE_COLS) and (V, nSurfChunks, BOX_COLS), and the
   group boxes of both likewise) plus
   `nVariants`,
-  `tableLen`, `sameSource` (no variant moves or recolours the source) and
-  the per-variant `surfRows` / `elemRows` lists.
+  `tableLen`, `sameSource` (no variant moves or recolours the source),
+  `sharedDraws` (every variant's source draws the same ray in its own
+  frame: the same two marginal blocks and focal words, bit for bit; the
+  placement and wavelength may differ, `sharedDrawsOf`) and the
+  per-variant `surfRows` / `elemRows` lists.
 
   Raises SweepUnavailable unless the variants have the same STRUCTURE: the
   same numbers of surfaces and elements, per surface row the same kind,
@@ -1481,7 +1504,8 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   geom = stacked[:, off:off + _SAMPLER_GEOM]
   sameSource = off < 0 or bool((geom == geom[0]).all())
   return stacked, dict(
-      nVariants=V, sameSource=sameSource, tableLen=int(stacked.shape[1]),
+      nVariants=V, sameSource=sameSource,
+      sharedDraws=sharedDrawsOf(stacked, off), tableLen=int(stacked.shape[1]),
       nSurf=f0['nSurf'], nElem=f0['nElem'], nTri=f0['nTri'],
       nTriChunks=f0['nTriChunks'], nTriGroups=f0['nTriGroups'],
       nSurfTable=f0['nSurfTable'], nSurfChunks=f0['nSurfChunks'],
@@ -1497,6 +1521,62 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       lobeRows=f0['lobeRows'], modRows=f0['modRows'],
       surfRows=[f['surfRows'] for f in facts],
       elemRows=[f['elemRows'] for f in facts])
+
+
+def sharedDrawsOf(stacked, samplerOff):
+  '''Whether the point sampler of every row of the stacked float32 (V,
+  tableLen) tables draws the same ray in the source's own frame from the
+  same uniforms: the focal words (finite, f) and both marginal blocks equal
+  bit for bit. The placement (rotation, offset) and the wavelength may
+  differ. False without a sampler block.'''
+  if samplerOff < 0:
+    return False
+  draw = np.concatenate(
+      [stacked[:, samplerOff:samplerOff + 2],
+       stacked[:, samplerOff + _SAMPLER_GEOM:
+               samplerOff + _SAMPLER_GEOM + 2 * _MARG_LEN]], axis=1)
+  bits = draw.view(np.uint32)
+  return bool((bits == bits[0]).all())
+
+
+def sweepGroupsAllowed(tables, mode):
+  '''Whether the sweep kernel traces these tables in groups of more than
+  one variant for input `mode`: where the variants share the draw
+  (`sharedDraws`) and the kernel samples (seed or uniforms), in its plain
+  or B4 instance (no scatter, no other surface kind or trim (GEOM), no
+  table in device memory).'''
+  return bool(tables.get('sharedDraws', False) and mode != MODE_COLUMNS
+              and not (tables.get('scatter') or tables.get('geom')
+                       or tables.get('nTri', 0)
+                       or tables.get('nSurfTable', 0)))
+
+
+def sweepVariantGroup(nVariants, raysPerVariant, plan, smCount):
+  '''The variants a block of the sweep kernel traces (its group, Vb): the
+  largest of MAX_VARIANT_GROUP, ..., 4, 2 whose launch keeps every block an
+  SM that its instance's registers allow and whose grid of
+  ceil(raysPerVariant / 256) x ceil(nVariants / Vb) blocks fills the
+  `smCount` SMs SWEEP_WAVES times over at that many blocks an SM; else 1.
+  `plan(Vb)` gives (shared bytes, blocks an SM with them, blocks an SM its
+  instance allows alone) of the launch (`_sweepPlan`). A group may be
+  larger than the sweep (one group then holds every variant). For tables
+  `sweepGroupsAllowed` refuses, `traceSweep` takes 1 without asking.'''
+  tiles = -(-int(raysPerVariant) // KERNEL_BLOCK)
+  vb = MAX_VARIANT_GROUP
+  while vb > 1:
+    _bytes, blocks, regBlocks = plan(vb)
+    if (blocks >= regBlocks and tiles * -(-int(nVariants) // vb)
+        >= SWEEP_WAVES * int(smCount) * blocks):
+      return vb
+    vb //= 2
+  return 1
+
+
+def sweepGroups(nVariants, group):
+  '''The (first variant, count) of each block row of the sweep kernel's
+  grid (blockIdx.y): consecutive groups of `group` variants, the last one
+  shorter where `group` does not divide nVariants.'''
+  return [(g, min(group, nVariants - g)) for g in range(0, nVariants, group)]
 
 
 def buildSweepTables(scenes, histSpec, samplerSpecs, device='cuda'):
@@ -1554,7 +1634,17 @@ def samplerWavelength(tables):
 def sampleRaysPlain(tables, u1, u2, strata=None, strataTile=0):
   '''Plain version of the in-kernel point-source sampler: two uniform
   float32 (N,) tensors -> the ray columns (ox..dz, pw). `strata` = (G1, G2)
-  stratifies the two quantiles by ray-index cell.'''
+  stratifies the two quantiles by ray-index cell. The draw
+  (`sampleLocalPlain`), then the placement (`placeRaysPlain`).'''
+  return placeRaysPlain(tables, sampleLocalPlain(tables, u1, u2, strata,
+                                                 strataTile))
+
+
+def sampleLocalPlain(tables, u1, u2, strata=None, strataTile=0):
+  '''The point sampler's draw: the two uniforms (stratified where `strata`
+  is given), the two marginals and the focal geometry -> the ray in the
+  source's own frame, (lox, loy, loz, ldx, ldy, ldz) float32 tensors. What
+  the variants of a sweep with `sharedDraws` share.'''
   tab = tables['table'].detach().cpu().numpy()
   sg = tab[tables['samplerOff']:]
   if strata is not None:
@@ -1567,9 +1657,18 @@ def sampleRaysPlain(tables, u1, u2, strata=None, strataTile=0):
   t = _marginalPlain(sg[_SAMPLER_GEOM:_SAMPLER_GEOM + _MARG_LEN], u1)
   ph = _marginalPlain(sg[_SAMPLER_GEOM + _MARG_LEN:
                          _SAMPLER_GEOM + 2 * _MARG_LEN], u2)
-  from ..models.point_source import pointColumns
-  cols = pointColumns(t, ph, bool(sg[0] != 0.), float(sg[1]),
-                      sg[2:11].reshape(3, 3), sg[11:14], float(sg[14]))
+  from ..models.point_source import pointLocal
+  return pointLocal(t, ph, bool(sg[0] != 0.), float(sg[1]))
+
+
+def placeRaysPlain(tables, local):
+  '''The point sampler's placement: the ray of `sampleLocalPlain` turned
+  and moved by the tables' source rotation and offset -> the ray columns
+  (ox..dz, pw).'''
+  from ..models.point_source import placeColumns
+  sg = tables['table'].detach().cpu().numpy()[tables['samplerOff']:]
+  cols = placeColumns(local, sg[2:11].reshape(3, 3), sg[11:14],
+                      float(sg[14]))
   return tuple(cols[k] for k in ('ox', 'oy', 'oz', 'dx', 'dy', 'dz', 'pw'))
 
 
@@ -2894,18 +2993,25 @@ def traceSweepPlain(sweepTables, histograms, raysPerVariant, maxIntersections,
   (`uniformRows`, n) — through its own sampler block — or the same ray
   `columns` (8, n) with the same `scatterUniforms` for a scene with
   scatter. Adds into the (V, D, H, W) `histograms` IN PLACE and returns an
-  int64 (V, 3) tensor of (segments, hits, hitOverflow) per variant. (A
-  loop over the variants: it exists to be compared with, not to be
-  fast.)'''
+  int64 (V, 3) tensor of (segments, hits, hitOverflow) per variant. Where
+  the variants share the draw (`sharedDraws`), the rays are drawn once in
+  the source's frame and placed per variant, as the kernel draws them once
+  per group. (A loop over the variants: it exists to be compared with,
+  not to be fast.)'''
   counters = []
+  local = None
+  if columns is None and sweepTables.get('sharedDraws'):
+    local = sampleLocalPlain(variantTables(sweepTables, 0), uniforms[0],
+                             uniforms[1], strata, strataTile)
   for v in range(sweepTables['nVariants']):
     tables = variantTables(sweepTables, v)
     scatterU = scatterUniforms
     if columns is not None:
       cols = tuple(columns[k] for k in range(8))
     else:
-      cols = sampleRaysPlain(tables, uniforms[0], uniforms[1], strata,
-                             strataTile)
+      cols = (placeRaysPlain(tables, local) if local is not None
+              else sampleRaysPlain(tables, uniforms[0], uniforms[1], strata,
+                                   strataTile))
       scatterU = uniforms[2:] if tables['scatter'] else None
     counters.append(traceHistogramPlain(
         tables, dict(power=histograms['power'][v],
@@ -2971,6 +3077,36 @@ def _kernelFunction(name, tri):
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
   return fn
+
+
+# `_sweepPlan`'s answers by launch words (the seed left out) and device
+_sweepPlans = {}
+
+
+def _sweepPlan(ip, fp, group, dev):
+  '''(dynamic shared bytes, blocks an SM with them, blocks an SM its
+  instance allows alone) of the sweep launch of the words `ip` / `fp` with
+  `group` variants a block, from the kernel library (csrc `planSweep`, the
+  launcher's own shared-memory layout and instance). Sets the group word
+  of `ip`.'''
+  ip[len(ip) - 2] = group
+  key = (dev.index, ip[0]) + tuple(ip[2:])
+  if key not in _sweepPlans:
+    from .._build import buildKernels
+    libs, _info = buildKernels()
+    fn = libs['trace_sweep_kernel'].odwSweepPlan
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.POINTER(ctypes.c_float),
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 3)()
+    with torch.cuda.device(dev):
+      err = fn(ip, fp, out)
+    if err != 0:
+      raise KernelError(f'the sweep kernel refused a group of {group}: '
+                        f'CUDA error {err}')
+    _sweepPlans[key] = tuple(out)
+  return _sweepPlans[key]
 
 
 def _checkTensor(name, x, dev, shape, dtype=torch.float32):
@@ -3183,7 +3319,10 @@ def traceSweep(sweepTables, histograms, raysPerVariant, maxIntersections,
   by the within-variant index. Variant v of this call therefore gets what
   `traceHistogram` gives for nRays = raysPerVariant on variant v's table
   with the same inputs. `columns` are for sweeps whose source is the same in
-  every variant.
+  every variant. Where the tables say `sharedDraws` and the kernel samples,
+  a block of the kernel traces its rays through a group of
+  `sweepVariantGroup` variants, drawing each ray once for the group;
+  `lastLaunch['traceSweep']` records the group.
 
   Tensors on a CUDA device go through the CUDA kernel, or this raises; the
   plain PyTorch version runs only for tensors on the CPU.'''
@@ -3225,7 +3364,9 @@ def traceSweep(sweepTables, histograms, raysPerVariant, maxIntersections,
                        (histograms['power'], histograms['counts']),
                        raysPerVariant, mode, rayIn, int(seed or 0), strata,
                        strataTile, maxIntersections, maxRayLength, distTol,
-                       powerTol, hitSlots, sweep=(V, D * H * W))
+                       powerTol, hitSlots,
+                       sweep=(V, D * H * W, sweepGroupsAllowed(sweepTables,
+                                                               mode)))
 
 
 def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
@@ -3234,8 +3375,10 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   '''Launch kernel `name` (a key of `_KERNELS`) on PyTorch's current stream
   with the output tensors `outs` (inputs already validated by the wrapper),
   and add one to its launch count. `sweep` = (variants, floats per variant's
-  histogram) for the sweep kernel, whose `tables` are stacked, whose `nRays`
-  are per variant and whose counters come back per variant. CUDA tensors
+  histogram, whether a block may trace a group of variants,
+  `sweepGroupsAllowed`) for the sweep kernel, whose `tables` are stacked,
+  whose `nRays` are per variant and whose counters come back per variant.
+  CUDA tensors
   only: a CPU tensor's address means nothing to the card, so it is refused
   before anything is built.'''
   table = tables['table']
@@ -3263,14 +3406,15 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   runs = surfaceRuns(tables.get('surfPlainRuns', ()),
                      tables.get('surfChunkRuns', ())) if nSurfT else []
   fn = _kernelFunction(name, nTri > 0 or nSurfT > 0)
-  variants, histLen = sweep if sweep is not None else (1, 0)
+  variants, histLen, groups = sweep if sweep is not None else (1, 0, False)
+  sharedDraws = bool(tables.get('sharedDraws', False)) and sweep is not None
   counters = torch.zeros((3,) if sweep is None else (variants, 3),
                          dtype=torch.int64, device=dev)
   H, W = tables['bins']
   G1, G2 = strata if strata is not None else (0, 1)
   runWords = [x for run in runs for x in run]
   runWords += [0] * (MAX_SURF_RUNS * RUN_COLS - len(runWords))
-  ip = (ctypes.c_longlong * (32 + MAX_SURF_RUNS * RUN_COLS))(
+  ip = (ctypes.c_longlong * (34 + MAX_SURF_RUNS * RUN_COLS))(
       int(nRays), seed & 0x7fffffffffffffff, int(table.numel()) // variants,
       tables['nSurf'], tables['nElem'], tables['samplerOff'], mode, H, W,
       int(maxIntersections), int(hitSlots), int(tables['anyMedium']),
@@ -3280,11 +3424,21 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
       int(tables['samplerKind']), int(tables.get('scatter', False)),
       int(tables.get('geom', False)), nTri, nChunks, nSurfT, nSurfChunks,
       len(runs), *runWords, int(tables.get('cullOff', -1)), nGroups,
-      nSurfGroups)
+      nSurfGroups, 1, int(sharedDraws))
   fp = (ctypes.c_float * 7)(
       min(float(maxRayLength), 0.5 * _BIG), float(maxRayLength),
       float(distTol), 2 * float(distTol), float(powerTol),
       1.0 / max(G1, 1), 1.0 / G2)
+  group, sharedBytes = 1, 4 * (int(table.numel()) // variants)
+  if groups:
+    plan = lambda vb: _sweepPlan(ip, fp, vb, dev)
+    group = sweepVariantGroup(
+        variants, nRays, plan,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    sharedBytes = plan(group)[0]        # and the launch's group word
+  if len(sweepGroups(variants, group)) > 65535:
+    raise ValueError(f'{variants} variants in groups of {group}: more than '
+                     f'the 65,535 block rows of a launch')
   ptr = lambda key, n: glob[key].data_ptr() if n else None
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -3297,11 +3451,15 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   if err != 0:
     raise KernelError(f'{name} kernel launch failed: CUDA error {err}')
   launchCounts[name] += 1
-  lastLaunch[name] = dict(
-      blocks=variants * (-(-int(nRays) // KERNEL_BLOCK)),
-      sharedBytes=4 * (int(table.numel()) // variants),
+  record = dict(
+      blocks=len(sweepGroups(variants, group))
+      * (-(-int(nRays) // KERNEL_BLOCK)),
+      sharedBytes=sharedBytes,
       histMode=HIST_MODE if name in ('traceHistogram', 'traceSweep')
       else None)
+  if sweep is not None:
+    record.update(variantGroup=group, sharedDraws=sharedDraws)
+  lastLaunch[name] = record
   return counters
 
 
@@ -3517,7 +3675,8 @@ def makeSweepStep(hostScenes, histBounds, bins, samplerSpec, raysPerVariant,
     if any(facts[k] != step.facts[k] for k in _SWEEP_STRUCTURE):
       raise SweepUnavailable('scene structure differs from the variants the '
                              'step was made for')
-    step.facts.update(_globalTensors(facts, dev))
+    step.facts.update(_globalTensors(facts, dev),
+                      sharedDraws=facts['sharedDraws'])
     return table
 
   def step(seed, table):

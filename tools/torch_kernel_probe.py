@@ -1,11 +1,26 @@
 #!/usr/bin/env python3
 '''Where the CUDA trace kernels' time goes, on one NVIDIA GPU:
 
-    python3 tools/torch_kernel_probe.py [sweep | spectrometer | k1 [ROOT]
-                                         | mesh [ROOT] | table [ROOT]
-                                         | hist [ROOT] | cull [ROOT]]
+    python3 tools/torch_kernel_probe.py [sweep [ROOT] | spectrometer
+                                         | k1 [ROOT] | mesh [ROOT]
+                                         | table [ROOT] | hist [ROOT]
+                                         | cull [ROOT]]
 
-(`sweep` runs the sweep breakdown alone, `spectrometer` the spectrometer's
+(`sweep` runs the sweep breakdown alone, `sweep ROOT` times K3 of the
+package in the checkout at ROOT on the sweeps of the examples/3 lens (64
+radii, 64 x the focused and the defocused radius at 1 << 20 rays each, 11
+radii at 200,000, 4 and 8 radii at 100,000), the spectrometer's 64 wavelengths at 1 << 20, 11
+detector heights x 1 << 20 under the 1800-triangle dish and the
+522-surface wall and 11 heights of the torus mirror and of the diffuser
+(`sweep ROOT LABEL ...` runs only those cases), each with its launch
+record, and where the package
+groups variants (`cuda_trace.sweepVariantGroup`) again with the group
+forced to 1, 2, 4, 8 and 16 (`--series=LABEL,...`: only on those cases),
+each form held against the plain version on
+11 variants x 65,536 rays; then the registers of the sweep instances (run
+the parent's unpacked `_parent/` and the change in turns;
+`--tables=DIR` keeps each case's packed tables in DIR, so that the runs
+after the first build none), `spectrometer` the spectrometer's
 alone; `k1 ROOT` times the main-path step of the package in the checkout at
 ROOT — another commit's, unpacked — three series of 20 steps by CUDA events,
 and prints the registers of its histogram kernel's instances, so that two
@@ -27,10 +42,11 @@ the torus mirror, the kinds scene and the emitter of those kinds, K3 on the
 examples/3
 radius sweep and the spectrometer's wavelength sweep at 64 x 1 << 20 rays —
 each with its launch record and held against its plain version; `cull
-ROOT` times K1, K2 and K4 of the package at ROOT through its step
-factories on the port's timed scenes, which the per-bounce culls (B12) do
-not prune, and on the decoy scene of those culls with and without them,
-and prints the registers of every instance) times
+ROOT [SCENE ...]` times K1, K2 and K4 of the package at ROOT through its
+step factories on the port's timed scenes (or the SCENEs of CULL_SCENES
+named), which the per-bounce culls (B12) do not prune, and on the decoy
+scene of those culls with and without them, and prints the registers of
+every instance) times
 the port's
 main-path step
 (lens-and-mirror scene, 1 << 22 rays, 128 x 128 bins) in variants, each by CUDA events over 20 launches after a
@@ -88,8 +104,8 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, 'tests'))
-if sys.argv[1:2] in (['k1'], ['mesh'], ['table'], ['hist'], ['cull']) \
-    and len(sys.argv) > 2:
+if sys.argv[1:2] in (['k1'], ['mesh'], ['table'], ['hist'], ['cull'],
+                     ['sweep']) and len(sys.argv) > 2:
   sys.path.insert(0, os.path.abspath(sys.argv[2]))   # the package measured
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
@@ -116,6 +132,27 @@ def cudaMs(fn, reps=REPS):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def busyStreamMs(fn, reps=REPS, spinCycles=2_000_000):
+  """fn's device time in ms (mean of `reps` calls, each between two CUDA
+  events), with the stream held busy by a spin kernel of `spinCycles`
+  (about 1 ms) while the host enqueues the events and fn's launches, so
+  that the host's time between them does not count: for launches shorter
+  than the host's work to make them."""
+  fn()
+  torch.cuda.synchronize()
+  pairs = []
+  for _ in range(reps):
+    torch.cuda._sleep(spinCycles)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    pairs.append((start, end))
+  torch.cuda.synchronize()
+  return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 SWEEP_TOTAL_RAYS = 1 << 24
@@ -413,7 +450,7 @@ def instanceRegisters():
   '''({instance: [registers, spill store bytes]}, build seconds) of the
   package on the path, from ptxas's output; an instance is its output mode
   and template flags (sweep, B4, surface sampler, scatter, GEOM, TRI,
-  STAB), as digits.'''
+  STAB and, since the sweep's variant groups, GROUPED), as digits.'''
   import re
   _libs, info = _build.buildKernels()
   regs, current = {}, None
@@ -461,8 +498,9 @@ def cullSeries():
   seeds = iter(range(10, 10 ** 9))
   out = dict(variant='cull', package=port.__file__,
              digest=port.kernelSourceDigest())
+  only = sys.argv[3:]                  # scene names, all by default
   for name, (make, maxI, bounds) in CULL_SCENES.items():
-    if not hasattr(benchmarks, make):
+    if not hasattr(benchmarks, make) or (only and name not in only):
       continue
     scene = getattr(benchmarks, make)(*((30,) if name == 'dish1800' else ()))
     step, hist, meta = benchmarks.makeBenchStep(
@@ -609,6 +647,162 @@ def histSeries(dev):
     print(json.dumps(row), flush=True)
 
 
+# the forced variant groups of `sweepSeries`
+SWEEP_GROUPS = (1, 2, 4, 8, 16)
+SWEEP_CHECK = (11, 1 << 16)        # variants, rays of a check against plain
+
+
+def sweepSeries(dev):
+  """K3 of the package on the path (ms by CUDA events, 5 launches after a
+  warm-up; where one takes under 2 ms, 100 launches each between two
+  events behind a spin kernel, `busyStreamMs`; seed mode with the steps'
+  strata) on the sweeps of the examples/3
+  lens, the spectrometer, the 1800-triangle dish and the 522-surface wall,
+  with each launch's record; where the package picks a variant group
+  (`cuda_trace.sweepVariantGroup`), the same with the group forced to each
+  of SWEEP_GROUPS. Each form is held against the plain version on the first
+  SWEEP_CHECK variants and rays (uniforms, strata): counters equal, rays
+  that changed bins, worst relative power error. Then the registers of
+  the sweep instances."""
+  import optics_design_workbench_tpu_torch as port
+  seeds = iter(range(300, 10 ** 9))
+  grouped = hasattr(cuda_trace, 'sweepVariantGroup')
+  rule = getattr(cuda_trace, 'sweepVariantGroup', None)
+  print(json.dumps(dict(variant='sweep', package=port.__file__,
+                        digest=port.kernelSourceDigest(), grouped=grouped)),
+        flush=True)
+  lens = lambda radii: [benchmarks.buildSweepLensScene(float(r))
+                        for r in radii]
+  heights = np.linspace(-20., 0., 11)
+  cases = (
+      ('examples3-64radii', lambda: lens(np.linspace(45., 95., 64)), 1 << 20,
+       6, SWEEP_BOUNDS, SWEEP_BINS),
+      ('examples3-64xfocused', lambda: lens([60.] * 64), 1 << 20, 6,
+       SWEEP_BOUNDS, SWEEP_BINS),
+      ('examples3-64xdefocused', lambda: lens([95.] * 64), 1 << 20, 6,
+       SWEEP_BOUNDS, SWEEP_BINS),
+      ('examples3-11radii', lambda: lens(np.linspace(45., 95., 11)), 200_000,
+       6, SWEEP_BOUNDS, SWEEP_BINS),
+      # evaluateBatched's default 100,000 rays a variant
+      ('examples3-4x100k', lambda: lens(np.linspace(45., 95., 4)), 100_000,
+       6, SWEEP_BOUNDS, SWEEP_BINS),
+      ('examples3-8x100k', lambda: lens(np.linspace(45., 95., 8)), 100_000,
+       6, SWEEP_BOUNDS, SWEEP_BINS),
+      ('spectrometer-64', lambda: [
+          benchmarks.buildSpectrometerScene(wavelength=float(w))
+          for w in np.linspace(400., 700., 64)], 1 << 20, 3, SPECTRO_BOUNDS,
+       BINS),
+      ('dish1800-11heights', lambda: [
+          benchmarks.buildMeshDishScene(30, detectorZ=float(z))
+          for z in heights], 1 << 20, 3, (-200., 200., -200., 200.), BINS),
+      ('wall522-11heights', lambda: [
+          benchmarks.buildSurfWallScene(detectorZ=float(z))
+          for z in heights], 1 << 20, 3, (-300., 300., -300., 300.), BINS),
+      ('torus-11heights', lambda: [
+          benchmarks.buildTorusMirrorScene(height=float(z))
+          for z in np.linspace(70., 90., 11)], 1 << 20, 3,
+       (-200., 200., -200., 200.), BINS),
+      ('diffuse-11heights', lambda: [
+          benchmarks.buildDiffuseScatterScene(diffuserZ=float(z))
+          for z in np.linspace(40., 60., 11)], 1 << 20, 4,
+       (-100., 100., -100., 100.), BINS))
+  args = sys.argv[3:]
+  opts = dict(a[2:].split('=', 1) for a in args if a.startswith('--'))
+  only = [a for a in args if not a.startswith('--')]   # all by default
+  series = opts['series'].split(',') if 'series' in opts else None
+  tablesDir = opts.get('tables')
+
+  def packed(label, make, bounds, bins, maxI):
+    """The case's tables and its first variants' (SWEEP_CHECK), packed on
+    the host, and its hit slots; kept in `tablesDir` where given."""
+    path = tablesDir and os.path.join(tablesDir, f'{label}.pt')
+    if path and os.path.exists(path):
+      return torch.load(path, weights_only=False)
+    scenes = make()
+    host = [sc.compile(device=None) for sc in scenes]
+    histSpec = fused.makeHistogramSpec(*host[0], bounds=bounds, bins=bins)
+    specs = [sc.lightSources()[0].samplerSpec() for sc in scenes]
+    vC = min(len(scenes), SWEEP_CHECK[0])
+    out = dict(
+        tables=cuda_trace.buildSweepTables([h for h, _i in host], histSpec,
+                                           specs, device='cpu'),
+        few=cuda_trace.buildSweepTables([h for h, _i in host[:vC]],
+                                        histSpec, specs[:vC], device='cpu'),
+        hitSlots=cuda_trace.autoHitSlots(host[0][0], histSpec, maxI))
+    if path:
+      os.makedirs(tablesDir, exist_ok=True)
+      torch.save(out, path)
+    return out
+
+  def onDevice(tables):
+    """The packed tables on the card, with this package's `sharedDraws`
+    where it has them (tables packed by another checkout may lack it)."""
+    out = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+           for k, v in tables.items()}
+    if hasattr(cuda_trace, 'sharedDrawsOf'):
+      out['sharedDraws'] = cuda_trace.sharedDrawsOf(
+          tables['table'].numpy(), tables['samplerOff'])
+    return out
+
+  for label, make, n, maxI, bounds, bins in cases:
+    if only and label not in only:
+      continue
+    pack = packed(label, make, bounds, bins, maxI)
+    tables, few = onDevice(pack['tables']), onDevice(pack['few'])
+    V = tables['nVariants']
+    shape = (V, tables['nDet']) + bins
+    hist = dict(power=torch.zeros(shape, device=dev),
+                counts=torch.zeros(shape, device=dev))
+    tile = cuda_trace.DEFAULT_STRATA_TILE
+    kw = dict(maxIntersections=maxI, maxRayLength=1000., distTol=1e-4,
+              powerTol=1e-6, hitSlots=pack['hitSlots'])
+    vC, nC = few['nVariants'], SWEEP_CHECK[1]
+    us = torch.rand((cuda_trace.uniformRows(few, maxI), nC), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    fewShape = (vC, few['nDet']) + bins
+    hP = dict(power=torch.zeros(fewShape, device=dev),
+              counts=torch.zeros(fewShape, device=dev))
+    cP = cuda_trace.traceSweepPlain(
+        few, hP, nC, uniforms=us, strata=cuda_trace.tileStrata(nC, tile),
+        strataTile=tile, **kw)
+
+    def check():
+      hK = dict(power=torch.zeros(fewShape, device=dev),
+                counts=torch.zeros(fewShape, device=dev))
+      cK = cuda_trace.traceSweep(few, hK, nC, uniforms=us, strataTile=tile,
+                                 **kw)
+      moved = (hK['counts'] - hP['counts']).abs().sum(dim=(1, 2, 3)) / 2
+      same = (hK['counts'] == hP['counts']) & (hP['counts'] > 0)
+      pK, pP = hK['power'][same], hP['power'][same]
+      return dict(countersEqual=cK.tolist() == cP.tolist(),
+                  movedRaysMax=float(moved.max()),
+                  maxRelErrPower=float(((pK - pP).abs() / pP).max()),
+                  launch=cuda_trace.lastLaunch['traceSweep'])
+
+    sweep = lambda: cuda_trace.traceSweep(tables, hist, n, seed=next(seeds),
+                                          strataTile=tile, **kw)
+    # 5 launches, or 100 where one takes under 2 ms
+    timed = lambda: (lambda ms: ms if ms >= 2. else busyStreamMs(sweep, 100))(
+        cudaMs(sweep, 5))
+    row = dict(variant=f'k3-{label}', variants=V, raysPerVariant=n,
+               sharedDraws=tables.get('sharedDraws'), ms=timed(),
+               launch=cuda_trace.lastLaunch['traceSweep'], vsPlain=check())
+    if grouped and (series is None or label in series):
+      row['msByGroup'], row['vsPlainByGroup'] = {}, {}
+      try:
+        for vb in SWEEP_GROUPS:
+          cuda_trace.sweepVariantGroup = lambda *a, vb=vb, **k: vb
+          row['msByGroup'][vb] = timed()
+          row['vsPlainByGroup'][vb] = check()
+      finally:
+        cuda_trace.sweepVariantGroup = rule
+    print(json.dumps(row), flush=True)
+  regs, buildSeconds = instanceRegisters()
+  print(json.dumps(dict(variant='sweep-registers', buildSeconds=buildSeconds,
+                        registers={k: v for k, v in regs.items()
+                                   if k[1] == '1'})), flush=True)
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('needs a CUDA device')
@@ -620,6 +814,8 @@ def main():
                         bins=BINS)), flush=True)
   if sys.argv[1:] == ['sweep']:
     return sweepBreakdown(dev)
+  if sys.argv[1:2] == ['sweep']:
+    return sweepSeries(dev)
   if sys.argv[1:] == ['spectrometer']:
     return spectrometerBreakdown(dev)
   if sys.argv[1:2] == ['k1']:
