@@ -54,9 +54,9 @@ port's paths at full width:
     the reference's dishes of 200 to 12800 triangles, its collimated dish,
     a mesh lens and a tie between two equal table rows, K3 on 11 detector
     heights under the 1800-triangle dish; every dish's fused step (both
-    binnings) and raw step at 1 << 22 rays timed beside its bound, counted
-    for the one-level table sweep and for the two-level sweep with the
-    shrinking cap (`tableWork`); that
+    binnings) and raw step at 1 << 22 rays timed beside its bound, the
+    kernels' three-level sweep with the shrinking cap, each ray alone, and
+    beside the one-level, two-level and warp counts (`tableWork`); that
     dish loaded from an STL file through `runSimulation` raw (4 x 1 << 20)
     and histogram-first (8 x 1 << 22) and through `evaluateBatched` over
     its detector height, its share and r^2 against the JAX package's;
@@ -288,6 +288,70 @@ OLD_REGISTERS = {
 # the two K3 instances that trace groups of variants (GROUPED, PR 14:
 # the variant loop around the bounce loop), without B4 and with it
 GROUPED_REGISTERS = {(0, 1, 0, 0, 0): 48, (0, 1, 1, 0, 0): 62}
+# the instances with a table in device memory (TRI, STAB) as PR 14 built
+# them, before the table sweeps' third level (the leaf boxes;
+# `tools/torch_kernel_probe.py` on that tree, NVIDIA H100 80GB HBM3), by the
+# key of `registerCounts`: (registers, spill store bytes), reported beside
+# this build's (PERF.md §6); a fixed record, not the parent of a later tree
+# (`tools/torch_kernel_probe.py table ROOT` prints the parent's)
+PR14_TABLE_REGISTERS = {
+    (0, 0, 1, 0, 0, 0, 1, 0, 0): (61, 0),
+    (0, 0, 1, 0, 0, 0, 1, 1, 0): (80, 20),
+    (0, 0, 1, 0, 0, 1, 1, 0, 0): (64, 0),
+    (0, 0, 1, 0, 0, 1, 1, 1, 0): (64, 236),
+    (0, 0, 1, 0, 1, 0, 1, 0, 0): (79, 0),
+    (0, 0, 1, 0, 1, 0, 1, 1, 0): (80, 108),
+    (0, 0, 1, 0, 1, 1, 1, 0, 0): (80, 0),
+    (0, 0, 1, 0, 1, 1, 1, 1, 0): (80, 80),
+    (0, 0, 1, 1, 0, 0, 1, 0, 0): (61, 0),
+    (0, 0, 1, 1, 0, 0, 1, 1, 0): (80, 20),
+    (0, 0, 1, 1, 0, 1, 1, 0, 0): (64, 0),
+    (0, 0, 1, 1, 0, 1, 1, 1, 0): (64, 236),
+    (0, 0, 1, 1, 1, 0, 1, 0, 0): (64, 12),
+    (0, 0, 1, 1, 1, 0, 1, 1, 0): (80, 100),
+    (0, 0, 1, 1, 1, 1, 1, 0, 0): (64, 32),
+    (0, 0, 1, 1, 1, 1, 1, 1, 0): (80, 104),
+    (0, 1, 1, 0, 0, 0, 1, 0, 0): (64, 0),
+    (0, 1, 1, 0, 0, 0, 1, 1, 0): (80, 108),
+    (0, 1, 1, 0, 0, 1, 1, 0, 0): (71, 0),
+    (0, 1, 1, 0, 0, 1, 1, 1, 0): (80, 136),
+    (0, 1, 1, 0, 1, 0, 1, 0, 0): (80, 0),
+    (0, 1, 1, 0, 1, 0, 1, 1, 0): (80, 172),
+    (0, 1, 1, 0, 1, 1, 1, 0, 0): (80, 0),
+    (0, 1, 1, 0, 1, 1, 1, 1, 0): (80, 180),
+    (1, 0, 1, 0, 0, 0, 1, 0, 0): (60, 0),
+    (1, 0, 1, 0, 0, 0, 1, 1, 0): (80, 0),
+    (1, 0, 1, 0, 0, 1, 1, 0, 0): (63, 0),
+    (1, 0, 1, 0, 0, 1, 1, 1, 0): (64, 192),
+    (1, 0, 1, 0, 1, 0, 1, 0, 0): (64, 12),
+    (1, 0, 1, 0, 1, 0, 1, 1, 0): (80, 80),
+    (1, 0, 1, 0, 1, 1, 1, 0, 0): (64, 32),
+    (1, 0, 1, 0, 1, 1, 1, 1, 0): (80, 88),
+    (1, 0, 1, 1, 0, 0, 1, 0, 0): (60, 0),
+    (1, 0, 1, 1, 0, 0, 1, 1, 0): (80, 0),
+    (1, 0, 1, 1, 0, 1, 1, 0, 0): (64, 0),
+    (1, 0, 1, 1, 0, 1, 1, 1, 0): (64, 192),
+    (1, 0, 1, 1, 1, 0, 1, 0, 0): (64, 12),
+    (1, 0, 1, 1, 1, 0, 1, 1, 0): (80, 56),
+    (1, 0, 1, 1, 1, 1, 1, 0, 0): (72, 0),
+    (1, 0, 1, 1, 1, 1, 1, 1, 0): (80, 60),
+    (2, 0, 1, 0, 0, 0, 1, 0, 0): (58, 0),
+    (2, 0, 1, 0, 0, 0, 1, 1, 0): (80, 0),
+    (2, 0, 1, 0, 0, 1, 1, 0, 0): (63, 0),
+    (2, 0, 1, 0, 0, 1, 1, 1, 0): (64, 184),
+    (2, 0, 1, 0, 1, 0, 1, 0, 0): (64, 12),
+    (2, 0, 1, 0, 1, 0, 1, 1, 0): (80, 56),
+    (2, 0, 1, 0, 1, 1, 1, 0, 0): (64, 32),
+    (2, 0, 1, 0, 1, 1, 1, 1, 0): (80, 52),
+    (2, 0, 1, 1, 0, 0, 1, 0, 0): (58, 0),
+    (2, 0, 1, 1, 0, 0, 1, 1, 0): (80, 0),
+    (2, 0, 1, 1, 0, 1, 1, 0, 0): (63, 0),
+    (2, 0, 1, 1, 0, 1, 1, 1, 0): (64, 184),
+    (2, 0, 1, 1, 1, 0, 1, 0, 0): (64, 12),
+    (2, 0, 1, 1, 1, 0, 1, 1, 0): (80, 32),
+    (2, 0, 1, 1, 1, 1, 1, 0, 0): (72, 0),
+    (2, 0, 1, 1, 1, 1, 1, 1, 0): (80, 32),
+}
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
@@ -683,7 +747,7 @@ def onlyLaunches(**counts):
 
 def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
             scatterPasses=0, inputBytes=0, trianglesPerSegment=0.,
-            tableRowsPerSegment=None, cullStats=None, twoLevel=None):
+            tableRowsPerSegment=None, cullStats=None, levels=None):
   '''Least time the card could take for one step: (ms by operations, ms by
   bytes), from this run's segment count, its passes through a grating and
   through a scattering element, the bytes the kernel must move (table, a
@@ -699,12 +763,12 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
   sweeps: every row, or on tables with a cull block (B12) the rows of each
   bounce's set weighted by the segments that bounce traces (`cullStats` of
   a plain run of the same rays, `_bounceLoopPlain`). The tables' part is
-  counted again for the two-level sweep with the shrinking cap
-  (`twoLevel`: per segment the group and chunk boxes a ray tests,
-  `boxTests`, and what it sweeps under that cap, `triangles` or `rows` by
-  kind, as the plain version counts them), whose operations and bound the
-  returned dict gives as `flopsPerSegmentTwoLevel` and
-  `boundOpsTwoLevelMs`, beside the one-level count above.'''
+  counted again for each sweep of `levels` ({level of LEVELS: per segment
+  the group, chunk and leaf boxes a ray tests, `boxTests`, and what it
+  sweeps, `triangles` or `rows` by kind, as the plain version counts them,
+  `levelWork`}), whose operations and bound the returned dict gives as
+  `flopsPerSegment<Level>` and `boundOps<Level>Ms` (`TwoLevel`,
+  `ThreeLevel`, `Warp`), beside the one-level count above.'''
   rows = tables['surfRows']
   if 'nVariants' in tables:            # a sweep: every variant, one structure
     rows = rows[0]
@@ -733,23 +797,25 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
     flopsPerSegment += FLOPS_SCATTER_RENORM
   rowFlopsOf = lambda rows: sum(FLOPS_TABLE_ROW[k] * n
                                 for k, n in rows.items())
-  flopsTwoLevel = flopsPerSegment
+  levels = {capitalised(level): work
+            for level, work in (levels or {}).items()}
+  levelFlops = dict.fromkeys(levels, flopsPerSegment)
+  packBytes = lambda key: 0 if tables[key] is None else tables[key].numel()
   if tables.get('nTri'):
     flopsPerSegment += (FLOPS_CHUNK_TEST * tables['nTriChunks']
                         + FLOPS_TRIANGLE * trianglesPerSegment)
-    if twoLevel is not None:
-      flopsTwoLevel += (FLOPS_CHUNK_TEST * twoLevel['boxTests']
-                        + FLOPS_TRIANGLE * twoLevel['triangles'])
-    inputBytes += 4 * (tables['triTable'].numel()
-                       + tables['triBoxes'].numel())
+    for name, work in levels.items():
+      levelFlops[name] += (FLOPS_CHUNK_TEST * work['boxTests']
+                           + FLOPS_TRIANGLE * work['triangles'])
+    inputBytes += 4 * (tables['triTable'].numel() + packBytes('triBoxPack'))
   if tables.get('nSurfTable'):
     flopsPerSegment += (FLOPS_CHUNK_TEST * tables['nSurfChunks']
                         + rowFlopsOf(tableRowsPerSegment))
-    if twoLevel is not None:
-      flopsTwoLevel += (FLOPS_CHUNK_TEST * twoLevel['boxTests']
-                        + rowFlopsOf(twoLevel['rows']))
+    for name, work in levels.items():
+      levelFlops[name] += (FLOPS_CHUNK_TEST * work['boxTests']
+                           + rowFlopsOf(work['rows']))
     inputBytes += 4 * (tables['surfTable'].numel()
-                       + tables['surfBoxes'].numel())
+                       + packBytes('surfBoxPack'))
   sampler = FLOPS_SAMPLER
   if tables.get('samplerKind') == cuda_trace.SAMPLER_SURFACE:
     faces = tables['samplerSpec']['faces']
@@ -762,10 +828,10 @@ def boundMs(tables, segmentsPerStep, nRays, outputBytes, gratingPasses=0,
   nbytes = (outputBytes + inputBytes + tables['table'].numel() * 4
             + 3 * 8)
   extra = {}
-  if twoLevel is not None:
-    extra = dict(flopsPerSegmentTwoLevel=flopsTwoLevel,
-                 boundOpsTwoLevelMs=(segmentsPerStep * flopsTwoLevel + rest)
-                 / PEAK_F32_FLOPS * 1e3)
+  for name, f in levelFlops.items():
+    extra[f'flopsPerSegment{name}'] = f
+    extra[f'boundOps{name}Ms'] = ((segmentsPerStep * f + rest)
+                                  / PEAK_F32_FLOPS * 1e3)
   return (flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3,
           dict(flopsPerSegment=flopsPerSegment, flopsPerStep=flops,
                bytesPerStep=nbytes, **extra))
@@ -791,9 +857,12 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
   error over phase 10's checks, `b7_max_abs_err`), and on the walls of the
   surface table (`wall`: launches on the 522-surface wall's path, ms and
   bound there, ms by wall, the worst error over phase 11's checks,
-  `b8_max_abs_err`), with, by dish and by wall, the operations a segment
-  and the bound of the one-level count and of the two-level sweep with the
-  shrinking cap (`tableWork`), and on the decoy scene of the per-bounce culls
+  `b8_max_abs_err`); on both, the bound is that of the kernels'
+  three-level sweep with the shrinking cap, each ray alone
+  (`tableBound`), the least the table sweep needs, with the one-level
+  count's beside it (`..._one_level_bound_ms`: every chunk box, the rows of
+  each entered chunk) and, by dish and by wall, the operations a segment
+  and the bound of every count (`tableWork`), and on the decoy scene of the per-bounce culls
   (`cull`: launches on its path, ms with and without the culls, bounds
   with and without them, the worst error of the b12 phase,
   `b12_max_abs_err`; None for the sweep kernel, which never culls).
@@ -822,20 +891,22 @@ def kernelEntry(name, source, replaces, launches, err, ms, plainMs, bounds,
              geom_bound_by='operations' if gOps >= gBytes else 'bytes',
              geom_ms_by_scene=geom.get('byScene'),
              geom_max_abs_err=geom['err'])
-  mOps, mBytes, _ = mesh['bounds']
+  mBound, mBy, mOneLevel = tableBound(mesh['bounds'])
   tri = dict(mesh_launches=mesh['launches'], mesh_ms=mesh['ms'],
-             mesh_bound_ms=max(mOps, mBytes),
-             mesh_bound_by='operations' if mOps >= mBytes else 'bytes',
+             mesh_bound_ms=mBound, mesh_bound_by=mBy,
+             mesh_one_level_bound_ms=mOneLevel,
              mesh_ms_by_scene=mesh.get('byScene'),
              mesh_bound_ms_by_scene=mesh.get('boundByScene'),
+             mesh_one_level_bound_ms_by_scene=mesh.get('oneLevelByScene'),
              mesh_work_by_scene=mesh.get('workByScene'),
              b7_max_abs_err=mesh['err'])
-  wOps, wBytes, _ = wall['bounds']
+  wBound, wBy, wOneLevel = tableBound(wall['bounds'])
   tab = dict(wall_launches=wall['launches'], wall_ms=wall['ms'],
-             wall_bound_ms=max(wOps, wBytes),
-             wall_bound_by='operations' if wOps >= wBytes else 'bytes',
+             wall_bound_ms=wBound, wall_bound_by=wBy,
+             wall_one_level_bound_ms=wOneLevel,
              wall_ms_by_scene=wall.get('byScene'),
              wall_bound_ms_by_scene=wall.get('boundByScene'),
+             wall_one_level_bound_ms_by_scene=wall.get('oneLevelByScene'),
              wall_work_by_scene=wall.get('workByScene'),
              b8_max_abs_err=wall['err'])
   b12 = dict(b12_launches=None, b12_ms=None, b12_unculled_ms=None,
@@ -2404,10 +2475,15 @@ def registerCounts(log):
 def registerPhase(log):
   '''The registers of every instance (phase 9's first gate): the instances
   without B2 / B3 keep OLD_REGISTERS, the grouped K3 instances
-  GROUPED_REGISTERS.'''
+  GROUPED_REGISTERS; the instances with a table in device memory (TRI,
+  STAB) beside PR14_TABLE_REGISTERS.'''
   regs = registerCounts(log)
+  name = lambda k: ','.join(map(str, k))
   emit(dict(phase='registers', instances=len(regs), byInstance={
-      ','.join(map(str, k)): v for k, v in sorted(regs.items())}))
+      name(k): v for k, v in sorted(regs.items())}, tableInstances={
+          name(k): dict(registersAndSpills=v,
+                        pr14=PR14_TABLE_REGISTERS.get(k))
+          for k, v in sorted(regs.items()) if k[6]}))
   for grouped, counts in ((0, OLD_REGISTERS), (1, GROUPED_REGISTERS)):
     for key, want in counts.items():
       got = regs.get(key + (0, 0, 0, grouped), (None, None))[0]
@@ -2735,10 +2811,7 @@ def meshKernelChecks(scenes):
     rb = stats['rayBounces']
     perSegment[name] = dict(
         chunks=stats['chunks'] / rb, triangles=stats['triangles'] / rb,
-        twoLevel=dict(boxTests=(stats.get('groupTests', 0)
-                                + stats.get('chunkTests', 0)) / rb,
-                      triangles=stats.get('capTriangles',
-                                          stats['triangles']) / rb))
+        levels=levelWork(stats, 'capTriangles', 'triangles'))
     w = compareRingsWithPlain(f'mesh-{name}', scene, bounds, maxI, n, BINS)
     for k in ('traceRaw', 'traceBins'):
       worst[k] = max(worst[k], w[k])
@@ -2754,10 +2827,8 @@ def meshKernelChecks(scenes):
               nTri=cuda_trace.tableTriangles(compiled(scene)[0]),
               chunksPerSegment=perSegment[name]['chunks'],
               trianglesPerSegment=perSegment[name]['triangles'],
-              twoLevelBoxTestsPerSegment=perSegment[name]['twoLevel'][
-                  'boxTests'],
-              twoLevelTrianglesPerSegment=perSegment[name]['twoLevel'][
-                  'triangles']))
+              **{f'{level}PerSegment': work
+                 for level, work in perSegment[name]['levels'].items()}))
   variants = [benchmarks.buildMeshDishScene(MESH_DISHES[1800], detectorZ=z)
               for z in MESH_HEIGHTS]
   worst['traceSweep'] = compareSweepWithPlain(
@@ -3018,23 +3089,73 @@ def pathTimings(path, scenes, names, boundKwOf):
                      for name in names}
   return {w: dict(byScene[path['refScene']],
                   byScene={n: r['ms'] for n, r in byScene.items()},
-                  boundByScene={n: max(r['bounds'][:2])
+                  boundByScene={n: tableBound(r['bounds'])[0]
                                 for n, r in byScene.items()},
-                  workByScene={n: tableWork(r['bounds'])
+                  oneLevelByScene={n: max(r['bounds'][:2])
+                                   for n, r in byScene.items()},
+                  workByScene={n: tableWork(r['bounds'], boundKwOf(n))
                                for n, r in byScene.items()})
           for w, byScene in out.items()}
 
 
-def tableWork(bounds):
+def tableBound(bounds):
+  '''(bound ms, what bounds it, the one-level count's bound ms) of a step
+  on a table scene: the bound of the kernels' three-level sweep with the
+  shrinking cap, each ray alone (`boundMs`'s `boundOpsThreeLevelMs`, the
+  least table work the kernels can reach), and that of the one-level
+  count.'''
+  ops, nbytes, info = bounds
+  three = info['boundOpsThreeLevelMs']
+  return (max(three, nbytes), 'operations' if three >= nbytes else 'bytes',
+          max(ops, nbytes))
+
+
+def tableWork(bounds, boundKw):
   '''The operations a segment and the bound of a step on a table scene, as
   `boundMs` counts them for the one-level sweep (every chunk box, the rows
-  of the boxes entered at the entry cap) and for the two-level sweep with
-  the shrinking cap.'''
+  of the boxes entered at the entry cap), for the two-level sweep with the
+  shrinking cap, for the kernels' three-level sweep, each ray alone, and
+  for the three-level sweep as a warp runs it (`LEVELS`), with
+  the rows (triangles, or table rows by kind) a segment sweeps in each
+  (`boundKw`, the plain version's counts).'''
   ops, nbytes, info = bounds
-  return dict(flopsPerSegment=info['flopsPerSegment'],
-              boundMs=max(ops, nbytes),
-              flopsPerSegmentTwoLevel=info['flopsPerSegmentTwoLevel'],
-              boundTwoLevelMs=max(info['boundOpsTwoLevelMs'], nbytes))
+  rowsOf = lambda work: work.get('triangles', work.get('rows'))
+  out = dict(flopsPerSegment=info['flopsPerSegment'],
+             boundMs=max(ops, nbytes),
+             rowsPerSegment=boundKw.get('trianglesPerSegment',
+                                        boundKw.get('tableRowsPerSegment')))
+  for level, work in boundKw['levels'].items():
+    name = capitalised(level)
+    out[f'flopsPerSegment{name}'] = info[f'flopsPerSegment{name}']
+    out[f'bound{name}Ms'] = max(info[f'boundOps{name}Ms'], nbytes)
+    out[f'rowsPerSegment{name}'] = rowsOf(work)
+  return out
+
+
+# the sweeps whose table work the plain version counts (`levelWork`)
+LEVELS = ('twoLevel', 'threeLevel', 'warp')
+
+
+def capitalised(level):
+  return level[0].upper() + level[1:]
+
+
+def levelWork(stats, rowsKey, rowsName):
+  '''Per segment, by sweep of LEVELS, the boxes a ray tests (`boxTests`:
+  groups, chunks and leaves) and the rows it sweeps (`rowsName`: triangles,
+  or table rows by kind), from the plain version's counts `stats`
+  (`cuda_trace._CapCount`; the two-level sweep in its own keys).'''
+  rb = stats['rayBounces']
+  out = {}
+  for level in LEVELS:
+    s = stats if level == 'twoLevel' else stats.get(level, {})
+    rows = s.get(rowsKey, stats.get(rowsKey, stats[rowsName]))
+    out[level] = {
+        'boxTests': sum(s.get(k, 0) for k in ('groupTests', 'chunkTests',
+                                              'leafTests')) / rb,
+        rowsName: ({k: v / rb for k, v in rows.items()}
+                   if isinstance(rows, dict) else rows / rb)}
+  return out
 
 
 def meshPhase(tmp):
@@ -3047,7 +3168,7 @@ def meshPhase(tmp):
   worst, perSegment = meshKernelChecks(scenes)
   boundKwOf = lambda name: dict(
       trianglesPerSegment=perSegment[name]['triangles'],
-      twoLevel=perSegment[name]['twoLevel'])
+      levels=perSegment[name]['levels'])
   out = pathTimings(MESH_PATH, scenes, [f'dish{n}' for n in MESH_DISHES],
                     boundKwOf)
   out['traceRaw']['launches'] = MESH_RAW_ITERATIONS
@@ -3097,9 +3218,7 @@ def wallKernelChecks(scenes):
     rb = stats['rayBounces']
     perSegment[name] = dict(
         rows={k: v / rb for k, v in stats['rows'].items()},
-        twoLevel=dict(boxTests=(stats.get('groupTests', 0)
-                                + stats.get('chunkTests', 0)) / rb,
-                      rows={k: v / rb for k, v in stats['capRows'].items()}))
+        levels=levelWork(stats, 'capRows', 'rows'))
     w = compareRingsWithPlain(f'table-{name}', scene, bounds, maxI, n, BINS,
                               budget=0, rawAtol=0.)
     for k in ('traceRaw', 'traceBins'):
@@ -3117,10 +3236,8 @@ def wallKernelChecks(scenes):
                   compiled(scene)[0]).sum()),
               chunksPerSegment=stats['chunks'] / stats['rayBounces'],
               rowsPerSegmentByKind=perSegment[name]['rows'],
-              twoLevelBoxTestsPerSegment=perSegment[name]['twoLevel'][
-                  'boxTests'],
-              twoLevelRowsPerSegmentByKind=perSegment[name]['twoLevel'][
-                  'rows']))
+              **{f'{level}PerSegment': work
+                 for level, work in perSegment[name]['levels'].items()}))
   variants = [benchmarks.buildSurfWallScene(detectorZ=z)
               for z in WALL_HEIGHTS]
   worst['traceSweep'] = compareSweepWithPlain(
@@ -3141,7 +3258,7 @@ def wallPhase(tmp):
   worst, perSegment, variants = wallKernelChecks(scenes)
   boundKwOf = lambda name: dict(
       tableRowsPerSegment=perSegment[name]['rows'],
-      twoLevel=perSegment[name]['twoLevel'])
+      levels=perSegment[name]['levels'])
   out = pathTimings(WALL_PATH, scenes, list(WALLS), boundKwOf)
   out['traceRaw']['launches'] = WALL_RAW_ITERATIONS
   out['traceHistogram']['launches'] = pathRunPhases(

@@ -74,32 +74,37 @@
 // code and reads the rows it read before. The surface sampler's faces of
 // kind cone, asphere, torus and triangle are GEOM's too.
 //
-// The triangle table (TRI, B7, a compile-time instance built on the B4
-// body, whose sources are trace_*_tri.cu): a mesh past the surface rows'
-// 128 triangles is swept after them from a table of world-frame rows [v0,
-// e1, e2, element, orient] in GLOBAL memory (no part of the shared-memory
-// table, no cap on its size), in Morton order of the centroids, chunked by
-// kTriChunk rows with one padded box each, and every kGroupChunks chunks
-// with one group box, the union of theirs. The sweep has two levels: per
-// group the warp votes on the group box's slab test and, in a group that
-// any lane's segment enters, per chunk on the chunk box's; if any lane's
-// segment enters a chunk's box, the live lanes sweep its rows together, so
-// each row's loads are broadcasts. A lane's segment is capped at its
-// nearest surface row plus the same-medium window, and below that, as the
-// sweep goes on, at its nearest triangle so far plus the window (the cap
-// shrinks with the lane's winner: a row beyond it cannot replace the
-// table's one result). The cull only skips triangles no lane can hit, so
-// any culling grain gives the same result; it is as tight as the warp's
-// rays are coherent (the samplers' ray-index strata keep a block's rays in
-// one (theta, phi) cell). The boxes are read as a pack in device memory
-// (group boxes, then chunk boxes, kBoxStride floats each: two 16-byte loads
-// through the read-only path; a copy in each block's shared memory was
-// measured no faster, PERF.md §6). Inside the table the strict `<` keeps
-// the lowest row on a tie; the table's winner replaces the surface winner
-// only when strictly nearer, and counts for the other-medium tracker when
-// the medium is not its element. A table winner brings its normal (the
-// unnormalised e1 x e2 times orient / |e1 x e2|, in float32), its element
-// and the world (x, y) as its chart.
+// The triangle table (TRI, B7, a compile-time instance built on the B4 body,
+// whose sources are trace_*_tri.cu): a mesh past the surface rows' 128
+// triangles is swept after them from a table of world-frame rows [v0, e1, e2,
+// element, orient] in GLOBAL memory (no part of the shared-memory table, no
+// cap on its size), in Morton order of the centroids, chunked by kTriChunk
+// rows with one padded box each, every kGroupChunks chunks with one group
+// box, the union of theirs, and every kTriLeaf rows of a chunk with one
+// padded leaf box. The sweep has three levels: per group the warp votes on
+// the group box's slab test, in a group that any lane's segment enters per
+// chunk on the chunk box's, and in a chunk that any lane's segment enters per
+// leaf on the leaf box's; if any lane's segment enters a leaf's box, the live
+// lanes sweep its rows together, so each row's loads are broadcasts. The
+// three levels are one loop over the leaves that tests a group box at the
+// group's first leaf and a chunk box at the chunk's first leaf (two nested
+// loops held more registers and spilled: 236 bytes in K1's STAB instance;
+// one call site for the three tests spilled more and ran 8-19 % slower,
+// PERF.md §6). A lane's segment is capped at its nearest surface row plus the
+// same-medium window, and below that, as the sweep goes on, at its nearest
+// triangle so far plus the window (the cap shrinks with the lane's winner: a
+// row beyond it cannot replace the table's one result). The cull only skips
+// triangles no lane can hit, so any culling grain gives the same result; it
+// is as tight as the warp's rays are coherent (the samplers' ray-index strata
+// keep a block's rays in one (theta, phi) cell). The boxes are read as a pack
+// in device memory (group boxes, then chunk boxes, then leaf boxes,
+// kBoxStride floats each: two 16-byte loads through the read-only path; a
+// copy in each block's shared memory was measured no faster, PERF.md §6).
+// Inside the table the strict `<` keeps the lowest row on a tie; the table's
+// winner replaces the surface winner only when strictly nearer, and counts
+// for the other-medium tracker when the medium is not its element. A table
+// winner brings its normal (the unnormalised e1 x e2 times orient / |e1 x
+// e2|, in float32), its element and the world (x, y) as its chart.
 //
 // The surface table (STAB, B8, a compile-time instance built on TRI, in the
 // same `_tri` sources; the launcher picks the TRI instances when either
@@ -112,8 +117,11 @@
 // memory, swept after the triangle table in runs of one (kind, trim) each,
 // the kind a switch outside the run's row loop. A run is plain (swept row by
 // row) or chunked (Morton-ordered, kSurfChunk rows a chunk with one padded
-// box each and a group box every kGroupChunks chunks of the run, culled in
-// two levels by the warp's votes on the slab tests as the triangle table,
+// box each, a group box every kGroupChunks chunks of the run and a leaf box
+// every kSurfLeaf rows of a chunk, culled in three levels by the warp's
+// votes on the slab tests as the triangle table; a leaf of nothing but the
+// rows that pad a run's last chunk has a box that no segment enters,
+// ops/cuda_trace.py `_EMPTY_LEAF`),
 // the segment capped at min(nearest so far, the plain runs' winner,
 // mrlEff) plus the same-medium window, and below that at the table's winner
 // so far plus the window); the plain runs come first. Each row is
@@ -231,6 +239,10 @@ constexpr int kTriChunk = 32;      // TRI: rows per chunk
 constexpr int kGroupChunks = 8;    // TRI: chunks per group box
 constexpr int kSurfTableCols = 21; // STAB: a surface-table row (below)
 constexpr int kSurfChunk = 16;     // STAB: surface-table rows per chunk
+constexpr int kTriLeaf = 8;        // TRI: triangle rows per leaf box
+constexpr int kSurfLeaf = 4;       // STAB: surface-table rows per leaf box
+constexpr int kTriChunkLeaves = kTriChunk / kTriLeaf;
+constexpr int kSurfChunkLeaves = kSurfChunk / kSurfLeaf;
 constexpr int kMaxSurfRuns = 10;   // STAB: one run per (kind, window trim)
 constexpr int kRunCols = 7;
 constexpr int kBlock = 256;
@@ -1158,17 +1170,27 @@ __device__ float intersectGeom(const float* r, const float* smem, float ox,
 
 // ---- B7 (TRI only): the triangle table ----
 // table and box pack in global memory (the pack: nGroups group boxes, then
-// nChunks chunk boxes, kBoxStride floats each), with their counts (a
-// sweep's launch offsets them to the block's variant)
+// nChunks chunk boxes, then ceil(n / kTriLeaf) leaf boxes, kBoxStride
+// floats each), with their counts (a sweep's launch offsets them to the
+// block's variant)
 struct TriTable {
   const float* tri;
   const float* box;
   int n, nChunks, nGroups;
 };
 
+// the leaf boxes of a triangle table of n rows in nChunks chunks (none for
+// a table swept flat)
+__device__ __forceinline__ int triLeaves(int n, int nChunks) {
+  return nChunks > 0 ? (n + kTriLeaf - 1) / kTriLeaf : 0;
+}
+
 // Moeller-Trumbore of the ray against table row r (the JAX package's
 // `_triBody`, operation for operation); a strictly nearer hit replaces the
-// running winner (tT, its normal, its element)
+// running winner (tT, its normal, its element). The row is read as scalars:
+// three 16-byte loads from a 12-float padded copy ran 2-3 % faster on the
+// dishes but raised the registers or spills of three instances and not the
+// walls' time (PERF.md §6).
 __device__ __forceinline__ void triangleTest(
     const float* __restrict__ r, float ox, float oy, float oz, float dx,
     float dy, float dz, float tMin, float maxRayLength, float& tT,
@@ -1223,11 +1245,13 @@ __device__ __forceinline__ bool anyLaneEnters(
 
 // The nearest triangle of the table along the ray (tT = kBig, elT = -1
 // where none), a table of one chunk or less (no boxes) swept flat, else in
-// two levels: the group boxes in ascending order, and in a group that the
-// slab test (the JAX package's `_slabSurvives`: sign-preserving inverse
-// direction, |d| clamped at 1e-30) lets any of the warp's live lanes into,
-// its chunks in ascending order, each swept by the live lanes together when
-// its box lets any of them in. A lane tests a box against its segment
+// three levels, in one loop over the leaves in ascending order: at a
+// group's first leaf its group box, at a chunk's first leaf its chunk box,
+// then the leaf's box, each voted on by the warp's live lanes with the slab
+// test (the JAX package's `_slabSurvives`: sign-preserving inverse
+// direction, |d| clamped at 1e-30); a box no lane enters skips the rest of
+// its group, chunk or leaf, and the live lanes sweep a leaf's rows together
+// when its box lets any of them in. A lane tests a box against its segment
 // capped at min(tCap, its nearest triangle so far + window): a row past
 // that cannot replace the nearest triangle, the table's one result, so no
 // result moves (rows keep their order and the strict `<`).
@@ -1249,22 +1273,32 @@ __device__ void sweepTriangles(const TriTable& tt, float ox, float oy,
   // the lanes of the warp still in the bounce loop (the others broke out)
   const unsigned lanes = __activemask();
   const float* groups = tt.box;
-  const float* chunks = tt.box + tt.nGroups * kBoxStride;
-  for (int g = 0; g < tt.nGroups; ++g) {
-    if (!anyLaneEnters(groups + g * kBoxStride, lanes, ox, oy, oz, ivx, ivy,
+  const float* chunks = groups + tt.nGroups * kBoxStride;
+  const float* leaves = chunks + tt.nChunks * kBoxStride;
+  constexpr int kGroupLeaves = kGroupChunks * kTriChunkLeaves;
+  const int nLeaves = triLeaves(tt.n, tt.nChunks);
+  for (int l = 0; l < nLeaves; ++l) {
+    if (l % kGroupLeaves == 0
+        && !anyLaneEnters(groups + (l / kGroupLeaves) * kBoxStride, lanes, ox,
+                          oy, oz, ivx, ivy, ivz, fminf(tCap, tT + window))) {
+      l += kGroupLeaves - 1;
+      continue;
+    }
+    if (l % kTriChunkLeaves == 0
+        && !anyLaneEnters(chunks + (l / kTriChunkLeaves) * kBoxStride, lanes,
+                          ox, oy, oz, ivx, ivy, ivz,
+                          fminf(tCap, tT + window))) {
+      l += kTriChunkLeaves - 1;
+      continue;
+    }
+    if (!anyLaneEnters(leaves + l * kBoxStride, lanes, ox, oy, oz, ivx, ivy,
                        ivz, fminf(tCap, tT + window)))
       continue;
-    const int cEnd = min((g + 1) * kGroupChunks, tt.nChunks);
-    for (int c = g * kGroupChunks; c < cEnd; ++c) {
-      if (!anyLaneEnters(chunks + c * kBoxStride, lanes, ox, oy, oz, ivx,
-                         ivy, ivz, fminf(tCap, tT + window)))
-        continue;
-      const int base = c * kTriChunk;
-      const int nIn = min(kTriChunk, tt.n - base);
-      for (int k = 0; k < nIn; ++k)
-        triangleTest(tt.tri + (base + k) * kTriCols, ox, oy, oz, dx, dy, dz,
-                     tMin, maxRayLength, tT, nxT, nyT, nzT, elT);
-    }
+    const int base = l * kTriLeaf;
+    const int nIn = min(kTriLeaf, tt.n - base);
+    for (int k = 0; k < nIn; ++k)
+      triangleTest(tt.tri + (base + k) * kTriCols, ox, oy, oz, dx, dy, dz,
+                   tMin, maxRayLength, tT, nxT, nyT, nzT, elT);
   }
 }
 
@@ -1398,14 +1432,19 @@ __device__ __forceinline__ void tableRow(
 }
 
 // One run of the surface table: a plain run row by row; a chunked run in
-// two levels, its group boxes and, in a group that lets any live lane in,
-// its chunks, each chunk's rows swept by the live lanes together when its
-// box lets any of them in; a lane's segment capped at min(tCap, the table's
-// winner so far + window), as in `sweepTriangles`.
+// three levels, in one loop over its leaves: at a group's first leaf its
+// group box, at a chunk's first leaf its chunk box, then the leaf's box,
+// each voted on by the live lanes, a box no lane enters skipping the rest of
+// its group, chunk or leaf, and a leaf's rows swept by the live lanes
+// together when its box lets any of them in; a lane's segment capped at
+// min(tCap, the table's winner so far + window), as in `sweepTriangles`.
+// Leaf l of the table covers the kSurfLeaf rows from rowStart + (l - first
+// * kSurfChunkLeaves) * kSurfLeaf of the run whose chunks hold it.
 template <int KIND>
 __device__ void sweepRun(const int* run, const float* __restrict__ rows,
                          const float* __restrict__ groups,
-                         const float* __restrict__ chunks, unsigned lanes,
+                         const float* __restrict__ chunks,
+                         const float* __restrict__ leaves, unsigned lanes,
                          float ox, float oy, float oz, float dx, float dy,
                          float dz, float ivx, float ivy, float ivz,
                          float tMin, float mrlEff, float tCap, float window,
@@ -1417,30 +1456,37 @@ __device__ void sweepRun(const int* run, const float* __restrict__ rows,
                      dz, tMin, mrlEff, w);
     return;
   }
-  // one loop over the run's chunks, the group box tested where a group
-  // starts and its chunks skipped where no lane enters it (two nested
-  // loops held more registers: 236 bytes of spills in K1's instance,
-  // PERF.md §6)
-  const int first = run[RUN_FIRST], last = run[RUN_LAST];
+  // one loop over the run's leaves (two nested loops held more registers:
+  // 236 bytes of spills in K1's instance, PERF.md §6)
+  constexpr int kGroupLeaves = kGroupChunks * kSurfChunkLeaves;
+  const int first = run[RUN_FIRST] * kSurfChunkLeaves;
+  const int last = run[RUN_LAST] * kSurfChunkLeaves;
   const float* g = groups + run[RUN_GROUP0] * kBoxStride;
-  for (int c = first; c < last; ++c) {
-    if ((c - first) % kGroupChunks == 0) {
+  const float* base = rows + run[RUN_ROW0] * kSurfTableCols;
+  for (int l = first; l < last; ++l) {
+    if ((l - first) % kGroupLeaves == 0) {
       const bool in = anyLaneEnters(g, lanes, ox, oy, oz, ivx, ivy, ivz,
                                     fminf(tCap, w.t + window));
       g += kBoxStride;
       if (!in) {
-        c += kGroupChunks - 1;
+        l += kGroupLeaves - 1;
         continue;
       }
     }
-    if (!anyLaneEnters(chunks + c * kBoxStride, lanes, ox, oy, oz, ivx, ivy,
+    if (l % kSurfChunkLeaves == 0
+        && !anyLaneEnters(chunks + (l / kSurfChunkLeaves) * kBoxStride, lanes,
+                          ox, oy, oz, ivx, ivy, ivz,
+                          fminf(tCap, w.t + window))) {
+      l += kSurfChunkLeaves - 1;
+      continue;
+    }
+    if (!anyLaneEnters(leaves + l * kBoxStride, lanes, ox, oy, oz, ivx, ivy,
                        ivz, fminf(tCap, w.t + window)))
       continue;
-    const float* base = rows + (run[RUN_ROW0] + (c - first) * kSurfChunk)
-                               * kSurfTableCols;
-    for (int k = 0; k < kSurfChunk; ++k)
-      tableRow<KIND>(base + k * kSurfTableCols, window1, ox, oy, oz, dx, dy,
-                     dz, tMin, mrlEff, w);
+    const float* r = base + (l - first) * kSurfLeaf * kSurfTableCols;
+    for (int k = 0; k < kSurfLeaf; ++k)
+      tableRow<KIND>(r + k * kSurfTableCols, window1, ox, oy, oz, dx, dy, dz,
+                     tMin, mrlEff, w);
   }
 }
 
@@ -1452,7 +1498,8 @@ __device__ void sweepRun(const int* run, const float* __restrict__ rows,
 // any culling grain gives the same result). The kind is a switch per run,
 // outside its row loop. Inside the table the strict `<` keeps the first row
 // swept on a tie.
-// `box`: the table's box pack (its group boxes, then its chunk boxes).
+// `box`: the table's box pack (its group boxes, then its chunk boxes, then
+// kSurfChunkLeaves leaf boxes a chunk).
 __device__ void sweepSurfaceTable(const SurfTable& st,
                                   const float* __restrict__ rows,
                                   const float* __restrict__ box, float ox,
@@ -1461,6 +1508,7 @@ __device__ void sweepSurfaceTable(const SurfTable& st,
                                   float tBest, float window, TableHit& w) {
   const float* groups = box;
   const float* chunks = box + st.nGroups * kBoxStride;
+  const float* leaves = chunks + st.nChunks * kBoxStride;
   w.t = kBig;
   w.el = -1;
   w.nx = w.ny = w.nz = w.lx = w.ly = 0.f;
@@ -1479,29 +1527,29 @@ __device__ void sweepSurfaceTable(const SurfTable& st,
     }
     switch (run[RUN_KIND]) {
       case KIND_PLANE:
-        sweepRun<KIND_PLANE>(run, rows, groups, chunks, lanes, ox, oy, oz,
-                             dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff, tCap,
-                             window, w);
+        sweepRun<KIND_PLANE>(run, rows, groups, chunks, leaves, lanes, ox, oy,
+                             oz, dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff,
+                             tCap, window, w);
         break;
       case KIND_SPHERE:
-        sweepRun<KIND_SPHERE>(run, rows, groups, chunks, lanes, ox, oy, oz,
-                              dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff, tCap,
-                              window, w);
+        sweepRun<KIND_SPHERE>(run, rows, groups, chunks, leaves, lanes, ox,
+                              oy, oz, dx, dy, dz, ivx, ivy, ivz, tMin,
+                              mrlEff, tCap, window, w);
         break;
       case KIND_CYLINDER:
-        sweepRun<KIND_CYLINDER>(run, rows, groups, chunks, lanes, ox, oy, oz,
-                                dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff,
-                                tCap, window, w);
+        sweepRun<KIND_CYLINDER>(run, rows, groups, chunks, leaves, lanes, ox,
+                                oy, oz, dx, dy, dz, ivx, ivy, ivz, tMin,
+                                mrlEff, tCap, window, w);
         break;
       case KIND_CONE:
-        sweepRun<KIND_CONE>(run, rows, groups, chunks, lanes, ox, oy, oz, dx,
-                            dy, dz, ivx, ivy, ivz, tMin, mrlEff, tCap,
-                            window, w);
+        sweepRun<KIND_CONE>(run, rows, groups, chunks, leaves, lanes, ox, oy,
+                            oz, dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff,
+                            tCap, window, w);
         break;
       default:
-        sweepRun<KIND_QUADRIC>(run, rows, groups, chunks, lanes, ox, oy, oz,
-                               dx, dy, dz, ivx, ivy, ivz, tMin, mrlEff, tCap,
-                               window, w);
+        sweepRun<KIND_QUADRIC>(run, rows, groups, chunks, leaves, lanes, ox,
+                               oy, oz, dx, dy, dz, ivx, ivy, ivz, tMin,
+                               mrlEff, tCap, window, w);
     }
   }
 }
@@ -1740,11 +1788,14 @@ traceKernel(TraceParams p, const float* __restrict__ table, TriTable tt,
     table += variant0 * p.tableLen;
     if constexpr (TRI) {
       tt.tri += variant0 * tt.n * kTriCols;
-      tt.box += variant0 * (tt.nGroups + tt.nChunks) * kBoxStride;
+      tt.box += variant0 * (tt.nGroups + tt.nChunks
+                            + triLeaves(tt.n, tt.nChunks)) * kBoxStride;
     }
     if constexpr (STAB) {
       surfRows += variant0 * stab.n * kSurfTableCols;
-      surfBox += variant0 * (stab.nGroups + stab.nChunks) * kBoxStride;
+      surfBox += variant0 * (stab.nGroups
+                             + (1 + kSurfChunkLeaves) * stab.nChunks)
+                 * kBoxStride;
     }
     out0 += variant0 * p.histLen;
     out1 += variant0 * p.histLen;

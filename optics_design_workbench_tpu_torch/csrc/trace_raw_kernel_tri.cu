@@ -9,13 +9,14 @@
 // trace_common.cuh for the design.
 //
 // What bounds it on this card: operations, as for trace_raw_kernel.cu, plus
-// per segment ~30 for each group box tested and for each chunk box of the
-// groups the warp's lanes enter, ~40 for each triangle of the triangle
-// chunks they enter and 50-110 (by kind) for each row of the plain surface
-// runs and of the surface chunks they enter, each lane's segment capped
-// below its table winner so far plus the window; boxes and rows are read
-// from global memory through the read-only path (two 16-byte loads a box, 11
-// floats a triangle, 21 a surface row, broadcast to the warp).
+// per segment ~30 for each group box tested, for each chunk box of the groups
+// the warp's lanes enter and for each leaf box of the chunks they enter, ~40
+// for each triangle of the triangle leaves they enter and 50-110 (by kind)
+// for each row of the plain surface runs and of the surface leaves they
+// enter, each lane's segment capped below its table winner so far plus the
+// window; boxes and rows are read from global memory through the read-only
+// path (two 16-byte loads a box, 11 floats a triangle, 21 a surface row,
+// broadcast to the warp).
 //
 // Interface: one plain-C launcher, `odwTraceRawTri`, loaded with ctypes; the
 // arguments of `odwTraceRaw`.

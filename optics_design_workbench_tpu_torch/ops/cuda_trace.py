@@ -131,14 +131,24 @@ TABLE_TRIANGLES = 128
 _TRI_CHUNK = 32
 TRI_COLS = 11
 BOX_COLS = 6
-# The kernels' two-level sweep of both tables: a GROUP box is the union of
-# SWEEP_GROUP consecutive chunk boxes (of one run, in the surface table);
-# a warp tests a group's chunk boxes only when it enters the group. The
-# kernels read the boxes as a PACK per table in device memory, the group
-# boxes then the chunk boxes, BOX_STRIDE floats each (lo xyz, 0, hi xyz, 0:
-# two 16-byte loads).
+# The kernels' three-level sweep of both tables: a GROUP box is the union
+# of SWEEP_GROUP consecutive chunk boxes (of one run, in the surface table),
+# and a LEAF box the padded world AABB of _TRI_LEAF consecutive rows of a
+# triangle chunk or of _SURF_LEAF of a surface chunk; a warp tests a
+# group's chunk boxes only when it enters the group, and a chunk's leaf
+# boxes only when it enters the chunk. The kernels read the boxes as a PACK
+# per table in device memory, the group boxes, then the chunk boxes, then
+# the leaf boxes, BOX_STRIDE floats each (lo xyz, 0, hi xyz, 0: two 16-byte
+# loads).
 SWEEP_GROUP = 8
 BOX_STRIDE = 8
+_TRI_LEAF = 8
+_SURF_LEAF = 4
+# the box of a surface leaf of nothing but the rows that pad a run's last
+# chunk (`_dummySurfRow`): a point at 3e38 on every axis, which no segment
+# capped below 2.9e38 enters (on each axis its slab lies at or beyond 3e38
+# along the ray, or behind the origin: every |direction component| <= 1)
+_EMPTY_LEAF = np.full(BOX_COLS, 3e38, np.float32)
 MAX_PWPOLY_SEGMENTS = 12
 MAX_PWPOLY_COEFFS = 13
 MAX_TENT_KNOTS = 257
@@ -882,6 +892,15 @@ def _chunkSurfRows(entries):
   ((kind, trim0, rowStart, rowStop), ...), float32 (nChunks, BOX_COLS)
   boxes, chunked runs ((kind, trim0, chunkStart, chunkStop, rowStart),
   ...)).'''
+  return _surfTableParts(entries)[:4]
+
+
+def _surfTableParts(entries):
+  '''`_chunkSurfRows`' table, runs and chunk boxes, and the float32
+  (nChunks * _SURF_CHUNK // _SURF_LEAF, BOX_COLS) leaf boxes of the chunks,
+  _SURF_LEAF rows each in chunk order: the AABB of the leaf's members'
+  spheres padded as the chunk boxes are, formed in float64 and rounded
+  once; a leaf of nothing but padding rows `_EMPTY_LEAF`.'''
   entries = sorted(entries, key=lambda e: (e[0], e[1]))
   grouped = []
   for ent in entries:
@@ -889,7 +908,7 @@ def _chunkSurfRows(entries):
       grouped[-1][2].append(ent)
     else:
       grouped.append((ent[0], ent[1], [ent]))
-  tableRows, plainRuns, chunkBoxes, chunkRuns = [], [], [], []
+  tableRows, plainRuns, chunkBoxes, chunkRuns, leaves = [], [], [], [], []
   for kind, trim0, run in grouped:
     spheres = [e[3] for e in run]
     if len(run) > _SURF_CHUNK and all(b is not None for b in spheres):
@@ -906,6 +925,11 @@ def _chunkSurfRows(entries):
         hi = (cen[sl] + rho[sl, None]).max(0)
         pad = 1e-5 * max(1., float(np.abs(np.stack([lo, hi])).max()))
         chunkBoxes.append(np.concatenate([lo - pad, hi + pad]))
+        for a in range(c * _SURF_CHUNK, (c + 1) * _SURF_CHUNK, _SURF_LEAF):
+          b = min(a + _SURF_LEAF, len(run))
+          leaves.append(_paddedBox(np.concatenate(
+              [cen[a:b] - rho[a:b, None], cen[a:b] + rho[a:b, None]]))
+              if a < b else _EMPTY_LEAF)
         rows = [e[2] for e in run[sl]]
         rows += [_dummySurfRow(kind, trim0)] * (_SURF_CHUNK - len(rows))
         tableRows += rows
@@ -918,7 +942,9 @@ def _chunkSurfRows(entries):
            else np.zeros((0, SURF_TABLE_COLS), np.float32))
   boxes = (np.stack(chunkBoxes).astype(np.float32) if chunkBoxes
            else np.zeros((0, BOX_COLS), np.float32))
-  return table, tuple(plainRuns), boxes, tuple(chunkRuns)
+  leaves = (np.stack(leaves).astype(np.float32) if leaves
+            else np.zeros((0, BOX_COLS), np.float32))
+  return table, tuple(plainRuns), boxes, tuple(chunkRuns), leaves
 
 
 def surfaceRuns(plainRuns, chunkRuns):
@@ -956,15 +982,45 @@ def _groupBoxes(boxes, spans):
           else np.zeros((0, BOX_COLS), np.float32))
 
 
-def _boxPack(groups, boxes):
+def _boxPack(groups, boxes, leaves):
   '''The kernels' box pack of a table (numpy, any leading dimensions): its
-  group boxes, then its chunk boxes, each widened to BOX_STRIDE floats
-  (lo xyz, 0, hi xyz, 0).'''
-  both = np.concatenate([groups, boxes], axis=-2)
+  group boxes, then its chunk boxes, then its leaf boxes, each widened to
+  BOX_STRIDE floats (lo xyz, 0, hi xyz, 0).'''
+  both = np.concatenate([groups, boxes, leaves], axis=-2)
   pack = np.zeros(both.shape[:-1] + (BOX_STRIDE,), np.float32)
   pack[..., 0:3] = both[..., 0:3]
   pack[..., 4:7] = both[..., 3:6]
   return pack
+
+
+def _paddedBox(pts):
+  '''The float64 [lo xyz, hi xyz] AABB of (n, 3) float64 points padded by
+  1e-5 of its largest coordinate (at least 1e-5): the chunk boxes' padding
+  (the JAX package's `_chunkTriangles`), so that a leaf's box, formed from
+  a subset of its chunk's points, lies inside the chunk's box.'''
+  lo, hi = pts.min(0), pts.max(0)
+  pad = 1e-5 * max(1., float(np.abs(np.stack([lo, hi])).max()))
+  return np.concatenate([lo - pad, hi + pad])
+
+
+def _triLeafBoxes(triTable, nChunks):
+  '''The float32 (ceil(nTri / _TRI_LEAF), BOX_COLS) leaf boxes of the
+  Morton-ordered triangle table of `_chunkTriangles`: the padded world AABB
+  of each _TRI_LEAF rows' vertices, formed in float64 and rounded once (a
+  table swept flat, `nChunks` 0, has none).'''
+  n = len(triTable) if nChunks else 0
+  v0 = triTable[:n, 0:3].astype(np.float64)
+  pts = np.stack([v0, v0 + triTable[:n, 3:6], v0 + triTable[:n, 6:9]], 1)
+  out = [_paddedBox(pts[a:a + _TRI_LEAF].reshape(-1, 3))
+         for a in range(0, n, _TRI_LEAF)]
+  return (np.stack(out).astype(np.float32) if out
+          else np.zeros((0, BOX_COLS), np.float32))
+
+
+def triLeafCount(nTri, nChunks):
+  '''The leaf boxes of a triangle table of `nTri` rows in `nChunks`
+  chunks (the kernels' `triLeaves`).'''
+  return -(-nTri // _TRI_LEAF) if nChunks else 0
 
 
 def _mortonOrder(cen):
@@ -1123,8 +1179,9 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
                emissionBound=None, maxIntersections=0):
   '''The kernel's table of one compiled scene as host numpy, and its static
   facts: (float32 (tableLen,) array, dict(nSurf, nElem, nTri, nTriChunks,
-  nTriGroups, triTable, triBoxes, triGroups, nSurfTable, nSurfChunks,
-  nSurfGroups, surfTable, surfBoxes, surfGroups, surfPlainRuns,
+  nTriGroups, nTriLeaves, triTable, triBoxes, triGroups, triLeaves,
+  nSurfTable, nSurfChunks, nSurfGroups, nSurfLeaves, surfTable, surfBoxes,
+  surfGroups, surfLeaves, surfPlainRuns,
   surfChunkRuns, samplerOff, bins, nDet, anyMedium, hasGrating,
   nStages, gate, dispOff, cullOff, geom, surfRows, elemRows, samplerSpec,
   scatter, scatterConsts, scatterRows, lobeRows, modRows)).
@@ -1147,6 +1204,8 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
   the table holds a scatter block (right after the element rows), drawn
   from `scatterRows` uniforms per bounce (`lobeRows` for the lobe, then
   `modRows` for MODIFY).
+  `triLeaves` / `surfLeaves` (`_triLeafBoxes`, `_surfTableParts`) their
+  leaf boxes, `nTriLeaves` / `nSurfLeaves` their counts.
   `marginalCache` (a dict) lets several calls that share marginal specs
   pack each only once. Raises ValueError for scenes the kernel does not
   cover.'''
@@ -1157,14 +1216,16 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
   surfRows, elemRows, nStages, masks, triRows, surfEntries = _sceneRows(
       scene, histSpec)
   S, E = len(surfRows), len(elemRows)
-  triTable = triBoxes = triGroups = None
+  triTable = triBoxes = triGroups = triLeaves = None
   if triRows:
     triTable, triBoxes = _chunkTriangles(np.asarray(triRows, np.float32))
     triGroups = _groupBoxes(triBoxes, [(0, len(triBoxes))])
-  surfTable = surfBoxes = surfGroups = None
+    triLeaves = _triLeafBoxes(triTable, len(triBoxes))
+  surfTable = surfBoxes = surfGroups = surfLeaves = None
   plainRuns = chunkRuns = ()
   if surfEntries:
-    surfTable, plainRuns, surfBoxes, chunkRuns = _chunkSurfRows(surfEntries)
+    surfTable, plainRuns, surfBoxes, chunkRuns, surfLeaves = \
+        _surfTableParts(surfEntries)
     surfGroups = _groupBoxes(surfBoxes, [r[2:4] for r in chunkRuns])
   geom = needsGeom(scene)
   rowCols = SURF_COLS + (GEOM_COLS if geom else 0)
@@ -1284,11 +1345,15 @@ def _packTable(scene, histSpec, samplerSpec=None, marginalCache=None,
       nSurf=S, nElem=E, nTri=len(triRows),
       nTriChunks=0 if triBoxes is None else len(triBoxes),
       nTriGroups=0 if triGroups is None else len(triGroups),
+      nTriLeaves=0 if triLeaves is None else len(triLeaves),
       triTable=triTable, triBoxes=triBoxes, triGroups=triGroups,
+      triLeaves=triLeaves,
       nSurfTable=0 if surfTable is None else len(surfTable),
       nSurfChunks=0 if surfBoxes is None else len(surfBoxes),
       nSurfGroups=0 if surfGroups is None else len(surfGroups),
+      nSurfLeaves=0 if surfLeaves is None else len(surfLeaves),
       surfTable=surfTable, surfBoxes=surfBoxes, surfGroups=surfGroups,
+      surfLeaves=surfLeaves,
       surfPlainRuns=plainRuns,
       surfChunkRuns=chunkRuns,
       samplerOff=samplerOff, bins=(int(H), int(W)),
@@ -1358,23 +1423,23 @@ def buildTraceTables(scene, histSpec, samplerSpec=None, device='cuda',
 
 # the tables the kernels read from device memory, beside the shared-memory
 # table, and their box packs (`_boxPack`: pack -> (group boxes, chunk
-# boxes)), which the kernels read in place of the boxes
-_GLOBAL_TABLES = ('triTable', 'triBoxes', 'triGroups', 'surfTable',
-                  'surfBoxes', 'surfGroups')
-_BOX_PACKS = {'triBoxPack': ('triGroups', 'triBoxes'),
-              'surfBoxPack': ('surfGroups', 'surfBoxes')}
+# boxes, leaf boxes)), which the kernels read in place of the boxes
+_GLOBAL_TABLES = ('triTable', 'triBoxes', 'triGroups', 'triLeaves',
+                  'surfTable', 'surfBoxes', 'surfGroups', 'surfLeaves')
+_BOX_PACKS = {'triBoxPack': ('triGroups', 'triBoxes', 'triLeaves'),
+              'surfBoxPack': ('surfGroups', 'surfBoxes', 'surfLeaves')}
 
 
 def _globalTensors(facts, dev):
-  '''The triangle table, the surface table, their chunk and group boxes and
-  their box packs of packed `facts` as float32 tensors on `dev` (None where
-  the scene has none).'''
+  '''The triangle table, the surface table, their chunk, group and leaf
+  boxes and their box packs of packed `facts` as float32 tensors on `dev`
+  (None where the scene has none).'''
   out = {k: None if facts[k] is None
          else torch.as_tensor(np.ascontiguousarray(facts[k]), device=dev)
          for k in _GLOBAL_TABLES}
-  for k, (groups, boxes) in _BOX_PACKS.items():
+  for k, (groups, boxes, leaves) in _BOX_PACKS.items():
     out[k] = None if facts[boxes] is None else torch.as_tensor(
-        _boxPack(facts[groups], facts[boxes]), device=dev)
+        _boxPack(facts[groups], facts[boxes], facts[leaves]), device=dev)
   return out
 
 
@@ -1425,7 +1490,7 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
   `triBoxes` stacked per variant, (V, nTri, TRI_COLS) and (V, nTriChunks,
   BOX_COLS), a surface table's `surfTable` and `surfBoxes` likewise, (V,
   nSurfTable, SURF_TABLE_COLS) and (V, nSurfChunks, BOX_COLS), and the
-  group boxes of both likewise) plus
+  group and leaf boxes of both likewise) plus
   `nVariants`,
   `tableLen`, `sameSource` (no variant moves or recolours the source),
   `sharedDraws` (every variant's source draws the same ray in its own
@@ -1508,8 +1573,9 @@ def packSweepTables(scenes, histSpec, samplerSpecs):
       sharedDraws=sharedDrawsOf(stacked, off), tableLen=int(stacked.shape[1]),
       nSurf=f0['nSurf'], nElem=f0['nElem'], nTri=f0['nTri'],
       nTriChunks=f0['nTriChunks'], nTriGroups=f0['nTriGroups'],
-      nSurfTable=f0['nSurfTable'], nSurfChunks=f0['nSurfChunks'],
-      nSurfGroups=f0['nSurfGroups'], surfPlainRuns=f0['surfPlainRuns'],
+      nTriLeaves=f0['nTriLeaves'], nSurfTable=f0['nSurfTable'],
+      nSurfChunks=f0['nSurfChunks'], nSurfGroups=f0['nSurfGroups'],
+      nSurfLeaves=f0['nSurfLeaves'], surfPlainRuns=f0['surfPlainRuns'],
       surfChunkRuns=f0['surfChunkRuns'], **tri, samplerOff=f0['samplerOff'],
       bins=f0['bins'], nDet=f0['nDet'],
       anyMedium=any(f['anyMedium'] for f in facts),
@@ -2206,7 +2272,7 @@ def _bounceLoopPlain(tables, columns, maxIntersections, maxRayLength,
   tri = surfTab = None
   if tables.get('nTri', 0):
     tri = _TriangleTablePlain(tables['triTable'], tables['triBoxes'],
-                              tables['triGroups'], dev)
+                              tables['triGroups'], tables['triLeaves'], dev)
   if tables.get('nSurfTable', 0):
     surfTab = _SurfaceTablePlain(tables, dev)
   H, W = tables['bins']
@@ -2521,12 +2587,14 @@ class _TriangleTablePlain:
   '''The triangle table (B7) of the plain version: the table's rows on
   the device, each triangle's oriented unit normal, and the sweep.'''
 
-  def __init__(self, triTable, triBoxes, triGroups, dev):
+  def __init__(self, triTable, triBoxes, triGroups, triLeaves, dev):
     self.rows = torch.as_tensor(triTable, device=dev).reshape(-1, TRI_COLS)
-    self.boxes = self.groups = None
+    self.boxes = self.groups = self.leaves = None
     if triBoxes is not None and len(triBoxes):
       self.boxes = torch.as_tensor(triBoxes, device=dev).reshape(-1, BOX_COLS)
       self.groups = torch.as_tensor(triGroups, device=dev).reshape(
+          -1, BOX_COLS)
+      self.leaves = torch.as_tensor(triLeaves, device=dev).reshape(
           -1, BOX_COLS)
     r = self.rows
     e1x, e1y, e1z, e2x, e2y, e2z = (r[:, k] for k in range(3, 9))
@@ -2547,9 +2615,9 @@ class _TriangleTablePlain:
     with a `stats` dict the boxes only count what the cull of the kernels
     leaves to sweep (what their bound is computed from): to `rayBounces`
     the live rays, to `chunks` and `triangles` those of the chunk boxes
-    each one's segment, capped at `tCap`, enters; and what the two-level
-    sweep with the shrinking cap leaves (`_CapCount`, the ray alone, with
-    the `window`).'''
+    each one's segment, capped at `tCap`, enters; and what the two- and
+    three-level sweeps with the shrinking cap leave (`_CapCount`, with the
+    `window`).'''
     nTri = self.rows.shape[0]
     step = _TRI_CHUNK if self.boxes is not None else nTri
     big = torch.full_like(ox, _BIG)
@@ -2558,12 +2626,13 @@ class _TriangleTablePlain:
     d = [x[:, None] for x in (dx, dy, dz)]
     count = None
     if stats is not None and self.boxes is not None:
-      count = _CapCount(stats, 'capTriangles', ox, oy, oz, dx, dy, dz, tCap,
-                        window, alive, big)
+      count = _CapCount(stats, 'capTriangles', ox, oy, oz, dx, dy, dz,
+                        window, alive)
+      count.cap(tCap, big)
     for base in range(0, nTri, step):
       r = self.rows[base:base + step]
-      tBlock, k = torch.min(self.distances(r, o, d, tMin, maxRayLength),
-                            dim=1)
+      dist = self.distances(r, o, d, tMin, maxRayLength)
+      tBlock, k = torch.min(dist, dim=1)
       better = tBlock < tT
       tT = torch.where(better, tBlock, tT)
       idx = torch.where(better, k + base, idx)
@@ -2572,6 +2641,12 @@ class _TriangleTablePlain:
         if c % SWEEP_GROUP == 0:
           count.group(self.groups[c // SWEEP_GROUP])
         count.chunk(self.boxes[c], tBlock, r.shape[0])
+        for a in range(0, r.shape[0], _TRI_LEAF):
+          count.leaf(self.leaves[(base + a) // _TRI_LEAF],
+                     dist[:, a:a + _TRI_LEAF].min(1).values,
+                     min(_TRI_LEAF, r.shape[0] - a))
+    if count is not None:
+      count.done()
     if stats is not None:
       self._count(stats, ox, oy, oz, dx, dy, dz, tCap, alive)
     hit = tT < _BIG
@@ -2711,11 +2786,13 @@ class _SurfaceTablePlain:
   def __init__(self, tables, dev):
     self.rows = torch.as_tensor(tables['surfTable'], device=dev).reshape(
         -1, SURF_TABLE_COLS)
-    self.boxes = self.groups = None
+    self.boxes = self.groups = self.leaves = None
     if tables['nSurfChunks']:
       self.boxes = torch.as_tensor(tables['surfBoxes'], device=dev).reshape(
           -1, BOX_COLS)
       self.groups = torch.as_tensor(tables['surfGroups'], device=dev) \
+          .reshape(-1, BOX_COLS)
+      self.leaves = torch.as_tensor(tables['surfLeaves'], device=dev) \
           .reshape(-1, BOX_COLS)
     # blocks in the kernels' sweep order, (kind, trim0, first row, rows,
     # chunk or None): the plain runs by _SURF_CHUNK rows, then each chunk
@@ -2742,8 +2819,8 @@ class _SurfaceTablePlain:
     their bound is computed from): to `rayBounces` the live rays, to
     `chunks` the boxes each one's segment, capped at min(tBest, the plain
     runs' winner, mrlEff) + window, enters, to `rows` (a dict by kind) the
-    rows of the plain runs and of those chunks; and what the two-level
-    sweep with the shrinking cap leaves (`_CapCount`, the ray alone: its
+    rows of the plain runs and of those chunks; and what the two- and
+    three-level sweeps with the shrinking cap leave (`_CapCount`: its
     `capRows` by kind count the plain runs' rows too).'''
     big = torch.full_like(ox, _BIG)
     zero = torch.zeros_like(ox)
@@ -2753,28 +2830,31 @@ class _SurfaceTablePlain:
     d = [x[:, None] for x in (dx, dy, dz)]
     tPlain, count = big, None
     if stats is not None:
-      capRows = stats.setdefault('capRows', {})
-      nAlive = int(alive.sum())
+      count = _CapCount(stats, 'capRows', ox, oy, oz, dx, dy, dz, window,
+                        alive)
       for kind, _t0, _a, n, _c in self.plain:
-        capRows[kind] = capRows.get(kind, 0) + nAlive * n
+        count.plainRows(kind, n)
+    leavesPerChunk = _SURF_CHUNK // _SURF_LEAF
     for i, (kind, trim0, a, n, c) in enumerate(self.plain + self.chunked):
       if i == len(self.plain):
         tPlain = tS
-        if stats is not None:
-          tCap = torch.clamp(torch.minimum(tBest, tPlain), max=mrlEff) \
-              + window
-          count = _CapCount(stats, 'capRows', ox, oy, oz, dx, dy, dz, tCap,
-                            window, alive, tPlain)
+        if count is not None:
+          count.cap(torch.clamp(torch.minimum(tBest, tPlain), max=mrlEff)
+                    + window, tPlain)
       r = self.rows[a:a + n]
       t = _tableIntersectPlain(kind, trim0, [r[None, :, k] for k in
                                              range(SURF_TABLE_COLS)],
                                *o, *d, tMin)[0]
       t = torch.where(t <= mrlEff, t, _full(t, _BIG))
       tBlock, k = torch.min(t, dim=1)
-      if count is not None:
+      if count is not None and c is not None:
         if c in self.opens:
           count.group(self.groups[self.opens[c]])
         count.chunk(self.boxes[c], tBlock, n, kind)
+        for j in range(leavesPerChunk):
+          count.leaf(self.leaves[c * leavesPerChunk + j],
+                     t[:, j * _SURF_LEAF:(j + 1) * _SURF_LEAF].min(1).values,
+                     _SURF_LEAF, kind)
       better = tBlock < tS
       # the winner's attributes, from its row, in the kernels' order
       rk = [x for x in self.rows[a + k].T]
@@ -2796,6 +2876,8 @@ class _SurfaceTablePlain:
       ly = torch.where(better, lyH, ly)
     if not self.chunked:
       tPlain = tS
+    if count is not None:
+      count.done()
     if stats is not None:
       tCap = torch.clamp(torch.minimum(tBest, tPlain), max=mrlEff) + window
       self._count(stats, ox, oy, oz, dx, dy, dz, tCap, alive)
@@ -2848,44 +2930,121 @@ def _slabEnters(boxes, ox, oy, oz, dx, dy, dz, tCap, alive):
                        & alive).sum() for c in range(boxes.shape[0])])
 
 
+def _warpAny(mask):
+  '''Per ray, whether any ray of its warp (32 consecutive rays) is in
+  `mask`.'''
+  n = mask.shape[0]
+  pad = -n % 32
+  if pad:
+    mask = torch.cat([mask, mask.new_zeros(pad)])
+  return mask.view(-1, 32).any(1).repeat_interleave(32)[:n]
+
+
+class _CapView:
+  '''One view of `_CapCount`: a two- or three-level sweep (`leaves`), by
+  each ray alone or by its warp (`warp`), its counts added to dict `out` at
+  `done`.'''
+
+  def __init__(self, out, rowsKey, leaves, warp, alive):
+    self.out, self.rowsKey, self.leaves, self.warp = out, rowsKey, leaves, warp
+    self.inGroup = self.inChunk = alive
+    self.tRun, self.sums = None, {}
+    out.setdefault(rowsKey, {} if rowsKey == 'capRows' else 0)
+    for k in ('groupTests', 'chunkTests', 'capChunks') + (
+        ('leafTests', 'capLeaves') if leaves else ()):
+      out.setdefault(k, 0)
+
+  def add(self, key, n):
+    self.sums[key] = self.sums.get(key, 0) + n
+
+  def enter(self, count, box, within):
+    '''The rays of `within` that enter `box` (by the warp: every ray of
+    `within` whose warp has one that does), each segment capped at
+    min(the entry cap, the ray's running winner + window).'''
+    e = _slabIn(box, count.o, count.inv,
+                torch.minimum(count.tCap, self.tRun + count.window)) & within
+    return _warpAny(e) & within if self.warp else e
+
+  def swept(self, entered, tBlock, nRows, kind):
+    self.add(('rows', kind), entered.sum() * nRows)
+    self.tRun = torch.where(entered & (tBlock < self.tRun), tBlock,
+                            self.tRun)
+
+  def done(self):
+    for key, n in self.sums.items():
+      if key[0] == 'rows':
+        if key[1] is None:
+          self.out[self.rowsKey] += int(n)
+        else:
+          rows = self.out[self.rowsKey]
+          rows[key[1]] = rows.get(key[1], 0) + int(n)
+      else:
+        self.out[key] += int(n)
+
+
 class _CapCount:
-  '''What the kernels' two-level sweep of a table leaves to each live ray
-  alone, added to `stats`: a group box is tested, and the chunk boxes of
-  an entered group (`groupTests`, `chunkTests`), each against the segment
-  capped at min(`tCap`, the ray's running winner + `window`), the winner
-  over the chunks it entered so far (from `tRun`); the chunks entered
-  (`capChunks`) and their rows (`stats[rowsKey]`, by kind where a `kind`
-  is given).'''
+  '''What the kernels' sweep of a table leaves to the live rays, added to
+  `stats` in three views of the same boxes and rows. The two-level sweep,
+  each ray alone, in the keys of `stats` itself: a group box is tested
+  (`groupTests`), and the chunk boxes of an entered group (`chunkTests`),
+  each against the segment capped at min(the entry cap, the ray's running
+  winner + `window`), the winner over the chunks it entered so far; the
+  chunks entered (`capChunks`) and their rows (`stats[rowsKey]`, by kind
+  where a `kind` is given). The kernels' three-level sweep, each ray alone,
+  in `stats['threeLevel']`: likewise, and the leaf boxes of an entered
+  chunk tested (`leafTests`), the leaves entered (`capLeaves`) and only
+  their rows swept, the winner over the leaves entered so far. The three-
+  level sweep as a warp runs it, in `stats['warp']`: the 32 consecutive
+  rays of a warp that are live all enter a box that any of them enters,
+  test the next boxes and sweep the rows, each updating its winner (counts
+  per live ray, as above). The
+  plain runs' rows of a surface table (`plainRows`) count in every view.
+  Counts add up on the device and reach `stats` at `done`.'''
 
-  def __init__(self, stats, rowsKey, ox, oy, oz, dx, dy, dz, tCap, window,
-               alive, tRun):
-    self.stats, self.rowsKey = stats, rowsKey
+  def __init__(self, stats, rowsKey, ox, oy, oz, dx, dy, dz, window, alive):
     self.o, self.inv = (ox, oy, oz), _inverseDirections(dx, dy, dz)
-    self.tCap, self.window, self.alive, self.tRun = tCap, window, alive, tRun
-    self.inGroup = alive
-    for k in ('groupTests', 'chunkTests', 'capChunks'):
-      stats.setdefault(k, 0)
-    if rowsKey not in stats:
-      stats[rowsKey] = 0
+    self.window, self.alive, self.tCap = window, alive, None
+    self.views = [_CapView(stats, rowsKey, False, False, alive)] + [
+        _CapView(stats.setdefault(key, {}), rowsKey, leaves, warp, alive)
+        for key, leaves, warp in (('threeLevel', True, False),
+                                  ('warp', True, True))]
 
-  def _cap(self):
-    return torch.minimum(self.tCap, self.tRun + self.window)
+  def plainRows(self, kind, n):
+    for v in self.views:
+      v.add(('rows', kind), self.alive.sum() * n)
+
+  def cap(self, tCap, tRun):
+    '''The entry cap of the chunked part and the winner it starts from.'''
+    self.tCap = tCap
+    for v in self.views:
+      v.tRun = tRun
 
   def group(self, box):
-    self.stats['groupTests'] += int(self.alive.sum())
-    self.inGroup = _slabIn(box, self.o, self.inv, self._cap()) & self.alive
+    for v in self.views:
+      v.add('groupTests', self.alive.sum())
+      v.inGroup = v.enter(self, box, self.alive)
 
   def chunk(self, box, tBlock, nRows, kind=None):
-    self.stats['chunkTests'] += int(self.inGroup.sum())
-    enters = _slabIn(box, self.o, self.inv, self._cap()) & self.inGroup
-    n = int(enters.sum())
-    self.stats['capChunks'] += n
-    if kind is None:
-      self.stats[self.rowsKey] += n * nRows
-    else:
-      rows = self.stats[self.rowsKey]
-      rows[kind] = rows.get(kind, 0) + n * nRows
-    self.tRun = torch.where(enters & (tBlock < self.tRun), tBlock, self.tRun)
+    for v in self.views:
+      v.add('chunkTests', v.inGroup.sum())
+      e = v.enter(self, box, v.inGroup)
+      v.add('capChunks', e.sum())
+      if v.leaves:
+        v.inChunk = e
+      else:
+        v.swept(e, tBlock, nRows, kind)
+
+  def leaf(self, box, tLeaf, nRows, kind=None):
+    for v in self.views:
+      if v.leaves:
+        v.add('leafTests', v.inChunk.sum())
+        e = v.enter(self, box, v.inChunk)
+        v.add('capLeaves', e.sum())
+        v.swept(e, tLeaf, nRows, kind)
+
+  def done(self):
+    for v in self.views:
+      v.done()
 
 
 def _geomNormalPlain(row, kind, lx, ly, lz, nlx, nly, nlz):
@@ -3396,11 +3555,12 @@ def _launchKernel(name, tables, outs, nRays, mode, rayIn, seed, strata,
   nSurfGroups = tables.get('nSurfGroups', 0)
   lead = tuple(table.shape[:-1])
   for key, n, cols in (('triTable', nTri, TRI_COLS),
-                       ('triBoxPack', nGroups + nChunks if nTri else 0,
+                       ('triBoxPack', nGroups + nChunks
+                        + triLeafCount(nTri, nChunks) if nTri else 0,
                         BOX_STRIDE),
                        ('surfTable', nSurfT, SURF_TABLE_COLS),
-                       ('surfBoxPack', nSurfGroups + nSurfChunks,
-                        BOX_STRIDE)):
+                       ('surfBoxPack', nSurfGroups + nSurfChunks
+                        * (1 + _SURF_CHUNK // _SURF_LEAF), BOX_STRIDE)):
     if n:
       _checkTensor(key, glob[key], dev, lead + (n, cols))
   runs = surfaceRuns(tables.get('surfPlainRuns', ()),

@@ -120,10 +120,13 @@ def test_group_boxes_hold_their_chunks_and_keep_to_runs(name, packed):
       assert (g[3:] == boxes[a:b, 3:].amax(0)).all()
     # the kernels' pack: the group boxes, then the chunk boxes, 8 floats
     both = torch.cat([groups, boxes])
-    assert pack.shape == (len(both), C.BOX_STRIDE)
-    assert torch.equal(pack[:, 0:3], both[:, 0:3])
-    assert torch.equal(pack[:, 4:7], both[:, 3:6])
+    head = pack[:len(both)]
+    assert head.shape == (len(both), C.BOX_STRIDE)
+    assert torch.equal(head[:, 0:3], both[:, 0:3])
+    assert torch.equal(head[:, 4:7], both[:, 3:6])
     assert not pack[:, 3].any() and not pack[:, 7].any()
+    # then the leaf boxes (tests/test_torch_leaf_boxes.py)
+    assert len(pack) > len(both)
   if tables['nSurfTable']:
     runs = C.surfaceRuns(tables['surfPlainRuns'], tables['surfChunkRuns'])
     spans = C.groupSpans([r[2:4] for r in tables['surfChunkRuns']])

@@ -3,7 +3,8 @@
 
     python3 tools/torch_kernel_probe.py [sweep [ROOT] | spectrometer
                                          | k1 [ROOT] | mesh [ROOT]
-                                         | table [ROOT] | hist [ROOT]
+                                         | table [ROOT [--check]]
+                                         | hist [ROOT]
                                          | cull [ROOT]]
 
 (`sweep` runs the sweep breakdown alone, `sweep ROOT` times K3 of the
@@ -32,8 +33,11 @@ main-path step; `table ROOT` times K1, K2 and K4 of the package at ROOT at
 analytic surfaces (the triangle and the surface table), with and without
 strata, beside the main-path step, K3 on 11 detector heights under the
 1800-triangle dish and the 522-surface wall, and prints each launch's
-record and the registers of every instance (run the parent's unpacked
-`_parent/` and the change in turns); `hist ROOT` times the two
+record, the tables' leaf boxes and the registers of every instance (run
+the parent's unpacked `_parent/` and the change in turns; `table ROOT
+--check` first holds K2 and K4 against their plain versions, bit for bit,
+on those scenes and the two tie scenes at 1 << 18 rays); `hist ROOT`
+times the two
 histogram kernels of the package at ROOT on the scenes whose binning B11
 redesigned — K1 on the lens-and-mirror main path, the spectrometer, the
 diffuse scatter scene, the mesh fold, the 1800-triangle dish, the
@@ -391,27 +395,69 @@ TABLE_SCENES = {
 }
 
 
-def tableSeries():
+TABLE_CHECK_RAYS = 1 << 18
+
+
+def tableCheck(tables, hitSlots):
+  """K2 and K4 of the package on the path against their plain versions on
+  the same TABLE_CHECK_RAYS uniforms (mode (b), strata as the steps run, 3
+  intersections): whether ring and counters are equal, bit for bit."""
+  n, tile = TABLE_CHECK_RAYS, cuda_trace.DEFAULT_STRATA_TILE
+  gen = torch.Generator(device='cuda')
+  gen.manual_seed(77)
+  us = torch.rand((2, n), generator=gen, device='cuda')
+  cols = cuda_trace.samplerColumnsPlain(
+      tables, us, cuda_trace.tileStrata(n, tile), tile)
+  kw = dict(maxIntersections=3, maxRayLength=1000., distTol=1e-4,
+            powerTol=1e-6, hitSlots=hitSlots)
+  out = {}
+  for name, plain in (('traceBins', cuda_trace.traceBinsPlain),
+                      ('traceRaw', cuda_trace.traceRawPlain)):
+    ringK, cK = getattr(cuda_trace, name)(tables, n, uniforms=us,
+                                          strataTile=tile, **kw)
+    ringP, cP = plain(tables, cols, **kw)
+    out[name] = dict(equal=bool(torch.equal(ringK, ringP))
+                     and cK.tolist() == cP.tolist(), counters=cK.tolist())
+  return out
+
+
+def tableSeries(check):
   """K1, K2 and K4 (ms by CUDA events, 1 << 22 rays, 3 intersections, 10
   launches each) of the package on the path on the reference's dishes of
   200 to 12800 triangles and its walls of 522 and 5,071 analytic surfaces
   (the triangle and the surface table), with the samplers' ray-index
   strata (one (theta, phi) cell a block, as the steps run) and without
   (every warp's rays spread over the source), beside the main-path step,
-  with each launch's record (`cuda_trace.lastLaunch`); K3 on 11 detector
-  heights x 1 << 20 rays under the 1800-triangle dish and the 522-surface
-  wall; then the registers of every instance."""
+  with each launch's record (`cuda_trace.lastLaunch`) and the tables' leaf
+  boxes (none before the sweep's third level); K3 on 11 detector heights x
+  1 << 20 rays under the 1800-triangle dish and the 522-surface wall; then
+  the registers of every instance. With `check`, first K2 and K4 against
+  their plain versions on those scenes and the two tie scenes
+  (`tableCheck`)."""
   import optics_design_workbench_tpu_torch as port
   seeds = iter(range(10, 10 ** 9))
   step, hist, _meta = benchmarks.makeBenchStep(raysPerStep=N, bins=BINS)
   out = dict(variant='table', package=port.__file__,
              digest=port.kernelSourceDigest(),
              lensK1=cudaMs(lambda: step(next(seeds), hist)))
+  if check:
+    ns = helpers.torchNs()
+    for name, (scene, bounds, _maxI) in (
+        ('tieMesh', helpers.buildTieMeshScene(ns)),
+        ('tieTable', helpers.SURFACE_TABLE_SCENES['tie'](ns))):
+      step, _h, _m = benchmarks.makeBenchStep(
+          scene=scene, raysPerStep=N, maxIntersections=3, histBounds=bounds,
+          bins=BINS)
+      out[f'{name}/check'] = tableCheck(step.tables, step.hitSlots)
   for name, (make, args, bounds) in TABLE_SCENES.items():
     step, hist, _meta = benchmarks.makeBenchStep(
         scene=getattr(benchmarks, make)(*args), raysPerStep=N,
         maxIntersections=3, histBounds=bounds, bins=BINS)
     t = step.tables
+    if check:
+      out[f'{name}/check'] = tableCheck(t, step.hitSlots)
+    out[f'{name}/leaves'] = dict(triLeaves=t.get('nTriLeaves'),
+                                 surfLeaves=t.get('nSurfLeaves'))
     for strata in (step.strataTile, 0):
       kw = dict(maxIntersections=3, maxRayLength=1000., distTol=1e-4,
                 hitSlots=step.hitSlots, strataTile=strata)
@@ -823,7 +869,7 @@ def main():
   if sys.argv[1:2] == ['mesh']:
     return meshSeries()
   if sys.argv[1:2] == ['table']:
-    return tableSeries()
+    return tableSeries('--check' in sys.argv[3:])
   if sys.argv[1:2] == ['hist']:
     return histSeries(dev)
   if sys.argv[1:2] == ['cull']:
