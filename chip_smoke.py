@@ -79,6 +79,16 @@ port's paths at full width:
     and `makeRawStep`, each kernel timed with and without the culls beside
     its bound. Every other check builds its tables with the source's bound
     too, as the port's steps do;
+  * the record tracer (phase 13, `tracing/tracer.trace`, plain PyTorch):
+    its ms per bounce and rays per second on the lens-and-mirror at
+    1 << 18 rays with segment records, its hit rows against the raw-record
+    kernel's (columns input mode) on the same columns, ray by ray; then
+    examples/1 (`examples/torch_1_source_and_detector.py`: the Monte-Carlo
+    run storing the four StoreHit* fan columns and the fan run, both
+    through the raw-record kernel in its columns mode, 5 launches) and
+    examples/5 (`examples/torch_5_visualization.py`: the draw run through
+    the record tracer, no kernel launch, its drawn segments equal to the
+    traced records' `totalSegments`, and the PLY export);
 
 (the first three on the lens-and-mirror scene) and checks the physics of
 what comes out. Before those paths it holds the histogram, per-ray-bin and
@@ -113,14 +123,16 @@ sys.path.insert(0, os.path.join(HERE, 'tests'))
 sys.path.insert(0, os.path.join(HERE, 'examples'))
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
+import torch_1_source_and_detector as example1   # examples/1 on the port
 import torch_4_spectrometer as example4       # examples/4 on the port
+import torch_5_visualization as example5      # examples/5 on the port
 import torch_mesh_dish as meshExample        # the STL-loaded dish
 from optics_design_workbench_tpu_torch import _build, benchmarks, simulation
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     RawFolder, parameter_sweeper)
 from optics_design_workbench_tpu_torch.ops import cuda_trace
 from optics_design_workbench_tpu_torch.simulation import results_store, runner
-from optics_design_workbench_tpu_torch.tracing import fused
+from optics_design_workbench_tpu_torch.tracing import batch_tracer, fused, tracer
 
 DEV = torch.device('cuda')
 N_MAIN = 1 << 22
@@ -222,13 +234,16 @@ REF_TORUS = dict(share=0.57965087890625, power=1.0, r2=6995.6086050200065,
 # 1 << 22 rays where a run of the plain version takes under ~10 s; the
 # plain version sweeps every triangle for every ray (0.16 / 1.2 / 3.3 / 8.6
 # s per run of 1 << 20 rays on 200 / 1800 / 5000 / 12800 triangles), so the
-# 5000- and 12800-triangle dishes are held at 1 << 20.
+# 5000- and 12800-triangle dishes are held at 1 << 20, and so are the check
+# scenes, to keep the card gate in its time (the timed dishes of 200 and
+# 1800 triangles stay at 1 << 22).
 MESH_BOUNDS = (-200., 200., -200., 200.)
 MESH_MAX_INTERSECTIONS = 3
 MESH_DISHES = {200: 10, 1800: 30, 5000: 50, 12800: 80}
 MESH_CHECK_RAYS = {'dish200': N_MAIN, 'dish1800': N_MAIN,
                    'dish5000': 1 << 20, 'dish12800': 1 << 20,
-                   'collimated': N_MAIN, 'meshLens': N_MAIN, 'tie': N_MAIN}
+                   'collimated': 1 << 20, 'meshLens': 1 << 20,
+                   'tie': 1 << 20}
 MESH_HEIGHTS = tuple(np.linspace(-20., 0., 11))   # the detector's z
 MESH_SWEEP_RAYS = 1 << 20
 MESH_RAW_ITERATIONS = 4           # of N_RAW_ITERATION rays
@@ -245,13 +260,14 @@ REF_DISH = dict(share=1.0, power=1.0, r2=3966.9451117515564,
 # and the check scenes of the surface table (tests/torch_port_helpers.py
 # SURFACE_TABLE_SCENES: a slab array for the table's medium rule, every
 # table kind, ties, both tables at once). The kernels are held against
-# their plain versions at the fused step's 1 << 22 rays where a run of the
-# plain version takes under ~10 s; it sweeps every table row for every ray,
-# so the 5,071-surface wall is held at 1 << 20.
+# their plain versions at the fused step's 1 << 22 rays on the timed
+# 522-surface wall; the plain version sweeps every table row for every ray,
+# so the 5,071-surface wall is held at 1 << 20, and so are the check scenes,
+# to keep the card gate in its time.
 WALL_BOUNDS = (-300., 300., -300., 300.)
 WALL_MAX_INTERSECTIONS = 3
 WALLS = {'wall522': 'buildSurfWallScene', 'wall5071': 'buildSurfWall5kScene'}
-WALL_CHECK_RAYS = {'wall522': N_MAIN, 'wall5071': 1 << 20}
+WALL_CHECK_RAYS = {'wall522': N_MAIN}      # 1 << 20 for the others
 WALL_HEIGHTS = tuple(np.linspace(-20., 0., 11))   # the detector's z
 WALL_SWEEP_RAYS = 1 << 20
 WALL_RAW_ITERATIONS = 4           # of N_RAW_ITERATION rays
@@ -262,6 +278,11 @@ WALL_HIST_ITERATIONS = 8          # of N_MAIN rays
 REF_WALL_RAYS = 1 << 16
 REF_WALL = dict(share=0.8999786376953125, power=1.0, r2=8371.303931728278,
                 r4=139473323.46917462)
+# the record tracer (phase 13): its own times on the lens-and-mirror, held
+# against the raw-record kernel on the same columns; examples/1 and /5
+RECORD_RAYS = 1 << 18
+RECORD_REPS = 3
+EXAMPLE1_RAW_LAUNCHES = 5     # 4 Monte-Carlo iterations + the fan run
 # the in-kernel histograms (B11): the pile-up scene (every ray in one bin)
 # per K3 variant, and its placements in bins of the grid
 PILEUP_SWEEP_RAYS = 1 << 20
@@ -288,70 +309,6 @@ OLD_REGISTERS = {
 # the two K3 instances that trace groups of variants (GROUPED, PR 14:
 # the variant loop around the bounce loop), without B4 and with it
 GROUPED_REGISTERS = {(0, 1, 0, 0, 0): 48, (0, 1, 1, 0, 0): 62}
-# the instances with a table in device memory (TRI, STAB) as PR 14 built
-# them, before the table sweeps' third level (the leaf boxes;
-# `tools/torch_kernel_probe.py` on that tree, NVIDIA H100 80GB HBM3), by the
-# key of `registerCounts`: (registers, spill store bytes), reported beside
-# this build's (PERF.md §6); a fixed record, not the parent of a later tree
-# (`tools/torch_kernel_probe.py table ROOT` prints the parent's)
-PR14_TABLE_REGISTERS = {
-    (0, 0, 1, 0, 0, 0, 1, 0, 0): (61, 0),
-    (0, 0, 1, 0, 0, 0, 1, 1, 0): (80, 20),
-    (0, 0, 1, 0, 0, 1, 1, 0, 0): (64, 0),
-    (0, 0, 1, 0, 0, 1, 1, 1, 0): (64, 236),
-    (0, 0, 1, 0, 1, 0, 1, 0, 0): (79, 0),
-    (0, 0, 1, 0, 1, 0, 1, 1, 0): (80, 108),
-    (0, 0, 1, 0, 1, 1, 1, 0, 0): (80, 0),
-    (0, 0, 1, 0, 1, 1, 1, 1, 0): (80, 80),
-    (0, 0, 1, 1, 0, 0, 1, 0, 0): (61, 0),
-    (0, 0, 1, 1, 0, 0, 1, 1, 0): (80, 20),
-    (0, 0, 1, 1, 0, 1, 1, 0, 0): (64, 0),
-    (0, 0, 1, 1, 0, 1, 1, 1, 0): (64, 236),
-    (0, 0, 1, 1, 1, 0, 1, 0, 0): (64, 12),
-    (0, 0, 1, 1, 1, 0, 1, 1, 0): (80, 100),
-    (0, 0, 1, 1, 1, 1, 1, 0, 0): (64, 32),
-    (0, 0, 1, 1, 1, 1, 1, 1, 0): (80, 104),
-    (0, 1, 1, 0, 0, 0, 1, 0, 0): (64, 0),
-    (0, 1, 1, 0, 0, 0, 1, 1, 0): (80, 108),
-    (0, 1, 1, 0, 0, 1, 1, 0, 0): (71, 0),
-    (0, 1, 1, 0, 0, 1, 1, 1, 0): (80, 136),
-    (0, 1, 1, 0, 1, 0, 1, 0, 0): (80, 0),
-    (0, 1, 1, 0, 1, 0, 1, 1, 0): (80, 172),
-    (0, 1, 1, 0, 1, 1, 1, 0, 0): (80, 0),
-    (0, 1, 1, 0, 1, 1, 1, 1, 0): (80, 180),
-    (1, 0, 1, 0, 0, 0, 1, 0, 0): (60, 0),
-    (1, 0, 1, 0, 0, 0, 1, 1, 0): (80, 0),
-    (1, 0, 1, 0, 0, 1, 1, 0, 0): (63, 0),
-    (1, 0, 1, 0, 0, 1, 1, 1, 0): (64, 192),
-    (1, 0, 1, 0, 1, 0, 1, 0, 0): (64, 12),
-    (1, 0, 1, 0, 1, 0, 1, 1, 0): (80, 80),
-    (1, 0, 1, 0, 1, 1, 1, 0, 0): (64, 32),
-    (1, 0, 1, 0, 1, 1, 1, 1, 0): (80, 88),
-    (1, 0, 1, 1, 0, 0, 1, 0, 0): (60, 0),
-    (1, 0, 1, 1, 0, 0, 1, 1, 0): (80, 0),
-    (1, 0, 1, 1, 0, 1, 1, 0, 0): (64, 0),
-    (1, 0, 1, 1, 0, 1, 1, 1, 0): (64, 192),
-    (1, 0, 1, 1, 1, 0, 1, 0, 0): (64, 12),
-    (1, 0, 1, 1, 1, 0, 1, 1, 0): (80, 56),
-    (1, 0, 1, 1, 1, 1, 1, 0, 0): (72, 0),
-    (1, 0, 1, 1, 1, 1, 1, 1, 0): (80, 60),
-    (2, 0, 1, 0, 0, 0, 1, 0, 0): (58, 0),
-    (2, 0, 1, 0, 0, 0, 1, 1, 0): (80, 0),
-    (2, 0, 1, 0, 0, 1, 1, 0, 0): (63, 0),
-    (2, 0, 1, 0, 0, 1, 1, 1, 0): (64, 184),
-    (2, 0, 1, 0, 1, 0, 1, 0, 0): (64, 12),
-    (2, 0, 1, 0, 1, 0, 1, 1, 0): (80, 56),
-    (2, 0, 1, 0, 1, 1, 1, 0, 0): (64, 32),
-    (2, 0, 1, 0, 1, 1, 1, 1, 0): (80, 52),
-    (2, 0, 1, 1, 0, 0, 1, 0, 0): (58, 0),
-    (2, 0, 1, 1, 0, 0, 1, 1, 0): (80, 0),
-    (2, 0, 1, 1, 0, 1, 1, 0, 0): (63, 0),
-    (2, 0, 1, 1, 0, 1, 1, 1, 0): (64, 184),
-    (2, 0, 1, 1, 1, 0, 1, 0, 0): (64, 12),
-    (2, 0, 1, 1, 1, 0, 1, 1, 0): (80, 32),
-    (2, 0, 1, 1, 1, 1, 1, 0, 0): (72, 0),
-    (2, 0, 1, 1, 1, 1, 1, 1, 0): (80, 32),
-}
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): float32 outside the
 # tensor cores, device memory.
@@ -2476,14 +2433,13 @@ def registerPhase(log):
   '''The registers of every instance (phase 9's first gate): the instances
   without B2 / B3 keep OLD_REGISTERS, the grouped K3 instances
   GROUPED_REGISTERS; the instances with a table in device memory (TRI,
-  STAB) beside PR14_TABLE_REGISTERS.'''
+  STAB) listed apart (`tools/torch_kernel_probe.py table ROOT` prints a
+  parent checkout's).'''
   regs = registerCounts(log)
   name = lambda k: ','.join(map(str, k))
   emit(dict(phase='registers', instances=len(regs), byInstance={
       name(k): v for k, v in sorted(regs.items())}, tableInstances={
-          name(k): dict(registersAndSpills=v,
-                        pr14=PR14_TABLE_REGISTERS.get(k))
-          for k, v in sorted(regs.items()) if k[6]}))
+          name(k): v for k, v in sorted(regs.items()) if k[6]}))
   for grouped, counts in ((0, OLD_REGISTERS), (1, GROUPED_REGISTERS)):
     for key, want in counts.items():
       got = regs.get(key + (0, 0, 0, grouped), (None, None))[0]
@@ -3201,8 +3157,8 @@ def wallKernelChecks(scenes):
   '''Phase 11's kernel checks: K1, K2 and K4 against their plain versions
   on both walls and every check scene of the surface table (modes (b) and
   (c)) with no ray moved and every ring value equal, at WALL_CHECK_RAYS
-  (1 << 22 by default), and K1 against K2 + `binRing` at 1 << 22 rays on the
-  5,071-surface wall; K3 on the 522-surface wall's 11 detector heights x
+  (1 << 20 but for the 522-surface wall), and K1 against K2 + `binRing` at
+  1 << 22 rays on the scenes checked at fewer; K3 on the 522-surface wall's 11 detector heights x
   1 << 20 rays against its plain version and, in seed mode, against one K1
   launch per variant. Returns (the worst error per kernel, per scene the
   table rows a segment must test, by kind, as the plain version counted
@@ -3210,7 +3166,7 @@ def wallKernelChecks(scenes):
   worst = dict(traceHistogram=0., traceBins=0., traceRaw=0., traceSweep=0.)
   perSegment = {}
   for name, (scene, bounds, maxI) in scenes.items():
-    n = WALL_CHECK_RAYS.get(name, N_MAIN)
+    n = WALL_CHECK_RAYS.get(name, 1 << 20)
     stats = {}
     worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
         f'table-{name}', scene, bounds, maxI, n, BINS, budget=0,
@@ -3489,6 +3445,126 @@ def b12Phase():
   return decoy
 
 
+def hitRowsByRay(records):
+  '''The recorded hits of slot- or bounce-major records, ray-major: (ray
+  index of each row, the rows' element, entering flag, point, direction,
+  power), as numpy.'''
+  order = torch.nonzero(records['recordHit'].T)          # (ray, slot)
+  sel = (order[:, 1], order[:, 0])
+  return (order[:, 0].cpu().numpy(),) + tuple(
+      records[k][sel].cpu().numpy() for k in ('hitElem', 'isEntering',
+                                              'point', 'direction', 'power'))
+
+
+def recordTracerPhase():
+  '''The record tracer (tracing/tracer.trace, plain PyTorch on the card)
+  on the lens-and-mirror at RECORD_RAYS rays with segment records: ms per
+  bounce and rays per second by CUDA events; its hit rows against the
+  raw-record kernel's (columns input mode) on the same columns, ray by
+  ray, to RAW_ATOL.'''
+  t0 = time.perf_counter()
+  scene = benchmarks.buildLensMirrorScene()
+  host, info = scene.compile(device=None)
+  host['powerTol'] = 1e-6
+  src = scene.lightSources()[0]
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(16)
+  cols, _meta = src.deviceGenerator(device=DEV)(gen, RECORD_RAYS)
+  columns = torch.stack([cols[k] for k in cuda_trace._COLUMN_KEYS])
+  maxI, maxL, distTol = 6, 1000., 1e-4
+  prepared = batch_tracer.prepareScene(host, DEV)
+  out = {}
+
+  def run():
+    out['records'] = tracer.trace(
+        prepared, columns[0:3].T, columns[3:6].T, columns[6], columns[7],
+        maxI, maxL, distTol)[1]
+
+  run()
+  ms = cudaMs(run, RECORD_REPS)
+  records = out['records']
+  bounces = int(records['segValid'].any(dim=1).sum())
+  segments = tracer.totalSegments(records)
+  histSpec = fused.makeHistogramSpec(host, info)
+  tables = cuda_trace.buildTraceTables(host, histSpec, device=DEV)
+  slots = cuda_trace.autoHitSlots(host, histSpec, maxI)
+  resetLaunchCounts()
+  ring, _c = cuda_trace.traceRaw(tables, RECORD_RAYS, maxI, maxL, distTol,
+                                 hitSlots=slots, columns=columns)
+  assert cuda_trace.launchCounts == onlyLaunches(traceRaw=1)
+  a = hitRowsByRay(cuda_trace.recordsFromRing(ring))
+  b = hitRowsByRay(records)
+  assert len(a[0]) > 0.9 * RECORD_RAYS, len(a[0])
+  # rays whose hit rows differ (in number, element, entering flag, or by
+  # more than RAW_ATOL): an ulp at a trim edge may move COUNT_BUDGET
+  nA = np.bincount(a[0], minlength=RECORD_RAYS)
+  nB = np.bincount(b[0], minlength=RECORD_RAYS)
+  same, rowsB = (nA == nB)[a[0]], (nA == nB)[b[0]]   # rows align by ray
+  diff = np.zeros(int(same.sum()), bool)
+  for x, y in zip(a[1:], b[1:]):
+    d = np.abs(x[same].astype(float) - y[rowsB].astype(float))
+    d = d.reshape(len(d), -1).max(axis=1)
+    diff |= d > (RAW_ATOL if x.dtype.kind == 'f' else 0)
+  moved = int((nA != nB).sum()) + len(np.unique(a[0][same][diff]))
+  err = max((float(np.abs(x[same][~diff] - y[rowsB][~diff]).max(initial=0.))
+             for x, y in zip(a[3:], b[3:])), default=0.)
+  assert moved <= COUNT_BUDGET, (moved, err)
+  emit(dict(phase='record-tracer', scene='lensMirror', rays=RECORD_RAYS,
+            maxIntersections=maxI, bounces=bounces, segments=segments,
+            ms=ms, msPerBounce=ms / bounces,
+            raysPerSecond=RECORD_RAYS / (ms / 1e3),
+            segmentsPerSecond=segments / (ms / 1e3),
+            hitRows=len(a[0]), raysMovedVsRawKernel=moved,
+            maxAbsErrVsRawKernel=err,
+            seconds=time.perf_counter() - t0))
+  return err
+
+
+def example1Phase(tmp):
+  '''examples/1 on the card (`examples/torch_1_source_and_detector.py`):
+  the Monte-Carlo run storing the four StoreHit* fan columns, then the fan
+  run; both through the raw-record kernel in its columns input mode, which
+  the launch counts show.'''
+  resetLaunchCounts()
+  got = example1.main(device='cuda', path=os.path.join(tmp, 'example1'))
+  launches = dict(cuda_trace.launchCounts)
+  assert launches == onlyLaunches(traceRaw=EXAMPLE1_RAW_LAUNCHES), launches
+  assert got['hits'] > 0.99 * 2e5, got
+  assert 9.5 < got['rms'] < 11., got
+  assert got['fanKeys'] == ['fanIndex', 'rayIndex', 'totalFanCount',
+                            'totalRaysInFan'], got
+  assert got['fans'] == [0.0, 1.0] and got['fanHits'] > 30, got
+  emit(dict(phase='example1', launches=launches['traceRaw'], **got))
+  return launches['traceRaw']
+
+
+def example5Phase(tmp):
+  '''examples/5 on the card (`examples/torch_5_visualization.py`): the
+  draw run through the record tracer (no kernel launch), its drawn segments
+  equal to the traced records' `totalSegments`, and the PLY export.'''
+  segments = []
+  trace = runner.tracer.trace
+
+  def counted(*args, **kwargs):
+    state, records = trace(*args, **kwargs)
+    segments.append(tracer.totalSegments(records))
+    return state, records
+
+  resetLaunchCounts()
+  runner.tracer.trace = counted
+  try:
+    drawn, ply, seconds = example5.main(device='cuda',
+                                        out=os.path.join(tmp, 'example5'))
+  finally:
+    runner.tracer.trace = trace
+  assert cuda_trace.launchCounts == onlyLaunches(), cuda_trace.launchCounts
+  assert drawn.rayCount == 300 and segments == [drawn.segmentCount], \
+      (drawn.rayCount, segments, drawn.segmentCount)
+  emit(dict(phase='example5', rays=drawn.rayCount,
+            segments=drawn.segmentCount, runSeconds=seconds,
+            plyBytes=os.path.getsize(ply)))
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('chip_smoke.py needs a CUDA device: torch.cuda.is_available() '
@@ -3610,6 +3686,12 @@ def main():
     wall = wallPhase(tmp)
     # ---- phase 12: the per-bounce surface culls ----
     cull = b12Phase()
+    # ---- phase 13: the record tracer, examples/1 and examples/5 ----
+    t13 = time.perf_counter()
+    recordErr = recordTracerPhase()
+    example1Launches = example1Phase(tmp)
+    example5Phase(tmp)
+    emit(dict(phase='record-total', seconds=time.perf_counter() - t13))
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3663,11 +3745,15 @@ def main():
                   scatter['traceHistogram'], geom['traceHistogram'],
                   mesh['traceHistogram'], wall['traceHistogram'],
                   cull['traceHistogram']),
-      kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
-                  worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
-                  rawBounds, spectro['traceRaw'], surface['traceRaw'],
-                  scatter['traceRaw'], geom['traceRaw'], mesh['traceRaw'],
-                  wall['traceRaw'], cull['traceRaw']),
+      dict(kernelEntry('traceRaw', 'trace_raw_kernel.cu', 3226, rawLaunches,
+                       worstRing['traceRaw'], raw['kernelMs'], plainRawMs,
+                       rawBounds,
+                       spectro['traceRaw'], surface['traceRaw'],
+                       scatter['traceRaw'], geom['traceRaw'],
+                       mesh['traceRaw'], wall['traceRaw'],
+                       cull['traceRaw']),
+           example1_launches=example1Launches,
+           record_tracer_max_abs_err=recordErr),
       kernelEntry('traceBins', 'trace_bins_kernel.cu', 2789, k2['launches'],
                   worstRing['traceBins'], k2['kernelMs'], k2['plainMs'],
                   k2['bounds'], spectro['traceBins'], surface['traceBins'],

@@ -42,6 +42,17 @@ def sceneFromReference(deviceNp, histSpecNp, samplerSpec=None, device='cuda',
       maxIntersections=maxIntersections)
 
 
+
+def recordSceneFromReference(deviceNp, device='cuda'):
+  '''The record tracer's scene (`tracing/batch_tracer.prepareScene`) from
+  the JAX package's `Scene.compile(devicePut=False)` dict: `surfaces`
+  (`packed`, `kind`, `params`, `trim`, `w2lRot`, `w2lOff` and the bitmap
+  and primitive trims), `elements` (`packed` and the dispersion table),
+  `seqMask`, `surfMask`, `scatter` (with its (lo, hi) pair rows) and
+  `powerTol`, on `device`.'''
+  from .tracing.batch_tracer import prepareScene
+  return prepareScene(deviceNp, resolveDevice(device))
+
 def _plain(x):
   '''`x` with every array and number turned into python floats / ints,
   tuples and dicts (a spec's leaves may be numpy scalars or arrays).'''

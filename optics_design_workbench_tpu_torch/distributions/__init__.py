@@ -1,3 +1,4 @@
 from .random_variables import (VectorRandomVariable, ScalarRandomVariable,
-                               setGlobalSeed)
+                               SampledVectorRandomVariable, setGlobalSeed)
+from . import points_by_density
 from .device_sampler import buildDeviceTables, deviceDraw

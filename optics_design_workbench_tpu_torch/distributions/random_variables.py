@@ -19,10 +19,14 @@ distributions/random_number_generator.py:54-802):
   * `ScalarRandomVariable(probabilityDensity, variableDomain, variable)` —
     the one-variable wrapper (a surface source's theta density).
 
+  * `drawPseudo(N)` — the low-discrepancy host draw (latin hypercube);
+    `findGrid(N)` — a deterministic 1-D grid whose point density follows
+    the PDF (ray fans).
+  * `SampledVectorRandomVariable(variableRanges, gridProbs)` — a random
+    variable from tabulated probabilities instead of an expression.
+
 `distributions/device_sampler.buildDeviceTables` exports the compiled
-tables as tensors for on-device sampling. The low-discrepancy host draw
-(`drawPseudo`), deterministic grids (`findGrid`) and the sampled wrapper are
-not ported yet (ROADMAP A.10a).
+tables as tensors for on-device sampling.
 '''
 
 import math
@@ -33,6 +37,8 @@ import warnings
 
 import numpy as np
 import sympy as sy
+
+from . import points_by_density
 
 
 _DEFAULT_RNG = np.random.default_rng()
@@ -51,11 +57,13 @@ class _Timeout:
   SIGALRM handler to reliably abort a hung solve (reference:
   random_number_generator.py:23-37). Hardened beyond the reference's bare
   `signal.alarm`:
-    * the budget is measured in MAIN-THREAD CPU time (time.thread_time),
-      not wall clock — system load (concurrent test workers) cannot
-      expire the analytic budget and silently flip a
-      deterministic 'analytic' compile into 'numeric' mode. A wall-clock
-      ceiling of 10x the budget still bounds blocking (non-CPU) hangs.
+    * the budget is measured in MAIN-THREAD CPU time (time.thread_time)
+      only, never wall clock: system load (concurrent test workers) stops
+      the main thread without spending its CPU time, and a wall-clock
+      limit (the JAX package's 10x ceiling) then flips a compile that
+      fits its CPU budget from 'analytic' to 'numeric', whose draws
+      differ. sympy's integrate and solve compute and never wait, so the
+      CPU budget alone bounds them.
     * the handler is fenced by an `_active` flag so a late alarm delivered
       after the guarded region is a no-op instead of killing the host
       program; the previous handler is restored on exit; and a raise that gets
@@ -65,21 +73,17 @@ class _Timeout:
   Outside the main thread (where signals are unavailable) the guard
   degrades to a post-hoc deadline check.'''
 
-  def __init__(self, cpuDeadline, wallDeadline=None):
+  def __init__(self, cpuDeadline):
     self.cpuDeadline = cpuDeadline
-    self.wallDeadline = wallDeadline if wallDeadline is not None \
-        else time.time() + 10 * max(cpuDeadline - time.thread_time(), 0.)
     self._installed = False
     self._active = False
     self._prevHandler = None
 
   def _expired(self):
-    return (time.thread_time() >= self.cpuDeadline
-            or time.time() >= self.wallDeadline)
+    return time.thread_time() >= self.cpuDeadline
 
   def _remaining(self):
-    return min(self.cpuDeadline - time.thread_time(),
-               self.wallDeadline - time.time())
+    return self.cpuDeadline - time.thread_time()
 
   def __enter__(self):
     if self._expired():
@@ -89,8 +93,8 @@ class _Timeout:
         if not self._active:
           return  # late or spurious alarm: never interrupt unrelated code
         if not self._expired():
-          # wall time passed but the main thread was starved of CPU (load):
-          # re-arm for the remaining CPU budget
+          # the alarm counts wall time: the main thread was starved of CPU
+          # (load), so re-arm for the remaining CPU budget
           signal.setitimer(signal.ITIMER_REAL,
                            max(self._remaining(), .05))
           return
@@ -294,10 +298,9 @@ class VectorRandomVariable:
     # sympy's Meijer-G table is filled before the guarded region starts,
     # so no interrupt can leave it partial
     ensureMeijerTable()
-    # CPU-time budget (load-independent: concurrent processes cannot flip
-    # the compile mode) with a 10x wall-clock ceiling for true hangs
+    # CPU-time budget: load-independent, so concurrent processes cannot
+    # flip the compile mode
     self._deadline = time.thread_time() + timeout
-    self._wallDeadline = time.time() + 10 * timeout
     self._setConstants(**constants)
     if not self._needsRecompile:
       return
@@ -396,7 +399,7 @@ class VectorRandomVariable:
     marginalizing earlier variables and leaving later ones as parameters
     (reference: random_number_generator.py:204-320).'''
     expr = self._probabilityDensityExpr
-    with _Timeout(self._deadline, getattr(self, '_wallDeadline', None)):
+    with _Timeout(self._deadline):
       # positivity sanity check (best effort)
       _noDelta = expr.replace(sy.DiracDelta, lambda *a: 0)
       isPositive = False
@@ -619,6 +622,63 @@ class VectorRandomVariable:
     order = [names.index(v) for v in self._variableOrder]
     return result[order]
 
+  def drawPseudo(self, N, bins=None, overdrawFactor=0.1, overdrawIterations=50,
+                 constants=None, rng=None):
+    '''
+    Low-discrepancy draw: the same conditional inverse transforms as draw(),
+    fed with independently shuffled stratified quantiles (latin hypercube),
+    so every marginal's per-bin histogram error is bounded at +-1 sample
+    (reference: random_number_generator.py:562-682, whose sequential
+    overdraw-and-trim loop is not repeated; `bins`, `overdrawFactor` and
+    `overdrawIterations` are accepted for signature parity and ignored).
+    '''
+    if N <= 1:
+      raise ValueError('N must be greater than one in pseudo random mode')
+    if not self._variableOrder:
+      raise ValueError('variableOrder must be passed to constructor to use '
+                       'pseudo random mode.')
+    if self._transforms is None or (constants is not None
+                                    and constants != self._constantsDict):
+      self.compile(**(constants or {}))
+    rng = rng or _DEFAULT_RNG
+    n = max(2, int(round(N)))
+
+    drawn = []
+    for i in reversed(range(len(self._variables))):
+      transform = self._transforms[i]
+      u = rng.permutation((np.arange(n) + rng.random(n)) / n)
+      laterValues = drawn[::-1]
+      vals = transform(u, [np.atleast_1d(v) for v in laterValues], rng)
+      drawn.append(vals)
+
+    result = np.array(drawn[::-1])
+    names = [str(v) for v in self._variables]
+    order = [names.index(v) for v in self._variableOrder if v in names]
+    return result[order]
+
+  def findGrid(self, N, startFrom=None, constants=None):
+    '''Deterministic 1-D grid whose local point density follows the PDF
+    (reference: random_number_generator.py:685-725).'''
+    if self._transforms is None or (constants is not None
+                                    and constants != self._constantsDict):
+      self.compile(**(constants or {}))
+    if len(self._variables) != 1:
+      raise RuntimeError('grid generation is not implemented for variable '
+                         'count greater than 1')
+    var = self._variables[0]
+    l1, l2 = self._variableDomains.get(str(var), (-np.inf, np.inf))
+    if not np.isfinite(l1) or not np.isfinite(l2):
+      raise ValueError('variable domains must be finite for grid generation')
+    varRange = np.linspace(l1, l2, self._numericalResolution(var))
+    lam = _lambdify([var], self._probabilityDensityExpr)
+    density = np.broadcast_to(np.asarray(lam(varRange), dtype=float),
+                              varRange.shape)
+    if startFrom is None:
+      startFrom = varRange[np.argmax(density)]
+    result = points_by_density.generatePointsWithGivenDensity1D(
+        density=(varRange, density), N=N, startFrom=startFrom)
+    return result[(varRange.min() <= result) & (result <= varRange.max())]
+
 
 class ScalarRandomVariable(VectorRandomVariable):
   '''One-variable wrapper (reference: random_number_generator.py:729-769).'''
@@ -659,3 +719,40 @@ class ScalarRandomVariable(VectorRandomVariable):
 
   def draw(self, N=None, **kwargs):
     return super().draw(N=N, **kwargs)[0]
+
+
+class SampledVectorRandomVariable(VectorRandomVariable):
+  '''Random variable built from tabulated `(variableRanges, gridProbs)`
+  instead of a symbolic expression, e.g. for surface UV sampling
+  (reference: random_number_generator.py:772-802). `gridProbs` is indexed
+  `gridProbs[i_0, i_1, ...]` over the in-between points of variableRanges
+  in order (ij indexing).'''
+
+  def __init__(self, variableRanges, gridProbs, **kwargs):
+    super().__init__('1', **kwargs)
+    self._probabilityDensityExpr = sy.sympify('1')
+    self._inBetween = [np.asarray(r, dtype=float) for r in variableRanges]
+    self._ranges = [np.concatenate([
+        [r[0] - (r[1] - r[0]) / 2],
+        (r[:-1] + r[1:]) / 2,
+        [r[-1] + (r[-1] - r[-2]) / 2]]) for r in self._inBetween]
+    self._gridProbs = np.asarray(gridProbs, dtype=float)
+    letters = 'abcdefghijklmnopqrstuvw'
+    self._variables = [sy.Symbol(letters[i], real=True)
+                       for i in range(len(variableRanges))]
+    self._variableOrder = [str(v) for v in self._variables]
+    for v, r in zip(self._variables, self._ranges):
+      self._variableDomains[str(v)] = (r[0], r[-1])
+
+  def compile(self, **kwargs):
+    self._transforms = [
+        self._transformFromSampled(self._gridProbs, i, self._ranges,
+                                   self._inBetween)
+        for i in range(len(self._variables))]
+    self._mode = 'numeric'
+    self._needsRecompile = False
+
+  def draw(self, *args, **kwargs):
+    if self._transforms is None:
+      self.compile()
+    return super().draw(*args, **kwargs, _noVarOrderCheck=True)

@@ -20,8 +20,8 @@ Run folders are the layout `simulation.runSimulation` writes (`odwc` and
 `npz` result files), which is the JAX package's, so either package's
 `RawFolder` reads the other's runs.
 
-Not ported yet, and refused by name: `RawFolder.loadRays` and
-`RawFolder.drawnRays` (ray polylines and simulation/draw.py, ROADMAP A.10).
+`RawFolder.loadRays` reads the ray polylines of sources with RecordRays,
+`RawFolder.drawnRays` the DrawnRays of a `draw=` run (simulation/draw.py).
 `Document` takes `device=` (default 'cuda') and hands it to `runSimulation`.
 '''
 
@@ -312,19 +312,36 @@ class RawFolder:
     return Hits(entry or {})
 
   def loadRays(self, source='*'):
-    '''Ray polylines of a run. Not ported: nothing in this package stores
-    them yet (`RecordRays` is refused by `runSimulation`).'''
-    raise NotImplementedError(
-        'RawFolder.loadRays is not ported to the PyTorch package yet: '
-        'ROADMAP item A.10 (ray polylines: the record tracer and '
-        'recordsToRays)')
+    '''Load ray polylines: list of dicts(points (K+1,3), powers (K,),
+    media list) like SimulationResultsSingleRay.dump
+    (results_store.py:232-257).'''
+    from ..simulation import results_store
+    rays = []
+    files = []
+    for folder in glob.glob(os.path.join(self.path, f'source-{source}')):
+      files.extend(results_store.resultFilePaths(folder, 'rays'))
+    for f in sorted(files):
+      data = results_store.loadResultFile(f)
+      points, powers, media, offsets = (data['points'], data['powers'],
+                                        data['media'], data['offsets'])
+      segBase = 0
+      for i in range(len(offsets) - 1)[:]:
+        a, b = int(offsets[i]), int(offsets[i + 1])
+        k = b - a - 1  # segments in this ray
+        rays.append(dict(points=points[a:b],
+                         powers=powers[segBase:segBase + k],
+                         media=list(media[segBase:segBase + k])))
+        segBase += k
+    return rays
 
   def drawnRays(self):
-    '''The DrawnRays snapshot of a `runSimulation(..., draw=True)` run. Not
-    ported: `draw=` is refused by `runSimulation`.'''
-    raise NotImplementedError(
-        'RawFolder.drawnRays is not ported to the PyTorch package yet: '
-        'ROADMAP item A.10 (simulation/draw.py)')
+    '''Load the DrawnRays snapshot of a `runSimulation(..., draw=True)`
+    run (drawn-rays.npz), or None if the run did not draw — the notebook
+    hook for the headless ray view (simulation/draw.py).'''
+    from ..simulation.draw import DrawnRays
+    if not os.path.exists(os.path.join(self.path, 'drawn-rays.npz')):
+      return None
+    return DrawnRays.load(self.path)
 
   def progress(self):
     '''Latest aggregated progress snapshot.'''

@@ -394,15 +394,16 @@ class ParameterSweeper:
       src = srcs[0]
       if not src.supportsDeviceSampling():
         raise NotImplementedError(
-            f'source {src.Label} without device sampling is not ported to '
-            f'the PyTorch package yet: ROADMAP item A.4 (batch tracer for '
-            f'host-generated rays)')
+            f'source {src.Label} without device sampling: sweeping it is '
+            f'not ported to the PyTorch package yet: ROADMAP item A.4b '
+            f'(histograms from the record tracer)')
       host, info = scene.compile(device=None)
       reason = cuda_trace.ineligibleReason(host)
       if reason is not None:
         raise NotImplementedError(
-            f'this scene ({reason}) is not ported to the PyTorch package '
-            f'yet: ROADMAP queue B (kernel features)')
+            f'sweeping this scene ({reason}) is not ported to the PyTorch '
+            f'package yet: ROADMAP item A.4b (histograms from the record '
+            f'tracer)')
       host['powerTol'] = 1e-6
       variants.append(dict(
           host=host, info=info, sources=srcs,
@@ -487,8 +488,8 @@ class ParameterSweeper:
       if spec is None:
         raise NotImplementedError(
             f'source {srcs[0].Label} has no in-kernel sampler spec; sweeping '
-            f'it is not ported to the PyTorch package yet: ROADMAP item A.4 '
-            f'(batch tracer)')
+            f'it is not ported to the PyTorch package yet: ROADMAP item A.4b '
+            f'(histograms from the record tracer)')
       histSpec = fused.makeHistogramSpec(variant['host'], variant['info'],
                                          bounds=histBounds, bins=bins)
       step = cuda_trace.makeTraceStep(

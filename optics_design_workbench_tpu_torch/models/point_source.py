@@ -11,11 +11,12 @@ freecad_elements/point_source.py):
   * ray placement so all rays pass through the focal point / run parallel
     (point_source.py:407-456).
 
-This slice ports the device path of the source: `samplerSpec()` (the JAX
-package's `pallasSamplerSpec`, renamed because nothing here is Pallas),
-`deviceColumnsGenerator()` and `emissionBound()`. Fans, the host-side
-Monte-Carlo modes and the divergence/focal-length syncing are not ported
-yet.
+The device path of the source is `samplerSpec()` (the JAX package's
+`pallasSamplerSpec`, renamed because nothing here is Pallas),
+`deviceColumnsGenerator()`, `deviceGenerator()` (the columns with their
+metadata) and `emissionBound()`; the host path is `generateRays()`: the
+deterministic ray fans and the host-side Monte-Carlo modes. The
+divergence/focal-length syncing is not ported yet.
 '''
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 from .. import distributions, resolveDevice
 from ..distributions.device_sampler import (buildDeviceTables, deviceDraw,
                                             fitPiecewisePoly)
+from ..utils import io
 from .common import parseDomain, evalExpr
 from .generic_source import GenericSource
 
@@ -76,6 +78,9 @@ class PointSource(GenericSource):
     return parseDomain(self.RadiusDomain, default='0,10',
                        limits=(-np.inf, np.inf), spanLimits=(0, np.inf))[1]
 
+  def parsedFanPhi0(self):
+    return evalExpr(self.FanPhi0)
+
   def focalLength(self):
     return evalExpr(self.FocalLength)
 
@@ -107,10 +112,10 @@ class PointSource(GenericSource):
 
   # ----------------------------------------------------- random variable ctor
 
-  def _rvArgs(self, densityString):
-    '''Build the kwargs for the vector random variable from the power
-    density string — coordinate substitutions and Jacobians exactly as the
-    reference (point_source.py:273-362).'''
+  def _rvArgs(self, densityString, variableDomain=None, scalarRandomVar=False):
+    '''Build the kwargs for the (scalar/vector) random variable from the
+    power density string — coordinate substitutions and Jacobians exactly as
+    the reference (point_source.py:273-362).'''
     import sympy as sy
     f = self.focalLength()
     if np.isfinite(f):
@@ -125,12 +130,17 @@ class PointSource(GenericSource):
             raise ValueError(f'Variable {c} in power density expression '
                              f'{self.PowerDensity} is forbidden if focal '
                              f'length is zero')
-      densityString = '(' + densityString + ')*abs(sin(theta))'
+      if not scalarRandomVar:
+        densityString = '(' + densityString + ')*abs(sin(theta))'
       fAbs = f'{abs(f):.8e}'
       expr = (sy.sympify(densityString)
               .subs('r', sy.sympify(f'(tan(theta)*{fAbs})'))
               .subs('x', sy.sympify(f'(tan(theta)*cos(phi)*{fAbs})'))
               .subs('y', sy.sympify(f'(tan(theta)*sin(phi)*{fAbs})')))
+      if scalarRandomVar:
+        return dict(probabilityDensity=str(expr), variable='theta',
+                    variableDomain=variableDomain,
+                    numericalResolution=float(self.ThetaResolutionNumericMode))
       return dict(
           probabilityDensity=str(expr),
           variableOrder=('theta', 'phi'),
@@ -139,22 +149,28 @@ class PointSource(GenericSource):
           numericalResolutions=dict(
               theta=float(self.ThetaResolutionNumericMode),
               phi=float(self.PhiResolutionNumericMode)))
-    if 'theta' in densityString:
-      raise ValueError(f'Variable theta in power density expression '
-                       f'{self.PowerDensity} is forbidden if focal length '
-                       f'is infinite.')
-    densityString = '(' + densityString + ')*abs(r)'
-    expr = (sy.sympify(densityString)
-            .subs('x', sy.sympify('(r*cos(phi))'))
-            .subs('y', sy.sympify('(r*sin(phi))')))
-    return dict(
-        probabilityDensity=str(expr),
-        variableOrder=('r', 'phi'),
-        variableDomains=dict(r=self.parsedRadiusDomain(),
-                             phi=self.parsedPhiDomain()),
-        numericalResolutions=dict(
-            r=float(self.RadiusResolutionNumericMode),
-            phi=float(self.PhiResolutionNumericMode)))
+    else:
+      if 'theta' in densityString:
+        raise ValueError(f'Variable theta in power density expression '
+                         f'{self.PowerDensity} is forbidden if focal length '
+                         f'is infinite.')
+      if not scalarRandomVar:
+        densityString = '(' + densityString + ')*abs(r)'
+      expr = (sy.sympify(densityString)
+              .subs('x', sy.sympify('(r*cos(phi))'))
+              .subs('y', sy.sympify('(r*sin(phi))')))
+      if scalarRandomVar:
+        return dict(probabilityDensity=str(expr), variable='r',
+                    variableDomain=variableDomain,
+                    numericalResolution=float(self.RadiusResolutionNumericMode))
+      return dict(
+          probabilityDensity=str(expr),
+          variableOrder=('r', 'phi'),
+          variableDomains=dict(r=self.parsedRadiusDomain(),
+                               phi=self.parsedPhiDomain()),
+          numericalResolutions=dict(
+              r=float(self.RadiusResolutionNumericMode),
+              phi=float(self.PhiResolutionNumericMode)))
 
   def _getVrv(self):
     if self._vrv is None:
@@ -168,6 +184,148 @@ class PointSource(GenericSource):
     if self._deviceTables is None:
       self._deviceTables = buildDeviceTables(self._getVrv())
     return self._deviceTables
+
+  def makeRaysHost(self, thetasOrRadii, phis):
+    '''Vectorized world-frame ray batch from sampled coordinates (host).'''
+    t = np.asarray(thetasOrRadii, dtype=float)
+    p = np.asarray(phis, dtype=float)
+    f = self.focalLength()
+    if np.isfinite(f):
+      st, ct = np.sin(t), np.cos(t)
+      d = np.stack([st * np.sin(p), -st * np.cos(p), ct], axis=-1)
+      o = (np.array([0., 0., 1.]) - d) * f
+      theta, radius = t, np.tan(t) * f
+    else:
+      d = np.broadcast_to(np.array([0., 0., 1.]), (len(t), 3)).copy()
+      o = np.stack([t * np.cos(p), -t * np.sin(p), np.zeros_like(t)], axis=-1)
+      theta, radius = np.full_like(t, np.nan), t
+    R, off = self.placement[:3, :3], self.placement[:3, 3]
+    origins = o @ R.T + off
+    directions = d @ R.T
+    directions /= np.linalg.norm(directions, axis=-1, keepdims=True)
+    return dict(origins=origins, directions=directions,
+                powers=np.ones(len(t)),
+                wavelengths=np.full(len(t), float(self.Wavelength)),
+                metadata=dict(initPhi=p, initTheta=theta, initRadius=radius))
+
+  # -------------------------------------------------------------- generation
+
+  def generateRays(self, mode, settings=None, maxFanCount=np.inf,
+                   maxRaysPerFan=np.inf, rng=None):
+    '''Host-side ray batch for one iteration; mode in
+    {'fans', 'true', 'pseudo'} (reference: point_source.py:459-657); the Monte-Carlo modes draw on
+    the host with `rng` (a numpy Generator).'''
+    if mode == 'fans':
+      return self._generateFans(maxFanCount, maxRaysPerFan)
+    if mode in ('true', 'pseudo'):
+      raysPerIteration = 100
+      if settings is not None:
+        raysPerIteration = settings.raysPerIteration()
+      raysPerIteration = max(1, int(round(
+          raysPerIteration * float(self.RaysPerIterationScale))))
+      vrv = self._getVrv()
+      if mode == 'true':
+        tp = vrv.draw(N=raysPerIteration, rng=rng)
+      else:
+        tp = vrv.drawPseudo(N=raysPerIteration, rng=rng)
+      return self.makeRaysHost(tp[0], tp[1])
+    raise ValueError(f'unexpected ray placement mode {mode}')
+
+  def _generateFans(self, maxFanCount, maxRaysPerFan):
+    '''Deterministic ray fans (reference: point_source.py:469-634).'''
+    raysPerFan = int(min(self.RaysPerFan, maxRaysPerFan))
+    totalFanCount = int(min(self.Fans, maxFanCount))
+    f = self.focalLength()
+    if np.isfinite(f):
+      l1, l2 = self.parsedThetaDomain()
+    else:
+      l1, l2 = self.parsedRadiusDomain()
+    phiL1, phiL2 = self.parsedPhiDomain()
+
+    if (l1 > 0 and l2 > 0) or (l1 < 0 and l2 < 0):
+      fanMode = 'gapped'
+      raysPerFan = max(4, int(np.ceil(raysPerFan / 2) * 2))
+    elif l1 == 0 or l2 == 0:
+      fanMode = 'stitched'
+    elif l1 < 0 and l2 > 0:
+      fanMode = 'theta-sign-change'
+    else:
+      raise ValueError(f'{l1=}, {l2=}')
+    io.verb(f'using fan generation mode "{fanMode}"')
+
+    allT, allPhi, meta = [], [], dict(fanIndex=[], rayIndex=[],
+                                      totalFanCount=[], totalRaysInFan=[])
+    import sympy as sy
+    for fanIndex, basePhi in enumerate(
+        self.parsedFanPhi0() + np.linspace(0, np.pi, totalFanCount + 1)[:-1]):
+      cands = [phi for phi in np.arange(basePhi - 30 * np.pi,
+                                        basePhi + 31 * np.pi, np.pi)
+               if phiL1 - 1e-9 <= phi <= phiL2 + 1e-9]
+      if not cands:
+        io.verb(f'skipping fan {fanIndex}: no suitable phi in phi domain')
+        continue
+      phiA = cands[int(np.argmin(np.abs(basePhi - np.array(cands))))]
+      cands = [phi for phi in np.arange(phiA + np.pi - 30 * np.pi,
+                                        phiA + np.pi + 31 * np.pi, 2 * np.pi)
+               if phiL1 - 1e-9 <= phi <= phiL2 + 1e-9]
+      phiB = (np.nan if not cands else
+              cands[int(np.argmin(np.abs(phiA + np.pi - np.array(cands))))])
+
+      if fanMode == 'gapped':
+        srv = distributions.ScalarRandomVariable(
+            **self._rvArgs(self.PowerDensity, variableDomain=(l1, l2),
+                           scalarRandomVar=True))
+        srv.compile(phi=phiA)
+        side1 = srv.findGrid(N=raysPerFan // 2)
+        srv.compile(phi=phiB)
+        side2 = srv.findGrid(N=raysPerFan // 2)
+      elif fanMode == 'stitched':
+        limit = max(abs(l1), abs(l2))
+        var = 'theta' if np.isfinite(f) else 'r'
+        base = (sy.sympify(self.PowerDensity)
+                .subs('theta', 'abs(theta)').subs('r', 'abs(r)'))
+        if np.isfinite(phiB):
+          dens = str(base.subs('phi', sy.sympify(
+              f'Piecewise( ( ({phiA}), ({var})>0 ), ( ({phiB}), True ) )')))
+          domain = (-limit, limit)
+        else:
+          dens = str(base)
+          domain = (0, limit)
+        srv = distributions.ScalarRandomVariable(
+            **self._rvArgs(dens, variableDomain=domain, scalarRandomVar=True))
+        srv.compile(phi=phiA)
+        side1, side2 = srv.findGrid(N=raysPerFan), []
+      elif fanMode == 'theta-sign-change':
+        srv = distributions.ScalarRandomVariable(
+            **self._rvArgs(self.PowerDensity, variableDomain=(l1, l2),
+                           scalarRandomVar=True))
+        srv.compile(phi=phiA)
+        side1, side2 = srv.findGrid(N=raysPerFan), []
+
+      if len(side2) > 0:
+        side1 = sorted(side1, key=abs)
+        side2 = sorted(side2, key=abs)
+        idx1 = list(1 + np.arange(len(side1)))
+        idx2 = list(-(1 + np.arange(len(side2))))
+      else:
+        side1 = np.array(sorted(side1))
+        i0 = int(np.argmin(np.abs(side1)))
+        idx1 = list(np.arange(len(side1)) - i0)
+        idx2 = []
+
+      packed = (list(zip(idx1, side1, [phiA] * len(side1)))
+                + list(zip(idx2, side2, [phiB] * len(side2))))
+      for rayIndex, val, phi in sorted(packed, key=lambda e: abs(e[0]) - .1):
+        allT.append(val)
+        allPhi.append(phi)
+        meta['fanIndex'].append(int(fanIndex))
+        meta['rayIndex'].append(int(rayIndex))
+        meta['totalFanCount'].append(int(totalFanCount))
+        meta['totalRaysInFan'].append(len(packed))
+
+    batch = self.makeRaysHost(np.array(allT), np.array(allPhi))
+    batch['metadata'].update({k: np.array(v) for k, v in meta.items()})
+    return batch
 
   # ------------------------------------------------------------- device path
 
@@ -217,6 +375,36 @@ class PointSource(GenericSource):
     every field a flat float32 (N,) tensor on `device`. `generator` is a
     torch.Generator on that device (the explicit stand-in for a jax key);
     `uniforms=` hands deviceDraw its quantiles instead (the tests' seam).'''
+    drawn = self._drawnColumns(device)
+
+    def generate(generator, N, stratified=False, uniforms=None):
+      return drawn(generator, N, stratified, uniforms)[0]
+
+    return generate
+
+  def deviceGenerator(self, device='cuda'):
+    '''Like `deviceColumnsGenerator`, plus each ray's metadata:
+    `generate(generator, N, stratified=False) -> (columns, metadata)` with
+    metadata initPhi, initTheta (NaN for a collimated source) and
+    initRadius, float32 (N,) tensors on `device` (the JAX package's
+    `deviceGenerator` metadata, for runs that store StoreHit* columns).'''
+    drawn = self._drawnColumns(device)
+    f = self.focalLength()
+
+    def generate(generator, N, stratified=False):
+      cols, t, p = drawn(generator, N, stratified, None)
+      if np.isfinite(f):
+        meta = dict(initPhi=p, initTheta=t, initRadius=torch.tan(t) * f)
+      else:
+        meta = dict(initPhi=p, initTheta=torch.full_like(t, float('nan')),
+                    initRadius=t)
+      return cols, meta
+
+    return generate
+
+  def _drawnColumns(self, device):
+    '''`generate(generator, N, stratified, uniforms) -> (columns, t, p)`:
+    the ray columns with the two drawn coordinates they were placed from.'''
     dev = resolveDevice(device)
     tables = self._getDeviceTables()
     f = self.focalLength()
@@ -225,10 +413,10 @@ class PointSource(GenericSource):
     off = np.asarray(self.placement[:3, 3], dtype=float)
     wavelength = float(self.Wavelength)
 
-    def generate(generator, N, stratified=False, uniforms=None):
-      tp = deviceDraw(tables, generator, N, stratified=stratified, device=dev,
-                      uniforms=uniforms)
-      return pointColumns(tp[0], tp[1], finite, f, R, off, wavelength)
+    def generate(generator, N, stratified, uniforms):
+      t, p = deviceDraw(tables, generator, N, stratified=stratified,
+                        device=dev, uniforms=uniforms)[:2]
+      return pointColumns(t, p, finite, f, R, off, wavelength), t, p
 
     return generate
 

@@ -158,9 +158,9 @@ def buildScatterTables(groups, dtype=np.float32, device=None, modes=None):
   are packed from); a torch device puts every array there. `modes` (a
   list), when given, collects the compile path of each sampler.
 
-  Unlike the JAX package's tables these carry no (lo, hi) pair rows: those
-  feed its gather path (`batch_tracer._scatterDraw`), which belongs to the
-  record tracer (ROADMAP A.4).'''
+  `phiInvPairs` / `thetaInvPairs` are the (lo, hi) pair rows of the
+  inverse CDFs that the record tracer's exact gather path reads
+  (`batch_tracer._scatterDraw`: one 2-wide gather per interpolation).'''
   anyScatter = any(g.scatterKinds() for g in groups)
   if not anyScatter:
     return None
@@ -219,10 +219,16 @@ def buildScatterTables(groups, dtype=np.float32, device=None, modes=None):
           dst[e, kind, :, d:] = dst[e, kind, :, d - 1:d]
     meta = tab
 
+  phiPairs = np.stack([phiInv[..., :-1], phiInv[..., 1:]],
+                      axis=-1).reshape(-1, 2)
+  thetaPairs = np.stack([thetaInv[..., :-1], thetaInv[..., 1:]],
+                        axis=-1).reshape(-1, 2)
   tables = dict(
       flags=flags,
       phiInv=phiInv,
       thetaInv=thetaInv,
+      phiInvPairs=phiPairs.astype(np.float32),
+      thetaInvPairs=thetaPairs.astype(np.float32),
       thetaInRes=np.float32(Tin),
       phiGridLo=np.float32(meta['phiGridLo']),
       phiGridStep=np.float32(meta['phiGridStep']),

@@ -16,12 +16,13 @@ freecad_elements/surface_source.py):
     uniform; direction = Rot(normal, phi) Rot(tangent, theta) normal
     (:85-111).
 
-This slice ports the device path of the source: `samplerSpec()` (the JAX
-package's `pallasSamplerSpec`, named as the port names the point source's),
-`deviceColumnsGenerator()`, `emissionBound()` and the column maths the trace
-kernels' sampler repeats (`surfaceSampleColumns`), for faces of every kind.
-The host-side modes (`generateRays`: fans, true / pseudo on the host) wait
-for A.10a.
+The device path of the source is `samplerSpec()` (the JAX package's
+`pallasSamplerSpec`, named as the port names the point source's),
+`deviceColumnsGenerator()`, `deviceGenerator()` (the columns with their
+metadata), `emissionBound()` and the column maths the trace kernels'
+sampler repeats (`surfaceSampleColumns`), for faces of every kind; the host
+path is `generateRays()`: fans on a deterministic surface grid, and true /
+pseudo draws on the host.
 '''
 
 import numpy as np
@@ -64,6 +65,13 @@ def _asphereRadiusCdf(face, quantileRes=257):
                                        * np.diff(rGrid))])
   cdf /= cdf[-1]
   return np.interp(np.linspace(0., 1., quantileRes), cdf, rGrid)
+
+
+def _rodrigues(v, axis, angle):
+  axis = axis / np.linalg.norm(axis)
+  c, s = np.cos(angle), np.sin(angle)
+  return (v * c + np.cross(axis, v) * s
+          + axis * (axis @ v) * (1 - c))
 
 
 class _Face:
@@ -115,6 +123,175 @@ class _Face:
     return (c * (2 / (1 + root) + (1 + kk) * c * c * r2
                  / (root * (1 + root) ** 2))
             + 4 * a4 * r2 + 6 * a6 * r2 * r2 + 8 * a8 * r2 ** 3)
+
+
+  def samplePositions(self, n, rng):
+    '''(n,3) local points distributed with uniform area density, plus local
+    normals (n,3) (canonical, orient applied).'''
+    k, p, t = self.kind, self.params, self.trim
+    u = rng.random(n)
+    v = rng.random(n)
+    if k == GS.PLANE:
+      if t[0] > 0.5:
+        pts = np.stack([(2 * u - 1) * t[1], (2 * v - 1) * t[2],
+                        np.zeros(n)], -1)
+      else:
+        r = np.sqrt(u * (t[2] ** 2 - t[1] ** 2) + t[1] ** 2)
+        phi = 2 * np.pi * v
+        pts = np.stack([r * np.cos(phi), r * np.sin(phi), np.zeros(n)], -1)
+      normals = np.tile([0., 0., 1.], (n, 1))
+    elif k == GS.SPHERE:
+      R = p[0]
+      z = t[1] + u * (t[2] - t[1])      # uniform z = uniform zone area
+      phi = 2 * np.pi * v
+      rr = np.sqrt(np.maximum(R ** 2 - z ** 2, 0.))
+      pts = np.stack([rr * np.cos(phi), rr * np.sin(phi), z], -1)
+      normals = pts / R
+    elif k == GS.CYLINDER:
+      R = p[0]
+      z = t[1] + u * (t[2] - t[1])
+      phi = 2 * np.pi * v
+      pts = np.stack([R * np.cos(phi), R * np.sin(phi), z], -1)
+      normals = np.stack([np.cos(phi), np.sin(phi), np.zeros(n)], -1)
+    elif k == GS.ASPHERE:
+      r1, r2 = t[1], min(t[2], 1e6)
+      rGrid = np.linspace(r1, r2, 2001)
+      gr = self._sagPrimeOverR(rGrid ** 2) * rGrid
+      dens = 2 * np.pi * rGrid * np.sqrt(1 + gr ** 2)
+      cdf = np.concatenate([[0], np.cumsum((dens[1:] + dens[:-1]) / 2
+                                           * np.diff(rGrid))])
+      cdf /= cdf[-1]
+      r = np.interp(u, cdf, rGrid)
+      phi = 2 * np.pi * v
+      r2v = r ** 2
+      z = self._sag(r2v)
+      pts = np.stack([r * np.cos(phi), r * np.sin(phi), z], -1)
+      g = self._sagPrimeOverR(r2v)
+      normals = np.stack([-g * r * np.cos(phi), -g * r * np.sin(phi),
+                          np.ones(n)], -1)
+      normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    elif k == GS.TRIANGLE:
+      v0, v1, v2 = p[0:3], p[3:6], p[6:9]
+      a, b = u, v
+      flip = a + b > 1
+      a = np.where(flip, 1 - a, a)
+      b = np.where(flip, 1 - b, b)
+      pts = v0 + a[:, None] * (v1 - v0) + b[:, None] * (v2 - v0)
+      nrm = np.cross(v1 - v0, v2 - v0)
+      normals = np.tile(nrm / np.linalg.norm(nrm), (n, 1))
+    elif k == GS.CONE:
+      # area density over z is linear in r(z) = r0 + z tanA: invert the
+      # quadratic CDF in closed form
+      r0, tanA = p[0], p[1]
+      z1, z2 = t[1], t[2]
+      A = lambda z: r0 * z + tanA * z * z / 2      # noqa: E731
+      target = A(z1) + u * (A(z2) - A(z1))
+      if abs(tanA) < 1e-12:
+        z = z1 + u * (z2 - z1)
+      else:
+        disc = np.maximum(r0 ** 2 + 2 * tanA * target, 0.)
+        z = (-r0 + np.sqrt(disc)) / tanA
+      phi = 2 * np.pi * v
+      rr = r0 + z * tanA
+      pts = np.stack([rr * np.cos(phi), rr * np.sin(phi), z], -1)
+      normals = np.stack([np.cos(phi), np.sin(phi),
+                          np.full(n, -tanA)], -1)
+      normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    elif k == GS.TORUS:
+      vInv = _torusTubeAngleCdf(self)
+      vT = np.interp(u, np.linspace(0., 1., len(vInv)), vInv)
+      phi = 2 * np.pi * v
+      R0, rT = p[0], p[1]
+      rad = R0 + rT * np.cos(vT)
+      pts = np.stack([rad * np.cos(phi), rad * np.sin(phi),
+                      rT * np.sin(vT)], -1)
+      normals = np.stack([np.cos(vT) * np.cos(phi),
+                          np.cos(vT) * np.sin(phi), np.sin(vT)], -1)
+    else:
+      raise ValueError(f'unknown surface kind {k}')
+    return pts, normals * self.orient
+
+  def _sag(self, r2):
+    c, kk = self.params[0], self.params[1]
+    a4, a6, a8 = self.params[2], self.params[3], self.params[4]
+    root = np.sqrt(np.maximum(1 - (1 + kk) * c * c * r2, 1e-12))
+    return c * r2 / (1 + root) + r2 * r2 * (a4 + r2 * (a6 + r2 * a8))
+
+  def gridPositions(self, n):
+    '''Deterministic approximately-uniform surface grid of ~n points (fan
+    mode, reference: surface_source.py:122-267). Returns (points, normals)
+    in local frame.'''
+    n = max(1, int(n))
+    k, p, t = self.kind, self.params, self.trim
+    if k == GS.PLANE and t[0] > 0.5:
+      nx = max(1, int(round(np.sqrt(n * t[1] / t[2]))))
+      ny = max(1, int(round(n / nx)))
+      xs = np.linspace(-t[1], t[1], nx + 2)[1:-1]
+      ys = np.linspace(-t[2], t[2], ny + 2)[1:-1]
+      X, Y = np.meshgrid(xs, ys, indexing='ij')
+      pts = np.stack([X.ravel(), Y.ravel(), np.zeros(X.size)], -1)
+      normals = np.tile([0., 0., 1.], (len(pts), 1))
+    elif k in (GS.PLANE, GS.ASPHERE):
+      # concentric rings with ring point counts proportional to radius
+      rIn = t[1]
+      rOut = t[2] if np.isfinite(t[2]) else 1.
+      nRings = max(1, int(round(np.sqrt(n / np.pi))))
+      rs = np.linspace(rIn, rOut, nRings + 1)[:-1] + \
+          (rOut - rIn) / (2 * nRings + 1e-30)
+      pts, normals = [], []
+      total = sum(max(1, int(round(2 * np.pi * r / max(rOut - rIn, 1e-9)
+                                   * nRings))) for r in rs)
+      for r in rs:
+        m = max(1, int(round(2 * np.pi * r / max(rOut - rIn, 1e-9)
+                             * nRings * n / max(total, 1))))
+        phis = np.linspace(0, 2 * np.pi, m + 1)[:-1]
+        if k == GS.PLANE:
+          ring = np.stack([r * np.cos(phis), r * np.sin(phis),
+                           np.zeros(m)], -1)
+          nrm = np.tile([0., 0., 1.], (m, 1))
+        else:
+          z = self._sag(np.full(m, r ** 2))
+          ring = np.stack([r * np.cos(phis), r * np.sin(phis), z], -1)
+          g = self._sagPrimeOverR(np.full(m, r ** 2))
+          nrm = np.stack([-g * r * np.cos(phis), -g * r * np.sin(phis),
+                          np.ones(m)], -1)
+          nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+        pts.append(ring)
+        normals.append(nrm)
+      pts = np.concatenate(pts)
+      normals = np.concatenate(normals)
+    elif k in (GS.SPHERE, GS.CYLINDER):
+      R = p[0]
+      span = t[2] - t[1]
+      nz = max(1, int(round(np.sqrt(n * span / (2 * np.pi * R)))))
+      nphi = max(1, int(round(n / nz)))
+      zs = np.linspace(t[1], t[2], nz + 2)[1:-1]
+      phis = np.linspace(0, 2 * np.pi, nphi + 1)[:-1]
+      Z, PHI = np.meshgrid(zs, phis, indexing='ij')
+      Z, PHI = Z.ravel(), PHI.ravel()
+      if k == GS.SPHERE:
+        rr = np.sqrt(np.maximum(R ** 2 - Z ** 2, 0.))
+        pts = np.stack([rr * np.cos(PHI), rr * np.sin(PHI), Z], -1)
+        normals = pts / R
+      else:
+        pts = np.stack([R * np.cos(PHI), R * np.sin(PHI), Z], -1)
+        normals = np.stack([np.cos(PHI), np.sin(PHI),
+                            np.zeros(len(PHI))], -1)
+    elif k == GS.TRIANGLE:
+      v0, v1, v2 = p[0:3], p[3:6], p[6:9]
+      m = max(1, int(round(np.sqrt(n))))
+      pts, normals = [], []
+      nrm = np.cross(v1 - v0, v2 - v0)
+      nrm = nrm / np.linalg.norm(nrm)
+      for i in range(m):
+        for j in range(m - i):
+          a, b = (i + 0.5) / m, (j + 0.5) / m
+          pts.append(v0 + a * (v1 - v0) + b * (v2 - v0))
+          normals.append(nrm)
+      pts, normals = np.array(pts), np.array(normals)
+    else:
+      raise ValueError(f'unknown surface kind {k}')
+    return pts, normals * self.orient
 
 
 class SurfaceSource(GenericSource):
@@ -238,16 +415,118 @@ class SurfaceSource(GenericSource):
               f'for emission')
     return faces
 
+  def _makeBatch(self, faces, localPoints, localNormals, thetas, phis,
+                 metadata):
+    '''Transform per-face local samples to world rays.'''
+    origins, directions = [], []
+    for face, pts, nrm, th, ph in zip(faces, localPoints, localNormals,
+                                      thetas, phis):
+      R, off = face.transform[:3, :3], face.transform[:3, 3]
+      ptsW = pts @ R.T + off
+      nrmW = nrm @ R.T
+      dirs = np.empty_like(nrmW)
+      for i in range(len(ptsW)):
+        n = nrmW[i] / np.linalg.norm(nrmW[i])
+        # tangent: any stable vector orthogonal to n (reference uses the
+        # face u-derivative; phi is uniform so the choice cancels out)
+        ref = np.array([1., 0., 0.]) if abs(n[0]) < 0.9 \
+            else np.array([0., 1., 0.])
+        tang = np.cross(n, ref)
+        tang /= np.linalg.norm(tang)
+        d = _rodrigues(n, tang, th[i])
+        d = _rodrigues(d, n, ph[i])
+        dirs[i] = d
+      origins.append(ptsW)
+      directions.append(dirs)
+    origins = np.concatenate(origins) if origins else np.zeros((0, 3))
+    directions = np.concatenate(directions) if directions \
+        else np.zeros((0, 3))
+    n = len(origins)
+    return dict(origins=origins, directions=directions,
+                powers=np.ones(n),
+                wavelengths=np.full(n, float(self.Wavelength)),
+                metadata={k: np.concatenate(v) if len(v) else np.zeros(0)
+                          for k, v in metadata.items()})
+
   def generateRays(self, mode, settings=None, maxFanCount=np.inf,
                    maxRaysPerFan=np.inf, rng=None):
-    '''The host-side ray modes (fans, and true / pseudo drawn on the host)
-    need the deterministic grids and the low-discrepancy draws of the
-    random variables, which are not ported yet.'''
-    raise NotImplementedError(
-        f'SurfaceSource.generateRays({mode!r}) (host-side fans and draws) is '
-        f'not ported to the PyTorch package yet: ROADMAP item A.10a (ray '
-        f'fans, drawPseudo / findGrid); the device path '
-        f'(samplerSpec / deviceColumnsGenerator) is')
+    rng = rng or np.random.default_rng()
+    faces = self._activeFaces()
+    if not faces:
+      return dict(origins=np.zeros((0, 3)), directions=np.zeros((0, 3)),
+                  powers=np.zeros(0), wavelengths=np.zeros(0), metadata={})
+    areas = np.array([f.area() for f in faces])
+    weights = areas / areas.sum()
+
+    if mode == 'fans':
+      total = int(self.FanModeRayCount)
+
+      def customRound(x):
+        # {1,4,9} quantization (reference: surface_source.py:474-476)
+        if x > 9:
+          return int(round(x))
+        return [1, 4, 9][int(np.argmin(np.abs(x - np.array([1, 4, 9]))))]
+
+      counts = [customRound(w * total) for w in weights]
+      skipFraction = max(0., 1 - total / max(sum(counts), 1))
+      if skipFraction > 0.3:
+        io.warn(f'cannot place rays on all surfaces within '
+                f'FanModeRayCount={total}; skipping '
+                f'{1e2*skipFraction:.0f}% of faces')
+      pts, nrms, ths, phs = [], [], [], []
+      meta = dict(initTheta=[], initPhi=[])
+      faceI = 0.
+      usedFaces = []
+      for w, face, cnt in zip(weights, faces, counts):
+        if skipFraction > 0:
+          step = skipFraction / max(w * len(faces), 1e-12)
+          if round(faceI) != round(faceI + step):
+            faceI += step
+            continue
+          faceI += step
+        p, nr = face.gridPositions(cnt)
+        usedFaces.append(face)
+        pts.append(p)
+        nrms.append(nr)
+        ths.append(np.zeros(len(p)))
+        phs.append(np.zeros(len(p)))
+        meta['initTheta'].append(np.zeros(len(p)))
+        meta['initPhi'].append(np.zeros(len(p)))
+      return self._makeBatch(usedFaces, pts, nrms, ths, phs, meta)
+
+    if mode in ('true', 'pseudo'):
+      raysPerIteration = 100
+      if settings is not None:
+        raysPerIteration = settings.raysPerIteration()
+      n = max(1, int(round(raysPerIteration
+                           * float(self.RaysPerIterationScale))))
+      vrv = self._getVrv()
+      # choose faces by area, then draw per-face positions in one batch each
+      choice = rng.choice(len(faces), size=n, p=weights)
+      pts, nrms, ths, phs = [], [], [], []
+      meta = dict(initTheta=[], initPhi=[])
+      usedFaces = []
+      for fi in range(len(faces)):
+        m = int(np.sum(choice == fi))
+        if m == 0:
+          continue
+        p, nr = faces[fi].samplePositions(m, rng)
+        if mode == 'pseudo':
+          th = vrv.drawPseudo(N=m, rng=rng)[0] if m > 1 else \
+              np.atleast_1d(vrv.draw(N=1, rng=rng))
+        else:
+          th = np.atleast_1d(vrv.draw(N=m, rng=rng))
+        ph = rng.random(m) * 2 * np.pi
+        usedFaces.append(faces[fi])
+        pts.append(p)
+        nrms.append(nr)
+        ths.append(th)
+        phs.append(ph)
+        meta['initTheta'].append(th)
+        meta['initPhi'].append(ph)
+      return self._makeBatch(usedFaces, pts, nrms, ths, phs, meta)
+
+    raise ValueError(f'unexpected ray placement mode {mode}')
 
   # ------------------------------------------------------------- device path
 
@@ -356,6 +635,20 @@ class SurfaceSource(GenericSource):
       cols['_phi'] = phi
       cols['_face'] = faceIndexColumn(faces, uF)
       return cols
+
+    return generate
+
+  def deviceGenerator(self, device='cuda'):
+    '''Like `deviceColumnsGenerator`, plus each ray's metadata:
+    `generate(generator, N, stratified=False) -> (columns, metadata)` with
+    metadata initTheta, initPhi and faceIndex (the JAX package's
+    `deviceGenerator` metadata).'''
+    columns = self.deviceColumnsGenerator(device=device)
+
+    def generate(generator, N, stratified=False):
+      c = columns(generator, N, stratified=stratified)
+      return c, dict(initTheta=c['_theta'], initPhi=c['_phi'],
+                     faceIndex=c['_face'])
 
     return generate
 

@@ -296,7 +296,7 @@ def ineligibleReason(scene):
   if nTri:
     # the JAX package's own refusals for meshes past its immediates: its
     # stage gates and per-source masks are per-surface constants; the
-    # record tracer (ROADMAP A.4) will take these scenes (C.2)
+    # record tracer (tracing/tracer.py) takes these scenes
     if 'seqMask' in scene:
       return (f'{nTri} mesh triangles with sequential mode: stage gates '
               f'are per-surface immediates (<=128 tris)')
@@ -1791,75 +1791,6 @@ def _fmax(x, value):
   return torch.fmax(x, _full(x, value))
 
 
-def _quadRootsPlain(b, c):
-  '''The reference's stable roots of t^2 + b t + c (`_quadraticRoots` with
-  a = 1), sorted; +inf where there are none.'''
-  inf = _full(b, float('inf'))
-  disc = b * b - 4. * c
-  ok = disc >= 0
-  sq = torch.where(ok, torch.sqrt(torch.where(ok, disc, _full(disc, 1.))),
-                   torch.zeros_like(disc))
-  q = -0.5 * (b + torch.sign(b + 1e-30) * sq)
-  qS = torch.where(torch.abs(q) < 1e-20, _full(q, 1e-20), q)
-  t2 = c / qS
-  lo, hi = torch.fmin(q, t2), torch.fmax(q, t2)
-  return torch.where(ok, lo, inf), torch.where(ok, hi, inf)
-
-
-def _cubicLargestRootPlain(B, C, D):
-  '''Largest real root of S^3 + B S^2 + C S + D by 28 damped Newton steps
-  from above the Cauchy bound, the reference's `_cubicLargestRoot`.'''
-  S = 1. + torch.fmax(torch.abs(B), torch.fmax(torch.abs(C), torch.abs(D)))
-  for _ in range(28):
-    f = ((S + B) * S + C) * S + D
-    fp = (3. * S + 2. * B) * S + C
-    fp = torch.where(torch.abs(fp) < 1e-20, _full(fp, 1e-20), fp)
-    step = f / fp
-    lim = torch.abs(S) + 1.
-    S = S - torch.fmin(torch.fmax(step, -torch.abs(S) - 1.), lim)
-  return S
-
-
-def _quarticSmallestRootPlain(b, c, d, e, tMin, validFn):
-  '''Smallest root t > tMin of t^4 + b t^3 + c t^2 + d t + e with
-  validFn(t), else +inf: the reference's `_quarticSmallestRoot` (Ferrari
-  through the resolvent cubic, each candidate polished by three Newton
-  steps), every power written as products.'''
-  inf = _full(b, float('inf'))
-  four, eight = _full(b, 4.), _full(b, 8.)
-  b4 = b / four
-  bb = b * b
-  p = c - 3. * b * b / eight
-  q = d - b * c / _full(b, 2.) + b * bb / eight
-  r = (e - b * d / four + bb * c / _full(b, 16.)
-       - 3. * (bb * bb) / _full(b, 256.))
-  S = _fmax(_cubicLargestRootPlain(2. * p, p * p - 4. * r, -q * q), 0.)
-  biquad = S < 1e-10 * (1. + torch.abs(p))
-  one = _full(S, 1.)
-  s = torch.sqrt(torch.where(biquad, one, S))
-  sSafe = torch.where(biquad, one, s)
-  A = 0.5 * (p + S - q / sSafe)
-  Bb = 0.5 * (p + S + q / sSafe)
-  y1, y2 = _quadRootsPlain(p, r)
-  zero = torch.zeros_like(S)
-  A = torch.where(biquad, torch.where(y1 < inf, -y1, zero), A)
-  Bb = torch.where(biquad, torch.where(y2 < inf, -y2, zero), Bb)
-  sQ = torch.where(biquad, zero, s)
-  u1, u2 = _quadRootsPlain(sQ, A)
-  u3, u4 = _quadRootsPlain(-sQ, Bb)
-  tBest = inf
-  for u in (u1, u2, u3, u4):
-    t = torch.where(u < inf, u - b4, inf)
-    for _ in range(3):
-      f = (((t + b) * t + c) * t + d) * t + e
-      fp = ((4. * t + 3. * b) * t + 2. * c) * t + d
-      fp = torch.where(torch.abs(fp) < 1e-20, _full(fp, 1e-20), fp)
-      t = torch.where(t < inf, t - f / fp, t)
-    ok = (t > tMin) & (t < inf) & validFn(t)
-    tBest = torch.fmin(tBest, torch.where(ok, t, inf))
-  return tBest
-
-
 def _bitmapOkPlain(r, tab, u, v):
   '''The bitmap trim (flag 2) of surface row `r` at chart coordinates
   (u, v): the pixel inside the R x R window and its bit set.'''
@@ -1887,24 +1818,7 @@ def _primsPlain(r, tab, x, y, z, baseOk):
   for h in range(n):
     shape, isAdd, isInv, cx, cy, p0, p1, ca, sa = (
         float(v) for v in tab[off + h * PRIM_COLS:off + (h + 1) * PRIM_COLS])
-    dxp, dyp = x - cx, y - cy
-    if shape > 5.5:
-      inP = x * cx + y * cy + z * p0 >= p1
-    elif shape > 4.5:
-      inP = (cx * x * x + cy * x * y + p0 * y * y
-             + p1 * x + ca * y + sa) <= 0.
-    elif shape > 3.5:
-      xr = ca * dxp + sa * dyp
-      yr = -sa * dxp + ca * dyp
-      inP = yr <= p0 * xr * xr + p1 * xr
-    elif shape > 2.5:
-      inP = dxp * p0 + dyp * p1 >= 0
-    elif shape > 1.5:
-      inP = dxp * dxp + dyp * dyp <= p0
-    else:
-      xr = ca * dxp + sa * dyp
-      yr = -sa * dxp + ca * dyp
-      inP = (torch.abs(xr) <= p0) & (torch.abs(yr) <= p1)
+    inP = GS.primInside(shape, x, y, z, cx, cy, p0, p1, ca, sa)
     if isInv:
       inP = ~inP
     if isAdd:
@@ -2132,7 +2046,7 @@ def _torusT(P, X, lox, loy, loz, ldx, ldy, ldz, tMin, big, chartOk):
     return (torch.abs(g) < resTol) & chartOk(x, y, z, GS.chartAtan2(z, dr))
 
   tauMin = (tMin - tMid) * stretch
-  tau = _quarticSmallestRootPlain(b, c, dL, e, tauMin, valid)
+  tau = GS.quarticSmallestRoot(b, c, dL, e, tauMin, valid)
   t = tMid + tau / stretch
   return torch.where(tau < _BIG, t, big)
 

@@ -7,6 +7,7 @@ criteria and the per-source iteration structure are the reference's, so
 external tooling behaves identically.
 
 Actions (reference: simulation_actions.py:22-37, simulation_loop.py:341-348):
+  'fans'         one deterministic ray-fan iteration
   'singletrue'   one Monte-Carlo iteration (true random)
   'singlepseudo' one Monte-Carlo iteration (latin-hypercube draws)
   'true'         continuous Monte-Carlo until end criteria / cancel
@@ -14,14 +15,24 @@ Actions (reference: simulation_actions.py:22-37, simulation_loop.py:341-348):
   'stop'         cancel a running simulation
   'clear'        stop + clear drawn rays (GUI no-op here)
 
-Every Monte-Carlo iteration goes through the hand-written kernels of
-ops/cuda_trace: `makeRawStep` for stored raw hits, `makeTraceStep` for
-histogram-first recording. What the reference routes through its record
-tracer (`tracing.tracer.trace`) is not ported yet and raises
-NotImplementedError by name instead of doing something else: the 'fans'
-action, `draw=`, `mesh=`, `slaveInfo=`, sources with RecordRays, enabled
-StoreHit* metadata columns, sources without device sampling, and scenes the
-kernels do not cover (see `_refuseArguments`, `_refuseScene`).
+Routes. Each source takes one route for the whole run, decided once from
+the scene's properties (`_routeOf`), never by catching a kernel's failure:
+
+  * 'kernel': the hand-written kernels of ops/cuda_trace. Monte-Carlo
+    iterations go through `makeRawStep` (stored raw hits, rays drawn in the
+    kernel) or `makeTraceStep` (histogram-first recording); ray fans and
+    runs that store StoreHit* metadata columns feed the raw-record kernel
+    (K4) ray columns drawn outside it (`traceRaw(columns=)`), and the hits
+    pick up their rays' metadata by ray index.
+  * 'tracer': the record tracer (tracing/tracer.trace, plain PyTorch),
+    where the reference takes its own record tracer: sources with
+    RecordRays (ray polylines), `draw=` runs, sources without device
+    sampling, and scenes the kernels do not cover
+    (`cuda_trace.ineligibleReason`).
+
+`mesh=`, `slaveInfo=` (`_refuseArguments`) and histogram-first recording on
+the record tracer's route (the reference's XLA fused step; ROADMAP A.4b)
+are not ported and raise NotImplementedError by name.
 '''
 
 import time
@@ -29,14 +40,15 @@ import time
 import numpy as np
 import torch
 
-from .. import distributions, resolveDevice
+from .. import distributions, hostArray, resolveDevice
 from ..ops import cuda_trace
-from ..tracing import fused
+from ..tracing import fused, tracer
+from ..tracing.batch_tracer import prepareScene
 from ..utils import io, timing
 from . import results_store
 from .lifecycle import Lifecycle, SimulationEnded
 
-SINGLE_SHOT_ACTIONS = ('singletrue', 'singlepseudo')
+SINGLE_SHOT_ACTIONS = ('fans', 'singletrue', 'singlepseudo')
 CONTINUOUS_ACTIONS = ('true', 'pseudo')
 
 # rays per step are padded to a multiple of the kernels' thread block, so
@@ -45,15 +57,9 @@ RAY_BLOCK = 256
 
 # where each refused feature is queued (ROADMAP.md, section A)
 _ROADMAP = {
-    'fans': 'A.10a (ray fans and hit metadata)',
-    'recordRays': 'A.10 (record tracer: fans, ray polylines, metadata '
-                  'columns)',
-    'metadata': 'A.10a (ray fans and hit metadata)',
-    'draw': 'A.10 (simulation/draw.py)',
-    'slaveInfo': 'A.10 (parallel/multiprocess.py workers)',
+    'slaveInfo': 'A.10c (parallel/multiprocess.py workers)',
     'mesh': 'A.13 (multi-GPU)',
-    'hostSource': 'A.4 (batch tracer for host-generated rays)',
-    'scene': 'A.4 (batch tracer fallback) and queue B (kernel features)',
+    'histogram': 'A.4b (histograms from the record tracer)',
 }
 
 
@@ -88,6 +94,8 @@ def _actionMode(action):
     return 'true'
   if action in ('singlepseudo', 'pseudo'):
     return 'pseudo'
+  if action == 'fans':
+    return 'fans'
   raise ValueError(f'unexpected action {action!r}')
 
 
@@ -157,6 +165,61 @@ def recordsToHits(records, metadata, elementLabels, enabledKeys=None):
   return out
 
 
+def recordsToRays(records, elementLabels):
+  '''Convert the record tracer's segment records into the ragged polyline
+  encoding of SimulationResults.addRayBatch (host side).'''
+  segValid = records['segValid'].cpu().numpy()          # (B, N)
+  if not segValid.any():
+    return None
+  p1 = records['segP1'].cpu().numpy()                   # (B, N, 3)
+  p2 = records['segP2'].cpu().numpy()
+  power = records['segPower'].cpu().numpy()
+  medium = records['segMedium'].cpu().numpy()
+  counts = segValid.sum(axis=0)                          # (N,)
+  pointsList, powersList, mediaList = [], [], []
+  offsets = [0]
+  labelArr = np.array([str(l) for l in elementLabels] + ['None'])
+  for n in np.nonzero(counts > 0)[0]:
+    k = counts[n]
+    pointsList.append(np.concatenate([p1[:k, n], p2[k - 1:k, n]]))
+    powersList.append(power[:k, n])
+    med = medium[:k, n]
+    mediaList.append(labelArr[np.where(med < 0, len(elementLabels), med)])
+    offsets.append(offsets[-1] + k + 1)
+  return dict(points=np.concatenate(pointsList),
+              powers=np.concatenate(powersList),
+              media=np.concatenate(mediaList),
+              offsets=np.array(offsets))
+
+
+def _sliceBatch(batch, index, count):
+  '''Strided slice [index::count] of every per-ray column of a generated
+  ray batch (origins / directions / powers / wavelengths + metadata).'''
+  n = len(batch['origins'])
+  out = {}
+  for k, v in batch.items():
+    if k == 'metadata':
+      out[k] = {mk: (np.asarray(mv)[index::count]
+                     if hasattr(mv, '__len__') and len(mv) == n else mv)
+                for mk, mv in v.items()}
+    elif hasattr(v, '__len__') and len(v) == n:
+      out[k] = np.asarray(v)[index::count]
+    else:
+      out[k] = v
+  return out
+
+
+def _columnsOf(batch, dev):
+  '''The (8, N) float32 ray columns (ox..dz, pw, wl) of a host ray batch
+  (`generateRays`), on `dev`.'''
+  o = np.asarray(batch['origins'], np.float32).reshape(-1, 3)
+  d = np.asarray(batch['directions'], np.float32).reshape(-1, 3)
+  cols = np.concatenate([o.T, d.T, np.asarray(batch['powers'],
+                                              np.float32)[None],
+                         np.asarray(batch['wavelengths'], np.float32)[None]])
+  return torch.as_tensor(np.ascontiguousarray(cols), device=dev)
+
+
 class SimulationRun:
   '''One compiled simulation: the scene's host tables (what
   `cuda_trace.buildTraceTables` reads) + per-source settings. A source with
@@ -170,6 +233,7 @@ class SimulationRun:
     self.torchDevice = resolveDevice(device)
     self.device, self.info = scene.compile(device=None)
     self.device['powerTol'] = 1e-6
+    self._prepared = {}
 
   def sceneFor(self, source):
     '''The scene `source` is traced through: the compiled scene, plus the
@@ -180,24 +244,43 @@ class SimulationRun:
       return self.device
     return dict(self.device, surfMask=mask)
 
+  def maxIntersections(self, source):
+    return max(1, int(round(self.settings.maxIntersections()
+                            * float(source.MaxIntersectionsScale))))
+
+  def maxRayLength(self, source):
+    return self.settings.maxRayLength() * float(source.MaxRayLengthScale)
+
+  def traceBatch(self, source, columns, recordSegments, generator=None):
+    '''Trace (8, N) ray columns of `source` through the record tracer
+    (tracing/tracer.trace) on the run's device. Returns (state, records),
+    bounce-major.'''
+    key = source.Label
+    if key not in self._prepared:
+      self._prepared[key] = prepareScene(self.sceneFor(source),
+                                         self.torchDevice)
+    o = columns[0:3].T
+    d = columns[3:6].T
+    return tracer.trace(
+        self._prepared[key], o, d, columns[6], columns[7],
+        maxIntersections=self.maxIntersections(source),
+        maxRayLength=self.maxRayLength(source),
+        distTol=max(self.settings.distanceTolerance(), 1e-4),
+        recordSegments=recordSegments, generator=generator)
+
   def stepKwargs(self, source, raysPerStep):
     '''Keyword arguments of a step factory that derive from the settings
     and the source's scale factors.'''
-    maxI = max(1, int(round(self.settings.maxIntersections()
-                            * float(source.MaxIntersectionsScale))))
-    return dict(raysPerStep=raysPerStep, maxIntersections=maxI,
-                maxRayLength=self.settings.maxRayLength()
-                * float(source.MaxRayLengthScale),
+    return dict(raysPerStep=raysPerStep,
+                maxIntersections=self.maxIntersections(source),
+                maxRayLength=self.maxRayLength(source),
                 device=self.torchDevice)
 
 
-def _refuseArguments(action, unsupported):
+def _refuseArguments(unsupported):
   '''Raise NotImplementedError, by name, for the reference's arguments that
   need modules this package lacks; TypeError for anything else.'''
-  if action == 'fans':
-    raise _notPorted("action='fans' (deterministic ray fans)", 'fans')
-  for key, what in (('draw', 'draw= (drawn ray polylines)'),
-                    ('mesh', 'mesh= (sharding over several devices)'),
+  for key, what in (('mesh', 'mesh= (sharding over several devices)'),
                     ('slaveInfo', 'slaveInfo= (the worker role)')):
     value = unsupported.pop(key, None)
     if value is not None and value is not False:
@@ -207,50 +290,60 @@ def _refuseArguments(action, unsupported):
                     f'{sorted(unsupported)}')
 
 
-def _refuseScene(scene, run, settings):
-  '''Raise NotImplementedError, by name, for what the reference sends
-  through its record tracer: metadata columns, ray polylines, host-sampled
-  sources, and scenes the kernels do not cover.'''
-  enabled = settings.enabledMetadataKeys()
-  if enabled:
-    raise _notPorted(f'storing hit metadata columns (StoreHit* enabled: '
-                     f'{enabled})', 'metadata')
-  for src in scene.lightSources():
-    if bool(src.RecordRays):
-      raise _notPorted(f'RecordRays (ray polylines of source {src.Label})',
-                       'recordRays')
-    if not src.supportsDeviceSampling():
-      raise _notPorted(f'source {src.Label} without device sampling',
-                       'hostSource')
-    reason = cuda_trace.ineligibleReason(run.sceneFor(src))
-    if reason is not None:
-      raise _notPorted(f'this scene ({reason}, source {src.Label})',
-                       'scene')
+def _routeOf(run, src, mode, drawn):
+  '''(route, reason) of a source, from the scene's properties only:
+  ('tracer', why) where the reference takes its record tracer too, else
+  ('kernel', None).'''
+  if bool(src.RecordRays):
+    return 'tracer', f'RecordRays (ray polylines of source {src.Label})'
+  if drawn is not None:
+    return 'tracer', 'draw= (drawn ray polylines)'
+  if mode != 'fans' and not src.supportsDeviceSampling():
+    return 'tracer', f'source {src.Label} without device sampling'
+  reason = cuda_trace.ineligibleReason(run.sceneFor(src))
+  if reason is not None:
+    return 'tracer', f'the kernels do not cover this scene ({reason})'
+  return 'kernel', None
 
 
 def runSimulation(scene, action, endIf=None, seed=None, store=None,
-                  progressCallback=None, flushEverySeconds=5,
+                  draw=False, progressCallback=None, flushEverySeconds=5,
                   recording='raw', histBounds=None, histBins=(256, 256),
                   rawSampleRays=1 << 13, rawSampleEvery=8, device='cuda',
                   **unsupported):
   '''
   Run a simulation on `scene` (a models.Scene) on `device` (default 'cuda';
-  raises without a card; 'cpu' runs the kernels' plain PyTorch versions).
-  Returns the run folder path (or None for 'stop'/'clear'). See the module
-  docstring for actions and for what raises NotImplementedError.
+  raises without a card; 'cpu' runs the kernels' plain PyTorch versions and
+  the record tracer on the CPU). Returns the run folder path (or None for
+  'stop'/'clear'). See the module docstring for actions and routes.
 
-  recording='raw' stores every hit on a recording element: each iteration
-  is one launch of the raw-record kernel, a compaction of its hit ring on
-  the device, one fetch of the recording rows and a buffered write.
+  recording='raw' stores every hit on a recording element: on the kernel
+  route each Monte-Carlo iteration is one launch of the raw-record kernel,
+  a compaction of its hit ring on the device, one fetch of the recording
+  rows and a buffered write.
 
-  recording='histogram' switches Monte-Carlo runs to histogram-first
-  storage: detector histograms accumulate ON THE DEVICE through the fused
-  sample + trace + bin kernel and are flushed as cumulative snapshots
-  (source-<label>/<ts>-histograms.npz, loader:
+  recording='histogram' switches Monte-Carlo runs on the kernel route to
+  histogram-first storage: detector histograms accumulate ON THE DEVICE
+  through the fused sample + trace + bin kernel and are flushed as
+  cumulative snapshots (source-<label>/<ts>-histograms.npz, loader:
   results_store.loadHistogramSnapshots); only a capped raw-hit sample
   (`rawSampleRays` rays every `rawSampleEvery` iterations) goes through the
   raw-record path, so a storing run keeps the fused step's throughput.
+  On the record tracer's route it raises NotImplementedError (ROADMAP A.4b).
   histBounds: detector-local (x0, x1, y0, y1) or dict label->bounds.
+
+  Hits of rays drawn outside the kernels (fans, host-sampled sources) or
+  traced by the record tracer carry the metadata columns their StoreHit*
+  flags enable plus the fan indices (fanIndex, rayIndex, totalFanCount,
+  totalRaysInFan), or every column of their rays where no flag is set, as
+  in the reference. Sources with RecordRays also store their ray polylines
+  (`RawFolder.loadRays`).
+
+  draw=True collects the traced polylines of a SINGLE-SHOT action into a
+  simulation.draw.DrawnRays (written to the run folder as drawn-rays.ply /
+  .npz); pass an existing DrawnRays as `draw` to collect into it.
+  Continuous actions ignore draw with a warning (the reference GUI likewise
+  only draws single-shot runs).
   '''
   resultsFolder = results_store.getResultsFolderPath(
       scene.path or scene.label)
@@ -262,7 +355,7 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
       src.clear()
     return None
 
-  _refuseArguments(action, unsupported)
+  _refuseArguments(unsupported)
   if action not in SINGLE_SHOT_ACTIONS + CONTINUOUS_ACTIONS:
     raise ValueError(f'unknown action {action!r}')
 
@@ -274,7 +367,28 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
   mode = _actionMode(action)
   continuous = action in CONTINUOUS_ACTIONS
   run = SimulationRun(scene, settings, device=dev)
-  _refuseScene(scene, run, settings)
+
+  # headless ray drawing (single-shot only, as the reference GUI)
+  drawn, drawParams = None, {}
+  if draw:
+    if continuous:
+      io.warn('draw=True is ignored for continuous actions '
+              '(the reference GUI only draws single-shot runs)')
+    else:
+      from . import draw as drawMod
+      drawn = (draw if isinstance(draw, drawMod.DrawnRays)
+               else drawMod.DrawnRays())
+      drawParams = drawMod.sceneDrawParams(scene)
+
+  histMode = recording == 'histogram' and mode != 'fans'
+  routes = {}
+  for src in scene.lightSources():
+    routes[src.Label], why = _routeOf(run, src, mode, drawn)
+    if why is not None:
+      if histMode:
+        raise _notPorted(f'histogram-first recording through the record '
+                         f'tracer ({why})', 'histogram')
+      io.verb(f'{src.Label}: taking the record tracer: {why}')
 
   # store decisions (reference: simulation_loop.py:350-378): continuous runs
   # always store; single-shot only with EnableStoreSingleShotData (or when
@@ -304,10 +418,10 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
 
     chunkTimer = timing.IntervalTimer(3600)
     perfTimer = timing.IntervalTimer(60)
+    enabledKeys = settings.enabledMetadataKeys()
 
     # ---- histogram-first recording: accumulation state on the device ----
-    histMode = recording == 'histogram'
-    histSteps, rawSteps = {}, {}
+    histSteps, rawSteps, columnTables = {}, {}, {}
     overflowWarned = set()
     histFlushTimer = timing.IntervalTimer(flushEverySeconds)
     # the histogram spec doubles as the raw path's element/detector map
@@ -320,8 +434,8 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
     # float32 kernels: a tolerance below 1e-4 mm lets a ray re-hit the
     # surface it just left. The reference clamps on its raw path only; its
     # histogram path passes the setting through and, at the default 1e-6,
-    # loses about a fifth of the hits on the lens-and-mirror scene. Both
-    # paths clamp here.
+    # loses about a fifth of the hits on the lens-and-mirror scene. Every
+    # path clamps here, the record tracer's too (`SimulationRun.traceBatch`).
     distTol = max(settings.distanceTolerance(), 1e-4)
 
     # true random draws happen inside the kernel where the source has a
@@ -361,7 +475,7 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
                         counts=hist['counts'].cpu().numpy()), histMeta)
 
     def storeHits(srcLabel, hits):
-      '''One stored-hit schema for every path (raw / sampled).'''
+      '''One stored-hit schema for every path (raw / sampled / columns).'''
       for label, cols in hits.items():
         meta = {k: v for k, v in cols.items()
                 if k not in ('points', 'directions', 'powers',
@@ -397,6 +511,79 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
         results.totalRecordedHits = before
       return nPad
 
+    def columnsRecords(src, columns):
+      '''Hit records of ray `columns` (8, N) through the raw-record kernel
+      in its columns input mode (the kernel route of fans and metadata
+      runs); its tables are built once per source.'''
+      entry = columnTables.get(src.Label)
+      if entry is None:
+        sc = run.sceneFor(src)
+        maxI = run.maxIntersections(src)
+        entry = columnTables[src.Label] = (
+            cuda_trace.buildTraceTables(sc, histSpec, device=dev),
+            cuda_trace.autoHitSlots(sc, histSpec, maxI))
+      tables, hitSlots = entry
+      extra = ({'seed': _drawSeeds(generator, 1)[0]} if tables['scatter']
+               else {})
+      ring, counters = cuda_trace.traceRaw(
+          tables, columns.shape[1], run.maxIntersections(src),
+          run.maxRayLength(src), distTol,
+          powerTol=float(run.device['powerTol']), hitSlots=hitSlots,
+          columns=columns, **extra)
+      warnOverflow(src, int(counters[2]), 'stored hits')
+      return cuda_trace.recordsFromRing(ring)
+
+    def generateBatch(src, n):
+      '''(columns (8, N) on the device, metadata {name: (N,) array}) of one
+      iteration of `src`: its fans, its device generator's draws, or its
+      host-side draws.'''
+      if mode == 'fans' or not src.supportsDeviceSampling():
+        # host draws use the seeded default generator (setupRandomSeed)
+        batch = src.generateRays(mode, settings=settings)
+        return (_columnsOf(batch, dev) if len(batch['origins']) else None,
+                batch.get('metadata', {}))
+      cols, meta = src.deviceGenerator(device=dev)(
+          generator, n, stratified=(mode == 'pseudo'))
+      return torch.stack([cols[k] for k in cuda_trace._COLUMN_KEYS]), meta
+
+    def recordIteration(src, n, countHits=True):
+      '''One iteration of a source whose rays are drawn outside the kernels
+      (fans, metadata runs, host-sampled sources) or that takes the record
+      tracer. Returns the number of rays traced.'''
+      columns, metadata = generateBatch(src, n)
+      if columns is None:
+        return 0
+      recordSegs = bool(src.RecordRays) or drawn is not None
+      if routes[src.Label] == 'kernel':
+        records = columnsRecords(src, columns)
+      else:
+        _state, records = run.traceBatch(src, columns, recordSegs,
+                                         generator=generator)
+      if drawn is not None:
+        drawn.add(records, sourceLabel=src.Label,
+                  sourceColor=getattr(src, 'ViewColor', (1., 0., 0.)),
+                  **drawParams)
+      if store:
+        # the enabled columns, plus the fan indices where present (fan
+        # analysis needs them); with no StoreHit* flag every column of the
+        # batch, as the reference's record path stores
+        keys = (None if not enabledKeys
+                else enabledKeys + ['fanindex', 'rayindex', 'totalfancount',
+                                    'totalraysinfan'])
+        before = results.totalRecordedHits
+        storeHits(src.Label, compactRecordsToHits(
+            records, {k: hostArray(v) for k, v in metadata.items()},
+            elementLabels, enabledKeys=keys))
+        if not countHits:
+          results.totalRecordedHits = before
+        if recordSegs:
+          rays = recordsToRays(records, elementLabels)
+          if rays is not None:
+            results.addRayBatch(src.Label, **rays)
+      else:
+        results.totalRecordedHits += int(records['recordHit'].sum())
+      return columns.shape[1]
+
     for src in scene.lightSources():
       src.onInitializeSimulation(state='pre-worker-launch', ident=action)
 
@@ -411,6 +598,11 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
       for src in scene.lightSources():
         n = max(1, int(round(settings.raysPerIteration()
                              * float(src.RaysPerIterationScale))))
+        if mode == 'fans' or routes[src.Label] == 'tracer' \
+            or not src.supportsDeviceSampling() \
+            or (enabledKeys and not histMode):
+          results.incrementRayCount(recordIteration(src, n))
+          continue
         if not histMode:
           results.incrementRayCount(rawIteration(src, n, src.Label))
           continue
@@ -459,8 +651,11 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
         # recorded hits (the reference adds them to the hit total, which
         # then exceeds what the histograms hold)
         if store and rawSampleRays and iteration % rawSampleEvery == 1:
-          rawIteration(src, rawSampleRays, (src.Label, 'sample'),
-                       countHits=False)
+          if enabledKeys:
+            recordIteration(src, rawSampleRays, countHits=False)
+          else:
+            rawIteration(src, rawSampleRays, (src.Label, 'sample'),
+                         countHits=False)
         if store and histFlushTimer.check():
           flushHistograms()
 
@@ -493,6 +688,11 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
           flushHistograms()
       except Exception as e:
         io.warn(f'final histogram flush failed: {e}')
+      if drawn is not None and drawn.rayCount:
+        try:
+          drawn.save(results.runPath())
+        except Exception as e:
+          io.warn(f'writing drawn rays failed: {e}')
       results.cleanup()
       io.info(f'simulation ended: {results.performanceDescription()}')
     for src in scene.lightSources():

@@ -14,10 +14,11 @@ Per flagged (element, kind) the constants cover:
   - discrete DiracDelta events whose values and probabilities vary smoothly
     with theta_in, as 1-D polynomials over the incidence angle.
 
-The JAX package keeps the scenes whose fits miss tolerance on its exact
-gather path (`batch_tracer._scatterDraw`), which runs in its record tracer;
-its Pallas kernel refuses them, and so do the port's kernels
-(`GATHER_ONLY_REASON`) until the record tracer is ported (ROADMAP A.4).
+The scenes whose fits miss tolerance keep the exact gather path
+(`batch_tracer._scatterDraw`), which runs in the record tracer, in both
+packages; the JAX package's Pallas kernel refuses them, and so do the
+port's kernels (`GATHER_ONLY_REASON`), so the runner sends them to the
+record tracer.
 '''
 
 import numpy as np
@@ -36,7 +37,7 @@ MAX_COMBOS = 16
 GATHER_ONLY_REASON = (
     'scatter PDFs miss the in-kernel fit tolerance (phi-separable lobes and '
     'low-rank theta|phi couplings run in the kernel); the exact gather path '
-    'belongs to the record tracer, not ported yet (ROADMAP A.4)')
+    'runs in the record tracer (ROADMAP A.4, tracing/batch_tracer)')
 
 
 def scatterConstants(scene):

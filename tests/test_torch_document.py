@@ -113,13 +113,12 @@ def test_raw_folder_range_and_folder_queries(tmp_path):
 
 
 def test_ray_polylines_and_drawn_rays_raise_by_name(tmp_path):
+  '''`loadRays` and `drawnRays` are ported: a folder without ray files or
+  a drawn-rays snapshot gives no rays and None.'''
   raw = RawFolder(str(tmp_path))
-  with pytest.raises(NotImplementedError, match='ROADMAP item A.10'):
-    raw.loadRays()
-  with pytest.raises(NotImplementedError, match='ROADMAP item A.10'):
-    raw.drawnRays()
-  with pytest.raises(NotImplementedError, match='ROADMAP item A.10'):
-    RawFolderRange([raw]).loadRays()
+  assert raw.loadRays() == []
+  assert raw.drawnRays() is None
+  assert RawFolderRange([raw]).loadRays() == []
 
 
 def _columns(hits):

@@ -250,20 +250,41 @@ def _withHostSource(scene):
   scene.getObject('Source').supportsDeviceSampling = lambda: False
 
 
+def _small(scene):
+  settings = scene.getObject('SimulationSettings')
+  settings.RaysPerIteration = 512
+  settings.EndAfterRays = 1024
+  scene.getObject('Source').Fans, scene.getObject('Source').RaysPerFan = 2, 5
+
+
 @pytest.mark.parametrize('case,kwargs,mutate,roadmap', (
-    ('fans', dict(action='fans'), None, 'A.10'),
-    ('draw', dict(draw=True), None, 'A.10'),
+    ('fans', dict(action='fans'), None, None),
+    ('draw', dict(draw=True, action='singletrue'), None, None),
     ('mesh', dict(mesh=object()), None, 'A.13'),
-    ('slaveInfo', dict(slaveInfo=dict(workerId='w0')), None, 'A.10'),
-    ('RecordRays', {}, _withRecordRays, 'A.10'),
-    ('StoreHit', {}, _withMetadata, 'A.10'),
-    ('device sampling', {}, _withHostSource, 'A.4'),
+    ('slaveInfo', dict(slaveInfo=dict(workerId='w0')), None, 'A.10c'),
+    ('RecordRays', {}, _withRecordRays, None),
+    ('StoreHit', {}, _withMetadata, None),
+    ('device sampling', {}, _withHostSource, None),
+    ('histogram-first recording', dict(recording='histogram'),
+     _withRecordRays, 'A.4b'),
 ))
 def test_unported_paths_raise_by_name(scene, case, kwargs, mutate, roadmap):
+  '''mesh=, slaveInfo= and histogram-first recording on the record
+  tracer's route are still refused by name; fans, draw=, RecordRays,
+  StoreHit* metadata and host-sampled sources run (the record tracer and
+  the raw-record kernel's columns mode took them).'''
+  _small(scene)
   if mutate is not None:
     mutate(scene)
   kwargs = dict(kwargs)
   action = kwargs.pop('action', 'true')
+  if roadmap is None:
+    runPath = torchSim.runSimulation(scene, action, device='cpu', seed=3,
+                                     **kwargs)
+    assert os.path.isdir(runPath)
+    lc = torchSim.Lifecycle(scene.resultsFolderPath())
+    assert not lc.isRunning()
+    return
   with pytest.raises(NotImplementedError) as err:
     torchSim.runSimulation(scene, action, device='cpu', **kwargs)
   assert case in str(err.value)
@@ -274,11 +295,20 @@ def test_unported_paths_raise_by_name(scene, case, kwargs, mutate, roadmap):
 
 
 def test_ineligible_scene_raises_by_name(scene, monkeypatch):
+  '''A scene the kernels refuse (`ineligibleReason`) no longer raises: it
+  goes through the record tracer, and its hits land where the kernels'
+  would.'''
   monkeypatch.setattr(cuda_trace, 'ineligibleReason',
                       lambda sc: 'gratings are not ported yet')
-  with pytest.raises(NotImplementedError, match='gratings') as err:
-    torchSim.runSimulation(scene, 'true', device='cpu')
-  assert 'ROADMAP item A.4' in str(err.value)
+  _small(scene)
+  launched = []
+  monkeypatch.setattr(cuda_trace, 'traceRaw',
+                      lambda *a, **k: launched.append(1))
+  runPath = torchSim.runSimulation(scene, 'true', seed=2, device='cpu')
+  hits = loadAllHits(torchRS, runPath)
+  assert not launched
+  assert len(hits['points']) > 0.9 * 1024
+  np.testing.assert_allclose(hits['points'][:, 2], 100., atol=1e-3)
 
 
 def test_unknown_arguments_are_refused(scene):

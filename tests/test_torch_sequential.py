@@ -174,6 +174,37 @@ def test_sequential_sweep_keeps_the_stage_gate(tmp_path):
   assert gated[0] > 2 * min(focused) and gated[0] not in focused
 
 
+def test_compile_mode_does_not_follow_the_wall_clock(monkeypatch):
+  '''Machine load stops the main thread without spending its CPU time. A
+  density whose analytic inverse fits the compile's CPU budget stays
+  analytic however much wall time passes (here the wall clock runs 15 s
+  ahead at every reading) and draws what it draws on an idle machine; a
+  wall-clock limit used to flip it to numeric mode, whose draws differ.'''
+  import time
+  from optics_design_workbench_tpu_torch.distributions import \
+      random_variables as RV
+
+  def compiled():
+    v = RV.ScalarRandomVariable('1 + x', (0., 2.), variable='x')
+    v.compile()
+    return v
+
+  idle = compiled()
+  real, ticks = time.time, [0]
+
+  def ahead():
+    ticks[0] += 1
+    return real() + 15. * ticks[0]
+
+  with monkeypatch.context() as m:
+    m.setattr(RV.time, 'time', ahead)
+    loaded = compiled()
+  assert idle.mode() == loaded.mode() == 'analytic'
+  np.testing.assert_array_equal(
+      idle.draw(N=64, rng=np.random.default_rng(1)),
+      loaded.draw(N=64, rng=np.random.default_rng(1)))
+
+
 def test_more_stages_than_the_bitmask_holds_are_refused_by_name():
   '''More stages than a float32 bitmask held (24) run (ROADMAP C.2): the
   stage words of each surface are ceil(stages / 32) uint32 words; what is

@@ -278,12 +278,19 @@ def test_refusals_name_their_items(tmp_path):
                                          ActiveSurfaces=['Emitter']))
   assert src.samplerSpec()['faces'][0]['kind'] == ns.S.CONE
   bench = ns.benchmarks.buildSurfaceSourceScene()
-  with pytest.raises(NotImplementedError, match='ROADMAP item A.10a'):
-    bench.lightSources()[0].generateRays('fans')
+  # the host modes and metadata runs are ported (ROADMAP A.10a): fans
+  # give rays, and a run stores the enabled metadata column
+  fans = bench.lightSources()[0].generateRays('fans')
+  assert len(fans['origins']) > 0
   runScene = _emitterOnDetectorScene(ns, str(tmp_path / 'meta'))
-  runScene.activeSimulationSettings().StoreHitInitTheta = True
-  with pytest.raises(NotImplementedError, match='ROADMAP item A.10a'):
-    simulation.runSimulation(runScene, 'true', device='cpu')
+  settings = runScene.activeSimulationSettings()
+  settings.StoreHitInitTheta = True
+  settings.RaysPerIteration, settings.EndAfterRays = 2048, 2048
+  run = simulation.runSimulation(runScene, 'true', seed=1, device='cpu')
+  from optics_design_workbench_tpu_torch.jupyter_utils import RawFolder
+  hits = RawFolder(run).loadHits('Det').hits
+  assert 'initTheta' in hits and len(hits['initTheta']) > 1000
+  assert 'initPhi' not in hits
   # the sweep refuses a surface sampler, as the reference's does
   sceneNp, info = bench.compile(device=None)
   spec = bench.lightSources()[0].samplerSpec()

@@ -153,7 +153,7 @@ def test_unported_scene_and_parallel_raise_by_name(tmp_path):
   assert sweeper.optimizeStrategyStep([]) == []
   # a dispersive n(wavelength) that no in-kernel polynomial fits
   scene.getObject('Detector').RefractiveIndex = '1.5 + 0.01*sin(wavelength/10)'
-  with pytest.raises(NotImplementedError, match='ROADMAP queue B'):
+  with pytest.raises(NotImplementedError, match='ROADMAP item A.4b'):
     sweeper.evaluateBatched([dict(n=1.4), dict(n=1.6)], H.spotMetric,
                             raysPerScene=256)
   with pytest.raises(RuntimeError, match='no CUDA device'):

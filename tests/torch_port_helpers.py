@@ -1734,3 +1734,51 @@ CULL_SCENES = {
     'ballLens': buildBallLensCullScene,
     'decoy': buildCullDecoyScene,
 }
+
+
+def _recordSceneArrays(build, source):
+  made = build()
+  scene = made[0] if isinstance(made, tuple) else made
+  maxI = made[2] if isinstance(made, tuple) and made[2] else 6
+  deviceNp, info = scene.compile(devicePut=False)
+  src = scene.lightSources()[source]
+  mask = info['surfaceMasks'].get(src.Label)
+  if mask is not None:
+    deviceNp = dict(deviceNp, surfMask=np.asarray(mask))
+  deviceNp['powerTol'] = 1e-6
+  return deviceNp, src, maxI
+
+
+def recordTraceBoth(build, source=0, n=512, seed=3, maxI=None):
+  '''(JAX records, port records, the compiled scene) as numpy: the record
+  tracers of both packages (`tracer.trace`) on the same `n` rays of the
+  JAX point source (`makeRaysHost` at (theta or radius, phi) drawn
+  uniformly over its domains by numpy from `seed`; the source's
+  distribution needs a compile of seconds and does not matter here),
+  through the same compiled scene of `build()` (a JAX scene, or (scene,
+  bounds, maxIntersections)) as its runner traces light source `source`.'''
+  import jax
+  import jax.numpy as jnp
+  from optics_design_workbench_tpu.tracing import tracer as JT
+  from optics_design_workbench_tpu_torch import convert
+  from optics_design_workbench_tpu_torch.tracing import tracer as TT
+  deviceNp, src, sceneMaxI = _recordSceneArrays(build, source)
+  maxI = maxI or sceneMaxI
+  rng = np.random.default_rng(seed)
+  first = (src.parsedThetaDomain() if np.isfinite(src.focalLength())
+           else src.parsedRadiusDomain())
+  b = src.makeRaysHost(rng.uniform(*first, n),
+                       rng.uniform(*src.parsedPhiDomain(), n))
+  cols = [np.array(b[k], np.float32)
+          for k in ('origins', 'directions', 'powers', 'wavelengths')]
+  devJ = jax.tree_util.tree_map(jnp.asarray, {
+      k: v for k, v in deviceNp.items() if k != 'powerTol'})
+  devJ['powerTol'] = 1e-6
+  _, rj = JT.trace(devJ, *map(jnp.asarray, cols), maxIntersections=maxI,
+                   maxRayLength=MAX_RAY_LENGTH, distTol=DIST_TOL)
+  import torch
+  _, rt = TT.trace(convert.recordSceneFromReference(deviceNp, 'cpu'),
+                   *map(torch.as_tensor, cols), maxI, MAX_RAY_LENGTH,
+                   DIST_TOL)
+  return ({k: np.asarray(v) for k, v in rj.items()},
+          {k: v.numpy() for k, v in rt.items()}, deviceNp)
