@@ -89,6 +89,20 @@ port's paths at full width:
     examples/5 (`examples/torch_5_visualization.py`: the draw run through
     the record tracer, no kernel launch, its drawn segments equal to the
     traced records' `totalSegments`, and the PLY export);
+  * the fused step's twin and differentiable design (phase 14,
+    `tracing/fused.makeFusedStep` and `tracing/diff.py`, plain PyTorch):
+    the twin against the histogram kernel on the lens-and-mirror at
+    1 << 20 rays on the same columns (the kernels' gates), its ms per step
+    and segments per second; histogram-first `runSimulation` of the
+    1800-triangle dish under sequential mode (which the kernels refuse) at
+    4 x 1 << 18 rays, no kernel launch, the snapshot's counts equal to the
+    run's hits and its share and r^2 against the JAX package's;
+    `evaluateBatched` of 11 variants x 100,000 rays of a scene whose
+    dispersive index the kernels refuse, through the twin; examples/6
+    (`examples/torch_6_gradient_optimization.py`: Adam on the screen's
+    distance through autograd of the record tracer), its spot shrinking
+    10x, its best distance beside the CPU run's, its gradient at the start
+    against central differences;
 
 (the first three on the lens-and-mirror scene) and checks the physics of
 what comes out. Before those paths it holds the histogram, per-ray-bin and
@@ -126,8 +140,12 @@ import torch_port_helpers as helpers          # the check scenes (imports no jax
 import torch_1_source_and_detector as example1   # examples/1 on the port
 import torch_4_spectrometer as example4       # examples/4 on the port
 import torch_5_visualization as example5      # examples/5 on the port
+import torch_6_gradient_optimization as example6  # examples/6 on the port
 import torch_mesh_dish as meshExample        # the STL-loaded dish
-from optics_design_workbench_tpu_torch import _build, benchmarks, simulation
+from optics_design_workbench_tpu_torch import (_build, benchmarks, hostArray,
+                                               simulation)
+from optics_design_workbench_tpu_torch.geometry.surfaces import (
+    PACKED_ELEM, PACKED_OFF, PACKED_ROT)
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     RawFolder, parameter_sweeper)
 from optics_design_workbench_tpu_torch.ops import cuda_trace
@@ -283,6 +301,19 @@ REF_WALL = dict(share=0.8999786376953125, power=1.0, r2=8371.303931728278,
 RECORD_RAYS = 1 << 18
 RECORD_REPS = 3
 EXAMPLE1_RAW_LAUNCHES = 5     # 4 Monte-Carlo iterations + the fan run
+
+# the fused step's twin (phase 14): against K1 on the lens-and-mirror, the
+# 1800-triangle dish under sequential mode histogram-first, the sweep of a
+# dispersive index the kernels refuse; examples/6 on the card against its
+# best screen offset on the CPU (`python3
+# examples/torch_6_gradient_optimization.py --cpu`: +118.49 mm)
+TWIN_RAYS = 1 << 20
+TWIN_REPS = 3
+TWIN_DISH_RAYS = 1 << 18
+TWIN_DISH_ITERATIONS = 4
+TWIN_SWEEP = (11, 100_000)
+EXAMPLE6_CPU_DZ = 118.49
+EXAMPLE6_DZ_TOL = 5.
 # the in-kernel histograms (B11): the pile-up scene (every ray in one bin)
 # per K3 variant, and its placements in bins of the grid
 PILEUP_SWEEP_RAYS = 1 << 20
@@ -3565,6 +3596,250 @@ def example5Phase(tmp):
             plyBytes=os.path.getsize(ply)))
 
 
+def kernelHitBins(records, host, histSpec, atol):
+  '''The recorded detector hits of raw records (a plane detector's one
+  surface row), ray by ray, binned at their local (x, y) in float64:
+  (ray, flat bin or -1 outside the bounds, near) numpy, near where the hit
+  lies within `atol` of a bin edge (the bounds' edges too), where two
+  traces that agree to `atol` may bin it apart.'''
+  packed = hostArray(host['surfaces']['packed'])
+  H, W = histSpec['bins']
+  order = torch.nonzero(records['recordHit'].T)          # (ray, slot)
+  sel = (order[:, 1], order[:, 0])
+  ray = order[:, 0].cpu().numpy()
+  hitElem = records['hitElem'][sel].cpu().numpy()
+  points = records['point'][sel].cpu().numpy().astype(np.float64)
+  flat = np.full(len(ray), -1, np.int64)
+  near = np.zeros(len(ray), bool)
+  for e, d in enumerate(histSpec['elemToDet']):
+    m = hitElem == e
+    if d < 0 or not m.any():
+      continue
+    rows = np.nonzero(packed[:, PACKED_ELEM] == e)[0]
+    assert len(rows) == 1, 'a detector of one surface row'
+    R = packed[rows[0], PACKED_ROT:PACKED_ROT + 9].reshape(3, 3)
+    local = points[m] @ R.T + packed[rows[0], PACKED_OFF:PACKED_OFF + 3]
+    x0, x1, y0, y1 = histSpec['bounds'][d]
+    idx, close = [], np.zeros(int(m.sum()), bool)
+    for axis, lo, hi, n in ((0, x0, x1, W), (1, y0, y1, H)):
+      f = (local[:, axis] - lo) / (hi - lo) * n
+      close |= np.abs(f - np.round(f)) * (hi - lo) / n < atol
+      idx.append(np.where((f >= 0) & (f < n), np.floor(f), -1))
+    ix, iy = idx
+    flat[m] = np.where((ix >= 0) & (iy >= 0), (d * H + iy) * W + ix, -1)
+    near[m] = close
+  return ray, flat, near
+
+
+def raysBinnedApart(a, b):
+  '''The rays whose multisets of binned hits differ between two
+  (ray, flat bin) lists (hits outside the bounds, bin -1, left out).'''
+  keys = [r[f >= 0].astype(np.int64) * (1 << 32) + f[f >= 0]
+          for r, f in (a, b)]
+  sign = np.concatenate([np.ones(len(keys[0]), np.int64),
+                         -np.ones(len(keys[1]), np.int64)])
+  uniq, inv = np.unique(np.concatenate(keys), return_inverse=True)
+  net = np.zeros(len(uniq), np.int64)
+  np.add.at(net, inv.reshape(-1), sign)
+  return np.unique(uniq[net != 0] >> 32)
+
+
+def twinPhase():
+  '''The fused step's twin (`fused.makeFusedStep`, plain PyTorch) against
+  the kernels on the lens-and-mirror at TWIN_RAYS rays on the same columns,
+  ray by ray: each hit the twin binned (its own run's bins, read at every
+  bounce) against the raw-record kernel's rows binned in float64. A ray
+  whose bins differ must have a hit within RAW_ATOL of a bin edge (the twin
+  and the kernels trace with other float32 formulas, the record tracer's
+  and the kernels', which agree ray by ray to RAW_ATOL: phase 13); at most
+  COUNT_BUDGET rays that are not may change bins. Against K1's histograms:
+  counters equal, power rtol POWER_RTOL where the counts agree, and no more
+  rays changing bins than the twin's rays binned apart from the kernel's
+  plus COUNT_BUDGET. Then its ms per step with its own draws, by CUDA
+  events, and its segments per second.'''
+  t0 = time.perf_counter()
+  scene = benchmarks.buildLensMirrorScene()
+  host, info = scene.compile(device=None)
+  host['powerTol'] = 1e-6
+  src = scene.lightSources()[0]
+  maxI, maxL, distTol = 6, 1000., 1e-4
+  histSpec = fused.makeHistogramSpec(host, info, bounds=(-60., 60., -60., 60.),
+                                     bins=BINS)
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(17)
+  cols = src.deviceColumnsGenerator(device=DEV)(gen, TWIN_RAYS)
+  columns = torch.stack([cols[k] for k in cuda_trace._COLUMN_KEYS]) \
+      .contiguous()
+  tables = cuda_trace.buildTraceTables(host, histSpec, device=DEV)
+  kernel = fused.initHistograms(histSpec, device=DEV)
+  c1 = cuda_trace.traceHistogram(
+      tables, kernel, TWIN_RAYS, maxI, maxL, distTol, columns=columns,
+      hitSlots=cuda_trace.autoHitSlots(host, histSpec, maxI)).tolist()
+  same = fused.makeFusedStep(host, lambda g, n, stratified=False: cols,
+                             histSpec, TWIN_RAYS, maxI, maxL, distTol,
+                             device=DEV)
+  assert same.chunks == 1, same.chunks
+  # the twin's own bins, ray by ray, read at each bounce of its run
+  elemToDet, bounds = fused._binTensors(histSpec, DEV)
+  bounce, twinHits = batch_tracer.bounceBatch, []
+
+  def binned(*args, **kwargs):
+    state, rec = bounce(*args, **kwargs)
+    inside, flat = fused.hitBins(rec, elemToDet, bounds, histSpec['bins'])
+    ray = torch.nonzero(inside)[:, 0]
+    twinHits.append((ray, flat[ray]))
+    return state, rec
+
+  batch_tracer.bounceBatch = binned
+  try:
+    twin, c2 = same(0, fused.initHistograms(histSpec, device=DEV))
+  finally:
+    batch_tracer.bounceBatch = bounce
+  twinRay, twinFlat = (torch.cat(x).cpu().numpy() for x in zip(*twinHits))
+  slots = cuda_trace.autoHitSlots(host, histSpec, maxI)
+  ring, _c = cuda_trace.traceRaw(tables, TWIN_RAYS, maxI, maxL, distTol,
+                                 hitSlots=slots, columns=columns)
+  kRay, kFlat, kNear = kernelHitBins(cuda_trace.recordsFromRing(ring), host,
+                                     histSpec, RAW_ATOL)
+  apart = raysBinnedApart((twinRay, twinFlat), (kRay, kFlat))
+  nearRays = np.unique(kRay[kNear])
+  far = np.setdiff1d(apart, nearRays)
+  a, b = kernel['counts'].cpu().numpy(), twin['counts'].cpu().numpy()
+  moved = int(np.abs(a - b).sum()) // 2
+  eq = a == b
+  pa, pb = kernel['power'].cpu().numpy()[eq], twin['power'].cpu().numpy()[eq]
+  err = float(np.abs(pa - pb).max())
+  gate = dict(hitsVsK1=c1[1], raysMovedVsK1=moved,
+              raysBinnedApartFromRawKernel=len(apart),
+              ofThemNearBinEdges=len(apart) - len(far),
+              hitsNearBinEdges=int(kNear.sum()), maxAbsPowerErrVsK1=err)
+  emit(dict(phase='fused-twin-gate', **gate))
+  assert np.array_equal(np.bincount(twinFlat, minlength=b.size),
+                        b.reshape(-1)), 'the per-ray bins are the twin\'s'
+  assert c1[:2] == [int(c2['segments']), int(c2['hits'])], (c1, c2)
+  assert len(far) <= COUNT_BUDGET, (far[:10], gate)
+  assert moved <= len(apart) + COUNT_BUDGET, gate
+  assert np.allclose(pb, pa, rtol=POWER_RTOL, atol=1e-6), err
+  step = fused.makeFusedStep(host, src.deviceGenerator(device=DEV), histSpec,
+                             TWIN_RAYS, maxI, maxL, distTol, device=DEV)
+  hist = fused.initHistograms(histSpec, device=DEV)
+  out = {}
+
+  def run():
+    out['c'] = step(gen, hist)[1]
+
+  run()
+  ms = cudaMs(run, TWIN_REPS)
+  segments = int(out['c']['segments'])
+  emit(dict(phase='fused-twin', scene='lensMirror', rays=TWIN_RAYS,
+            maxIntersections=maxI, segments=segments, ms=ms,
+            segmentsPerSecond=segments / (ms / 1e3),
+            raysPerSecond=TWIN_RAYS / (ms / 1e3), **gate,
+            seconds=time.perf_counter() - t0))
+  return ms
+
+
+def twinDishRunPhase(tmp):
+  '''Histogram-first `runSimulation` of the 1800-triangle dish under
+  sequential mode (stages [Dish], [Det]; `ineligibleReason` refuses it):
+  the twin's route, no kernel launch, the snapshot's counts equal to the
+  run's recorded hits, the share and r^2 against the JAX package's
+  (`REF_DISH`: the same rays reach the dish first either way).'''
+  scene = benchmarks.buildMeshDishScene(MESH_DISHES[1800],
+                                        tmpdir=os.path.join(tmp, 'twin'))
+  settings = scene.activeSimulationSettings()
+  settings.SequentialMode = True
+  settings.SequentialModeElements = [['Dish'], ['Det']]
+  settings.RaysPerIteration = TWIN_DISH_RAYS
+  settings.EndAfterIterations = TWIN_DISH_ITERATIONS
+  settings.EndAfterRays = 'inf'
+  reason = cuda_trace.ineligibleReason(scene.compile(device=None)[0])
+  assert reason is not None
+  progress = []
+  resetLaunchCounts()
+  t0 = time.perf_counter()
+  runPath = simulation.runSimulation(
+      scene, 'true', seed=14, recording='histogram', histBounds=MESH_BOUNDS,
+      histBins=BINS, progressCallback=progress.append, device=DEV)
+  seconds = time.perf_counter() - t0
+  assert cuda_trace.launchCounts == onlyLaunches(), cuda_trace.launchCounts
+  snap = results_store.loadHistogramSnapshots(runPath)['Src']['Det']
+  hits = progress[-1]['totalRecordedHits']
+  assert snap['counts'].sum() == hits > 0, (snap['counts'].sum(), hits)
+  nRays = progress[-1]['totalTracedRays']
+  assert nRays == TWIN_DISH_RAYS * TWIN_DISH_ITERATIONS, nRays
+  stats = helpers.scatterStats(dict(counts=snap['counts'][None],
+                                    power=snap['power'][None]), hits, nRays,
+                               bounds=MESH_BOUNDS)
+  checkPathStats(MESH_PATH, 'twin-histogram', stats, nRays)
+  emit(dict(phase='twin-dish-run', triangles=1800, refused=reason,
+            raysPerIteration=TWIN_DISH_RAYS,
+            iterations=TWIN_DISH_ITERATIONS, hits=hits, seconds=seconds,
+            raysPerSecond=nRays / seconds))
+
+
+def twinSweepPhase(tmp):
+  '''`evaluateBatched` of TWIN_SWEEP variants (the lens's index) of the
+  analysis scene with a dispersive detector index no in-kernel polynomial
+  fits: every variant through the twin, no kernel launch; two calls, the
+  first with the sources' compile.'''
+  V, n = TWIN_SWEEP
+  scene = helpers.buildDocScene(helpers.torchNs(), os.path.join(tmp, 'doc'))
+  scene.getObject('Detector').RefractiveIndex = \
+      '1.5 + 0.01*sin(wavelength/10)'
+  sweeper = parameter_sweeper.ParameterSweeper(
+      lambda sc: dict(n=(sc.getObject('Lens'), 'RefractiveIndex')),
+      scene=scene, device=DEV)
+  sets = [dict(n=float(v)) for v in np.linspace(1.4, 1.6, V)]
+  resetLaunchCounts()
+  walls = []
+  for _ in range(2):
+    t0 = time.perf_counter()
+    m = sweeper.evaluateBatched(sets, helpers.spotMetric, raysPerScene=n)
+    walls.append(time.perf_counter() - t0)
+  assert cuda_trace.launchCounts == onlyLaunches(), cuda_trace.launchCounts
+  assert sweeper.lastBatchedRoute == 'perVariantTracer', \
+      sweeper.lastBatchedRoute
+  assert m.shape == (V,) and np.isfinite(m).all() and m.max() < 1e9, m
+  emit(dict(phase='twin-sweep', variants=V, raysPerVariant=n,
+            route=sweeper.lastBatchedRoute, firstCallSeconds=walls[0],
+            steadyCallSeconds=walls[1], argmin=int(np.argmin(m)),
+            metrics=m.tolist()))
+
+
+def example6Phase():
+  '''examples/6 on the card (`examples/torch_6_gradient_optimization.py`):
+  no kernel launch; the rms spot shrinks at least 10x; the best screen
+  offset within EXAMPLE6_DZ_TOL of the CPU run's; the gradient at the start
+  within 2 % of central differences (step 1e-3 mm).'''
+  resetLaunchCounts()
+  got = example6.main(device='cuda')
+  assert cuda_trace.launchCounts == onlyLaunches(), cuda_trace.launchCounts
+  assert got['vBest'] * 10 <= got['v0'], got
+  assert abs(got['dz'] - EXAMPLE6_CPU_DZ) <= EXAMPLE6_DZ_TOL, got['dz']
+  lossGrad, _batch = example6.makeLoss('cuda')
+  eps = 1e-3
+  value = lambda p: float(lossGrad(torch.tensor([p]))[0])
+  fd = (value(eps) - value(-eps)) / (2 * eps)
+  grad = float(lossGrad(torch.zeros(1))[1][0])
+  assert abs(fd - grad) <= 2e-2 * abs(fd), (fd, grad)
+  emit(dict(phase='example6', v0=got['v0'], vBest=got['vBest'],
+            dz=got['dz'], cpuDz=EXAMPLE6_CPU_DZ, grad0=grad, fd0=fd,
+            seconds=got['seconds']))
+
+
+def phase14(tmp):
+  '''The fused step's twin and differentiable design (see the module
+  docstring); returns the twin's ms per step.'''
+  t14 = time.perf_counter()
+  ms = twinPhase()
+  twinDishRunPhase(tmp)
+  twinSweepPhase(tmp)
+  example6Phase()
+  emit(dict(phase='twin-total', seconds=time.perf_counter() - t14))
+  return ms
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('chip_smoke.py needs a CUDA device: torch.cuda.is_available() '
@@ -3692,6 +3967,8 @@ def main():
     example1Launches = example1Phase(tmp)
     example5Phase(tmp)
     emit(dict(phase='record-total', seconds=time.perf_counter() - t13))
+    # ---- phase 14: the fused step's twin and differentiable design ----
+    phase14(tmp)
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 

@@ -615,17 +615,23 @@ def makeSweepLensSweeper(path=None, device='cuda'):
 
 def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,
                   bins=(128, 128), histBounds=(-60., 60., -60., 60.),
-                  stratified=False, histPrecision='default', device='cuda'):
+                  stratified=False, histPrecision='default', useKernel='auto',
+                  device='cuda'):
   '''Compile the fused sample+trace+histogram step for a benchmark scene
   (`histBounds`: the detector-local x0, x1, y0, y1 of the histograms).
   Returns (step, histograms, meta). step: (seed, hist) -> (hist, counters)
   with `seed` a python int or a torch.Generator; `hist` is accumulated in
-  place. On the card the step is ONE launch of the CUDA trace kernel with
-  the in-kernel sampler (histPrecision='highest': one launch of the
+  place. With useKernel 'auto' or True (the reference's `usePallas`) the
+  step on a scene the kernels cover is ONE launch of the CUDA trace kernel
+  with the in-kernel sampler (histPrecision='highest': one launch of the
   per-ray-bin kernel plus float64 binning outside, see
-  `cuda_trace.makeTraceStep`); an ineligible scene raises (no batch-tracer
-  fallback in this slice). device='cpu' runs the kernel's plain PyTorch
-  version; the default 'cuda' raises without a card.'''
+  `cuda_trace.makeTraceStep`), meta['backend'] 'cuda' ('plain' on the
+  CPU). On a scene `cuda_trace.ineligibleReason` refuses, or with
+  useKernel=False, it is the fused step's twin (`fused.makeFusedStep`,
+  plain PyTorch over the record tracer's bounce, the source's device
+  generator drawing the rays), meta['backend'] 'tracer', as the reference
+  takes its XLA step. device='cpu' runs the plain PyTorch versions; the
+  default 'cuda' raises without a card.'''
   dev = resolveDevice(device)
   if scene is None:
     scene = buildLensMirrorScene()
@@ -635,6 +641,15 @@ def makeBenchStep(scene=None, raysPerStep=1 << 22, maxIntersections=6,
                                      bounds=histBounds, bins=bins)
   hist = fused.initHistograms(histSpec, device=dev)
   settings = scene.activeSimulationSettings()
+  if not useKernel or cuda_trace.ineligibleReason(sceneHost) is not None:
+    sceneHost['powerTol'] = 1e-6
+    step = fused.makeFusedStep(
+        sceneHost, src.deviceGenerator(device=dev), histSpec, raysPerStep,
+        maxIntersections, settings.maxRayLength(),
+        max(settings.distanceTolerance(), 1e-4), stratified=stratified,
+        device=dev)
+    return step, hist, dict(scene=scene, device=sceneHost, info=info,
+                            histSpec=histSpec, backend='tracer')
   step = cuda_trace.makeTraceStep(
       sceneHost, histSpec, src.deviceColumnsGenerator(device=dev),
       raysPerStep=raysPerStep, maxIntersections=maxIntersections,

@@ -7,10 +7,11 @@ reference's tie rule: among the hits within 2*distTol of the closest one,
 prefer the closest whose element is not the medium the ray travels in;
 otherwise the closest overall, the lowest surface index on equal distances.
 
-The JAX package writes these for ONE ray and vmaps them; here they take ray
-batches directly ((N, 3) tensors) and return surface-major (S, N) results,
-so they are the record tracer's sweep (tracing/batch_tracer) seen from the
-(N, 3) side.
+The JAX package writes these for ONE ray and vmaps them. Here each takes
+either one ray ((3,) tensors, the JAX package's call) or a ray batch ((N, 3)
+tensors, surface-major (S, N) results); the batch form is the record
+tracer's sweep (tracing/batch_tracer) seen from the (N, 3) side, and one ray
+is a batch of one.
 '''
 
 import torch
@@ -19,11 +20,14 @@ from . import surfaces as S
 
 
 def allDistances(table, o, d, tMin, seqAllowed=None):
-  '''(S, N) distances from world rays `o`, `d` ((N, 3) tensors) to every
-  surface of `table` (its `byKind` split, `surfaces.byKind`, under the key
-  'byKind'); +inf where there is no valid hit. `seqAllowed` (bool, (S,) or
-  (S, N)) masks surfaces not allowed at a ray's sequential-mode stage.'''
+  '''Distances from world rays `o`, `d` to every surface of `table` (its
+  `byKind` split, `surfaces.byKind`, under the key 'byKind'); +inf where
+  there is no valid hit. One ray ((3,) tensors) gives (S,), a batch ((N, 3))
+  gives (S, N). `seqAllowed` (bool, (S,) or (S, N)) masks surfaces not
+  allowed at a ray's sequential-mode stage.'''
   from ..tracing.batch_tracer import allDistancesBatch
+  if o.dim() == 1:
+    return allDistances(table, o[None], d[None], tMin, seqAllowed)[:, 0]
   return allDistancesBatch(table, *o.unbind(-1), *d.unbind(-1), tMin,
                            seqAllowed if seqAllowed is None
                            or seqAllowed.dim() == 2
@@ -31,9 +35,16 @@ def allDistances(table, o, d, tMin, seqAllowed=None):
 
 
 def selectNearest(t, elem, medium, distTol, maxRayLength):
-  '''The reference's tie rule on an (S, N) distance matrix: returns
-  (hitIndex, tHit, hasHit), each (N,).'''
+  '''The reference's tie rule (ray.py:388-401): clip to maxRayLength;
+  among the hits within [tMin, tMin + 2*distTol] prefer the closest whose
+  element is not the ray's medium, else the closest overall; the lowest
+  surface index wins on equal distances. `t` is one ray's (S,) distances
+  (`medium` 0-d: 0-d results) or an (S, N) matrix ((N,) results). Returns
+  (hitIndex, tHit, hasHit).'''
   from ..tracing.batch_tracer import selectNearestBatch
+  if t.dim() == 1:
+    return tuple(x[0] for x in selectNearestBatch(
+        t[:, None], elem, medium.reshape(1), distTol, maxRayLength))
   return selectNearestBatch(t, elem, medium, distTol, maxRayLength)
 
 
@@ -42,7 +53,11 @@ def hitNormal(table, idx, pWorld, dWorld):
   then turned "forward" (non-negative dot with the travel direction
   `dWorld`), as the reference's getNormal (ray.py:403-428). `table` holds
   tensors `w2lRot` (S, 3, 3), `w2lOff` (S, 3), `kind`, `params`, `orient`.
-  Returns ((N, 3) forward normals, (N,) isEntering).'''
+  Returns ((N, 3) forward normals, (N,) isEntering), or ((3,), 0-d) for one
+  ray (0-d `idx`, (3,) points and directions).'''
+  if pWorld.dim() == 1:
+    n, entering = hitNormal(table, idx.reshape(1), pWorld[None], dWorld[None])
+    return n[0], entering[0]
   rot, off = table['w2lRot'][idx], table['w2lOff'][idx]
   pl = torch.einsum('nij,nj->ni', rot, pWorld) + off
   nl = torch.stack(S.normalLocal(table['kind'][idx], table['params'][idx],

@@ -334,6 +334,18 @@ def _full(like, value):
   return torch.full_like(like, float(value))
 
 
+def sqrtPositive(x):
+  '''sqrt(x) where x > 0, else 0, with a zero gradient where x <= 0. The
+  double-where guard of the JAX package (`where(ok, sqrt(where(ok, x, 1)),
+  0)`) with `ok` strict: a value that cancels to exactly 0 (a dead ray
+  grazing a surface far away) would otherwise send sqrt'(0) = inf times a
+  zero cotangent, NaN, into every gradient of tracing/diff.py. The values
+  are the plain guard's, bit for bit.'''
+  pos = x > 0
+  return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))),
+                     torch.zeros_like(x))
+
+
 def quadRoots(b, c):
   '''The reference's stable roots of t^2 + b t + c (`_quadraticRoots` with
   a = 1), sorted; +inf where there are none. Shared by the quartic below
@@ -341,9 +353,7 @@ def quadRoots(b, c):
   inf = _full(b, _BIG)
   disc = b * b - 4. * c
   ok = disc >= 0
-  sq = torch.where(ok, torch.sqrt(torch.where(ok, disc, _full(disc, 1.))),
-                   torch.zeros_like(disc))
-  q = -0.5 * (b + torch.sign(b + 1e-30) * sq)
+  q = -0.5 * (b + torch.sign(b + 1e-30) * sqrtPositive(disc))
   qS = torch.where(torch.abs(q) < 1e-20, _full(q, 1e-20), q)
   t2 = c / qS
   lo, hi = torch.fmin(q, t2), torch.fmax(q, t2)
@@ -356,9 +366,7 @@ def quadraticRoots(a, b, c):
   inf = _full(b, _BIG)
   disc = b * b - 4 * a * c
   ok = disc >= 0
-  sq = torch.where(ok, torch.sqrt(torch.where(ok, disc, _full(disc, 1.))),
-                   torch.zeros_like(disc))
-  q = -0.5 * (b + torch.sign(b + 1e-30) * sq)
+  q = -0.5 * (b + torch.sign(b + 1e-30) * sqrtPositive(disc))
   aSafe = torch.where(torch.abs(a) < 1e-20, _full(a, 1e-20), a)
   t1 = q / aSafe
   qSafe = torch.where(torch.abs(q) < 1e-20, _full(q, 1e-20), q)
@@ -797,7 +805,7 @@ def normalLocal(kind, params, x, y, z):
   e2 = (P[6] - P[0], P[7] - P[1], P[8] - P[2])
   tx, ty, tz = _normalize(*_cross(e1, e2))
   # cone: radial out, tipped by -tanAngle along z
-  r = torch.sqrt(r2)
+  r = sqrtPositive(r2)
   rSafe = torch.where(r < 1e-12, _full(r, 1e-12), r)
   kx, ky, kz = _normalize(x / rSafe, y / rSafe, -P[1] * torch.ones_like(z))
   # quadric: grad f

@@ -19,7 +19,9 @@ jupyter_utils/parameter_sweeper.py):
     variants compiled host-side into stacked kernel tables and traced in ONE
     launch of the sweep kernel (ops/cuda_trace.traceSweep), the same rays in
     every variant; the examples/3 lens-radius sweep runs all candidates in
-    one launch and one fetch.
+    one launch and one fetch. A variant the kernels do not cover, or whose
+    source has no in-kernel sampler, goes through the fused step's twin
+    (tracing/fused.makeFusedStep), as the reference takes its XLA step.
 
 The sweeper takes `device=` (default 'cuda'; 'cpu' runs the kernels' plain
 PyTorch versions) and hands it to `runSimulation` and to the sweep step.
@@ -35,6 +37,7 @@ import pickle
 import time
 
 import numpy as np
+import torch
 
 from .. import KernelError, resolveDevice, simulation
 from ..models.point_source import PointSource
@@ -155,7 +158,8 @@ class ParameterSweeper:
     # evaluateBatched: sampler specs by source signature, sweep steps by
     # sweep shape, and the route the last call took ('sweep': one launch of
     # the sweep kernel; 'perVariant': one launch of the single-scene
-    # histogram kernel per variant)
+    # histogram kernel per variant; 'perVariantTracer': per variant, where
+    # some variant went through the fused step's twin)
     self._ebSamplerCache = {}
     self._ebStepCache = {}
     self.lastBatchedRoute = None
@@ -381,9 +385,13 @@ class ParameterSweeper:
     '''Apply each parameter set and compile its scene host-side. Returns one
     dict per variant: `host`, `info` (the compiled scene), `sources` (its
     light sources) and, of the first source AS IT IS NOW — a later parameter
-    set may change the same object — `sigFull`, `sigGeom` and, for a point
-    source, `geomRow`. A scene the kernels do not cover raises
-    NotImplementedError naming its ROADMAP item.'''
+    set may change the same object — `sigFull`, `sigGeom`, for a point
+    source `geomRow`, and `twin`: None where the kernels cover the scene and
+    the source has an in-kernel sampler spec, else why not, with the
+    source's `generator` (its `deviceGenerator`) for the fused step's twin.
+    A source without device sampling raises ValueError: every variant's
+    rays are drawn on the device, and the reference's per-variant path
+    calls a `deviceGenerator` such a source does not have.'''
     variants = []
     for ps in parameterSets:
       self.set(**ps)
@@ -393,24 +401,24 @@ class ParameterSweeper:
         raise ValueError('evaluateBatched needs a scene with a light source')
       src = srcs[0]
       if not src.supportsDeviceSampling():
-        raise NotImplementedError(
-            f'source {src.Label} without device sampling: sweeping it is '
-            f'not ported to the PyTorch package yet: ROADMAP item A.4b '
-            f'(histograms from the record tracer)')
+        raise ValueError(
+            f'source {src.Label} has no device sampling (no device ray '
+            f'generator): evaluateBatched draws every variant\'s rays on the '
+            f'device; trace it with runSimulation instead')
       host, info = scene.compile(device=None)
-      reason = cuda_trace.ineligibleReason(host)
-      if reason is not None:
-        raise NotImplementedError(
-            f'sweeping this scene ({reason}) is not ported to the PyTorch '
-            f'package yet: ROADMAP item A.4b (histograms from the record '
-            f'tracer)')
       host['powerTol'] = 1e-6
-      variants.append(dict(
+      variant = dict(
           host=host, info=info, sources=srcs,
           sigFull=_sourceSignature(src, 'full'),
           sigGeom=_sourceSignature(src, 'geom'),
           geomRow=(_sourceGeomRow(src) if type(src) is PointSource
-                   else None)))
+                   else None))
+      variant['twin'] = cuda_trace.ineligibleReason(host)
+      if variant['twin'] is None and self._samplerSpec(variant) is None:
+        variant['twin'] = f'source {src.Label} has no in-kernel sampler spec'
+      if variant['twin'] is not None:
+        variant['generator'] = src.deviceGenerator(device=self.device)
+      variants.append(variant)
     return variants
 
   def _samplerSpec(self, variant):
@@ -437,6 +445,9 @@ class ParameterSweeper:
     ('geom') share its sampling part and bring one geometry row each.'''
     if any(len(v['sources']) != 1 for v in variants):
       raise cuda_trace.SweepUnavailable('needs exactly one light source')
+    twin = next((v['twin'] for v in variants if v['twin']), None)
+    if twin is not None:
+      raise cuda_trace.SweepUnavailable(twin)
     first = variants[0]
     if all(v['sigFull'] == first['sigFull'] for v in variants):
       mode, sig = 'full', first['sigFull']
@@ -474,30 +485,40 @@ class ParameterSweeper:
 
   def _perVariantRoute(self, variants, raysPerScene, maxIntersections,
                        maxRayLength, distTol, bins, histBounds, seed):
-    '''One launch of the single-scene histogram kernel per variant, each
-    with its own sampler; one fetch per variant (histogram shapes may differ
-    across variants). Like the reference's per-variant path it traces a
-    variant's FIRST light source. Returns [(power, counts)] as numpy.'''
+    '''Each variant alone: one launch of the single-scene histogram kernel
+    with the variant's own sampler, or, where the variant's `twin` says why
+    the kernel cannot take it, one step of the fused step's twin
+    (`fused.makeFusedStep`) drawing from the variant's own device generator
+    with a seed of its own (the reference splits its key per variant; the
+    kernel launches share `seed`). One fetch per variant (histogram shapes
+    may differ across variants). Like the reference's per-variant path it
+    traces a variant's FIRST light source. Returns [(power, counts)] as
+    numpy.'''
     out = []
-    for variant in variants:
+    gen = torch.Generator()
+    gen.manual_seed(int(seed))
+    twinSeeds = torch.randint(0, 2 ** 62, (len(variants),),
+                              generator=gen).tolist()
+    for variant, twinSeed in zip(variants, twinSeeds):
       srcs = variant['sources']
       if len(srcs) > 1:
         io.warn(f'evaluateBatched traces the first light source only '
                 f'({srcs[0].Label}); {len(srcs) - 1} more are ignored')
-      spec = self._samplerSpec(variant)
-      if spec is None:
-        raise NotImplementedError(
-            f'source {srcs[0].Label} has no in-kernel sampler spec; sweeping '
-            f'it is not ported to the PyTorch package yet: ROADMAP item A.4b '
-            f'(histograms from the record tracer)')
       histSpec = fused.makeHistogramSpec(variant['host'], variant['info'],
                                          bounds=histBounds, bins=bins)
-      step = cuda_trace.makeTraceStep(
-          variant['host'], histSpec, None, int(raysPerScene),
-          int(maxIntersections), maxRayLength, distTol, sampler=spec,
-          device=self.device)
-      hist, _counters = step(int(seed), fused.initHistograms(
-          histSpec, device=self.device))
+      hist = fused.initHistograms(histSpec, device=self.device)
+      if variant['twin'] is not None:
+        step = fused.makeFusedStep(
+            variant['host'], variant['generator'], histSpec,
+            int(raysPerScene), int(maxIntersections), maxRayLength, distTol,
+            device=self.device)
+        step(twinSeed, hist)
+      else:
+        step = cuda_trace.makeTraceStep(
+            variant['host'], histSpec, None, int(raysPerScene),
+            int(maxIntersections), maxRayLength, distTol,
+            sampler=self._samplerSpec(variant), device=self.device)
+        step(int(seed), hist)
       out.append((hist['power'].cpu().numpy(), hist['counts'].cpu().numpy()))
     return out
 
@@ -519,9 +540,13 @@ class ParameterSweeper:
     random numbers): metric differences between variants are geometry, not
     noise. Other sweeps of eligible scenes — structure or source sampling
     changing across variants — go through one launch of the single-scene
-    histogram kernel per variant, each with its own sampler.
-    `lastBatchedRoute` says which route ran ('sweep' or 'perVariant'). A
-    scene the kernels do not cover raises NotImplementedError.
+    histogram kernel per variant, each with its own sampler. A variant the
+    kernels do not cover (`cuda_trace.ineligibleReason`), or whose source
+    has device sampling but no in-kernel sampler spec, goes through one step
+    of the fused step's twin (plain PyTorch), as the reference takes its XLA
+    step there. `lastBatchedRoute` says which route ran ('sweep',
+    'perVariant', or 'perVariantTracer' where some variant took the twin).
+    A source without device sampling raises ValueError.
     '''
     hists = self._batchedHistograms(parameterSets, sceneFactory, raysPerScene,
                                     maxIntersections, bins, histBounds, seed)
@@ -548,7 +573,8 @@ class ParameterSweeper:
         io.verb(f'sweep kernel unavailable ({e}); tracing the variants one '
                 f'launch each')
     if step is None:
-      self.lastBatchedRoute = 'perVariant'
+      self.lastBatchedRoute = ('perVariantTracer' if any(
+          v['twin'] for v in variants) else 'perVariant')
       return self._perVariantRoute(*args, seed)
     self.lastBatchedRoute = 'sweep'
     step(int(seed), table)

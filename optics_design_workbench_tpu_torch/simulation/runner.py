@@ -29,10 +29,16 @@ the scene's properties (`_routeOf`), never by catching a kernel's failure:
     RecordRays (ray polylines), `draw=` runs, sources without device
     sampling, and scenes the kernels do not cover
     (`cuda_trace.ineligibleReason`).
+  * 'twin': histogram-first recording of a source with device sampling on a
+    scene the kernels do not cover, through the fused step's twin
+    (tracing/fused.makeFusedStep, plain PyTorch over the record tracer's
+    bounce), where the reference takes its XLA fused step. Histogram-first
+    recording takes the fused step for every source with device sampling
+    outside a `draw=` run, RecordRays or not (no polylines are stored
+    then): K1 where the kernels cover the scene, else the twin.
 
-`mesh=`, `slaveInfo=` (`_refuseArguments`) and histogram-first recording on
-the record tracer's route (the reference's XLA fused step; ROADMAP A.4b)
-are not ported and raise NotImplementedError by name.
+`mesh=` and `slaveInfo=` (`_refuseArguments`) are not ported and raise
+NotImplementedError by name.
 '''
 
 import time
@@ -59,7 +65,6 @@ RAY_BLOCK = 256
 _ROADMAP = {
     'slaveInfo': 'A.10c (parallel/multiprocess.py workers)',
     'mesh': 'A.13 (multi-GPU)',
-    'histogram': 'A.4b (histograms from the record tracer)',
 }
 
 
@@ -290,10 +295,16 @@ def _refuseArguments(unsupported):
                     f'{sorted(unsupported)}')
 
 
-def _routeOf(run, src, mode, drawn):
+def _routeOf(run, src, mode, drawn, histMode=False):
   '''(route, reason) of a source, from the scene's properties only:
-  ('tracer', why) where the reference takes its record tracer too, else
-  ('kernel', None).'''
+  ('tracer', why) where the reference takes its record tracer too, ('twin',
+  why) where it takes its XLA fused step (histogram-first recording on a
+  scene the kernels do not cover), else ('kernel', None).'''
+  if histMode and drawn is None and src.supportsDeviceSampling():
+    reason = cuda_trace.ineligibleReason(run.sceneFor(src))
+    if reason is None:
+      return 'kernel', None
+    return 'twin', f'the kernels do not cover this scene ({reason})'
   if bool(src.RecordRays):
     return 'tracer', f'RecordRays (ray polylines of source {src.Label})'
   if drawn is not None:
@@ -329,7 +340,10 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
   results_store.loadHistogramSnapshots); only a capped raw-hit sample
   (`rawSampleRays` rays every `rawSampleEvery` iterations) goes through the
   raw-record path, so a storing run keeps the fused step's throughput.
-  On the record tracer's route it raises NotImplementedError (ROADMAP A.4b).
+  Sources with device sampling take it whatever their RecordRays (no
+  polylines are stored then); on a scene the kernels do not cover the
+  fused step is its twin (route 'twin') and the raw sample goes through the
+  record tracer. Other sources keep their own route.
   histBounds: detector-local (x0, x1, y0, y1) or dict label->bounds.
 
   Hits of rays drawn outside the kernels (fans, host-sampled sources) or
@@ -383,12 +397,9 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
   histMode = recording == 'histogram' and mode != 'fans'
   routes = {}
   for src in scene.lightSources():
-    routes[src.Label], why = _routeOf(run, src, mode, drawn)
+    routes[src.Label], why = _routeOf(run, src, mode, drawn, histMode)
     if why is not None:
-      if histMode:
-        raise _notPorted(f'histogram-first recording through the record '
-                         f'tracer ({why})', 'histogram')
-      io.verb(f'{src.Label}: taking the record tracer: {why}')
+      io.verb(f'{src.Label}: taking the {routes[src.Label]} route: {why}')
 
   # store decisions (reference: simulation_loop.py:350-378): continuous runs
   # always store; single-shot only with EnableStoreSingleShotData (or when
@@ -442,6 +453,12 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
     # sampler spec; latin-hypercube draws ('pseudo') always come as columns
     # from the source's device generator
     def buildHistStep(src, n):
+      if routes[src.Label] == 'twin':
+        kw = run.stepKwargs(src, n)
+        return fused.makeFusedStep(
+            run.sceneFor(src), src.deviceGenerator(device=dev), histSpec,
+            kw['raysPerStep'], kw['maxIntersections'], kw['maxRayLength'],
+            distTol, stratified=(mode == 'pseudo'), device=dev), n
       nPad = -(-n // RAY_BLOCK) * RAY_BLOCK
       return cuda_trace.makeTraceStep(
           run.sceneFor(src), histSpec,
@@ -553,7 +570,8 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
       columns, metadata = generateBatch(src, n)
       if columns is None:
         return 0
-      recordSegs = bool(src.RecordRays) or drawn is not None
+      recordSegs = routes[src.Label] == 'tracer' and (
+          bool(src.RecordRays) or drawn is not None)
       if routes[src.Label] == 'kernel':
         records = columnsRecords(src, columns)
       else:
@@ -651,7 +669,7 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
         # recorded hits (the reference adds them to the hit total, which
         # then exceeds what the histograms hold)
         if store and rawSampleRays and iteration % rawSampleEvery == 1:
-          if enabledKeys:
+          if enabledKeys or routes[src.Label] == 'twin':
             recordIteration(src, rawSampleRays, countHits=False)
           else:
             rawIteration(src, rawSampleRays, (src.Label, 'sample'),

@@ -67,7 +67,9 @@ def prepareScene(scene, device='cpu'):
       w2lRot=f32(rot.reshape(-1, 3, 3)),
       w2lOff=f32(hostArray(surf['packed'])[:, PACKED_OFF:PACKED_OFF + 3]))
   el = scene['elements']
-  elements = dict(packed=f32(el['packed']))
+  elements = dict(packed=f32(el['packed']),
+                  _hostOptType=hostArray(el['packed'])[:, EP_OPTTYPE]
+                  .astype(np.int64))
   if 'nTable' in el:
     elements.update(nLambda=f32(el['nLambda']), nTable=f32(el['nTable']),
                     hasDispersion=torch.as_tensor(
@@ -239,7 +241,8 @@ def bounceBatch(scene, distTol, maxRayLength, o, d, power, wl, medium, seq,
   records of column fields plus the local hit coordinates (plx, ply).
   `scene` is prepared (`prepareScene`); `generator` (a torch.Generator on
   the rays' device) draws the scatter uniforms, and scatter is skipped
-  without one.'''
+  without one. A scene without a grating (the element types `prepareScene`
+  keeps on the host) skips the grating formulas.'''
   surf = scene['surfaces']
   elements = scene['elements']
   N = o.shape[0]
@@ -338,8 +341,7 @@ def bounceBatch(scene, distTol, maxRayLength, o, d, power, wl, medium, seq,
   root = 1 - mu * mu * sin2
   tir = root < 0
   tx_, ty_, tz_ = dx - nx * dDotN, dy - ny * dDotN, dz - nz * dDotN
-  sq = torch.where(tir, torch.zeros_like(root),
-                   torch.sqrt(torch.where(tir, one, root)))
+  sq = S.sqrtPositive(root)
   sxx, syy, szz = mu * tx_ + nx * sq, mu * ty_ + ny * sq, mu * tz_ + nz * sq
   snx = torch.where(tir, mx, sxx)
   sny = torch.where(tir, my, syy)
@@ -347,32 +349,13 @@ def bounceBatch(scene, distTol, maxRayLength, o, d, power, wl, medium, seq,
 
   # grating (Ludwig 1970, incidence-side normal; see tracer.gratingDirection)
   isReflG = gratType == GRATING_REFLECTION
-  gn1 = torch.where(isReflG, nMedium, one)
-  gn2 = torch.where(isReflG, nMedium, nElem)
-  gmu = gn1 / gn2
-  nix, niy, niz = -nx, -ny, -nz
-  pgx, pgy, pgz = _norm3(*_cross3(gDirX, gDirY, gDirZ, nix, niy, niz))
-  dgx, dgy, dgz = _norm3(*_cross3(nix, niy, niz, pgx, pgy, pgz))
-  lamUm = wl / 1000.
-  spacing = 1000. / gratLpm
-  Tt = gratOrder * lamUm / (gn1 * spacing)
-  V = gmu * _dot3(dx, dy, dz, nix, niy, niz)
-  W = (gmu * gmu - 1 + Tt * Tt
-       - 2 * gmu * Tt * _dot3(dx, dy, dz, dgx, dgy, dgz))
-  disc = V * V - W
-  evanescent = disc < 0
-  gsq = torch.where(evanescent, torch.zeros_like(disc),
-                    torch.sqrt(torch.where(evanescent, one, disc)))
-  qg = torch.where(isReflG, -V + gsq, -V - gsq)
-  ggx, ggy, ggz = _norm3(gmu * dx - Tt * dgx + qg * nix,
-                         gmu * dy - Tt * dgy + qg * niy,
-                         gmu * dz - Tt * dgz + qg * niz)
-  gratX = torch.where(isReflG, torch.where(isEntering, ggx, dx),
-                      torch.where(isEntering, ggx, snx))
-  gratY = torch.where(isReflG, torch.where(isEntering, ggy, dy),
-                      torch.where(isEntering, ggy, sny))
-  gratZ = torch.where(isReflG, torch.where(isEntering, ggz, dz),
-                      torch.where(isEntering, ggz, snz))
+  if (elements['_hostOptType'] == GRATING).any():
+    gratX, gratY, gratZ, evanescent = _gratingDirections(
+        isReflG, isEntering, nMedium, nElem, nx, ny, nz, dx, dy, dz,
+        gDirX, gDirY, gDirZ, wl, gratLpm, gratOrder, snx, sny, snz)
+  else:
+    gratX, gratY, gratZ = dx, dy, dz
+    evanescent = torch.zeros_like(isReflG)
 
   isMirror = optType == MIRROR
   isLens = optType == LENS
@@ -436,6 +419,41 @@ def bounceBatch(scene, distTol, maxRayLength, o, d, power, wl, medium, seq,
               seq + torch.where(hasHit, seqInc, torch.zeros_like(seqInc)),
               newAlive)
   return newState, records
+
+
+def _gratingDirections(isReflG, isEntering, nMedium, nElem, nx, ny, nz,
+                       dx, dy, dz, gDirX, gDirY, gDirZ, wl, gratLpm, gratOrder,
+                       snx, sny, snz):
+  '''The outgoing directions of a grating hit (Ludwig 1970 on entry, the
+  exit of a reflection grating a pass-through, of a transmission grating
+  Snell's `sn`) and the evanescent flags.'''
+  one = torch.ones_like(dx)
+  gn1 = torch.where(isReflG, nMedium, one)
+  gn2 = torch.where(isReflG, nMedium, nElem)
+  gmu = gn1 / gn2
+  nix, niy, niz = -nx, -ny, -nz
+  pgx, pgy, pgz = _norm3(*_cross3(gDirX, gDirY, gDirZ, nix, niy, niz))
+  dgx, dgy, dgz = _norm3(*_cross3(nix, niy, niz, pgx, pgy, pgz))
+  lamUm = wl / 1000.
+  spacing = 1000. / gratLpm
+  Tt = gratOrder * lamUm / (gn1 * spacing)
+  V = gmu * _dot3(dx, dy, dz, nix, niy, niz)
+  W = (gmu * gmu - 1 + Tt * Tt
+       - 2 * gmu * Tt * _dot3(dx, dy, dz, dgx, dgy, dgz))
+  disc = V * V - W
+  evanescent = disc < 0
+  gsq = S.sqrtPositive(disc)
+  qg = torch.where(isReflG, -V + gsq, -V - gsq)
+  ggx, ggy, ggz = _norm3(gmu * dx - Tt * dgx + qg * nix,
+                         gmu * dy - Tt * dgy + qg * niy,
+                         gmu * dz - Tt * dgz + qg * niz)
+  gratX = torch.where(isReflG, torch.where(isEntering, ggx, dx),
+                      torch.where(isEntering, ggx, snx))
+  gratY = torch.where(isReflG, torch.where(isEntering, ggy, dy),
+                      torch.where(isEntering, ggy, sny))
+  gratZ = torch.where(isReflG, torch.where(isEntering, ggz, dz),
+                      torch.where(isEntering, ggz, snz))
+  return gratX, gratY, gratZ, evanescent
 
 
 def _scatter(sc, generator, elemIdx, isMirror, isLens, isEntering, hasHit,

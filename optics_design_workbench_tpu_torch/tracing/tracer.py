@@ -30,12 +30,12 @@ Physics parity with the reference's per-ray generator `Ray.traceRay`
 
 import torch
 
+from ..geometry.surfaces import sqrtPositive
 # the optical and grating types live in element_table; the tracer's names
 # for them are the reference's (tracing/tracer.py)
 from .element_table import (MIRROR, LENS, GRATING, ABSORBER, VACUUM,
                             OPTICAL_TYPES, GRATING_REFLECTION,
-                            GRATING_TRANSMISSION, VACUUM_MEDIUM, EP_REFRINDEX,
-                            EP_ABSLENGTH)
+                            GRATING_TRANSMISSION, VACUUM_MEDIUM, EP_REFRINDEX)
 
 
 def refractiveIndex(elements, elemIdx, wavelength):
@@ -76,9 +76,7 @@ def snell(d, n, n1, n2):
   root = 1 - mu * mu * _dot(cross, cross)
   tir = root < 0
   tangential = torch.cross(n, torch.cross(-n, d, dim=-1), dim=-1)
-  root = torch.where(tir, torch.ones_like(root), root)
-  refracted = mu * tangential + n * torch.where(
-      tir, torch.zeros_like(root), torch.sqrt(root))
+  refracted = mu * tangential + n * sqrtPositive(root)
   return torch.where(tir, mirrorDirection(d, n), refracted), tir[..., 0]
 
 
@@ -101,25 +99,36 @@ def gratingDirection(d, n, n1, n2, wavelengthNm, order, linesPerMm,
   W = mu * mu - 1 + Tt * Tt - 2 * mu * Tt * _dot(d, D)
   disc = V * V - W
   evanescent = disc < 0
-  sq = torch.where(evanescent, torch.zeros_like(disc),
-                   torch.sqrt(torch.where(evanescent,
-                                          torch.ones_like(disc), disc)))
+  sq = sqrtPositive(disc)
   q = torch.where(isReflection[..., None], -V + sq, -V - sq)
   out = mu * d - Tt * D + q * nInc
   return _normalize(out), evanescent[..., 0]
 
 
-def _beerLambert(elements, medium, power, segLen):
-  '''Power after traversing segLen inside `medium` (multiplicative, see the
-  module docstring).'''
-  inMedium = medium >= 0
-  absLen = elements['packed'][torch.clamp(medium, min=0), EP_ABSLENGTH]
-  factor = torch.where(
-      absLen == 0, torch.zeros_like(power),
-      torch.where(torch.isfinite(absLen),
-                  torch.exp(-segLen / torch.clamp(absLen, min=1e-30)),
-                  torch.ones_like(power)))
-  return torch.where(inMedium, power * factor, power)
+def bounceOne(scene, distTol, maxRayLength, o, d, power, wl, medium, seq,
+              alive):
+  '''One intersection + interaction step for a single ray: `o`, `d` (3,)
+  tensors, `power`, `wl`, `medium` (int64), `seq` (int64), `alive` (bool)
+  0-d tensors; `scene` prepared (`batch_tracer.prepareScene`). The per-ray
+  form of the JAX package's `bounceOne` (which its caller vmaps; here a
+  caller loops): `batch_tracer.bounceBatch` on a batch of one, without
+  scatter, as there. Returns (newState, records), records of (3,) and 0-d
+  tensors: hitElem, hitSurface, point, direction, power, isEntering, isHit,
+  recordHit, segValid, segP1, segP2, segPower, segMedium.'''
+  from .batch_tracer import bounceBatch
+  state, rec = bounceBatch(scene, distTol, maxRayLength, o[None], d[None],
+                           *(x.reshape(1) for x in (power, wl, medium, seq,
+                                                    alive)))
+  point = torch.stack([rec['px'], rec['py'], rec['pz']], -1)[0]
+  records = dict(
+      point=point,
+      direction=torch.stack([rec['dirX'], rec['dirY'], rec['dirZ']], -1)[0],
+      segP1=torch.stack([rec['oX'], rec['oY'], rec['oZ']], -1)[0],
+      segP2=point)
+  for k in ('hitElem', 'hitSurface', 'power', 'isEntering', 'isHit',
+            'recordHit', 'segValid', 'segPower', 'segMedium'):
+    records[k] = rec[k][0]
+  return tuple(x[0] for x in state), records
 
 
 # the record fields of one bounce and the value of a bounce that did not

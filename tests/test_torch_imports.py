@@ -34,6 +34,7 @@ from optics_design_workbench_tpu_torch.simulation import (lifecycle,
                                                           results_store,
                                                           runner)
 from optics_design_workbench_tpu_torch.utils import io, native_store, timing
+from optics_design_workbench_tpu_torch.tracing import diff, fused
 step, hist, meta = benchmarks.makeBenchStep(device='cpu', raysPerStep=4096)
 hist, counters = step(0, hist)
 assert int(counters['hits']) > 3600, counters
@@ -47,6 +48,22 @@ step, hist, meta = benchmarks.makeBenchStep(
     maxIntersections=3, histBounds=(-200., 200., -200., 200.))
 hist, counters = step(0, hist)
 assert step.tables['nTri'] == 200 and int(counters['hits']) > 1000
+# the fused step's twin, and a differentiable spot loss over its bounce
+step, hist, meta = benchmarks.makeBenchStep(device='cpu', raysPerStep=1024,
+                                            useKernel=False)
+hist, counters = step(0, hist)
+assert meta['backend'] == 'tracer' and int(counters['hits']) > 900
+host = meta['device']
+gen = torch.Generator()
+gen.manual_seed(0)
+cols = meta['scene'].lightSources()[0].deviceColumnsGenerator('cpu')(gen, 256)
+batch = dict(origins=torch.stack([cols['ox'], cols['oy'], cols['oz']], -1),
+             directions=torch.stack([cols['dx'], cols['dy'], cols['dz']], -1),
+             powers=cols['pw'], wavelengths=cols['wl'])
+value, grad = diff.makeSpotLoss(host, [('translateGroup', 0, (0., 0., 1.))],
+                                batch, detectorElem=2, maxIntersections=6)(
+                                    torch.zeros(1))
+assert torch.isfinite(value) and torch.isfinite(grad).all(), (value, grad)
 import tempfile
 with tempfile.TemporaryDirectory() as tmp:
   scene = benchmarks.buildSourceDetectorScene(tmpdir=tmp)

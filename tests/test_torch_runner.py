@@ -266,13 +266,14 @@ def _small(scene):
     ('StoreHit', {}, _withMetadata, None),
     ('device sampling', {}, _withHostSource, None),
     ('histogram-first recording', dict(recording='histogram'),
-     _withRecordRays, 'A.4b'),
+     _withRecordRays, None),
 ))
 def test_unported_paths_raise_by_name(scene, case, kwargs, mutate, roadmap):
-  '''mesh=, slaveInfo= and histogram-first recording on the record
-  tracer's route are still refused by name; fans, draw=, RecordRays,
-  StoreHit* metadata and host-sampled sources run (the record tracer and
-  the raw-record kernel's columns mode took them).'''
+  '''mesh= and slaveInfo= are still refused by name; fans, draw=,
+  RecordRays, StoreHit* metadata, host-sampled sources and histogram-first
+  recording of a RecordRays source run (the record tracer and the
+  raw-record kernel's columns mode took them; histogram-first recording
+  takes the fused step, as the reference's does).'''
   _small(scene)
   if mutate is not None:
     mutate(scene)
