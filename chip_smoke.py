@@ -103,6 +103,21 @@ port's paths at full width:
     distance through autograd of the record tracer), its spot shrinking
     10x, its best distance beside the CPU run's, its gradient at the start
     against central differences;
+  * project files (phase 15, `models.loadFCStd` and the command line): the
+    lens-and-mirror scene and the slotted-plate mirror written as FCStd
+    projects (`tests/fcstd_fixtures.py`: the lens a BRep solid, the plate a
+    BRep face with a slot), `loadFCStd`'s host ms for each; on the ingested
+    lens-and-mirror K1 at 1 << 22 rays and K2 / K4 at 1 << 20 against their
+    plain versions (the gates of phase 2), on the slotted plate (a GEOM
+    instance with trim primitives) all three at 1 << 20 with 0 rays moved,
+    as phase 9; K1 and K4 timed on the ingested and the built scene beside
+    their bounds; K4's rows on the ingested scene against its rows on
+    `buildLensMirrorScene` on the same 1 << 20 columns, point by point
+    within 1e-3 mm but for the rays that meet a cylinder the two scenes
+    draw differently (the lens barrel, the thin mirror's edge), which are
+    counted; and `python -m optics_design_workbench_tpu_torch run <project>
+    true --recording histogram` in a process of its own at the project's 4
+    iterations of 1 << 22 rays, through the kernel route;
 
 (the first three on the lens-and-mirror scene) and checks the physics of
 what comes out. Before those paths it holds the histogram, per-ray-bin and
@@ -137,6 +152,7 @@ sys.path.insert(0, os.path.join(HERE, 'tests'))
 sys.path.insert(0, os.path.join(HERE, 'examples'))
 
 import torch_port_helpers as helpers          # the check scenes (imports no jax)
+import fcstd_fixtures                         # project files (imports neither package)
 import torch_1_source_and_detector as example1   # examples/1 on the port
 import torch_4_spectrometer as example4       # examples/4 on the port
 import torch_5_visualization as example5      # examples/5 on the port
@@ -148,6 +164,7 @@ from optics_design_workbench_tpu_torch.geometry.surfaces import (
     PACKED_ELEM, PACKED_OFF, PACKED_ROT)
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     RawFolder, parameter_sweeper)
+from optics_design_workbench_tpu_torch.models import loadFCStd
 from optics_design_workbench_tpu_torch.ops import cuda_trace
 from optics_design_workbench_tpu_torch.simulation import results_store, runner
 from optics_design_workbench_tpu_torch.tracing import batch_tracer, fused, tracer
@@ -314,6 +331,14 @@ TWIN_DISH_ITERATIONS = 4
 TWIN_SWEEP = (11, 100_000)
 EXAMPLE6_CPU_DZ = 118.49
 EXAMPLE6_DZ_TOL = 5.
+# project files (phase 15): the lens-and-mirror and slotted-plate projects
+# of tests/fcstd_fixtures.py; the command line's histogram-first run of the
+# lens project; the rows of K4 held point by point
+PROJECT_BOUNDS = (-60., 60., -60., 60.)
+SLOT_BOUNDS = (-300., 300., -300., 300.)
+PROJECT_CLI_ITERATIONS = 4
+PROJECT_ROWS_ATOL = 1e-3
+PROJECT_REPS = 5
 # the in-kernel histograms (B11): the pile-up scene (every ray in one bin)
 # per K3 variant, and its placements in bins of the grid
 PILEUP_SWEEP_RAYS = 1 << 20
@@ -3840,6 +3865,194 @@ def phase14(tmp):
   return ms
 
 
+def cylinderRays(ray, elem, point, n):
+  """Which of `n` rays have a K4 row on a cylinder of the lens-and-mirror
+  projects: the lens barrel (element 0 at r = the aperture) or, of the
+  project's thin Part::Cylinder mirror, its edge band and back disc
+  (element 1 off the plane of its front disc)."""
+  r = np.hypot(point[:, 0], point[:, 1])
+  barrel = (elem == 0) & (np.abs(r - fcstd_fixtures.LENS_APERTURE) < 1e-3)
+  inv = np.linalg.inv(fcstd_fixtures.MIRROR_AT)
+  edge = (elem == 1) & (np.abs(point @ inv[2, :3] + inv[2, 3]) > 1e-3)
+  out = np.zeros(n, bool)
+  out[ray[barrel]] = True
+  out[ray[edge]] = True
+  return out, np.unique(ray[barrel]).size, np.unique(ray[edge]).size
+
+
+def projectRowsPhase(ingested, built, n, seed=15):
+  """K4's rows (every element recording: the scenes' groups are switched
+  to RecordHits) on the ingested lens-and-mirror project against its rows
+  on `buildLensMirrorScene` on the same `n` columns of the project's
+  source: per ray the same elements, every hit point within
+  PROJECT_ROWS_ATOL, but for the rays that meet a cylinder the scenes draw
+  differently (counted) and COUNT_BUDGET others."""
+  src = ingested.lightSources()[0]
+  gen = torch.Generator(device=DEV)
+  gen.manual_seed(seed)
+  cols, _meta = src.deviceGenerator(device=DEV)(gen, n)
+  columns = torch.stack([cols[k] for k in cuda_trace._COLUMN_KEYS])
+  rows = []
+  for scene in (ingested, built):
+    for group in scene.opticalObjects():
+      group.RecordHits = True
+    host, info = scene.compile(device=None)
+    histSpec = fused.makeHistogramSpec(host, info)
+    tables = cuda_trace.buildTraceTables(host, histSpec, device=DEV)
+    slots = cuda_trace.autoHitSlots(host, histSpec, 6)
+    ring, _c = cuda_trace.traceRaw(tables, n, 6, 1000., 1e-4,
+                                   hitSlots=slots, columns=columns)
+    ray, elem, _ent, point, _d, _p = hitRowsByRay(
+        cuda_trace.recordsFromRing(ring))
+    rows.append((ray, elem, point.astype(np.float64)))
+  (rA, eA, pA), (rB, eB, pB) = rows
+  nA, nB = np.bincount(rA, minlength=n), np.bincount(rB, minlength=n)
+  same = nA == nB
+  sA, sB = same[rA], same[rB]
+  d = np.abs(pA[sA] - pB[sB]).max(axis=1)
+  bad = (eA[sA] != eB[sB]) | (d > PROJECT_ROWS_ATOL)
+  apart = ~same
+  apart[rA[sA][bad]] = True
+  cylA, barrelA, edgeA = cylinderRays(rA, eA, pA, n)
+  cylB, barrelB, _edgeB = cylinderRays(rB, eB, pB, n)
+  others = apart & ~(cylA | cylB)
+  kept = ~apart[rA[sA]]
+  err = float(d[kept].max(initial=0.))
+  detected = int(np.unique(rA[eA == 2]).size)
+  out = dict(rays=n, detectedRays=detected, rowsIngested=len(rA),
+             rowsBuilt=len(rB), raysApart=int(apart.sum()),
+             barrelRaysIngested=barrelA, barrelRaysBuilt=barrelB,
+             mirrorEdgeRays=edgeA, othersApart=int(others.sum()),
+             maxAbsErrMm=err)
+  emit(dict(phase='project-rows', **out))
+  if int(others.sum()) > COUNT_BUDGET or not err <= PROJECT_ROWS_ATOL \
+      or detected < 0.9 * n:
+    raise AssertionError(f'ingested lens project against the built scene: '
+                         f'{out}')
+  return out
+
+
+def projectTimings(scenes):
+  """K1 at N_MAIN and K4 at N_RAW_ITERATION rays (seed mode) on each of
+  `scenes` ({label: scene}) by CUDA events, with the segments of a launch
+  and their bound (`boundMs`)."""
+  out = {}
+  for label, scene in scenes.items():
+    sceneNp, histSpec, tables = buildTables(scene, PROJECT_BOUNDS, BINS, 6)
+    slots = cuda_trace.autoHitSlots(sceneNp, histSpec, 6)
+    kw = dict(maxIntersections=6, maxRayLength=1000., distTol=1e-4,
+              powerTol=1e-6, hitSlots=slots,
+              strataTile=cuda_trace.DEFAULT_STRATA_TILE)
+    hist = fused.initHistograms(histSpec, device=DEV)
+    seeds = iter(range(100, 10 ** 6))
+    k1 = lambda: cuda_trace.traceHistogram(tables, hist, N_MAIN,
+                                           seed=next(seeds), **kw)
+    k4 = lambda: cuda_trace.traceRaw(tables, N_RAW_ITERATION,
+                                     seed=next(seeds), **kw)
+    c1, (_ring, c4) = k1(), k4()
+    k1Ms, k4Ms = cudaMs(k1, PROJECT_REPS), cudaMs(k4, PROJECT_REPS)
+    stats = None
+    if tables.get('cullOff', -1) >= 0:
+      # the segments each bounce traces, for the culled bound (a plain run)
+      stats = {}
+      us, strataTile, cols, _s = samplerInputs(tables, N_RAW_ITERATION, 9, 6)
+      cuda_trace.traceHistogramPlain(
+          tables, fused.initHistograms(histSpec, device=DEV), cols,
+          cullStats=stats, **{k: v for k, v in kw.items()
+                              if k != 'strataTile'})
+    b1 = boundMs(tables, int(c1[0]), N_MAIN, 2 * hist['power'].numel() * 8,
+                 cullStats=stats)
+    b4 = boundMs(tables, int(c4[0]), N_RAW_ITERATION,
+                 9 * slots * N_RAW_ITERATION * 4, cullStats=stats)
+    out[label] = dict(surfaces=int(tables['nSurf']),
+                      culled=stats is not None, k1Ms=k1Ms,
+                      k1BoundMs=max(b1[:2]), k1Segments=int(c1[0]),
+                      k4Ms=k4Ms, k4BoundMs=max(b4[:2]),
+                      k4Segments=int(c4[0]))
+  emit(dict(phase='project-kernels', rays=dict(k1=N_MAIN,
+                                               k4=N_RAW_ITERATION), **out))
+  return out
+
+
+def projectCliPhase(path):
+  """`python -m optics_design_workbench_tpu_torch run <project> true
+  --recording histogram` in a process of its own (verbose, so that it
+  names the route it takes): exit code 0, the kernel route, the project's
+  PROJECT_CLI_ITERATIONS iterations of N_MAIN rays traced, the snapshot's
+  counts equal to the run's recorded hits."""
+  t0 = time.perf_counter()
+  env = dict(os.environ, OPTICS_TPU_VERBOSE='1',
+             PYTHONPATH=os.pathsep.join(
+                 [HERE] + [p for p in os.environ.get('PYTHONPATH', '')
+                           .split(os.pathsep) if p]))
+  out = subprocess.run(
+      [sys.executable, '-m', 'optics_design_workbench_tpu_torch', 'run',
+       path, 'true', '--recording', 'histogram', '--seed', '4'],
+      capture_output=True, text=True, env=env, timeout=600)
+  seconds = time.perf_counter() - t0
+  if out.returncode != 0:
+    raise AssertionError(f'the command line failed ({out.returncode}): '
+                         f'{out.stderr[-3000:]}')
+  runPath = out.stdout.strip().splitlines()[-1]
+  route = 'Source: taking the kernel route' in out.stderr
+  last = RawFolder(runPath).progress()
+  snap = results_store.loadHistogramSnapshots(runPath)['Source']['Detector']
+  counts = float(snap['counts'].astype(np.float64).sum())
+  got = dict(seconds=seconds, kernelRoute=route,
+             iterations=last['totalIterations'],
+             tracedRays=last['totalTracedRays'], histCounts=counts,
+             recordedHits=last['totalRecordedHits'])
+  emit(dict(phase='project-cli', **got))
+  if not route or last['totalTracedRays'] != PROJECT_CLI_ITERATIONS * N_MAIN \
+      or counts != last['totalRecordedHits'] \
+      or counts < 0.9 * PROJECT_CLI_ITERATIONS * N_MAIN:
+    raise AssertionError(f'the command line\'s run: {got}')
+  return got
+
+
+def phase15(tmp):
+  """Project files: ingest, the kernels on ingested scenes, the command
+  line (see the module docstring)."""
+  t15 = time.perf_counter()
+  folder = os.path.join(tmp, 'projects')
+  os.makedirs(folder)
+  lensPath = fcstd_fixtures.lensMirrorProject(
+      folder, raysPerIteration=N_MAIN,
+      endAfterIterations=str(PROJECT_CLI_ITERATIONS))
+  slotPath = fcstd_fixtures.slotPlateProject(folder)
+  scenes, loadMs = {}, {}
+  for label, path in (('lens', lensPath), ('slot', slotPath)):
+    t0 = time.perf_counter()
+    scenes[label] = loadFCStd(path)
+    loadMs[label] = (time.perf_counter() - t0) * 1e3
+  emit(dict(phase='project-load', loadFCStdMs=loadMs,
+            surfaces={k: sum(len(g.surfaces) for g in s.opticalObjects())
+                      for k, s in scenes.items()}))
+  lens, slot = scenes['lens'], scenes['slot']
+  worst = dict(traceHistogram=compareWithPlain(
+      'project-lens', lens, PROJECT_BOUNDS, 6, N_MAIN, BINS))
+  w = compareRingsWithPlain('project-lens', lens, PROJECT_BOUNDS, 6,
+                            N_RAW_ITERATION, BINS)
+  _sceneNp, _h, slotTables = buildTables(slot, SLOT_BOUNDS, BINS, 4)
+  if not slotTables['geom'] or not any(r.get('holePrims')
+                                       for r in slotTables['surfRows']):
+    raise AssertionError('the slotted plate left the GEOM instance or its '
+                         'trim primitives')
+  worst['traceHistogram'] = max(worst['traceHistogram'], compareWithPlain(
+      'project-slot', slot, SLOT_BOUNDS, 4, N_RAW_ITERATION, BINS, budget=0))
+  ws = compareRingsWithPlain('project-slot', slot, SLOT_BOUNDS, 4,
+                             N_RAW_ITERATION, BINS, budget=0, rawAtol=0.)
+  worst.update({k: max(w[k], ws[k]) for k in w})
+  built = benchmarks.buildLensMirrorScene()
+  timings = projectTimings({'ingested': lens, 'built': built})
+  rows = projectRowsPhase(lens, built, N_RAW_ITERATION)
+  cli = projectCliPhase(lensPath)
+  emit(dict(phase='project-total', seconds=time.perf_counter() - t15,
+            loadFCStdMs=loadMs, maxAbsErr=worst,
+            rowsMaxAbsErrMm=rows['maxAbsErrMm'], cliSeconds=cli['seconds'],
+            kernels=timings))
+
+
 def main():
   if not torch.cuda.is_available():
     sys.exit('chip_smoke.py needs a CUDA device: torch.cuda.is_available() '
@@ -3969,6 +4182,8 @@ def main():
     emit(dict(phase='record-total', seconds=time.perf_counter() - t13))
     # ---- phase 14: the fused step's twin and differentiable design ----
     phase14(tmp)
+    # ---- phase 15: project files ----
+    phase15(tmp)
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
 

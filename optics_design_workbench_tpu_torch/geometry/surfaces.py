@@ -733,13 +733,17 @@ KIND_INTERSECTORS = {
     'quadric': _intersectQuadric, 'torus': _intersectTorus}
 
 
-def byKind(table, device='cpu'):
+def byKind(table, device='cuda'):
   '''The split of the (kind-sorted) surface table that the record tracer's
   sweep reads: {kind name: dict(params, trim, w2lRot, w2lOff[, mask,
   trimPrims])} of float32 tensors on `device`, one entry per kind present,
   in kind-code order. `mask` is each bitmap surface's own (R, R) bitmap
   (`trimMasks[trimMaskIdx]`), present where the kind has a bitmap trim;
-  `trimPrims` where it has primitive trims.'''
+  `trimPrims` where it has primitive trims. `device` defaults to 'cuda'
+  and raises without a card.'''
+  from .. import resolveDevice
+  device = resolveDevice(device)
+
   def host(key):
     x = table[key]
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \

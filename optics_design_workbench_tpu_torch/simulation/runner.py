@@ -398,8 +398,8 @@ def runSimulation(scene, action, endIf=None, seed=None, store=None,
   routes = {}
   for src in scene.lightSources():
     routes[src.Label], why = _routeOf(run, src, mode, drawn, histMode)
-    if why is not None:
-      io.verb(f'{src.Label}: taking the {routes[src.Label]} route: {why}')
+    io.verb(f'{src.Label}: taking the {routes[src.Label]} route'
+            + ('' if why is None else f': {why}'))
 
   # store decisions (reference: simulation_loop.py:350-378): continuous runs
   # always store; single-shot only with EnableStoreSingleShotData (or when

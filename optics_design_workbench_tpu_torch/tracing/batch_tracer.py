@@ -25,7 +25,7 @@ draws come from an explicit torch.Generator.
 import numpy as np
 import torch
 
-from .. import hostArray
+from .. import hostArray, resolveDevice
 from ..geometry import surfaces as S
 from ..geometry.surfaces import (PACKED_ROT, PACKED_OFF, PACKED_ORIENT,
                                  PACKED_ELEM, PACKED_KIND, PACKED_PARAMS)
@@ -40,17 +40,18 @@ from .element_table import (MIRROR, LENS, GRATING, ABSORBER, VACUUM,
 SWEEP_CHUNK_ELEMENTS = 1 << 22
 
 
-def prepareScene(scene, device='cpu'):
+def prepareScene(scene, device='cuda'):
   '''The tensors the record tracer reads, from a compiled scene (the host
   dict of `Scene.compile(device=None)`, or the JAX package's tables carried
   over as numpy): `surfaces` (`byKind`, `packed`, `elem`, and the per-surface
   `kind`, `params`, `orient`, `w2lRot`, `w2lOff` that `intersect.hitNormal`
   reads), `elements` (`packed` and, for dispersive glass, `nLambda`,
   `nTable`, `hasDispersion`), `seqMask`, `surfMask`, `scatter` and
-  `powerTol`, on `device`. A prepared scene passes through unchanged.'''
+  `powerTol`, on `device` (default 'cuda', raising without a card). A
+  prepared scene passes through unchanged.'''
   if scene.get('_prepared'):
     return scene
-  dev = torch.device(device)
+  dev = resolveDevice(device)
   f32 = lambda x: torch.as_tensor(hostArray(x), dtype=torch.float32,
                                   device=dev)
   surf = scene['surfaces']

@@ -28,8 +28,11 @@ from optics_design_workbench_tpu_torch import (benchmarks, convert, _build,
 from optics_design_workbench_tpu_torch.jupyter_utils import (
     document, histogram, hits, parameter_sweeper, progress, retries,
     transforms)
-from optics_design_workbench_tpu_torch.geometry import mesh
-from optics_design_workbench_tpu_torch.models import surface_source
+from optics_design_workbench_tpu_torch.geometry import brep, mesh
+from optics_design_workbench_tpu_torch.models import (fcstd_ingest,
+                                                      replay_source,
+                                                      surface_source)
+import optics_design_workbench_tpu_torch.__main__ as cli
 from optics_design_workbench_tpu_torch.simulation import (lifecycle,
                                                           results_store,
                                                           runner)
